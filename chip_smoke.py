@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`euler_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile FILE]
+    python3 chip_smoke.py [--profile PREFIX]
 
 Builds the port's CUDA kernels from `euler_tpu_torch/csrc/` (nvcc, sm_90a,
-into build/euler_tpu_torch/), then:
+one process per source, all at once, into build/euler_tpu_torch/), then:
   1. checks the main path end to end at 64²: the port on the GPU (kernels)
      against the port on the CPU (plain PyTorch versions), 2 frames;
   2. builds the 1024² dam break and advances it 4 warm-up frames;
   3. holds each kernel against its plain version on the card, on that
-     state: K1 marker pass, K2 substep grid half, K3 MG-PCG solve;
+     state: K1 marker pass, K2 substep grid half, K3 MG-PCG solve, K8
+     Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep;
   4. times 20 frames of the main path (dam break, slot markers K=8,
-     Galerkin MG-PCG to tol_rel 1e-4 with warm start) and checks that
-     every kernel launched and no plain version ran on it;
-  5. times each kernel beside its plain version with CUDA events.
-Prints one JSON line of per-kernel results, the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}.  Exits
+     Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection);
+  5. times 20 frames of the Jacobi speed mode (`bench.py --precon
+     jacobi`: 100 iterations, tol 1e-6, tol_rel 1e-6, no warm start) after
+     4 warm-up frames;
+  6. runs the secondary routes, 2 warm-up and 4 timed frames each:
+     Jacobi unfused (K8), Jacobi + rainbow (K9), MG + rainbow (K3);
+  7. times each kernel beside its plain version with CUDA events.
+Each path runs with the launch counts set to 0 just before it and read
+just after: its kernels must have launched and no plain version may have
+run.  Prints one JSON line of per-kernel results, the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}.  Exits
 non-zero, with no result, on any failure or when no CUDA device exists.
 Imports nothing of JAX.
 """
@@ -23,15 +30,75 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 
-SIZE = 1024       # bench.py's default grid (the main path)
+SIZE = 1024        # bench.py's default grid (the main path)
 WARMUP_FRAMES = 4  # bench.py's default warm-up (early dam-break window)
-FRAMES = 20        # timed frames of the main path
+FRAMES = 20        # timed frames of the main path and the speed mode
+ROUTE_WARMUP = 2   # warm-up frames of each secondary route
+ROUTE_FRAMES = 4   # timed frames of each secondary route
 REPS = 5           # timed calls per kernel and per plain version
+
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
+# and f32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# What each kernel must do at least, per cell of the [Y, X] grid (n
+# cells), from the sources: bytes with every input read once and every
+# output written once, and f32 operations.  `iters` is the PCG iteration
+# count the timed call needed; `live` the live markers of K1's store.
+#   grid stage + RHS + tail (extrapolate, two bilinear samples per face
+#   component, gravity, divergence, clamp, face update, maxsq): ~100 flops
+#   a Jacobi-PCG iteration: 5-point apply 7, two dot products 4, two
+#   axpys 4, preconditioner and direction update 3, max|r| 1: 20 flops
+#   an MG-PCG iteration: the level-0 sweeps (~40) plus the coarse levels'
+#   truncated-W visits (~20): 60 flops
+#   a marker step: two bilinear samples and the position update: 28 flops
+# A Jacobi-PCG iteration's three sweeps move 14 [Y, X] f32 planes
+# (csrc/jacobi_pcg.cu): the HBM time of that traffic is the sweep bound
+# of K8-K10, an upper bound on their floor (the live planes fit the L2).
+JACOBI_SWEEP_PLANES = 14
+GRID_FLOPS = 100
+JACOBI_FLOPS = 20
+MG_FLOPS = 60
+MARKER_FLOPS = 28
+BOUNDS = {
+    # u, v f32; fluid, solid, dead u8; count i32 in; live positions in
+    # and out; count, drop i32 out
+    "K1": lambda n, iters, live: (23 * n + 16 * live, MARKER_FLOPS * live),
+    # u, v, p0 f32; fl, pfl, so u8 in; u2, v2, p f32 out
+    "K2": lambda n, iters, live: (27 * n, (GRID_FLOPS + MG_FLOPS * iters) * n),
+    # b, x0 f32; a_diag i32; fluid u8 in; p f32 out
+    "K3": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
+    # b f32; a_diag i32; fluid u8 in; p f32 out
+    "K8": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
+    # ut, vt f32; fluid, solid u8 in; u2, v2 f32 out
+    "K9": lambda n, iters, live: (
+        18 * n, (GRID_FLOPS // 4 + JACOBI_FLOPS * iters) * n),
+    # u, v f32; fl, pfl, so u8 in; u2, v2 f32 out
+    "K10": lambda n, iters, live: (
+        19 * n, (GRID_FLOPS + JACOBI_FLOPS * iters) * n),
+}
+KERNELS = {
+    "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
+           "euler_tpu/ops/pallas/marker_fused_kernel.py:941"),
+    "K2": ("substep_grid_stage", "euler_tpu_torch/csrc/grid_stage.cu",
+           "euler_tpu/ops/pallas/substep_kernel.py:361"),
+    "K3": ("mg_pcg", "euler_tpu_torch/csrc/mg_pcg.cu",
+           "euler_tpu/ops/pallas/mg_kernel.py:727"),
+    "K8": ("jacobi_pcg_solve", "euler_tpu_torch/csrc/jacobi_pcg.cu",
+           "euler_tpu/ops/pallas/pcg_kernel.py:178"),
+    "K9": ("jacobi_project", "euler_tpu_torch/csrc/jacobi_pcg.cu",
+           "euler_tpu/ops/pallas/pcg_kernel.py:417"),
+    "K10": ("jacobi_substep", "euler_tpu_torch/csrc/jacobi_pcg.cu",
+            "euler_tpu/ops/pallas/substep_kernel.py:441"),
+}
 
 
 def log(msg: str) -> None:
@@ -67,12 +134,21 @@ def main_config(size: int):
     from euler_tpu_torch.config import SimConfig, SolverConfig
 
     # bench.py's default run: slots K=8, Galerkin MG-PCG, tol_rel 1e-4,
-    # warm start, 100-iteration cap, no sources, mono colour
+    # warm start, 100-iteration cap, fused projection, no sources, mono
     return SimConfig(
         nx=size, ny=size, marker_layout="slots",
         solver=SolverConfig(max_iterations=100, tol=1e-6, tol_rel=1e-4,
                             dtype="float32", preconditioner="mg",
-                            warm_start=True))
+                            warm_start=True, fuse_projection=True))
+
+
+def speed_config(size: int, **over):
+    """`bench.py --precon jacobi`: the reference's 100-iteration budget,
+    tol 1e-6, tol_rel 1e-6, no warm start, fused projection."""
+    cfg = main_config(size)
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, preconditioner="jacobi", tol_rel=1e-6,
+        warm_start=False), **over)
 
 
 def div_inf(cfg, state):
@@ -107,15 +183,100 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def reset_counts() -> None:
+    from euler_tpu_torch.ops.cuda import _build
+
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+
+
+def run_path(cfg, scn, state, frames: int, kernels, label: str):
+    """Step `frames` frames with the launch counts set to 0 just before
+    and read just after; checks that `kernels` launched, that no plain
+    version ran and that the state stayed finite.  Returns (state,
+    summary)."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import _build
+
+    Y, X = cfg.ny, cfg.nx
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    n_active = torch.zeros((), dtype=torch.int32, device=state.u.device)
+    pcg_iters = torch.zeros_like(n_active)
+    for _ in range(frames):
+        state, stats = sim.step_frame_stats(cfg, scn, state)
+        n_active += stats["n_active"]
+        pcg_iters += stats["pcg_iters"]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    plain = sum(_build.PLAIN_CALLS.values())
+    summary = {
+        "ms_per_frame": 1e3 * elapsed / frames,
+        "cell_steps_per_s": Y * X * cfg.max_substeps * frames / elapsed,
+        "active_substeps": int(n_active),
+        "pcg_iters_per_active_substep": int(pcg_iters)
+        / max(int(n_active), 1),
+        "div_inf": div_inf(cfg, state),
+        "dropped_markers": int(state.dropped_markers),
+        "launches": launches,
+    }
+    log(f"   {label}: {summary['ms_per_frame']:.3f} ms/frame, "
+        f"{summary['cell_steps_per_s']:.4g} cell-steps/s ({Y}x{X} x "
+        f"{cfg.max_substeps} substeps x {frames} frames)")
+    log(f"   active substeps {summary['active_substeps']} of "
+        f"{cfg.max_substeps * frames}; PCG iterations per active substep "
+        f"{summary['pcg_iters_per_active_substep']:.2f}; div_inf "
+        f"{summary['div_inf']:.4g}; dropped_markers "
+        f"{summary['dropped_markers']}; markers "
+        f"{int(state.marker_count.sum())}")
+    log(f"   launches {launches}; plain-version calls {plain}")
+    for k in kernels:
+        check(launches.get(k, 0) > 0, f"{label}: {k} did not launch")
+    check(plain == 0, f"{label}: a plain version ran")
+    names = ["u", "v", "p", "markers"] + (["r", "g", "b"] if cfg.rainbow
+                                          else [])
+    for name in names:
+        check(bool(torch.isfinite(getattr(state, name)).all()),
+              f"{label}: state.{name} not finite")
+    check(tuple(state.u.shape) == (Y, X)
+          and tuple(state.markers.shape) == (2, cfg.slots_per_cell, Y, X),
+          f"{label}: state shapes changed")
+    return state, summary
+
+
+def build_all():
+    """Every kernel library, one nvcc per source, started together."""
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import mg_kernel as k3
+    from euler_tpu_torch.ops.cuda import pcg_kernel as k89
+    from euler_tpu_torch.ops.cuda import substep_kernel as k2
+
+    loaders = [k1._lib, k2._lib, k3._lib, k89.jacobi_lib]
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(f) for f in loaders]:
+            fut.result()
+    for name, rec in _build.BUILD_LOG.items():
+        log(f"   {name}: nvcc {rec['seconds']:.1f} s")
+        for line in rec["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"     {line.strip()}")
+
+
 def run(args) -> dict:
     import torch
 
     from euler_tpu_torch import sim
     from euler_tpu_torch.core.presets import dam_break
-    from euler_tpu_torch.ops.cuda import _build
     from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
     from euler_tpu_torch.ops.cuda import mg_kernel as k3
+    from euler_tpu_torch.ops.cuda import pcg_kernel as k89
     from euler_tpu_torch.ops.cuda import substep_kernel as k2
+    from euler_tpu_torch.ops.forces import max_speed_sq
     from euler_tpu_torch.ops.markers_slots import live_slots
     from euler_tpu_torch.ops.project import (
         divergence_rhs,
@@ -132,13 +293,7 @@ def run(args) -> dict:
     log(f"nvidia-smi: {smi_line()}")
 
     with Phase("build kernels"):
-        for mod in (k1, k2, k3):
-            mod._lib()
-        for name, rec in _build.BUILD_LOG.items():
-            log(f"   {name}: nvcc {rec['seconds']:.1f} s")
-            for line in rec["ptxas"].splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"     {line.strip()}")
+        build_all()
 
     with Phase("main path at 64²: GPU kernels vs CPU plain, 2 frames"):
         cfg_s = main_config(64)
@@ -159,18 +314,18 @@ def run(args) -> dict:
               "64² dropped_markers differ")
 
     cfg = main_config(SIZE)
+    scfg = speed_config(SIZE)
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
-    with Phase(f"dam break {SIZE}², {WARMUP_FRAMES} warm-up "
-               "frames"):
+    with Phase(f"dam break {SIZE}², {WARMUP_FRAMES} warm-up frames"):
         scn, state = dam_break(cfg, device=dev)
         for _ in range(WARMUP_FRAMES):
             state = sim.step_frame(cfg, scn, state)
         torch.cuda.synchronize()
 
     results = {}
+    inf = torch.tensor(float("inf"), device=dev)
+    zero = torch.zeros((), device=dev)
     with Phase("kernels vs plain versions on the card"):
-        from euler_tpu_torch.ops.forces import max_speed_sq
-
         frame_time = torch.tensor(cfg.frame_time, device=dev)
         dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, state.u, state.v),
                               frame_time)
@@ -188,7 +343,6 @@ def run(args) -> dict:
         log(f"   K1: counts, drops equal; live positions max err {err1:.3g}"
             f" (bitwise: {torch.equal(o_k, o_p)})")
         check(err1 <= 1e-5, "K1 positions differ > 1e-5")
-        zero = torch.zeros((), device=dev)
         o_0, c_0, d_0 = k1.march_rebin(cfg, state.u, state.v, state.fluid,
                                        scn.solid, slots, zero,
                                        state.marker_count, dead=dead)
@@ -212,8 +366,7 @@ def run(args) -> dict:
         check(abs(int(it_k) - int(it_p)) <= 1, "K2 iterations differ > 1")
         check(rel_msq <= 1e-3, "K2 msq differs > 1e-3 relative")
         u_i, v_i, it_i, res_i, msq_i, _ = k2.project_substep_mg(
-            cfg, zero, torch.tensor(float("inf"), device=dev), state.u,
-            state.v, fl, pfl, scn.solid, state.p)
+            cfg, zero, inf, state.u, state.v, fl, pfl, scn.solid, state.p)
         check(int(it_i) == 0 and float(res_i) == 0.0
               and bool(torch.isfinite(u_i).all())
               and bool(torch.isfinite(v_i).all()),
@@ -239,59 +392,104 @@ def run(args) -> dict:
             check(e <= 5e-4 * scale, "K3 pressure differs > 5e-4*scale")
             check(abs(int(i3k) - int(i3p)) <= 1, "K3 iterations differ > 1")
         results["K3"] = {"max_abs_err": err3}
+
+        # the Jacobi kernels on the same system, at the speed-mode budget
+        p8k, i8k, _ = k89.solve_pressure_jacobi(scfg, b, a_diag, fl)
+        p8p, i8p, _ = k89.solve_pressure_jacobi_plain(scfg, b, a_diag, fl)
+        scale = p8p.abs().max().item()
+        err8 = (p8k - p8p).abs().max().item()
+        log(f"   K8: p max err {err8:.3g} of scale {scale:.3g} (atol "
+            f"1e-3*scale); iters {int(i8k)} vs {int(i8p)}")
+        check(int(i8k) == int(i8p), "K8 iterations differ")
+        check(err8 <= 1e-3 * scale, "K8 pressure differs > 1e-3*scale")
+        results["K8"] = {"max_abs_err": err8}
+
+        jacobi_pairs = {
+            "K9": (lambda: k89.project_jacobi(scfg, dt, ut, vt, fl,
+                                              scn.solid),
+                   lambda: k89.project_jacobi_plain(scfg, dt, ut, vt, fl,
+                                                    scn.solid)),
+            "K10": (lambda: k2.project_substep_jacobi(
+                        scfg, dt, dt, state.u, state.v, fl, pfl, scn.solid),
+                    lambda: k2.project_substep_jacobi_plain(
+                        scfg, dt, dt, state.u, state.v, fl, pfl, scn.solid)),
+        }
+        for name, (kern, plain_fn) in jacobi_pairs.items():
+            u_k, v_k, it_k, _, msq_k = kern()
+            u_p, v_p, it_p, _, msq_p = plain_fn()
+            err = max((u_k - u_p).abs().max().item(),
+                      (v_k - v_p).abs().max().item())
+            rel_msq = (abs(msq_k.item() - msq_p.item())
+                       / max(msq_p.item(), 1e-30))
+            log(f"   {name}: u/v max err {err:.3g} (atol 2e-3); iters "
+                f"{int(it_k)} vs {int(it_p)}; msq rel err {rel_msq:.3g}")
+            check(err <= 2e-3, f"{name} velocities differ > 2e-3")
+            check(abs(int(it_k) - int(it_p)) <= 1,
+                  f"{name} iterations differ > 1")
+            check(rel_msq <= 1e-3, f"{name} msq differs > 1e-3 relative")
+            results[name] = {"max_abs_err": err}
+        u_i, v_i, it_i, res_i, msq_i = k2.project_substep_jacobi(
+            scfg, zero, inf, state.u, state.v, fl, pfl, scn.solid)
+        check(int(it_i) == 0 and float(res_i) == 0.0
+              and all(bool(torch.isfinite(t).all())
+                      for t in (u_i, v_i, msq_i)),
+              "K10 inactive substep is not free and finite")
+        log("   K10: inactive substep exits with 0 iterations, finite")
         torch.cuda.synchronize()
 
+    summaries = {}
+    launches = {}
     with Phase(f"main path: {FRAMES} timed frames"):
-        for mod in (k1, k2, k3):
-            mod.LAUNCHES = 0
-            mod.PLAIN_CALLS = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_active = torch.zeros((), dtype=torch.int32, device=dev)
-        pcg_iters = torch.zeros((), dtype=torch.int32, device=dev)
-        for _ in range(FRAMES):
-            state, stats = sim.step_frame_stats(cfg, scn, state)
-            n_active += stats["n_active"]
-            pcg_iters += stats["pcg_iters"]
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k3.LAUNCHES}
-        plain = k1.PLAIN_CALLS + k2.PLAIN_CALLS + k3.PLAIN_CALLS
-        ms_frame = 1e3 * elapsed / FRAMES
-        rate = Y * X * cfg.max_substeps * FRAMES / elapsed
-        iters_per = int(pcg_iters) / max(int(n_active), 1)
-        dinf = div_inf(cfg, state)
-        log(f"   {ms_frame:.3f} ms/frame, {rate:.4g} cell-steps/s "
-            f"({Y}x{X} x {cfg.max_substeps} substeps)")
-        log(f"   active substeps {int(n_active)} of "
-            f"{cfg.max_substeps * FRAMES}; PCG iterations per active "
-            f"substep {iters_per:.2f}")
-        log(f"   dropped_markers {int(state.dropped_markers)}; markers "
-            f"{int(state.marker_count.sum())}; div_inf {dinf:.4g}")
-        log(f"   launches {launches}; plain-version calls {plain}")
-        check(all(n > 0 for n in launches.values()),
-              "a kernel of the main path did not launch")
-        check(plain == 0, "a plain version ran on the main path")
-        for name in ("u", "v", "p", "markers"):
-            t = getattr(state, name)
-            check(bool(torch.isfinite(t).all()), f"state.{name} not finite")
-        check(tuple(state.u.shape) == (Y, X)
-              and tuple(state.markers.shape) == (2, K, Y, X),
-              "state shapes changed")
-        check(dinf < 1.0, "div_inf too large: the projection did not "
-              "converge")
-        summary = {"ms_per_frame": ms_frame, "cell_steps_per_s": rate,
-                   "pcg_iters_per_active_substep": iters_per,
-                   "dropped_markers": int(state.dropped_markers),
-                   "div_inf": dinf}
+        state, summaries["mg"] = run_path(cfg, scn, state, FRAMES,
+                                          ["K1", "K2", "K3"], "MG main path")
+        check(summaries["mg"]["div_inf"] < 1.0,
+              "div_inf too large: the projection did not converge")
+        for k in ("K1", "K2", "K3"):
+            launches[k] = summaries["mg"]["launches"].get(k, 0)
+
+    with Phase(f"speed mode {SIZE}²: {WARMUP_FRAMES} warm-up + {FRAMES} "
+               "timed frames"):
+        sscn, sstate = dam_break(scfg, device=dev)
+        for _ in range(WARMUP_FRAMES):
+            sstate = sim.step_frame(scfg, sscn, sstate)
+        # no div_inf limit: the speed mode gives up at 100 iterations
+        sstate, summaries["speed"] = run_path(scfg, sscn, sstate, FRAMES,
+                                              ["K1", "K10"], "speed mode")
+        launches["K10"] = summaries["speed"]["launches"].get("K10", 0)
+
+    routes = {
+        "jacobi_unfused": (dataclasses.replace(scfg, solver=dataclasses.replace(
+            scfg.solver, fuse_projection=False)), "K8"),
+        "jacobi_rainbow": (speed_config(SIZE, rainbow=True), "K9"),
+        "mg_rainbow": (dataclasses.replace(cfg, rainbow=True), "K3"),
+    }
+    for route, (rcfg, kernel) in routes.items():
+        with Phase(f"route {route} {SIZE}²: {ROUTE_WARMUP} warm-up + "
+                   f"{ROUTE_FRAMES} timed frames"):
+            rscn, rstate = dam_break(rcfg, device=dev)
+            for _ in range(ROUTE_WARMUP):
+                rstate = sim.step_frame(rcfg, rscn, rstate)
+            rstate, summaries[route] = run_path(rcfg, rscn, rstate,
+                                                ROUTE_FRAMES, ["K1", kernel],
+                                                route)
+            if route == "mg_rainbow":
+                check(summaries[route]["div_inf"] < 1.0,
+                      "mg_rainbow: div_inf too large")
+            if kernel != "K3":
+                launches[kernel] = summaries[route]["launches"].get(kernel,
+                                                                      0)
+            del rscn, rstate
 
     with Phase("kernel vs plain times (CUDA events)"):
         fl, pfl = state.fluid, state.prev_fluid
         slots = state.markers.reshape(2 * K, Y, X)
+        dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, state.u, state.v),
+                              frame_time)
         k1_args = (cfg, state.u, state.v, fl, scn.solid, slots, dt,
                    state.marker_count)
         k2_args = (cfg, dt, dt, state.u, state.v, fl, pfl, scn.solid,
                    state.p)
+        k10_args = (scfg, dt, dt, state.u, state.v, fl, pfl, scn.solid)
         a_diag = pressure_matrix_diag(cfg, scn.solid, fl)
         ut, vt = k2.grid_stage_plain(cfg, dt, state.u, state.v, fl, pfl,
                                      scn.solid)
@@ -305,35 +503,55 @@ def run(args) -> dict:
                                                 x0=state.p),
                    lambda: k3.solve_pressure_mg_plain(cfg, b, a_diag, fl,
                                                       state.p)),
+            "K8": (lambda: k89.solve_pressure_jacobi(scfg, b, a_diag, fl),
+                   lambda: k89.solve_pressure_jacobi_plain(scfg, b, a_diag,
+                                                           fl)),
+            "K9": (lambda: k89.project_jacobi(scfg, dt, ut, vt, fl,
+                                              scn.solid),
+                   lambda: k89.project_jacobi_plain(scfg, dt, ut, vt, fl,
+                                                    scn.solid)),
+            "K10": (lambda: k2.project_substep_jacobi(*k10_args),
+                    lambda: k2.project_substep_jacobi_plain(*k10_args)),
         }
+        n_cells = Y * X
+        n_live = int(state.marker_count.sum())
         for name, (kern, plain_fn) in pairs.items():
+            out = kern()
+            iters = 0 if name == "K1" else int(out[1] if name in ("K3", "K8")
+                                               else out[2])
             t_p1 = cuda_ms(plain_fn, REPS)
             t_k1 = cuda_ms(kern, REPS)
             t_k2 = cuda_ms(kern, REPS)
             t_p2 = cuda_ms(plain_fn, REPS)
-            results[name]["ms"] = min(t_k1, t_k2)
-            results[name]["plain_ms"] = min(t_p1, t_p2)
+            nbytes, flops = BOUNDS[name](n_cells, iters, n_live)
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * flops / F32_FLOP_PER_S
+            results[name].update(
+                ms=min(t_k1, t_k2), plain_ms=min(t_p1, t_p2),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
             log(f"   {name}: kernel {t_k1:.3f} / {t_k2:.3f} ms, plain "
-                f"{t_p1:.3f} / {t_p2:.3f} ms")
+                f"{t_p1:.3f} / {t_p2:.3f} ms; bound "
+                f"{results[name]['bound_ms']:.4f} ms by "
+                f"{results[name]['bound_by']} ({nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.3f} GFLOP, {iters} iterations)")
+            if name in ("K8", "K9", "K10"):
+                sweep = JACOBI_SWEEP_PLANES * 4 * n_cells * iters
+                log(f"   {name}: sweep bound {1e3 * sweep / HBM_BYTES_PER_S:.3f}"
+                    f" ms ({sweep / 1e9:.2f} GB over {iters} iterations)")
 
     if args.profile:
         with Phase("profile"):
-            profile(cfg, scn, state, args.profile, ms_frame)
+            profile(cfg, scn, state, f"{args.profile}.mg.txt")
+            profile(scfg, sscn, sstate, f"{args.profile}.speed.txt")
 
-    sources = {
-        "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
-               "euler_tpu/ops/pallas/marker_fused_kernel.py:941"),
-        "K2": ("substep_grid_stage", "euler_tpu_torch/csrc/grid_stage.cu",
-               "euler_tpu/ops/pallas/substep_kernel.py:361"),
-        "K3": ("mg_pcg", "euler_tpu_torch/csrc/mg_pcg.cu",
-               "euler_tpu/ops/pallas/mg_kernel.py:727"),
-    }
     kernels = []
-    for key, (name, src, replaces) in sources.items():
+    for key, (name, src, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[key],
                         **results[key]})
-    log(json.dumps({"summary": summary}))
+    log(json.dumps({"summary": summaries}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     return {"ok": True, "device": {
@@ -341,20 +559,30 @@ def run(args) -> dict:
         "count": torch.cuda.device_count()}}
 
 
-def profile(cfg, scn, state, path: str, ms_frame: float) -> None:
-    """torch.profiler over 2 frames: device kernel time by name, written
-    to `path`, with launches and stream syncs per frame and the device's
-    idle share of the unprofiled frame time `ms_frame`."""
+def profile(cfg, scn, state, path: str) -> None:
+    """torch.profiler over 2 frames from `state`: device kernel time by
+    name, written to `path`, with launches and stream syncs per frame and
+    the device's idle share of the same 2 frames' unprofiled wall time
+    (they are deterministic, so they are stepped twice: timed, then
+    profiled)."""
     import torch
     from torch.profiler import ProfilerActivity
 
     from euler_tpu_torch import sim
 
     frames = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = state
+    for _ in range(frames):
+        st, stats = sim.step_frame_stats(cfg, scn, st)
+    torch.cuda.synchronize()
+    ms_frame = 1e3 * (time.perf_counter() - t0) / frames
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        st = state
         for _ in range(frames):
-            state = sim.step_frame(cfg, scn, state)
+            st = sim.step_frame(cfg, scn, st)
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=40)
@@ -375,19 +603,22 @@ def profile(cfg, scn, state, path: str, ms_frame: float) -> None:
             dev_us += d
             n_kernels += e.count
     dev_ms = dev_us / 1e3 / frames
-    log(f"   device kernel time {dev_ms:.3f} ms/frame, "
-        f"{n_kernels / frames:.0f} kernel launches/frame, "
-        f"{n_sync / frames:.0f} stream syncs/frame; idle share of the "
-        f"timed {ms_frame:.3f} ms/frame {1 - dev_ms / ms_frame:.3f}; "
-        f"table in {path}")
+    log(f"   {cfg.solver.preconditioner}: device kernel time {dev_ms:.3f} "
+        f"ms/frame, {n_kernels / frames:.0f} kernel launches/frame, "
+        f"{n_sync / frames:.0f} stream syncs/frame; the same frames "
+        f"unprofiled {ms_frame:.3f} ms/frame ({int(stats['n_active'])} "
+        f"active substeps in the last), idle share "
+        f"{1 - dev_ms / ms_frame:.3f}; table in {path}")
     for line in table.splitlines()[:20]:
         log(f"   {line}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", default=None,
-                    help="write a torch.profiler table of 2 frames here")
+    ap.add_argument("--profile", default=None, metavar="PREFIX",
+                    help="write torch.profiler tables of 2 frames of the "
+                         "MG main path and the speed mode to "
+                         "PREFIX.mg.txt and PREFIX.speed.txt")
     args = ap.parse_args(argv)
 
     try:

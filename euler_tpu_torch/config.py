@@ -2,10 +2,17 @@
 (`euler_tpu/config.py`): same names, same defaults, so a run is described
 by the same two dataclasses on either side.
 
-The port runs one path through these fields: the slot marker layout, the
-hand-written marker pass (K1), and the grid stage + Galerkin MG-PCG
-projection (K2/K3).  Fields that choose between JAX implementations of
-the same arithmetic are read by nothing here, because the port has one
+The port takes the routes the JAX package takes with
+`SolverConfig.use_pallas=True`, whatever `use_pallas` says: the
+hand-written marker pass (K1) on the slot layout, then the grid stage
+and projection.  `SolverConfig.fuse_projection` is read, as the JAX
+`sim.substep` reads it: with it a mono substep without sources runs the
+fused grid stage + projection (K2 for MG, K10 for Jacobi), and a rainbow
+Jacobi substep the fused projection (K9); without it, or for rainbow MG,
+the projection is `ops.project.project` (K8 for Jacobi, K3 for MG).  The
+JAX package's VMEM-size gates on those routes have no counterpart on the
+card.  Fields that choose between JAX implementations of the same
+arithmetic are read by nothing here, because the port has one
 implementation of each:
 
   * TPU-only devices: `marker_tile`, `marker_kmax_specialize`,
@@ -14,14 +21,14 @@ implementation of each:
     the JAX package, so ignoring them changes no result.
   * Dispatch switches between equivalent JAX paths: `use_pallas_markers`,
     `fuse_marker_pass`, `use_pallas_grid`, `advect_impl`,
-    `SolverConfig.use_pallas`, `SolverConfig.fuse_projection`,
-    `SolverConfig.check_every`.
+    `SolverConfig.use_pallas`, `SolverConfig.check_every`.
   * RB-GS / V-cycle knobs that the Chebyshev smoother does not read:
     `mg_pre_smooth`, `mg_post_smooth`.
 
-Configurations outside the ported slice (global layout, rainbow, sources,
-a solver other than f32 Galerkin MG with Chebyshev smoothing, the frame-
-stale hierarchy) make `sim.step_frame` raise NotImplementedError.
+Configurations outside the ported slices (global layout, sources, IC(0),
+no preconditioner, MG other than Galerkin with Chebyshev smoothing, f64,
+the frame-stale hierarchy) make `sim.step_frame` raise
+NotImplementedError.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Takes the fields of the JAX package's `FluidState` / `Scenario` as numpy
 arrays (what `np.asarray` gives for each field) and returns the port's
-tensors, and back.  The JAX slot store is flat [2, M] (alive [M]) with
+tensors (on the card unless the caller asks for the CPU), and back.
+The JAX slot store is flat [2, M] (alive [M]) with
 m = (k*Y + y)*X + x; the port keeps the same memory as [2, K, Y, X]
 (alive [K, Y, X]).  Imports neither jax nor euler_tpu.
 """
@@ -20,7 +21,7 @@ _STATE_FIELDS = [f.name for f in dataclasses.fields(FluidState)]
 _SCENARIO_FIELDS = [f.name for f in dataclasses.fields(Scenario)]
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> FluidState:
+def state_from_numpy(arrays: dict, device="cuda") -> FluidState:
     """FluidState from a dict of numpy arrays keyed by field name."""
     Y, X = np.shape(arrays["u"])
     out = {}
@@ -33,7 +34,7 @@ def state_from_numpy(arrays: dict, device="cpu") -> FluidState:
     return FluidState(**out)
 
 
-def scenario_from_numpy(arrays: dict, device="cpu") -> Scenario:
+def scenario_from_numpy(arrays: dict, device="cuda") -> Scenario:
     """Scenario from a dict of numpy arrays keyed by field name."""
     return Scenario(**{
         name: torch.as_tensor(np.asarray(arrays[name]).copy(), device=device)

@@ -2,7 +2,8 @@
 
 Masks and marker positions are built with numpy from an explicit
 `numpy.random.Generator` seed, exactly as the JAX preset builds them, so
-both packages start from bit-identical states.  Slot layout only.
+both packages start from bit-identical states.  Slot layout only.  The
+tensors go to `device`, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -13,10 +14,11 @@ import torch
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core import rng as rng_mod
 from euler_tpu_torch.core.state import Scenario, zeros_state
+from euler_tpu_torch.ops.color import colorize
 
 
 def _finish(cfg: SimConfig, solid, fluid, source, sink, seed=0,
-            device="cpu"):
+            device="cuda"):
     """Assemble Scenario + FluidState from masks with fast marker seeding."""
     if cfg.marker_layout != "slots":
         raise NotImplementedError(
@@ -72,12 +74,12 @@ def _finish(cfg: SimConfig, solid, fluid, source, sink, seed=0,
         markers=t(markers), alive=t(alive),
         alive_count=t(n, torch.int32),
     )
-    if cfg.rainbow:
-        raise NotImplementedError("rainbow colour is ROADMAP queue 1 item M8")
-
     from euler_tpu_torch.ops.markers_slots import refresh_marker_counts_slots
 
-    return scn, refresh_marker_counts_slots(cfg, scn, state)
+    state = refresh_marker_counts_slots(cfg, scn, state)
+    if cfg.rainbow:
+        state = colorize(cfg, scn, state)
+    return scn, state
 
 
 def _solid_box(Y, X):
@@ -90,7 +92,7 @@ def _solid_box(Y, X):
 
 
 def dam_break(cfg: SimConfig, fill_x: float = 0.4, fill_y: float = 0.6,
-              seed=0, device="cpu"):
+              seed=0, device="cuda"):
     """A water column against the left wall — the classic dam break."""
     Y, X = cfg.ny, cfg.nx
     solid = _solid_box(Y, X)
@@ -101,7 +103,7 @@ def dam_break(cfg: SimConfig, fill_x: float = 0.4, fill_y: float = 0.6,
     return _finish(cfg, solid, fluid, source, sink, seed, device)
 
 
-def block_obstacles(cfg: SimConfig, seed=0, device="cpu"):
+def block_obstacles(cfg: SimConfig, seed=0, device="cuda"):
     """Falling water over interior solid obstacles (block.txt, scaled)."""
     Y, X = cfg.ny, cfg.nx
     solid = _solid_box(Y, X)

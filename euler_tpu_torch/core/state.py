@@ -67,7 +67,7 @@ class FluidState:
         return dataclasses.replace(self, **changes)
 
 
-def zeros_state(cfg: SimConfig, rng_pair, device="cpu") -> FluidState:
+def zeros_state(cfg: SimConfig, rng_pair, device="cuda") -> FluidState:
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
     f = getattr(torch, cfg.dtype)
 

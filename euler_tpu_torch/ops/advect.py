@@ -1,13 +1,20 @@
-"""RK1 semi-Lagrangian advection of the face velocities
-(`euler_tpu/ops/advect.py`, main.c:382-422), stencil interpolation only.
-Non-fluid sites are written as 0 (zero_bounds clears them anyway)."""
+"""RK1 semi-Lagrangian advection (`euler_tpu/ops/advect.py`,
+main.c:382-438), stencil interpolation only: the face velocities, whose
+non-fluid sites are written as 0 (zero_bounds clears them anyway), and
+the cell-centred colours, whose non-fluid cells keep their value."""
 
 from __future__ import annotations
 
 import torch
 
 from euler_tpu_torch.config import SimConfig
-from euler_tpu_torch.core.state import u_property, v_property, valid_region
+from euler_tpu_torch.core.state import (
+    shift_down,
+    shift_left,
+    u_property,
+    v_property,
+    valid_region,
+)
 from euler_tpu_torch.ops.interp_stencil import interpolate_stencil
 
 
@@ -43,3 +50,16 @@ def advect_v(cfg: SimConfig, u, v, fluid, dt):
     out = interpolate_stencil(cfg, v, fluid, prev_x, prev_y, "v")
     mask = v_property(fluid) & valid_region(cfg, "v", v.device)
     return torch.where(mask, out, 0.0)
+
+
+def advect_p(cfg: SimConfig, q, u, v, fluid, dt):
+    """main.c:424-438: advect a cell-centred quantity (the colours) with
+    the face-averaged velocity; non-fluid cells keep their value."""
+    xs, ys = _site_index_grids(cfg, q.dtype, q.device)
+    inv_h = 1.0 / cfg.side_length
+    dy = (v + shift_down(v)) * 0.5
+    dx = (u + shift_left(u)) * 0.5
+    prev_x = xs - dx * dt * inv_h
+    prev_y = ys - dy * dt * inv_h
+    out = interpolate_stencil(cfg, q, fluid, prev_x, prev_y, "p")
+    return torch.where(fluid, out, q)

@@ -10,10 +10,15 @@ flags, so an edited source rebuilds and an unchanged one is reused.
 Every exported launcher takes device pointers and the CUDA stream as
 `void*`, launches on that stream, and returns `cudaGetLastError()`; the
 wrappers raise when it is not 0.
+
+`LAUNCHES` and `PLAIN_CALLS` count, per kernel id ("K1", "K2", ...), the
+wrapper calls that launched the kernel and those that took its plain
+version because the tensors lay on the CPU.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -34,6 +39,9 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # the ptxas register / shared-memory report
 BUILD_LOG: dict[str, dict] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+LAUNCHES: collections.Counter = collections.Counter()
+PLAIN_CALLS: collections.Counter = collections.Counter()
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int

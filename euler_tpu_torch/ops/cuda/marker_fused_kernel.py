@@ -32,12 +32,6 @@ from euler_tpu_torch.ops.markers_slots import (
     rebin_slots,
 )
 
-# launches of the CUDA marker pass, and plain-version calls made by the
-# wrapper for CPU tensors
-LAUNCHES = 0
-PLAIN_CALLS = 0
-
-
 def march_rebin_plain(cfg: SimConfig, u, v, fluid, solid, slots, dt, count,
                       *, dead):
     """March + re-bin as plain PyTorch ops."""
@@ -61,9 +55,8 @@ def march_rebin(cfg: SimConfig, u, v, fluid, solid, slots, dt, count, *,
                 dead):
     """Fused marker pass.  Returns (slots', count', drop).  CUDA tensors
     run the kernel; CPU tensors the plain version."""
-    global LAUNCHES, PLAIN_CALLS
     if slots.device.type == "cpu":
-        PLAIN_CALLS += 1
+        _build.PLAIN_CALLS["K1"] += 1
         return march_rebin_plain(cfg, u, v, fluid, solid, slots, dt, count,
                                  dead=dead)
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
@@ -85,7 +78,7 @@ def march_rebin(cfg: SimConfig, u, v, fluid, solid, slots, dt, count, *,
     out_drop = torch.empty(plane, dtype=torch.int32, device=dev)
     h = np.float32(cfg.side_length)
     lib = _lib()
-    LAUNCHES += 1
+    _build.LAUNCHES["K1"] += 1
     rc = lib.eu_march_rebin(
         Y, X, K, cfg.marker_march_iters, float(h),
         float(np.float32(1.0) / h), p_u, p_v, p_count, p_fluid, p_solid,

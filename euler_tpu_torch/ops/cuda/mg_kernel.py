@@ -31,11 +31,6 @@ from euler_tpu_torch.ops import multigrid
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.project import apply_a
 
-# launches of the CUDA solver body (here and inside K2), and plain-version
-# calls made by the wrapper for CPU tensors
-LAUNCHES = 0
-PLAIN_CALLS = 0
-
 _PLANES_PER_LEVEL = 9  # c, e, n, x, b, z, rr, d, dn (csrc/mg_pcg.cu)
 _S_RESID = 5           # scal index of the final residual max
 _F_ITERS = 1           # flags index of the iteration count
@@ -164,7 +159,6 @@ def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
     """Run the CUDA MG-PCG body in place: r holds b on entry (it becomes
     the residual) and, with `warm`, p holds the initial guess; p ends as
     the solution.  Returns (iterations, residual) as device tensors."""
-    global LAUNCHES
     shapes, packed0, coef_planes, rows = operands
     s = cfg.solver
     dev = r.device
@@ -208,7 +202,8 @@ def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
     flags = torch.zeros(4, dtype=torch.int32, device=dev)
 
     lib = _lib()
-    LAUNCHES += 1
+    # the K3 count includes the solves K2 runs
+    _build.LAUNCHES["K3"] += 1
     rc = lib.eu_mg_pcg(
         L, shape_arr, plane_arr, packed0.data_ptr(), rows.data_ptr(),
         rows.shape[1], s.mg_cheby_degree, s.mg_coarse_iters,
@@ -224,10 +219,9 @@ def solve_pressure_mg(cfg: SimConfig, b, a_diag, fluid, solid=None,
                       x0=None):
     """One Galerkin MG-PCG solve.  Returns (p, iterations, residual).
     CUDA tensors run the kernel; CPU tensors the plain version."""
-    global PLAIN_CALLS
     del solid  # the Galerkin hierarchy needs only a_diag and the fluid
     if b.device.type == "cpu":
-        PLAIN_CALLS += 1
+        _build.PLAIN_CALLS["K3"] += 1
         return solve_pressure_mg_plain(cfg, b, a_diag, fluid, x0)
     if not mg_fits(cfg):
         raise NotImplementedError(

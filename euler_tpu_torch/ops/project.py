@@ -1,7 +1,13 @@
-"""Pressure-projection pieces (`euler_tpu/ops/project.py`,
-main.c:554-575, 679-691, 713-724): the divergence right-hand side, the
-matrix diagonal and the 5-point operator.  The solve itself is the MG-PCG
-of `ops/cuda/mg_kernel.py`."""
+"""Pressure projection (`euler_tpu/ops/project.py`, main.c:554-575,
+679-806): the divergence right-hand side, the matrix diagonal, the
+5-point operator, the PCG loop, the solver dispatch and the projection.
+
+The dispatch is that of the JAX package with `use_pallas=True`: Jacobi
+goes to K8 (`ops/cuda/pcg_kernel.py`), MG to K3 (`ops/cuda/mg_kernel.py`),
+and any other preconditioner to `pcg_loop`.  Every iterate stays exactly
+zero outside the fluid, so dense reductions equal the reference's
+fluid-masked ones.
+"""
 
 from __future__ import annotations
 
@@ -13,6 +19,9 @@ from euler_tpu_torch.core.state import (
     shift_left,
     shift_right,
     shift_up,
+    u_property,
+    v_property,
+    valid_region,
 )
 
 
@@ -42,3 +51,121 @@ def apply_a(a_diag, fluid, s):
         shift_left(s) + shift_right(s) + shift_down(s) + shift_up(s)
     )
     return torch.where(fluid, lap, 0.0)
+
+
+def jacobi_preconditioner(a_diag, fluid):
+    """z = invd * r with invd = fl / max(a, 1), the form of the Pallas
+    kernels the port's Jacobi routes replace (pcg_kernel.py:72-75): a
+    fluid cell with a = 0 keeps r."""
+    fl = fluid.to(torch.float32)
+    invd = fl / torch.clamp_min(a_diag.to(torch.float32), 1.0)
+    return lambda r: invd * r
+
+
+def _make_preconditioner(cfg: SimConfig, a_diag, fluid):
+    """z = M^-1 r for `pcg_loop`.  "mg" is K3's own loop
+    (`solve_pressure`); IC(0) is not ported."""
+    kind = cfg.solver.preconditioner
+    if kind == "jacobi":
+        return jacobi_preconditioner(a_diag, fluid)
+    if kind == "none":
+        return lambda r: torch.where(fluid, r, 0.0)
+    if kind == "ic0":
+        raise NotImplementedError(
+            "the IC(0) preconditioner is ROADMAP queue 1 item M9")
+    raise NotImplementedError(f"preconditioner {kind!r} has no pcg_loop "
+                              "form in the port")
+
+
+def pcg_loop(cfg: SimConfig, b, apply_fn, precon, x0=None):
+    """The PCG recurrence of main.c:738-767 (JAX `pcg_loop`): the
+    all-zero early-out, the tolerance max(tol, tol_rel * ||b||_inf) with
+    ||b|| taken before any warm-start subtraction, and the NaN-robust stop
+    test not (max|r| > tol) after the p/r update.  `x0` (zero outside the
+    fluid) warm-starts it.  Reads the stop flag on the host once per
+    iteration.  Returns (p, iterations, residual)."""
+    s = cfg.solver
+    b_norm = b.abs().max()
+    tol = torch.maximum(torch.tensor(s.tol, dtype=b.dtype, device=b.device),
+                        s.tol_rel * b_norm)
+    nonzero = b_norm != 0
+    if x0 is None:
+        p = torch.zeros_like(b)
+        r = b
+        done = ~nonzero
+    else:
+        p = torch.where(nonzero, x0, 0.0)
+        r = b - apply_fn(p)
+        done = ~nonzero | ~(r.abs().max() > tol)
+    z = precon(r)
+    d = z
+    sigma = (z * r).sum()
+    iters = 0
+    while iters < s.max_iterations and not bool(done):
+        Ad = apply_fn(d)
+        zs = (Ad * d).sum()
+        alpha = sigma / torch.where(zs != 0, zs, 1.0)
+        p = p + alpha * d
+        r = r - alpha * Ad
+        done = ~(r.abs().max() > tol)
+        z = precon(r)
+        sigma_new = (z * r).sum()
+        beta = sigma_new / torch.where(sigma != 0, sigma, 1.0)
+        d = z + beta * d
+        sigma = sigma_new
+        iters += 1
+    return (p, torch.tensor(iters, dtype=torch.int32, device=b.device),
+            r.abs().max())
+
+
+def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
+    """PCG for A p = b (main.c:738-767).  Returns (p, iterations, resid).
+    Jacobi runs K8, which ignores `x0` as the Pallas Jacobi kernel does;
+    MG runs K3 from `x0`; other preconditioners run `pcg_loop`."""
+    kind = cfg.solver.preconditioner
+    if kind == "jacobi":
+        from euler_tpu_torch.ops.cuda.pcg_kernel import solve_pressure_jacobi
+
+        return solve_pressure_jacobi(cfg, b, a_diag, fluid)
+    if kind == "mg":
+        from euler_tpu_torch.ops.cuda.mg_kernel import solve_pressure_mg
+
+        return solve_pressure_mg(cfg, b, a_diag, fluid, solid, x0=x0)
+    precon = _make_preconditioner(cfg, a_diag, fluid)
+    return pcg_loop(cfg, b, lambda s: apply_a(a_diag, fluid, s), precon,
+                    x0=x0)
+
+
+def clamp_pressure(p, fluid):
+    """p >= 0 on fluid cells, 0 elsewhere (main.c:773-779)."""
+    return torch.where(fluid, torch.clamp_min(p, 0.0), 0.0)
+
+
+def face_update(cfg: SimConfig, p, u, v, fluid, solid, dt):
+    """The 3-way solid/fluid/air face velocity update (main.c:782-806)
+    with the clamped pressure."""
+    c = torch.tensor(-1.0 / (cfg.density * cfg.side_length), dtype=u.dtype,
+                     device=u.device)
+    u_keep = (valid_region(cfg, "u", u.device) & ~u_property(solid)
+              & u_property(fluid))
+    u2 = torch.where(u_keep, u + (c * (shift_right(p) - p)) * dt, 0.0)
+    v_keep = (valid_region(cfg, "v", v.device) & ~v_property(solid)
+              & v_property(fluid))
+    v2 = torch.where(v_keep, v + (c * (shift_up(p) - p)) * dt, 0.0)
+    return u2, v2
+
+
+def project(cfg: SimConfig, dt, u, v, fluid, solid, p0=None):
+    """Full projection (main.c:709-806): returns (u_out, v_out, info) with
+    info's "pressure" the clamped pressure.  `p0` (with warm_start) is
+    re-masked to the current fluid and seeds the solve."""
+    b = divergence_rhs(cfg, u, v, fluid, dt)
+    a_diag = pressure_matrix_diag(cfg, solid, fluid)
+    x0 = None
+    if p0 is not None and cfg.solver.warm_start:
+        x0 = torch.where(fluid, p0, 0.0)
+    p, iters, resid = solve_pressure(cfg, b, a_diag, fluid, solid, x0=x0)
+    p = clamp_pressure(p, fluid)
+    u_out, v_out = face_update(cfg, p, u, v, fluid, solid, dt)
+    return u_out, v_out, {"pressure": p, "iterations": iters,
+                          "residual": resid}

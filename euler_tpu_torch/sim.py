@@ -1,5 +1,5 @@
 """Step orchestration (`euler_tpu/sim.py`): one frame = `max_substeps`
-CFL substeps, on the ported slice's configuration only.
+CFL substeps, on the ported slice's configurations.
 
 The reference's data-dependent substep loop (main.c:851) stays a fixed
 trip of masked substeps, as in the JAX package:
@@ -7,13 +7,23 @@ trip of masked substeps, as in the JAX package:
     once on the incoming state);
   * an inactive substep runs with dt = 0 for the marker pass (a bitwise
     identity on the store) and dt_proj = +inf for the RHS (exactly zero,
-    so the solve exits with 0 iterations); its grid fields, the previous
-    counts and the pressure are then selected away, so the warm start
-    survives a frame's trailing inactive substeps;
+    so the solve exits with 0 iterations); its grid fields, colours, the
+    previous counts and the pressure are then selected away, so the warm
+    start survives a frame's trailing inactive substeps.  The unfused
+    projections also take dt_proj as their face-update dt, as the JAX
+    package's do, which gives NaN on inactive substeps that the same
+    select discards;
   * the alive plane is re-derived once per frame.
-Each substep is two wrapper calls: the marker pass (K1) and the grid
-stage + MG-PCG projection (K2, with K3 inside).  Nothing here reads a
-device value on the host; the solver's stop flag is the only sync.
+
+A substep is the marker pass (K1), then one of four routes, chosen as the
+JAX package with `use_pallas=True` chooses them:
+  * fused (`fuse_projection`, mono, no sources): grid stage + projection
+    in one wrapper call, K2 (MG-PCG, K3 inside) or K10 (Jacobi);
+  * otherwise the grid stage as plain ops (with the colours' advection in
+    rainbow mode), then K9 (Jacobi with `fuse_projection`) or `project()`
+    (K8 for Jacobi, K3 for MG).
+Nothing here reads a device value on the host; the solvers' stop flags
+are the only syncs.
 """
 
 from __future__ import annotations
@@ -22,10 +32,19 @@ import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
+from euler_tpu_torch.ops.advect import advect_p
 from euler_tpu_torch.ops.cuda.mg_kernel import mg_fits
-from euler_tpu_torch.ops.cuda.substep_kernel import project_substep_mg
+from euler_tpu_torch.ops.cuda.pcg_kernel import project_jacobi
+from euler_tpu_torch.ops.cuda.substep_kernel import (
+    advect_forces,
+    extrapolate_zero,
+    project_substep_jacobi,
+    project_substep_mg,
+)
+from euler_tpu_torch.ops.extrapolate import extrapolate
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.markers_slots import live_slots, marker_pass_slots
+from euler_tpu_torch.ops.project import project
 
 
 def check_slice(cfg: SimConfig, scn: Scenario) -> None:
@@ -35,37 +54,73 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
     if cfg.marker_layout != "slots":
         raise NotImplementedError(
             "marker_layout='global' is ROADMAP queue 1 item M9")
-    if cfg.rainbow:
-        raise NotImplementedError("rainbow is ROADMAP queue 1 item M8")
     if scn.num_sources > 0:
         raise NotImplementedError(
             "source emission is ROADMAP queue 1 item M8")
-    if not (s.preconditioner == "mg" and s.mg_scheme == "galerkin"
-            and s.mg_smoother == "cheby"):
+    if s.preconditioner == "ic0":
         raise NotImplementedError(
-            f"preconditioner {s.preconditioner!r} / {s.mg_scheme} / "
-            f"{s.mg_smoother}: only galerkin MG with Chebyshev smoothing "
-            "is ported; Jacobi is ROADMAP queue 2 K8-K10, IC(0) and the "
-            "rediscretized MG queue 1 items M9 and M14")
+            "the IC(0) preconditioner is ROADMAP queue 1 item M9")
+    if s.preconditioner == "none":
+        raise NotImplementedError(
+            "the unpreconditioned solve is ROADMAP queue 1 item M14")
+    if s.preconditioner == "mg" and not (s.mg_scheme == "galerkin"
+                                         and s.mg_smoother == "cheby"):
+        raise NotImplementedError(
+            f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "
+            "Chebyshev smoothing is ported; the rest is ROADMAP queue 1 "
+            "item M14")
     if s.dtype != "float32" or cfg.dtype != "float32":
         raise NotImplementedError("f64 is ROADMAP queue 1 item M9")
     if s.mg_frame_hierarchy:
         raise NotImplementedError(
             "mg_frame_hierarchy is ROADMAP queue 1 item M14")
-    if not mg_fits(cfg):
+    if s.preconditioner == "mg" and not mg_fits(cfg):
         raise NotImplementedError(
             "level sizes must halve evenly to mg_min_size "
             "(ROADMAP queue 1 item M11)")
 
 
+def _colors(state: FluidState, fn):
+    return state.replace(r=fn(state.r), g=fn(state.g), b=fn(state.b))
+
+
 def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
             defer_alive: bool = False):
-    """One CFL substep with dt chosen: the marker pass, then the grid
-    stage and projection.  Returns (state, msq, pcg_iterations)."""
+    """One CFL substep with dt chosen.  Returns (state, msq,
+    pcg_iterations)."""
     state = marker_pass_slots(cfg, scn, state, dt, defer_alive=defer_alive)
-    u2, v2, iters, _resid, msq, p2 = project_substep_mg(
-        cfg, dt, dt_proj, state.u, state.v, state.fluid, state.prev_fluid,
-        scn.solid, state.p)
+    fluid, prev, solid = state.fluid, state.prev_fluid, scn.solid
+    if cfg.rainbow:
+        # colours extrapolate before sources run (main.c:859-863)
+        state = _colors(state, lambda q: extrapolate(cfg, q, fluid, prev,
+                                                     "p"))
+
+    jacobi = cfg.solver.preconditioner == "jacobi"
+    if cfg.solver.fuse_projection and not cfg.rainbow:
+        if jacobi:
+            u2, v2, iters, _resid, msq = project_substep_jacobi(
+                cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid)
+            p2 = state.p  # the Jacobi speed mode never warm-starts
+        else:
+            u2, v2, iters, _resid, msq, p2 = project_substep_mg(
+                cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid,
+                state.p)
+        return state.replace(u=u2, v=v2, p=p2), msq, iters
+
+    uu, vv = extrapolate_zero(cfg, state.u, state.v, fluid, prev, solid)
+    if cfg.rainbow:
+        state = _colors(state, lambda q: advect_p(cfg, q, uu, vv, fluid, dt))
+    ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt)
+    if cfg.solver.fuse_projection and jacobi:
+        u2, v2, iters, _resid, msq = project_jacobi(cfg, dt_proj, ut, vt,
+                                                    fluid, solid)
+        # K9 does not give its pressure: a later warm start starts cold
+        p2 = torch.zeros_like(state.p)
+    else:
+        u2, v2, info = project(cfg, dt_proj, ut, vt, fluid, solid,
+                               p0=state.p)
+        msq = max_speed_sq(cfg, u2, v2)
+        iters, p2 = info["iterations"], info["pressure"]
     return state.replace(u=u2, v=v2, p=p2), msq, iters
 
 
@@ -95,13 +150,15 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
         dt_proj = torch.where(active, dt, torch.inf)
         new, new_msq, iters = substep(cfg, scn, state, dt, dt_proj,
                                       defer_alive=True)
-        state = new.replace(
-            u=torch.where(active, new.u, state.u),
-            v=torch.where(active, new.v, state.v),
-            prev_marker_count=torch.where(active, new.prev_marker_count,
-                                          state.prev_marker_count),
-            p=torch.where(active, new.p, state.p),
-        )
+
+        def sel(name):
+            return torch.where(active, getattr(new, name),
+                               getattr(state, name))
+
+        keep = ["u", "v", "prev_marker_count", "p"]
+        if cfg.rainbow:
+            keep += ["r", "g", "b"]
+        state = new.replace(**{name: sel(name) for name in keep})
         msq = torch.where(active, new_msq, msq)
         frame_time = torch.where(active, frame_time - dt, frame_time)
         n_active = n_active + active.to(torch.int32)

@@ -1,6 +1,9 @@
 """The port stands alone: it imports neither jax nor euler_tpu, builds no
-kernel at import, and `chip_smoke.py` refuses to run without a GPU."""
+kernel at import, and `chip_smoke.py` refuses to run without a GPU.  Its
+entry points put their tensors on the card unless the caller asks for the
+CPU, with no fallback."""
 
+import inspect
 import json
 import os
 import shutil
@@ -11,6 +14,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from euler_tpu_torch import convert
+from euler_tpu_torch.core import presets, state
 from euler_tpu_torch.ops.cuda import _build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -22,7 +27,13 @@ MODULES = [
     "euler_tpu_torch.ops.cuda.marker_fused_kernel",
     "euler_tpu_torch.ops.cuda.substep_kernel",
     "euler_tpu_torch.ops.cuda.mg_kernel",
+    "euler_tpu_torch.ops.cuda.pcg_kernel",
+    "euler_tpu_torch.ops.color",
+    "euler_tpu_torch.ops.project",
 ]
+ENTRY_POINTS = [presets.dam_break, presets.block_obstacles, presets._finish,
+                state.zeros_state, convert.state_from_numpy,
+                convert.scenario_from_numpy]
 
 
 def _env():
@@ -95,3 +106,18 @@ def test_wrappers_check_their_tensors(case):
              "shape": "shape", "strided": "contiguous"}[case]
     with pytest.raises((TypeError, ValueError), match=match):
         _build.require(t, "x", torch.float32, (4, 4))
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_without_a_card_raises():
+    """No silent CPU fallback: torch's own error when there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the test covers GPU-less hosts")
+    from euler_tpu_torch.config import SimConfig
+
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        presets.dam_break(SimConfig(nx=32, ny=32, marker_layout="slots"))

@@ -21,7 +21,7 @@ def test_preset_states_bitwise(preset, size):
     cfg = port_config(size)
     jcfg = jax_config(cfg, interpret=False)
     jscn, jst = getattr(jpresets, preset)(jcfg, seed=3)
-    scn, st = getattr(tpresets, preset)(cfg, seed=3)
+    scn, st = getattr(tpresets, preset)(cfg, seed=3, device="cpu")
 
     got = convert.state_to_numpy(st)
     for f in dataclasses.fields(jst):
@@ -38,13 +38,14 @@ def test_preset_states_bitwise(preset, size):
 
 def test_convert_round_trip():
     cfg = port_config(32)
-    _, st = tpresets.dam_break(cfg)
+    _, st = tpresets.dam_break(cfg, device="cpu")
     arrays = convert.state_to_numpy(st)
     assert arrays["markers"].shape == (2, cfg.max_markers)
-    back = convert.state_to_numpy(convert.state_from_numpy(arrays))
+    back = convert.state_to_numpy(convert.state_from_numpy(arrays,
+                                                              device="cpu"))
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
-    assert convert.state_from_numpy(arrays).markers.shape == (
+    assert convert.state_from_numpy(arrays, device="cpu").markers.shape == (
         2, cfg.slots_per_cell, cfg.ny, cfg.nx)
 
 

@@ -2,7 +2,8 @@
 marker pass + fused substep, Pallas in interpret mode), 2 frames of the
 64² dam break: marker counts bitwise, velocities atol 5e-3, dropped
 markers equal (tests/test_substep_fused.py:118-146).  And the slice
-guard: configurations the port does not run raise."""
+guard: configurations the port does not run raise.  The other routes
+(Jacobi, rainbow, unfused) are in test_torch_sim_routes.py."""
 
 import dataclasses
 
@@ -25,7 +26,7 @@ FRAMES = 2
 def frames():
     cfg = port_config(64)
     jcfg = jax_config(cfg)
-    scn, st = dam_break(cfg)
+    scn, st = dam_break(cfg, device="cpu")
     jscn, jst = jdam_break(jcfg)
     step = jax.jit(jstep_frame, static_argnums=0)
     out = []
@@ -57,7 +58,7 @@ def test_frames_match_jax_main_path(frames, frame):
 
 def test_run_frames_is_step_frame_repeated():
     cfg = port_config(32)
-    scn, st = dam_break(cfg)
+    scn, st = dam_break(cfg, device="cpu")
     a = sim.run_frames(cfg, scn, st, 2)
     b = sim.step_frame(cfg, scn, sim.step_frame(cfg, scn, st))
     for k, v in convert.state_to_numpy(a).items():
@@ -69,8 +70,12 @@ def _outside(kind):
     s = cfg.solver
     if kind == "global":
         return dataclasses.replace(cfg, marker_layout="global")
-    if kind == "rainbow":
-        return dataclasses.replace(cfg, rainbow=True)
+    if kind == "rediscretize":
+        return dataclasses.replace(cfg, solver=dataclasses.replace(
+            s, mg_scheme="rediscretize"))
+    if kind == "rbgs":
+        return dataclasses.replace(cfg, solver=dataclasses.replace(
+            s, mg_smoother="rbgs"))
     if kind == "f64":
         return dataclasses.replace(cfg, solver=dataclasses.replace(
             s, dtype="float64"))
@@ -83,19 +88,19 @@ def _outside(kind):
         s, preconditioner=kind))
 
 
-@pytest.mark.parametrize("kind", ["global", "rainbow", "jacobi", "ic0",
+@pytest.mark.parametrize("kind", ["global", "rediscretize", "rbgs", "ic0",
                                   "none", "f64", "frame_hierarchy",
                                   "odd_levels"])
 def test_outside_the_slice_raises(kind):
     cfg = port_config(64)
-    scn, st = dam_break(cfg)
+    scn, st = dam_break(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.step_frame(_outside(kind), scn, st)
 
 
 def test_sources_raise():
     cfg = port_config(64)
-    scn, st = dam_break(cfg)
+    scn, st = dam_break(cfg, device="cpu")
     scn = dataclasses.replace(
         scn, source_yx=torch.tensor([[10, 10]], dtype=torch.int32),
         source_valid=torch.tensor([True]))
@@ -107,7 +112,7 @@ def test_inactive_substeps_keep_state():
     """A frame whose CFL dt covers the frame in one substep runs 7
     inactive substeps; the pressure carry and counts survive them."""
     cfg = port_config(32)
-    scn, st = dam_break(cfg)
+    scn, st = dam_break(cfg, device="cpu")
     st1, stats = sim.step_frame_stats(cfg, scn, st)
     assert int(stats["n_active"]) == 1  # still fluid: dt = frame_time
     assert n(st1.p).any()

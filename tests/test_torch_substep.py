@@ -11,6 +11,7 @@ import torch
 from euler_tpu.ops.pallas.substep_kernel import (
     project_substep_mg as jproject_substep_mg,
 )
+from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda import substep_kernel as k2
 
 from torch_parity import (
@@ -68,12 +69,12 @@ def test_inactive_substep_is_free():
 def test_wrapper_takes_plain_version_on_cpu():
     cfg = port_config(64)
     scn, st = port_state(developed_numpy(64))
-    before = k2.PLAIN_CALLS
+    before = _build.PLAIN_CALLS["K2"]
     dt = torch.tensor(0.02)
     got = k2.project_substep_mg(cfg, dt, dt, st.u, st.v, st.fluid,
                                 st.prev_fluid, scn.solid, st.p)
     want = k2.project_substep_mg_plain(cfg, dt, dt, st.u, st.v, st.fluid,
                                        st.prev_fluid, scn.solid, st.p)
-    assert k2.PLAIN_CALLS == before + 1
+    assert _build.PLAIN_CALLS["K2"] == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
