@@ -9,16 +9,24 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      against the port on the CPU (plain PyTorch versions), 2 frames;
   2. builds the 1024² dam break and advances it 4 warm-up frames;
   3. holds each kernel against its plain version on the card, on that
-     state: K1 marker pass, K2 substep grid half, K3 MG-PCG solve, K8
-     Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep;
+     state: K1 marker pass, K2 substep grid half, K3 MG-PCG solve, K7 grid
+     stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep;
   4. times 20 frames of the main path (dam break, slot markers K=8,
      Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection);
   5. times 20 frames of the Jacobi speed mode (`bench.py --precon
      jacobi`: 100 iterations, tol 1e-6, tol_rel 1e-6, no warm start) after
      4 warm-up frames;
   6. runs the secondary routes, 2 warm-up and 4 timed frames each:
-     Jacobi unfused (K8), Jacobi + rainbow (K9), MG + rainbow (K3);
-  7. times each kernel beside its plain version with CUDA events.
+     Jacobi unfused (K8), Jacobi + rainbow (K9), MG + rainbow (K3), Jacobi
+     unfused with `use_pallas_grid` (K7, K8);
+  7. times each kernel beside its plain version with CUDA events;
+  8. runs `bench.py --size 2048` (the main path's config at 2048², where
+     the JAX package's size gates take the plain grid stage and K11): 2
+     warm-up + 4 timed frames, then K11 (F = 2) against its plain version
+     on that state, timed;
+  9. runs `bench.py --size 4096 --precon jacobi` (the plain grid stage and
+     K12): 1 warm-up + 2 timed frames, then K12 and K11 (F = 4, with the
+     MG config) against their plain versions on that state, K12 timed.
 Each path runs with the launch counts set to 0 just before it and read
 just after: its kernels must have launched and no plain version may have
 run.  Prints one JSON line of per-kernel results, the card's name and
@@ -43,6 +51,10 @@ FRAMES = 20        # timed frames of the main path and the speed mode
 ROUTE_WARMUP = 2   # warm-up frames of each secondary route
 ROUTE_FRAMES = 4   # timed frames of each secondary route
 REPS = 5           # timed calls per kernel and per plain version
+LARGE = {          # size: (preconditioner, warm-up frames, timed frames,
+    2048: ("mg", 2, 4, 3),          # timed calls per kernel)
+    4096: ("jacobi", 1, 2, 2),
+}
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
 # and f32 FLOP/s outside the tensor cores.
@@ -60,11 +72,16 @@ F32_FLOP_PER_S = 67e12
 #   an MG-PCG iteration: the level-0 sweeps (~40) plus the coarse levels'
 #   truncated-W visits (~20): 60 flops
 #   a marker step: two bilinear samples and the position update: 28 flops
+#   the grid stage alone (K7: extrapolate, four bilinear samples, gravity):
+#   ~70 flops
 # A Jacobi-PCG iteration's three sweeps move 14 [Y, X] f32 planes
 # (csrc/jacobi_pcg.cu): the HBM time of that traffic is the sweep bound
 # of K8-K10, an upper bound on their floor (the live planes fit the L2).
-JACOBI_SWEEP_PLANES = 14
+# K12's two sweeps move 13 planes an iteration (pcg_stream_kernel.py:19),
+# K11's four fine sweeps 17 (mg_stream_kernel.py:25-26).
+SWEEP_PLANES = {"K8": 14, "K9": 14, "K10": 14, "K11": 17, "K12": 13}
 GRID_FLOPS = 100
+GRID_STAGE_FLOPS = 70
 JACOBI_FLOPS = 20
 MG_FLOPS = 60
 MARKER_FLOPS = 28
@@ -84,6 +101,11 @@ BOUNDS = {
     # u, v f32; fl, pfl, so u8 in; u2, v2 f32 out
     "K10": lambda n, iters, live: (
         19 * n, (GRID_FLOPS + JACOBI_FLOPS * iters) * n),
+    # u, v f32; fl, pfl, so u8 in; ut, vt f32 out
+    "K7": lambda n, iters, live: (19 * n, GRID_STAGE_FLOPS * n),
+    # b f32; a_diag i32; fluid u8 in; p f32 out
+    "K11": lambda n, iters, live: (13 * n, MG_FLOPS * iters * n),
+    "K12": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
 }
 KERNELS = {
     "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
@@ -92,12 +114,18 @@ KERNELS = {
            "euler_tpu/ops/pallas/substep_kernel.py:361"),
     "K3": ("mg_pcg", "euler_tpu_torch/csrc/mg_pcg.cu",
            "euler_tpu/ops/pallas/mg_kernel.py:727"),
+    "K7": ("grid_stage", "euler_tpu_torch/csrc/grid_stage.cu",
+           "euler_tpu/ops/pallas/grid_kernel.py:205"),
     "K8": ("jacobi_pcg_solve", "euler_tpu_torch/csrc/jacobi_pcg.cu",
            "euler_tpu/ops/pallas/pcg_kernel.py:178"),
     "K9": ("jacobi_project", "euler_tpu_torch/csrc/jacobi_pcg.cu",
            "euler_tpu/ops/pallas/pcg_kernel.py:417"),
     "K10": ("jacobi_substep", "euler_tpu_torch/csrc/jacobi_pcg.cu",
             "euler_tpu/ops/pallas/substep_kernel.py:441"),
+    "K11": ("mg_stream_pcg", "euler_tpu_torch/csrc/mg_stream.cu",
+            "euler_tpu/ops/pallas/mg_stream_kernel.py:464"),
+    "K12": ("jacobi_stream_pcg", "euler_tpu_torch/csrc/jacobi_pcg.cu",
+            "euler_tpu/ops/pallas/pcg_stream_kernel.py:266"),
 }
 
 
@@ -190,11 +218,12 @@ def reset_counts() -> None:
     _build.PLAIN_CALLS.clear()
 
 
-def run_path(cfg, scn, state, frames: int, kernels, label: str):
+def run_path(cfg, scn, state, frames: int, kernels, label: str,
+             bypassed=()):
     """Step `frames` frames with the launch counts set to 0 just before
-    and read just after; checks that `kernels` launched, that no plain
-    version ran and that the state stayed finite.  Returns (state,
-    summary)."""
+    and read just after; checks that `kernels` launched, that the
+    `bypassed` ones and every plain version did not, and that the state
+    stayed finite.  Returns (state, summary)."""
     import torch
 
     from euler_tpu_torch import sim
@@ -236,6 +265,8 @@ def run_path(cfg, scn, state, frames: int, kernels, label: str):
     log(f"   launches {launches}; plain-version calls {plain}")
     for k in kernels:
         check(launches.get(k, 0) > 0, f"{label}: {k} did not launch")
+    for k in bypassed:
+        check(launches.get(k, 0) == 0, f"{label}: {k} launched")
     check(plain == 0, f"{label}: a plain version ran")
     names = ["u", "v", "p", "markers"] + (["r", "g", "b"] if cfg.rainbow
                                           else [])
@@ -251,12 +282,13 @@ def run_path(cfg, scn, state, frames: int, kernels, label: str):
 def build_all():
     """Every kernel library, one nvcc per source, started together."""
     from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
     from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
     from euler_tpu_torch.ops.cuda import mg_kernel as k3
+    from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
     from euler_tpu_torch.ops.cuda import pcg_kernel as k89
-    from euler_tpu_torch.ops.cuda import substep_kernel as k2
 
-    loaders = [k1._lib, k2._lib, k3._lib, k89.jacobi_lib]
+    loaders = [k1._lib, k7.grid_lib, k3._lib, k11._lib, k89.jacobi_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -267,11 +299,159 @@ def build_all():
                 log(f"     {line.strip()}")
 
 
+def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
+    """Times the kernel and its plain version in turns with CUDA events
+    (plain, kernel, kernel, plain) and fills results[name] with the best
+    of each and the bound of the kernel's call."""
+    out = kern()
+    iters = 0 if name in ("K1", "K7") else int(
+        out[1] if name in ("K3", "K8", "K11", "K12") else out[2])
+    t_p1 = cuda_ms(plain_fn, reps)
+    t_k1 = cuda_ms(kern, reps)
+    t_k2 = cuda_ms(kern, reps)
+    t_p2 = cuda_ms(plain_fn, reps)
+    nbytes, flops = BOUNDS[name](n_cells, iters, n_live)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOP_PER_S
+    results.setdefault(name, {}).update(
+        ms=min(t_k1, t_k2), plain_ms=min(t_p1, t_p2),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+    log(f"   {name}: kernel {t_k1:.3f} / {t_k2:.3f} ms, plain "
+        f"{t_p1:.3f} / {t_p2:.3f} ms; bound "
+        f"{results[name]['bound_ms']:.4f} ms by "
+        f"{results[name]['bound_by']} ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP, {iters} iterations, {n_cells} cells)")
+    if name in SWEEP_PLANES:
+        sweep = SWEEP_PLANES[name] * 4 * n_cells * iters
+        log(f"   {name}: sweep bound {1e3 * sweep / HBM_BYTES_PER_S:.3f}"
+            f" ms ({sweep / 1e9:.2f} GB over {iters} iterations)")
+
+
+def substep_system(cfg, scn, state):
+    """A substep's own projection system on `state`: dt from its maxsq,
+    the advected velocities (plain grid stage), their RHS and the
+    diagonal."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda.grid_kernel import grid_stage_plain
+    from euler_tpu_torch.ops.forces import max_speed_sq
+    from euler_tpu_torch.ops.project import (
+        divergence_rhs,
+        pressure_matrix_diag,
+    )
+
+    frame_time = torch.tensor(cfg.frame_time, device=state.u.device)
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, state.u, state.v),
+                          frame_time)
+    ut, vt = grid_stage_plain(cfg, dt, state.u, state.v, state.fluid,
+                              state.prev_fluid, scn.solid)
+    b = divergence_rhs(cfg, ut, vt, state.fluid, dt)
+    a_diag = pressure_matrix_diag(cfg, scn.solid, state.fluid)
+    return dt, ut, vt, b, a_diag
+
+
+def check_solve(name, got, want, rel_tol, same_iters: bool):
+    """Pressure within rel_tol of the plain version's scale; iterations
+    equal or within 1."""
+    (p_k, i_k, _), (p_p, i_p, _) = got, want
+    scale = p_p.abs().max().item()
+    err = (p_k - p_p).abs().max().item()
+    log(f"   {name}: p max err {err:.3g} of scale {scale:.3g} (atol "
+        f"{rel_tol:g}*scale); iters {int(i_k)} vs {int(i_p)}")
+    check(int(i_p) > 0, f"{name}: the plain solve ran no iteration")
+    check(err <= rel_tol * scale, f"{name} pressure differs > "
+          f"{rel_tol:g}*scale")
+    if same_iters:
+        check(int(i_k) == int(i_p), f"{name} iterations differ")
+    else:
+        check(abs(int(i_k) - int(i_p)) <= 1, f"{name} iterations differ > 1")
+    return err
+
+
+def run_large(size, results, summaries, launches, profile_prefix=None):
+    """The paths beyond the fused kernels' gates: `bench.py --size 2048`
+    (MG: the plain grid stage and K11) and `--size 4096 --precon jacobi`
+    (K12), each from the seeded dam break (profiled with a prefix), then
+    their solver against its plain version on the state they reached."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
+    from euler_tpu_torch.ops.cuda import pcg_stream_kernel as k12
+
+    precon, warmup, frames, reps = LARGE[size]
+    mg = precon == "mg"
+    cfg = main_config(size) if mg else speed_config(size)
+    kernel = "K11" if mg else "K12"
+    label = f"{precon}_{size}"
+    torch.cuda.reset_peak_memory_stats()
+    with Phase(f"{label}: {warmup} warm-up + {frames} timed frames"):
+        scn, state = dam_break(cfg, device=torch.device("cuda", 0))
+        check(sim.route(cfg, scn) == ("plain", kernel),
+              f"{label}: route {sim.route(cfg, scn)}")
+        for _ in range(warmup):
+            state = sim.step_frame(cfg, scn, state)
+        bypassed = ["K2", "K3"] if mg else ["K8", "K9", "K10"]
+        state, summaries[label] = run_path(cfg, scn, state, frames,
+                                           ["K1", kernel], label, bypassed)
+        if mg:
+            check(summaries[label]["div_inf"] < 1.0,
+                  f"{label}: div_inf too large")
+        launches[kernel] = summaries[label]["launches"].get(kernel, 0)
+        peak = torch.cuda.max_memory_allocated()
+        summaries[label]["max_memory_allocated"] = peak
+        log(f"   torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB")
+    if profile_prefix:
+        with Phase(f"{label}: profile"):
+            profile(cfg, scn, state, f"{profile_prefix}.{label}.txt", label)
+
+    with Phase(f"{label}: solvers vs plain versions on the card"):
+        dt, ut, vt, b, a_diag = substep_system(cfg, scn, state)
+        fl = state.fluid
+        mcfg = main_config(size)
+        check(k11._root(mcfg)[2] == (2 if mg else 4), "K11: unexpected F")
+        err = check_solve(f"K11 (F = {k11._root(mcfg)[2]})",
+                          k11.solve_pressure_mg_stream(mcfg, b, a_diag, fl),
+                          k11.solve_pressure_mg_stream_plain(mcfg, b, a_diag,
+                                                             fl),
+                          5e-4, same_iters=False)
+        if mg:
+            results["K11"] = {"max_abs_err": err}
+            time_pair(results, "K11",
+                      lambda: k11.solve_pressure_mg_stream(cfg, b, a_diag,
+                                                           fl),
+                      lambda: k11.solve_pressure_mg_stream_plain(
+                          cfg, b, a_diag, fl),
+                      size * size, 0, reps)
+        else:
+            results["K12"] = {"max_abs_err": check_solve(
+                "K12", k12.solve_pressure_stream(cfg, b, a_diag, fl),
+                k12.solve_pressure_stream_plain(cfg, b, a_diag, fl),
+                1e-4, same_iters=True)}
+            time_pair(results, "K12",
+                      lambda: k12.solve_pressure_stream(cfg, b, a_diag, fl),
+                      lambda: k12.solve_pressure_stream_plain(cfg, b,
+                                                              a_diag, fl),
+                      size * size, 0, reps)
+        zero = torch.zeros_like(b)
+        solve = (k11.solve_pressure_mg_stream if mg
+                 else k12.solve_pressure_stream)
+        _, it0, res0 = solve(cfg, zero, a_diag, fl)
+        check(int(it0) == 0 and float(res0) == 0.0,
+              f"{kernel}: a zero RHS is not free")
+        log(f"   {kernel}: a zero RHS exits with 0 iterations")
+
+
 def run(args) -> dict:
     import torch
 
     from euler_tpu_torch import sim
     from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
     from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
     from euler_tpu_torch.ops.cuda import mg_kernel as k3
     from euler_tpu_torch.ops.cuda import pcg_kernel as k89
@@ -375,8 +555,15 @@ def run(args) -> dict:
         results["K2"] = {"max_abs_err": err2}
 
         # the substep's own system: the RHS of the advected velocities
-        ut, vt = k2.grid_stage_plain(cfg, dt, state.u, state.v, fl, pfl,
+        ut, vt = k7.grid_stage_plain(cfg, dt, state.u, state.v, fl, pfl,
                                      scn.solid)
+        u7, v7 = k7.grid_stage(cfg, state.u, state.v, fl, pfl, scn.solid, dt)
+        err7 = max((u7 - ut).abs().max().item(),
+                   (v7 - vt).abs().max().item())
+        log(f"   K7: ut/vt max err {err7:.3g} (atol 2e-4; bitwise: "
+            f"{torch.equal(u7, ut) and torch.equal(v7, vt)})")
+        check(err7 <= 2e-4, "K7 velocities differ > 2e-4")
+        results["K7"] = {"max_abs_err": err7}
         b = divergence_rhs(cfg, ut, vt, fl, dt)
         a_diag = pressure_matrix_diag(cfg, scn.solid, fl)
         err3 = 0.0
@@ -457,27 +644,37 @@ def run(args) -> dict:
                                               ["K1", "K10"], "speed mode")
         launches["K10"] = summaries["speed"]["launches"].get("K10", 0)
 
+    unfused = dataclasses.replace(scfg, solver=dataclasses.replace(
+        scfg.solver, fuse_projection=False))
+    # route: (config, its kernels, the kernels whose launch count it gives)
     routes = {
-        "jacobi_unfused": (dataclasses.replace(scfg, solver=dataclasses.replace(
-            scfg.solver, fuse_projection=False)), "K8"),
-        "jacobi_rainbow": (speed_config(SIZE, rainbow=True), "K9"),
-        "mg_rainbow": (dataclasses.replace(cfg, rainbow=True), "K3"),
+        "jacobi_unfused": (unfused, ["K1", "K8"], ["K8"]),
+        "jacobi_rainbow": (speed_config(SIZE, rainbow=True), ["K1", "K9"],
+                           ["K9"]),
+        "mg_rainbow": (dataclasses.replace(cfg, rainbow=True), ["K1", "K3"],
+                       []),
+        "jacobi_pallas_grid": (dataclasses.replace(
+            unfused, use_pallas_grid=True), ["K1", "K7", "K8"], ["K7"]),
     }
-    for route, (rcfg, kernel) in routes.items():
+    for route, (rcfg, kernels, counted) in routes.items():
         with Phase(f"route {route} {SIZE}²: {ROUTE_WARMUP} warm-up + "
                    f"{ROUTE_FRAMES} timed frames"):
+            torch.cuda.reset_peak_memory_stats()
             rscn, rstate = dam_break(rcfg, device=dev)
             for _ in range(ROUTE_WARMUP):
                 rstate = sim.step_frame(rcfg, rscn, rstate)
             rstate, summaries[route] = run_path(rcfg, rscn, rstate,
-                                                ROUTE_FRAMES, ["K1", kernel],
-                                                route)
+                                                ROUTE_FRAMES, kernels, route)
             if route == "mg_rainbow":
                 check(summaries[route]["div_inf"] < 1.0,
                       "mg_rainbow: div_inf too large")
-            if kernel != "K3":
-                launches[kernel] = summaries[route]["launches"].get(kernel,
-                                                                      0)
+            for k in counted:
+                launches[k] = summaries[route]["launches"].get(k, 0)
+            if "K7" in kernels:
+                peak = torch.cuda.max_memory_allocated()
+                summaries[route]["max_memory_allocated"] = peak
+                log(f"   torch.cuda.max_memory_allocated "
+                    f"{peak / 2**30:.3f} GiB")
             del rscn, rstate
 
     with Phase("kernel vs plain times (CUDA events)"):
@@ -491,9 +688,10 @@ def run(args) -> dict:
                    state.p)
         k10_args = (scfg, dt, dt, state.u, state.v, fl, pfl, scn.solid)
         a_diag = pressure_matrix_diag(cfg, scn.solid, fl)
-        ut, vt = k2.grid_stage_plain(cfg, dt, state.u, state.v, fl, pfl,
+        ut, vt = k7.grid_stage_plain(cfg, dt, state.u, state.v, fl, pfl,
                                      scn.solid)
         b = divergence_rhs(cfg, ut, vt, fl, dt)
+        grid_args = (state.u, state.v, fl, pfl, scn.solid)
         pairs = {
             "K1": (lambda: k1.march_rebin(*k1_args, dead=dead),
                    lambda: k1.march_rebin_plain(*k1_args, dead=dead)),
@@ -503,6 +701,8 @@ def run(args) -> dict:
                                                 x0=state.p),
                    lambda: k3.solve_pressure_mg_plain(cfg, b, a_diag, fl,
                                                       state.p)),
+            "K7": (lambda: k7.grid_stage(cfg, *grid_args, dt),
+                   lambda: k7.grid_stage_plain(cfg, dt, *grid_args)),
             "K8": (lambda: k89.solve_pressure_jacobi(scfg, b, a_diag, fl),
                    lambda: k89.solve_pressure_jacobi_plain(scfg, b, a_diag,
                                                            fl)),
@@ -513,38 +713,18 @@ def run(args) -> dict:
             "K10": (lambda: k2.project_substep_jacobi(*k10_args),
                     lambda: k2.project_substep_jacobi_plain(*k10_args)),
         }
-        n_cells = Y * X
         n_live = int(state.marker_count.sum())
         for name, (kern, plain_fn) in pairs.items():
-            out = kern()
-            iters = 0 if name == "K1" else int(out[1] if name in ("K3", "K8")
-                                               else out[2])
-            t_p1 = cuda_ms(plain_fn, REPS)
-            t_k1 = cuda_ms(kern, REPS)
-            t_k2 = cuda_ms(kern, REPS)
-            t_p2 = cuda_ms(plain_fn, REPS)
-            nbytes, flops = BOUNDS[name](n_cells, iters, n_live)
-            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-            t_ops = 1e3 * flops / F32_FLOP_PER_S
-            results[name].update(
-                ms=min(t_k1, t_k2), plain_ms=min(t_p1, t_p2),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
-            log(f"   {name}: kernel {t_k1:.3f} / {t_k2:.3f} ms, plain "
-                f"{t_p1:.3f} / {t_p2:.3f} ms; bound "
-                f"{results[name]['bound_ms']:.4f} ms by "
-                f"{results[name]['bound_by']} ({nbytes / 1e6:.1f} MB, "
-                f"{flops / 1e9:.3f} GFLOP, {iters} iterations)")
-            if name in ("K8", "K9", "K10"):
-                sweep = JACOBI_SWEEP_PLANES * 4 * n_cells * iters
-                log(f"   {name}: sweep bound {1e3 * sweep / HBM_BYTES_PER_S:.3f}"
-                    f" ms ({sweep / 1e9:.2f} GB over {iters} iterations)")
+            time_pair(results, name, kern, plain_fn, Y * X, n_live, REPS)
+
+    for size in LARGE:
+        run_large(size, results, summaries, launches, args.profile)
 
     if args.profile:
         with Phase("profile"):
-            profile(cfg, scn, state, f"{args.profile}.mg.txt")
-            profile(scfg, sscn, sstate, f"{args.profile}.speed.txt")
+            profile(cfg, scn, state, f"{args.profile}.mg.txt", "mg")
+            profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
+                    "speed")
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
@@ -559,7 +739,7 @@ def run(args) -> dict:
         "count": torch.cuda.device_count()}}
 
 
-def profile(cfg, scn, state, path: str) -> None:
+def profile(cfg, scn, state, path: str, label: str) -> None:
     """torch.profiler over 2 frames from `state`: device kernel time by
     name, written to `path`, with launches and stream syncs per frame and
     the device's idle share of the same 2 frames' unprofiled wall time
@@ -603,7 +783,7 @@ def profile(cfg, scn, state, path: str) -> None:
             dev_us += d
             n_kernels += e.count
     dev_ms = dev_us / 1e3 / frames
-    log(f"   {cfg.solver.preconditioner}: device kernel time {dev_ms:.3f} "
+    log(f"   {label}: device kernel time {dev_ms:.3f} "
         f"ms/frame, {n_kernels / frames:.0f} kernel launches/frame, "
         f"{n_sync / frames:.0f} stream syncs/frame; the same frames "
         f"unprofiled {ms_frame:.3f} ms/frame ({int(stats['n_active'])} "
@@ -617,8 +797,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="PREFIX",
                     help="write torch.profiler tables of 2 frames of the "
-                         "MG main path and the speed mode to "
-                         "PREFIX.mg.txt and PREFIX.speed.txt")
+                         "MG main path, the speed mode and the 2048² and "
+                         "4096² paths to PREFIX.mg.txt, PREFIX.speed.txt, "
+                         "PREFIX.mg_2048.txt and PREFIX.jacobi_4096.txt")
     args = ap.parse_args(argv)
 
     try:

@@ -5,23 +5,24 @@ by the same two dataclasses on either side.
 The port takes the routes the JAX package takes with
 `SolverConfig.use_pallas=True`, whatever `use_pallas` says: the
 hand-written marker pass (K1) on the slot layout, then the grid stage
-and projection.  `SolverConfig.fuse_projection` is read, as the JAX
-`sim.substep` reads it: with it a mono substep without sources runs the
-fused grid stage + projection (K2 for MG, K10 for Jacobi), and a rainbow
-Jacobi substep the fused projection (K9); without it, or for rainbow MG,
-the projection is `ops.project.project` (K8 for Jacobi, K3 for MG).  The
-JAX package's VMEM-size gates on those routes have no counterpart on the
-card.  Fields that choose between JAX implementations of the same
-arithmetic are read by nothing here, because the port has one
-implementation of each:
+and projection, chosen as the JAX `sim.substep` chooses them
+(`sim.route`), by the JAX package's own size gates.
+`SolverConfig.fuse_projection` and `use_pallas_grid` are read: with
+`fuse_projection` a mono substep without sources runs the fused grid
+stage + projection (K2 for MG, K10 for Jacobi) and a Jacobi substep the
+fused projection (K9) where their gates let it; `use_pallas_grid` runs
+the unfused mono grid stage as K7; the rest goes through
+`ops.project.project` (K8, K3, K11 or K12).  Fields that choose between
+JAX implementations of the same arithmetic are read by nothing here,
+because the port has one implementation of each:
 
   * TPU-only devices: `marker_tile`, `marker_kmax_specialize`,
     `marker_packed_insert`, `marker_interior_fast`, `marker_padded_store`,
     `pallas_interpret` (both classes).  Each is exact or off by default in
     the JAX package, so ignoring them changes no result.
   * Dispatch switches between equivalent JAX paths: `use_pallas_markers`,
-    `fuse_marker_pass`, `use_pallas_grid`, `advect_impl`,
-    `SolverConfig.use_pallas`, `SolverConfig.check_every`.
+    `fuse_marker_pass`, `advect_impl`, `SolverConfig.use_pallas`,
+    `SolverConfig.check_every`.
   * RB-GS / V-cycle knobs that the Chebyshev smoother does not read:
     `mg_pre_smooth`, `mg_post_smooth`.
 

@@ -1,6 +1,12 @@
-// K2: the grid half of a substep for Hopper, around the K3 solve.
+// K2: the grid half of a substep for Hopper, around the K3 solve; and K7,
+// the grid stage alone.
 //
-// Replaces the Pallas kernel euler_tpu/ops/pallas/substep_kernel.py
+// K7 (`eu_grid_passes`) replaces the Pallas kernel
+// euler_tpu/ops/pallas/grid_kernel.py `_grid_kernel` (launched by
+// `grid_stage_pallas`, the unfused routes' grid stage): passes A and B
+// below, nothing else.
+//
+// K2 replaces the Pallas kernel euler_tpu/ops/pallas/substep_kernel.py
 // `_substep_kernel` (launched by `project_substep_mg`): its grid stage
 // `_grid_stage_sweeps` (extrapolate -> zero_bounds -> advect -> gravity ->
 // zero_bounds, main.c:865-889), the divergence RHS (main.c:713-724), and
@@ -44,6 +50,20 @@ __global__ void rhs_kernel(Masks m, const float* __restrict__ ut,
 
 }  // namespace
 
+// K7: the grid stage of (u, v) into (ut, vt).  u, v: [Y, X] f32 in; fl,
+// pfl, so: [Y, X] u8; zu, zv: [Y, X] scratch; dt: one f32 on the device.
+EU_API int eu_grid_passes(int Y, int X, float inv_h, float g, const void* fl,
+                          const void* pfl, const void* so, const void* u,
+                          const void* v, const void* dt, void* zu, void* zv,
+                          void* ut, void* vt, void* stream) {
+  return grid_passes(make_masks(Y, X, fl, pfl, so), inv_h, g,
+                     static_cast<const float*>(u),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dt), static_cast<float*>(zu),
+                     static_cast<float*>(zv), static_cast<float*>(ut),
+                     static_cast<float*>(vt), static_cast<cudaStream_t>(stream));
+}
+
 // Grid stage + RHS.  u, v: [Y, X] f32 in; fl, pfl, so: [Y, X] u8;
 // zu, zv: [Y, X] scratch; ut, vt: [Y, X] out; r: [Y, X] RHS out; p0
 // (nullable): warm-start guess copied into p.  dt, dt_proj: one f32 each
@@ -55,21 +75,14 @@ EU_API int eu_grid_stage(int Y, int X, float inv_h, float g, float scale,
                          void* zv, void* ut, void* vt, void* r, void* p,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Masks m{Y, X, static_cast<const uint8_t*>(fl),
-          static_cast<const uint8_t*>(pfl), static_cast<const uint8_t*>(so)};
+  const Masks m = make_masks(Y, X, fl, pfl, so);
   const unsigned nb = eu_blocks(static_cast<long long>(Y) * X, kThreads);
-  pass_a<<<nb, kThreads, 0, s>>>(m, static_cast<const float*>(u),
-                                 static_cast<const float*>(v),
-                                 static_cast<float*>(zu),
-                                 static_cast<float*>(zv));
-  int rc = eu_launch_status();
+  int rc = grid_passes(m, inv_h, g, static_cast<const float*>(u),
+                       static_cast<const float*>(v),
+                       static_cast<const float*>(dt), static_cast<float*>(zu),
+                       static_cast<float*>(zv), static_cast<float*>(ut),
+                       static_cast<float*>(vt), s);
   if (rc) return rc;
-  pass_b<<<nb, kThreads, 0, s>>>(m, static_cast<const float*>(zu),
-                                 static_cast<const float*>(zv),
-                                 static_cast<const float*>(dt), inv_h, g,
-                                 static_cast<float*>(ut),
-                                 static_cast<float*>(vt));
-  if ((rc = eu_launch_status())) return rc;
   rhs_kernel<<<nb, kThreads, 0, s>>>(m, static_cast<const float*>(ut),
                                      static_cast<const float*>(vt),
                                      static_cast<const float*>(dt_proj),

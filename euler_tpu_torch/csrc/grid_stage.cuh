@@ -3,7 +3,8 @@
 // around the Jacobi-PCG solve).
 //
 // Pass A (extrapolate -> zero_bounds, main.c:865-870) and pass B
-// (advection + gravity + zero_bounds, main.c:871-889) are the grid stage
+// (advection + gravity + zero_bounds, main.c:871-889; both launched by
+// grid_passes, which is all of K7) are the grid stage
 // `_grid_stage_sweeps` of euler_tpu/ops/pallas/substep_kernel.py; the
 // clamp (main.c:773-779), the face update (main.c:782-806) and the CFL
 // maxsq (main.c:808-820) are the tail both Pallas projection kernels end
@@ -139,6 +140,25 @@ __global__ void pass_b(Masks m, const float* __restrict__ zu,
   if (!vmask || m.vprop(m.so, y, x)) vo = 0.0f;
   ut[t] = uo;
   vt[t] = vo;
+}
+
+// passes A and B: (u, v) -> (ut, vt) through the scratch planes zu, zv
+inline int grid_passes(const Masks& m, float inv_h, float g, const float* u,
+                const float* v, const float* dt, float* zu, float* zv,
+                float* ut, float* vt, cudaStream_t s) {
+  const unsigned nb = eu_blocks(static_cast<long long>(m.Y) * m.X, kThreads);
+  pass_a<<<nb, kThreads, 0, s>>>(m, u, v, zu, zv);
+  const int rc = eu_launch_status();
+  if (rc) return rc;
+  pass_b<<<nb, kThreads, 0, s>>>(m, zu, zv, dt, inv_h, g, ut, vt);
+  return eu_launch_status();
+}
+
+inline Masks make_masks(int Y, int X, const void* fl, const void* pfl,
+                 const void* so) {
+  return Masks{Y, X, static_cast<const uint8_t*>(fl),
+               static_cast<const uint8_t*>(pfl),
+               static_cast<const uint8_t*>(so)};
 }
 
 // pressure clamp >= 0 on fluid cells, NaN-propagating like jnp.maximum

@@ -1,13 +1,17 @@
-// K8, K9, K10: Jacobi-preconditioned CG for Hopper — the reference-budget
-// "speed mode" solve alone (K8), between the divergence RHS and the
-// clamp + face update (K9), and behind K2's grid stage as well (K10).
+// K8, K9, K10, K12: Jacobi-preconditioned CG for Hopper — the
+// reference-budget "speed mode" solve alone (K8), between the divergence
+// RHS and the clamp + face update (K9), behind K2's grid stage as well
+// (K10), and in its two-sweep form with the As recurrence (K12).
 //
 // Replaces the Pallas kernels euler_tpu/ops/pallas/pcg_kernel.py
 // `_pcg_kernel` (launched by `solve_pressure_pallas`) and
-// `_project_kernel` (launched by `project_pallas`), and
+// `_project_kernel` (launched by `project_pallas`),
 // euler_tpu/ops/pallas/substep_kernel.py `_substep_jacobi_kernel`
-// (launched by `project_substep_jacobi`).  Ported is what they compute;
-// their TPU devices (row chunks, the VMEM plan, b aliased as r) are not.
+// (launched by `project_substep_jacobi`), and
+// euler_tpu/ops/pallas/pcg_stream_kernel.py `_stream_kernel` (launched by
+// `solve_pressure_stream`).  Ported is what they compute; their TPU
+// devices (row chunks, the VMEM plan, HBM row windows, b aliased as r)
+// are not.
 //
 // What bounds it on an H100: bytes, iteration by iteration.  One
 // iteration is three sweeps over [Y, X] f32 planes: As = A s (reads
@@ -32,6 +36,12 @@
 // and with the plain version's operand order (ops/project.py apply_a),
 // so every sweep rounds as the plain PyTorch version does; only the order
 // of the reductions differs.
+//
+// K12 computes the same solve another way, as its Pallas kernel does:
+// s' = z + beta s and As' = A z + beta As with z = invd r recomputed on
+// the cell and its neighbours, so an iteration is two sweeps (13 plane
+// passes: the s/As update, then K8's p/r update) and the same two
+// reductions, four launches in all; one max|r| pass ends the solve.
 #include "grid_stage.cuh"
 
 namespace {
@@ -139,6 +149,7 @@ __global__ void init_reduce(const float* __restrict__ part_sum,
   if (threadIdx.x == 0) {
     scal[S_TOL] = nanmax(tol, tol_rel * rmax0);
     scal[S_SIGMA] = sigma0;
+    scal[S_BETA] = 0.0f;
     scal[S_RESID] = rmax0;
     flags[F_DONE] = !(rmax0 != 0.0f);
     flags[F_ITERS] = 0;
@@ -234,6 +245,56 @@ __global__ void update_s(int n, const float* __restrict__ packed,
   s[t] = decode(packed[t]).invd * r[t] + scal[S_BETA] * s[t];
 }
 
+// K12's sweep 1: z = invd r on the cell and its neighbours; s = z + beta s;
+// As = A z + beta As; partials of <As, s>
+__global__ void update_s_as(int Y, int X, const float* __restrict__ packed,
+                            const float* __restrict__ r,
+                            float* __restrict__ s, float* __restrict__ As,
+                            const float* __restrict__ scal,
+                            float* __restrict__ part,
+                            const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  float acc = 0.0f;
+  if (t < Y * X) {
+    const int y = t / X, x = t - y * X;
+    auto z_at = [&](int i, int j) {
+      if (i < 0 || i >= Y || j < 0 || j >= X) return 0.0f;
+      const int k = i * X + j;
+      return decode(packed[k]).invd * r[k];
+    };
+    const Cell c = decode(packed[t]);
+    const float z = c.invd * r[t];
+    float nb = z_at(y, x - 1) + z_at(y, x + 1);
+    nb = nb + z_at(y - 1, x);
+    nb = nb + z_at(y + 1, x);
+    const float az = c.fl * (c.a * z - nb);
+    const float beta = scal[S_BETA];
+    const float sn = z + beta * s[t];
+    const float an = az + beta * As[t];
+    s[t] = sn;
+    As[t] = an;
+    acc = an * sn;
+  }
+  acc = block_reduce<EU_SUM>(acc);
+  if (threadIdx.x == 0) part[blockIdx.x] = acc;
+}
+
+// partials of max|r|, then the solve's final residual
+__global__ void rmax_partial(int n, const float* __restrict__ r,
+                             float* __restrict__ part) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  float m = t < n ? fabsf(r[t]) : 0.0f;
+  m = block_reduce<EU_MAX>(m);
+  if (threadIdx.x == 0) part[blockIdx.x] = m;
+}
+
+__global__ void resid_reduce(const float* __restrict__ part, int nparts,
+                             float* scal) {
+  const float rmax = reduce_partials<EU_MAX>(part, nparts);
+  if (threadIdx.x == 0) scal[S_RESID] = rmax;
+}
+
 // the planes and scalars of one solve
 struct Pcg {
   int Y, X;
@@ -248,8 +309,10 @@ struct Pcg {
   float* part_sum() const { return part; }
   float* part_max() const { return part + blocks(); }
 
-  // after a head kernel has written packed, r, s, p and the partials
-  int solve(int max_iters, float tol, float tol_rel) const {
+  // after a head kernel has written packed, r, s, p and the partials;
+  // `as_recurrence` takes K12's two-sweep iteration (As must be zero)
+  int solve(int max_iters, float tol, float tol_rel,
+            bool as_recurrence = false) const {
     const unsigned nb = blocks();
     init_reduce<<<1, kReduceThreads, 0, st>>>(part_sum(), part_max(), nb, tol,
                                               tol_rel, scal, flags);
@@ -265,8 +328,12 @@ struct Pcg {
         if ((rc = static_cast<int>(cudaStreamSynchronize(st)))) return rc;
         if (done) break;
       }
-      apply_s<<<nb, kThreads, 0, st>>>(Y, X, packed, s, As, part_sum(),
-                                       flags);
+      if (as_recurrence)
+        update_s_as<<<nb, kThreads, 0, st>>>(Y, X, packed, r, s, As, scal,
+                                             part_sum(), flags);
+      else
+        apply_s<<<nb, kThreads, 0, st>>>(Y, X, packed, s, As, part_sum(),
+                                         flags);
       if ((rc = eu_launch_status())) return rc;
       alpha_reduce<<<1, kReduceThreads, 0, st>>>(part_sum(), nb, scal, flags);
       if ((rc = eu_launch_status())) return rc;
@@ -276,10 +343,15 @@ struct Pcg {
       conv_reduce<<<1, kReduceThreads, 0, st>>>(part_sum(), part_max(), nb,
                                                 scal, flags);
       if ((rc = eu_launch_status())) return rc;
+      if (as_recurrence) continue;
       update_s<<<nb, kThreads, 0, st>>>(n(), packed, r, s, scal, flags);
       if ((rc = eu_launch_status())) return rc;
     }
-    return 0;
+    if (!as_recurrence) return 0;
+    rmax_partial<<<nb, kThreads, 0, st>>>(n(), r, part_max());
+    if ((rc = eu_launch_status())) return rc;
+    resid_reduce<<<1, kReduceThreads, 0, st>>>(part_max(), nb, scal);
+    return eu_launch_status();
   }
 };
 
@@ -332,6 +404,26 @@ EU_API int eu_jacobi_solve(int Y, int X, int max_iters, float tol,
   return P.solve(max_iters, tol, tol_rel);
 }
 
+// K12: K8's solve in its two-sweep form (same buffers and arguments).
+EU_API int eu_jacobi_stream_solve(int Y, int X, int max_iters, float tol,
+                                  float tol_rel, const void* a_diag,
+                                  const void* fl, const void* b,
+                                  void* packed, void* r, void* p, void* s,
+                                  void* As, void* part, void* scal,
+                                  void* flags, void* stream) {
+  const Pcg P = make_pcg(Y, X, packed, r, p, s, As, part, scal, flags, stream);
+  solve_head<<<P.blocks(), kThreads, 0, P.st>>>(
+      P.n(), static_cast<const int32_t*>(a_diag),
+      static_cast<const uint8_t*>(fl), static_cast<const float*>(b), P.packed,
+      P.r, P.s, P.p, P.part_sum(), P.part_max());
+  int rc = eu_launch_status();
+  if (rc) return rc;
+  if ((rc = static_cast<int>(cudaMemsetAsync(
+           P.As, 0, sizeof(float) * P.n(), P.st))))
+    return rc;
+  return P.solve(max_iters, tol, tol_rel, true);
+}
+
 // K9: the projection of (ut, vt) into (u2, v2).  fl, so: [Y, X] u8;
 // dt (face update) and dt_proj (RHS scale): one f32 each on the device;
 // msq: one f32 out.
@@ -367,22 +459,15 @@ EU_API int eu_jacobi_substep(int Y, int X, int max_iters, float tol,
                              void* s, void* As, void* part, void* scal,
                              void* flags, void* msq, void* stream) {
   const Pcg P = make_pcg(Y, X, packed, r, p, s, As, part, scal, flags, stream);
-  const Masks m{Y, X, static_cast<const uint8_t*>(fl),
-                static_cast<const uint8_t*>(pfl),
-                static_cast<const uint8_t*>(so)};
-  float* zuf = static_cast<float*>(zu);
-  float* zvf = static_cast<float*>(zv);
+  const Masks m = make_masks(Y, X, fl, pfl, so);
   float* uo = static_cast<float*>(u2);
   float* vo = static_cast<float*>(v2);
   const float* dtf = static_cast<const float*>(dt);
-  pass_a<<<P.blocks(), kThreads, 0, P.st>>>(m, static_cast<const float*>(u),
-                                            static_cast<const float*>(v), zuf,
-                                            zvf);
-  int rc = eu_launch_status();
+  const int rc = grid_passes(m, inv_h, g, static_cast<const float*>(u),
+                             static_cast<const float*>(v), dtf,
+                             static_cast<float*>(zu), static_cast<float*>(zv),
+                             uo, vo, P.st);
   if (rc) return rc;
-  pass_b<<<P.blocks(), kThreads, 0, P.st>>>(m, zuf, zvf, dtf, inv_h, g, uo,
-                                            vo);
-  if ((rc = eu_launch_status())) return rc;
   return project_body(m, P, max_iters, tol, tol_rel, inv_h, scale, c, dtf,
                       static_cast<const float*>(dt_proj), uo, vo, uo, vo,
                       static_cast<float*>(msq));

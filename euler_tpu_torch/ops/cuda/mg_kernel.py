@@ -13,6 +13,9 @@ design keeps one kernel per level operation with the restriction and the
 the iteration count repeats from run to run (see the note in the
 source).
 
+`mg_pallas_fits` is the JAX package's gate for K3 (mg_kernel.py:748);
+`mg_fits` is the CUDA levels' own check that the sizes halve evenly.
+
 `mg_host_operands` stays plain PyTorch on the device, as the JAX package
 leaves it to XLA: the Galerkin hierarchy by 2x2 block sums and the
 Chebyshev rows from each level's measured Gershgorin bound, with no host
@@ -29,6 +32,7 @@ import torch
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops import multigrid
 from euler_tpu_torch.ops.cuda import _build
+from euler_tpu_torch.ops.cuda.pcg_kernel import _VMEM_BUDGET
 from euler_tpu_torch.ops.project import apply_a
 
 _PLANES_PER_LEVEL = 9  # c, e, n, x, b, z, rr, d, dn (csrc/mg_pcg.cu)
@@ -56,6 +60,11 @@ def mg_fits(cfg: SimConfig) -> bool:
         return False
     Yl, Xl = _level_shapes(cfg.ny, cfg.nx, s.mg_min_size)[-1]
     return min(Yl, Xl) <= s.mg_min_size
+
+
+def mg_pallas_fits(cfg: SimConfig) -> bool:
+    """`mg_fits`, and 10.5 fine planes fit the budget: through 1672²."""
+    return mg_fits(cfg) and int(cfg.ny * cfg.nx * 4 * 10.5) <= _VMEM_BUDGET
 
 
 def _cycle_kwargs(cfg: SimConfig):
@@ -96,25 +105,19 @@ def mg_host_operands(cfg: SimConfig, a_diag, fluid):
     return shapes, packed0, coef_planes, torch.where(keep, rows, 0.0)
 
 
-def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
-    """Plain MG-PCG: the loop shape of `_mg_pcg_solve` (cycle at the top,
-    s/As from zero, As' = Az + beta As, NaN-robust stop on
+def mg_pcg_plain(cfg: SimConfig, b, apply, precon, fluid, x0=None):
+    """The PCG loop shape of `_mg_pcg_solve` (the preconditioner at the
+    top, s/As from zero, As' = Az + beta As, NaN-robust stop on
     max|r| <= max(tol, tol_rel * max|b|) with ||b|| taken before the
-    warm-start subtraction), preconditioned by `cycle_galerkin`.  Reads
-    the stop flag on the host once per iteration."""
+    warm-start subtraction) around z = precon(r), from p = 0 or the guess
+    x0.  Reads the stop flag on the host once per iteration.  Returns (p,
+    iterations, residual)."""
     s = cfg.solver
-    levels = multigrid.build_galerkin_hierarchy(a_diag, fluid, b.dtype,
-                                                min_size=s.mg_min_size)
-    kw = _cycle_kwargs(cfg)
-
-    def apply(x):
-        return apply_a(a_diag, fluid, x)
-
     r = b.clone()
     rmax0 = r.abs().max()
     nonzero = rmax0 != 0
-    tol_eff = torch.maximum(torch.tensor(s.tol, dtype=b.dtype, device=b.device),
-                            s.tol_rel * rmax0)
+    tol_eff = torch.maximum(
+        torch.tensor(s.tol, dtype=b.dtype, device=b.device), s.tol_rel * rmax0)
     if x0 is None:
         p = torch.zeros_like(b)
         rmax = rmax0
@@ -129,7 +132,7 @@ def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
     sigma = torch.zeros((), dtype=b.dtype, device=b.device)
     iters = 0
     while iters < s.max_iterations and not bool(done):
-        z = multigrid.cycle_galerkin(levels, r, **kw)
+        z = precon(r)
         sigma_new = (z * r).sum()
         beta = sigma_new / torch.where(sigma != 0, sigma, 1.0)
         s_ = z + beta * s_
@@ -146,6 +149,17 @@ def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
             rmax)
 
 
+def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
+    """Plain MG-PCG: `mg_pcg_plain` preconditioned by `cycle_galerkin`
+    over the whole hierarchy."""
+    levels = multigrid.build_galerkin_hierarchy(
+        a_diag, fluid, b.dtype, min_size=cfg.solver.mg_min_size)
+    kw = _cycle_kwargs(cfg)
+    return mg_pcg_plain(cfg, b, lambda x: apply_a(a_diag, fluid, x),
+                        lambda r: multigrid.cycle_galerkin(levels, r, **kw),
+                        fluid, x0)
+
+
 def _lib():
     lib = _build.load("mg_pcg")
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
@@ -153,6 +167,49 @@ def _lib():
                 [I, P, P, P, P, I, I, I, I, I, I, F, F, I,
                  P, P, P, P, P, P, P, P])
     return lib
+
+
+class Buffers:
+    """Device buffers handed to a CUDA library, kept referenced here until
+    the launch that reads them is enqueued."""
+
+    def __init__(self, device):
+        self.device = device
+        self.keep = []
+
+    def new(self, shape) -> int:
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        self.keep.append(t)
+        return t.data_ptr()
+
+    def levels(self, shapes, coef_planes):
+        """ctypes (shapes, planes) of a `Solve` (csrc/mg_levels.cuh):
+        per level its (c, e, n) planes, or None for a packed level 0 whose
+        b is the solver's r, then fresh x, b, z, rr, d, dn planes."""
+        ptrs = []
+        for l, ((Yl, Xl), cen) in enumerate(zip(shapes, coef_planes)):
+            if cen is None:
+                ptrs += [0, 0, 0, self.new((Yl, Xl)), 0]
+            else:
+                planes = [t.contiguous() for t in cen]
+                for name, t in zip("cen", planes):
+                    _build.require(t, f"{name}{l}", torch.float32, (Yl, Xl),
+                                   self.device)
+                self.keep.extend(planes)
+                ptrs += [t.data_ptr() for t in planes]
+                ptrs += [self.new((Yl, Xl)), self.new((Yl, Xl))]
+            ptrs += [self.new((Yl, Xl)) for _ in range(4)]
+        assert len(ptrs) == _PLANES_PER_LEVEL * len(shapes)
+        flat = [v for sh in shapes for v in sh]
+        return ((ctypes.c_int * len(flat))(*flat),
+                (ctypes.c_void_p * len(ptrs))(*ptrs))
+
+
+def cycle_args(cfg: SimConfig):
+    """deg, coarse_deg, w, w_depth of the CUDA `Solve`."""
+    s = cfg.solver
+    return [s.mg_cheby_degree, s.mg_coarse_iters,
+            2 if s.mg_cycle == "w" else 1, s.mg_w_depth]
 
 
 def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
@@ -163,7 +220,6 @@ def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
     s = cfg.solver
     dev = r.device
     Y, X = shapes[0]
-    L = len(shapes)
     f = torch.float32
     _build.require(r, "r", f, (Y, X))
     _build.require(p, "p", f, (Y, X), dev)
@@ -171,33 +227,11 @@ def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
     rows = rows.contiguous()
     _build.require(rows, "coef_rows", f, device=dev)
 
-    keep = []  # every buffer handed to the library stays referenced here
-
-    def buf(shape):
-        t = torch.empty(shape, dtype=f, device=dev)
-        keep.append(t)
-        return t.data_ptr()
-
-    ptrs = []
-    for l, (Yl, Xl) in enumerate(shapes):
-        if l == 0:
-            cen = [0, 0, 0]
-        else:
-            planes = [t.contiguous() for t in coef_planes[l - 1]]
-            for name, t in zip("cen", planes):
-                _build.require(t, f"{name}{l}", f, (Yl, Xl), dev)
-            keep.extend(planes)
-            cen = [t.data_ptr() for t in planes]
-        # x, b (unused at level 0: b is r), z, rr, d, dn
-        ptrs += cen + [buf((Yl, Xl)), 0 if l == 0 else buf((Yl, Xl))]
-        ptrs += [buf((Yl, Xl)) for _ in range(4)]
-    assert len(ptrs) == _PLANES_PER_LEVEL * L
-    shape_arr = (ctypes.c_int * (2 * L))(*[v for sh in shapes for v in sh])
-    plane_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-
-    s_buf = buf((Y, X))
-    as_buf = buf((Y, X))
-    part = buf((-(-Y * X // 256),))
+    bufs = Buffers(dev)
+    shape_arr, plane_arr = bufs.levels(shapes, [None] + list(coef_planes))
+    s_buf = bufs.new((Y, X))
+    as_buf = bufs.new((Y, X))
+    part = bufs.new((-(-Y * X // 256),))
     scal = torch.zeros(8, dtype=f, device=dev)
     flags = torch.zeros(4, dtype=torch.int32, device=dev)
 
@@ -205,9 +239,8 @@ def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
     # the K3 count includes the solves K2 runs
     _build.LAUNCHES["K3"] += 1
     rc = lib.eu_mg_pcg(
-        L, shape_arr, plane_arr, packed0.data_ptr(), rows.data_ptr(),
-        rows.shape[1], s.mg_cheby_degree, s.mg_coarse_iters,
-        2 if s.mg_cycle == "w" else 1, s.mg_w_depth, s.max_iterations,
+        len(shapes), shape_arr, plane_arr, packed0.data_ptr(),
+        rows.data_ptr(), rows.shape[1], *cycle_args(cfg), s.max_iterations,
         float(s.tol), float(s.tol_rel), int(warm),
         p.data_ptr(), r.data_ptr(), s_buf, as_buf, part,
         scal.data_ptr(), flags.data_ptr(), _build.stream())

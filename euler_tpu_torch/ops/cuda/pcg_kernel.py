@@ -22,6 +22,9 @@ once every 8 iterations.
 The plain versions: `solve_pressure_jacobi_plain` is `pcg_loop` with the
 Jacobi preconditioner and `apply_a`, and `project_jacobi_plain` is the
 K9 sequence of plain ops plus `max_speed_sq`.
+
+`pallas_solver_fits` and `fused_projection_fits` are the JAX package's
+gates for K8 and K9 (pcg_kernel.py:207, :446).
 """
 
 from __future__ import annotations
@@ -41,10 +44,30 @@ from euler_tpu_torch.ops.project import (
     pressure_matrix_diag,
 )
 
+# The JAX package's VMEM budget (pcg_kernel.py:43) and the route gates
+# built on it are the TPU's: the H100 has no such ceiling.  The port keeps
+# them, as plain integer arithmetic, only so that a configuration takes
+# the route the JAX package takes and so computes the same function.
+_VMEM_BUDGET = 112 * 1024 * 1024
+
 _S_N = 5       # scal floats of one solve (csrc/jacobi_pcg.cu)
 _S_RESID = 4   # scal index of the final max|r|
 _F_N = 2       # flags ints
 _F_ITERS = 1   # flags index of the iteration count
+
+
+def pallas_solver_fits(cfg: SimConfig) -> bool:
+    """Jacobi, f32, and 6.5 fine planes fit the budget: through 2125²."""
+    return (cfg.solver.preconditioner == "jacobi"
+            and cfg.solver.dtype == "float32"
+            and int(cfg.ny * cfg.nx * 4 * 6.5) <= _VMEM_BUDGET)
+
+
+def fused_projection_fits(cfg: SimConfig) -> bool:
+    """Jacobi, f32, and 9.5 fine planes fit the budget: through 1758²."""
+    return (cfg.solver.preconditioner == "jacobi"
+            and cfg.solver.dtype == "float32"
+            and int(cfg.ny * cfg.nx * 4 * 9.5) <= _VMEM_BUDGET)
 
 
 def solve_pressure_jacobi_plain(cfg: SimConfig, b, a_diag, fluid):
@@ -72,6 +95,7 @@ def jacobi_lib():
     lib = _build.load("jacobi_pcg", flags=["-fmad=false"])
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
     _build.bind(lib, "eu_jacobi_solve", [I, I, I, F, F] + [P] * 12)
+    _build.bind(lib, "eu_jacobi_stream_solve", [I, I, I, F, F] + [P] * 12)
     _build.bind(lib, "eu_jacobi_project", [I, I, I, F, F, F, F, F]
                 + [P] * 18)
     _build.bind(lib, "eu_jacobi_substep", [I, I, I, F, F, F, F, F, F]

@@ -23,8 +23,12 @@ grid stage is two of K2's passes (`csrc/grid_stage.cuh`), then about
 
 `project_substep_mg_plain` is K2's plain version, the op sequence of
 tests/test_substep_fused.py:31-68 with the plain MG-PCG;
-`project_substep_jacobi_plain` is `grid_stage_plain` followed by K9's
-plain version.
+`project_substep_jacobi_plain` is `grid_stage_plain` (`grid_kernel.py`)
+followed by K9's plain version.
+
+`substep_fused_fits` and `substep_jacobi_fused_fits` are the JAX
+package's gates for these routes (substep_kernel.py:387, :462), kept as
+integer arithmetic: see `pcg_kernel._VMEM_BUDGET`.
 """
 
 from __future__ import annotations
@@ -32,26 +36,23 @@ from __future__ import annotations
 import torch
 
 from euler_tpu_torch.config import SimConfig
-from euler_tpu_torch.ops.advect import advect_u, advect_v
 from euler_tpu_torch.ops.cuda import _build
+from euler_tpu_torch.ops.cuda.grid_kernel import grid_lib, grid_stage_plain
 from euler_tpu_torch.ops.cuda.mg_kernel import (
     mg_fits,
     mg_host_operands,
+    mg_pallas_fits,
     mg_pcg_cuda,
     solve_pressure_mg_plain,
 )
 from euler_tpu_torch.ops.cuda.pcg_kernel import (
+    _VMEM_BUDGET,
     Workspace,
     jacobi_lib,
     project_jacobi_plain,
     solver_args,
 )
-from euler_tpu_torch.ops.extrapolate import extrapolate
-from euler_tpu_torch.ops.forces import (
-    apply_body_forces,
-    max_speed_sq,
-    zero_bounds,
-)
+from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.project import (
     clamp_pressure,
     divergence_rhs,
@@ -59,29 +60,19 @@ from euler_tpu_torch.ops.project import (
     pressure_matrix_diag,
 )
 
-def extrapolate_zero(cfg: SimConfig, u, v, fluid, prev_fluid, solid):
-    """extrapolate -> zero_bounds (main.c:865-870): the velocities the
-    advection reads (the colours' advection too)."""
-    uu = extrapolate(cfg, u, fluid, prev_fluid, "u")
-    vv = extrapolate(cfg, v, fluid, prev_fluid, "v")
-    return (zero_bounds(cfg, uu, fluid, solid, "u"),
-            zero_bounds(cfg, vv, fluid, solid, "v"))
+
+def substep_fused_fits(cfg: SimConfig) -> bool:
+    """The MG solve fits (`mg_pallas_fits`) and 18 fine planes fit the
+    budget: true through ~1277²."""
+    return (mg_pallas_fits(cfg)
+            and int(cfg.ny * cfg.nx * 4 * 18.0) <= _VMEM_BUDGET)
 
 
-def advect_forces(cfg: SimConfig, uu, vv, fluid, solid, dt):
-    """advect -> gravity -> zero_bounds (main.c:871-889)."""
-    ut = advect_u(cfg, uu, vv, fluid, dt)
-    vt = advect_v(cfg, uu, vv, fluid, dt)
-    vt = apply_body_forces(cfg, vt, dt)
-    return (zero_bounds(cfg, ut, fluid, solid, "u"),
-            zero_bounds(cfg, vt, fluid, solid, "v"))
-
-
-def grid_stage_plain(cfg: SimConfig, dt, u, v, fluid, prev_fluid, solid):
-    """extrapolate -> zero_bounds -> advect -> gravity -> zero_bounds
-    (main.c:865-889): the velocities the projection starts from."""
-    uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid)
-    return advect_forces(cfg, uu, vv, fluid, solid, dt)
+def substep_jacobi_fused_fits(cfg: SimConfig) -> bool:
+    """Jacobi, f32, and 13 fine planes fit the budget: through ~1502²."""
+    return (cfg.solver.preconditioner == "jacobi"
+            and cfg.solver.dtype == "float32"
+            and int(cfg.ny * cfg.nx * 4 * 13.0) <= _VMEM_BUDGET)
 
 
 def project_substep_mg_plain(cfg: SimConfig, dt, dt_proj, u, v, fluid,
@@ -103,16 +94,6 @@ def project_substep_jacobi_plain(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     with dt_proj for the RHS and dt for the face update."""
     ut, vt = grid_stage_plain(cfg, dt, u, v, fluid, prev_fluid, solid)
     return project_jacobi_plain(cfg, dt, ut, vt, fluid, solid, dt_proj)
-
-
-def _lib():
-    lib = _build.load("grid_stage", flags=["-fmad=false"])
-    P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_grid_stage",
-                [I, I, F, F, F] + [P] * 15)
-    _build.bind(lib, "eu_project_tail",
-                [I, I, F] + [P] * 9)
-    return lib
 
 
 def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
@@ -153,7 +134,7 @@ def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     part = torch.empty(2 * (-(-Y * X // 256)), dtype=f, device=dev)
     msq = torch.empty((), dtype=f, device=dev)
     h = cfg.side_length
-    lib = _lib()
+    lib = grid_lib()
     _build.LAUNCHES["K2"] += 1
     rc = lib.eu_grid_stage(
         Y, X, 1.0 / h, cfg.gravity, h * h * cfg.density,

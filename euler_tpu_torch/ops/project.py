@@ -2,11 +2,13 @@
 679-806): the divergence right-hand side, the matrix diagonal, the
 5-point operator, the PCG loop, the solver dispatch and the projection.
 
-The dispatch is that of the JAX package with `use_pallas=True`: Jacobi
-goes to K8 (`ops/cuda/pcg_kernel.py`), MG to K3 (`ops/cuda/mg_kernel.py`),
-and any other preconditioner to `pcg_loop`.  Every iterate stays exactly
-zero outside the fluid, so dense reductions equal the reference's
-fluid-masked ones.
+The dispatch is that of the JAX package with `use_pallas=True`
+(`solver_route`): the JAX size gates pick K8 (`ops/cuda/pcg_kernel.py`),
+K3 (`ops/cuda/mg_kernel.py`), K11 (`ops/cuda/mg_stream_kernel.py`) or K12
+(`ops/cuda/pcg_stream_kernel.py`), in that order; where none fits, the
+JAX package runs its jnp `pcg_loop`, which the port runs only on CPU
+tensors.  Every iterate stays exactly zero outside the fluid, so dense
+reductions equal the reference's fluid-masked ones.
 """
 
 from __future__ import annotations
@@ -118,19 +120,58 @@ def pcg_loop(cfg: SimConfig, b, apply_fn, precon, x0=None):
             r.abs().max())
 
 
+def solver_route(cfg: SimConfig, solid_given: bool = True):
+    """The kernel `solve_pressure` runs, by the JAX package's chain
+    (ops/project.py:191-223): "K8", "K3" (only with the solid mask),
+    "K11", "K12", or None where it falls through to its jnp `pcg_loop`."""
+    from euler_tpu_torch.ops.cuda import (
+        mg_kernel,
+        mg_stream_kernel,
+        pcg_kernel,
+        pcg_stream_kernel,
+    )
+
+    if pcg_kernel.pallas_solver_fits(cfg):
+        return "K8"
+    if solid_given and mg_kernel.mg_pallas_fits(cfg):
+        return "K3"
+    if mg_stream_kernel.stream_mg_fits(cfg):
+        return "K11"
+    if pcg_stream_kernel.stream_solver_fits(cfg):
+        return "K12"
+    return None
+
+
 def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
     """PCG for A p = b (main.c:738-767).  Returns (p, iterations, resid).
-    Jacobi runs K8, which ignores `x0` as the Pallas Jacobi kernel does;
-    MG runs K3 from `x0`; other preconditioners run `pcg_loop`."""
-    kind = cfg.solver.preconditioner
-    if kind == "jacobi":
+    Runs the kernel `solver_route` names; only K3 reads `x0`, as in the
+    JAX package.  Without a kernel, `pcg_loop` on CPU tensors and
+    NotImplementedError on the card."""
+    route = solver_route(cfg, solid is not None)
+    if route == "K8":
         from euler_tpu_torch.ops.cuda.pcg_kernel import solve_pressure_jacobi
 
         return solve_pressure_jacobi(cfg, b, a_diag, fluid)
-    if kind == "mg":
+    if route == "K3":
         from euler_tpu_torch.ops.cuda.mg_kernel import solve_pressure_mg
 
         return solve_pressure_mg(cfg, b, a_diag, fluid, solid, x0=x0)
+    if route == "K11":
+        from euler_tpu_torch.ops.cuda.mg_stream_kernel import (
+            solve_pressure_mg_stream,
+        )
+
+        return solve_pressure_mg_stream(cfg, b, a_diag, fluid)
+    if route == "K12":
+        from euler_tpu_torch.ops.cuda.pcg_stream_kernel import (
+            solve_pressure_stream,
+        )
+
+        return solve_pressure_stream(cfg, b, a_diag, fluid)
+    if b.device.type != "cpu":
+        raise NotImplementedError(
+            "no kernel fits this solve; the JAX package runs its jnp "
+            "pcg_loop here (ROADMAP queue 1 item M11)")
     precon = _make_preconditioner(cfg, a_diag, fluid)
     return pcg_loop(cfg, b, lambda s: apply_a(a_diag, fluid, s), precon,
                     x0=x0)

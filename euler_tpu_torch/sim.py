@@ -15,13 +15,16 @@ trip of masked substeps, as in the JAX package:
     select discards;
   * the alive plane is re-derived once per frame.
 
-A substep is the marker pass (K1), then one of four routes, chosen as the
-JAX package with `use_pallas=True` chooses them:
-  * fused (`fuse_projection`, mono, no sources): grid stage + projection
-    in one wrapper call, K2 (MG-PCG, K3 inside) or K10 (Jacobi);
-  * otherwise the grid stage as plain ops (with the colours' advection in
-    rainbow mode), then K9 (Jacobi with `fuse_projection`) or `project()`
-    (K8 for Jacobi, K3 for MG).
+A substep is the marker pass (K1), then the route `route` names, chosen
+as the JAX package with `use_pallas=True` chooses it, by the same size
+gates (written for the TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
+  * fused (`fuse_projection`, mono, no sources, and the fused kernel's
+    gate): grid stage + projection in one wrapper call, K2 (MG-PCG, K3
+    inside) or K10 (Jacobi);
+  * otherwise the grid stage, K7 with `use_pallas_grid` in mono, else
+    plain ops (with the colours' advection in rainbow mode), then K9
+    (Jacobi with `fuse_projection`, under its gate) or `project()`, whose
+    solve is K8, K3, K11 or K12 by the gates of `solve_pressure`.
 Nothing here reads a device value on the host; the solvers' stop flags
 are the only syncs.
 """
@@ -33,18 +36,16 @@ import torch
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
 from euler_tpu_torch.ops.advect import advect_p
-from euler_tpu_torch.ops.cuda.mg_kernel import mg_fits
-from euler_tpu_torch.ops.cuda.pcg_kernel import project_jacobi
-from euler_tpu_torch.ops.cuda.substep_kernel import (
+from euler_tpu_torch.ops.cuda import pcg_kernel, substep_kernel
+from euler_tpu_torch.ops.cuda.grid_kernel import (
     advect_forces,
     extrapolate_zero,
-    project_substep_jacobi,
-    project_substep_mg,
+    grid_stage,
 )
 from euler_tpu_torch.ops.extrapolate import extrapolate
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.markers_slots import live_slots, marker_pass_slots
-from euler_tpu_torch.ops.project import project
+from euler_tpu_torch.ops.project import project, solver_route
 
 
 def check_slice(cfg: SimConfig, scn: Scenario) -> None:
@@ -74,10 +75,44 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
     if s.mg_frame_hierarchy:
         raise NotImplementedError(
             "mg_frame_hierarchy is ROADMAP queue 1 item M14")
-    if s.preconditioner == "mg" and not mg_fits(cfg):
+    if route(cfg, scn)[1] is None:
         raise NotImplementedError(
-            "level sizes must halve evenly to mg_min_size "
-            "(ROADMAP queue 1 item M11)")
+            f"{s.preconditioner} at {cfg.ny}x{cfg.nx}: no kernel fits, the "
+            "JAX package runs its jnp pcg_loop here (level sizes that do "
+            "not halve evenly to mg_min_size, or rows beyond 2125 that "
+            "are not a multiple of 8; ROADMAP queue 1 item M11)")
+
+
+def _use_fused_substep(cfg: SimConfig, scn: Scenario) -> bool:
+    """The JAX `_use_fused_substep` (sim.py:43-67): mono, fuse_projection,
+    no sources, and the fused kernel's size gate."""
+    if cfg.rainbow or not cfg.solver.fuse_projection or scn.num_sources:
+        return False
+    kind = cfg.solver.preconditioner
+    if kind == "mg":
+        return substep_kernel.substep_fused_fits(cfg)
+    if kind == "jacobi":
+        return substep_kernel.substep_jacobi_fused_fits(cfg)
+    return False
+
+
+def _use_fused_projection(cfg: SimConfig) -> bool:
+    """The JAX `_use_fused_projection` (sim.py:70-78)."""
+    return (cfg.solver.fuse_projection
+            and pcg_kernel.fused_projection_fits(cfg))
+
+
+def route(cfg: SimConfig, scn: Scenario):
+    """(grid stage, projection) of a substep: ("fused", "K2" or "K10"),
+    or the grid stage "K7" or "plain" with the projection "K9" or the
+    solve of `project()` ("K8", "K3", "K11", "K12", or None where the JAX
+    package runs its jnp `pcg_loop`)."""
+    if _use_fused_substep(cfg, scn):
+        return "fused", "K2" if cfg.solver.preconditioner == "mg" else "K10"
+    grid = "K7" if cfg.use_pallas_grid and not cfg.rainbow else "plain"
+    if _use_fused_projection(cfg):
+        return grid, "K9"
+    return grid, solver_route(cfg)
 
 
 def _colors(state: FluidState, fn):
@@ -95,25 +130,28 @@ def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
         state = _colors(state, lambda q: extrapolate(cfg, q, fluid, prev,
                                                      "p"))
 
-    jacobi = cfg.solver.preconditioner == "jacobi"
-    if cfg.solver.fuse_projection and not cfg.rainbow:
-        if jacobi:
-            u2, v2, iters, _resid, msq = project_substep_jacobi(
-                cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid)
-            p2 = state.p  # the Jacobi speed mode never warm-starts
-        else:
-            u2, v2, iters, _resid, msq, p2 = project_substep_mg(
-                cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid,
-                state.p)
+    grid, proj = route(cfg, scn)
+    if proj == "K10":
+        u2, v2, iters, _resid, msq = substep_kernel.project_substep_jacobi(
+            cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid)
+        p2 = state.p  # the Jacobi speed mode never warm-starts
+        return state.replace(u=u2, v=v2, p=p2), msq, iters
+    if proj == "K2":
+        u2, v2, iters, _resid, msq, p2 = substep_kernel.project_substep_mg(
+            cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid, state.p)
         return state.replace(u=u2, v=v2, p=p2), msq, iters
 
-    uu, vv = extrapolate_zero(cfg, state.u, state.v, fluid, prev, solid)
-    if cfg.rainbow:
-        state = _colors(state, lambda q: advect_p(cfg, q, uu, vv, fluid, dt))
-    ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt)
-    if cfg.solver.fuse_projection and jacobi:
-        u2, v2, iters, _resid, msq = project_jacobi(cfg, dt_proj, ut, vt,
-                                                    fluid, solid)
+    if grid == "K7":
+        ut, vt = grid_stage(cfg, state.u, state.v, fluid, prev, solid, dt)
+    else:
+        uu, vv = extrapolate_zero(cfg, state.u, state.v, fluid, prev, solid)
+        if cfg.rainbow:
+            state = _colors(state,
+                            lambda q: advect_p(cfg, q, uu, vv, fluid, dt))
+        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt)
+    if proj == "K9":
+        u2, v2, iters, _resid, msq = pcg_kernel.project_jacobi(
+            cfg, dt_proj, ut, vt, fluid, solid)
         # K9 does not give its pressure: a later warm start starts cold
         p2 = torch.zeros_like(state.p)
     else:

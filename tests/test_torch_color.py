@@ -18,7 +18,7 @@ from euler_tpu_torch import convert
 from euler_tpu_torch.core import presets as tpresets
 from euler_tpu_torch.ops import advect as tadvect
 from euler_tpu_torch.ops import color as tcolor
-from euler_tpu_torch.ops.cuda.substep_kernel import extrapolate_zero
+from euler_tpu_torch.ops.cuda.grid_kernel import extrapolate_zero
 
 from torch_parity import (
     developed_numpy,

@@ -15,9 +15,13 @@ import torch
 from euler_tpu_torch import sim
 from euler_tpu_torch.config import SimConfig, SolverConfig
 from euler_tpu_torch.core.presets import dam_break
+from euler_tpu_torch.ops.cuda import _build
+from euler_tpu_torch.ops.cuda import grid_kernel as k7
 from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
 from euler_tpu_torch.ops.cuda import mg_kernel as k3
+from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
 from euler_tpu_torch.ops.cuda import pcg_kernel as k89
+from euler_tpu_torch.ops.cuda import pcg_stream_kernel as k12
 from euler_tpu_torch.ops.cuda import substep_kernel as k2
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.project import divergence_rhs, pressure_matrix_diag
@@ -35,17 +39,32 @@ def _cfg(size=SIZE):
                             warm_start=True, fuse_projection=True))
 
 
-@pytest.fixture(scope="module")
-def developed():
+def _develop(size):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    cfg = _cfg()
+    cfg = _cfg(size)
     scn, st = dam_break(cfg, device="cuda")
     for _ in range(4):
         st = sim.step_frame(cfg, scn, st)
     dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
                           torch.tensor(cfg.frame_time, device="cuda"))
     return cfg, scn, st, dt
+
+
+@pytest.fixture(scope="module")
+def developed():
+    return _develop(SIZE)
+
+
+@pytest.fixture(scope="module")
+def developed256():
+    """The 256² dam break 4 frames in, and its substep's own system."""
+    cfg, scn, st, dt = _develop(256)
+    ut, vt = k7.grid_stage_plain(cfg, dt, st.u, st.v, st.fluid,
+                                 st.prev_fluid, scn.solid)
+    b = divergence_rhs(cfg, ut, vt, st.fluid, dt)
+    a = pressure_matrix_diag(cfg, scn.solid, st.fluid)
+    return cfg, scn, st, dt, b, a
 
 
 @pytest.mark.parametrize("mask", ["state", "shifted"])
@@ -200,3 +219,74 @@ def test_route_frames_match_cpu_plain(developed, route):
     for name in ("u", "v", "r", "g", "b"):
         a, b = getattr(st_g, name).cpu(), getattr(st_c, name)
         assert (a - b).abs().max() <= 5e-3, name
+
+
+def test_grid_stage_matches_plain(developed256):
+    cfg, scn, st, dt, _, _ = developed256
+    args = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
+    ut, vt = k7.grid_stage(cfg, *args, dt)
+    up, vp = k7.grid_stage_plain(cfg, dt, *args)
+    assert (ut - up).abs().max() <= 2e-4 and (vt - vp).abs().max() <= 2e-4
+
+
+@pytest.mark.parametrize("F", [2, 4])
+def test_mg_stream_matches_plain(developed256, monkeypatch, F):
+    """The level skip at 256²: the root one level down (F = 2, the 2048²
+    transfer) or two (F = 4, the 4096² transfer)."""
+    cfg, scn, st, dt, b, a = developed256
+    if F == 4:
+        monkeypatch.setattr(k11, "_resident_start", lambda shapes: 2)
+    assert k11._root(cfg)[2] == F
+    p, it, _ = k11.solve_pressure_mg_stream(cfg, b, a, st.fluid)
+    pp, itp, _ = k11.solve_pressure_mg_stream_plain(cfg, b, a, st.fluid)
+    assert int(itp) > 0
+    assert (p - pp).abs().max() <= 5e-4 * pp.abs().max()
+    assert abs(int(it) - int(itp)) <= 1
+
+
+def test_pcg_stream_matches_plain(developed256):
+    cfg, scn, st, dt, b, a = developed256
+    cfg = _speed(cfg)
+    p, it, _ = k12.solve_pressure_stream(cfg, b, a, st.fluid)
+    pp, itp, _ = k12.solve_pressure_stream_plain(cfg, b, a, st.fluid)
+    assert int(it) == int(itp) > 0
+    assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
+
+
+def _gated_route(route, monkeypatch):
+    """The config of a new route with the gates before it turned off."""
+    if route == "K11":
+        monkeypatch.setattr(k2, "substep_fused_fits", lambda c: False)
+        monkeypatch.setattr(k3, "mg_pallas_fits", lambda c: False)
+        return _cfg(128)
+    cfg = _speed(_cfg(64))
+    if route == "K12":
+        monkeypatch.setattr(k89, "pallas_solver_fits", lambda c: False)
+        monkeypatch.setattr(k89, "fused_projection_fits", lambda c: False)
+        monkeypatch.setattr(k2, "substep_jacobi_fused_fits", lambda c: False)
+        return cfg
+    return dataclasses.replace(cfg, use_pallas_grid=True,
+                               solver=dataclasses.replace(
+                                   cfg.solver, fuse_projection=False))
+
+
+@pytest.mark.parametrize("route", ["K11", "K12", "K7"])
+def test_new_route_frames_match_cpu_plain(developed, monkeypatch, route):
+    cfg = _gated_route(route, monkeypatch)
+    scn_g, st_g = dam_break(cfg, device="cuda")
+    scn_c, st_c = dam_break(cfg, device="cpu")
+    assert route in sim.route(cfg, scn_g)
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    for _ in range(2):
+        st_g = sim.step_frame(cfg, scn_g, st_g)
+    launches, plain = dict(_build.LAUNCHES), sum(_build.PLAIN_CALLS.values())
+    for _ in range(2):
+        st_c = sim.step_frame(cfg, scn_c, st_c)
+    assert launches.get(route, 0) > 0 and plain == 0
+    bypassed = {"K11": {"K2", "K3"}, "K12": {"K8", "K9", "K10"},
+                "K7": {"K2", "K10"}}[route]
+    assert not bypassed & set(launches)
+    assert torch.equal(st_g.marker_count.cpu(), st_c.marker_count)
+    assert (st_g.u.cpu() - st_c.u).abs().max() <= 5e-3
+    assert (st_g.v.cpu() - st_c.v).abs().max() <= 5e-3

@@ -25,9 +25,12 @@ MODULES = [
     "euler_tpu_torch.core.presets",
     "euler_tpu_torch.ops.cuda._build",
     "euler_tpu_torch.ops.cuda.marker_fused_kernel",
+    "euler_tpu_torch.ops.cuda.grid_kernel",
     "euler_tpu_torch.ops.cuda.substep_kernel",
     "euler_tpu_torch.ops.cuda.mg_kernel",
+    "euler_tpu_torch.ops.cuda.mg_stream_kernel",
     "euler_tpu_torch.ops.cuda.pcg_kernel",
+    "euler_tpu_torch.ops.cuda.pcg_stream_kernel",
     "euler_tpu_torch.ops.color",
     "euler_tpu_torch.ops.project",
 ]

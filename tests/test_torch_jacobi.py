@@ -34,7 +34,7 @@ from euler_tpu_torch.config import SimConfig, SolverConfig
 from euler_tpu_torch.ops import project as tproject
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda import pcg_kernel as k89
-from euler_tpu_torch.ops.cuda.substep_kernel import grid_stage_plain
+from euler_tpu_torch.ops.cuda.grid_kernel import grid_stage_plain
 from euler_tpu_torch.ops.forces import max_speed_sq
 
 from torch_parity import (

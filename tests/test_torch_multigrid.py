@@ -14,7 +14,7 @@ from euler_tpu.ops.pallas import mg_kernel as jmgk
 from euler_tpu_torch.ops import multigrid as tmg
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda import mg_kernel as tmgk
-from euler_tpu_torch.ops.cuda.substep_kernel import grid_stage_plain
+from euler_tpu_torch.ops.cuda.grid_kernel import grid_stage_plain
 from euler_tpu_torch.ops.project import divergence_rhs, pressure_matrix_diag
 
 from torch_parity import (

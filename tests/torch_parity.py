@@ -68,16 +68,27 @@ def jax_config(cfg: SimConfig, interpret: bool = True):
 
 @contextlib.contextmanager
 def pallas_interpret():
-    """Run the JAX package's Pallas solvers that its projection calls
-    without an `interpret` argument (`solve_pressure_pallas`,
-    `project_pallas`, `solve_pressure_mg_pallas`) in interpret mode, the
-    only mode Pallas has on the CPU, as the JAX tests run them."""
-    from euler_tpu.ops.pallas import mg_kernel, pcg_kernel
+    """Run the JAX package's Pallas kernels that its projection and
+    substep call without an `interpret` argument (`solve_pressure_pallas`,
+    `project_pallas`, `solve_pressure_mg_pallas`,
+    `solve_pressure_mg_stream`, `solve_pressure_stream`,
+    `grid_stage_pallas`) in interpret mode, the only mode Pallas has on
+    the CPU, as the JAX tests run them."""
+    from euler_tpu.ops.pallas import (
+        grid_kernel,
+        mg_kernel,
+        mg_stream_kernel,
+        pcg_kernel,
+        pcg_stream_kernel,
+    )
 
     with pytest.MonkeyPatch.context() as mp:
         for mod, name in ((pcg_kernel, "solve_pressure_pallas"),
                           (pcg_kernel, "project_pallas"),
-                          (mg_kernel, "solve_pressure_mg_pallas")):
+                          (mg_kernel, "solve_pressure_mg_pallas"),
+                          (mg_stream_kernel, "solve_pressure_mg_stream"),
+                          (pcg_stream_kernel, "solve_pressure_stream"),
+                          (grid_kernel, "grid_stage_pallas")):
             mp.setattr(mod, name, functools.partial(getattr(mod, name),
                                                     interpret=True))
         yield
