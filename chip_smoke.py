@@ -5,12 +5,15 @@
 
 Builds the port's CUDA kernels from `euler_tpu_torch/csrc/` (nvcc, sm_90a,
 one process per source, all at once, into build/euler_tpu_torch/), then:
-  1. checks the main path end to end at 64²: the port on the GPU (kernels)
-     against the port on the CPU (plain PyTorch versions), 2 frames;
+  1. checks the main path end to end at 64², and the same with each other
+     marker route (`fuse_marker_pass=False`: K5 + K6;
+     `marker_padded_store`: K4): the port on the GPU (kernels) against the
+     port on the CPU (plain PyTorch versions), 2 frames;
   2. builds the 1024² dam break and advances it 4 warm-up frames;
   3. holds each kernel against its plain version on the card, on that
-     state: K1 marker pass, K2 substep grid half, K3 MG-PCG solve, K7 grid
-     stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep;
+     state: K1 marker pass, K4 padded marker pass, K5 march, K6 re-bin, K2
+     substep grid half, K3 MG-PCG solve, K7 grid stage, K8 Jacobi-PCG
+     solve, K9 Jacobi projection, K10 Jacobi substep;
   4. times 20 frames of the main path (dam break, slot markers K=8,
      Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection);
   5. times 20 frames of the Jacobi speed mode (`bench.py --precon
@@ -18,7 +21,10 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      4 warm-up frames;
   6. runs the secondary routes, 2 warm-up and 4 timed frames each:
      Jacobi unfused (K8), Jacobi + rainbow (K9), MG + rainbow (K3), Jacobi
-     unfused with `use_pallas_grid` (K7, K8);
+     unfused with `use_pallas_grid` (K7, K8), and the main path on the
+     three marker routes from the same dam break, `marker_k1` (K1, K2,
+     K3), `marker_unfused` (K5, K6, K2, K3) and `padded_store` (K4, K2,
+     K3), the last two bitwise equal at their end to the first;
   7. times each kernel beside its plain version with CUDA events;
   8. runs `bench.py --size 2048` (the main path's config at 2048², where
      the JAX package's size gates take the plain grid stage and K11): 2
@@ -56,6 +62,8 @@ LARGE = {          # size: (preconditioner, warm-up frames, timed frames,
     4096: ("jacobi", 1, 2, 2),
 }
 
+SLOTS = 8          # slots_per_cell of every path here
+
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
 # and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -72,6 +80,7 @@ F32_FLOP_PER_S = 67e12
 #   an MG-PCG iteration: the level-0 sweeps (~40) plus the coarse levels'
 #   truncated-W visits (~20): 60 flops
 #   a marker step: two bilinear samples and the position update: 28 flops
+#   a re-bin test of a live marker (two scalings, floors, offsets): 6 flops
 #   the grid stage alone (K7: extrapolate, four bilinear samples, gravity):
 #   ~70 flops
 # A Jacobi-PCG iteration's three sweeps move 14 [Y, X] f32 planes
@@ -85,10 +94,20 @@ GRID_STAGE_FLOPS = 70
 JACOBI_FLOPS = 20
 MG_FLOPS = 60
 MARKER_FLOPS = 28
+REBIN_FLOPS = 6
 BOUNDS = {
     # u, v f32; fluid, solid, dead u8; count i32 in; live positions in
-    # and out; count, drop i32 out
+    # and out; count, drop i32 out (K4: the same on the padded store)
     "K1": lambda n, iters, live: (23 * n + 16 * live, MARKER_FLOPS * live),
+    "K4": lambda n, iters, live: (23 * n + 16 * live, MARKER_FLOPS * live),
+    # u, v f32; fluid, solid u8; count i32 in; the whole store in and out
+    # (the dead slots are copied through)
+    "K5": lambda n, iters, live: (14 * n + 16 * SLOTS * n,
+                                  MARKER_FLOPS * live),
+    # alive [K] and dead u8 in; live positions in and out; alive' [K] u8,
+    # count, drop i32 out
+    "K6": lambda n, iters, live: ((2 * SLOTS + 9) * n + 16 * live,
+                                  REBIN_FLOPS * live),
     # u, v, p0 f32; fl, pfl, so u8 in; u2, v2, p f32 out
     "K2": lambda n, iters, live: (27 * n, (GRID_FLOPS + MG_FLOPS * iters) * n),
     # b, x0 f32; a_diag i32; fluid u8 in; p f32 out
@@ -110,6 +129,12 @@ BOUNDS = {
 KERNELS = {
     "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
            "euler_tpu/ops/pallas/marker_fused_kernel.py:941"),
+    "K4": ("marker_pass_padded", "euler_tpu_torch/csrc/marker_pass.cu",
+           "euler_tpu/ops/pallas/marker_fused_kernel.py:1030"),
+    "K5": ("marker_march", "euler_tpu_torch/csrc/marker_pass.cu",
+           "euler_tpu/ops/pallas/marker_kernel.py:332"),
+    "K6": ("marker_rebin", "euler_tpu_torch/csrc/marker_pass.cu",
+           "euler_tpu/ops/pallas/rebin_kernel.py:174"),
     "K2": ("substep_grid_stage", "euler_tpu_torch/csrc/grid_stage.cu",
            "euler_tpu/ops/pallas/substep_kernel.py:361"),
     "K3": ("mg_pcg", "euler_tpu_torch/csrc/mg_pcg.cu",
@@ -179,6 +204,14 @@ def speed_config(size: int, **over):
         warm_start=False), **over)
 
 
+def marker_configs(cfg):
+    """`cfg` on each marker route: {"K1": fused (as given), "K5+K6":
+    fuse_marker_pass=False, "K4": marker_padded_store}."""
+    return {"K1": cfg,
+            "K5+K6": dataclasses.replace(cfg, fuse_marker_pass=False),
+            "K4": dataclasses.replace(cfg, marker_padded_store=True)}
+
+
 def div_inf(cfg, state):
     """max |div u| * h^2 rho on fluid cells after the last projection
     (bench.py's post_projection_div_inf)."""
@@ -209,6 +242,27 @@ def cuda_ms(fn, reps: int) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def reset_peak() -> int:
+    """Reset the peak-memory count; returns the bytes already allocated
+    (tensors that earlier phases of this script still hold)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def record_peak(summary: dict, held: int) -> None:
+    """Put the peak allocated since `reset_peak` into `summary`, with the
+    `held` bytes that were allocated before the path began."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    summary["max_memory_allocated"] = peak
+    summary["memory_held_before"] = held
+    log(f"   torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB, of "
+        f"which {held / 2**30:.3f} GiB was held before the path")
 
 
 def reset_counts() -> None:
@@ -288,7 +342,7 @@ def build_all():
     from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
     from euler_tpu_torch.ops.cuda import pcg_kernel as k89
 
-    loaders = [k1._lib, k7.grid_lib, k3._lib, k11._lib, k89.jacobi_lib]
+    loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k11._lib, k89.jacobi_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -304,7 +358,7 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     (plain, kernel, kernel, plain) and fills results[name] with the best
     of each and the bound of the kernel's call."""
     out = kern()
-    iters = 0 if name in ("K1", "K7") else int(
+    iters = 0 if name in ("K1", "K4", "K5", "K6", "K7") else int(
         out[1] if name in ("K3", "K8", "K11", "K12") else out[2])
     t_p1 = cuda_ms(plain_fn, reps)
     t_k1 = cuda_ms(kern, reps)
@@ -327,6 +381,151 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
         sweep = SWEEP_PLANES[name] * 4 * n_cells * iters
         log(f"   {name}: sweep bound {1e3 * sweep / HBM_BYTES_PER_S:.3f}"
             f" ms ({sweep / 1e9:.2f} GB over {iters} iterations)")
+
+
+def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
+    """K5, K6 and K4 against their plain versions on the card, on `state`
+    with the substep's `dt`: counts, drops and alive equal, live positions
+    bitwise; dt = 0 an identity; K4's interior equal to K1's output
+    (o_k1, c_k1, d_k1).  Returns each kernel's max error on the live
+    positions (0.0: they are bitwise)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import marker_kernel as k5
+    from euler_tpu_torch.ops.cuda import rebin_kernel as k6
+    from euler_tpu_torch.ops.markers_slots import live_slots
+
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    check(K == SLOTS, f"slots_per_cell {K}: the bounds assume {SLOTS}")
+    args = (cfg, state.u, state.v, state.fluid, scn.solid)
+    px, py, count = state.markers[0], state.markers[1], state.marker_count
+    dead = scn.sink | scn.solid
+    zero = torch.zeros_like(dt)
+
+    def live_err(name, got, want, cnt):
+        live = live_slots(cnt, K)
+        err = max((a - b).abs()[live].max().item()
+                  for a, b in zip(got, want))
+        whole = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"   {name}: live positions max err {err:.3g} (bitwise: "
+            f"{err == 0.0}; whole store bitwise: {whole})")
+        check(err == 0.0, f"{name}: live positions differ from plain")
+        return err
+
+    errs = {}
+    m_k = k5.advect_markers(*args, px, py, dt, count)
+    m_p = k5.advect_markers_plain(*args, px, py, dt, count)
+    errs["K5"] = live_err("K5", m_k, m_p, count)
+    check(all(torch.equal(a[~state.alive], b[~state.alive])
+              for a, b in zip(m_k, (px, py))),
+          "K5: dead slots were not copied through")
+    m_0 = k5.advect_markers(*args, px, py, zero, count)
+    check(torch.equal(m_0[0], px) and torch.equal(m_0[1], py),
+          "K5 with dt = 0 is not an identity")
+    log("   K5: dead slots copied through; dt = 0 is a bitwise identity")
+
+    r_k = k6.rebin_markers(cfg, m_k[0], m_k[1], state.alive, dead)
+    r_p = k6.rebin_markers_plain(cfg, m_k[0], m_k[1], state.alive, dead)
+    for i, what in ((2, "alive"), (3, "counts"), (4, "drops")):
+        check(torch.equal(r_k[i], r_p[i]), f"K6 {what} differ from plain")
+    errs["K6"] = live_err("K6", r_k[:2], r_p[:2], r_p[3])
+    check(torch.equal(r_k[3], c_k1) and torch.equal(r_k[4], d_k1)
+          and torch.equal(torch.cat(r_k[:2]), o_k1),
+          "K5 + K6 differ from K1")
+    r_0 = k6.rebin_markers(cfg, px, py, state.alive, dead)
+    check(torch.equal(torch.stack(r_0[:2]), state.markers)
+          and torch.equal(r_0[2], state.alive) and torch.equal(r_0[3], count)
+          and int(r_0[4].sum()) == 0, "K6 on an unmoved store is not an "
+          "identity")
+    log("   K6: alive, counts, drops equal; K5 + K6 give K1's output bit for "
+        "bit; an unmoved store is a bitwise identity")
+
+    store = torch.full((2 * K, Y + 16, X + 256), float("nan"),
+                       device=px.device)
+    inner = (slice(None), slice(8, 8 + Y), slice(128, 128 + X))
+    store[inner] = state.markers.reshape(2 * K, Y, X)
+    p_k = k1.march_rebin_padded(*args, store, dt, count, dead=dead)
+    p_p = k1.march_rebin_padded_plain(*args, store, dt, count, dead=dead)
+    check(torch.equal(p_k[1], p_p[1]), "K4 counts differ from plain")
+    check(torch.equal(p_k[2], p_p[2]), "K4 drops differ from plain")
+    o4 = p_k[0][inner]
+    errs["K4"] = live_err("K4", (o4[:K], o4[K:]),
+                          (p_p[0][inner][:K], p_p[0][inner][K:]), p_p[1])
+    check(torch.equal(o4, o_k1) and torch.equal(p_k[1], c_k1)
+          and torch.equal(p_k[2], d_k1), "K4's interior differs from K1")
+    p_0 = k1.march_rebin_padded(*args, store, zero, count, dead=dead)
+    check(torch.equal(p_0[0][inner], store[inner])
+          and torch.equal(p_0[1], count) and int(p_0[2].sum()) == 0,
+          "K4 with dt = 0 is not an identity")
+    log("   K4: counts, drops equal (NaN pads); interior equal to K1's "
+        "output bit for bit; dt = 0 is a bitwise identity")
+    return errs
+
+
+def run_marker_routes(cfg, summaries, launches, dev, profile_prefix=None):
+    """The main path at full size on its three marker routes, K1 (the
+    reference), K5+K6 and K4, ROUTE_WARMUP + ROUTE_FRAMES frames each from
+    the same dam break: each route's kernels launch 8 times a frame, the
+    other marker kernels and every plain version never, and the K5+K6 and
+    K4 routes end with counts, drops, u, v, p, alive and live positions
+    bitwise equal to the K1 route.  Profiled with a prefix."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.markers_slots import live_slots
+
+    configs = marker_configs(cfg)
+    ref = live = None
+    for label, route in (("marker_k1", "K1"), ("marker_unfused", "K5+K6"),
+                         ("padded_store", "K4")):
+        rcfg = configs[route]
+        kernels = route.split("+") + ["K2", "K3"]
+        others = [k for k in ("K1", "K4", "K5", "K6") if k not in kernels]
+        with Phase(f"route {label} {cfg.ny}²: {ROUTE_WARMUP} warm-up + "
+                   f"{ROUTE_FRAMES} timed frames"):
+            held = reset_peak()
+            rscn, rstate = dam_break(rcfg, device=dev)
+            check(sim.marker_route(rcfg, rscn) == route,
+                  f"{label}: marker route {sim.marker_route(rcfg, rscn)}")
+            for _ in range(ROUTE_WARMUP):
+                rstate = sim.step_frame(rcfg, rscn, rstate)
+            rstate, summaries[label] = run_path(
+                rcfg, rscn, rstate, ROUTE_FRAMES, kernels, label,
+                bypassed=others)
+            record_peak(summaries[label], held)
+            got = summaries[label]["launches"]
+            for k in kernels:
+                check(got.get(k, 0) == 8 * ROUTE_FRAMES,
+                      f"{label}: {k} launched {got.get(k, 0)} times, not 8 "
+                      "a frame")
+            check(summaries[label]["div_inf"] < 1.0,
+                  f"{label}: div_inf too large")
+            if route == "K1":
+                ref = rstate
+                live = torch.cat([live_slots(ref.marker_count,
+                                             cfg.slots_per_cell)] * 2)
+            else:
+                for k in route.split("+"):
+                    launches[k] = got.get(k, 0)
+                for name in ("marker_count", "dropped_markers", "u", "v",
+                             "p", "alive"):
+                    check(torch.equal(getattr(rstate, name),
+                                      getattr(ref, name)),
+                          f"{label}: {name} differs from the K1 route")
+                mine = rstate.markers.reshape(live.shape)
+                theirs = ref.markers.reshape(live.shape)
+                check(torch.equal(mine[live], theirs[live]),
+                      f"{label}: live positions differ from the K1 route")
+                log(f"   {label}: counts, drops, u, v, p, alive and live "
+                    "positions bitwise equal to the K1 route (whole store: "
+                    f"{torch.equal(mine, theirs)})")
+        if profile_prefix:
+            with Phase(f"{label}: profile"):
+                profile(rcfg, rscn, rstate, f"{profile_prefix}.{label}.txt",
+                        label)
+        del rscn, rstate
 
 
 def substep_system(cfg, scn, state):
@@ -388,7 +587,7 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
     cfg = main_config(size) if mg else speed_config(size)
     kernel = "K11" if mg else "K12"
     label = f"{precon}_{size}"
-    torch.cuda.reset_peak_memory_stats()
+    held = reset_peak()
     with Phase(f"{label}: {warmup} warm-up + {frames} timed frames"):
         scn, state = dam_break(cfg, device=torch.device("cuda", 0))
         check(sim.route(cfg, scn) == ("plain", kernel),
@@ -402,9 +601,7 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
             check(summaries[label]["div_inf"] < 1.0,
                   f"{label}: div_inf too large")
         launches[kernel] = summaries[label]["launches"].get(kernel, 0)
-        peak = torch.cuda.max_memory_allocated()
-        summaries[label]["max_memory_allocated"] = peak
-        log(f"   torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB")
+        record_peak(summaries[label], held)
     if profile_prefix:
         with Phase(f"{label}: profile"):
             profile(cfg, scn, state, f"{profile_prefix}.{label}.txt", label)
@@ -453,8 +650,10 @@ def run(args) -> dict:
     from euler_tpu_torch.core.presets import dam_break
     from euler_tpu_torch.ops.cuda import grid_kernel as k7
     from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import marker_kernel as k5
     from euler_tpu_torch.ops.cuda import mg_kernel as k3
     from euler_tpu_torch.ops.cuda import pcg_kernel as k89
+    from euler_tpu_torch.ops.cuda import rebin_kernel as k6
     from euler_tpu_torch.ops.cuda import substep_kernel as k2
     from euler_tpu_torch.ops.forces import max_speed_sq
     from euler_tpu_torch.ops.markers_slots import live_slots
@@ -475,23 +674,28 @@ def run(args) -> dict:
     with Phase("build kernels"):
         build_all()
 
-    with Phase("main path at 64²: GPU kernels vs CPU plain, 2 frames"):
-        cfg_s = main_config(64)
-        scn_g, st_g = dam_break(cfg_s, device=dev)
-        scn_c, st_c = dam_break(cfg_s, device="cpu")
-        for _ in range(2):
-            st_g = sim.step_frame(cfg_s, scn_g, st_g)
-            st_c = sim.step_frame(cfg_s, scn_c, st_c)
-        check(torch.equal(st_g.marker_count.cpu(), st_c.marker_count),
-              "64² marker_count differs between GPU kernels and CPU plain")
-        du = (st_g.u.cpu() - st_c.u).abs().max().item()
-        dv = (st_g.v.cpu() - st_c.v).abs().max().item()
-        log(f"   counts equal; max |du| {du:.3g}, |dv| {dv:.3g} "
-            f"(atol 5e-3); dropped {int(st_g.dropped_markers)} vs "
-            f"{int(st_c.dropped_markers)}")
-        check(du <= 5e-3 and dv <= 5e-3, "64² velocities differ > 5e-3")
-        check(int(st_g.dropped_markers) == int(st_c.dropped_markers),
-              "64² dropped_markers differ")
+    with Phase("main path at 64² on the three marker routes: GPU kernels "
+               "vs CPU plain, 2 frames"):
+        for route, cfg_s in marker_configs(main_config(64)).items():
+            scn_g, st_g = dam_break(cfg_s, device=dev)
+            scn_c, st_c = dam_break(cfg_s, device="cpu")
+            check(sim.marker_route(cfg_s, scn_g) == route,
+                  f"64²: marker route {sim.marker_route(cfg_s, scn_g)}")
+            for _ in range(2):
+                st_g = sim.step_frame(cfg_s, scn_g, st_g)
+                st_c = sim.step_frame(cfg_s, scn_c, st_c)
+            check(torch.equal(st_g.marker_count.cpu(), st_c.marker_count),
+                  f"64² {route}: marker_count differs between GPU kernels "
+                  "and CPU plain")
+            du = (st_g.u.cpu() - st_c.u).abs().max().item()
+            dv = (st_g.v.cpu() - st_c.v).abs().max().item()
+            log(f"   {route}: counts equal; max |du| {du:.3g}, |dv| "
+                f"{dv:.3g} (atol 5e-3); dropped "
+                f"{int(st_g.dropped_markers)} vs {int(st_c.dropped_markers)}")
+            check(du <= 5e-3 and dv <= 5e-3,
+                  f"64² {route}: velocities differ > 5e-3")
+            check(int(st_g.dropped_markers) == int(st_c.dropped_markers),
+                  f"64² {route}: dropped_markers differ")
 
     cfg = main_config(SIZE)
     scfg = speed_config(SIZE)
@@ -530,6 +734,10 @@ def run(args) -> dict:
               and int(d_0.sum()) == 0, "K1 with dt = 0 is not an identity")
         log("   K1: dt = 0 is a bitwise identity")
         results["K1"] = {"max_abs_err": err1}
+
+        for name, err in check_marker_variants(cfg, scn, state, dt, o_k, c_k,
+                                               d_k).items():
+            results[name] = {"max_abs_err": err}
 
         fl, pfl = c_k > 0, state.marker_count > 0
         k2_args = (cfg, dt, dt, state.u, state.v, fl, pfl, scn.solid,
@@ -659,7 +867,7 @@ def run(args) -> dict:
     for route, (rcfg, kernels, counted) in routes.items():
         with Phase(f"route {route} {SIZE}²: {ROUTE_WARMUP} warm-up + "
                    f"{ROUTE_FRAMES} timed frames"):
-            torch.cuda.reset_peak_memory_stats()
+            held = reset_peak()
             rscn, rstate = dam_break(rcfg, device=dev)
             for _ in range(ROUTE_WARMUP):
                 rstate = sim.step_frame(rcfg, rscn, rstate)
@@ -671,11 +879,10 @@ def run(args) -> dict:
             for k in counted:
                 launches[k] = summaries[route]["launches"].get(k, 0)
             if "K7" in kernels:
-                peak = torch.cuda.max_memory_allocated()
-                summaries[route]["max_memory_allocated"] = peak
-                log(f"   torch.cuda.max_memory_allocated "
-                    f"{peak / 2**30:.3f} GiB")
+                record_peak(summaries[route], held)
             del rscn, rstate
+
+    run_marker_routes(cfg, summaries, launches, dev, args.profile)
 
     with Phase("kernel vs plain times (CUDA events)"):
         fl, pfl = state.fluid, state.prev_fluid
@@ -692,9 +899,25 @@ def run(args) -> dict:
                                      scn.solid)
         b = divergence_rhs(cfg, ut, vt, fl, dt)
         grid_args = (state.u, state.v, fl, pfl, scn.solid)
+        px, py = state.markers[0], state.markers[1]
+        k5_args = (cfg, state.u, state.v, fl, scn.solid, px, py, dt,
+                   state.marker_count)
+        mpx, mpy = k5.advect_markers(*k5_args)
+        padded = k1.pad_slot_store(cfg, state.markers)
+        k4_args = (cfg, state.u, state.v, fl, scn.solid, padded, dt,
+                   state.marker_count)
         pairs = {
             "K1": (lambda: k1.march_rebin(*k1_args, dead=dead),
                    lambda: k1.march_rebin_plain(*k1_args, dead=dead)),
+            "K4": (lambda: k1.march_rebin_padded(*k4_args, dead=dead),
+                   lambda: k1.march_rebin_padded_plain(*k4_args,
+                                                       dead=dead)),
+            "K5": (lambda: k5.advect_markers(*k5_args),
+                   lambda: k5.advect_markers_plain(*k5_args)),
+            "K6": (lambda: k6.rebin_markers(cfg, mpx, mpy, state.alive,
+                                            dead),
+                   lambda: k6.rebin_markers_plain(cfg, mpx, mpy,
+                                                  state.alive, dead)),
             "K2": (lambda: k2.project_substep_mg(*k2_args),
                    lambda: k2.project_substep_mg_plain(*k2_args)),
             "K3": (lambda: k3.solve_pressure_mg(cfg, b, a_diag, fl,
@@ -797,9 +1020,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="PREFIX",
                     help="write torch.profiler tables of 2 frames of the "
-                         "MG main path, the speed mode and the 2048² and "
-                         "4096² paths to PREFIX.mg.txt, PREFIX.speed.txt, "
-                         "PREFIX.mg_2048.txt and PREFIX.jacobi_4096.txt")
+                         "MG main path, the speed mode, the three marker "
+                         "routes and the 2048² and 4096² paths to "
+                         "PREFIX.mg.txt, PREFIX.speed.txt, "
+                         "PREFIX.marker_k1.txt, PREFIX.marker_unfused.txt, "
+                         "PREFIX.padded_store.txt, PREFIX.mg_2048.txt and "
+                         "PREFIX.jacobi_4096.txt")
     args = ap.parse_args(argv)
 
     try:

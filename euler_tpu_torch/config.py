@@ -3,10 +3,14 @@
 by the same two dataclasses on either side.
 
 The port takes the routes the JAX package takes with
-`SolverConfig.use_pallas=True`, whatever `use_pallas` says: the
-hand-written marker pass (K1) on the slot layout, then the grid stage
-and projection, chosen as the JAX `sim.substep` chooses them
-(`sim.route`), by the JAX package's own size gates.
+`use_pallas_markers=True` and `SolverConfig.use_pallas=True`, whatever
+those two say: the hand-written marker pass on the slot layout, then the
+grid stage and projection, chosen as the JAX `sim.substep` chooses them
+(`sim.route`), by the JAX package's own size gates.  The marker pass is
+chosen by `sim.marker_route`, which reads `fuse_marker_pass` and
+`marker_padded_store`: the fused pass K1 by default, K4 on the
+persistent padded store with `marker_padded_store` (mono, no sources),
+the march K5 and the re-bin K6 with `fuse_marker_pass=False`.
 `SolverConfig.fuse_projection` and `use_pallas_grid` are read: with
 `fuse_projection` a mono substep without sources runs the fused grid
 stage + projection (K2 for MG, K10 for Jacobi) and a Jacobi substep the
@@ -17,12 +21,11 @@ JAX implementations of the same arithmetic are read by nothing here,
 because the port has one implementation of each:
 
   * TPU-only devices: `marker_tile`, `marker_kmax_specialize`,
-    `marker_packed_insert`, `marker_interior_fast`, `marker_padded_store`,
-    `pallas_interpret` (both classes).  Each is exact or off by default in
-    the JAX package, so ignoring them changes no result.
+    `marker_packed_insert`, `marker_interior_fast`, `pallas_interpret`
+    (both classes).  Each is exact or off by default in the JAX package,
+    so ignoring them changes no result.
   * Dispatch switches between equivalent JAX paths: `use_pallas_markers`,
-    `fuse_marker_pass`, `advect_impl`, `SolverConfig.use_pallas`,
-    `SolverConfig.check_every`.
+    `advect_impl`, `SolverConfig.use_pallas`, `SolverConfig.check_every`.
   * RB-GS / V-cycle knobs that the Chebyshev smoother does not read:
     `mg_pre_smooth`, `mg_post_smooth`.
 

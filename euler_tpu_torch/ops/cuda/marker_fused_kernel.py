@@ -1,4 +1,6 @@
-"""K1: the fused marker pass (`euler_tpu/ops/pallas/marker_fused_kernel.py`).
+"""K1 and K4: the fused marker pass
+(`euler_tpu/ops/pallas/marker_fused_kernel.py`), and the loader of the
+marker library that K5 and K6 share.
 
 `march_rebin` replaces the Pallas kernel `_fused_kernel` launched by
 `march_rebin_pallas` (marker_fused_kernel.py:823-970), same contract:
@@ -17,12 +19,22 @@ for bit.  With dt = 0 the pass is a bitwise identity on the store.
 
 `march_rebin_plain` is the plain version: `markers_slots.march_slots`
 followed by `markers_slots.rebin_slots`.
+
+`march_rebin_padded` (K4) replaces the same Pallas kernel launched by
+`march_rebin_padded` (marker_fused_kernel.py:973-1062): K1's function on
+the persistent padded store [2K, Y+16, X+256] with the interior at
+(8, 128), which `pad_slot_store` makes once a frame and
+`unpad_slot_store` undoes.  The pads may hold anything: they are neither
+read nor written.  Count, dead and the outputs count' and drop stay
+unpadded [Y, X].  It launches K1's two kernels with the store addressed
+through a row pitch of X+256; the marched scratch stays unpadded.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
@@ -31,6 +43,11 @@ from euler_tpu_torch.ops.markers_slots import (
     march_slots,
     rebin_slots,
 )
+
+# the padded store's interior offset (rows, columns): the store is
+# [2K, Y + 2 PAD_Y, X + 2 PAD_X]
+PAD_Y, PAD_X = 8, 128
+
 
 def march_rebin_plain(cfg: SimConfig, u, v, fluid, solid, slots, dt, count,
                       *, dead):
@@ -43,11 +60,15 @@ def march_rebin_plain(cfg: SimConfig, u, v, fluid, solid, slots, dt, count,
     return torch.cat([opx, opy]), ocount, drop
 
 
-def _lib():
+def marker_lib():
+    """csrc/marker_pass.cu: K1 (`eu_march_rebin`), K4
+    (`eu_march_rebin_padded`), K5 (`eu_march`) and K6 (`eu_rebin`)."""
     lib = _build.load("marker_pass", flags=["-fmad=false"])
-    P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_march_rebin",
-                [I, I, I, I, F, F] + [P] * 13)
+    P, I, Fl = _build.PTR, _build.INT, _build.FLOAT
+    for name in ("eu_march_rebin", "eu_march_rebin_padded"):
+        _build.bind(lib, name, [I, I, I, I, Fl, Fl] + [P] * 13)
+    _build.bind(lib, "eu_march", [I, I, I, I, Fl, Fl] + [P] * 11)
+    _build.bind(lib, "eu_rebin", [I, I, I, Fl] + [P] * 10)
     return lib
 
 
@@ -59,11 +80,20 @@ def march_rebin(cfg: SimConfig, u, v, fluid, solid, slots, dt, count, *,
         _build.PLAIN_CALLS["K1"] += 1
         return march_rebin_plain(cfg, u, v, fluid, solid, slots, dt, count,
                                  dead=dead)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    return _launch("K1", "eu_march_rebin", cfg, u, v, fluid, solid, slots,
+                   (2 * K, Y, X), dt, count, dead)
+
+
+def _launch(kernel, entry, cfg, u, v, fluid, solid, slots, store_shape, dt,
+            count, dead):
+    """K1's two launches through `entry`, on a store of `store_shape`,
+    counted as `kernel`'s."""
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
     f = torch.float32
     dev = slots.device
     plane = (Y, X)
-    p_slots = _build.require(slots, "slots", f, (2 * K, Y, X))
+    p_slots = _build.require(slots, "slots", f, store_shape)
     p_u = _build.require(u, "u", f, plane, dev)
     p_v = _build.require(v, "v", f, plane, dev)
     p_count = _build.require(count, "count", torch.int32, plane, dev)
@@ -72,17 +102,57 @@ def march_rebin(cfg: SimConfig, u, v, fluid, solid, slots, dt, count, *,
     p_dead = _build.require(dead, "dead", torch.bool, plane, dev)
     p_dt = _build.require(dt, "dt", f, (), dev)
 
-    marched = torch.empty_like(slots)
+    marched = torch.empty((2 * K, Y, X), dtype=f, device=dev)
     out = torch.empty_like(slots)
     out_count = torch.empty(plane, dtype=torch.int32, device=dev)
     out_drop = torch.empty(plane, dtype=torch.int32, device=dev)
     h = np.float32(cfg.side_length)
-    lib = _lib()
-    _build.LAUNCHES["K1"] += 1
-    rc = lib.eu_march_rebin(
+    lib = marker_lib()
+    _build.LAUNCHES[kernel] += 1
+    rc = getattr(lib, entry)(
         Y, X, K, cfg.marker_march_iters, float(h),
         float(np.float32(1.0) / h), p_u, p_v, p_count, p_fluid, p_solid,
         p_dead, p_slots, p_dt, marched.data_ptr(), out.data_ptr(),
         out_count.data_ptr(), out_drop.data_ptr(), _build.stream())
-    _build.check(lib, rc, "eu_march_rebin")
+    _build.check(lib, rc, entry)
     return out, out_count, out_drop
+
+
+def pad_slot_store(cfg: SimConfig, markers):
+    """[2, K, Y, X] marker store -> the persistent padded store
+    [2K, Y+16, X+256] with the interior at (8, 128) and zero pads."""
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    return F.pad(markers.reshape(2 * K, Y, X), (PAD_X, PAD_X, PAD_Y, PAD_Y))
+
+
+def unpad_slot_store(cfg: SimConfig, padded):
+    """Inverse of `pad_slot_store`: the contiguous [2, K, Y, X] store."""
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    return padded[:, PAD_Y:PAD_Y + Y, PAD_X:PAD_X + X].contiguous().reshape(
+        2, K, Y, X)
+
+
+def march_rebin_padded_plain(cfg: SimConfig, u, v, fluid, solid,
+                             slots_padded, dt, count, *, dead):
+    """K4 as plain PyTorch ops: unpad, `march_rebin_plain`, pad."""
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    slots = slots_padded[:, PAD_Y:PAD_Y + Y, PAD_X:PAD_X + X]
+    out, ocount, drop = march_rebin_plain(cfg, u, v, fluid, solid, slots, dt,
+                                          count, dead=dead)
+    return F.pad(out, (PAD_X, PAD_X, PAD_Y, PAD_Y)), ocount, drop
+
+
+def march_rebin_padded(cfg: SimConfig, u, v, fluid, solid, slots_padded, dt,
+                       count, *, dead):
+    """K4: the fused marker pass on the persistent padded store.  Returns
+    (slots_padded', count', drop) with count' and drop unpadded; the
+    kernel leaves the output's pads unwritten.  CUDA tensors run the
+    kernel; CPU tensors the plain version."""
+    if slots_padded.device.type == "cpu":
+        _build.PLAIN_CALLS["K4"] += 1
+        return march_rebin_padded_plain(cfg, u, v, fluid, solid,
+                                        slots_padded, dt, count, dead=dead)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    return _launch("K4", "eu_march_rebin_padded", cfg, u, v, fluid, solid,
+                   slots_padded, (2 * K, Y + 2 * PAD_Y, X + 2 * PAD_X), dt,
+                   count, dead)

@@ -1,0 +1,72 @@
+"""K6: the marker re-bin alone (`euler_tpu/ops/pallas/rebin_kernel.py`).
+
+`rebin_markers` replaces the Pallas kernel `_rebin_kernel` launched by
+`rebin_markers_pallas` (rebin_kernel.py:144-191), the re-bin of the
+unfused marker pass (`fuse_marker_pass=False`, main.c:102-117): marched
+positions px, py [K, Y, X], their alive plane and the dead plane
+(sink | solid) in; (px', py', alive', count, drop) out.  A source slot
+takes part where the alive plane says so (every k < K is tested, not
+k < count); arrivals are inserted in OFFSETS_OWN_FIRST order, arrivals
+in dead cells are deleted, and those beyond K slots are dropped and
+counted in the [Y, X] plane `drop`.  Slots at and beyond a cell's new
+count are zero, and alive'[d] = d < count.
+
+The Pallas kernel takes and gives the alive plane as f32 0/1; here it is
+a bool [K, Y, X] tensor both ways (the state's own `alive`), which is
+the same contract: `valid_f != 0` in, `alive' == (valid_f' != 0)` out.
+
+On an H100 the re-bin is bound by bytes: the store and the alive plane
+read once, the new store and alive plane written once.  The CUDA source
+is K1's per-destination gather (`csrc/marker_pass.cu` `rebin_kernel`)
+with validity from the alive plane; it needs no atomics and gives the
+plain version's slot assignment exactly.
+
+`rebin_markers_plain` is the plain version: `markers_slots.rebin_slots`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.config import SimConfig
+from euler_tpu_torch.ops.cuda import _build
+from euler_tpu_torch.ops.cuda.marker_fused_kernel import marker_lib
+from euler_tpu_torch.ops.markers_slots import live_slots, rebin_slots
+
+
+def rebin_markers_plain(cfg: SimConfig, px, py, alive, dead):
+    """The re-bin as plain PyTorch ops."""
+    opx, opy, count, drop = rebin_slots(cfg, px, py, alive, dead)
+    return opx, opy, live_slots(count, px.shape[0]), count, drop
+
+
+def rebin_markers(cfg: SimConfig, px, py, alive, dead):
+    """The marker re-bin.  Returns (px', py', alive', count, drop).  CUDA
+    tensors run the kernel; CPU tensors the plain version."""
+    if px.device.type == "cpu":
+        _build.PLAIN_CALLS["K6"] += 1
+        return rebin_markers_plain(cfg, px, py, alive, dead)
+    Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
+    f = torch.float32
+    dev = px.device
+    plane = (Y, X)
+    store = (K, Y, X)
+    p_px = _build.require(px, "px", f, store, dev)
+    p_py = _build.require(py, "py", f, store, dev)
+    p_alive = _build.require(alive, "alive", torch.bool, store, dev)
+    p_dead = _build.require(dead, "dead", torch.bool, plane, dev)
+
+    out = torch.empty((2, K, Y, X), dtype=f, device=dev)
+    out_alive = torch.empty(store, dtype=torch.bool, device=dev)
+    out_count = torch.empty(plane, dtype=torch.int32, device=dev)
+    out_drop = torch.empty(plane, dtype=torch.int32, device=dev)
+    inv_h = np.float32(1.0) / np.float32(cfg.side_length)
+    lib = marker_lib()
+    _build.LAUNCHES["K6"] += 1
+    rc = lib.eu_rebin(
+        Y, X, K, float(inv_h), p_px, p_py, p_alive, p_dead,
+        out[0].data_ptr(), out[1].data_ptr(), out_alive.data_ptr(),
+        out_count.data_ptr(), out_drop.data_ptr(), _build.stream())
+    _build.check(lib, rc, "eu_rebin")
+    return out[0], out[1], out_alive, out_count, out_drop

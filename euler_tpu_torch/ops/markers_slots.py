@@ -1,5 +1,6 @@
 """Cell-slot marker layout (`euler_tpu/ops/markers_slots.py`): the plain
-PyTorch version of the marker pass, kernel K1's reference.
+PyTorch version of the marker pass (the reference of kernels K1, K4, K5
+and K6), and the state-level passes that run those kernels.
 
 Markers are stored by home cell: the [2, K, Y, X] store holds marker k of
 cell (y, x) at [:, k, y, x], and the first marker_count[y, x] slots of a
@@ -191,23 +192,29 @@ def rebin_slots(cfg: SimConfig, px, py, valid, dead):
 
 def advect_markers_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
                          dt):
-    """The march alone, on the state's own validity plane."""
-    px, py, valid = slot_views(cfg, state)
-    nx_, ny_ = march_slots(cfg, state.u, state.v, state.fluid, scn.solid,
-                           px, py, valid, dt)
-    return state.replace(markers=torch.stack([nx_, ny_]))
+    """The march alone through the K5 wrapper (the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors): slots k < marker_count
+    are marched, the rest keep their position."""
+    from euler_tpu_torch.ops.cuda.marker_kernel import advect_markers
+
+    px, py, _alive = slot_views(cfg, state)
+    opx, opy = advect_markers(cfg, state.u, state.v, state.fluid, scn.solid,
+                              px, py, dt, state.marker_count)
+    return state.replace(markers=torch.stack([opx, opy]))
 
 
 def refresh_marker_counts_slots(cfg: SimConfig, scn: Scenario,
                                 state: FluidState):
-    """Re-bin, drop markers in sink/solid cells and recount."""
-    px, py, valid = slot_views(cfg, state)
-    opx, opy, count, drop = rebin_slots(cfg, px, py, valid,
-                                        scn.sink | scn.solid)
-    K = px.shape[0]
+    """Re-bin, drop markers in sink/solid cells and recount, through the
+    K6 wrapper, on the state's alive plane; writes the new alive plane."""
+    from euler_tpu_torch.ops.cuda.rebin_kernel import rebin_markers
+
+    px, py, alive = slot_views(cfg, state)
+    opx, opy, alive, count, drop = rebin_markers(cfg, px, py, alive,
+                                                 scn.sink | scn.solid)
     return state.replace(
         markers=torch.stack([opx, opy]),
-        alive=live_slots(count, K),
+        alive=alive,
         prev_marker_count=state.marker_count,
         marker_count=count,
         alive_count=count.sum(dtype=torch.int32),
@@ -216,24 +223,41 @@ def refresh_marker_counts_slots(cfg: SimConfig, scn: Scenario,
 
 
 def marker_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState, dt,
-                      defer_alive: bool = False):
-    """March + re-bin through the K1 wrapper (the CUDA kernel on CUDA
-    tensors, `march_rebin_plain` on CPU tensors).  Validity is k < count.
-    defer_alive leaves `state.alive` stale for the caller to re-derive."""
-    from euler_tpu_torch.ops.cuda.marker_fused_kernel import march_rebin
-
-    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-    oslots, count, drop = march_rebin(
-        cfg, state.u, state.v, state.fluid, scn.solid,
-        state.markers.reshape(2 * K, Y, X), dt, state.marker_count,
-        dead=scn.sink | scn.solid,
+                      defer_alive: bool = False, route: str = "K1"):
+    """March + re-bin by `route` (`sim.marker_route` names it):
+      * "K1": the fused pass through the K1 wrapper; validity is
+        k < count;
+      * "K4": the same on the persistent padded store that
+        `sim.step_frame` keeps in `state.markers` through a frame;
+      * "K5+K6": `advect_markers_slots` then `refresh_marker_counts_slots`.
+    Each wrapper runs its CUDA kernel on CUDA tensors and its plain
+    version on CPU tensors.  defer_alive leaves `state.alive` stale for
+    the caller to re-derive (the fused passes only)."""
+    from euler_tpu_torch.ops.cuda.marker_fused_kernel import (
+        march_rebin,
+        march_rebin_padded,
     )
+
+    if route == "K5+K6":
+        state = advect_markers_slots(cfg, scn, state, dt)
+        return refresh_marker_counts_slots(cfg, scn, state)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    args = (cfg, state.u, state.v, state.fluid, scn.solid)
+    dead = scn.sink | scn.solid
+    if route == "K4":
+        assert defer_alive, "the padded store requires the deferred alive"
+        oslots, count, drop = march_rebin_padded(
+            *args, state.markers, dt, state.marker_count, dead=dead)
+    else:
+        oslots, count, drop = march_rebin(
+            *args, state.markers.reshape(2 * K, Y, X), dt,
+            state.marker_count, dead=dead)
     return finish_marker_pass(cfg, state, oslots, count, drop, defer_alive)
 
 
 def finish_marker_pass(cfg: SimConfig, state: FluidState, oslots, count,
                        drop, defer_alive: bool):
-    """Assemble the post-pass state from the pass outputs."""
+    """Assemble the post-pass state from the fused pass's outputs."""
     K = cfg.slots_per_cell
     alive = state.alive if defer_alive else live_slots(count, K)
     return state.replace(

@@ -13,11 +13,21 @@ trip of masked substeps, as in the JAX package:
     projections also take dt_proj as their face-update dt, as the JAX
     package's do, which gives NaN on inactive substeps that the same
     select discards;
-  * the alive plane is re-derived once per frame.
+  * on the fused marker passes the alive plane is re-derived once per
+    frame; the unfused pass writes it every substep (JAX sim.py:266-269).
 
-A substep is the marker pass (K1), then the route `route` names, chosen
-as the JAX package with `use_pallas=True` chooses it, by the same size
-gates (written for the TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
+A substep is the marker pass `marker_route` names, chosen as the JAX
+package with `use_pallas_markers=True` chooses it (markers_slots.py:
+354-386, sim.py:320-334):
+  * "K1", the fused march + re-bin (`fuse_marker_pass`, the default);
+  * "K4", the same on the persistent padded store
+    (`marker_padded_store`, mono, no sources): the store is padded once
+    before the substeps and unpadded once after them;
+  * "K5+K6", the march and the re-bin as two kernels
+    (`fuse_marker_pass=False`).
+Then comes the route `route` names, chosen as the JAX package with
+`use_pallas=True` chooses it, by the same size gates (written for the
+TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
   * fused (`fuse_projection`, mono, no sources, and the fused kernel's
     gate): grid stage + projection in one wrapper call, K2 (MG-PCG, K3
     inside) or K10 (Jacobi);
@@ -43,6 +53,10 @@ from euler_tpu_torch.ops.cuda.grid_kernel import (
     grid_stage,
 )
 from euler_tpu_torch.ops.extrapolate import extrapolate
+from euler_tpu_torch.ops.cuda.marker_fused_kernel import (
+    pad_slot_store,
+    unpad_slot_store,
+)
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.markers_slots import live_slots, marker_pass_slots
 from euler_tpu_torch.ops.project import project, solver_route
@@ -115,6 +129,19 @@ def route(cfg: SimConfig, scn: Scenario):
     return grid, solver_route(cfg)
 
 
+def marker_route(cfg: SimConfig, scn: Scenario) -> str:
+    """The marker pass of every substep: "K5+K6" (unfused), "K4" (fused,
+    on the persistent padded store) or "K1" (fused), as the JAX package
+    picks them with `use_pallas_markers=True`: the padded store needs the
+    fused pass's deferred alive plane, mono colour and no sources (JAX
+    sim.py:327-334)."""
+    if not cfg.fuse_marker_pass:
+        return "K5+K6"
+    if cfg.marker_padded_store and not cfg.rainbow and scn.num_sources == 0:
+        return "K4"
+    return "K1"
+
+
 def _colors(state: FluidState, fn):
     return state.replace(r=fn(state.r), g=fn(state.g), b=fn(state.b))
 
@@ -122,8 +149,10 @@ def _colors(state: FluidState, fn):
 def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
             defer_alive: bool = False):
     """One CFL substep with dt chosen.  Returns (state, msq,
-    pcg_iterations)."""
-    state = marker_pass_slots(cfg, scn, state, dt, defer_alive=defer_alive)
+    pcg_iterations).  On the "K4" marker route `state.markers` is the
+    padded store that `step_frame` keeps through the frame."""
+    state = marker_pass_slots(cfg, scn, state, dt, defer_alive=defer_alive,
+                              route=marker_route(cfg, scn))
     fluid, prev, solid = state.fluid, state.prev_fluid, scn.solid
     if cfg.rainbow:
         # colours extrapolate before sources run (main.c:859-863)
@@ -178,6 +207,11 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
     check_slice(cfg, scn)
     f = state.u.dtype
     dev = state.u.device
+    # only the fused passes leave the alive plane to the frame's end
+    defer_alive = cfg.fuse_marker_pass
+    padded_store = marker_route(cfg, scn) == "K4"
+    if padded_store:
+        state = state.replace(markers=pad_slot_store(cfg, state.markers))
     frame_time = torch.tensor(cfg.frame_time, dtype=f, device=dev)
     msq = max_speed_sq(cfg, state.u, state.v)
     n_active = torch.zeros((), dtype=torch.int32, device=dev)
@@ -187,7 +221,7 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
         dt = torch.where(active, _dt_from_msq(cfg, msq, frame_time), 0.0)
         dt_proj = torch.where(active, dt, torch.inf)
         new, new_msq, iters = substep(cfg, scn, state, dt, dt_proj,
-                                      defer_alive=True)
+                                      defer_alive=defer_alive)
 
         def sel(name):
             return torch.where(active, getattr(new, name),
@@ -201,10 +235,12 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
         frame_time = torch.where(active, frame_time - dt, frame_time)
         n_active = n_active + active.to(torch.int32)
         pcg_iters = pcg_iters + torch.where(active, iters, 0)
-    state = state.replace(
-        alive=live_slots(state.marker_count, cfg.slots_per_cell),
-        frame_count=state.frame_count + 1,
-    )
+    if padded_store:
+        state = state.replace(markers=unpad_slot_store(cfg, state.markers))
+    if defer_alive:
+        state = state.replace(
+            alive=live_slots(state.marker_count, cfg.slots_per_cell))
+    state = state.replace(frame_count=state.frame_count + 1)
     return state, {"n_active": n_active, "pcg_iters": pcg_iters}
 
 

@@ -18,10 +18,12 @@ from euler_tpu_torch.core.presets import dam_break
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda import grid_kernel as k7
 from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+from euler_tpu_torch.ops.cuda import marker_kernel as k5
 from euler_tpu_torch.ops.cuda import mg_kernel as k3
 from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
 from euler_tpu_torch.ops.cuda import pcg_kernel as k89
 from euler_tpu_torch.ops.cuda import pcg_stream_kernel as k12
+from euler_tpu_torch.ops.cuda import rebin_kernel as k6
 from euler_tpu_torch.ops.cuda import substep_kernel as k2
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.project import divergence_rhs, pressure_matrix_diag
@@ -84,6 +86,68 @@ def test_marker_pass_bitwise(developed, mask):
     want = k1.march_rebin_plain(*args, dead=dead)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _marker_args(developed, zero_dt):
+    cfg, scn, st, dt = developed
+    if zero_dt:
+        dt = torch.zeros((), device="cuda")
+    return cfg, scn, st, dt, (cfg, st.u, st.v, st.fluid, scn.solid)
+
+
+@pytest.mark.parametrize("zero_dt", [False, True])
+def test_march_bitwise(developed, zero_dt):
+    """K5: every slot, live and dead, bitwise; dt = 0 is an identity."""
+    cfg, scn, st, dt, args = _marker_args(developed, zero_dt)
+    px, py = st.markers[0], st.markers[1]
+    got = k5.advect_markers(*args, px, py, dt, st.marker_count)
+    want = k5.advect_markers_plain(*args, px, py, dt, st.marker_count)
+    for a, b, was in zip(got, want, (px, py)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, was) == zero_dt
+
+
+@pytest.mark.parametrize("zero_dt", [False, True])
+def test_rebin_bitwise(developed, zero_dt):
+    """K6 on K5's output with the state's alive plane, bitwise."""
+    cfg, scn, st, dt, args = _marker_args(developed, zero_dt)
+    px, py = k5.advect_markers(*args, st.markers[0], st.markers[1], dt,
+                               st.marker_count)
+    dead = scn.sink | scn.solid
+    got = k6.rebin_markers(cfg, px, py, st.alive, dead)
+    want = k6.rebin_markers_plain(cfg, px, py, st.alive, dead)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if zero_dt:
+        assert torch.equal(torch.stack(got[:2]), st.markers)
+        assert torch.equal(got[3], st.marker_count)
+
+
+def _interior(out, cfg):
+    """K4's outputs with the store cut to its interior."""
+    slots, count, drop = out
+    return (slots[:, 8:8 + cfg.ny, 128:128 + cfg.nx], count, drop)
+
+
+@pytest.mark.parametrize("zero_dt", [False, True])
+def test_march_rebin_padded_bitwise(developed, zero_dt):
+    """K4's interior against its plain version and against K1, with
+    garbage in the input's pads."""
+    cfg, scn, st, dt, args = _marker_args(developed, zero_dt)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    store = torch.full((2 * K, Y + 16, X + 256), float("nan"), device="cuda")
+    store[:, 8:8 + Y, 128:128 + X] = st.markers.reshape(2 * K, Y, X)
+    dead = scn.sink | scn.solid
+    got = _interior(k1.march_rebin_padded(*args, store, dt,
+                                          st.marker_count, dead=dead), cfg)
+    want = _interior(k1.march_rebin_padded_plain(
+        *args, store, dt, st.marker_count, dead=dead), cfg)
+    fused = k1.march_rebin(*args, st.markers.reshape(2 * K, Y, X), dt,
+                           st.marker_count, dead=dead)
+    for a, b, c in zip(got, want, fused):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if zero_dt:
+        assert torch.equal(got[0], st.markers.reshape(2 * K, Y, X))
 
 
 def test_substep_matches_plain(developed):
@@ -268,6 +332,34 @@ def _gated_route(route, monkeypatch):
     return dataclasses.replace(cfg, use_pallas_grid=True,
                                solver=dataclasses.replace(
                                    cfg.solver, fuse_projection=False))
+
+
+@pytest.mark.parametrize("route", ["K5+K6", "K4"])
+def test_marker_route_frames(developed, route):
+    """2 frames of the 64² main path on a marker route: equal to the K1
+    route on the card in counts, drops, u, v and the store; within the
+    frame tolerances of the CPU plain versions."""
+    cfg = _cfg(64)
+    rcfg = dataclasses.replace(cfg, fuse_marker_pass=route != "K5+K6",
+                               marker_padded_store=route == "K4")
+    scn, st = dam_break(cfg, device="cuda")
+    assert sim.marker_route(rcfg, scn) == route
+    ref = sim.run_frames(cfg, scn, st, 2)
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    got = sim.run_frames(rcfg, scn, st, 2)
+    launches, plain = dict(_build.LAUNCHES), sum(_build.PLAIN_CALLS.values())
+    assert "K1" not in launches and plain == 0
+    for k in route.split("+"):
+        assert launches[k] == 16
+    for name in ("marker_count", "dropped_markers", "u", "v", "markers",
+                 "alive", "p"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    scn_c, st_c = dam_break(rcfg, device="cpu")
+    st_c = sim.run_frames(rcfg, scn_c, st_c, 2)
+    assert torch.equal(got.marker_count.cpu(), st_c.marker_count)
+    assert (got.u.cpu() - st_c.u).abs().max() <= 5e-3
+    assert (got.v.cpu() - st_c.v).abs().max() <= 5e-3
 
 
 @pytest.mark.parametrize("route", ["K11", "K12", "K7"])

@@ -25,6 +25,8 @@ MODULES = [
     "euler_tpu_torch.core.presets",
     "euler_tpu_torch.ops.cuda._build",
     "euler_tpu_torch.ops.cuda.marker_fused_kernel",
+    "euler_tpu_torch.ops.cuda.marker_kernel",
+    "euler_tpu_torch.ops.cuda.rebin_kernel",
     "euler_tpu_torch.ops.cuda.grid_kernel",
     "euler_tpu_torch.ops.cuda.substep_kernel",
     "euler_tpu_torch.ops.cuda.mg_kernel",

@@ -3,8 +3,6 @@ fused marker kernel in interpret mode and the jnp slot pipeline.  Counts
 and drops bitwise; live-slot positions atol 1e-4
 (tests/test_pallas_markers.py: XLA contracts FMAs on the CPU)."""
 
-import functools
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,57 +10,32 @@ import torch
 
 from euler_tpu.ops import markers_slots as jms
 from euler_tpu.ops.pallas.marker_fused_kernel import march_rebin_pallas
-from euler_tpu_torch import convert, sim
-from euler_tpu_torch.core import presets
+from euler_tpu_torch import convert
 from euler_tpu_torch.ops import markers_slots as tms
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
-from euler_tpu_torch.ops.forces import max_speed_sq
 
 from torch_parity import (
+    assert_live_close,
+    cfl_dt,
     developed_numpy,
     jax_config,
     jax_state,
     n,
     port_config,
     port_state,
+    scenario_numpy,
 )
-
-
-@functools.lru_cache(maxsize=None)
-def _obstacle_numpy():
-    cfg = port_config(64)
-    scn, st = presets.block_obstacles(cfg, seed=1, device="cpu")
-    for _ in range(3):
-        st = sim.step_frame(cfg, scn, st)
-    return convert.scenario_to_numpy(scn), convert.state_to_numpy(st)
-
-
-def _arrays(scenario):
-    return developed_numpy(64) if scenario == "dam_break" else \
-        _obstacle_numpy()
-
-
-def _cfl_dt(cfg, st):
-    frame_time = torch.tensor(cfg.frame_time)
-    return sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v), frame_time)
-
-
-def _live_equal(cfg, got, want, count):
-    K = cfg.slots_per_cell
-    live = np.concatenate([n(tms.live_slots(torch.as_tensor(count), K))] * 2)
-    np.testing.assert_allclose(got[live], want[live], atol=1e-4, rtol=0)
-    assert not got[~live].any()
 
 
 @pytest.mark.parametrize("scenario", ["dam_break", "block_obstacles"])
 def test_march_rebin_matches_pallas_kernel(scenario):
     cfg = port_config(64)
     jcfg = jax_config(cfg)
-    scn, st = port_state(_arrays(scenario))
-    jscn, jst = jax_state(_arrays(scenario))
+    scn, st = port_state(scenario_numpy(scenario))
+    jscn, jst = jax_state(scenario_numpy(scenario))
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-    dt = _cfl_dt(cfg, st) * 1.5  # collisions and cell crossings
+    dt = cfl_dt(cfg, st) * 1.5  # collisions and cell crossings
     dead = scn.sink | scn.solid
 
     slots, count, drop = k1.march_rebin(
@@ -75,7 +48,7 @@ def test_march_rebin_matches_pallas_kernel(scenario):
         dead=(jscn.sink | jscn.solid).astype(jnp.float32))
     np.testing.assert_array_equal(n(count), np.asarray(jcount))
     np.testing.assert_array_equal(n(drop), np.asarray(jdrop))
-    _live_equal(cfg, n(slots), np.asarray(jslots), n(count))
+    assert_live_close(cfg, n(slots), np.asarray(jslots), n(count))
     moved = (n(count) != n(st.marker_count)).sum()
     assert moved > 0  # the pass re-binned markers across cells
 
@@ -99,9 +72,9 @@ def test_state_passes_match_jnp_pipeline(scenario):
     on the state's alive plane) against the JAX jnp pipeline."""
     cfg = port_config(64)
     jcfg = jax_config(cfg, interpret=False)
-    scn, st = port_state(_arrays(scenario))
-    jscn, jst = jax_state(_arrays(scenario))
-    dt = _cfl_dt(cfg, st)
+    scn, st = port_state(scenario_numpy(scenario))
+    jscn, jst = jax_state(scenario_numpy(scenario))
+    dt = cfl_dt(cfg, st)
 
     st = tms.refresh_marker_counts_slots(
         cfg, scn, tms.advect_markers_slots(cfg, scn, st, dt))
@@ -114,7 +87,7 @@ def test_state_passes_match_jnp_pipeline(scenario):
         np.testing.assert_array_equal(got[name], np.asarray(getattr(jst, name)),
                                       err_msg=name)
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-    _live_equal(cfg, got["markers"].reshape(2 * K, Y, X),
+    assert_live_close(cfg, got["markers"].reshape(2 * K, Y, X),
                 np.asarray(jst.markers).reshape(2 * K, Y, X),
                 got["marker_count"])
 
@@ -123,7 +96,7 @@ def test_marker_pass_slots_uses_the_wrapper():
     cfg = port_config(64)
     scn, st = port_state(developed_numpy(64))
     before = _build.PLAIN_CALLS["K1"]
-    out = tms.marker_pass_slots(cfg, scn, st, _cfl_dt(cfg, st))
+    out = tms.marker_pass_slots(cfg, scn, st, cfl_dt(cfg, st))
     assert _build.PLAIN_CALLS["K1"] == before + 1
     assert torch.equal(out.prev_marker_count, st.marker_count)
     assert torch.equal(out.alive, tms.live_slots(out.marker_count,

@@ -7,19 +7,33 @@ kernel that the JAX `sim.substep` and `ops/project.solve_pressure` pick
 (sim.py:43-78, 141-212; project.py:191-223), and the level skip of K11
 (`_resident_start`, F) is the JAX package's.  Where the JAX package falls
 through to its jnp `pcg_loop`, the port raises naming ROADMAP M11.
+
+`sim.marker_route` names the marker pass that the JAX `step_frame` runs
+with `use_pallas_markers=True` (markers_slots.py:354-386, sim.py:266-269,
+320-352), for every setting of fuse_marker_pass, marker_padded_store and
+rainbow: the JAX frame is traced with recording stand-ins for its marker
+kernels, which shows the kernels it calls and how often it pads the
+slot store.
 """
 
 import dataclasses
+import functools
 import itertools
 import types
 
+import jax
+import jax.numpy as jnp
 import pytest
 
 from euler_tpu import sim as jsim
+from euler_tpu.core.presets import dam_break as jdam_break
+from euler_tpu.ops.pallas import marker_fused_kernel as jfused
+from euler_tpu.ops.pallas import marker_kernel as jmarch
 from euler_tpu.ops.pallas import mg_kernel as jmg
 from euler_tpu.ops.pallas import mg_stream_kernel as jms
 from euler_tpu.ops.pallas import pcg_kernel as jpcg
 from euler_tpu.ops.pallas import pcg_stream_kernel as jps
+from euler_tpu.ops.pallas import rebin_kernel as jrebin
 from euler_tpu_torch import sim
 from euler_tpu_torch.ops.cuda import mg_stream_kernel as tms
 
@@ -99,3 +113,62 @@ def test_pcg_loop_fallthrough_raises(precon, size):
     assert jax_route(jax_config(cfg))[1] is None
     with pytest.raises(NotImplementedError, match="M11"):
         sim.check_slice(cfg, NO_SOURCES)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_state(size):
+    """A JAX dam break to trace a frame on (its preset's own marker pass
+    as jnp ops: the Pallas one costs ~13 s of interpret compile here)."""
+    return jdam_break(jax_config(speed_config(size), interpret=False))
+
+
+def jax_marker_calls(jcfg, monkeypatch):
+    """The marker kernels (and pad/unpad of the slot store) that the JAX
+    `step_frame` calls on `jcfg`, in call order, from a trace in which
+    each kernel is a stand-in that records its call and returns its
+    input."""
+    jscn, jst = _jax_state(jcfg.nx)
+    calls = []
+
+    def record(name, fn):
+        def stand_in(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return stand_in
+
+    def fused(cfg, u, v, fluid, solid, slots, dt, count, *args, **kwargs):
+        return slots, count, count
+
+    def rebin(cfg, px, py, valid_f, dead, *args):
+        count = dead.astype(jnp.int32)
+        return px, py, valid_f, count, count
+
+    for mod, name, kernel, fn in (
+            (jfused, "march_rebin_pallas", "K1", fused),
+            (jfused, "march_rebin_padded", "K4", fused),
+            (jmarch, "advect_markers_pallas", "K5",
+             lambda cfg, u, v, fl, so, px, py, *a: (px, py)),
+            (jrebin, "rebin_markers_pallas", "K6", rebin),
+            (jfused, "pad_slot_store", "pad", jfused.pad_slot_store),
+            (jfused, "unpad_slot_store", "unpad", jfused.unpad_slot_store)):
+        monkeypatch.setattr(mod, name, record(kernel, fn))
+    jax.eval_shape(functools.partial(jsim.step_frame, jcfg), jscn, jst)
+    return calls
+
+
+@pytest.mark.parametrize("fuse,padded,rainbow",
+                         list(itertools.product([False, True], repeat=3)))
+def test_marker_route_matches_jax_dispatch(monkeypatch, fuse, padded,
+                                           rainbow):
+    cfg = dataclasses.replace(
+        speed_config(32), fuse_marker_pass=fuse,
+        marker_padded_store=padded, rainbow=rainbow)
+    jcfg = dataclasses.replace(jax_config(cfg, interpret=False),
+                               use_pallas_markers=True,
+                               pallas_interpret=True)
+    calls = jax_marker_calls(jcfg, monkeypatch)
+    route = sim.marker_route(cfg, NO_SOURCES)
+    # the frame's substeps are one traced scan body: one pass each
+    want = {"K1": ["K1"], "K4": ["pad", "K4", "unpad"],
+            "K5+K6": ["K5", "K6"]}[route]
+    assert calls == want, (route, calls)

@@ -21,7 +21,9 @@ from euler_tpu import config as jconfig
 from euler_tpu.core import state as jstate
 from euler_tpu_torch import convert, sim
 from euler_tpu_torch.config import SimConfig, SolverConfig
-from euler_tpu_torch.core.presets import dam_break
+from euler_tpu_torch.core.presets import block_obstacles, dam_break
+from euler_tpu_torch.ops.forces import max_speed_sq
+from euler_tpu_torch.ops.markers_slots import live_slots
 
 # 64²-sized tensors gain nothing from intra-op threads, and the test run
 # shares the host's cores between several worker processes
@@ -103,6 +105,38 @@ def developed_numpy(size: int = 64, frames: int = 4, seed: int = 0):
     for _ in range(frames):
         st = sim.step_frame(cfg, scn, st)
     return convert.scenario_to_numpy(scn), convert.state_to_numpy(st)
+
+
+@functools.lru_cache(maxsize=None)
+def obstacles_numpy(size: int = 64, frames: int = 3, seed: int = 1):
+    """(scenario, state) numpy dicts of the block-obstacles preset
+    advanced `frames` frames by the port on the CPU."""
+    cfg = port_config(size)
+    scn, st = block_obstacles(cfg, seed=seed, device="cpu")
+    for _ in range(frames):
+        st = sim.step_frame(cfg, scn, st)
+    return convert.scenario_to_numpy(scn), convert.state_to_numpy(st)
+
+
+def scenario_numpy(scenario: str):
+    """The developed 64² "dam_break" or "block_obstacles" numpy dicts."""
+    return developed_numpy(64) if scenario == "dam_break" else \
+        obstacles_numpy(64)
+
+
+def cfl_dt(cfg, st):
+    """The CFL dt of a substep on `st` (the frame loop's first)."""
+    frame_time = torch.tensor(cfg.frame_time)
+    return sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v), frame_time)
+
+
+def assert_live_close(cfg, got, want, count, atol=1e-4):
+    """[2K, Y, X] stores agree within atol on the live slots of `count`,
+    and `got` is zero on the others."""
+    K = cfg.slots_per_cell
+    live = np.concatenate([n(live_slots(torch.as_tensor(count), K))] * 2)
+    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=0)
+    assert not got[~live].any()
 
 
 def port_state(arrays):
