@@ -12,8 +12,12 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
   2. builds the 1024² dam break and advances it 4 warm-up frames;
   3. holds each kernel against its plain version on the card, on that
      state: K1 marker pass, K4 padded marker pass, K5 march, K6 re-bin, K2
-     substep grid half, K3 MG-PCG solve, K7 grid stage, K8 Jacobi-PCG
-     solve, K9 Jacobi projection, K10 Jacobi substep;
+     substep grid half, K3 MG-PCG solve (cold, warm, and capped at 3
+     iterations, which it must take exactly; the Galerkin hierarchy and
+     Chebyshev rows it builds bitwise equal to `mg_host_operands`; its
+     coarse cycle in one launch a visit bitwise equal to one launch per
+     level operation), K7 grid
+     stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep;
   4. times 20 frames of the main path (dam break, slot markers K=8,
      Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection);
   5. times 20 frames of the Jacobi speed mode (`bench.py --precon
@@ -87,8 +91,58 @@ F32_FLOP_PER_S = 67e12
 # (csrc/jacobi_pcg.cu): the HBM time of that traffic is the sweep bound
 # of K8-K10, an upper bound on their floor (the live planes fit the L2).
 # K12's two sweeps move 13 planes an iteration (pcg_stream_kernel.py:19),
-# K11's four fine sweeps 17 (mg_stream_kernel.py:25-26).
-SWEEP_PLANES = {"K8": 14, "K9": 14, "K10": 14, "K11": 17, "K12": 13}
+# K11's four fine sweeps 17 (mg_stream_kernel.py:25-26).  K3 and K2 (the
+# MG-PCG main path): `mg_sweep_planes` counts an iteration of the cycle
+# schedule at the main path's level shapes, and SWEEP_CALL_PLANES what a
+# call moves once (head, hierarchy, warm start, tail).
+
+
+def mg_sweep_planes(size: int = 1024, min_size: int = 32, w: int = 2,
+                    w_depth: int = 2):
+    """(per iteration, hierarchy build) traffic of the degree-1 MG-PCG
+    (csrc/mg_levels.cuh, csrc/mg_pcg.cu) in [Y, X] f32 plane equivalents:
+    each operation reads its input planes once and writes its outputs
+    once, a level-l plane counting 4^-l.  The operator is 1 plane at
+    level 0 (packed) and 3 above (c, e, n).  Per visit of level l:
+    pre-smooth + restriction (b, A in; x, b_c out), a restriction per
+    extra visit (b, x, A in; b_c out), a prolongation per visit (z_c, x in,
+    x out, and the packed plane at level 0), the post-smooth (b, x, A in;
+    z out); the coarsest solve (b, c, e, n in; x out); and at level 0 the
+    PCG step (z, s, As, packed in, s, As out; p, r, s, As in, p, r out).
+    At 1024² (six levels, W at levels 0 and 1): level 0 29 planes, level 1
+    2 x 21 level-1 planes (10.5), level 2 4 x 13.5 (3.375), level 3
+    (0.84), level 4 (0.21), level 5 4 x 5 (0.02): ~43.95 planes, 184 MB.
+    The hierarchy: level 0's Gershgorin pass (1), then per coarse level
+    the finer level's operator and active flags in and its own out."""
+    sizes = [size]
+    while sizes[-1] > min_size:
+        sizes.append(sizes[-1] // 2)
+    L = len(sizes)
+
+    def cycle(l):
+        s = 4.0 ** -l
+        if l == L - 1:
+            return 5 * s
+        a = 1 if l == 0 else 3
+        visits = w if (l < w_depth and l + 1 < L - 1) else 1
+        own = ((2 + a + 0.25) + (visits - 1) * (2 + a + 0.25)
+               + visits * (2.25 + (1 if l == 0 else 0)) + (3 + a))
+        return own * s + visits * cycle(l + 1)
+
+    hier = 1 + sum((1 if l == 0 else 3.25 * 4.0 ** -l)
+                   + 3.25 * 4.0 ** -(l + 1) for l in range(L - 1))
+    return cycle(0) + 12, hier
+
+
+SWEEP_PLANES = {"K8": 14, "K9": 14, "K10": 14, "K11": 17, "K12": 13,
+                "K3": mg_sweep_planes()[0], "K2": mg_sweep_planes()[0]}
+# once a call, besides the hierarchy: K3's head (a_diag i32 and fluid u8
+# in, packed out: 2.25; b and x0 copied in: 4), init (r in, s and As out:
+# 3), warm start (mask 3, residual 4), p copied out (2); K2's grid passes
+# (A 4.75, B 4.5), RHS (6.5), init 3, warm start 7, tail (clamp 2.25,
+# face update 5.5)
+SWEEP_CALL_PLANES = {"K3": 18.25 + mg_sweep_planes()[1],
+                     "K2": 33.5 + mg_sweep_planes()[1]}
 GRID_FLOPS = 100
 GRID_STAGE_FLOPS = 70
 JACOBI_FLOPS = 20
@@ -258,11 +312,17 @@ def record_peak(summary: dict, held: int) -> None:
     `held` bytes that were allocated before the path began."""
     import torch
 
+    from euler_tpu_torch.ops.cuda import mg_kernel
+
     peak = torch.cuda.max_memory_allocated()
+    cached = sum(ws.nbytes for ws in mg_kernel._WORKSPACES.values())
     summary["max_memory_allocated"] = peak
     summary["memory_held_before"] = held
+    summary["mg_workspace_bytes"] = cached
     log(f"   torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB, of "
-        f"which {held / 2**30:.3f} GiB was held before the path")
+        f"which {held / 2**30:.3f} GiB was held before the path, "
+        f"{cached / 2**30:.3f} GiB of it by {len(mg_kernel._WORKSPACES)} "
+        f"cached MG workspaces")
 
 
 def reset_counts() -> None:
@@ -378,7 +438,8 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
         f"{results[name]['bound_by']} ({nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP, {iters} iterations, {n_cells} cells)")
     if name in SWEEP_PLANES:
-        sweep = SWEEP_PLANES[name] * 4 * n_cells * iters
+        sweep = 4 * n_cells * (SWEEP_PLANES[name] * iters
+                               + SWEEP_CALL_PLANES.get(name, 0))
         log(f"   {name}: sweep bound {1e3 * sweep / HBM_BYTES_PER_S:.3f}"
             f" ms ({sweep / 1e9:.2f} GB over {iters} iterations)")
 
@@ -568,6 +629,38 @@ def check_solve(name, got, want, rel_tol, same_iters: bool):
     else:
         check(abs(int(i_k) - int(i_p)) <= 1, f"{name} iterations differ > 1")
     return err
+
+
+def check_hierarchy(cfg, b, a_diag, fl) -> None:
+    """The Galerkin hierarchy and Chebyshev rows K3 builds on the card for
+    (a_diag, fl) bitwise equal to `mg_host_operands` (the packed plane,
+    every coarse level's c, e, n planes, the rows); then one preconditioner
+    application on b through the coarse cycle and through one launch per
+    level operation, bitwise equal."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import mg_kernel as k3
+
+    ws = k3.workspace(cfg, b.device)
+    ws.load(a_diag, fl, b)
+    ws.solve(warm=False)
+    _, packed0, planes, rows = k3.mg_host_operands(cfg, a_diag, fl)
+    check(torch.equal(ws.packed0, packed0), "K3: packed plane differs")
+    for l, (want, got) in enumerate(zip(planes, ws.levels), start=1):
+        for name, a, c in zip("cen", want, got):
+            check(torch.equal(a, c), f"K3: hierarchy level {l} {name} "
+                  "differs from mg_host_operands")
+    check(torch.equal(ws.rows, rows), "K3: Chebyshev rows differ from "
+          "mg_host_operands")
+    log(f"   K3: hierarchy ({len(planes)} coarse levels) and Chebyshev rows "
+        f"{tuple(rows.shape)} bitwise equal to mg_host_operands")
+    ws.load(a_diag, fl, b)
+    fused, per_op = ws.cycle(per_op=False), ws.cycle(per_op=True)
+    check(bool(fused.abs().max() > 0), "K3: the cycle returned zero")
+    check(torch.equal(fused, per_op), "K3: the coarse cycle in one launch "
+          "differs from one launch per level operation")
+    log("   K3: coarse cycle in one launch a visit bitwise equal to one "
+        "launch per level operation")
 
 
 def run_large(size, results, summaries, launches, profile_prefix=None):
@@ -786,6 +879,20 @@ def run(args) -> dict:
                 f"{int(i3k)} vs {int(i3p)}")
             check(e <= 5e-4 * scale, "K3 pressure differs > 5e-4*scale")
             check(abs(int(i3k) - int(i3p)) <= 1, "K3 iterations differ > 1")
+        capped = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, max_iterations=3))
+        p3k, i3k, _ = k3.solve_pressure_mg(capped, b, a_diag, fl, x0=state.p)
+        p3p, i3p, _ = k3.solve_pressure_mg_plain(capped, b, a_diag, fl,
+                                                 state.p)
+        e = (p3k - p3p).abs().max().item()
+        scale = p3p.abs().max().item()
+        log(f"   K3 (max_iterations 3): iters {int(i3k)} vs {int(i3p)}; p max "
+            f"err {e:.3g} of scale {scale:.3g}")
+        check(int(i3k) == int(i3p) == 3, "K3 capped at 3 iterations did not "
+              "take exactly 3")
+        check(e <= 5e-4 * scale, "K3 (capped) pressure differs > 5e-4*scale")
+        err3 = max(err3, e)
+        check_hierarchy(cfg, b, a_diag, fl)
         results["K3"] = {"max_abs_err": err3}
 
         # the Jacobi kernels on the same system, at the speed-mode budget

@@ -9,22 +9,24 @@
 // K2 replaces the Pallas kernel euler_tpu/ops/pallas/substep_kernel.py
 // `_substep_kernel` (launched by `project_substep_mg`): its grid stage
 // `_grid_stage_sweeps` (extrapolate -> zero_bounds -> advect -> gravity ->
-// zero_bounds, main.c:865-889), the divergence RHS (main.c:713-724), and
-// after the MG-PCG solve (mg_pcg.cu) the pressure clamp (main.c:773-779),
-// the face velocity update (main.c:782-806) and the CFL maxsq
-// (main.c:808-820).
+// zero_bounds, main.c:865-889), the divergence RHS (main.c:713-724) and
+// the packed PCG matrix, written straight into K3's workspace, and after
+// the MG-PCG solve (mg_pcg.cu, on that workspace) the pressure clamp
+// (main.c:773-779), the face velocity update (main.c:782-806) and the
+// CFL maxsq (main.c:808-820).
 //
 // What bounds it on an H100: bytes.  Each pass is a stencil over a few
 // [Y, X] planes (4 MB each at 1024²): the grid stage reads u, v, three
 // u8 masks and writes two planes twice; the tail reads p, the masks and
 // the velocities once.  Together a few tens of MB a substep.
 //
-// Design: one thread per cell and four launches — pass A (extrapolate +
-// zero_bounds into zu/zv, materialised because pass B reads their 3x3
-// neighbourhood), pass B (advection + gravity + zero_bounds), the RHS
-// (which also copies the warm-start guess), and the tail (clamp in
-// place, then the face update reading the clamped neighbours, so it is
-// split into two launches) with the maxsq by a two-stage reduction.
+// Design: one thread per cell — pass A (extrapolate + zero_bounds into
+// zu/zv, materialised because pass B reads their 3x3 neighbourhood), pass
+// B (advection + gravity + zero_bounds), the RHS (which also writes the
+// packed matrix and copies the warm-start guess), and the tail (the clamp
+// of the workspace's pressure into a fresh plane, then the face update
+// reading the clamped neighbours, so it is split into two launches) with
+// the maxsq by a two-stage reduction.
 // The passes and the tail live in grid_stage.cuh, which jacobi_pcg.cu
 // (K9, K10) shares.  Built with -fmad=false so the grid stage rounds as
 // the plain PyTorch version does.
@@ -32,12 +34,14 @@
 
 namespace {
 
-// b = -div(u) * h^2 rho / dt_proj on fluid cells; p = p0 when warm
+// b = -div(u) * h^2 rho / dt_proj on fluid cells; the packed matrix;
+// p = p0 when warm
 __global__ void rhs_kernel(Masks m, const float* __restrict__ ut,
                            const float* __restrict__ vt,
                            const float* __restrict__ dtp_ptr, float inv_h,
                            float scale, const float* __restrict__ p0,
-                           float* __restrict__ r, float* __restrict__ p) {
+                           float* __restrict__ r, float* __restrict__ p,
+                           float* __restrict__ packed) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= m.Y * m.X) return;
   const int y = t / m.X, x = t - y * m.X;
@@ -45,6 +49,7 @@ __global__ void rhs_kernel(Masks m, const float* __restrict__ ut,
   const float div = (ut[t] - ld(ut, y, x - 1, m.Y, m.X) + vt[t] -
                      ld(vt, y - 1, x, m.Y, m.X)) * inv_h;
   r[t] = m.fl[t] ? -div * k_inv_scale : 0.0f;
+  packed[t] = packed_at(m, t, y, x);
   if (p0) p[t] = p0[t];
 }
 
@@ -66,14 +71,14 @@ EU_API int eu_grid_passes(int Y, int X, float inv_h, float g, const void* fl,
 
 // Grid stage + RHS.  u, v: [Y, X] f32 in; fl, pfl, so: [Y, X] u8;
 // zu, zv: [Y, X] scratch; ut, vt: [Y, X] out; r: [Y, X] RHS out; p0
-// (nullable): warm-start guess copied into p.  dt, dt_proj: one f32 each
-// on the device.
+// (nullable): warm-start guess copied into p; packed: [Y, X] out.  dt,
+// dt_proj: one f32 each on the device.
 EU_API int eu_grid_stage(int Y, int X, float inv_h, float g, float scale,
                          const void* fl, const void* pfl, const void* so,
                          const void* u, const void* v, const void* dt,
                          const void* dt_proj, const void* p0, void* zu,
                          void* zv, void* ut, void* vt, void* r, void* p,
-                         void* stream) {
+                         void* packed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Masks m = make_masks(Y, X, fl, pfl, so);
   const unsigned nb = eu_blocks(static_cast<long long>(Y) * X, kThreads);
@@ -89,20 +94,23 @@ EU_API int eu_grid_stage(int Y, int X, float inv_h, float g, float scale,
                                      inv_h, scale,
                                      static_cast<const float*>(p0),
                                      static_cast<float*>(r),
-                                     static_cast<float*>(p));
+                                     static_cast<float*>(p),
+                                     static_cast<float*>(packed));
   return eu_launch_status();
 }
 
-// Clamp p, then the face update over u/v (in place) and msq (one f32 on
-// the device).  part: 2 * ceil(Y*X/256) floats.
+// Clamp p_in into p, then the face update over u/v (in place) and msq
+// (one f32 on the device).  part: 2 * ceil(Y*X/256) floats.
 EU_API int eu_project_tail(int Y, int X, float c, const void* fl,
-                           const void* so, const void* dt, void* p, void* u,
-                           void* v, void* part, void* msq, void* stream) {
+                           const void* so, const void* dt, const void* p_in,
+                           void* p, void* u, void* v, void* part, void* msq,
+                           void* stream) {
   Masks m{Y, X, static_cast<const uint8_t*>(fl), nullptr,
           static_cast<const uint8_t*>(so)};
   float* uf = static_cast<float*>(u);
   float* vf = static_cast<float*>(v);
   return project_tail(m, c, static_cast<const float*>(dt),
+                      static_cast<const float*>(p_in),
                       static_cast<float*>(p), uf, vf, uf, vf,
                       static_cast<float*>(part), static_cast<float*>(msq),
                       static_cast<cudaStream_t>(stream));

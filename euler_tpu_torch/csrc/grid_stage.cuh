@@ -161,12 +161,24 @@ inline Masks make_masks(int Y, int X, const void* fl, const void* pfl,
                static_cast<const uint8_t*>(so)};
 }
 
-// pressure clamp >= 0 on fluid cells, NaN-propagating like jnp.maximum
+// the packed PCG matrix a_diag * fl + 8 * fl at cell (y, x) from the
+// solid mask (a_diag = 4 - #solid neighbours, pcg_kernel.py:283-284)
+__device__ __forceinline__ float packed_at(const Masks& m, int t, int y,
+                                           int x) {
+  auto so = [&](int i, int j) { return m.at(m.so, i, j) ? 1.0f : 0.0f; };
+  const float a =
+      4.0f - (((so(y, x - 1) + so(y, x + 1)) + so(y + 1, x)) + so(y - 1, x));
+  const float f = m.fl[t] ? 1.0f : 0.0f;
+  return a * f + 8.0f * f;
+}
+
+// pressure clamp >= 0 on fluid cells, NaN-propagating like jnp.maximum,
+// of p_in into p (p_in may be p)
 __global__ void clamp_kernel(int n, const uint8_t* __restrict__ fl,
-                             float* __restrict__ p) {
+                             const float* p_in, float* p) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  const float pv = p[t];
+  const float pv = p_in[t];
   p[t] = fl[t] ? nanmax(pv, 0.0f) : 0.0f;
 }
 
@@ -216,13 +228,15 @@ __global__ void msq_reduce(const float* __restrict__ part_u,
   if (threadIdx.x == 0) *msq = mu + mv;
 }
 
-// clamp p in place, then the face update of (u, v) into (u2, v2) and msq
-// (one f32 on the device).  part: 2 * ceil(Y*X/kThreads) floats.
-inline int project_tail(const Masks& m, float c, const float* dt, float* p,
-                        const float* u, const float* v, float* u2, float* v2,
-                        float* part, float* msq, cudaStream_t s) {
+// clamp p_in into p (p_in may be p), then the face update of (u, v) into
+// (u2, v2) and msq (one f32 on the device).  part: 2 * ceil(Y*X/kThreads)
+// floats.
+inline int project_tail(const Masks& m, float c, const float* dt,
+                        const float* p_in, float* p, const float* u,
+                        const float* v, float* u2, float* v2, float* part,
+                        float* msq, cudaStream_t s) {
   const unsigned nb = eu_blocks(static_cast<long long>(m.Y) * m.X, kThreads);
-  clamp_kernel<<<nb, kThreads, 0, s>>>(m.Y * m.X, m.fl, p);
+  clamp_kernel<<<nb, kThreads, 0, s>>>(m.Y * m.X, m.fl, p_in, p);
   int rc = eu_launch_status();
   if (rc) return rc;
   face_kernel<<<nb, kThreads, 0, s>>>(m, p, dt, c, u, v, u2, v2, part,

@@ -124,16 +124,14 @@ __global__ void project_head(Masks m, const float* __restrict__ ut,
   float zr = 0.0f, bmax = 0.0f;
   if (t < m.Y * m.X) {
     const int y = t / m.X, x = t - y * m.X;
-    auto so = [&](int i, int j) { return m.at(m.so, i, j) ? 1.0f : 0.0f; };
-    const float a = 4.0f - (((so(y, x - 1) + so(y, x + 1)) + so(y + 1, x)) +
-                            so(y - 1, x));
-    const float f = m.fl[t] ? 1.0f : 0.0f;
-    packed[t] = a * f + 8.0f * f;
+    const float pk = packed_at(m, t, y, x);
+    const Cell cell = decode(pk);
+    packed[t] = pk;
     const float k_inv_scale = scale / *dtp_ptr;
     const float div = (ut[t] - ld(ut, y, x - 1, m.Y, m.X) + vt[t] -
                        ld(vt, y - 1, x, m.Y, m.X)) * inv_h;
-    const float b = f != 0.0f ? -div * k_inv_scale : 0.0f;
-    init_cell(t, b, f / fmaxf(a * f, 1.0f), r, s, p, &zr, &bmax);
+    const float b = cell.fl != 0.0f ? -div * k_inv_scale : 0.0f;
+    init_cell(t, b, cell.invd, r, s, p, &zr, &bmax);
   }
   write_partials(zr, bmax, part_sum, part_max);
 }
@@ -377,7 +375,8 @@ int project_body(const Masks& m, const Pcg& P, int max_iters, float tol,
   int rc = eu_launch_status();
   if (rc) return rc;
   if ((rc = P.solve(max_iters, tol, tol_rel))) return rc;
-  return project_tail(m, c, dt, P.p, ut, vt, u2, v2, P.part, msq, P.st);
+  return project_tail(m, c, dt, P.p, P.p, ut, vt, u2, v2, P.part, msq,
+                      P.st);
 }
 
 }  // namespace

@@ -15,8 +15,8 @@
 // fine level costs four sweeps (the F-to-1 restriction, the fused
 // prolongation + post-smooth, the s/As update, the p/r update) that move
 // 17 fine planes, ~0.09 ms of HBM time each at 2048²; the resident cycle
-// below is K3's, about fifty small launches, and the host reads the stop
-// flag once per iteration.
+// below is K3's (its coarse end one cluster launch a visit), and the host
+// reads the stop flag once per iteration.
 //
 // Design: one thread per root cell for the restriction (the F x F sum of
 // r - it0 A r over its children), one thread per fine cell for the post-
@@ -24,7 +24,9 @@
 // z = x + it0 (r - A x) and the partials of <z, r>), and K3's level
 // kernels, cycle schedule and PCG step kernels from mg_levels.cuh.  it0 is
 // the fine level's degree-1 1/theta, the last row of `rows`.  Built with
-// -fmad=false.
+// -fmad=false, so the shared level functions round every product on its
+// own (EU_FMAD 0).
+#define EU_FMAD 0
 #include "mg_levels.cuh"
 
 namespace {
@@ -33,7 +35,9 @@ namespace {
 // first, then across them (the Pallas kernel's row-then-lane order)
 __global__ void restrict_f(Lvl L0, int F, const float* __restrict__ r,
                            float* __restrict__ bc,
-                           const float* __restrict__ fine_row) {
+                           const float* __restrict__ fine_row,
+                           const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
   const int Xc = L0.X / F, Yc = L0.Y / F;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Yc * Xc) return;
@@ -45,7 +49,7 @@ __global__ void restrict_f(Lvl L0, int F, const float* __restrict__ r,
     float col = 0.0f;
     for (int a = 0; a < F; ++a) {
       const int i = F * I + a;
-      col = col + (r[i * L0.X + j] - it0 * apply_at(L0, r, i, j));
+      col = col + (r[i * L0.X + j] - it0 * apply_at<true, true>(L0, r, i, j));
     }
     acc = acc + col;
   }
@@ -67,7 +71,9 @@ __device__ __forceinline__ float x_at(const Lvl& L0, int F,
 __global__ void post_f(Lvl L0, int F, const float* __restrict__ r,
                        const float* __restrict__ ec, float* __restrict__ z,
                        const float* __restrict__ fine_row,
-                       float* __restrict__ part) {
+                       float* __restrict__ part,
+                       const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   float acc = 0.0f;
   if (t < L0.Y * L0.X) {
@@ -99,7 +105,7 @@ __global__ void post_f(Lvl L0, int F, const float* __restrict__ r,
 // (P_COUNT pointers per level, c/e/n the Galerkin planes; the root's b is
 // the restriction's target) and rows ([L + 1, ncoef]: the levels'
 // Chebyshev rows, then the fine level's, whose first entry is it0) as
-// eu_mg_pcg takes them.  s, As, z: [Y, X] scratch; part:
+// eu_mg_create takes them.  s, As, z: [Y, X] scratch; part:
 // ceil(Y*X/256) floats; scal: S_N floats; flags: F_N ints.  The iteration
 // count and the final max|r| stay on the device (flags[F_ITERS],
 // scal[S_RESID]).
@@ -114,13 +120,14 @@ EU_API int eu_mg_stream(int Y, int X, int F, int L, const int* shapes,
     return static_cast<int>(cudaErrorInvalidValue);
   Solve S;
   int rc = make_solve(&S, L, shapes, planes, nullptr, nullptr, rows, ncoef,
-                      deg, coarse_deg, w, w_depth, part, stream);
+                      deg, coarse_deg, w, w_depth, part, flags, stream);
   if (rc) return rc;
   const Lvl L0{Y, X, nullptr, nullptr, nullptr,
                static_cast<const float*>(packed)};
   const PcgLoop P{L0, static_cast<float*>(p), static_cast<float*>(r),
                   static_cast<float*>(s_), static_cast<float*>(As), S.part,
-                  static_cast<float*>(scal), static_cast<int*>(flags), S.s};
+                  static_cast<float*>(scal), static_cast<int*>(flags),
+                  max_iters, S.s};
   float* zp = static_cast<float*>(z);
   const float* fine_row = S.row(L);
   const unsigned nb_root = S.blocks(0);
@@ -129,11 +136,12 @@ EU_API int eu_mg_stream(int Y, int X, int F, int L, const int* shapes,
     int done = 0;
     if ((rc = P.done(&done))) return rc;
     if (done) break;
-    restrict_f<<<nb_root, kThreads, 0, P.st>>>(L0, F, P.r, S.b[0], fine_row);
+    restrict_f<<<nb_root, kThreads, 0, P.st>>>(L0, F, P.r, S.b[0], fine_row,
+                                               P.flags);
     if ((rc = eu_launch_status())) return rc;
     if ((rc = S.cycle(0, false))) return rc;
     post_f<<<P.blocks(), kThreads, 0, P.st>>>(L0, F, P.r, S.zout(0), zp,
-                                              fine_row, P.part);
+                                              fine_row, P.part, P.flags);
     if ((rc = eu_launch_status())) return rc;
     if ((rc = P.step(zp))) return rc;
   }

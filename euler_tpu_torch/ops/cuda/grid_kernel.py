@@ -59,8 +59,8 @@ def grid_lib():
     lib = _build.load("grid_stage", flags=["-fmad=false"])
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
     _build.bind(lib, "eu_grid_passes", [I, I, F, F] + [P] * 11)
-    _build.bind(lib, "eu_grid_stage", [I, I, F, F, F] + [P] * 15)
-    _build.bind(lib, "eu_project_tail", [I, I, F] + [P] * 9)
+    _build.bind(lib, "eu_grid_stage", [I, I, F, F, F] + [P] * 16)
+    _build.bind(lib, "eu_project_tail", [I, I, F] + [P] * 10)
     return lib
 
 

@@ -5,26 +5,33 @@
 (p, iterations, residual) for A p = b, optionally warm-started from x0.
 The solver body (`csrc/mg_pcg.cu`) is also the middle of K2's substep.
 
-On an H100 the solve is bound by launches more than bytes: each PCG
-iteration is one truncated-W cycle (about fifty small launches at 1024²,
-most on the coarse levels) and one host read of the stop flag.  The
-design keeps one kernel per level operation with the restriction and the
-<z, r> dot fused into the smoothers, and reduces deterministically, so
-the iteration count repeats from run to run (see the note in the
-source).
+On an H100 the solve is bound by launches and barriers more than bytes:
+a PCG iteration at 1024² is one truncated-W cycle over six levels, most
+of them too small to fill the card, and three fine sweeps.  So the loop
+stays on the device as far as a GPU lets it.  `MgWorkspace` owns every
+buffer of a solve, and builds the Galerkin hierarchy and the Chebyshev
+rows there; once per workspace it captures 8 PCG iterations into a CUDA
+graph, which each solve replays, reading the stop flag once a chunk
+(every kernel of an iteration is a no-op once the flag is set).  The
+coarse end of each cycle visit (from the first level of at most 128²
+cells) is one launch of a cluster of 8 CTAs (csrc/mg_levels.cuh).
+Workspaces are cached per device and configuration (`workspace`; the key
+is `workspace_key`), at most `_MAX_WORKSPACES` of them; an evicted one is
+closed (`MgWorkspace.close`).
 
 `mg_pallas_fits` is the JAX package's gate for K3 (mg_kernel.py:748);
 `mg_fits` is the CUDA levels' own check that the sizes halve evenly.
 
-`mg_host_operands` stays plain PyTorch on the device, as the JAX package
-leaves it to XLA: the Galerkin hierarchy by 2x2 block sums and the
-Chebyshev rows from each level's measured Gershgorin bound, with no host
-read.  `solve_pressure_mg_plain` is the plain version: a PCG loop of the
-same shape as `_mg_pcg_solve` around `multigrid.cycle_galerkin`.
+`mg_host_operands` is the plain version of the hierarchy build (and
+K11's operands): the Galerkin hierarchy by 2x2 block sums and the
+Chebyshev rows from each level's measured Gershgorin bound, in PyTorch.
+`solve_pressure_mg_plain` is the plain version of the solve: a PCG loop
+of the same shape as `_mg_pcg_solve` around `multigrid.cycle_galerkin`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -35,9 +42,12 @@ from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.pcg_kernel import _VMEM_BUDGET
 from euler_tpu_torch.ops.project import apply_a
 
-_PLANES_PER_LEVEL = 9  # c, e, n, x, b, z, rr, d, dn (csrc/mg_pcg.cu)
+_PLANES_PER_LEVEL = 9  # c, e, n, x, b, z, rr, d, dn (csrc/mg_levels.cuh)
+_S_N = 6               # scal floats of one solve
 _S_RESID = 5           # scal index of the final residual max
+_F_N = 3               # flags ints
 _F_ITERS = 1           # flags index of the iteration count
+_MAX_WORKSPACES = 4
 
 
 def _level_shapes(Y: int, X: int, min_size: int):
@@ -163,46 +173,14 @@ def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
 def _lib():
     lib = _build.load("mg_pcg")
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_mg_pcg",
-                [I, P, P, P, P, I, I, I, I, I, I, F, F, I,
-                 P, P, P, P, P, P, P, P])
+    _build.bind(lib, "eu_mg_create",
+                [I, P, P, P, P, P, I, I, I, I, I, F, F, I, F, F]
+                + [P] * 8 + [ctypes.POINTER(ctypes.c_void_p)])
+    _build.bind(lib, "eu_mg_destroy", [P])
+    _build.bind(lib, "eu_mg_load", [P] * 6)
+    _build.bind(lib, "eu_mg_solve", [P, I, P])
+    _build.bind(lib, "eu_mg_cycle", [P, I, P, P])
     return lib
-
-
-class Buffers:
-    """Device buffers handed to a CUDA library, kept referenced here until
-    the launch that reads them is enqueued."""
-
-    def __init__(self, device):
-        self.device = device
-        self.keep = []
-
-    def new(self, shape) -> int:
-        t = torch.empty(shape, dtype=torch.float32, device=self.device)
-        self.keep.append(t)
-        return t.data_ptr()
-
-    def levels(self, shapes, coef_planes):
-        """ctypes (shapes, planes) of a `Solve` (csrc/mg_levels.cuh):
-        per level its (c, e, n) planes, or None for a packed level 0 whose
-        b is the solver's r, then fresh x, b, z, rr, d, dn planes."""
-        ptrs = []
-        for l, ((Yl, Xl), cen) in enumerate(zip(shapes, coef_planes)):
-            if cen is None:
-                ptrs += [0, 0, 0, self.new((Yl, Xl)), 0]
-            else:
-                planes = [t.contiguous() for t in cen]
-                for name, t in zip("cen", planes):
-                    _build.require(t, f"{name}{l}", torch.float32, (Yl, Xl),
-                                   self.device)
-                self.keep.extend(planes)
-                ptrs += [t.data_ptr() for t in planes]
-                ptrs += [self.new((Yl, Xl)), self.new((Yl, Xl))]
-            ptrs += [self.new((Yl, Xl)) for _ in range(4)]
-        assert len(ptrs) == _PLANES_PER_LEVEL * len(shapes)
-        flat = [v for sh in shapes for v in sh]
-        return ((ctypes.c_int * len(flat))(*flat),
-                (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
 def cycle_args(cfg: SimConfig):
@@ -212,40 +190,145 @@ def cycle_args(cfg: SimConfig):
             2 if s.mg_cycle == "w" else 1, s.mg_w_depth]
 
 
-def mg_pcg_cuda(cfg: SimConfig, operands, r, p, warm: bool):
-    """Run the CUDA MG-PCG body in place: r holds b on entry (it becomes
-    the residual) and, with `warm`, p holds the initial guess; p ends as
-    the solution.  Returns (iterations, residual) as device tensors."""
-    shapes, packed0, coef_planes, rows = operands
+def workspace_key(cfg: SimConfig, device) -> tuple:
+    """What a workspace's buffers and captured launches depend on: the
+    device, the level shapes, the cycle schedule, the Chebyshev ratios
+    and the stopping rule."""
     s = cfg.solver
-    dev = r.device
-    Y, X = shapes[0]
-    f = torch.float32
-    _build.require(r, "r", f, (Y, X))
-    _build.require(p, "p", f, (Y, X), dev)
-    _build.require(packed0, "packed0", f, (Y, X), dev)
-    rows = rows.contiguous()
-    _build.require(rows, "coef_rows", f, device=dev)
+    return (str(device), tuple(_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)),
+            *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio,
+            s.max_iterations, s.tol, s.tol_rel)
 
-    bufs = Buffers(dev)
-    shape_arr, plane_arr = bufs.levels(shapes, [None] + list(coef_planes))
-    s_buf = bufs.new((Y, X))
-    as_buf = bufs.new((Y, X))
-    part = bufs.new((-(-Y * X // 256),))
-    scal = torch.zeros(8, dtype=f, device=dev)
-    flags = torch.zeros(4, dtype=torch.int32, device=dev)
 
-    lib = _lib()
-    # the K3 count includes the solves K2 runs
-    _build.LAUNCHES["K3"] += 1
-    rc = lib.eu_mg_pcg(
-        len(shapes), shape_arr, plane_arr, packed0.data_ptr(),
-        rows.data_ptr(), rows.shape[1], *cycle_args(cfg), s.max_iterations,
-        float(s.tol), float(s.tol_rel), int(warm),
-        p.data_ptr(), r.data_ptr(), s_buf, as_buf, part,
-        scal.data_ptr(), flags.data_ptr(), _build.stream())
-    _build.check(lib, rc, "eu_mg_pcg")
-    return flags[_F_ITERS].clone(), scal[_S_RESID].clone()
+class MgWorkspace:
+    """The device buffers of one configuration's MG-PCG solves and the
+    CUDA solver over them (csrc/mg_pcg.cu: the hierarchy, the rows, the
+    graph of one chunk of iterations).  Per level: the c, e, n planes and
+    active flags of the hierarchy (coarse levels), and x, b, z, rr, d, dn
+    (level 0's b is r); the packed matrix, r, p, s, As; the block
+    partials; the scalars and flags; and K2's grid-stage scratch and tail
+    partials.  A solve reads and writes only these, so nothing it returns
+    may alias them: callers copy out."""
+
+    def __init__(self, cfg: SimConfig, device):
+        s = cfg.solver
+        f = torch.float32
+        Y, X = cfg.ny, cfg.nx
+        self.shapes = _level_shapes(Y, X, s.mg_min_size)
+        L = len(self.shapes)
+        self.keep = []
+
+        def new(shape, dtype=f):
+            t = torch.empty(shape, dtype=dtype, device=device)
+            self.keep.append(t)
+            return t
+
+        plane = (Y, X)
+        self.packed0, self.r, self.p, self.s, self.As = (
+            new(plane) for _ in range(5))
+        self.zu, self.zv = new(plane), new(plane)
+        nb = -(-Y * X // 256)
+        self.part = new((nb,))
+        self.tail_part = new((2 * nb,))
+        self.hpart = new((sum(-(-Yl * Xl // 256) for Yl, Xl in self.shapes),))
+        deg = [s.mg_cheby_degree] * (L - 1) + [s.mg_coarse_iters]
+        self.rows = new((L, 1 + 2 * max(deg)))
+        self.scal = new((_S_N,))
+        self.flags = new((_F_N,), torch.int32)
+        # the coarse levels' (c, e, n, active): the hierarchy the solve builds
+        self.levels = [tuple(new(shape) for _ in range(3))
+                       + (new(shape, torch.uint8),)
+                       for shape in self.shapes[1:]]
+        planes, act = [], [0]
+        for l, shape in enumerate(self.shapes):
+            if l == 0:
+                planes += [0, 0, 0, new(shape).data_ptr(), 0]
+            else:
+                c, e, n, active = self.levels[l - 1]
+                planes += [c.data_ptr(), e.data_ptr(), n.data_ptr(),
+                           new(shape).data_ptr(), new(shape).data_ptr()]
+                act.append(active.data_ptr())
+            planes += [new(shape).data_ptr() for _ in range(4)]
+        assert len(planes) == _PLANES_PER_LEVEL * L
+        flat = [v for sh in self.shapes for v in sh]
+        self.lib = _lib()
+        self.handle = None
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            rc = self.lib.eu_mg_create(
+                L, (ctypes.c_int * len(flat))(*flat),
+                (ctypes.c_void_p * len(planes))(*planes),
+                (ctypes.c_void_p * L)(*act), self.packed0.data_ptr(),
+                self.rows.data_ptr(), self.rows.shape[1], *cycle_args(cfg),
+                s.mg_cheby_ratio, s.mg_coarse_ratio, s.max_iterations,
+                s.tol, s.tol_rel, *(t.data_ptr() for t in (self.p, self.r, self.s, self.As,
+                                         self.part, self.hpart, self.scal,
+                                         self.flags)),
+                ctypes.byref(handle))
+        _build.check(self.lib, rc, "eu_mg_create")
+        self.handle = handle.value
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the workspace's buffers."""
+        return sum(t.numel() * t.element_size() for t in self.keep)
+
+    def close(self):
+        """Free the solver and its graph once the last solve's replays have
+        run; raises when that fails."""
+        handle, self.handle = self.handle, None
+        if handle:
+            _build.check(self.lib, self.lib.eu_mg_destroy(handle),
+                         "eu_mg_destroy")
+
+    def load(self, a_diag, fluid, b, x0=None):
+        """K3's head: packed0 from a_diag and fluid, r = b, p = x0."""
+        rc = self.lib.eu_mg_load(
+            self.handle, a_diag.data_ptr(), fluid.data_ptr(), b.data_ptr(),
+            None if x0 is None else x0.data_ptr(), _build.stream())
+        _build.check(self.lib, rc, "eu_mg_load")
+
+    def solve(self, warm: bool):
+        """One MG-PCG solve on the loaded workspace: p ends as the
+        solution.  Returns (iterations, residual) as fresh device
+        tensors."""
+        # the K3 count includes the solves K2 runs
+        _build.LAUNCHES["K3"] += 1
+        rc = self.lib.eu_mg_solve(self.handle, int(warm), _build.stream())
+        _build.check(self.lib, rc, "eu_mg_solve")
+        return self.flags[_F_ITERS].clone(), self.scal[_S_RESID].clone()
+
+    def cycle(self, per_op: bool):
+        """z = M r for the loaded r on the hierarchy of the last solve,
+        through the coarse cycle or one launch per level operation (the
+        card tests hold the two bitwise equal).  Returns z, fresh."""
+        z = torch.empty_like(self.r)
+        rc = self.lib.eu_mg_cycle(self.handle, int(per_op), z.data_ptr(),
+                                  _build.stream())
+        _build.check(self.lib, rc, "eu_mg_cycle")
+        return z
+
+
+_WORKSPACES: collections.OrderedDict = collections.OrderedDict()
+
+
+def workspace(cfg: SimConfig, device) -> MgWorkspace:
+    """The cached workspace of `cfg` on `device` (least recently used
+    first out)."""
+    key = workspace_key(cfg, device)
+    ws = _WORKSPACES.pop(key, None)
+    if ws is None:
+        ws = MgWorkspace(cfg, device)
+    _WORKSPACES[key] = ws
+    while len(_WORKSPACES) > _MAX_WORKSPACES:
+        _WORKSPACES.popitem(last=False)[1].close()
+    return ws
+
+
+def clear_workspaces() -> None:
+    """Close and drop every cached workspace."""
+    while _WORKSPACES:
+        _WORKSPACES.popitem()[1].close()
 
 
 def solve_pressure_mg(cfg: SimConfig, b, a_diag, fluid, solid=None,
@@ -260,13 +343,15 @@ def solve_pressure_mg(cfg: SimConfig, b, a_diag, fluid, solid=None,
         raise NotImplementedError(
             "the CUDA MG-PCG needs f32 galerkin + cheby and level sizes "
             "that halve evenly to mg_min_size (ROADMAP queue 1 item M11)")
-    _build.require(b, "b", torch.float32, (cfg.ny, cfg.nx))
-    operands = mg_host_operands(cfg, a_diag, fluid)
-    r = b.clone()
-    if x0 is None:
-        p = torch.empty_like(b)
-    else:
-        _build.require(x0, "x0", torch.float32, (cfg.ny, cfg.nx), b.device)
-        p = x0.clone()
-    iters, resid = mg_pcg_cuda(cfg, operands, r, p, warm=x0 is not None)
-    return p, iters, resid
+    plane = (cfg.ny, cfg.nx)
+    f = torch.float32
+    dev = b.device
+    _build.require(b, "b", f, plane)
+    _build.require(a_diag, "a_diag", torch.int32, plane, dev)
+    _build.require(fluid, "fluid", torch.bool, plane, dev)
+    if x0 is not None:
+        _build.require(x0, "x0", f, plane, dev)
+    ws = workspace(cfg, dev)
+    ws.load(a_diag, fluid, b, x0)
+    iters, resid = ws.solve(warm=x0 is not None)
+    return ws.p.clone(), iters, resid

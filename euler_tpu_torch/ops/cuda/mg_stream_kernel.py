@@ -15,7 +15,8 @@ post-smoothed once with degree-1 Chebyshev.
 
 On an H100 it is bound by launches, then bytes: each iteration is four
 fine sweeps moving 17 [Y, X] f32 planes (68 MB at 2048²) plus K3's cycle
-on the resident levels, one host read of the stop flag per iteration.
+on the resident levels (its coarse end one cluster launch a visit), one
+host read of the stop flag per iteration.
 The CUDA side is `csrc/mg_stream.cu` over the level kernels it shares
 with K3 (`csrc/mg_levels.cuh`).
 
@@ -32,6 +33,8 @@ kept as integer arithmetic: see `pcg_kernel._VMEM_BUDGET`.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from euler_tpu_torch.config import SimConfig
@@ -39,8 +42,8 @@ from euler_tpu_torch.ops import multigrid
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.mg_kernel import (
     _F_ITERS,
+    _PLANES_PER_LEVEL,
     _S_RESID,
-    Buffers,
     _cycle_kwargs,
     _level_shapes,
     cycle_args,
@@ -131,6 +134,37 @@ def _lib():
                 [I, I, I, I, P, P, P, P, I, I, I, I, I, I, F, F]
                 + [P] * 9)
     return lib
+
+
+class Buffers:
+    """Device buffers handed to the CUDA library, kept referenced here
+    until the launch that reads them is enqueued."""
+
+    def __init__(self, device):
+        self.device = device
+        self.keep = []
+
+    def new(self, shape) -> int:
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        self.keep.append(t)
+        return t.data_ptr()
+
+    def levels(self, shapes, coef_planes):
+        """ctypes (shapes, planes) of a `Solve` (csrc/mg_levels.cuh): per
+        level its (c, e, n) planes, then fresh x, b, z, rr, d, dn planes."""
+        ptrs = []
+        for l, ((Yl, Xl), cen) in enumerate(zip(shapes, coef_planes)):
+            planes = [t.contiguous() for t in cen]
+            for name, t in zip("cen", planes):
+                _build.require(t, f"{name}{l}", torch.float32, (Yl, Xl),
+                               self.device)
+            self.keep.extend(planes)
+            ptrs += [t.data_ptr() for t in planes]
+            ptrs += [self.new((Yl, Xl)) for _ in range(6)]
+        assert len(ptrs) == _PLANES_PER_LEVEL * len(shapes)
+        flat = [v for sh in shapes for v in sh]
+        return ((ctypes.c_int * len(flat))(*flat),
+                (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
 def solve_pressure_mg_stream(cfg: SimConfig, b, a_diag, fluid, solid=None):

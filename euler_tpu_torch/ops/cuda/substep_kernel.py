@@ -14,10 +14,14 @@ iterations, residual, msq) and no pressure.
 
 On an H100 the head and tail (`csrc/grid_stage.cu`) are bound by bytes:
 one-thread-per-cell stencils over a few 4 MB planes at 1024².  The
-middle is K3's MG-PCG (`csrc/mg_pcg.cu`), bound by launches.  The design
+middle is K3's MG-PCG (`csrc/mg_pcg.cu`) on K3's cached workspace
+(`mg_kernel.workspace`), bound by launches and barriers.  The design
 keeps the two grid-stage passes the Pallas kernel has (the advection
 reads the extrapolated planes' 3x3 neighbourhood) and fuses the rest per
-launch; see the source.  K10 is bound as K9 is (`pcg_kernel.py`): its
+launch; the head writes the RHS, the warm-start guess and the packed
+matrix straight into the workspace, the solve builds the hierarchy there,
+and the tail clamps the workspace's pressure into a fresh plane; see the
+source.  K10 is bound as K9 is (`pcg_kernel.py`): its
 grid stage is two of K2's passes (`csrc/grid_stage.cuh`), then about
 100 Jacobi iterations of 14 plane passes each (`csrc/jacobi_pcg.cu`).
 
@@ -40,10 +44,9 @@ from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.grid_kernel import grid_lib, grid_stage_plain
 from euler_tpu_torch.ops.cuda.mg_kernel import (
     mg_fits,
-    mg_host_operands,
     mg_pallas_fits,
-    mg_pcg_cuda,
     solve_pressure_mg_plain,
+    workspace,
 )
 from euler_tpu_torch.ops.cuda.pcg_kernel import (
     _VMEM_BUDGET,
@@ -126,12 +129,8 @@ def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     warm = bool(cfg.solver.warm_start) and p0 is not None
     p0_ptr = _build.require(p0, "p0", f, plane, dev) if warm else None
 
-    a_diag = pressure_matrix_diag(cfg, solid, fluid)
-    operands = mg_host_operands(cfg, a_diag, fluid)
-
-    zu, zv, ut, vt, r, p = (torch.empty(plane, dtype=f, device=dev)
-                            for _ in range(6))
-    part = torch.empty(2 * (-(-Y * X // 256)), dtype=f, device=dev)
+    ws = workspace(cfg, dev)
+    ut, vt, p = (torch.empty(plane, dtype=f, device=dev) for _ in range(3))
     msq = torch.empty((), dtype=f, device=dev)
     h = cfg.side_length
     lib = grid_lib()
@@ -139,16 +138,17 @@ def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     rc = lib.eu_grid_stage(
         Y, X, 1.0 / h, cfg.gravity, h * h * cfg.density,
         ptr["fl"], ptr["pfl"], ptr["so"], ptr["u"], ptr["v"], ptr["dt"],
-        ptr["dtp"], p0_ptr, zu.data_ptr(), zv.data_ptr(), ut.data_ptr(),
-        vt.data_ptr(), r.data_ptr(), p.data_ptr(), _build.stream())
+        ptr["dtp"], p0_ptr, ws.zu.data_ptr(), ws.zv.data_ptr(),
+        ut.data_ptr(), vt.data_ptr(), ws.r.data_ptr(), ws.p.data_ptr(),
+        ws.packed0.data_ptr(), _build.stream())
     _build.check(lib, rc, "eu_grid_stage")
 
-    iters, resid = mg_pcg_cuda(cfg, operands, r, p, warm)
+    iters, resid = ws.solve(warm)
 
     rc = lib.eu_project_tail(
         Y, X, -1.0 / (cfg.density * h), ptr["fl"], ptr["so"], ptr["dt"],
-        p.data_ptr(), ut.data_ptr(), vt.data_ptr(), part.data_ptr(),
-        msq.data_ptr(), _build.stream())
+        ws.p.data_ptr(), p.data_ptr(), ut.data_ptr(), vt.data_ptr(),
+        ws.tail_part.data_ptr(), msq.data_ptr(), _build.stream())
     _build.check(lib, rc, "eu_project_tail")
     return ut, vt, iters, resid, msq, p
 

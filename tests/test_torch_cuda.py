@@ -382,3 +382,142 @@ def test_new_route_frames_match_cpu_plain(developed, monkeypatch, route):
     assert torch.equal(st_g.marker_count.cpu(), st_c.marker_count)
     assert (st_g.u.cpu() - st_c.u).abs().max() <= 5e-3
     assert (st_g.v.cpu() - st_c.v).abs().max() <= 5e-3
+
+
+def _mg_system(cfg, scn, st, dt):
+    """A substep's own MG system on `st`: the RHS of the advected
+    velocities and the diagonal."""
+    ut, vt = k2.grid_stage_plain(cfg, dt, st.u, st.v, st.fluid,
+                                 st.prev_fluid, scn.solid)
+    return (divergence_rhs(cfg, ut, vt, st.fluid, dt),
+            pressure_matrix_diag(cfg, scn.solid, st.fluid))
+
+
+def _solver(cfg, **over):
+    return dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                               **over))
+
+
+@pytest.mark.parametrize("cap", [1, 3, 8, 9])
+def test_solve_stops_at_the_cap(developed, cap):
+    """With a tolerance no iterate meets, exactly `cap` iterations: inside
+    the first graph chunk, at its end, and one into the second."""
+    cfg, scn, st, dt = developed
+    b, a = _mg_system(cfg, scn, st, dt)
+    cfg = _solver(cfg, max_iterations=cap, tol=0.0, tol_rel=0.0)
+    p, it, _ = k3.solve_pressure_mg(cfg, b, a, st.fluid, x0=st.p)
+    pp, itp, _ = k3.solve_pressure_mg_plain(cfg, b, a, st.fluid, st.p)
+    assert int(it) == int(itp) == cap
+    assert (p - pp).abs().max() <= 5e-4 * pp.abs().max()
+
+
+def test_workspace_reuse_is_bitwise(developed):
+    """A second solve on the same workspace with new input tensors equals
+    a solve on a fresh workspace bit for bit, and returns nothing that
+    aliases the workspace."""
+    cfg, scn, st, dt = developed
+    b, a = _mg_system(cfg, scn, st, dt)
+    k3.clear_workspaces()
+    k3.solve_pressure_mg(cfg, b * 0.5, a, st.fluid, x0=st.p * 2.0)
+    again = k3.solve_pressure_mg(cfg, b.clone(), a.clone(), st.fluid.clone(),
+                                 x0=st.p.clone())
+    assert len(k3._WORKSPACES) == 1
+    k3.clear_workspaces()
+    fresh = k3.solve_pressure_mg(cfg, b, a, st.fluid, x0=st.p)
+    for x, y in zip(again, fresh):
+        assert torch.equal(x, y)
+    ws = k3.workspace(cfg, b.device)
+    assert {t.data_ptr() for t in fresh}.isdisjoint(
+        t.data_ptr() for t in ws.keep)
+
+
+def test_alternating_configs(developed):
+    """Two schedules and two grid sizes in turns, each against its plain
+    version: the cache hands each its own workspace and graph."""
+    cfg, scn, st, dt = developed
+    small = _cfg(64)
+    sscn, sst = dam_break(small, device="cuda")
+    sst = sim.step_frame(small, sscn, sst)
+    cases = [(cfg, _mg_system(cfg, scn, st, dt), st),
+             (_solver(cfg, mg_cheby_degree=2), _mg_system(cfg, scn, st, dt),
+              st),
+             (small, _mg_system(small, sscn, sst, dt), sst)]
+    for _ in range(2):
+        for c, (b, a), s in cases:
+            p, it, _ = k3.solve_pressure_mg(c, b, a, s.fluid, x0=s.p)
+            pp, itp, _ = k3.solve_pressure_mg_plain(c, b, a, s.fluid, s.p)
+            assert int(itp) > 0 and abs(int(it) - int(itp)) <= 1
+            assert (p - pp).abs().max() <= 5e-4 * pp.abs().max()
+
+
+@pytest.mark.parametrize("case", ["developed1024", "speckled256"])
+def test_hierarchy_bitwise(case):
+    """The Galerkin hierarchy and Chebyshev rows K3 builds on the card
+    equal `mg_host_operands` bit for bit: on the developed 1024² dam break
+    and on a speckled 256² mask (isolated fluid cells, enclosed blocks)."""
+    if case == "developed1024":
+        cfg, scn, st, dt = _develop(1024)
+        b, a = _mg_system(cfg, scn, st, dt)
+        fluid = st.fluid
+    else:
+        cfg = _cfg(256)
+        fluid, solid, b = _speckled(256, 3)
+        a = pressure_matrix_diag(cfg, solid, fluid)
+    ws = k3.workspace(cfg, b.device)
+    ws.load(a, fluid, b)
+    ws.solve(warm=False)
+    _, packed0, planes, rows = k3.mg_host_operands(cfg, a, fluid)
+    assert torch.equal(ws.packed0, packed0)
+    assert len(planes) == len(ws.levels)
+    for want, got in zip(planes, ws.levels):
+        for x, y in zip(want, got):
+            assert torch.equal(x, y)
+    assert torch.equal(ws.rows, rows)
+
+
+def _speckled(size, seed):
+    """A speckled mask (isolated fluid cells, a filled block, scattered
+    solids) and a random RHS on its fluid cells, from a seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(seed)
+    fluid = torch.rand((size, size), generator=g) < 0.3
+    fluid[size // 6:size * 3 // 5, size // 12:size // 2] = True
+    solid = torch.rand((size, size), generator=g) < 0.05
+    fluid[[0, -1], :] = fluid[:, [0, -1]] = False
+    fluid &= ~solid
+    fluid, solid = fluid.cuda(), solid.cuda()
+    b = torch.where(fluid, torch.randn((size, size), generator=g).cuda(), 0.0)
+    return fluid, solid, b
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_coarse_cycle_rounds_as_per_operation_launches(degree):
+    """One preconditioner application on a speckled 512² system, whose
+    coarse cycle spans 128² (the cluster), 64² and 32² as at 1024²: one
+    launch a visit equals one launch per level operation bit for bit, at
+    Chebyshev degree 1 (the main path's) and 2."""
+    fluid, solid, b = _speckled(512, 5)
+    cfg = _solver(_cfg(512), mg_cheby_degree=degree)
+    a = pressure_matrix_diag(cfg, solid, fluid)
+    ws = k3.workspace(cfg, b.device)
+    ws.load(a, fluid, b)
+    ws.solve(warm=False)
+    ws.load(a, fluid, b)
+    fused, per_op = ws.cycle(per_op=False), ws.cycle(per_op=True)
+    assert fused.abs().max() > 0
+    assert torch.equal(fused, per_op)
+
+
+def test_inactive_substep_is_free(developed):
+    """dt_proj = inf makes the RHS exactly zero: 0 iterations, a zero
+    residual, finite outputs (the hierarchy build and every chunk are
+    skipped on the device)."""
+    cfg, scn, st, dt = developed
+    inf = torch.tensor(float("inf"), device="cuda")
+    zero = torch.zeros((), device="cuda")
+    u, v, it, res, msq, p = k2.project_substep_mg(
+        cfg, zero, inf, st.u, st.v, st.fluid, st.prev_fluid, scn.solid, st.p)
+    assert int(it) == 0 and float(res) == 0.0
+    for x in (u, v, msq, p):
+        assert torch.isfinite(x).all()
