@@ -33,10 +33,13 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
   8. runs `bench.py --size 2048` (the main path's config at 2048², where
      the JAX package's size gates take the plain grid stage and K11): 2
      warm-up + 4 timed frames, then K11 (F = 2) against its plain version
-     on that state, timed;
+     on that state, the hierarchy and rows it builds on the card bitwise
+     equal to `stream_host_operands`, its stream syncs in one solve, K11
+     timed;
   9. runs `bench.py --size 4096 --precon jacobi` (the plain grid stage and
      K12): 1 warm-up + 2 timed frames, then K12 and K11 (F = 4, with the
-     MG config) against their plain versions on that state, K12 timed.
+     MG config; its hierarchy bitwise as at 2048²) against their plain
+     versions on that state, K12 timed.
 Each path runs with the launch counts set to 0 just before it and read
 just after: its kernels must have launched and no plain version may have
 run.  Prints one JSON line of per-kernel results, the card's name and
@@ -90,11 +93,14 @@ F32_FLOP_PER_S = 67e12
 # A Jacobi-PCG iteration's three sweeps move 14 [Y, X] f32 planes
 # (csrc/jacobi_pcg.cu): the HBM time of that traffic is the sweep bound
 # of K8-K10, an upper bound on their floor (the live planes fit the L2).
-# K12's two sweeps move 13 planes an iteration (pcg_stream_kernel.py:19),
-# K11's four fine sweeps 17 (mg_stream_kernel.py:25-26).  K3 and K2 (the
-# MG-PCG main path): `mg_sweep_planes` counts an iteration of the cycle
-# schedule at the main path's level shapes, and SWEEP_CALL_PLANES what a
-# call moves once (head, hierarchy, warm start, tail).
+# K12's two sweeps move 10.5 planes an iteration (csrc/jacobi_stream.cu:
+# sweep A code, r, s, As, p in and s, As, p out; sweep B code, r, As in
+# and r out), the fewest its recurrence needs.  K11: its four fine sweeps
+# move 17 (mg_stream_kernel.py), and the resident cycle below its root is
+# K3's at the root's size less the PCG step, a root plane counting 1/F².
+# K3 and K2 (the MG-PCG main path): `mg_sweep_planes` counts an iteration
+# of the cycle schedule at the main path's level shapes; SWEEP_CALL_PLANES
+# counts what a call moves once (head, hierarchy, warm start, tail).
 
 
 def mg_sweep_planes(size: int = 1024, min_size: int = 32, w: int = 2,
@@ -134,15 +140,20 @@ def mg_sweep_planes(size: int = 1024, min_size: int = 32, w: int = 2,
     return cycle(0) + 12, hier
 
 
-SWEEP_PLANES = {"K8": 14, "K9": 14, "K10": 14, "K11": 17, "K12": 13,
+K11_SIZE, K11_F = 2048, 2  # where K11 is timed: the 2048² path, root 1024²
+SWEEP_PLANES = {"K8": 14, "K9": 14, "K10": 14, "K12": 10.5,
+                "K11": 17 + (mg_sweep_planes(K11_SIZE // K11_F)[0] - 12)
+                / K11_F ** 2,
                 "K3": mg_sweep_planes()[0], "K2": mg_sweep_planes()[0]}
 # once a call, besides the hierarchy: K3's head (a_diag i32 and fluid u8
 # in, packed out: 2.25; b and x0 copied in: 4), init (r in, s and As out:
 # 3), warm start (mask 3, residual 4), p copied out (2); K2's grid passes
 # (A 4.75, B 4.5), RHS (6.5), init 3, warm start 7, tail (clamp 2.25,
-# face update 5.5)
+# face update 5.5); K11's head (a_diag i32 and fluid u8 in, packed out:
+# 2.25; b copied in: 2), init (r in, p, s and As out: 4), p copied out (2)
 SWEEP_CALL_PLANES = {"K3": 18.25 + mg_sweep_planes()[1],
-                     "K2": 33.5 + mg_sweep_planes()[1]}
+                     "K2": 33.5 + mg_sweep_planes()[1],
+                     "K11": 10.25 + mg_sweep_planes(K11_SIZE)[1]}
 GRID_FLOPS = 100
 GRID_STAGE_FLOPS = 70
 JACOBI_FLOPS = 20
@@ -203,7 +214,7 @@ KERNELS = {
             "euler_tpu/ops/pallas/substep_kernel.py:441"),
     "K11": ("mg_stream_pcg", "euler_tpu_torch/csrc/mg_stream.cu",
             "euler_tpu/ops/pallas/mg_stream_kernel.py:464"),
-    "K12": ("jacobi_stream_pcg", "euler_tpu_torch/csrc/jacobi_pcg.cu",
+    "K12": ("jacobi_stream_pcg", "euler_tpu_torch/csrc/jacobi_stream.cu",
             "euler_tpu/ops/pallas/pcg_stream_kernel.py:266"),
 }
 
@@ -315,7 +326,7 @@ def record_peak(summary: dict, held: int) -> None:
     from euler_tpu_torch.ops.cuda import mg_kernel
 
     peak = torch.cuda.max_memory_allocated()
-    cached = sum(ws.nbytes for ws in mg_kernel._WORKSPACES.values())
+    cached = mg_kernel.cached_bytes()
     summary["max_memory_allocated"] = peak
     summary["memory_held_before"] = held
     summary["mg_workspace_bytes"] = cached
@@ -399,10 +410,11 @@ def build_all():
     from euler_tpu_torch.ops.cuda import grid_kernel as k7
     from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
     from euler_tpu_torch.ops.cuda import mg_kernel as k3
-    from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
     from euler_tpu_torch.ops.cuda import pcg_kernel as k89
+    from euler_tpu_torch.ops.cuda import pcg_stream_kernel as k12
 
-    loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k11._lib, k89.jacobi_lib]
+    loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
+               k89.jacobi_lib, k12.stream_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -663,6 +675,54 @@ def check_hierarchy(cfg, b, a_diag, fl) -> None:
         "launch per level operation")
 
 
+def check_stream_hierarchy(cfg, b, a_diag, fl) -> None:
+    """The Galerkin hierarchy and Chebyshev rows K11 builds on the card for
+    (a_diag, fl) on its cached workspace bitwise equal to the plain build:
+    every coarse level's c, e, n planes (`mg_host_operands`; those from the
+    root down are `stream_host_operands`'), the packed plane, and the rows
+    from the root down with the fine level's [it0, 0, ...] after them."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import mg_kernel as k3
+    from euler_tpu_torch.ops.cuda import mg_stream_kernel as k11
+
+    _, ls, F = k11._root(cfg)
+    ws = k3.workspace(cfg, b.device, ls)
+    ws.stream_solve(a_diag, fl, b)
+    _, packed0, planes, _ = k3.mg_host_operands(cfg, a_diag, fl)
+    _, _, _, _, rows = k11.stream_host_operands(cfg, a_diag, fl)
+    check(torch.equal(ws.packed0, packed0), "K11: packed plane differs")
+    check(len(planes) == len(ws.levels), "K11: hierarchy depth differs")
+    for l, (want, got) in enumerate(zip(planes, ws.levels), start=1):
+        for name, a, c in zip("cen", want, got):
+            check(torch.equal(a, c), f"K11: hierarchy level {l} {name} "
+                  "differs from the plain build")
+    check(torch.equal(ws.rows[ls:], rows), "K11: Chebyshev rows differ "
+          "from stream_host_operands")
+    log(f"   K11 (F = {F}): hierarchy ({len(planes)} coarse levels, root "
+        f"level {ls}) and rows {tuple(rows.shape)} bitwise equal to "
+        "stream_host_operands")
+    log(f"   cached MG workspaces now: {len(k3._WORKSPACES)}, "
+        f"{k3.cached_bytes() / 2**30:.3f} GiB (this one "
+        f"{ws.nbytes / 2**30:.3f} GiB; bound "
+        f"{k3._MAX_WORKSPACE_BYTES / 2**30:.3f} GiB)")
+
+
+def stream_syncs(fn) -> int:
+    """The host's stream synchronisations while `fn` enqueues its work
+    (torch.profiler's count of cudaStreamSynchronize)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "cudaStreamSynchronize")
+
+
 def run_large(size, results, summaries, launches, profile_prefix=None):
     """The paths beyond the fused kernels' gates: `bench.py --size 2048`
     (MG: the plain grid stage and K11) and `--size 4096 --precon jacobi`
@@ -709,7 +769,15 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
                           k11.solve_pressure_mg_stream_plain(mcfg, b, a_diag,
                                                              fl),
                           5e-4, same_iters=False)
+        check_stream_hierarchy(mcfg, b, a_diag, fl)
         if mg:
+            out = []
+            syncs = stream_syncs(lambda: out.append(
+                k11.solve_pressure_mg_stream(cfg, b, a_diag, fl)))
+            iters = int(out[0][1])
+            log(f"   K11: {syncs} stream syncs in one solve of {iters} "
+                f"iterations ({-(-iters // 8)} chunks of 8)")
+            summaries[label]["k11_syncs_per_solve"] = syncs
             results["K11"] = {"max_abs_err": err}
             time_pair(results, "K11",
                       lambda: k11.solve_pressure_mg_stream(cfg, b, a_diag,

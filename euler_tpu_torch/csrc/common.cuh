@@ -1,7 +1,7 @@
 // Shared helpers for the euler_tpu_torch CUDA kernels: the C export
 // macro, the error-string export every library carries, bounds-checked
-// plane loads, the fraction-snapped bilinear of main.c:301-364, and
-// deterministic block reductions.
+// plane loads, the fraction-snapped bilinear of main.c:301-364, the
+// Jacobi solves' operator decode, and deterministic block reductions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,6 +71,22 @@ __device__ __forceinline__ void clamped_base(float idx, int site, int size,
   float whole = floorf(ix);
   *frac = ix - whole;
   *base = (static_cast<int>(whole) == site) ? site : site - 1;
+}
+
+// The Jacobi solves' packed operator a_diag * fl + 8 * fl (K8-K10's f32
+// plane, K12's u8 code) decoded: the fluid flag, the diagonal, and the
+// Jacobi inverse diagonal (a fluid cell with a = 0 falls back to the
+// identity, pcg_kernel.py:72-75)
+struct Cell {
+  float fl, a, invd;
+};
+
+__device__ __forceinline__ Cell decode(float packed) {
+  Cell c;
+  c.fl = packed >= 8.0f ? 1.0f : 0.0f;
+  c.a = packed - 8.0f * c.fl;
+  c.invd = c.fl / fmaxf(c.a, 1.0f);
+  return c;
 }
 
 enum { EU_SUM = 0, EU_MAX = 1 };

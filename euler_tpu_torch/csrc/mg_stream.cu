@@ -15,19 +15,25 @@
 // fine level costs four sweeps (the F-to-1 restriction, the fused
 // prolongation + post-smooth, the s/As update, the p/r update) that move
 // 17 fine planes, ~0.09 ms of HBM time each at 2048²; the resident cycle
-// below is K3's (its coarse end one cluster launch a visit), and the host
-// reads the stop flag once per iteration.
+// below is K3's (its coarse end one cluster launch a visit), ~8 fine
+// plane equivalents more.
 //
-// Design: one thread per root cell for the restriction (the F x F sum of
-// r - it0 A r over its children), one thread per fine cell for the post-
-// smooth (x = it0 r + fl ec on the cell and its 4 neighbours, then
+// Design: K3's (mg_solver.cuh) from the root down.  A workspace cached
+// per configuration (ops/cuda/mg_kernel.py) owns every buffer, the
+// Galerkin hierarchy from the fine level down and its Chebyshev rows are
+// built on the device per solve (the levels between the fine one and
+// the root only feed it), and a CUDA graph of kChunk = 8 iterations,
+// captured once per workspace, is replayed with one read of the stop flag
+// a chunk.  One thread per root cell for the restriction (the F x F sum
+// of r - it0 A r over its children), one thread per fine cell for the
+// post-smooth (x = it0 r + fl ec on the cell and its 4 neighbours, then
 // z = x + it0 (r - A x) and the partials of <z, r>), and K3's level
-// kernels, cycle schedule and PCG step kernels from mg_levels.cuh.  it0 is
-// the fine level's degree-1 1/theta, the last row of `rows`.  Built with
-// -fmad=false, so the shared level functions round every product on its
-// own (EU_FMAD 0).
+// kernels, cycle schedule and PCG step kernels from mg_levels.cuh.  it0
+// is the fine level's degree-1 1/theta, the row after the levels'.  Built
+// with -fmad=false, so the shared level functions round every product on
+// its own (EU_FMAD 0).
 #define EU_FMAD 0
-#include "mg_levels.cuh"
+#include "mg_solver.cuh"
 
 namespace {
 
@@ -57,18 +63,19 @@ __global__ void restrict_f(Lvl L0, int F, const float* __restrict__ r,
 }
 
 // the prolonged pre-smooth x = it0 r + fl ec[i/F, j/F], zero outside the
-// grid
-__device__ __forceinline__ float x_at(const Lvl& L0, int F,
+// grid (F = 2^fs)
+__device__ __forceinline__ float x_at(const Lvl& L0, int fs,
                                       const float* __restrict__ r,
                                       const float* __restrict__ ec, float it0,
                                       int i, int j) {
   if (i < 0 || i >= L0.Y || j < 0 || j >= L0.X) return 0.0f;
   const int k = i * L0.X + j;
-  return it0 * r[k] + fluid0(L0, k) * ec[(i / F) * (L0.X / F) + j / F];
+  return it0 * r[k] +
+         fluid0(L0, k) * ec[(i >> fs) * (L0.X >> fs) + (j >> fs)];
 }
 
 // z = x + it0 (r - A x) with x from x_at; partials of <z, r>
-__global__ void post_f(Lvl L0, int F, const float* __restrict__ r,
+__global__ void post_f(Lvl L0, int fs, const float* __restrict__ r,
                        const float* __restrict__ ec, float* __restrict__ z,
                        const float* __restrict__ fine_row,
                        float* __restrict__ part,
@@ -82,11 +89,11 @@ __global__ void post_f(Lvl L0, int F, const float* __restrict__ r,
     const float pk = L0.pk[t];
     const float fl = pk >= 8.0f ? 1.0f : 0.0f;
     const float a = pk - 8.0f * fl;
-    const float xc = x_at(L0, F, r, ec, it0, i, j);
-    float nb = x_at(L0, F, r, ec, it0, i, j - 1) +
-               x_at(L0, F, r, ec, it0, i, j + 1);
-    nb = nb + x_at(L0, F, r, ec, it0, i + 1, j);
-    nb = nb + x_at(L0, F, r, ec, it0, i - 1, j);
+    const float xc = x_at(L0, fs, r, ec, it0, i, j);
+    float nb = x_at(L0, fs, r, ec, it0, i, j - 1) +
+               x_at(L0, fs, r, ec, it0, i, j + 1);
+    nb = nb + x_at(L0, fs, r, ec, it0, i + 1, j);
+    nb = nb + x_at(L0, fs, r, ec, it0, i - 1, j);
     const float ax = fl * (a * xc - nb);
     const float rv = r[t];
     const float zz = xc + it0 * (rv - ax);
@@ -99,51 +106,92 @@ __global__ void post_f(Lvl L0, int F, const float* __restrict__ r,
 
 }  // namespace
 
-// One MG-PCG solve of A p = b from p = 0.  On entry r holds b (it becomes
-// the residual).  packed: the [Y, X] plane a_diag + 8 * fluid.  L resident
-// levels, the first (the root) of shape (Y/F, X/F): shapes, planes
-// (P_COUNT pointers per level, c/e/n the Galerkin planes; the root's b is
-// the restriction's target) and rows ([L + 1, ncoef]: the levels'
-// Chebyshev rows, then the fine level's, whose first entry is it0) as
-// eu_mg_create takes them.  s, As, z: [Y, X] scratch; part:
-// ceil(Y*X/256) floats; scal: S_N floats; flags: F_N ints.  The iteration
-// count and the final max|r| stay on the device (flags[F_ITERS],
-// scal[S_RESID]).
-EU_API int eu_mg_stream(int Y, int X, int F, int L, const int* shapes,
-                        void* const* planes, const void* packed,
-                        const void* rows, int ncoef, int deg, int coarse_deg,
-                        int w, int w_depth, int max_iters, float tol,
-                        float tol_rel, void* p, void* r, void* s_, void* As,
-                        void* z, void* part, void* scal, void* flags,
-                        void* stream) {
-  if (F < 1 || shapes[0] * F != Y || shapes[1] * F != X)
+// A K11 solver over one workspace.  HL levels of the hierarchy, of shapes
+// (Y, X), the fine level first; the cycle's root is level ls, of shape
+// (Y/F, X/F) with F = 2^ls.  planes: P_COUNT pointers per level (c, e, n, x, b, z, rr,
+// d, dn): the coarse levels' c, e, n are the hierarchy's outputs, the
+// other planes are those of the levels from the root down (the root's b
+// is the restriction's target) and unused above it; act: one u8 plane
+// per level (level 0's unused); packed0: the [Y, X] plane a_diag + 8 *
+// fluid; rows: [HL + 1, ncoef], the levels' Chebyshev rows and then the
+// fine level's [it0, 0, ...]; p, r, s, As, z: [Y, X]; part: ceil(Y*X/256)
+// floats; hpart: the sum over levels of ceil(Yl*Xl/256) floats; scal:
+// S_N floats; flags: F_N ints.  Captures one chunk of kChunk iterations
+// into a graph; returns the solver in *out.
+EU_API int eu_mg_stream_create(int HL, const int* shapes, int ls,
+                               void* const* planes, void* const* act,
+                               void* packed0, void* rows, int ncoef, int deg,
+                               int coarse_deg, int w, int w_depth,
+                               float ratio, float coarse_ratio,
+                               int max_iters, float tol, float tol_rel,
+                               void* p, void* r, void* s_, void* As, void* z,
+                               void* part, void* hpart, void* scal,
+                               void* flags, void** out) {
+  *out = nullptr;
+  const int F = 1 << ls;
+  if (ls < 1 || ls >= HL || shapes[2 * ls] * F != shapes[0] ||
+      shapes[2 * ls + 1] * F != shapes[1])
     return static_cast<int>(cudaErrorInvalidValue);
-  Solve S;
-  int rc = make_solve(&S, L, shapes, planes, nullptr, nullptr, rows, ncoef,
-                      deg, coarse_deg, w, w_depth, part, flags, stream);
-  if (rc) return rc;
-  const Lvl L0{Y, X, nullptr, nullptr, nullptr,
-               static_cast<const float*>(packed)};
-  const PcgLoop P{L0, static_cast<float*>(p), static_cast<float*>(r),
-                  static_cast<float*>(s_), static_cast<float*>(As), S.part,
-                  static_cast<float*>(scal), static_cast<int*>(flags),
-                  max_iters, S.s};
-  float* zp = static_cast<float*>(z);
-  const float* fine_row = S.row(L);
-  const unsigned nb_root = S.blocks(0);
-  if ((rc = P.init(true, tol, tol_rel))) return rc;
-  for (int it = 0; it < max_iters; ++it) {
-    int done = 0;
-    if ((rc = P.done(&done))) return rc;
-    if (done) break;
-    restrict_f<<<nb_root, kThreads, 0, P.st>>>(L0, F, P.r, S.b[0], fine_row,
-                                               P.flags);
-    if ((rc = eu_launch_status())) return rc;
-    if ((rc = S.cycle(0, false))) return rc;
-    post_f<<<P.blocks(), kThreads, 0, P.st>>>(L0, F, P.r, S.zout(0), zp,
-                                              fine_row, P.part, P.flags);
-    if ((rc = eu_launch_status())) return rc;
-    if ((rc = P.step(zp))) return rc;
+  MgSolver* M = new MgSolver{};
+  const float* fine_row = static_cast<const float*>(rows) + HL * ncoef;
+  int rc = make_solve(&M->S, HL - ls, shapes + 2 * ls, planes + ls * P_COUNT,
+                      nullptr, nullptr, static_cast<float*>(rows) + ls * ncoef,
+                      ncoef, deg, coarse_deg, w, w_depth, part, flags,
+                      nullptr);
+  if (!rc)
+    rc = set_hierarchy(M, HL, shapes, planes, act, packed0, rows, ncoef, deg,
+                       coarse_deg, ratio, coarse_ratio, HL, hpart);
+  if (!rc) {
+    M->P = PcgLoop{M->hl[0], static_cast<float*>(p), static_cast<float*>(r),
+                   static_cast<float*>(s_), static_cast<float*>(As),
+                   M->S.part, static_cast<float*>(scal),
+                   static_cast<int*>(flags), max_iters, nullptr};
+    M->tol = tol;
+    M->tol_rel = tol_rel;
+    float* zp = static_cast<float*>(z);
+    // an iteration: restrict to the root, the cycle from it, the
+    // prolongation and post-smooth with <z, r>, then the PCG step
+    rc = capture_chunk(M, [=](Solve& S, const PcgLoop& P) {
+      restrict_f<<<S.blocks(0), kThreads, 0, P.st>>>(P.L0, F, P.r, S.b[0],
+                                                      fine_row, P.flags);
+      int rc_it = eu_launch_status();
+      if (!rc_it) rc_it = S.cycle(0, false);
+      if (rc_it) return rc_it;
+      post_f<<<P.blocks(), kThreads, 0, P.st>>>(P.L0, ls, P.r, S.zout(0), zp,
+                                                fine_row, P.part, P.flags);
+      if ((rc_it = eu_launch_status())) return rc_it;
+      return P.step(zp);
+    });
   }
+  if (rc) {
+    delete M;
+    return rc;
+  }
+  *out = M;
   return 0;
+}
+
+// One MG-PCG solve of A p = b from p = 0 on the workspace, with a_diag
+// ([Y, X] i32), fl ([Y, X] u8) and b ([Y, X] f32): packed0 and r = b
+// loaded, the hierarchy and the rows built, then the chunk graph replayed
+// until the stop flag is set.  The iteration count and the final max|r|
+// stay on the device (flags[F_ITERS], scal[S_RESID]); p ends as the
+// solution.
+EU_API int eu_mg_stream_solve(void* solver, const void* a_diag,
+                              const void* fl, const void* b, void* stream) {
+  const MgSolver* M = static_cast<const MgSolver*>(solver);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PcgLoop P = M->P;
+  P.st = st;
+  pack_kernel<<<P.blocks(), kThreads, 0, st>>>(
+      P.n(), static_cast<const int32_t*>(a_diag),
+      static_cast<const uint8_t*>(fl), M->packed0);
+  int rc = eu_launch_status();
+  if (rc) return rc;
+  if ((rc = static_cast<int>(cudaMemcpyAsync(P.r, b, sizeof(float) * P.n(),
+                                             cudaMemcpyDeviceToDevice, st))))
+    return rc;
+  if ((rc = P.init(true, M->tol, M->tol_rel))) return rc;
+  if ((rc = M->hierarchy(st))) return rc;
+  return M->iterate(st);
 }

@@ -15,16 +15,20 @@ graph, which each solve replays, reading the stop flag once a chunk
 (every kernel of an iteration is a no-op once the flag is set).  The
 coarse end of each cycle visit (from the first level of at most 128²
 cells) is one launch of a cluster of 8 CTAs (csrc/mg_levels.cuh).
-Workspaces are cached per device and configuration (`workspace`; the key
-is `workspace_key`), at most `_MAX_WORKSPACES` of them; an evicted one is
-closed (`MgWorkspace.close`).
+Workspaces are cached per device, configuration and root level
+(`workspace`; the key is `workspace_key`), at most `_MAX_WORKSPACES` of
+them and `_MAX_WORKSPACE_BYTES` in all (the newest always stays), least
+recently used out first; an evicted one is closed (`MgWorkspace.close`).
+K11 (`mg_stream_kernel`) solves on the same workspaces with its root
+below the fine level (`csrc/mg_stream.cu`, the same solver).
 
 `mg_pallas_fits` is the JAX package's gate for K3 (mg_kernel.py:748);
 `mg_fits` is the CUDA levels' own check that the sizes halve evenly.
 
-`mg_host_operands` is the plain version of the hierarchy build (and
-K11's operands): the Galerkin hierarchy by 2x2 block sums and the
-Chebyshev rows from each level's measured Gershgorin bound, in PyTorch.
+`mg_host_operands` is the plain version of the hierarchy build (K11's
+too, through `stream_host_operands`): the Galerkin hierarchy by 2x2 block
+sums and the Chebyshev rows from each level's measured Gershgorin bound,
+in PyTorch.
 `solve_pressure_mg_plain` is the plain version of the solve: a PCG loop
 of the same shape as `_mg_pcg_solve` around `multigrid.cycle_galerkin`.
 """
@@ -48,6 +52,9 @@ _S_RESID = 5           # scal index of the final residual max
 _F_N = 3               # flags ints
 _F_ITERS = 1           # flags index of the iteration count
 _MAX_WORKSPACES = 4
+# K11's workspace at 4096² holds ~486 MiB, K11's at 2048² ~146 MiB, K3's at
+# 1024² ~60 MiB: the largest stays alone, the smaller ones share
+_MAX_WORKSPACE_BYTES = 512 * 2**20
 
 
 def _level_shapes(Y: int, X: int, min_size: int):
@@ -183,6 +190,19 @@ def _lib():
     return lib
 
 
+def _stream_lib():
+    """K11's library (csrc/mg_stream.cu): the same solver from a root below
+    the fine level, built with -fmad=false."""
+    lib = _build.load("mg_stream", flags=["-fmad=false"])
+    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    _build.bind(lib, "eu_mg_stream_create",
+                [I, P, I, P, P, P, P, I, I, I, I, I, F, F, I, F, F]
+                + [P] * 9 + [ctypes.POINTER(ctypes.c_void_p)])
+    _build.bind(lib, "eu_mg_destroy", [P])
+    _build.bind(lib, "eu_mg_stream_solve", [P] * 5)
+    return lib
+
+
 def cycle_args(cfg: SimConfig):
     """deg, coarse_deg, w, w_depth of the CUDA `Solve`."""
     s = cfg.solver
@@ -190,31 +210,37 @@ def cycle_args(cfg: SimConfig):
             2 if s.mg_cycle == "w" else 1, s.mg_w_depth]
 
 
-def workspace_key(cfg: SimConfig, device) -> tuple:
+def workspace_key(cfg: SimConfig, device, ls: int = 0) -> tuple:
     """What a workspace's buffers and captured launches depend on: the
-    device, the level shapes, the cycle schedule, the Chebyshev ratios
-    and the stopping rule."""
+    device, the level shapes, the cycle's root level (0 for K3, K11's
+    `ls`), the cycle schedule, the Chebyshev ratios and the stopping
+    rule."""
     s = cfg.solver
     return (str(device), tuple(_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)),
-            *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio,
+            ls, *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio,
             s.max_iterations, s.tol, s.tol_rel)
 
 
 class MgWorkspace:
     """The device buffers of one configuration's MG-PCG solves and the
-    CUDA solver over them (csrc/mg_pcg.cu: the hierarchy, the rows, the
-    graph of one chunk of iterations).  Per level: the c, e, n planes and
-    active flags of the hierarchy (coarse levels), and x, b, z, rr, d, dn
-    (level 0's b is r); the packed matrix, r, p, s, As; the block
-    partials; the scalars and flags; and K2's grid-stage scratch and tail
-    partials.  A solve reads and writes only these, so nothing it returns
-    may alias them: callers copy out."""
+    CUDA solver over them (csrc/mg_solver.cuh: the hierarchy, the rows, the
+    graph of one chunk of iterations).  `ls` is the level the cycle starts
+    from: 0 for K3 (csrc/mg_pcg.cu), the root below the fine level for
+    K11 (csrc/mg_stream.cu; F = 2**ls).  Per coarse level the c, e, n
+    planes and active flags of the hierarchy; per level from `ls` down x,
+    b, z, rr, d, dn (K3's level 0 takes r for b); the packed matrix, r, p,
+    s, As; the block partials; the Chebyshev rows (K11: one row more, the
+    fine level's); the scalars and flags; K2's grid-stage scratch and tail
+    partials (K3) or K11's preconditioned residual z.  A solve reads and
+    writes only these, so nothing it returns may alias them: callers copy
+    out."""
 
-    def __init__(self, cfg: SimConfig, device):
+    def __init__(self, cfg: SimConfig, device, ls: int = 0):
         s = cfg.solver
         f = torch.float32
         Y, X = cfg.ny, cfg.nx
         self.shapes = _level_shapes(Y, X, s.mg_min_size)
+        self.ls = ls
         L = len(self.shapes)
         self.keep = []
 
@@ -226,13 +252,16 @@ class MgWorkspace:
         plane = (Y, X)
         self.packed0, self.r, self.p, self.s, self.As = (
             new(plane) for _ in range(5))
-        self.zu, self.zv = new(plane), new(plane)
         nb = -(-Y * X // 256)
+        if ls == 0:
+            self.zu, self.zv = new(plane), new(plane)
+            self.tail_part = new((2 * nb,))
+        else:
+            self.z = new(plane)
         self.part = new((nb,))
-        self.tail_part = new((2 * nb,))
         self.hpart = new((sum(-(-Yl * Xl // 256) for Yl, Xl in self.shapes),))
         deg = [s.mg_cheby_degree] * (L - 1) + [s.mg_coarse_iters]
-        self.rows = new((L, 1 + 2 * max(deg)))
+        self.rows = new((L + (ls > 0), 1 + 2 * max(deg)))
         self.scal = new((_S_N,))
         self.flags = new((_F_N,), torch.int32)
         # the coarse levels' (c, e, n, active): the hierarchy the solve builds
@@ -241,31 +270,44 @@ class MgWorkspace:
                        for shape in self.shapes[1:]]
         planes, act = [], [0]
         for l, shape in enumerate(self.shapes):
-            if l == 0:
-                planes += [0, 0, 0, new(shape).data_ptr(), 0]
-            else:
+            cen = [0, 0, 0]
+            if l > 0:
                 c, e, n, active = self.levels[l - 1]
-                planes += [c.data_ptr(), e.data_ptr(), n.data_ptr(),
-                           new(shape).data_ptr(), new(shape).data_ptr()]
+                cen = [c.data_ptr(), e.data_ptr(), n.data_ptr()]
                 act.append(active.data_ptr())
-            planes += [new(shape).data_ptr() for _ in range(4)]
+            if l < ls:  # above K11's root: the hierarchy only
+                planes += cen + [0] * 6
+            elif l == 0:  # K3's level 0: its b is r
+                planes += cen + [new(shape).data_ptr(), 0]
+                planes += [new(shape).data_ptr() for _ in range(4)]
+            else:
+                planes += cen + [new(shape).data_ptr() for _ in range(6)]
         assert len(planes) == _PLANES_PER_LEVEL * L
         flat = [v for sh in self.shapes for v in sh]
-        self.lib = _lib()
+        shape_arr = (ctypes.c_int * len(flat))(*flat)
+        plane_arr = (ctypes.c_void_p * len(planes))(*planes)
+        act_arr = (ctypes.c_void_p * L)(*act)
+        ptrs = [t.data_ptr() for t in (self.p, self.r, self.s, self.As)]
+        ptrs += [] if ls == 0 else [self.z.data_ptr()]
+        ptrs += [t.data_ptr() for t in (self.part, self.hpart, self.scal,
+                                        self.flags)]
+        args = (self.packed0.data_ptr(), self.rows.data_ptr(),
+                self.rows.shape[1], *cycle_args(cfg), s.mg_cheby_ratio,
+                s.mg_coarse_ratio, s.max_iterations, s.tol, s.tol_rel, *ptrs)
         self.handle = None
         handle = ctypes.c_void_p()
         with torch.cuda.device(device):
-            rc = self.lib.eu_mg_create(
-                L, (ctypes.c_int * len(flat))(*flat),
-                (ctypes.c_void_p * len(planes))(*planes),
-                (ctypes.c_void_p * L)(*act), self.packed0.data_ptr(),
-                self.rows.data_ptr(), self.rows.shape[1], *cycle_args(cfg),
-                s.mg_cheby_ratio, s.mg_coarse_ratio, s.max_iterations,
-                s.tol, s.tol_rel, *(t.data_ptr() for t in (self.p, self.r, self.s, self.As,
-                                         self.part, self.hpart, self.scal,
-                                         self.flags)),
-                ctypes.byref(handle))
-        _build.check(self.lib, rc, "eu_mg_create")
+            if ls == 0:
+                self.lib = _lib()
+                rc = self.lib.eu_mg_create(L, shape_arr, plane_arr, act_arr,
+                                           *args, ctypes.byref(handle))
+            else:
+                self.lib = _stream_lib()
+                rc = self.lib.eu_mg_stream_create(
+                    L, shape_arr, ls, plane_arr, act_arr, *args,
+                    ctypes.byref(handle))
+        _build.check(self.lib, rc, "eu_mg_create" if ls == 0
+                     else "eu_mg_stream_create")
         self.handle = handle.value
 
     @property
@@ -296,6 +338,20 @@ class MgWorkspace:
         _build.LAUNCHES["K3"] += 1
         rc = self.lib.eu_mg_solve(self.handle, int(warm), _build.stream())
         _build.check(self.lib, rc, "eu_mg_solve")
+        return self.result()
+
+    def stream_solve(self, a_diag, fluid, b):
+        """K11: one MG-PCG solve of A p = b from p = 0 with the level skip
+        (head, hierarchy, replayed chunks): p ends as the solution.
+        Returns (iterations, residual) as fresh device tensors."""
+        _build.LAUNCHES["K11"] += 1
+        rc = self.lib.eu_mg_stream_solve(self.handle, a_diag.data_ptr(),
+                                         fluid.data_ptr(), b.data_ptr(),
+                                         _build.stream())
+        _build.check(self.lib, rc, "eu_mg_stream_solve")
+        return self.result()
+
+    def result(self):
         return self.flags[_F_ITERS].clone(), self.scal[_S_RESID].clone()
 
     def cycle(self, per_op: bool):
@@ -312,17 +368,26 @@ class MgWorkspace:
 _WORKSPACES: collections.OrderedDict = collections.OrderedDict()
 
 
-def workspace(cfg: SimConfig, device) -> MgWorkspace:
-    """The cached workspace of `cfg` on `device` (least recently used
-    first out)."""
-    key = workspace_key(cfg, device)
+def workspace(cfg: SimConfig, device, ls: int = 0) -> MgWorkspace:
+    """The cached workspace of `cfg` on `device` with its cycle rooted at
+    level `ls`.  The newest entry always stays; older ones go, least
+    recently used first, while the cache holds more than _MAX_WORKSPACES
+    entries or _MAX_WORKSPACE_BYTES."""
+    key = workspace_key(cfg, device, ls)
     ws = _WORKSPACES.pop(key, None)
     if ws is None:
-        ws = MgWorkspace(cfg, device)
+        ws = MgWorkspace(cfg, device, ls)
     _WORKSPACES[key] = ws
-    while len(_WORKSPACES) > _MAX_WORKSPACES:
+    while len(_WORKSPACES) > 1 and (
+            len(_WORKSPACES) > _MAX_WORKSPACES
+            or cached_bytes() > _MAX_WORKSPACE_BYTES):
         _WORKSPACES.popitem(last=False)[1].close()
     return ws
+
+
+def cached_bytes() -> int:
+    """Device bytes held by the cached workspaces."""
+    return sum(ws.nbytes for ws in _WORKSPACES.values())
 
 
 def clear_workspaces() -> None:

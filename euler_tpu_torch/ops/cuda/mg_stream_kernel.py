@@ -15,17 +15,19 @@ post-smoothed once with degree-1 Chebyshev.
 
 On an H100 it is bound by launches, then bytes: each iteration is four
 fine sweeps moving 17 [Y, X] f32 planes (68 MB at 2048²) plus K3's cycle
-on the resident levels (its coarse end one cluster launch a visit), one
-host read of the stop flag per iteration.
-The CUDA side is `csrc/mg_stream.cu` over the level kernels it shares
-with K3 (`csrc/mg_levels.cuh`).
+on the resident levels (its coarse end one cluster launch a visit).  So
+it runs on K3's machinery (`mg_kernel.MgWorkspace` with its root at
+level `ls`; `csrc/mg_stream.cu` over `csrc/mg_solver.cuh` and
+`csrc/mg_levels.cuh`): a cached workspace, the Galerkin hierarchy and
+the rows built on the card per solve, and a CUDA graph of 8 iterations
+replayed with one read of the stop flag a chunk.
 
-`stream_host_operands` builds its operands from K3's full Galerkin
-hierarchy (`mg_host_operands`): the resident levels' planes and
-Chebyshev rows, and one row more for the fine level's 1/theta.
-`solve_pressure_mg_stream_plain` is the plain version: K3's plain PCG
-loop around `multigrid.cycle_galerkin` over the resident levels with the
-F-to-1 transfer.
+`stream_host_operands` is the plain version of that build: the resident
+levels' planes and Chebyshev rows from K3's full Galerkin hierarchy
+(`mg_host_operands`), and one row more for the fine level's 1/theta.
+`solve_pressure_mg_stream_plain` is the plain version of the solve: K3's
+plain PCG loop around `multigrid.cycle_galerkin` over the resident levels
+with the F-to-1 transfer.
 
 `_resident_start` and `stream_mg_fits` are the JAX package's (:112, :498),
 kept as integer arithmetic: see `pcg_kernel._VMEM_BUDGET`.
@@ -33,23 +35,18 @@ kept as integer arithmetic: see `pcg_kernel._VMEM_BUDGET`.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops import multigrid
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.mg_kernel import (
-    _F_ITERS,
-    _PLANES_PER_LEVEL,
-    _S_RESID,
     _cycle_kwargs,
     _level_shapes,
-    cycle_args,
     mg_fits,
     mg_host_operands,
     mg_pcg_plain,
+    workspace,
 )
 from euler_tpu_torch.ops.project import apply_a
 
@@ -127,50 +124,10 @@ def stream_host_operands(cfg: SimConfig, a_diag, fluid):
             torch.cat([rows[ls:], fine]))
 
 
-def _lib():
-    lib = _build.load("mg_stream", flags=["-fmad=false"])
-    P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_mg_stream",
-                [I, I, I, I, P, P, P, P, I, I, I, I, I, I, F, F]
-                + [P] * 9)
-    return lib
-
-
-class Buffers:
-    """Device buffers handed to the CUDA library, kept referenced here
-    until the launch that reads them is enqueued."""
-
-    def __init__(self, device):
-        self.device = device
-        self.keep = []
-
-    def new(self, shape) -> int:
-        t = torch.empty(shape, dtype=torch.float32, device=self.device)
-        self.keep.append(t)
-        return t.data_ptr()
-
-    def levels(self, shapes, coef_planes):
-        """ctypes (shapes, planes) of a `Solve` (csrc/mg_levels.cuh): per
-        level its (c, e, n) planes, then fresh x, b, z, rr, d, dn planes."""
-        ptrs = []
-        for l, ((Yl, Xl), cen) in enumerate(zip(shapes, coef_planes)):
-            planes = [t.contiguous() for t in cen]
-            for name, t in zip("cen", planes):
-                _build.require(t, f"{name}{l}", torch.float32, (Yl, Xl),
-                               self.device)
-            self.keep.extend(planes)
-            ptrs += [t.data_ptr() for t in planes]
-            ptrs += [self.new((Yl, Xl)) for _ in range(6)]
-        assert len(ptrs) == _PLANES_PER_LEVEL * len(shapes)
-        flat = [v for sh in shapes for v in sh]
-        return ((ctypes.c_int * len(flat))(*flat),
-                (ctypes.c_void_p * len(ptrs))(*ptrs))
-
-
 def solve_pressure_mg_stream(cfg: SimConfig, b, a_diag, fluid, solid=None):
     """One MG-PCG solve with the F-to-1 level skip, from p = 0.  Returns
-    (p, iterations, residual).  CUDA tensors run the kernel; CPU tensors
-    the plain version."""
+    (p, iterations, residual).  CUDA tensors run the kernel on the cached
+    workspace of `cfg`; CPU tensors the plain version."""
     del solid  # the Galerkin hierarchy needs only a_diag and the fluid
     if b.device.type == "cpu":
         _build.PLAIN_CALLS["K11"] += 1
@@ -180,28 +137,11 @@ def solve_pressure_mg_stream(cfg: SimConfig, b, a_diag, fluid, solid=None):
             "the CUDA MG-PCG with the level skip needs f32 galerkin + cheby, "
             "level sizes that halve evenly to mg_min_size and a resident "
             "level below the root (ROADMAP queue 1 item M11)")
-    s = cfg.solver
-    Y, X = cfg.ny, cfg.nx
-    f = torch.float32
+    plane = (cfg.ny, cfg.nx)
     dev = b.device
-    _build.require(b, "b", f, (Y, X))
-    F, shapes, packed0, coef_planes, rows = stream_host_operands(
-        cfg, a_diag, fluid)
-    rows = rows.contiguous()
-    r = b.clone()
-    p = torch.empty_like(b)
-    bufs = Buffers(dev)
-    shape_arr, plane_arr = bufs.levels(shapes, coef_planes)
-    work = [bufs.new((Y, X)) for _ in range(3)]  # s, As, z
-    part = bufs.new((-(-Y * X // 256),))
-    scal = torch.zeros(8, dtype=f, device=dev)
-    flags = torch.zeros(4, dtype=torch.int32, device=dev)
-    lib = _lib()
-    _build.LAUNCHES["K11"] += 1
-    rc = lib.eu_mg_stream(
-        Y, X, F, len(shapes), shape_arr, plane_arr, packed0.data_ptr(),
-        rows.data_ptr(), rows.shape[1], *cycle_args(cfg), s.max_iterations,
-        float(s.tol), float(s.tol_rel), p.data_ptr(), r.data_ptr(), *work,
-        part, scal.data_ptr(), flags.data_ptr(), _build.stream())
-    _build.check(lib, rc, "eu_mg_stream")
-    return p, flags[_F_ITERS].clone(), scal[_S_RESID].clone()
+    _build.require(b, "b", torch.float32, plane)
+    _build.require(a_diag, "a_diag", torch.int32, plane, dev)
+    _build.require(fluid, "fluid", torch.bool, plane, dev)
+    ws = workspace(cfg, dev, _root(cfg)[1])
+    iters, resid = ws.stream_solve(a_diag, fluid, b)
+    return ws.p.clone(), iters, resid

@@ -95,7 +95,6 @@ def jacobi_lib():
     lib = _build.load("jacobi_pcg", flags=["-fmad=false"])
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
     _build.bind(lib, "eu_jacobi_solve", [I, I, I, F, F] + [P] * 12)
-    _build.bind(lib, "eu_jacobi_stream_solve", [I, I, I, F, F] + [P] * 12)
     _build.bind(lib, "eu_jacobi_project", [I, I, I, F, F, F, F, F]
                 + [P] * 18)
     _build.bind(lib, "eu_jacobi_substep", [I, I, I, F, F, F, F, F, F]

@@ -7,15 +7,16 @@ contract: (p, iterations, residual) for A p = b from p = 0.  The JAX
 package routes Jacobi solves to it beyond K8's VMEM budget, from about
 2125² (`ops/project.solve_pressure`).  It computes K8's solve another way:
 s' = z + beta s and As' = A z + beta As with z = invd r recomputed on the
-fly, so an iteration is two sweeps, not three, and its rounding differs
+fly, so an iteration applies the operator once, and its rounding differs
 from K8's.
 
-On an H100 it is bound by bytes: the two sweeps move 13 [Y, X] f32
-planes an iteration (872 MB at 4096², 0.26 ms at 3.35 TB/s), with two
-grid-wide reductions between them.  The CUDA side is K8's
-(`csrc/jacobi_pcg.cu`: head, reductions, the p/r sweep, the stop flag on
-the device read by the host every 8 iterations) with the s/As sweep in
-place of K8's apply and direction sweeps: four launches an iteration.
+On an H100 it is bound by bytes: the recurrence needs 10.5 [Y, X] plane
+passes an iteration (705 MB at 4096², 0.210 ms at 3.35 TB/s) and two
+grid-wide reductions.  The CUDA side (`csrc/jacobi_stream.cu`) runs an
+iteration as two sweeps whose last CTA does the reduction, reads the
+operator as one byte a cell, and defers p += alpha s into the next
+iteration's first sweep (applied once more after the loop); the stop
+flag lives on the device and the host reads it every 8 iterations.
 
 `solve_pressure_stream_plain` is the plain version, the two-sweep
 recurrence written out; `stream_solver_fits` is the JAX package's gate
@@ -28,12 +29,14 @@ import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
-from euler_tpu_torch.ops.cuda.pcg_kernel import (
-    Workspace,
-    jacobi_lib,
-    solver_args,
-)
+from euler_tpu_torch.ops.cuda.pcg_kernel import solver_args
 from euler_tpu_torch.ops.project import apply_a, jacobi_preconditioner
+
+_S_N = 5       # scal floats of one solve (csrc/jacobi_stream.cu)
+_S_RESID = 4   # scal index of the final max|r|
+_F_N = 4       # flags ints: done, iterations, p update pending, ticket
+_F_ITERS = 1   # flags index of the iteration count
+_CHAINS = 1024  # running partial sums a reduction keeps
 
 
 def stream_solver_fits(cfg: SimConfig) -> bool:
@@ -80,6 +83,13 @@ def solve_pressure_stream_plain(cfg: SimConfig, b, a_diag, fluid):
             r.abs().max())
 
 
+def stream_lib():
+    lib = _build.load("jacobi_stream", flags=["-fmad=false"])
+    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    _build.bind(lib, "eu_jacobi_stream_solve", [I, I, I, F, F] + [P] * 12)
+    return lib
+
+
 def solve_pressure_stream(cfg: SimConfig, b, a_diag, fluid):
     """One Jacobi-PCG solve in the two-sweep form, from p = 0.  Returns
     (p, iterations, residual).  CUDA tensors run the kernel; CPU tensors
@@ -89,13 +99,20 @@ def solve_pressure_stream(cfg: SimConfig, b, a_diag, fluid):
         return solve_pressure_stream_plain(cfg, b, a_diag, fluid)
     plane = (cfg.ny, cfg.nx)
     dev = b.device
-    p_b = _build.require(b, "b", torch.float32, plane)
+    f = torch.float32
+    p_b = _build.require(b, "b", f, plane)
     p_a = _build.require(a_diag, "a_diag", torch.int32, plane, dev)
     p_fl = _build.require(fluid, "fluid", torch.bool, plane, dev)
-    ws = Workspace(*plane, dev)
-    lib = jacobi_lib()
+    code = torch.empty(plane, dtype=torch.uint8, device=dev)
+    r, p, s, As = (torch.empty(plane, dtype=f, device=dev) for _ in range(4))
+    chains = torch.empty(2 * _CHAINS, dtype=f, device=dev)
+    scal = torch.empty(_S_N, dtype=f, device=dev)
+    flags = torch.empty(_F_N, dtype=torch.int32, device=dev)
+    lib = stream_lib()
     _build.LAUNCHES["K12"] += 1
-    rc = lib.eu_jacobi_stream_solve(*solver_args(cfg), p_a, p_fl, p_b,
-                                    *ws.pointers(), _build.stream())
+    rc = lib.eu_jacobi_stream_solve(
+        *solver_args(cfg), p_a, p_fl, p_b,
+        *(t.data_ptr() for t in (code, r, p, s, As, chains, scal, flags)),
+        _build.stream())
     _build.check(lib, rc, "eu_jacobi_stream_solve")
-    return (ws.p, *ws.result())
+    return p, flags[_F_ITERS].clone(), scal[_S_RESID].clone()

@@ -308,6 +308,105 @@ def test_mg_stream_matches_plain(developed256, monkeypatch, F):
     assert abs(int(it) - int(itp)) <= 1
 
 
+@pytest.mark.parametrize("F", [2, 4])
+def test_mg_stream_hierarchy_bitwise(monkeypatch, F):
+    """The Galerkin hierarchy and Chebyshev rows K11 builds on the card, on
+    a speckled 256² mask with its root one level down (F = 2) or two (F =
+    4), equal the plain build bit for bit: every coarse level's planes
+    (those between the fine level and the root included) and the rows
+    from the root down with the fine level's [it0, 0, ...] after them."""
+    fluid, solid, b = _speckled(256, 3)
+    cfg = _cfg(256)
+    if F == 4:
+        monkeypatch.setattr(k11, "_resident_start", lambda shapes: 2)
+    _, ls, got_F = k11._root(cfg)
+    assert got_F == F
+    a = pressure_matrix_diag(cfg, solid, fluid)
+    ws = k3.workspace(cfg, b.device, ls)
+    ws.stream_solve(a, fluid, b)
+    _, packed0, planes, _ = k3.mg_host_operands(cfg, a, fluid)
+    _, _, _, res_planes, rows = k11.stream_host_operands(cfg, a, fluid)
+    assert torch.equal(ws.packed0, packed0)
+    assert len(planes) == len(ws.levels)
+    for want, got in zip(planes, ws.levels):
+        for x, y in zip(want, got):
+            assert torch.equal(x, y)
+    for want, got in zip(res_planes, ws.levels[ls - 1:]):
+        for x, y in zip(want, got):
+            assert torch.equal(x, y)
+    assert torch.equal(ws.rows[ls:], rows)
+
+
+@pytest.mark.parametrize("cap", [1, 3, 8, 9])
+def test_mg_stream_stops_at_the_cap(developed256, cap):
+    """K11 with a tolerance no iterate meets takes exactly `cap`
+    iterations: inside the first graph chunk, at its end, and one into the
+    second."""
+    cfg, scn, st, dt, b, a = developed256
+    cfg = _solver(cfg, max_iterations=cap, tol=0.0, tol_rel=0.0)
+    p, it, _ = k11.solve_pressure_mg_stream(cfg, b, a, st.fluid)
+    pp, itp, _ = k11.solve_pressure_mg_stream_plain(cfg, b, a, st.fluid)
+    assert int(it) == int(itp) == cap
+    assert (p - pp).abs().max() <= 5e-4 * pp.abs().max()
+
+
+def test_mg_stream_workspace_reuse_is_bitwise(developed256):
+    """K3 and K11 at the same grid, in turns, each on a workspace of its
+    own that an earlier solve (another RHS) has used: bitwise equal to
+    solves on fresh workspaces, and nothing returned aliases a
+    workspace."""
+    cfg, scn, st, dt, b, a = developed256
+    k3.clear_workspaces()
+    fresh11 = k11.solve_pressure_mg_stream(cfg, b, a, st.fluid)
+    k3.clear_workspaces()
+    fresh3 = k3.solve_pressure_mg(cfg, b, a, st.fluid, x0=st.p)
+    k3.clear_workspaces()
+    k11.solve_pressure_mg_stream(cfg, b * 0.5, a, st.fluid)
+    for _ in range(2):
+        got3 = k3.solve_pressure_mg(cfg, b.clone(), a.clone(),
+                                    st.fluid.clone(), x0=st.p.clone())
+        got11 = k11.solve_pressure_mg_stream(cfg, b.clone(), a.clone(),
+                                             st.fluid.clone())
+        for x, y in zip(got3 + got11, fresh3 + fresh11):
+            assert torch.equal(x, y)
+    assert len(k3._WORKSPACES) == 2
+    held = {t.data_ptr() for ws in k3._WORKSPACES.values() for t in ws.keep}
+    assert held.isdisjoint(t.data_ptr() for t in got3 + got11)
+
+
+@pytest.mark.parametrize("cap", [1, 8, 9])
+def test_pcg_stream_stops_at_the_cap(developed256, cap):
+    """K12 with a tolerance no iterate meets takes exactly `cap`
+    iterations and matches its plain version: the p update deferred to
+    the next iteration's first sweep is applied once and only once, the
+    last one by the finishing launch."""
+    cfg, scn, st, dt, b, a = developed256
+    cfg = _solver(_speed(cfg), max_iterations=cap, tol=0.0, tol_rel=0.0)
+    p, it, res = k12.solve_pressure_stream(cfg, b, a, st.fluid)
+    pp, itp, resp = k12.solve_pressure_stream_plain(cfg, b, a, st.fluid)
+    assert int(it) == int(itp) == cap
+    assert pp.abs().max() > 0
+    assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
+    assert abs(float(res) - float(resp)) <= 1e-4 * float(resp)
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_pcg_stream_nonfinite_rhs(developed256, bad):
+    """A non-finite RHS entry on a fluid cell: the same iterations and the
+    same NaN and inf pattern in p as the plain version (the pending p
+    update is guarded by a flag, not by alpha = 0, which would turn
+    0 * inf into NaN)."""
+    cfg, scn, st, dt, b, a = developed256
+    cfg = _speed(cfg)
+    b = b.clone()
+    b.view(-1)[int(st.fluid.view(-1).nonzero()[0])] = bad
+    p, it, _ = k12.solve_pressure_stream(cfg, b, a, st.fluid)
+    pp, itp, _ = k12.solve_pressure_stream_plain(cfg, b, a, st.fluid)
+    assert int(it) == int(itp)
+    assert torch.equal(p.isnan(), pp.isnan())
+    assert torch.equal(p.isinf(), pp.isinf())
+
+
 def test_pcg_stream_matches_plain(developed256):
     cfg, scn, st, dt, b, a = developed256
     cfg = _speed(cfg)

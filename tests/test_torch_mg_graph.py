@@ -90,7 +90,9 @@ def test_workspace_cache_is_bounded_lru(monkeypatch):
     closed = []
 
     class Fake:
-        def __init__(self, cfg, device):
+        nbytes = 0
+
+        def __init__(self, cfg, device, ls=0):
             made.append((cfg.solver.tol_rel, device))
 
         def close(self):
