@@ -17,7 +17,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      Chebyshev rows it builds bitwise equal to `mg_host_operands`; its
      coarse cycle in one launch a visit bitwise equal to one launch per
      level operation), K7 grid
-     stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep;
+     stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep
+     (and the stream syncs of one K8 and one K10 solve);
   4. times 20 frames of the main path (dam break, slot markers K=8,
      Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection);
   5. times 20 frames of the Jacobi speed mode (`bench.py --precon
@@ -39,7 +40,14 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
   9. runs `bench.py --size 4096 --precon jacobi` (the plain grid stage and
      K12): 1 warm-up + 2 timed frames, then K12 and K11 (F = 4, with the
      MG config; its hierarchy bitwise as at 2048²) against their plain
-     versions on that state, K12 timed.
+     versions on that state, K12 timed;
+ 10. runs the Jacobi card tests of tests/test_torch_cuda.py (pytest -k
+     jacobi, a process of its own: K8's caps, non-finite and zero RHS on
+     K8-K10, workspace reuse, two grids in turn).
+With --profile, each profile also logs the per-launch device time of the
+Jacobi sweeps (K8-K10's and K12's sweep_a, sweep_b; K8-K10's start while
+the sweep before them finishes, so their spans include that wait and
+overlap).
 Each path runs with the launch counts set to 0 just before it and read
 just after: its kernels must have launched and no plain version may have
 run.  Prints one JSON line of per-kernel results, the card's name and
@@ -54,9 +62,11 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SIZE = 1024        # bench.py's default grid (the main path)
 WARMUP_FRAMES = 4  # bench.py's default warm-up (early dam-break window)
@@ -90,12 +100,16 @@ F32_FLOP_PER_S = 67e12
 #   a re-bin test of a live marker (two scalings, floors, offsets): 6 flops
 #   the grid stage alone (K7: extrapolate, four bilinear samples, gravity):
 #   ~70 flops
-# A Jacobi-PCG iteration's three sweeps move 14 [Y, X] f32 planes
-# (csrc/jacobi_pcg.cu): the HBM time of that traffic is the sweep bound
-# of K8-K10, an upper bound on their floor (the live planes fit the L2).
-# K12's two sweeps move 10.5 planes an iteration (csrc/jacobi_stream.cu:
-# sweep A code, r, s, As, p in and s, As, p out; sweep B code, r, As in
-# and r out), the fewest its recurrence needs.  K11: its four fine sweeps
+# A Jacobi-PCG iteration of K8-K10 in the three-pass form (As = A s of
+# the updated s) needs 9.5 [Y, X] plane passes at the fewest, with the
+# byte operator code, s_k computed in the sweep that applies A to it, and
+# p's update deferred (csrc/jacobi_pcg.cu: sweep A code, r, s_{k-1}, p in
+# and s_k, As, p out; sweep B code, r, As in and r out): the HBM time of
+# that traffic is their sweep bound, an upper bound on their floor (the
+# live planes fit the L2).  K12's two sweeps move 10.5 planes an
+# iteration (csrc/jacobi_stream.cu: sweep A code, r, s, As, p in and s,
+# As, p out; sweep B code, r, As in and r out), the fewest its recurrence
+# needs.  K11: its four fine sweeps
 # move 17 (mg_stream_kernel.py), and the resident cycle below its root is
 # K3's at the root's size less the PCG step, a root plane counting 1/F².
 # K3 and K2 (the MG-PCG main path): `mg_sweep_planes` counts an iteration
@@ -141,7 +155,7 @@ def mg_sweep_planes(size: int = 1024, min_size: int = 32, w: int = 2,
 
 
 K11_SIZE, K11_F = 2048, 2  # where K11 is timed: the 2048² path, root 1024²
-SWEEP_PLANES = {"K8": 14, "K9": 14, "K10": 14, "K12": 10.5,
+SWEEP_PLANES = {"K8": 9.5, "K9": 9.5, "K10": 9.5, "K12": 10.5,
                 "K11": 17 + (mg_sweep_planes(K11_SIZE // K11_F)[0] - 12)
                 / K11_F ** 2,
                 "K3": mg_sweep_planes()[0], "K2": mg_sweep_planes()[0]}
@@ -421,7 +435,11 @@ def build_all():
     for name, rec in _build.BUILD_LOG.items():
         log(f"   {name}: nvcc {rec['seconds']:.1f} s")
         for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            entry = re.search(
+                r"entry function '\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'", line)
+            if entry:
+                log(f"     {entry.group(2)[:int(entry.group(1))]}:")
+            elif "registers" in line or "spill" in line:
                 log(f"     {line.strip()}")
 
 
@@ -454,6 +472,9 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
                                + SWEEP_CALL_PLANES.get(name, 0))
         log(f"   {name}: sweep bound {1e3 * sweep / HBM_BYTES_PER_S:.3f}"
             f" ms ({sweep / 1e9:.2f} GB over {iters} iterations)")
+        if iters:
+            log(f"   {name}: {1e3 * min(t_k1, t_k2) / iters:.2f} us an "
+                f"iteration (the call's time over its {iters} iterations)")
 
 
 def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
@@ -804,6 +825,22 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
         log(f"   {kernel}: a zero RHS exits with 0 iterations")
 
 
+def run_card_tests(selection: str) -> None:
+    """The card tests of tests/test_torch_cuda.py that `selection` picks
+    (pytest -k), in a process of their own on the libraries built here;
+    fails unless all of them pass."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py", "-k",
+         selection], cwd=root, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines()[-3:]:
+        log(f"   {line}")
+    check(proc.returncode == 0, f"card tests -k {selection} failed "
+          f"(rc {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+          f"{proc.stderr[-2000:]}")
+
+
 def run(args) -> dict:
     import torch
 
@@ -973,6 +1010,13 @@ def run(args) -> dict:
         check(int(i8k) == int(i8p), "K8 iterations differ")
         check(err8 <= 1e-3 * scale, "K8 pressure differs > 1e-3*scale")
         results["K8"] = {"max_abs_err": err8}
+        jacobi_syncs = {
+            "K8": stream_syncs(lambda: k89.solve_pressure_jacobi(
+                scfg, b, a_diag, fl)),
+            "K10": stream_syncs(lambda: k2.project_substep_jacobi(
+                scfg, dt, dt, state.u, state.v, fl, pfl, scn.solid))}
+        log(f"   K8 / K10: {jacobi_syncs['K8']} / {jacobi_syncs['K10']} "
+            f"stream syncs in one solve of {int(i8k)} iterations")
 
         jacobi_pairs = {
             "K9": (lambda: k89.project_jacobi(scfg, dt, ut, vt, fl,
@@ -1025,6 +1069,7 @@ def run(args) -> dict:
         # no div_inf limit: the speed mode gives up at 100 iterations
         sstate, summaries["speed"] = run_path(scfg, sscn, sstate, FRAMES,
                                               ["K1", "K10"], "speed mode")
+        summaries["speed"]["jacobi_syncs_per_solve"] = jacobi_syncs
         launches["K10"] = summaries["speed"]["launches"].get("K10", 0)
 
     unfused = dataclasses.replace(scfg, solver=dataclasses.replace(
@@ -1124,6 +1169,10 @@ def run(args) -> dict:
             profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
                     "speed")
 
+    with Phase("the Jacobi card tests (pytest, tests/test_torch_cuda.py)"):
+        torch.cuda.empty_cache()
+        run_card_tests("jacobi")
+
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1137,12 +1186,31 @@ def run(args) -> dict:
         "count": torch.cuda.device_count()}}
 
 
+def device_busy_us(prof) -> float:
+    """Device time in a profile covered by at least one kernel, copy or
+    set (the union of their spans: launches that overlap, as K8-K10's
+    sweeps do, count once)."""
+    import torch
+
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, start, end = 0, None, None
+    for s, t in spans:
+        if end is None or s > end:
+            busy += 0 if end is None else end - start
+            start, end = s, t
+        else:
+            end = max(end, t)
+    return (busy + (0 if end is None else end - start)) / 1e3
+
+
 def profile(cfg, scn, state, path: str, label: str) -> None:
     """torch.profiler over 2 frames from `state`: device kernel time by
     name, written to `path`, with launches and stream syncs per frame and
-    the device's idle share of the same 2 frames' unprofiled wall time
-    (they are deterministic, so they are stepped twice: timed, then
-    profiled)."""
+    the device's idle share (1 - its busy time, the union of kernel
+    spans) of the same 2 frames' unprofiled wall time (they are
+    deterministic, so they are stepped twice: timed, then profiled)."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -1166,7 +1234,6 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
     table = events.table(sort_by="cuda_time_total", row_limit=40)
     with open(path, "w") as fh:
         fh.write(table)
-    dev_us = 0.0
     n_kernels = 0
     n_sync = 0
     for e in events:
@@ -1178,10 +1245,12 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
                 n_sync += e.count
             continue
         if d > 0:
-            dev_us += d
             n_kernels += e.count
-    dev_ms = dev_us / 1e3 / frames
-    log(f"   {label}: device kernel time {dev_ms:.3f} "
+            if "sweep_a" in e.key or "sweep_b" in e.key:
+                log(f"   {label}: {e.key[:48]}: {d / e.count:.2f} us a "
+                    f"launch span ({e.count} launches)")
+    dev_ms = device_busy_us(prof) / 1e3 / frames
+    log(f"   {label}: device busy {dev_ms:.3f} "
         f"ms/frame, {n_kernels / frames:.0f} kernel launches/frame, "
         f"{n_sync / frames:.0f} stream syncs/frame; the same frames "
         f"unprofiled {ms_frame:.3f} ms/frame ({int(stats['n_active'])} "

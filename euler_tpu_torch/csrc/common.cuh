@@ -1,7 +1,8 @@
 // Shared helpers for the euler_tpu_torch CUDA kernels: the C export
 // macro, the error-string export every library carries, bounds-checked
 // plane loads, the fraction-snapped bilinear of main.c:301-364, the
-// Jacobi solves' operator decode, and deterministic block reductions.
+// Jacobi solves' operator decode, deterministic block reductions, and the
+// capture of a solver's iterations into a CUDA graph.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -125,4 +126,32 @@ __device__ float reduce_partials(const float* __restrict__ part, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     v = eu_combine<OP>(v, part[i]);
   return block_reduce<OP>(v);
+}
+
+// Captures what `enqueue(stream)` launches into *exec, on a stream of its
+// own (`enqueue` returns a CUDA error code).  On failure *exec is null.
+template <class Enqueue>
+inline int capture_graph(cudaGraphExec_t* exec, Enqueue enqueue) {
+  *exec = nullptr;
+  cudaStream_t cs;
+  int rc = static_cast<int>(
+      cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking));
+  if (rc) return rc;
+  rc = static_cast<int>(
+      cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal));
+  if (!rc) {
+    rc = enqueue(cs);
+    cudaGraph_t g = nullptr;
+    const int rc_end = static_cast<int>(cudaStreamEndCapture(cs, &g));
+    if (!rc) rc = rc_end;
+    if (!rc) rc = static_cast<int>(cudaGraphInstantiate(exec, g, 0));
+    if (g) cudaGraphDestroy(g);
+  }
+  const int rc_destroy = static_cast<int>(cudaStreamDestroy(cs));
+  if (!rc) rc = rc_destroy;
+  if (rc && *exec) {
+    cudaGraphExecDestroy(*exec);
+    *exec = nullptr;
+  }
+  return rc;
 }

@@ -7,363 +7,402 @@
 // `_pcg_kernel` (launched by `solve_pressure_pallas`) and
 // `_project_kernel` (launched by `project_pallas`),
 // euler_tpu/ops/pallas/substep_kernel.py `_substep_jacobi_kernel`
-// (launched by `project_substep_jacobi`).  Ported is what they compute;
-// their TPU devices (row chunks, the VMEM plan) are not.
+// (launched by `project_substep_jacobi`).  Ported is what they compute,
+// the three-pass form As = A s of the updated s (not K12's As
+// recurrence, which rounds differently); their TPU devices (row chunks,
+// the VMEM plan) are not.
 //
-// What bounds it on an H100: bytes, iteration by iteration.  One
-// iteration is three sweeps over [Y, X] f32 planes: As = A s (reads
-// packed and s, writes As), p += alpha s and r -= alpha As (reads packed,
-// s, p, r and As, writes p and r), s = invd r + beta s (reads packed, r
-// and s, writes s): 14 plane passes, 59 MB at 1024², 17.5 us at
-// 3.35 TB/s.  The five live planes (20 MB) fit the 50 MB L2, so that HBM
-// figure bounds the floor from above.  Each iteration also needs two
-// grid-wide reductions (<As, s>; max|r| with <invd r, r>), and on a GPU
-// each costs a launch boundary.
+// What bounds it on an H100: bytes, iteration by iteration, and two
+// grid-wide reductions an iteration (<As, s>; max|r| with <invd r, r>)
+// that every CTA must wait for.  Two sweeps move 9.5 [Y, X] plane passes
+// (40 MB at 1024², 11.9 us at 3.35 TB/s; the live planes fit the 50 MB
+// L2, so that bounds the floor from above).
 //
-// Design: one thread per cell and five launches per iteration — the
-// three sweeps, and after sweeps 1 and 2 one block that folds the
-// per-block partials in a fixed order (no float atomics, NaN-propagating
-// max), so the iteration count repeats from run to run.  The loop runs
-// on the host side of the library, but the iteration counter, the
-// scalars and the stop flag live on the device and every kernel returns
-// at once when the flag is set: the host reads the flag only every
-// kCheckEvery iterations, and the results are those of a per-iteration
-// check.  The grid stage (K10) and the clamp / face update / maxsq tail
-// (K9, K10) are grid_stage.cuh's, shared with K2.  Built with -fmad=false
-// and with the plain version's operand order (ops/project.py apply_a),
-// so every sweep rounds as the plain PyTorch version does; only the order
-// of the reductions differs.  (K12, the same solve in its two-sweep form,
-// is jacobi_stream.cu.)
+// Design: the schedule, the memory layout and the host's part differ
+// from the plain loop; the arithmetic does not.
+//   * Two launches an iteration, each a sweep whose last CTA ends the
+//     reduction (chain_reduce.cuh, shared with K12) in the order of the
+//     two-stage reduction of the plain loop's kernels, so every scalar is
+//     theirs bit for bit.  Each sweep is launched to overlap the one
+//     before it (programmatic dependent launch: its CTAs start and build
+//     their table while the previous sweep's last CTAs finish, then wait
+//     for it).  Sweep A of iteration k: the pending
+//     p += alpha s_{k-1} (guarded by a device flag, not by alpha = 0:
+//     0 * inf is NaN); s_k = invd r + beta s_{k-1} on the cell and
+//     recomputed on its four neighbours (iteration 1, by the device's
+//     iteration count: s_1 = invd r, no beta term); As = A s_k; the
+//     chains of <As, s_k>.  Sweep B: r -= alpha As, max|r| and
+//     <invd r, r>, the stop test and the cap.  Sweep A reads code, r,
+//     s_{k-1} and p and writes s_k, As and p (6.25 planes); sweep B reads
+//     code, r and As and writes r (3.25).
+//   * s in two planes, iteration k writing s[k & 1]: sweep A reads
+//     s_{k-1} at its tiles' edges while other CTAs write s_k.  A recomputed
+//     neighbour s_k is the bits its owner stores (-fmad=false).
+//   * The operator is one byte a cell, code = a_diag * fl + 8 * fl,
+//     decoded through a per-CTA table to common.cuh's `decode`.
+//   * A cached workspace (ops/cuda/pcg_kernel.py `workspace`) owns every
+//     buffer and a CUDA graph of kChunk iterations.  The head writes the
+//     cap, tol and the flags on the device, so one graph serves every
+//     cap; a solve replays ceil(cap / kChunk) chunks and reads nothing
+//     back (iterations past the stop or the cap return at once), then one
+//     finishing launch applies the pending p update into the caller's
+//     plane.
+// The grid stage (K10) and the clamp / face update / maxsq tail (K9, K10)
+// are grid_stage.cuh's, shared with K2.  Built with -fmad=false and with
+// the plain version's operand order (ops/project.py apply_a), so every
+// sweep rounds as the plain PyTorch version does; only the order of the
+// reductions differs.
+#include "chain_reduce.cuh"
 #include "grid_stage.cuh"
 
 namespace {
 
-constexpr int kReduceThreads = 1024;
-constexpr int kCheckEvery = 8;
+constexpr int kChunk = 8;  // iterations per replay of the captured graph
 
-// device scalars and flags of one solve
-enum { S_TOL = 0, S_SIGMA, S_ALPHA, S_BETA, S_RESID, S_N };
-enum { F_DONE = 0, F_ITERS, F_N };
-
-// r = b, s = invd b, p = 0; the block partials of <invd b, b> and max |b|
-__device__ __forceinline__ void init_cell(int t, float b, float invd,
-                                          float* r, float* s, float* p,
-                                          float* zr, float* bmax) {
-  const float z = invd * b;
-  r[t] = b;
-  s[t] = z;
-  p[t] = 0.0f;
-  *zr = z * b;
-  *bmax = fabsf(b);
-}
-
-__device__ __forceinline__ void write_partials(float zr, float bmax,
-                                               float* part_sum,
-                                               float* part_max) {
-  zr = block_reduce<EU_SUM>(zr);
-  bmax = block_reduce<EU_MAX>(bmax);
+// The head of every entry point, on the chain grid: per cell the RHS b
+// and the operator code (`cell(t, &code)`); code, r = b and p = 0, and the
+// chains of <invd b, b> and max|b|.  The last CTA: init_solve.
+template <class CellFn>
+__device__ __forceinline__ void head_body(int n, CellFn cell, int cap,
+                                          float tol, float tol_rel,
+                                          uint8_t* __restrict__ code,
+                                          float* __restrict__ r,
+                                          float* __restrict__ p,
+                                          float* __restrict__ chain_sum,
+                                          float* __restrict__ chain_max,
+                                          float* scal, int* flags) {
+  __shared__ float wp_sum[kSteps][kTile / 32];
+  __shared__ float wp_max[kSteps][kTile / 32];
+  const int tiles = (n + kTile - 1) / kTile;
+  float cs = 0.0f, cm = 0.0f;
+  for (int k0 = 0; tile_at(k0) < tiles; k0 += kSteps) {
+#pragma unroll 1
+    for (int u = 0; u < kSteps; ++u) {
+      const int t = cell_at(tile_at(k0 + u));
+      float zr = 0.0f, bmax = 0.0f;
+      if (t < n) {
+        int c;
+        const float bv = cell(t, &c);
+        const float z = decode(static_cast<float>(c)).invd * bv;
+        code[t] = static_cast<uint8_t>(c);
+        r[t] = bv;
+        p[t] = 0.0f;
+        zr = z * bv;
+        bmax = fabsf(bv);
+      }
+      warp_stage<EU_SUM>(zr, wp_sum[u]);
+      warp_stage<EU_MAX>(bmax, wp_max[u]);
+    }
+    __syncthreads();
+    chain_stage<EU_SUM>(wp_sum, &cs, k0, tiles);
+    chain_stage<EU_MAX>(wp_max, &cm, k0, tiles);
+    __syncthreads();
+  }
   if (threadIdx.x == 0) {
-    part_sum[blockIdx.x] = zr;
-    part_max[blockIdx.x] = bmax;
+    chain_sum[blockIdx.x] = cs;
+    chain_max[blockIdx.x] = cm;
   }
-}
-
-// K8's head: the packed plane from a_diag and the fluid mask
-__global__ void solve_head(int n, const int32_t* __restrict__ a_diag,
-                           const uint8_t* __restrict__ fl,
-                           const float* __restrict__ b,
-                           float* __restrict__ packed, float* __restrict__ r,
-                           float* __restrict__ s, float* __restrict__ p,
-                           float* __restrict__ part_sum,
-                           float* __restrict__ part_max) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float zr = 0.0f, bmax = 0.0f;
-  if (t < n) {
-    const float f = fl[t] ? 1.0f : 0.0f;
-    const float pk = static_cast<float>(a_diag[t]) * f + 8.0f * f;
-    packed[t] = pk;
-    init_cell(t, b[t], decode(pk).invd, r, s, p, &zr, &bmax);
-  }
-  write_partials(zr, bmax, part_sum, part_max);
-}
-
-// K9's head: the packed plane from the solid mask (pcg_kernel.py:283-284)
-// and b = -div(u) * h^2 rho / dt_proj on fluid cells (main.c:713-724)
-__global__ void project_head(Masks m, const float* __restrict__ ut,
-                             const float* __restrict__ vt,
-                             const float* __restrict__ dtp_ptr, float inv_h,
-                             float scale, float* __restrict__ packed,
-                             float* __restrict__ r, float* __restrict__ s,
-                             float* __restrict__ p,
-                             float* __restrict__ part_sum,
-                             float* __restrict__ part_max) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float zr = 0.0f, bmax = 0.0f;
-  if (t < m.Y * m.X) {
-    const int y = t / m.X, x = t - y * m.X;
-    const float pk = packed_at(m, t, y, x);
-    const Cell cell = decode(pk);
-    packed[t] = pk;
-    const float k_inv_scale = scale / *dtp_ptr;
-    const float div = (ut[t] - ld(ut, y, x - 1, m.Y, m.X) + vt[t] -
-                       ld(vt, y - 1, x, m.Y, m.X)) * inv_h;
-    const float b = cell.fl != 0.0f ? -div * k_inv_scale : 0.0f;
-    init_cell(t, b, cell.invd, r, s, p, &zr, &bmax);
-  }
-  write_partials(zr, bmax, part_sum, part_max);
-}
-
-// sigma0, max|b|, the effective tolerance and the all-zero early-out
-// (main.c:742)
-__global__ void init_reduce(const float* __restrict__ part_sum,
-                            const float* __restrict__ part_max, int nparts,
-                            float tol, float tol_rel, float* scal,
-                            int* flags) {
-  const float sigma0 = reduce_partials<EU_SUM>(part_sum, nparts);
-  const float rmax0 = reduce_partials<EU_MAX>(part_max, nparts);
-  if (threadIdx.x == 0) {
-    scal[S_TOL] = nanmax(tol, tol_rel * rmax0);
-    scal[S_SIGMA] = sigma0;
-    scal[S_BETA] = 0.0f;
-    scal[S_RESID] = rmax0;
-    flags[F_DONE] = !(rmax0 != 0.0f);
-    flags[F_ITERS] = 0;
-  }
-}
-
-// Every iteration kernel reads the stop flag first; all threads of the
-// grid read the same value before any of them can change it, so the
-// early return is uniform.
-
-// sweep 1: As = fl (a s - (left + right + down + up)); partials of <As, s>
-__global__ void apply_s(int Y, int X, const float* __restrict__ packed,
-                        const float* __restrict__ s, float* __restrict__ As,
-                        float* __restrict__ part,
-                        const int* __restrict__ flags) {
-  if (flags[F_DONE]) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.0f;
-  if (t < Y * X) {
-    const int y = t / X, x = t - y * X;
-    const Cell c = decode(packed[t]);
-    const float sc = s[t];
-    float nb = ld(s, y, x - 1, Y, X) + ld(s, y, x + 1, Y, X);
-    nb = nb + ld(s, y - 1, x, Y, X);
-    nb = nb + ld(s, y + 1, x, Y, X);
-    const float as = c.fl * (c.a * sc - nb);
-    As[t] = as;
-    acc = as * sc;
-  }
-  acc = block_reduce<EU_SUM>(acc);
-  if (threadIdx.x == 0) part[blockIdx.x] = acc;
-}
-
-__global__ void alpha_reduce(const float* __restrict__ part, int nparts,
-                             float* scal, const int* __restrict__ flags) {
-  if (flags[F_DONE]) return;
-  const float zs = reduce_partials<EU_SUM>(part, nparts);
+  if (!last_cta(flags)) return;
+  const float sigma0 = fold_chains<EU_SUM>(chain_sum);
+  const float rmax0 = fold_chains<EU_MAX>(chain_max);
   if (threadIdx.x == 0)
-    scal[S_ALPHA] = scal[S_SIGMA] / (zs != 0.0f ? zs : 1.0f);
+    init_solve(sigma0, rmax0, tol, tol_rel, cap, scal, flags);
 }
 
-// sweep 2: p += alpha s; r -= alpha As; partials of max|r| and
-// <invd r, r>
-__global__ void update_pr(int n, const float* __restrict__ packed,
-                          const float* __restrict__ s,
-                          const float* __restrict__ As, float* __restrict__ p,
-                          float* __restrict__ r,
-                          const float* __restrict__ scal,
-                          float* __restrict__ part_sum,
-                          float* __restrict__ part_max,
-                          const int* __restrict__ flags) {
-  if (flags[F_DONE]) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float zr = 0.0f, rmax = 0.0f;
-  if (t < n) {
-    const float alpha = scal[S_ALPHA];
-    p[t] = p[t] + alpha * s[t];
-    const float rv = r[t] - alpha * As[t];
-    r[t] = rv;
-    rmax = fabsf(rv);
-    zr = (decode(packed[t]).invd * rv) * rv;
+// K8's head: b as given, the code from a_diag and the fluid mask
+__global__ void __launch_bounds__(kTile, kPerSm)
+    solve_head(int n, int cap, float tol, float tol_rel,
+               const int32_t* __restrict__ a_diag,
+               const uint8_t* __restrict__ fl, const float* __restrict__ b,
+               uint8_t* __restrict__ code, float* __restrict__ r,
+               float* __restrict__ p, float* __restrict__ chains,
+               float* scal, int* flags) {
+  head_body(
+      n,
+      [&](int t, int* c) {
+        *c = op_code(fl[t] != 0, a_diag[t]);
+        return b[t];
+      },
+      cap, tol, tol_rel, code, r, p, chains, chains + kChains, scal, flags);
+}
+
+// K9's head: the code from the solid mask (pcg_kernel.py:283-284) and
+// b = -div(u) * h^2 rho / dt_proj on fluid cells (main.c:713-724)
+__global__ void __launch_bounds__(kTile, kPerSm)
+    project_head(Masks m, const float* __restrict__ ut,
+                 const float* __restrict__ vt,
+                 const float* __restrict__ dtp_ptr, float inv_h, float scale,
+                 int cap, float tol, float tol_rel,
+                 uint8_t* __restrict__ code, float* __restrict__ r,
+                 float* __restrict__ p, float* __restrict__ chains,
+                 float* scal, int* flags) {
+  const float k_inv_scale = scale / *dtp_ptr;
+  head_body(
+      m.Y * m.X,
+      [&](int t, int* c) {
+        const int y = t / m.X, x = t - y * m.X;
+        const float pk = packed_at(m, t, y, x);
+        *c = static_cast<int>(pk);
+        const float div = (ut[t] - ld(ut, y, x - 1, m.Y, m.X) + vt[t] -
+                           ld(vt, y - 1, x, m.Y, m.X)) * inv_h;
+        return decode(pk).fl != 0.0f ? -div * k_inv_scale : 0.0f;
+      },
+      cap, tol, tol_rel, code, r, p, chains, chains + kChains, scal, flags);
+}
+
+// Sweep A of iteration k (flags[F_ITERS] = k - 1): the pending
+// p += alpha s_{k-1}; s_k on the cell and its four neighbours, from
+// s_old; As = fl (a s_k - (left + right + down + up)); s_k into s_new;
+// the chains of <As, s_k>.  The last CTA: alpha = sigma / <As, s_k>.
+// One cell a thread, the kSteps steps' loads at once.
+__global__ void __launch_bounds__(kTile, kPerSm)
+    sweep_a(int Y, int X, const uint8_t* __restrict__ code,
+            const float* __restrict__ r, const float* __restrict__ s_old,
+            float* __restrict__ s_new, float* __restrict__ As,
+            float* __restrict__ p, float* __restrict__ chain, float* scal,
+            int* flags) {
+  __shared__ float invd[256];
+  __shared__ float wp[kSteps][kTile / 32];
+  launch_dependents();
+  load_invd(invd);
+  wait_prerequisites();
+  const bool done = flags[F_DONE] != 0;
+  const float alpha = scal[S_ALPHA], beta = scal[S_BETA];
+  const float sigma = scal[S_SIGMA];
+  const bool pending = flags[F_PENDING] != 0;
+  const bool first = flags[F_ITERS] == 0;
+  if (done) return;
+  const int n = Y * X;
+  const int tiles = (n + kTile - 1) / kTile;
+  // update_s of the plain loop: invd r + beta s
+  auto s_at = [&](int k) {
+    const float z = invd[code[k]] * r[k];
+    return first ? z : z + beta * s_old[k];
+  };
+  auto s_nb = [&](int i, int j) {
+    return (i < 0 || i >= Y || j < 0 || j >= X) ? 0.0f : s_at(i * X + j);
+  };
+  float cs = 0.0f;
+  for (int k0 = 0; tile_at(k0) < tiles; k0 += kSteps) {
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int t = cell_at(tile_at(k0 + u));
+      float acc = 0.0f;
+      if (t < n) {
+        const int y = t / X, x = t - y * X;
+        if (pending) p[t] = p[t] + alpha * s_old[t];
+        const float sc = s_at(t);
+        float nb = s_nb(y, x - 1) + s_nb(y, x + 1);
+        nb = nb + s_nb(y - 1, x);
+        nb = nb + s_nb(y + 1, x);
+        const Cell cell = decode(static_cast<float>(code[t]));
+        const float as = cell.fl * (cell.a * sc - nb);
+        s_new[t] = sc;
+        As[t] = as;
+        acc = as * sc;
+      }
+      warp_stage<EU_SUM>(acc, wp[u]);
+    }
+    __syncthreads();
+    chain_stage<EU_SUM>(wp, &cs, k0, tiles);
+    __syncthreads();
   }
-  write_partials(zr, rmax, part_sum, part_max);
+  if (threadIdx.x == 0) chain[blockIdx.x] = cs;
+  if (!last_cta(flags)) return;
+  const float zs = fold_chains<EU_SUM>(chain);
+  if (threadIdx.x == 0) set_alpha(sigma, zs, scal, flags);
 }
 
-// the NaN-robust stop test not (max|r| > tol) after the p/r update, and
-// beta = sigma_new / sigma
-__global__ void conv_reduce(const float* __restrict__ part_sum,
-                            const float* __restrict__ part_max, int nparts,
-                            float* scal, int* flags) {
-  if (flags[F_DONE]) return;
-  const float sigma_new = reduce_partials<EU_SUM>(part_sum, nparts);
-  const float rmax = reduce_partials<EU_MAX>(part_max, nparts);
-  if (threadIdx.x == 0) {
-    const float sigma = scal[S_SIGMA];
-    scal[S_BETA] = sigma_new / (sigma != 0.0f ? sigma : 1.0f);
-    scal[S_SIGMA] = sigma_new;
-    scal[S_RESID] = rmax;
-    flags[F_ITERS] += 1;
-    flags[F_DONE] = !(rmax > scal[S_TOL]);
-  }
-}
-
-// sweep 3: s = invd r + beta s (skipped once converged: s is not read
-// again)
-__global__ void update_s(int n, const float* __restrict__ packed,
-                         const float* __restrict__ r, float* __restrict__ s,
-                         const float* __restrict__ scal,
-                         const int* __restrict__ flags) {
-  if (flags[F_DONE]) return;
+// After the replays, not guarded by the stop flag: p plus the pending
+// alpha s_K of the last iteration K (from s[K & 1]) into out, which may
+// be p.
+__global__ void finish(int n, const float* p, const float* __restrict__ s0,
+                       const float* __restrict__ s1,
+                       const float* __restrict__ scal,
+                       const int* __restrict__ flags, float* out) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  s[t] = decode(packed[t]).invd * r[t] + scal[S_BETA] * s[t];
+  const float pv = p[t];
+  if (!flags[F_PENDING]) {
+    out[t] = pv;
+    return;
+  }
+  const float* s = (flags[F_ITERS] & 1) ? s1 : s0;
+  out[t] = pv + scal[S_ALPHA] * s[t];
 }
 
-// the planes and scalars of one solve
-struct Pcg {
+// one workspace's solver: its buffers and the graph of one chunk
+struct JacobiSolver {
   int Y, X;
-  float *packed, *r, *p, *s, *As, *part, *scal;
+  uint8_t* code;
+  float *r, *p, *As, *s[2], *chains, *scal, *part;
   int* flags;
-  cudaStream_t st;
+  cudaGraphExec_t exec;
+  cudaEvent_t replayed;  // recorded after each solve's last replay
 
   int n() const { return Y * X; }
   unsigned blocks() const {
     return eu_blocks(static_cast<long long>(Y) * X, kThreads);
   }
-  float* part_sum() const { return part; }
-  float* part_max() const { return part + blocks(); }
 
-  // after a head kernel has written packed, r, s, p and the partials
-  int solve(int max_iters, float tol, float tol_rel) const {
-    const unsigned nb = blocks();
-    init_reduce<<<1, kReduceThreads, 0, st>>>(part_sum(), part_max(), nb, tol,
-                                              tol_rel, scal, flags);
+  // iteration j of a chunk, iteration 8c + j + 1 of a solve: s_k into
+  // s[(j + 1) & 1]; each sweep launched to overlap the one before it
+  int iteration(int j, cudaStream_t st) const {
+    const int rc = launch_sweep(sweep_a, st, Y, X, code, r, s[j & 1],
+                                s[(j + 1) & 1], As, p, chains, scal, flags);
+    if (rc) return rc;
+    return launch_sweep(sweep_b, st, n(), code, As, r, chains,
+                        chains + kChains, scal, flags);
+  }
+
+  // after a head: the chunks up to the cap, read by nothing on the host,
+  // then the finishing launch
+  int iterate(int max_iters, float* out, cudaStream_t st) const {
+    const int chunks = (max_iters + kChunk - 1) / kChunk;
+    for (int k = 0; k < chunks; ++k) {
+      const int rc = static_cast<int>(cudaGraphLaunch(exec, st));
+      if (rc) return rc;
+    }
+    int rc = static_cast<int>(cudaEventRecord(replayed, st));
+    if (rc) return rc;
+    finish<<<blocks(), kThreads, 0, st>>>(n(), p, s[0], s[1], scal, flags,
+                                          out);
+    return eu_launch_status();
+  }
+
+  // K9's body: head, solve, clamp, face update of (ut, vt) into (u2, v2)
+  // with the face-update dt, and msq
+  int project(const Masks& m, int max_iters, float tol, float tol_rel,
+              float inv_h, float scale, float c, const float* dt,
+              const float* dt_proj, const float* ut, const float* vt,
+              float* u2, float* v2, float* msq, cudaStream_t st) const {
+    project_head<<<kChains, kTile, 0, st>>>(m, ut, vt, dt_proj, inv_h, scale,
+                                             max_iters, tol, tol_rel, code,
+                                             r, p, chains, scal, flags);
     int rc = eu_launch_status();
     if (rc) return rc;
-    for (int it = 0; it < max_iters; ++it) {
-      if (it % kCheckEvery == 0) {
-        int done = 0;
-        if ((rc = static_cast<int>(cudaMemcpyAsync(
-                 &done, flags + F_DONE, sizeof(int), cudaMemcpyDeviceToHost,
-                 st))))
-          return rc;
-        if ((rc = static_cast<int>(cudaStreamSynchronize(st)))) return rc;
-        if (done) break;
-      }
-      apply_s<<<nb, kThreads, 0, st>>>(Y, X, packed, s, As, part_sum(),
-                                       flags);
-      if ((rc = eu_launch_status())) return rc;
-      alpha_reduce<<<1, kReduceThreads, 0, st>>>(part_sum(), nb, scal, flags);
-      if ((rc = eu_launch_status())) return rc;
-      update_pr<<<nb, kThreads, 0, st>>>(n(), packed, s, As, p, r, scal,
-                                         part_sum(), part_max(), flags);
-      if ((rc = eu_launch_status())) return rc;
-      conv_reduce<<<1, kReduceThreads, 0, st>>>(part_sum(), part_max(), nb,
-                                                scal, flags);
-      if ((rc = eu_launch_status())) return rc;
-      update_s<<<nb, kThreads, 0, st>>>(n(), packed, r, s, scal, flags);
-      if ((rc = eu_launch_status())) return rc;
-    }
-    return 0;
+    if ((rc = iterate(max_iters, p, st))) return rc;
+    return project_tail(m, c, dt, p, p, ut, vt, u2, v2, part, msq, st);
   }
 };
 
-Pcg make_pcg(int Y, int X, void* packed, void* r, void* p, void* s,
-             void* As, void* part, void* scal, void* flags, void* stream) {
-  return Pcg{Y, X,
-             static_cast<float*>(packed), static_cast<float*>(r),
-             static_cast<float*>(p), static_cast<float*>(s),
-             static_cast<float*>(As), static_cast<float*>(part),
-             static_cast<float*>(scal), static_cast<int*>(flags),
-             static_cast<cudaStream_t>(stream)};
-}
-
-// K9's body: head, solve, clamp, face update of (ut, vt) into (u2, v2)
-// with the face-update dt, and msq
-int project_body(const Masks& m, const Pcg& P, int max_iters, float tol,
-                 float tol_rel, float inv_h, float scale, float c,
-                 const float* dt, const float* dt_proj, const float* ut,
-                 const float* vt, float* u2, float* v2, float* msq) {
-  project_head<<<P.blocks(), kThreads, 0, P.st>>>(
-      m, ut, vt, dt_proj, inv_h, scale, P.packed, P.r, P.s, P.p, P.part_sum(),
-      P.part_max());
-  int rc = eu_launch_status();
-  if (rc) return rc;
-  if ((rc = P.solve(max_iters, tol, tol_rel))) return rc;
-  return project_tail(m, c, dt, P.p, P.p, ut, vt, u2, v2, P.part, msq,
-                      P.st);
+JacobiSolver* as_solver(void* solver) {
+  return static_cast<JacobiSolver*>(solver);
 }
 
 }  // namespace
 
-// Buffers of every entry point: packed, r, p, s, As: [Y, X] f32 (p ends
-// as the solution: the clamped pressure for K9/K10); part:
-// 2 * ceil(Y*X/256) f32; scal: S_N f32; flags: F_N i32.  The iteration
-// count and the final max|r| stay on the device (flags[F_ITERS],
-// scal[S_RESID]).
+// A solver over a workspace's buffers: code: [Y, X] u8; r, p, As: [Y, X]
+// f32; s: [2, Y, X] f32; chains: 2 * 1024 f32; scal: S_N f32; flags: F_N
+// i32; part (K9/K10's tail): 2 * ceil(Y*X/256) f32.  Clears the flags and
+// captures the graph of one chunk; *out is the handle.  The iteration
+// count and the final max|r| of each solve stay on the device
+// (flags[F_ITERS], scal[S_RESID]).
+EU_API int eu_jacobi_create(int Y, int X, void* code, void* r, void* p,
+                            void* As, void* s, void* chains, void* scal,
+                            void* flags, void* part, void** out) {
+  *out = nullptr;
+  float* s0 = static_cast<float*>(s);
+  JacobiSolver* J = new JacobiSolver{
+      Y, X, static_cast<uint8_t*>(code), static_cast<float*>(r),
+      static_cast<float*>(p), static_cast<float*>(As),
+      {s0, s0 + static_cast<long long>(Y) * X}, static_cast<float*>(chains),
+      static_cast<float*>(scal), static_cast<float*>(part),
+      static_cast<int*>(flags), nullptr, nullptr};
+  // the ticket starts at 0; every last CTA leaves it there
+  int rc = static_cast<int>(cudaMemset(J->flags, 0, sizeof(int) * F_N));
+  if (!rc) rc = static_cast<int>(cudaDeviceSynchronize());
+  if (!rc)
+    rc = static_cast<int>(
+        cudaEventCreateWithFlags(&J->replayed, cudaEventDisableTiming));
+  if (rc) {
+    delete J;
+    return rc;
+  }
+  rc = capture_graph(&J->exec, [&](cudaStream_t cs) {
+    int rc_it = 0;
+    for (int j = 0; !rc_it && j < kChunk; ++j) rc_it = J->iteration(j, cs);
+    return rc_it;
+  });
+  if (rc) {
+    cudaEventDestroy(J->replayed);
+    delete J;
+    return rc;
+  }
+  *out = J;
+  return 0;
+}
 
-// K8: A p = b from a_diag ([Y, X] i32) and fl ([Y, X] u8).
-EU_API int eu_jacobi_solve(int Y, int X, int max_iters, float tol,
+// Frees a solver once its last solve's replays have run (the buffers are
+// the caller's).
+EU_API int eu_jacobi_destroy(void* solver) {
+  JacobiSolver* J = as_solver(solver);
+  int rc = static_cast<int>(cudaEventSynchronize(J->replayed));
+  const int rc_graph = static_cast<int>(cudaGraphExecDestroy(J->exec));
+  const int rc_event = static_cast<int>(cudaEventDestroy(J->replayed));
+  delete J;
+  if (!rc) rc = rc_graph;
+  return rc ? rc : rc_event;
+}
+
+// K8: A p = b from p = 0, with a_diag ([Y, X] i32) and fl ([Y, X] u8);
+// the solution into p_out ([Y, X] f32).
+EU_API int eu_jacobi_solve(void* solver, int max_iters, float tol,
                            float tol_rel, const void* a_diag, const void* fl,
-                           const void* b, void* packed, void* r, void* p,
-                           void* s, void* As, void* part, void* scal,
-                           void* flags, void* stream) {
-  const Pcg P = make_pcg(Y, X, packed, r, p, s, As, part, scal, flags, stream);
-  solve_head<<<P.blocks(), kThreads, 0, P.st>>>(
-      P.n(), static_cast<const int32_t*>(a_diag),
-      static_cast<const uint8_t*>(fl), static_cast<const float*>(b), P.packed,
-      P.r, P.s, P.p, P.part_sum(), P.part_max());
+                           const void* b, void* p_out, void* stream) {
+  const JacobiSolver* J = as_solver(solver);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  solve_head<<<kChains, kTile, 0, st>>>(
+      J->n(), max_iters, tol, tol_rel, static_cast<const int32_t*>(a_diag),
+      static_cast<const uint8_t*>(fl), static_cast<const float*>(b), J->code,
+      J->r, J->p, J->chains, J->scal, J->flags);
   const int rc = eu_launch_status();
   if (rc) return rc;
-  return P.solve(max_iters, tol, tol_rel);
+  return J->iterate(max_iters, static_cast<float*>(p_out), st);
 }
 
 // K9: the projection of (ut, vt) into (u2, v2).  fl, so: [Y, X] u8;
 // dt (face update) and dt_proj (RHS scale): one f32 each on the device;
 // msq: one f32 out.
-EU_API int eu_jacobi_project(int Y, int X, int max_iters, float tol,
+EU_API int eu_jacobi_project(void* solver, int max_iters, float tol,
                              float tol_rel, float inv_h, float scale,
                              float c, const void* fl, const void* so,
                              const void* dt, const void* dt_proj,
                              const void* ut, const void* vt, void* u2,
-                             void* v2, void* packed, void* r, void* p,
-                             void* s, void* As, void* part, void* scal,
-                             void* flags, void* msq, void* stream) {
-  const Pcg P = make_pcg(Y, X, packed, r, p, s, As, part, scal, flags, stream);
-  const Masks m{Y, X, static_cast<const uint8_t*>(fl), nullptr,
+                             void* v2, void* msq, void* stream) {
+  const JacobiSolver* J = as_solver(solver);
+  const Masks m{J->Y, J->X, static_cast<const uint8_t*>(fl), nullptr,
                 static_cast<const uint8_t*>(so)};
-  return project_body(m, P, max_iters, tol, tol_rel, inv_h, scale, c,
-                      static_cast<const float*>(dt),
-                      static_cast<const float*>(dt_proj),
-                      static_cast<const float*>(ut),
-                      static_cast<const float*>(vt), static_cast<float*>(u2),
-                      static_cast<float*>(v2), static_cast<float*>(msq));
+  return J->project(m, max_iters, tol, tol_rel, inv_h, scale, c,
+                    static_cast<const float*>(dt),
+                    static_cast<const float*>(dt_proj),
+                    static_cast<const float*>(ut),
+                    static_cast<const float*>(vt), static_cast<float*>(u2),
+                    static_cast<float*>(v2), static_cast<float*>(msq),
+                    static_cast<cudaStream_t>(stream));
 }
 
-// K10: the grid stage of (u, v) (passes A and B, with dt) into (u2, v2),
-// then K9's body in place on them.  pfl: [Y, X] u8; zu, zv: [Y, X]
-// scratch.
-EU_API int eu_jacobi_substep(int Y, int X, int max_iters, float tol,
+// K10: the grid stage of (u, v) (passes A and B, with dt, through the two
+// s planes as scratch) into (u2, v2), then K9's body in place on them.
+// pfl: [Y, X] u8.
+EU_API int eu_jacobi_substep(void* solver, int max_iters, float tol,
                              float tol_rel, float inv_h, float g,
                              float scale, float c, const void* fl,
                              const void* pfl, const void* so, const void* dt,
                              const void* dt_proj, const void* u,
-                             const void* v, void* zu, void* zv, void* u2,
-                             void* v2, void* packed, void* r, void* p,
-                             void* s, void* As, void* part, void* scal,
-                             void* flags, void* msq, void* stream) {
-  const Pcg P = make_pcg(Y, X, packed, r, p, s, As, part, scal, flags, stream);
-  const Masks m = make_masks(Y, X, fl, pfl, so);
+                             const void* v, void* u2, void* v2, void* msq,
+                             void* stream) {
+  const JacobiSolver* J = as_solver(solver);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Masks m = make_masks(J->Y, J->X, fl, pfl, so);
   float* uo = static_cast<float*>(u2);
   float* vo = static_cast<float*>(v2);
   const float* dtf = static_cast<const float*>(dt);
   const int rc = grid_passes(m, inv_h, g, static_cast<const float*>(u),
-                             static_cast<const float*>(v), dtf,
-                             static_cast<float*>(zu), static_cast<float*>(zv),
-                             uo, vo, P.st);
+                             static_cast<const float*>(v), dtf, J->s[0],
+                             J->s[1], uo, vo, st);
   if (rc) return rc;
-  return project_body(m, P, max_iters, tol, tol_rel, inv_h, scale, c, dtf,
-                      static_cast<const float*>(dt_proj), uo, vo, uo, vo,
-                      static_cast<float*>(msq));
+  return J->project(m, max_iters, tol, tol_rel, inv_h, scale, c, dtf,
+                    static_cast<const float*>(dt_proj), uo, vo, uo, vo,
+                    static_cast<float*>(msq), st);
 }

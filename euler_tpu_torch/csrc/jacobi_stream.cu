@@ -27,20 +27,12 @@
 //     Sweep A reads code, r, s, As and p and writes s, As and p (7.25
 //     planes); sweep B reads code, r and As and writes r (3.25).
 //   * Reductions in the order of the four-launch form this replaces (a
-//     sweep and a single-block reduction each, twice), so every
-//     scalar is its bit for bit: one partial per tile of 256 consecutive
-//     cells (common.cuh's block_reduce tree), then reduce_partials'
-//     1024-thread fold, in which "chain" c is the running sum, in order,
-//     of tiles c, c + 1024, c + 2048, ...  So the grid is kChains CTAs of
-//     a tile's 256 threads: CTA c walks chain c down the grid, one cell a
-//     thread, and keeps its running value in a register; nothing per tile
-//     reaches device memory, and the cross-warp halves of kSteps tiles'
-//     trees share one barrier pair (sweep B also issues those tiles'
-//     loads at once).  Each CTA writes its chain value and takes a
-//     ticket after a __threadfence(); the last one folds the kChains
-//     values as reduce_partials' second stage does and computes alpha
-//     (sweep A) or beta, the residual and the stop flag (sweep B), then
-//     resets the ticket.  The card never drains between a sweep and its
+//     sweep and a single-block reduction each, twice), so every scalar
+//     is its bit for bit: the grid is chain_reduce.cuh's 1024 CTAs, each
+//     walking one of reduce_partials' strided sums down the grid, and
+//     the last CTA to take the ticket folds them and computes alpha
+//     (sweep A) or beta, the residual and the stop flag (sweep B, shared
+//     with K8-K10).  The card never drains between a sweep and its
 //     reduction.
 //   * The host launches the two sweeps and reads the stop flag every
 //     kCheckEvery iterations; every sweep returns at once when the flag
@@ -49,109 +41,11 @@
 // Built with -fmad=false and with the plain version's operand order
 // (ops/cuda/pcg_stream_kernel.py), so every sweep rounds as the plain
 // PyTorch version does; only the order of the reductions differs.
-#include "common.cuh"
+#include "chain_reduce.cuh"
 
 namespace {
 
-constexpr int kTile = 256;     // cells a partial covers: a CTA
-constexpr int kChains = 1024;  // reduce_partials' threads: the grid
-// CTAs an SM must hold for the whole grid to fit an H100's 132 SMs at once
-constexpr int kPerSm = (kChains + 131) / 132;
-constexpr int kSteps = 4;  // tiles a chain takes between two barriers
 constexpr int kCheckEvery = 8;
-
-// device scalars and flags of one solve
-enum { S_TOL = 0, S_SIGMA, S_ALPHA, S_BETA, S_RESID, S_N };
-enum { F_DONE = 0, F_ITERS, F_PENDING, F_TICKET, F_N };
-
-// invd of every code, in shared memory
-__device__ __forceinline__ void load_invd(float* tab) {
-  for (int c = threadIdx.x; c < 256; c += kTile)
-    tab[c] = decode(static_cast<float>(c)).invd;
-  __syncthreads();
-}
-
-// the tile of chain blockIdx.x at step k, and this thread's cell in it
-__device__ __forceinline__ int tile_at(int k) {
-  return k * kChains + static_cast<int>(blockIdx.x);
-}
-__device__ __forceinline__ int cell_at(int tile) {
-  return tile * kTile + static_cast<int>(threadIdx.x);
-}
-
-// block_reduce<OP> (common.cuh) over a tile, in two halves so that one
-// barrier pair serves kSteps tiles.  The warp half: each warp's tree over
-// its lanes, into wp (the step's kTile / 32 slots).
-template <int OP>
-__device__ __forceinline__ void warp_stage(float v, float* wp) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = eu_combine<OP>(v, __shfl_down_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) wp[threadIdx.x >> 5] = v;
-}
-
-// After a barrier, the cross-warp half, by warp 0, for the kSteps tiles
-// from step k0; each tile's value joins the chain's running value (in
-// thread 0) in order, tiles past the end left out as reduce_partials'
-// loop leaves them out.
-template <int OP>
-__device__ __forceinline__ void chain_stage(const float (*wp)[kTile / 32],
-                                            float* chain, int k0,
-                                            int tiles) {
-  if (threadIdx.x >= 32) return;
-  for (int u = 0; u < kSteps; ++u) {
-    float r = threadIdx.x < kTile / 32 ? wp[u][threadIdx.x] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1)
-      r = eu_combine<OP>(r, __shfl_down_sync(0xffffffffu, r, o));
-    if (threadIdx.x == 0 && tile_at(k0 + u) < tiles)
-      *chain = eu_combine<OP>(*chain, r);
-  }
-}
-
-// True in every thread of the CTA that takes the last ticket, when every
-// CTA's chain values are visible to it; that CTA resets the ticket.  (The
-// barrier, then thread 0's fence before and after its atomic: the
-// pattern of a cooperative-groups grid barrier.)
-__device__ bool last_cta(int* flags) {
-  __shared__ bool last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned* ticket = reinterpret_cast<unsigned*>(flags + F_TICKET);
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (last) {
-      *ticket = 0u;
-      __threadfence();
-    }
-  }
-  __syncthreads();
-  return last;
-}
-
-// reduce_partials' second stage over the kChains chain values, each of
-// the kTile threads holding kChains / kTile of its threads' values
-// (thread threadIdx.x + q * kTile), read past L1; valid in thread 0
-template <int OP>
-__device__ float fold_chains(const float* chain) {
-  constexpr int kReps = kChains / kTile;
-  __shared__ float warp_part[kChains / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < kReps; ++q) {
-    float x = __ldcg(chain + threadIdx.x + q * kTile);
-    for (int o = 16; o > 0; o >>= 1)
-      x = eu_combine<OP>(x, __shfl_down_sync(0xffffffffu, x, o));
-    if (lane == 0) warp_part[warp + q * (kTile / 32)] = x;
-  }
-  __syncthreads();
-  float r = 0.0f;
-  if (warp == 0) {
-    r = warp_part[lane];
-    for (int o = 16; o > 0; o >>= 1)
-      r = eu_combine<OP>(r, __shfl_down_sync(0xffffffffu, r, o));
-  }
-  __syncthreads();
-  return r;
-}
 
 // Each kernel walks its chain kSteps steps at a time: the steps' cells
 // (sweep B's loads of all kSteps at once; the others one step after the
@@ -159,10 +53,10 @@ __device__ float fold_chains(const float* chain) {
 // reductions, a barrier, the cross-warp halves, a barrier.
 
 // code = a_diag * fl + 8 * fl; r = b, s = invd b, As = 0, p = 0; the
-// chains of <invd b, b> and max |b|.  The last CTA: sigma0, max|b|, the
-// effective tolerance and the all-zero early-out (main.c:742).
+// chains of <invd b, b> and max |b|.  The last CTA: init_solve.
 __global__ void __launch_bounds__(kTile, kPerSm)
-    head(int n, float tol, float tol_rel, const int32_t* __restrict__ a_diag,
+    head(int n, int cap, float tol, float tol_rel,
+         const int32_t* __restrict__ a_diag,
          const uint8_t* __restrict__ fl, const float* __restrict__ b,
          uint8_t* __restrict__ code, float* __restrict__ r,
          float* __restrict__ s, float* __restrict__ As,
@@ -178,7 +72,7 @@ __global__ void __launch_bounds__(kTile, kPerSm)
       const int t = cell_at(tile_at(k0 + u));
       float zr = 0.0f, bmax = 0.0f;
       if (t < n) {
-        const int c = fl[t] ? a_diag[t] + 8 : 0;
+        const int c = op_code(fl[t] != 0, a_diag[t]);
         const float bv = b[t];
         const float z = decode(static_cast<float>(c)).invd * bv;
         code[t] = static_cast<uint8_t>(c);
@@ -204,15 +98,8 @@ __global__ void __launch_bounds__(kTile, kPerSm)
   if (!last_cta(flags)) return;
   const float sigma0 = fold_chains<EU_SUM>(chain_sum);
   const float rmax0 = fold_chains<EU_MAX>(chain_max);
-  if (threadIdx.x == 0) {
-    scal[S_TOL] = nanmax(tol, tol_rel * rmax0);
-    scal[S_SIGMA] = sigma0;
-    scal[S_BETA] = 0.0f;
-    scal[S_RESID] = rmax0;
-    flags[F_DONE] = !(rmax0 != 0.0f);
-    flags[F_ITERS] = 0;
-    flags[F_PENDING] = 0;
-  }
+  if (threadIdx.x == 0)
+    init_solve(sigma0, rmax0, tol, tol_rel, cap, scal, flags);
 }
 
 // Every sweep reads the stop flag first; all threads of the grid read the
@@ -273,62 +160,7 @@ __global__ void __launch_bounds__(kTile, kPerSm)
   if (threadIdx.x == 0) chain[blockIdx.x] = cs;
   if (!last_cta(flags)) return;
   const float zs = fold_chains<EU_SUM>(chain);
-  if (threadIdx.x == 0) {
-    scal[S_ALPHA] = scal[S_SIGMA] / (zs != 0.0f ? zs : 1.0f);
-    flags[F_PENDING] = 1;
-  }
-}
-
-// Sweep B: r -= alpha As; the chains of max|r| and <invd r, r>.  The last
-// CTA: the NaN-robust stop test not (max|r| > tol) and
-// beta = sigma_new / sigma.
-__global__ void __launch_bounds__(kTile, kPerSm)
-    sweep_b(int n, const uint8_t* __restrict__ code,
-            const float* __restrict__ As, float* __restrict__ r,
-            float* __restrict__ chain_sum, float* __restrict__ chain_max,
-            float* scal, int* flags) {
-  if (flags[F_DONE]) return;
-  __shared__ float invd[256];
-  __shared__ float wp_sum[kSteps][kTile / 32];
-  __shared__ float wp_max[kSteps][kTile / 32];
-  load_invd(invd);
-  const float alpha = scal[S_ALPHA];
-  const int tiles = (n + kTile - 1) / kTile;
-  float cs = 0.0f, cm = 0.0f;
-  for (int k0 = 0; tile_at(k0) < tiles; k0 += kSteps) {
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
-      const int t = cell_at(tile_at(k0 + u));
-      float zr = 0.0f, rmax = 0.0f;
-      if (t < n) {
-        const float rv = r[t] - alpha * As[t];
-        r[t] = rv;
-        rmax = fabsf(rv);
-        zr = (invd[code[t]] * rv) * rv;
-      }
-      warp_stage<EU_SUM>(zr, wp_sum[u]);
-      warp_stage<EU_MAX>(rmax, wp_max[u]);
-    }
-    __syncthreads();
-    chain_stage<EU_SUM>(wp_sum, &cs, k0, tiles);
-    chain_stage<EU_MAX>(wp_max, &cm, k0, tiles);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    chain_sum[blockIdx.x] = cs;
-    chain_max[blockIdx.x] = cm;
-  }
-  if (!last_cta(flags)) return;
-  const float sigma_new = fold_chains<EU_SUM>(chain_sum);
-  const float rm = fold_chains<EU_MAX>(chain_max);
-  if (threadIdx.x == 0) {
-    const float sigma = scal[S_SIGMA];
-    scal[S_BETA] = sigma_new / (sigma != 0.0f ? sigma : 1.0f);
-    scal[S_SIGMA] = sigma_new;
-    scal[S_RESID] = rm;
-    flags[F_ITERS] += 1;
-    flags[F_DONE] = !(rm > scal[S_TOL]);
-  }
+  if (threadIdx.x == 0) set_alpha(scal[S_SIGMA], zs, scal, flags);
 }
 
 // After the loop, not guarded by the stop flag: the pending p += alpha s,
@@ -394,7 +226,7 @@ EU_API int eu_jacobi_stream_solve(int Y, int X, int max_iters, float tol,
   // the ticket starts at 0
   int rc = static_cast<int>(cudaMemsetAsync(fg, 0, sizeof(int) * F_N, st));
   if (rc) return rc;
-  head<<<kChains, kTile, 0, st>>>(n, tol, tol_rel,
+  head<<<kChains, kTile, 0, st>>>(n, max_iters, tol, tol_rel,
                                    static_cast<const int32_t*>(a_diag),
                                    static_cast<const uint8_t*>(fl),
                                    static_cast<const float*>(b), cd, rp, sp,

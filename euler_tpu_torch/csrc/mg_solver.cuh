@@ -279,31 +279,15 @@ int capture_chunk(MgSolver* M, Iteration iteration) {
   int rc = static_cast<int>(
       cudaEventCreateWithFlags(&M->replayed, cudaEventDisableTiming));
   if (rc) return rc;
-  cudaStream_t cs;
-  if ((rc = static_cast<int>(
-           cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)))) {
-    cudaEventDestroy(M->replayed);
-    return rc;
-  }
-  Solve S = M->S;
-  PcgLoop P = M->P;
-  S.s = P.st = cs;
-  rc = static_cast<int>(
-      cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal));
-  if (!rc) {
-    for (int it = 0; !rc && it < kChunk; ++it) rc = iteration(S, P);
-    cudaGraph_t g = nullptr;
-    const int rc_end = static_cast<int>(cudaStreamEndCapture(cs, &g));
-    if (!rc) rc = rc_end;
-    if (!rc) rc = static_cast<int>(cudaGraphInstantiate(&M->exec, g, 0));
-    if (g) cudaGraphDestroy(g);
-  }
-  const int rc_destroy = static_cast<int>(cudaStreamDestroy(cs));
-  if (!rc) rc = rc_destroy;
-  if (rc) {
-    if (M->exec) cudaGraphExecDestroy(M->exec);
-    cudaEventDestroy(M->replayed);
-  }
+  rc = capture_graph(&M->exec, [&](cudaStream_t cs) {
+    Solve S = M->S;
+    PcgLoop P = M->P;
+    S.s = P.st = cs;
+    int rc_it = 0;
+    for (int it = 0; !rc_it && it < kChunk; ++it) rc_it = iteration(S, P);
+    return rc_it;
+  });
+  if (rc) cudaEventDestroy(M->replayed);
   return rc;
 }
 

@@ -14,6 +14,9 @@ wrappers raise when it is not 0.
 `LAUNCHES` and `PLAIN_CALLS` count, per kernel id ("K1", "K2", ...), the
 wrapper calls that launched the kernel and those that took its plain
 version because the tensors lay on the CPU.
+
+`cached` is the bounded cache of the solvers' workspaces (K3/K11's and
+K8-K10's).
 """
 
 from __future__ import annotations
@@ -129,3 +132,26 @@ def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     return t.data_ptr()
+
+
+def cached(cache, key, make, max_entries: int, max_bytes: int):
+    """The entry of `cache` (an OrderedDict) under `key`, made by `make()`
+    when missing, now the most recently used.  The newest entry always
+    stays; older ones go, least recently used first, each closed, while
+    the cache holds more than `max_entries` entries or more than
+    `max_bytes` (the sum of the entries' `nbytes`)."""
+    entry = cache.pop(key, None)
+    if entry is None:
+        entry = make()
+    cache[key] = entry
+    while len(cache) > 1 and (
+            len(cache) > max_entries
+            or sum(e.nbytes for e in cache.values()) > max_bytes):
+        cache.popitem(last=False)[1].close()
+    return entry
+
+
+def close_all(cache) -> None:
+    """Close and drop every entry of `cache`."""
+    while cache:
+        cache.popitem()[1].close()

@@ -370,19 +370,11 @@ _WORKSPACES: collections.OrderedDict = collections.OrderedDict()
 
 def workspace(cfg: SimConfig, device, ls: int = 0) -> MgWorkspace:
     """The cached workspace of `cfg` on `device` with its cycle rooted at
-    level `ls`.  The newest entry always stays; older ones go, least
-    recently used first, while the cache holds more than _MAX_WORKSPACES
-    entries or _MAX_WORKSPACE_BYTES."""
-    key = workspace_key(cfg, device, ls)
-    ws = _WORKSPACES.pop(key, None)
-    if ws is None:
-        ws = MgWorkspace(cfg, device, ls)
-    _WORKSPACES[key] = ws
-    while len(_WORKSPACES) > 1 and (
-            len(_WORKSPACES) > _MAX_WORKSPACES
-            or cached_bytes() > _MAX_WORKSPACE_BYTES):
-        _WORKSPACES.popitem(last=False)[1].close()
-    return ws
+    level `ls`: at most _MAX_WORKSPACES entries and _MAX_WORKSPACE_BYTES
+    (`_build.cached`)."""
+    return _build.cached(_WORKSPACES, workspace_key(cfg, device, ls),
+                         lambda: MgWorkspace(cfg, device, ls),
+                         _MAX_WORKSPACES, _MAX_WORKSPACE_BYTES)
 
 
 def cached_bytes() -> int:
@@ -392,8 +384,7 @@ def cached_bytes() -> int:
 
 def clear_workspaces() -> None:
     """Close and drop every cached workspace."""
-    while _WORKSPACES:
-        _WORKSPACES.popitem()[1].close()
+    _build.close_all(_WORKSPACES)
 
 
 def solve_pressure_mg(cfg: SimConfig, b, a_diag, fluid, solid=None,

@@ -29,14 +29,15 @@ import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
-from euler_tpu_torch.ops.cuda.pcg_kernel import solver_args
+from euler_tpu_torch.ops.cuda.pcg_kernel import (
+    _CHAINS,
+    _F_ITERS,
+    _F_N,
+    _S_N,
+    _S_RESID,
+    solver_args,
+)
 from euler_tpu_torch.ops.project import apply_a, jacobi_preconditioner
-
-_S_N = 5       # scal floats of one solve (csrc/jacobi_stream.cu)
-_S_RESID = 4   # scal index of the final max|r|
-_F_N = 4       # flags ints: done, iterations, p update pending, ticket
-_F_ITERS = 1   # flags index of the iteration count
-_CHAINS = 1024  # running partial sums a reduction keeps
 
 
 def stream_solver_fits(cfg: SimConfig) -> bool:
@@ -111,7 +112,7 @@ def solve_pressure_stream(cfg: SimConfig, b, a_diag, fluid):
     lib = stream_lib()
     _build.LAUNCHES["K12"] += 1
     rc = lib.eu_jacobi_stream_solve(
-        *solver_args(cfg), p_a, p_fl, p_b,
+        cfg.ny, cfg.nx, *solver_args(cfg), p_a, p_fl, p_b,
         *(t.data_ptr() for t in (code, r, p, s, As, chains, scal, flags)),
         _build.stream())
     _build.check(lib, rc, "eu_jacobi_stream_solve")

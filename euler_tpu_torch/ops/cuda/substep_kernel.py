@@ -23,7 +23,9 @@ matrix straight into the workspace, the solve builds the hierarchy there,
 and the tail clamps the workspace's pressure into a fresh plane; see the
 source.  K10 is bound as K9 is (`pcg_kernel.py`): its
 grid stage is two of K2's passes (`csrc/grid_stage.cuh`), then about
-100 Jacobi iterations of 14 plane passes each (`csrc/jacobi_pcg.cu`).
+100 Jacobi iterations of 9.5 plane passes each (`csrc/jacobi_pcg.cu`), on
+K9's cached workspace (`pcg_kernel.workspace`), whose two s planes the
+grid stage takes as scratch.
 
 `project_substep_mg_plain` is K2's plain version, the op sequence of
 tests/test_substep_fused.py:31-68 with the plain MG-PCG;
@@ -48,10 +50,9 @@ from euler_tpu_torch.ops.cuda.mg_kernel import (
     solve_pressure_mg_plain,
     workspace,
 )
+from euler_tpu_torch.ops.cuda import pcg_kernel
 from euler_tpu_torch.ops.cuda.pcg_kernel import (
     _VMEM_BUDGET,
-    Workspace,
-    jacobi_lib,
     project_jacobi_plain,
     solver_args,
 )
@@ -156,8 +157,8 @@ def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
 def project_substep_jacobi(cfg: SimConfig, dt, dt_proj, u, v, fluid,
                            prev_fluid, solid):
     """Grid stage + Jacobi-PCG projection of one substep.  Returns (u2,
-    v2, iterations, residual, msq).  CUDA tensors run the kernels; CPU
-    tensors the plain version."""
+    v2, iterations, residual, msq).  CUDA tensors run the kernels on K9's
+    cached workspace; CPU tensors the plain version."""
     if u.device.type == "cpu":
         _build.PLAIN_CALLS["K10"] += 1
         return project_substep_jacobi_plain(cfg, dt, dt_proj, u, v, fluid,
@@ -172,17 +173,14 @@ def project_substep_jacobi(cfg: SimConfig, dt, dt_proj, u, v, fluid,
            _build.require(dt_proj, "dt_proj", f, (), dev),
            _build.require(u, "u", f, plane, dev),
            _build.require(v, "v", f, plane, dev)]
-    zu, zv, u2, v2 = (torch.empty(plane, dtype=f, device=dev)
-                      for _ in range(4))
-    msq = torch.empty((), dtype=f, device=dev)
-    ws = Workspace(*plane, dev)
+    ws = pcg_kernel.workspace(cfg, dev)
+    u2, v2 = ws.plane(), ws.plane()
+    msq = ws.scal.new_empty(())
     h = cfg.side_length
-    lib = jacobi_lib()
     _build.LAUNCHES["K10"] += 1
-    rc = lib.eu_jacobi_substep(
-        *solver_args(cfg), 1.0 / h, cfg.gravity, h * h * cfg.density,
-        -1.0 / (cfg.density * h), *ptr, zu.data_ptr(), zv.data_ptr(),
-        u2.data_ptr(), v2.data_ptr(), *ws.pointers(), msq.data_ptr(),
-        _build.stream())
-    _build.check(lib, rc, "eu_jacobi_substep")
+    rc = ws.lib.eu_jacobi_substep(
+        ws.handle, *solver_args(cfg), 1.0 / h, cfg.gravity,
+        h * h * cfg.density, -1.0 / (cfg.density * h), *ptr, u2.data_ptr(),
+        v2.data_ptr(), msq.data_ptr(), _build.stream())
+    _build.check(ws.lib, rc, "eu_jacobi_substep")
     return (u2, v2, *ws.result(), msq)

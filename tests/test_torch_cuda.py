@@ -264,6 +264,131 @@ def test_jacobi_substep_matches_plain(developed, active):
         assert torch.isfinite(u).all() and torch.isfinite(v).all()
 
 
+def _jacobi_rhs(developed):
+    cfg, scn, st, dt, ut, vt = _jacobi_system(developed)
+    return (cfg, divergence_rhs(cfg, ut, vt, st.fluid, dt),
+            pressure_matrix_diag(cfg, scn.solid, st.fluid), st.fluid)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("cap", [1, 7, 8, 9, 100])
+def test_jacobi_stops_at_the_cap(developed, cap):
+    """K8 with a tolerance no iterate meets takes exactly `cap`
+    iterations (inside the first graph chunk, at its end, one into the
+    second, and the speed mode's budget, 100 % 8 = 4) and matches its
+    plain version: the p update deferred to the next sweep A is applied
+    once and only once, the last one by the finishing launch."""
+    cfg, b, a, fl = _jacobi_rhs(developed)
+    cfg = _solver(cfg, max_iterations=cap, tol=0.0, tol_rel=0.0)
+    p, it, res = k89.solve_pressure_jacobi(cfg, b, a, fl)
+    pp, itp, _ = k89.solve_pressure_jacobi_plain(cfg, b, a, fl)
+    assert int(it) == int(itp) == cap
+    assert pp.abs().max() > 0 and float(res) > 0
+    assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
+
+
+def _jacobi_call(kernel, developed, bad):
+    """(kernel, plain) outputs of K8, K9 or K10 on the developed state
+    with `bad` (inf or NaN) put into its input on a fluid cell, or with a
+    zero RHS (bad = 0.0: b = 0 for K8, ut = vt = 0 for K9, dt_proj = inf
+    for K10)."""
+    cfg, scn, st, dt, ut, vt = _jacobi_system(developed)
+    cells = st.fluid.view(-1).nonzero()
+    at = int(cells[len(cells) // 2])
+
+    def spoil(t):
+        t = torch.zeros_like(t) if bad == 0.0 else t.clone()
+        if bad != 0.0:
+            t.view(-1)[at] = bad
+        return t
+
+    if kernel == "K8":
+        _, b, a, fl = _jacobi_rhs(developed)
+        args = (cfg, spoil(b), a, fl)
+        fns = k89.solve_pressure_jacobi, k89.solve_pressure_jacobi_plain
+    elif kernel == "K9":
+        args = (cfg, dt, spoil(ut), vt if bad else torch.zeros_like(vt),
+                st.fluid, scn.solid)
+        fns = k89.project_jacobi, k89.project_jacobi_plain
+    else:
+        dtp = torch.tensor(float("inf"), device="cuda") if bad == 0.0 else dt
+        u = st.u if bad == 0.0 else spoil(st.u)
+        args = (cfg, dt, dtp, u, st.v, st.fluid, st.prev_fluid, scn.solid)
+        fns = k2.project_substep_jacobi, k2.project_substep_jacobi_plain
+    return fns[0](*args), fns[1](*args)
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan"), 0.0])
+@pytest.mark.parametrize("kernel", ["K8", "K9", "K10"])
+def test_jacobi_nonfinite_and_zero_rhs(developed, kernel, bad):
+    """An inf or a NaN in the RHS: the plain version's iterations and its
+    NaN and inf pattern in every output plane.  A zero RHS: 0
+    iterations, a zero residual, finite outputs."""
+    got, want = _jacobi_call(kernel, developed, bad)
+    planes = [0] if kernel == "K8" else [0, 1, 4]
+    ki = 1 if kernel == "K8" else 2
+    it, res = got[ki], got[ki + 1]
+    assert int(it) == int(want[ki])
+    if bad == 0.0:
+        assert int(it) == 0 and float(res) == 0.0
+        for k in planes:
+            assert torch.isfinite(got[k]).all()
+        return
+    assert int(it) == 1
+    for k in planes:
+        assert torch.equal(got[k].isnan(), want[k].isnan())
+        assert torch.equal(got[k].isinf(), want[k].isinf())
+
+
+def test_jacobi_workspace_reuse_is_bitwise(developed):
+    """Two K8 solves on one cached workspace, with K9 and K10 between
+    them on the same workspace, give the same bits; the first call's p is
+    a plane of its own, unchanged by what follows."""
+    cfg, scn, st, dt, ut, vt = _jacobi_system(developed)
+    _, b, a, fl = _jacobi_rhs(developed)
+    k89.clear_workspaces()
+    first = k89.solve_pressure_jacobi(cfg, b, a, fl)
+    kept = [t.clone() for t in first]
+    k89.project_jacobi(cfg, dt, ut, vt, fl, scn.solid)
+    k2.project_substep_jacobi(cfg, dt, dt, st.u, st.v, fl, st.prev_fluid,
+                              scn.solid)
+    again = k89.solve_pressure_jacobi(cfg, b.clone(), a.clone(), fl.clone())
+    assert len(k89._WORKSPACES) == 1
+    for x, y, z in zip(first, kept, again):
+        assert torch.equal(_bits(x), _bits(y))
+        assert torch.equal(_bits(x), _bits(z))
+    ws = k89.workspace(cfg, b.device)
+    held = {t.data_ptr() for t in ws.buffers()}
+    assert held.isdisjoint(t.data_ptr() for t in first + again)
+
+
+def test_jacobi_two_grids_in_turn(developed256):
+    """1024² and 256² in turns: each grid keeps its own cached workspace
+    (the cache stays within its bound) and repeats its first solve bit for
+    bit, within 1e-4 of its plain version's scale."""
+    big = _jacobi_rhs(_develop(1024))
+    cfg256, scn, st, dt, b, a = developed256
+    small = (_speed(cfg256), b, a, st.fluid)
+    k89.clear_workspaces()
+    seen = {}
+    for _ in range(2):
+        for cfg, b, a, fl in (big, small):
+            p, it, res = k89.solve_pressure_jacobi(cfg, b, a, fl)
+            if cfg.ny in seen:
+                for x, y in zip((p, it, res), seen[cfg.ny]):
+                    assert torch.equal(_bits(x), _bits(y))
+            else:
+                pp, itp, _ = k89.solve_pressure_jacobi_plain(cfg, b, a, fl)
+                assert int(it) == int(itp) > 0
+                assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
+                seen[cfg.ny] = (p, it, res)
+    assert [k[1] for k in k89._WORKSPACES] == [1024, 256]
+    assert k89.cached_bytes() <= k89._MAX_WORKSPACE_BYTES
+
+
 @pytest.mark.parametrize("route", ["jacobi_fused", "jacobi_unfused",
                                    "jacobi_rainbow", "mg_rainbow"])
 def test_route_frames_match_cpu_plain(developed, route):
