@@ -44,10 +44,13 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
  10. runs the Jacobi card tests of tests/test_torch_cuda.py (pytest -k
      jacobi, a process of its own: K8's caps, non-finite and zero RHS on
      K8-K10, workspace reuse, two grids in turn).
-With --profile, each profile also logs the per-launch device time of the
-Jacobi sweeps (K8-K10's and K12's sweep_a, sweep_b; K8-K10's start while
-the sweep before them finishes, so their spans include that wait and
-overlap).
+With --profile, each profile logs the device kernel time of a frame (the
+sum of kernel spans) and the idle share it leaves, as before; beside them
+the device busy time (the union of kernel spans, which counts the
+overlapping spans of K8-K10's sweeps once) and its idle share; and the
+mean span of a Jacobi sweep launch (K8-K10's and K12's sweep_a, sweep_b;
+K8-K10's start while the sweep before them finishes, so their spans
+include that wait and are not kernel times).
 Each path runs with the launch counts set to 0 just before it and read
 just after: its kernels must have launched and no plain version may have
 run.  Prints one JSON line of per-kernel results, the card's name and
@@ -1208,9 +1211,11 @@ def device_busy_us(prof) -> float:
 def profile(cfg, scn, state, path: str, label: str) -> None:
     """torch.profiler over 2 frames from `state`: device kernel time by
     name, written to `path`, with launches and stream syncs per frame and
-    the device's idle share (1 - its busy time, the union of kernel
-    spans) of the same 2 frames' unprofiled wall time (they are
-    deterministic, so they are stepped twice: timed, then profiled)."""
+    the device's idle share of the same 2 frames' unprofiled wall time
+    (they are deterministic, so they are stepped twice: timed, then
+    profiled).  Device time is given twice: the sum of kernel spans (the
+    measure of earlier runs) and the union of all spans (overlapping
+    launches counted once), each with its idle share."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -1234,6 +1239,7 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
     table = events.table(sort_by="cuda_time_total", row_limit=40)
     with open(path, "w") as fh:
         fh.write(table)
+    dev_us = 0.0
     n_kernels = 0
     n_sync = 0
     for e in events:
@@ -1245,17 +1251,22 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
                 n_sync += e.count
             continue
         if d > 0:
+            dev_us += d
             n_kernels += e.count
             if "sweep_a" in e.key or "sweep_b" in e.key:
                 log(f"   {label}: {e.key[:48]}: {d / e.count:.2f} us a "
-                    f"launch span ({e.count} launches)")
-    dev_ms = device_busy_us(prof) / 1e3 / frames
-    log(f"   {label}: device busy {dev_ms:.3f} "
+                    f"launch span, the wait for the kernel before it "
+                    f"included ({e.count} launches)")
+    dev_ms = dev_us / 1e3 / frames
+    busy_ms = device_busy_us(prof) / 1e3 / frames
+    log(f"   {label}: device kernel time {dev_ms:.3f} "
         f"ms/frame, {n_kernels / frames:.0f} kernel launches/frame, "
         f"{n_sync / frames:.0f} stream syncs/frame; the same frames "
         f"unprofiled {ms_frame:.3f} ms/frame ({int(stats['n_active'])} "
         f"active substeps in the last), idle share "
         f"{1 - dev_ms / ms_frame:.3f}; table in {path}")
+    log(f"   {label}: device busy (union of spans) {busy_ms:.3f} ms/frame, "
+        f"idle share {1 - busy_ms / ms_frame:.3f}")
     for line in table.splitlines()[:20]:
         log(f"   {line}")
 

@@ -43,10 +43,13 @@
 //   * A cached workspace (ops/cuda/pcg_kernel.py `workspace`) owns every
 //     buffer and a CUDA graph of kChunk iterations.  The head writes the
 //     cap, tol and the flags on the device, so one graph serves every
-//     cap; a solve replays ceil(cap / kChunk) chunks and reads nothing
-//     back (iterations past the stop or the cap return at once), then one
-//     finishing launch applies the pending p update into the caller's
-//     plane.
+//     cap.  A solve replays ceil(cap / kChunk) chunks (iterations past
+//     the stop or the cap return at once) in batches of kBatch chunks,
+//     the speed mode's whole budget of 100 iterations, and reads the stop
+//     flag only between two batches: no stream sync at that budget, and
+//     at most kBatch - 1 chunks of no-ops past an early stop under any
+//     cap.  Then one finishing launch applies the pending p update into
+//     the caller's plane.
 // The grid stage (K10) and the clamp / face update / maxsq tail (K9, K10)
 // are grid_stage.cuh's, shared with K2.  Built with -fmad=false and with
 // the plain version's operand order (ops/project.py apply_a), so every
@@ -58,6 +61,9 @@
 namespace {
 
 constexpr int kChunk = 8;  // iterations per replay of the captured graph
+// chunks replayed between two reads of the stop flag: ceil(100 / kChunk),
+// so that a solve at the reference's budget of 100 iterations reads none
+constexpr int kBatch = 13;
 
 // The head of every entry point, on the chain grid: per cell the RHS b
 // and the operator code (`cell(t, &code)`); code, r = b and p = 0, and the
@@ -255,15 +261,24 @@ struct JacobiSolver {
                         chains + kChains, scal, flags);
   }
 
-  // after a head: the chunks up to the cap, read by nothing on the host,
-  // then the finishing launch
+  // after a head: the chunks up to the cap, the stop flag read before
+  // each batch but the first, then the finishing launch
   int iterate(int max_iters, float* out, cudaStream_t st) const {
     const int chunks = (max_iters + kChunk - 1) / kChunk;
+    int rc = 0;
     for (int k = 0; k < chunks; ++k) {
-      const int rc = static_cast<int>(cudaGraphLaunch(exec, st));
-      if (rc) return rc;
+      if (k > 0 && k % kBatch == 0) {
+        int done = 0;
+        if ((rc = static_cast<int>(cudaMemcpyAsync(
+                 &done, flags + F_DONE, sizeof(int), cudaMemcpyDeviceToHost,
+                 st))))
+          return rc;
+        if ((rc = static_cast<int>(cudaStreamSynchronize(st)))) return rc;
+        if (done) break;
+      }
+      if ((rc = static_cast<int>(cudaGraphLaunch(exec, st)))) return rc;
     }
-    int rc = static_cast<int>(cudaEventRecord(replayed, st));
+    rc = static_cast<int>(cudaEventRecord(replayed, st));
     if (rc) return rc;
     finish<<<blocks(), kThreads, 0, st>>>(n(), p, s[0], s[1], scal, flags,
                                           out);

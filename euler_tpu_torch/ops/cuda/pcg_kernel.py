@@ -19,9 +19,12 @@ loop's kernels' reduction order, reads the operator as one byte a cell,
 keeps s in two planes and defers p += alpha s into the next iteration.
 Every buffer lives in a workspace cached per device and grid
 (`workspace`), with a CUDA graph of 8 iterations that a solve replays up
-to its cap without reading anything back: the cap, the tolerance and
-the stop flag live on the device.  K8 writes p into a fresh plane; K9
-and K10 (`substep_kernel.py`) solve on the same workspace.
+to its cap: the cap, the tolerance and the stop flag live on the device,
+and the host reads the flag only between batches of 13 replays (104
+iterations), so a solve at the speed mode's budget of 100 never waits
+on the card and one that stops early replays at most 12 chunks of
+no-ops.  K8 writes p into a fresh plane; K9 and K10
+(`substep_kernel.py`) solve on the same workspace.
 
 The plain versions: `solve_pressure_jacobi_plain` is `pcg_loop` with the
 Jacobi preconditioner and `apply_a`, and `project_jacobi_plain` is the

@@ -290,6 +290,53 @@ def test_jacobi_stops_at_the_cap(developed, cap):
     assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
 
 
+def _sweeps(fn):
+    """fn()'s result and the launches of K8-K10's sweep A and sweep B on
+    the card while it runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {"sweep_a": 0, "sweep_b": 0}
+    for e in prof.key_averages():
+        for name in counts:
+            if name in e.key and not e.key.startswith("cuda"):
+                counts[name] += e.count
+    return out, counts
+
+
+@pytest.mark.parametrize("cap, tol_rel, zero", [
+    (100, 0.3, False), (1000, 0.3, False), (1000, 1e-2, False),
+    (9, 0.0, False), (1000, 1e-6, True)])
+def test_jacobi_replays_end_with_their_batch(developed, cap, tol_rel, zero):
+    """A solve replays its graph of 8 iterations in batches of 13 and
+    reads the stop flag only between two batches: a solve that stops
+    early under a cap of 100 or of 1000 (tol_rel 0.3: in the first batch
+    at 128²; 1e-2: in the second) replays up to the end of the batch it
+    stops in, a cap of 9 two chunks, a zero RHS one batch of no-ops; each
+    chunk launches each sweep 8 times."""
+    cfg, b, a, fl = _jacobi_rhs(developed)
+    cfg = _solver(cfg, max_iterations=cap, tol_rel=tol_rel,
+                  tol=1e-6 if tol_rel else 0.0)
+    if zero:
+        b = torch.zeros_like(b)
+    (_, it, _), counts = _sweeps(
+        lambda: k89.solve_pressure_jacobi(cfg, b, a, fl))
+    it = int(it)
+    if zero:
+        assert it == 0
+    elif tol_rel:
+        assert 0 < it < cap
+    else:
+        assert it == cap
+    batches = -(-max(-(-it // 8), 1) // 13)
+    chunks = min(-(-cap // 8), 13 * batches)
+    assert counts == {"sweep_a": 8 * chunks, "sweep_b": 8 * chunks}
+
+
 def _jacobi_call(kernel, developed, bad):
     """(kernel, plain) outputs of K8, K9 or K10 on the developed state
     with `bad` (inf or NaN) put into its input on a fluid cell, or with a

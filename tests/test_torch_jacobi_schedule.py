@@ -6,11 +6,16 @@ the CPU as plain Python.  Imports no JAX and compiles nothing.
     p += alpha s, s in two planes swapped each iteration and recomputed
     at the four neighbours, iteration 1's s = invd r chosen by the
     iteration count, the cap and the stop flag on the "device", chunks of
-    8 replayed up to the cap, then the finishing update) equals the plain
-    `pcg_loop` bit for bit in p, iterations and residual, on small systems
-    with solids.  The model sums as `pcg_loop` does (torch's `sum`); the
-    kernels' chain-order reductions are checked on the card
-    (tests/test_torch_cuda.py, `chip_smoke.py`).
+    8 replayed up to the cap with the flag read only between batches of
+    13, then the finishing update) equals the plain `pcg_loop` bit for
+    bit in p, iterations and residual, on small systems with solids.  The
+    model
+    sums as `pcg_loop` does (torch's `sum`); the kernels' chain-order
+    reductions are checked on the card (tests/test_torch_cuda.py,
+    `chip_smoke.py`).  The model is a copy of the kernels' design, not
+    tied to their code: change it together with `sweep_a`, `sweep_b`,
+    `finish` and `JacobiSolver::iterate` (csrc/jacobi_pcg.cu,
+    chain_reduce.cuh).
   * The workspace cache (`pcg_kernel.workspace`): its key, its bound by
     count and by bytes, and the buffers and arguments each library entry
     point receives (a recording stand-in for the library).
@@ -36,6 +41,7 @@ from euler_tpu_torch.ops.project import pressure_matrix_diag
 
 MiB = 2 ** 20
 CHUNK = 8  # iterations per replayed graph (csrc/jacobi_pcg.cu kChunk)
+BATCH = 13  # replays between two reads of the stop flag (kBatch)
 
 
 def _cfg(ny=24, nx=20, **solver):
@@ -82,7 +88,8 @@ def _at(plane, dy, dx):
 def schedule_model(cfg, b, a_diag, fluid):
     """csrc/jacobi_pcg.cu's solve written out plane by plane: the head,
     ceil(cap / 8) chunks of 8 iterations (sweep A, sweep B), each a no-op
-    once the stop flag is set, then the finishing launch.  Returns
+    once the stop flag is set, the host reading the flag before each
+    batch of 13 chunks but the first, then the finishing launch.  Returns
     (p, iterations, residual)."""
     s = cfg.solver
     cap = s.max_iterations
@@ -140,7 +147,9 @@ def schedule_model(cfg, b, a_diag, fluid):
         fg["iters"] += 1
         fg["done"] = not bool(rmax > sc["tol"]) or fg["iters"] >= cap
 
-    for _ in range(-(-cap // CHUNK)):
+    for k in range(-(-cap // CHUNK)):
+        if k and k % BATCH == 0 and fg["done"]:
+            break
         for j in range(CHUNK):
             sweep_a(dev["s"][j & 1], dev["s"][(j + 1) & 1])
             sweep_b()
@@ -160,6 +169,7 @@ def _same_bits(x, y):
 
 CASES = {
     "converged": dict(tol_rel=1e-3),
+    "converged_cap1000": dict(max_iterations=1000, tol_rel=1e-3),
     "cap1": dict(max_iterations=1, tol=0.0, tol_rel=0.0),
     "cap7": dict(max_iterations=7, tol=0.0, tol_rel=0.0),
     "cap8": dict(max_iterations=8, tol=0.0, tol_rel=0.0),
@@ -174,8 +184,8 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_schedule_matches_pcg_loop_bitwise(case, seed):
     """The model of the two-sweep schedule equals `pcg_loop` (the plain
-    K8) bit for bit: converged before the budget, at caps inside the first
-    chunk, at its end and one past it, with an inf or a NaN in b on a
+    K8) bit for bit: converged before the budget (of 100 and of 1000),
+    at caps inside the first chunk, at its end and one past it, with an inf or a NaN in b on a
     fluid cell (one iteration, then the NaN-robust stop; the pending p
     update is guarded by a flag, not by alpha = 0), and on b = 0 (no
     iteration, residual 0, p = 0)."""
@@ -190,7 +200,8 @@ def test_schedule_matches_pcg_loop_bitwise(case, seed):
     assert iters == int(itp)
     assert _same_bits(p, pp)
     assert _same_bits(resid.reshape(1), resp.reshape(1))
-    want = {"converged": None, "inf": 1, "nan": 1, "zero": 0}.get(
+    want = {"converged": None, "converged_cap1000": None, "inf": 1,
+            "nan": 1, "zero": 0}.get(
         case, cfg.solver.max_iterations)
     if want is None:
         assert 0 < iters < cfg.solver.max_iterations
