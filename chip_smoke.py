@@ -11,7 +11,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      port on the CPU (plain PyTorch versions), 2 frames;
   2. builds the 1024² dam break and advances it 4 warm-up frames;
   3. holds each kernel against its plain version on the card, on that
-     state: K1 marker pass, K4 padded marker pass, K5 march, K6 re-bin, K2
+     state: K1 marker pass and K4 padded marker pass (the whole store
+     bitwise, dead slots' zeros included), K5 march, K6 re-bin, K2
      substep grid half, K3 MG-PCG solve (cold, warm, and capped at 3
      iterations, which it must take exactly; the Galerkin hierarchy and
      Chebyshev rows it builds bitwise equal to `mg_host_operands`; its
@@ -20,7 +21,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep
      (and the stream syncs of one K8 and one K10 solve);
   4. times 20 frames of the main path (dam break, slot markers K=8,
-     Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection);
+     Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection),
+     with its peak device memory;
   5. times 20 frames of the Jacobi speed mode (`bench.py --precon
      jacobi`: 100 iterations, tol 1e-6, tol_rel 1e-6, no warm start) after
      4 warm-up frames;
@@ -29,21 +31,24 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      unfused with `use_pallas_grid` (K7, K8), and the main path on the
      three marker routes from the same dam break, `marker_k1` (K1, K2,
      K3), `marker_unfused` (K5, K6, K2, K3) and `padded_store` (K4, K2,
-     K3), the last two bitwise equal at their end to the first;
+     K3), the last two bitwise equal at their end to the first, the whole
+     store included;
   7. times each kernel beside its plain version with CUDA events;
   8. runs `bench.py --size 2048` (the main path's config at 2048², where
      the JAX package's size gates take the plain grid stage and K11): 2
-     warm-up + 4 timed frames, then K11 (F = 2) against its plain version
-     on that state, the hierarchy and rows it builds on the card bitwise
-     equal to `stream_host_operands`, its stream syncs in one solve, K11
-     timed;
+     warm-up + 4 timed frames with its peak device memory, then K1 timed
+     on that state, K11 (F = 2) against its plain version on that state,
+     the hierarchy and rows it builds on the card bitwise equal to
+     `stream_host_operands`, its stream syncs in one solve, K11 timed;
   9. runs `bench.py --size 4096 --precon jacobi` (the plain grid stage and
-     K12): 1 warm-up + 2 timed frames, then K12 and K11 (F = 4, with the
-     MG config; its hierarchy bitwise as at 2048²) against their plain
-     versions on that state, K12 timed;
- 10. runs the Jacobi card tests of tests/test_torch_cuda.py (pytest -k
-     jacobi, a process of its own: K8's caps, non-finite and zero RHS on
-     K8-K10, workspace reuse, two grids in turn).
+     K12): 1 warm-up + 2 timed frames with its peak device memory, then K1
+     timed on that state, K12 and K11 (F = 4, with the MG config; its
+     hierarchy bitwise as at 2048²) against their plain versions on that
+     state, K12 timed;
+ 10. runs the Jacobi and K1 / K4 card tests of tests/test_torch_cuda.py
+     (pytest -k, a process of its own: K8's caps, non-finite and zero RHS
+     on K8-K10, workspace reuse, two grids in turn; K1 and K4 on ragged
+     grids at K = 4, 8 and 16, bitwise; one launch a marker kernel call).
 With --profile, each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -93,6 +98,9 @@ F32_FLOP_PER_S = 67e12
 # cells), from the sources: bytes with every input read once and every
 # output written once, and f32 operations.  `iters` is the PCG iteration
 # count the timed call needed; `live` the live markers of K1's store.
+# Every marker kernel returns a whole new store, dead slots included
+# (their zeros, or K5's copies), so its bytes count the whole store out;
+# only the live positions are read (8 bytes each), but K5 reads all.
 #   grid stage + RHS + tail (extrapolate, two bilinear samples per face
 #   component, gravity, divergence, clamp, face update, maxsq): ~100 flops
 #   a Jacobi-PCG iteration: 5-point apply 7, two dot products 4, two
@@ -178,17 +186,21 @@ MG_FLOPS = 60
 MARKER_FLOPS = 28
 REBIN_FLOPS = 6
 BOUNDS = {
-    # u, v f32; fluid, solid, dead u8; count i32 in; live positions in
-    # and out; count, drop i32 out (K4: the same on the padded store)
-    "K1": lambda n, iters, live: (23 * n + 16 * live, MARKER_FLOPS * live),
-    "K4": lambda n, iters, live: (23 * n + 16 * live, MARKER_FLOPS * live),
+    # u, v f32; fluid, solid, dead u8; count i32 in; live positions in;
+    # the whole store, count, drop i32 out (K4: the same on the padded
+    # store's interior)
+    "K1": lambda n, iters, live: (23 * n + 8 * live + 8 * SLOTS * n,
+                                  MARKER_FLOPS * live),
+    "K4": lambda n, iters, live: (23 * n + 8 * live + 8 * SLOTS * n,
+                                  MARKER_FLOPS * live),
     # u, v f32; fluid, solid u8; count i32 in; the whole store in and out
     # (the dead slots are copied through)
     "K5": lambda n, iters, live: (14 * n + 16 * SLOTS * n,
                                   MARKER_FLOPS * live),
-    # alive [K] and dead u8 in; live positions in and out; alive' [K] u8,
-    # count, drop i32 out
-    "K6": lambda n, iters, live: ((2 * SLOTS + 9) * n + 16 * live,
+    # alive [K] and dead u8 in; live positions in; alive' [K] u8, the
+    # whole store, count, drop i32 out
+    "K6": lambda n, iters, live: ((SLOTS + 1) * n + 8 * live
+                                  + (9 * SLOTS + 8) * n,
                                   REBIN_FLOPS * live),
     # u, v, p0 f32; fl, pfl, so u8 in; u2, v2, p f32 out
     "K2": lambda n, iters, live: (27 * n, (GRID_FLOPS + MG_FLOPS * iters) * n),
@@ -321,6 +333,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# ~10 ms of the card's clock: covers the enqueueing of a few dozen calls
+SLEEP_CYCLES = 20_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """The card's time a call of fn() with the host out of the way: `reps`
+    calls enqueued behind a sleep kernel that outlasts their enqueueing,
+    timed by CUDA events (so, unlike `cuda_ms`, no wait for the host
+    between launches).  Raises if the sleep ended first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    check(not start.query(), "device_ms: the host enqueued slower than "
+          "the sleep kernel lasted")
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# the kernels that are one launch a call, whose device time `time_pair`
+# also takes (`device_ms`)
+ONE_LAUNCH = ("K1", "K4", "K5", "K6", "K7")
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -449,7 +492,8 @@ def build_all():
 def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     """Times the kernel and its plain version in turns with CUDA events
     (plain, kernel, kernel, plain) and fills results[name] with the best
-    of each and the bound of the kernel's call."""
+    of each and the bound of the kernel's call; for a kernel of ONE_LAUNCH
+    also its device time (`device_ms`, best of two rounds)."""
     out = kern()
     iters = 0 if name in ("K1", "K4", "K5", "K6", "K7") else int(
         out[1] if name in ("K3", "K8", "K11", "K12") else out[2])
@@ -457,6 +501,11 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     t_k1 = cuda_ms(kern, reps)
     t_k2 = cuda_ms(kern, reps)
     t_p2 = cuda_ms(plain_fn, reps)
+    if name in ONE_LAUNCH:
+        results.setdefault(name, {})["device_ms"] = min(
+            device_ms(kern, reps) for _ in range(2))
+        log(f"   {name}: device time {results[name]['device_ms']:.4f} ms a "
+            "call (calls queued behind a sleep kernel)")
     nbytes, flops = BOUNDS[name](n_cells, iters, n_live)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / F32_FLOP_PER_S
@@ -549,14 +598,17 @@ def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
     o4 = p_k[0][inner]
     errs["K4"] = live_err("K4", (o4[:K], o4[K:]),
                           (p_p[0][inner][:K], p_p[0][inner][K:]), p_p[1])
+    check(torch.equal(o4, p_p[0][inner]), "K4: the store's interior "
+          "differs from plain (dead slots included)")
     check(torch.equal(o4, o_k1) and torch.equal(p_k[1], c_k1)
           and torch.equal(p_k[2], d_k1), "K4's interior differs from K1")
     p_0 = k1.march_rebin_padded(*args, store, zero, count, dead=dead)
     check(torch.equal(p_0[0][inner], store[inner])
           and torch.equal(p_0[1], count) and int(p_0[2].sum()) == 0,
           "K4 with dt = 0 is not an identity")
-    log("   K4: counts, drops equal (NaN pads); interior equal to K1's "
-        "output bit for bit; dt = 0 is a bitwise identity")
+    log("   K4: counts, drops and the whole interior store equal to plain "
+        "(NaN pads); interior equal to K1's output bit for bit; dt = 0 is "
+        "a bitwise identity")
     return errs
 
 
@@ -565,7 +617,7 @@ def run_marker_routes(cfg, summaries, launches, dev, profile_prefix=None):
     reference), K5+K6 and K4, ROUTE_WARMUP + ROUTE_FRAMES frames each from
     the same dam break: each route's kernels launch 8 times a frame, the
     other marker kernels and every plain version never, and the K5+K6 and
-    K4 routes end with counts, drops, u, v, p, alive and live positions
+    K4 routes end with counts, drops, u, v, p, alive and the whole store
     bitwise equal to the K1 route.  Profiled with a prefix."""
     import torch
 
@@ -613,11 +665,11 @@ def run_marker_routes(cfg, summaries, launches, dev, profile_prefix=None):
                           f"{label}: {name} differs from the K1 route")
                 mine = rstate.markers.reshape(live.shape)
                 theirs = ref.markers.reshape(live.shape)
-                check(torch.equal(mine[live], theirs[live]),
-                      f"{label}: live positions differ from the K1 route")
-                log(f"   {label}: counts, drops, u, v, p, alive and live "
-                    "positions bitwise equal to the K1 route (whole store: "
-                    f"{torch.equal(mine, theirs)})")
+                check(torch.equal(mine, theirs),
+                      f"{label}: the store differs from the K1 route")
+                log(f"   {label}: counts, drops, u, v, p, alive and the "
+                    f"whole store ({int(live.sum())} live positions) bitwise "
+                    "equal to the K1 route")
         if profile_prefix:
             with Phase(f"{label}: profile"):
                 profile(rcfg, rscn, rstate, f"{profile_prefix}.{label}.txt",
@@ -747,6 +799,37 @@ def stream_syncs(fn) -> int:
                if e.key == "cudaStreamSynchronize")
 
 
+def time_k1(cfg, scn, state, summary) -> None:
+    """K1's time a call on `state` (best of two rounds of REPS calls, CUDA
+    events) and its device time (`device_ms`) beside its bound, into
+    `summary` as k1_ms and k1_device_ms."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.forces import max_speed_sq
+
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, state.u, state.v),
+                          torch.tensor(cfg.frame_time, device=state.u.device))
+    args = (cfg, state.u, state.v, state.fluid, scn.solid,
+            state.markers.reshape(2 * K, Y, X), dt, state.marker_count)
+    dead = scn.sink | scn.solid
+
+    def call():
+        return k1.march_rebin(*args, dead=dead)
+
+    ms = min(cuda_ms(call, REPS) for _ in range(2))
+    dev = min(device_ms(call, REPS) for _ in range(2))
+    n_live = int(state.marker_count.sum())
+    nbytes, _ = BOUNDS["K1"](Y * X, 0, n_live)
+    summary["k1_ms"] = ms
+    summary["k1_device_ms"] = dev
+    log(f"   K1 at {Y}x{X}: {ms:.4f} ms a call, device time {dev:.4f} ms; "
+        f"bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms by bytes "
+        f"({nbytes / 1e6:.1f} MB, {n_live} live markers)")
+
+
 def run_large(size, results, summaries, launches, profile_prefix=None):
     """The paths beyond the fused kernels' gates: `bench.py --size 2048`
     (MG: the plain grid stage and K11) and `--size 4096 --precon jacobi`
@@ -782,6 +865,9 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
     if profile_prefix:
         with Phase(f"{label}: profile"):
             profile(cfg, scn, state, f"{profile_prefix}.{label}.txt", label)
+
+    with Phase(f"{label}: K1 on the path's state"):
+        time_k1(cfg, scn, state, summaries[label])
 
     with Phase(f"{label}: solvers vs plain versions on the card"):
         dt, ut, vt, b, a_diag = substep_system(cfg, scn, state)
@@ -857,7 +943,6 @@ def run(args) -> dict:
     from euler_tpu_torch.ops.cuda import rebin_kernel as k6
     from euler_tpu_torch.ops.cuda import substep_kernel as k2
     from euler_tpu_torch.ops.forces import max_speed_sq
-    from euler_tpu_torch.ops.markers_slots import live_slots
     from euler_tpu_torch.ops.project import (
         divergence_rhs,
         pressure_matrix_diag,
@@ -923,11 +1008,13 @@ def run(args) -> dict:
         o_p, c_p, d_p = k1.march_rebin_plain(*k1_args, dead=dead)
         check(torch.equal(c_k, c_p), "K1 counts differ from plain")
         check(torch.equal(d_k, d_p), "K1 drops differ from plain")
-        live = torch.cat([live_slots(c_p, K)] * 2)
-        err1 = (o_k - o_p).abs()[live].max().item()
-        log(f"   K1: counts, drops equal; live positions max err {err1:.3g}"
-            f" (bitwise: {torch.equal(o_k, o_p)})")
-        check(err1 <= 1e-5, "K1 positions differ > 1e-5")
+        err1 = (o_k - o_p).abs().max().item()
+        n_live = int(c_p.sum())
+        log(f"   K1: counts, drops equal; whole store max err {err1:.3g} "
+            f"(bitwise: {torch.equal(o_k, o_p)}; {n_live} live markers of "
+            f"{K * Y * X} slots)")
+        check(torch.equal(o_k, o_p), "K1: the store differs from plain "
+              "(dead slots included)")
         o_0, c_0, d_0 = k1.march_rebin(cfg, state.u, state.v, state.fluid,
                                        scn.solid, slots, zero,
                                        state.marker_count, dead=dead)
@@ -1057,8 +1144,10 @@ def run(args) -> dict:
     summaries = {}
     launches = {}
     with Phase(f"main path: {FRAMES} timed frames"):
+        held = reset_peak()
         state, summaries["mg"] = run_path(cfg, scn, state, FRAMES,
                                           ["K1", "K2", "K3"], "MG main path")
+        record_peak(summaries["mg"], held)
         check(summaries["mg"]["div_inf"] < 1.0,
               "div_inf too large: the projection did not converge")
         for k in ("K1", "K2", "K3"):
@@ -1172,9 +1261,10 @@ def run(args) -> dict:
             profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
                     "speed")
 
-    with Phase("the Jacobi card tests (pytest, tests/test_torch_cuda.py)"):
+    with Phase("the Jacobi and K1 / K4 card tests (pytest, "
+               "tests/test_torch_cuda.py)"):
         torch.cuda.empty_cache()
-        run_card_tests("jacobi")
+        run_card_tests("jacobi or tiles or launch_once")
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():

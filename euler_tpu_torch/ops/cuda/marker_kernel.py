@@ -11,11 +11,11 @@ kernel copies slots >= its tile's largest count through), so the output
 is a whole new store.
 
 On an H100 the march is bound by bytes: it reads and writes the whole
-store (64 MB each way at 1024², K = 8).  The CUDA source is K1's march
-(`csrc/marker_pass.cu` `march_kernel`), one thread per slot, with the
-dead slots copied instead of skipped; it is built with -fmad=false, so
-positions match the plain version bit for bit.  With dt = 0 it is a
-bitwise identity.
+store (64 MB each way at 1024², K = 8).  The CUDA source
+(`csrc/marker_pass.cu` `march_kernel`) runs one thread per slot, marches
+a live slot through K1's `march_marker` and copies a dead one; it is
+built with -fmad=false, so positions match the plain version bit for
+bit.  With dt = 0 it is a bitwise identity.
 
 `advect_markers_plain` is the plain version: `markers_slots.march_slots`
 on `live_slots(count)`.

@@ -17,9 +17,9 @@ the same contract: `valid_f != 0` in, `alive' == (valid_f' != 0)` out.
 
 On an H100 the re-bin is bound by bytes: the store and the alive plane
 read once, the new store and alive plane written once.  The CUDA source
-is K1's per-destination gather (`csrc/marker_pass.cu` `rebin_kernel`)
-with validity from the alive plane; it needs no atomics and gives the
-plain version's slot assignment exactly.
+(`csrc/marker_pass.cu` `rebin_kernel`) is a per-destination gather from
+device memory in K1's order, with validity from the alive plane; it
+needs no atomics and gives the plain version's slot assignment exactly.
 
 `rebin_markers_plain` is the plain version: `markers_slots.rebin_slots`.
 """

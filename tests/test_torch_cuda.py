@@ -28,6 +28,8 @@ from euler_tpu_torch.ops.cuda import substep_kernel as k2
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.project import divergence_rhs, pressure_matrix_diag
 
+from marker_states import marker_state
+
 pytestmark = pytest.mark.cuda
 
 SIZE = 128
@@ -148,6 +150,109 @@ def test_march_rebin_padded_bitwise(developed, zero_dt):
         assert torch.equal(a, b) and torch.equal(a, c)
     if zero_dt:
         assert torch.equal(got[0], st.markers.reshape(2 * K, Y, X))
+
+
+# K1 / K4 on seeded states (tests/marker_states.py): ragged grids that
+# leave partial edge tiles, K = 4, 8 and 16, cells driven over K, an empty
+# store
+TILE_CASES = [(100, 136, 4, "mixed"), (100, 136, 8, "full"),
+              (100, 136, 16, "mixed"), (257, 130, 8, "mixed"),
+              (257, 130, 16, "full"), (257, 130, 4, "empty")]
+
+
+def _tile_state(Y, X, K, fill, zero_dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg, u, v, fluid, solid, slots, dt, count, dead = marker_state(
+        Y, X, K, fill, seed=Y * X + K, device="cuda")
+    if zero_dt:
+        dt = torch.zeros((), device="cuda")
+    return cfg, (cfg, u, v, fluid, solid), slots, dt, count, dead
+
+
+@pytest.mark.parametrize("zero_dt", [False, True])
+@pytest.mark.parametrize("Y,X,K,fill", TILE_CASES)
+def test_marker_pass_tiles_bitwise(Y, X, K, fill, zero_dt):
+    """K1 against its plain version: the whole store (dead slots' zeros
+    included), counts and drops bitwise; dt = 0 is an identity."""
+    cfg, args, slots, dt, count, dead = _tile_state(Y, X, K, fill, zero_dt)
+    got = k1.march_rebin(*args, slots, dt, count, dead=dead)
+    want = k1.march_rebin_plain(*args, slots, dt, count, dead=dead)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if zero_dt:
+        assert torch.equal(got[0], slots) and torch.equal(got[1], count)
+        assert not bool(got[2].any())
+    elif fill == "full":
+        assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("zero_dt", [False, True])
+@pytest.mark.parametrize("Y,X,K,fill", TILE_CASES)
+def test_marker_pass_padded_tiles_bitwise(Y, X, K, fill, zero_dt):
+    """K4 with NaN in its input's pads: the whole interior store, counts
+    and drops bitwise its plain version's and K1's."""
+    cfg, args, slots, dt, count, dead = _tile_state(Y, X, K, fill, zero_dt)
+    store = torch.full((2 * K, Y + 16, X + 256), float("nan"), device="cuda")
+    store[:, 8:8 + Y, 128:128 + X] = slots
+    got = _interior(k1.march_rebin_padded(*args, store, dt, count,
+                                          dead=dead), cfg)
+    want = _interior(k1.march_rebin_padded_plain(*args, store, dt, count,
+                                                 dead=dead), cfg)
+    fused = k1.march_rebin(*args, slots, dt, count, dead=dead)
+    for a, b, c in zip(got, want, fused):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if zero_dt:
+        assert torch.equal(got[0], slots)
+
+
+def _kernel_launches(fn):
+    """The names of the kernels, copies and sets the card ran while fn()
+    ran (torch.profiler)."""
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K5", "K6"])
+def test_marker_kernels_launch_once(developed, kernel):
+    """K1 and K4 are one launch of the tiled kernel a call and allocate
+    nothing but their outputs (no marched scratch); K5 and K6 are one
+    launch of their own."""
+    cfg, scn, st, dt, args = _marker_args(developed, False)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    dead = scn.sink | scn.solid
+    padded = k1.pad_slot_store(cfg, st.markers)
+    calls = {
+        "K1": ("march_rebin_tiles", lambda: k1.march_rebin(
+            *args, st.markers.reshape(2 * K, Y, X), dt, st.marker_count,
+            dead=dead)),
+        "K4": ("march_rebin_tiles", lambda: k1.march_rebin_padded(
+            *args, padded, dt, st.marker_count, dead=dead)),
+        "K5": ("march_kernel", lambda: k5.advect_markers(
+            *args, st.markers[0], st.markers[1], dt, st.marker_count)),
+        "K6": ("rebin_kernel", lambda: k6.rebin_markers(
+            cfg, st.markers[0], st.markers[1], st.alive, dead)),
+    }
+    name, fn = calls[kernel]
+    before = _build.LAUNCHES[kernel]
+    launched = _kernel_launches(fn)
+    assert len(launched) == 1 and name in launched[0], launched
+    assert _build.LAUNCHES[kernel] == before + 2
+    if kernel in ("K1", "K4"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = fn()
+        assert torch.cuda.max_memory_allocated() - held == sum(
+            t.numel() * t.element_size() for t in out)
 
 
 def test_substep_matches_plain(developed):
