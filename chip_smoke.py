@@ -12,7 +12,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
   2. builds the 1024² dam break and advances it 4 warm-up frames;
   3. holds each kernel against its plain version on the card, on that
      state: K1 marker pass and K4 padded marker pass (the whole store
-     bitwise, dead slots' zeros included), K5 march, K6 re-bin, K2
+     bitwise, dead slots' zeros included), K5 march and K6 re-bin (the
+     whole store bitwise; K6 also on an alive plane with holes), K2
      substep grid half, K3 MG-PCG solve (cold, warm, and capped at 3
      iterations, which it must take exactly; the Galerkin hierarchy and
      Chebyshev rows it builds bitwise equal to `mg_host_operands`; its
@@ -33,7 +34,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      K3), `marker_unfused` (K5, K6, K2, K3) and `padded_store` (K4, K2,
      K3), the last two bitwise equal at their end to the first, the whole
      store included;
-  7. times each kernel beside its plain version with CUDA events;
+  7. times each kernel beside its plain version with CUDA events, and K5
+     and K6 also on that state's markers in a store of 16 slots a cell;
   8. runs `bench.py --size 2048` (the main path's config at 2048², where
      the JAX package's size gates take the plain grid stage and K11): 2
      warm-up + 4 timed frames with its peak device memory, then K1 timed
@@ -45,10 +47,12 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      timed on that state, K12 and K11 (F = 4, with the MG config; its
      hierarchy bitwise as at 2048²) against their plain versions on that
      state, K12 timed;
- 10. runs the Jacobi and K1 / K4 card tests of tests/test_torch_cuda.py
+ 10. runs the Jacobi and marker card tests of tests/test_torch_cuda.py
      (pytest -k, a process of its own: K8's caps, non-finite and zero RHS
      on K8-K10, workspace reuse, two grids in turn; K1 and K4 on ragged
-     grids at K = 4, 8 and 16, bitwise; one launch a marker kernel call).
+     grids at K = 4, 8 and 16, K5 and K6 at K = 8 and 16 (K6 also on
+     alive planes with holes), bitwise; one launch a marker kernel call;
+     the unfused passes keep the kernels' store as the state's).
 With --profile, each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -189,19 +193,20 @@ BOUNDS = {
     # u, v f32; fluid, solid, dead u8; count i32 in; live positions in;
     # the whole store, count, drop i32 out (K4: the same on the padded
     # store's interior)
-    "K1": lambda n, iters, live: (23 * n + 8 * live + 8 * SLOTS * n,
-                                  MARKER_FLOPS * live),
-    "K4": lambda n, iters, live: (23 * n + 8 * live + 8 * SLOTS * n,
-                                  MARKER_FLOPS * live),
+    # (k: slots a cell)
+    "K1": lambda n, iters, live, k=SLOTS: (23 * n + 8 * live + 8 * k * n,
+                                           MARKER_FLOPS * live),
+    "K4": lambda n, iters, live, k=SLOTS: (23 * n + 8 * live + 8 * k * n,
+                                           MARKER_FLOPS * live),
     # u, v f32; fluid, solid u8; count i32 in; the whole store in and out
     # (the dead slots are copied through)
-    "K5": lambda n, iters, live: (14 * n + 16 * SLOTS * n,
-                                  MARKER_FLOPS * live),
+    "K5": lambda n, iters, live, k=SLOTS: (14 * n + 16 * k * n,
+                                           MARKER_FLOPS * live),
     # alive [K] and dead u8 in; live positions in; alive' [K] u8, the
     # whole store, count, drop i32 out
-    "K6": lambda n, iters, live: ((SLOTS + 1) * n + 8 * live
-                                  + (9 * SLOTS + 8) * n,
-                                  REBIN_FLOPS * live),
+    "K6": lambda n, iters, live, k=SLOTS: ((k + 1) * n + 8 * live
+                                           + (9 * k + 8) * n,
+                                           REBIN_FLOPS * live),
     # u, v, p0 f32; fl, pfl, so u8 in; u2, v2, p f32 out
     "K2": lambda n, iters, live: (27 * n, (GRID_FLOPS + MG_FLOPS * iters) * n),
     # b, x0 f32; a_diag i32; fluid u8 in; p f32 out
@@ -529,12 +534,24 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
                 f"iteration (the call's time over its {iters} iterations)")
 
 
+def holed(alive, seed: int):
+    """`alive` with a seeded 30% of its live slots cleared: an alive plane
+    with holes (not front-compacted) whose live markers all keep their
+    real positions."""
+    import torch
+
+    g = torch.Generator(device=alive.device).manual_seed(seed)
+    return alive & (torch.rand(alive.shape, generator=g,
+                               device=alive.device) >= 0.3)
+
+
 def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
     """K5, K6 and K4 against their plain versions on the card, on `state`
-    with the substep's `dt`: counts, drops and alive equal, live positions
-    bitwise; dt = 0 an identity; K4's interior equal to K1's output
-    (o_k1, c_k1, d_k1).  Returns each kernel's max error on the live
-    positions (0.0: they are bitwise)."""
+    with the substep's `dt`: K5's and K6's whole store, K6's alive,
+    counts and drops bitwise, K6 also on an alive plane with holes; dt = 0
+    an identity; K5 + K6 and K4's interior equal to K1's output (o_k1,
+    c_k1, d_k1).  Returns each kernel's max error on the live positions
+    (0.0: they are bitwise)."""
     import torch
 
     from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
@@ -545,7 +562,7 @@ def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
     check(K == SLOTS, f"slots_per_cell {K}: the bounds assume {SLOTS}")
     args = (cfg, state.u, state.v, state.fluid, scn.solid)
-    px, py, count = state.markers[0], state.markers[1], state.marker_count
+    markers, count = state.markers, state.marker_count
     dead = scn.sink | scn.solid
     zero = torch.zeros_like(dt)
 
@@ -560,35 +577,49 @@ def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
         return err
 
     errs = {}
-    m_k = k5.advect_markers(*args, px, py, dt, count)
-    m_p = k5.advect_markers_plain(*args, px, py, dt, count)
+    m_k = k5.advect_markers(*args, markers, dt, count)
+    m_p = k5.advect_markers_plain(*args, markers, dt, count)
     errs["K5"] = live_err("K5", m_k, m_p, count)
-    check(all(torch.equal(a[~state.alive], b[~state.alive])
-              for a, b in zip(m_k, (px, py))),
+    check(torch.equal(m_k, m_p), "K5: the store differs from plain (dead "
+          "slots included)")
+    check(torch.equal(m_k[:, ~state.alive], markers[:, ~state.alive]),
           "K5: dead slots were not copied through")
-    m_0 = k5.advect_markers(*args, px, py, zero, count)
-    check(torch.equal(m_0[0], px) and torch.equal(m_0[1], py),
-          "K5 with dt = 0 is not an identity")
-    log("   K5: dead slots copied through; dt = 0 is a bitwise identity")
+    m_0 = k5.advect_markers(*args, markers, zero, count)
+    check(torch.equal(m_0, markers), "K5 with dt = 0 is not an identity")
+    log("   K5: the whole store bitwise; dead slots copied through; dt = 0 "
+        "is a bitwise identity")
 
-    r_k = k6.rebin_markers(cfg, m_k[0], m_k[1], state.alive, dead)
-    r_p = k6.rebin_markers_plain(cfg, m_k[0], m_k[1], state.alive, dead)
-    for i, what in ((2, "alive"), (3, "counts"), (4, "drops")):
+    r_k = k6.rebin_markers(cfg, m_k, state.alive, dead)
+    r_p = k6.rebin_markers_plain(cfg, m_k, state.alive, dead)
+    for i, what in ((1, "alive"), (2, "counts"), (3, "drops")):
         check(torch.equal(r_k[i], r_p[i]), f"K6 {what} differ from plain")
-    errs["K6"] = live_err("K6", r_k[:2], r_p[:2], r_p[3])
-    check(torch.equal(r_k[3], c_k1) and torch.equal(r_k[4], d_k1)
-          and torch.equal(torch.cat(r_k[:2]), o_k1),
+    errs["K6"] = live_err("K6", r_k[0], r_p[0], r_p[2])
+    check(torch.equal(r_k[0], r_p[0]), "K6: the store differs from plain "
+          "(dead slots included)")
+    check(torch.equal(r_k[2], c_k1) and torch.equal(r_k[3], d_k1)
+          and torch.equal(r_k[0].reshape(o_k1.shape), o_k1),
           "K5 + K6 differ from K1")
-    r_0 = k6.rebin_markers(cfg, px, py, state.alive, dead)
-    check(torch.equal(torch.stack(r_0[:2]), state.markers)
-          and torch.equal(r_0[2], state.alive) and torch.equal(r_0[3], count)
-          and int(r_0[4].sum()) == 0, "K6 on an unmoved store is not an "
-          "identity")
-    log("   K6: alive, counts, drops equal; K5 + K6 give K1's output bit for "
-        "bit; an unmoved store is a bitwise identity")
+    r_0 = k6.rebin_markers(cfg, markers, state.alive, dead)
+    check(torch.equal(r_0[0], markers) and torch.equal(r_0[1], state.alive)
+          and torch.equal(r_0[2], count) and int(r_0[3].sum()) == 0,
+          "K6 on an unmoved store is not an identity")
+    log("   K6: the whole store, alive, counts, drops bitwise; K5 + K6 give "
+        "K1's output bit for bit; an unmoved store is a bitwise identity")
+    alive_h = holed(state.alive, 9)
+    check(not torch.equal(alive_h, live_slots(alive_h.sum(
+        0, dtype=torch.int32), K)), "the holed alive plane is "
+          "front-compacted")
+    h_k = k6.rebin_markers(cfg, m_k, alive_h, dead)
+    h_p = k6.rebin_markers_plain(cfg, m_k, alive_h, dead)
+    for i, what in enumerate(("store", "alive", "counts", "drops")):
+        check(torch.equal(h_k[i], h_p[i]),
+              f"K6 on an alive plane with holes: {what} differ from plain")
+    log(f"   K6 on an alive plane with holes ({int(alive_h.sum())} of "
+        f"{int(state.alive.sum())} live slots kept): the whole store, "
+        "alive, counts, drops bitwise")
 
     store = torch.full((2 * K, Y + 16, X + 256), float("nan"),
-                       device=px.device)
+                       device=markers.device)
     inner = (slice(None), slice(8, 8 + Y), slice(128, 128 + X))
     store[inner] = state.markers.reshape(2 * K, Y, X)
     p_k = k1.march_rebin_padded(*args, store, dt, count, dead=dead)
@@ -610,6 +641,53 @@ def check_marker_variants(cfg, scn, state, dt, o_k1, c_k1, d_k1):
         "(NaN pads); interior equal to K1's output bit for bit; dt = 0 is "
         "a bitwise identity")
     return errs
+
+
+# slots a cell of the wide store that K5 and K6 are also timed on (their
+# tile plans change to 16 x 32 tiles there)
+WIDE_SLOTS = 16
+
+
+def time_unfused_wide(cfg, scn, state, dt, results) -> None:
+    """K5's and K6's time a call on `state`'s markers in a store of
+    WIDE_SLOTS slots a cell (the K live ones, then empty slots): each
+    checked bitwise against its plain version (the whole store; K6's
+    alive, counts and drops), then timed by device ms and CUDA events
+    beside its bound, into results[name] as wide_device_ms and wide_ms."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import marker_kernel as k5
+    from euler_tpu_torch.ops.cuda import rebin_kernel as k6
+
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    wcfg = dataclasses.replace(cfg, slots_per_cell=WIDE_SLOTS)
+    markers = torch.cat([state.markers, state.markers.new_zeros(
+        (2, WIDE_SLOTS - K, Y, X))], 1)
+    alive = torch.cat([state.alive, state.alive.new_zeros(
+        (WIDE_SLOTS - K, Y, X))])
+    dead = scn.sink | scn.solid
+    k5_args = (wcfg, state.u, state.v, state.fluid, scn.solid, markers, dt,
+               state.marker_count)
+    marched = k5.advect_markers(*k5_args)
+    check(torch.equal(marched, k5.advect_markers_plain(*k5_args)),
+          f"K5 at K = {WIDE_SLOTS}: the store differs from plain")
+    got = k6.rebin_markers(wcfg, marched, alive, dead)
+    want = k6.rebin_markers_plain(wcfg, marched, alive, dead)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"K6 at K = {WIDE_SLOTS}: store, alive, counts or drops differ "
+          "from plain")
+    n_live = int(state.marker_count.sum())
+    calls = {"K5": lambda: k5.advect_markers(*k5_args),
+             "K6": lambda: k6.rebin_markers(wcfg, marched, alive, dead)}
+    for name, fn in calls.items():
+        res = results[name]
+        res["wide_ms"] = min(cuda_ms(fn, REPS) for _ in range(2))
+        res["wide_device_ms"] = min(device_ms(fn, REPS) for _ in range(2))
+        nbytes, _ = BOUNDS[name](Y * X, 0, n_live, WIDE_SLOTS)
+        log(f"   {name} at K = {WIDE_SLOTS}: bitwise; {res['wide_ms']:.4f} ms "
+            f"a call, device time {res['wide_device_ms']:.4f} ms; bound "
+            f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms by bytes "
+            f"({nbytes / 1e6:.1f} MB)")
 
 
 def run_marker_routes(cfg, summaries, launches, dev, profile_prefix=None):
@@ -1211,10 +1289,9 @@ def run(args) -> dict:
                                      scn.solid)
         b = divergence_rhs(cfg, ut, vt, fl, dt)
         grid_args = (state.u, state.v, fl, pfl, scn.solid)
-        px, py = state.markers[0], state.markers[1]
-        k5_args = (cfg, state.u, state.v, fl, scn.solid, px, py, dt,
+        k5_args = (cfg, state.u, state.v, fl, scn.solid, state.markers, dt,
                    state.marker_count)
-        mpx, mpy = k5.advect_markers(*k5_args)
+        marched = k5.advect_markers(*k5_args)
         padded = k1.pad_slot_store(cfg, state.markers)
         k4_args = (cfg, state.u, state.v, fl, scn.solid, padded, dt,
                    state.marker_count)
@@ -1226,9 +1303,9 @@ def run(args) -> dict:
                                                        dead=dead)),
             "K5": (lambda: k5.advect_markers(*k5_args),
                    lambda: k5.advect_markers_plain(*k5_args)),
-            "K6": (lambda: k6.rebin_markers(cfg, mpx, mpy, state.alive,
+            "K6": (lambda: k6.rebin_markers(cfg, marched, state.alive,
                                             dead),
-                   lambda: k6.rebin_markers_plain(cfg, mpx, mpy,
+                   lambda: k6.rebin_markers_plain(cfg, marched,
                                                   state.alive, dead)),
             "K2": (lambda: k2.project_substep_mg(*k2_args),
                    lambda: k2.project_substep_mg_plain(*k2_args)),
@@ -1251,6 +1328,7 @@ def run(args) -> dict:
         n_live = int(state.marker_count.sum())
         for name, (kern, plain_fn) in pairs.items():
             time_pair(results, name, kern, plain_fn, Y * X, n_live, REPS)
+        time_unfused_wide(cfg, scn, state, dt, results)
 
     for size in LARGE:
         run_large(size, results, summaries, launches, args.profile)
@@ -1261,10 +1339,11 @@ def run(args) -> dict:
             profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
                     "speed")
 
-    with Phase("the Jacobi and K1 / K4 card tests (pytest, "
+    with Phase("the Jacobi and marker card tests (pytest, "
                "tests/test_torch_cuda.py)"):
         torch.cuda.empty_cache()
-        run_card_tests("jacobi or tiles or launch_once")
+        run_card_tests("jacobi or tiles or launch_once or march_bitwise or "
+                       "rebin_bitwise or kernels_store")
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():

@@ -1,6 +1,6 @@
-// The slot-marker pass for Hopper: K1 (march + re-bin) and K4 (K1 over
-// the persistent padded store) as one tiled launch, and the unfused pair
-// that shares its march: K5 (the march alone) and K6 (the re-bin alone).
+// The slot-marker pass for Hopper, one tiled design behind four kernels:
+// K1 (march + re-bin), K4 (K1 over the persistent padded store), and the
+// unfused pair K5 (the march alone) and K6 (the re-bin alone).
 //
 // Replaces the Pallas kernels of euler_tpu/ops/pallas/:
 //   K1  marker_fused_kernel.py `_fused_kernel` via `march_rebin_pallas`;
@@ -12,41 +12,43 @@
 // They compute ops/markers_slots.py advect_markers_slots and
 // refresh_marker_counts_slots (main.c:464-537, 102-117).
 //
-// What bounds them on an H100: bytes.  K1 returns a whole new [2K, Y, X]
-// f32 store (64 MB at 1024², K = 8; slots at and beyond a cell's count are
-// zero), and reads u, v, the masks, the counts and the live positions
-// once.  The arithmetic per marker (two bilinear samples, a <= 4-step
-// DDA) is small.
+// What bounds them on an H100: bytes.  Each returns a whole new [2K, Y, X]
+// f32 store (64 MB at 1024², K = 8): K1, K4 and K6 zero the slots at and
+// beyond a cell's new count, K5 copies its dead slots through (so it also
+// reads the whole store).  The arithmetic per marker (two bilinear
+// samples, a <= 4-step DDA) is small.
 //
-// K1 / K4 (`march_rebin_tiles`): one CTA per tile of TY x TX destination
-// cells.  A marker moves at most one cell a substep (the re-bin clamps
-// every offset to [-1, 1]), so the tile's arrivals all come from the
-// tile and a one-cell halo around it.
-//   0. Load the halo's counts into shared memory.  Where the halo holds a
-//      live marker, take their block-wide exclusive prefix: live marker j
-//      of the halo is slot j - start[s] of the halo cell s with
-//      start[s] <= j < start[s + 1].
-//   1. March every live marker of the halo, one thread per marker (no
-//      thread for a dead slot), into shared memory with its destination
-//      offset as a code 0..8.  A halo marker is marched by every CTA
-//      whose halo holds it; each march is a pure function of its inputs,
-//      so the copies agree bit for bit.
-//   2. One thread per destination cell walks the source cells in
-//      OFFSETS_OWN_FIRST order (own cell, then the 8 neighbours
-//      lexicographically) and each source's live slots in k order,
-//      picking the markers bound for it.  The running count is the
-//      destination slot, so the slot assignment is the plain version's
-//      exactly, with no atomics.  It then writes its K slots plane by
-//      plane (a warp's 32 cells of a tile row on one plane are one
-//      coalesced store), zeros beyond min(run, K), the count and the drop.
-// A tile whose halo holds no live marker skips 1 and the walk of 2 and
-// writes zeros (the Pallas kernel's skip_tile).  No scratch lives in device
-// memory.  The store is addressed through a row pitch and an interior
-// offset (`Store`), so K4 reads and writes the padded store in place and
-// leaves its pads unwritten.
-// K5 marches one thread per (slot, cell) and copies dead slots through;
-// K6 gathers as step 2 does, from device memory, one thread per
-// destination.  K1, K4 and K5 march through one function, `march_marker`.
+// `tile_pass`: one CTA per tile of TY x TX cells.  A marker moves at most
+// one cell a substep (the re-bin clamps every offset to [-1, 1]), so a
+// re-binning tile's arrivals all come from the tile and a one-cell halo
+// around it; K5 needs no halo, a cell's markers stay in its own slots.
+//   0. Each halo cell's live markers: the clamped count (K1, K4, K5: slots
+//      k < count), or a K-bit mask read from the alive plane plane by
+//      plane (K6: any slot may be live, holes included).  Where the halo
+//      holds a live marker, take the block-wide exclusive prefix of the
+//      cells' numbers: live marker j of the halo is the (j - start[s])-th
+//      live slot, in k order, of the halo cell s with start[s] <= j <
+//      start[s + 1].
+//   1. One thread per live marker (no thread for a dead slot) loads its
+//      position, marches it (K1, K4, K5), and keeps it in shared memory
+//      with its destination offset as a code 0..8 (K1, K4, K6).  A halo
+//      marker is marched by every CTA whose halo holds it; each march is a
+//      pure function of its inputs, so the copies agree bit for bit.
+//   2. K1, K4, K6: one thread per destination cell walks the source cells
+//      in OFFSETS_OWN_FIRST order (own cell, then the 8 neighbours
+//      lexicographically) and each source's live markers in k order,
+//      picking those bound for it.  The running count is the destination
+//      slot, so the slot assignment is the plain version's exactly, with
+//      no atomics.  It then writes its K slots plane by plane (a warp's 32
+//      cells of a tile row on one plane are one coalesced store), zeros
+//      beyond min(run, K), K6's alive plane, the count and the drop.
+//      K5: slot k of cell c is the marched pos[start[c] + k] for k <
+//      count, the input slot otherwise, written plane by plane.
+// A tile whose halo holds no live marker skips 1 and the walk of 2: it
+// writes zeros (the Pallas kernels' skip_tile), or K5 copies its slots
+// through.  No scratch lives in device memory.  The store is addressed
+// through a row pitch and an interior offset (`Store`), so K4 reads and
+// writes the padded store in place and leaves its pads unwritten.
 // Built with -fmad=false so every product and sum rounds as the plain
 // PyTorch version's do: positions and counts match it bit for bit.
 #include "common.cuh"
@@ -129,19 +131,13 @@ struct Store {
   }
 };
 
-template <typename T>
-Store<T> planes(T* px, T* py, int Y, int X, bool padded) {
-  const int Yp = padded ? Y + 2 * kPadY : Y, Xp = padded ? X + 2 * kPadX : X;
-  return {px, py, static_cast<long long>(Yp) * Xp, Xp, padded ? kPadY : 0,
-          padded ? kPadX : 0};
-}
-
 // px planes 0..K-1, then py planes K..2K-1
 template <typename T>
 Store<T> slot_store(T* slots, int K, int Y, int X, bool padded) {
-  Store<T> s = planes(slots, slots, Y, X, padded);
-  s.py = slots + K * s.plane;
-  return s;
+  const int Yp = padded ? Y + 2 * kPadY : Y, Xp = padded ? X + 2 * kPadX : X;
+  const long long plane = static_cast<long long>(Yp) * Xp;
+  return {slots, slots + K * plane, plane, Xp, padded ? kPadY : 0,
+          padded ? kPadX : 0};
 }
 
 // March one live marker at (px, py), homed in cell (y, x), through dt:
@@ -218,98 +214,52 @@ __device__ __constant__ int kOffsets[9][2] = {
     {0, 0},  {-1, -1}, {-1, 0}, {-1, 1}, {0, -1},
     {0, 1},  {1, -1},  {1, 0},  {1, 1}};
 
-// K5: one thread per (slot k, cell); dead slots (k >= count) keep their
-// position.
-__global__ void march_kernel(Grid g,
-                             const int32_t* __restrict__ count, int K,
-                             Store<const float> in,
-                             const float* __restrict__ dt_ptr, int iters,
-                             float h, float inv_h, Store<float> out) {
-  const long long plane = static_cast<long long>(g.Y) * g.X;
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (t >= K * plane) return;
-  const int k = static_cast<int>(t / plane);
-  const int cell = static_cast<int>(t - k * plane);
-  const int y = cell / g.X, x = cell - y * g.X;
-  const long long src = in.at(k, y, x), dst = out.at(k, y, x);
-  if (k >= count[cell]) {
-    out.px[dst] = in.px[src];
-    out.py[dst] = in.py[src];
-    return;
-  }
-  const float2 m = march_marker(g, in.px[src], in.py[src], y, x, *dt_ptr,
-                                iters, h, inv_h);
-  out.px[dst] = m.x;
-  out.py[dst] = m.y;
-}
+// Which pass a tile runs.
+enum class Pass {
+  kMarchRebin,  // K1, K4: march, then re-bin by counts
+  kRebin,       // K6: re-bin by the alive plane
+  kMarch,       // K5: march by counts, dead slots copied through
+};
 
-// K6: one thread per destination cell; a source slot takes part where the
-// alive plane says so.  Also writes the new alive plane.
-__global__ void rebin_kernel(int Y, int X, int K,
-                             const uint8_t* __restrict__ alive,
-                             Store<const float> in,
-                             const uint8_t* __restrict__ dead, float inv_h,
-                             Store<float> out,
-                             int32_t* __restrict__ out_count,
-                             int32_t* __restrict__ out_drop,
-                             uint8_t* __restrict__ out_alive) {
-  const long long plane = static_cast<long long>(Y) * X;
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= plane) return;
-  const int y = cell / X, x = cell - y * X;
-  int run = 0;
-  if (!dead[cell]) {
-    for (int o = 0; o < 9; ++o) {
-      const int dy = kOffsets[o][0], dx = kOffsets[o][1];
-      const int sy = y - dy, sx = x - dx;
-      if (sy < 0 || sy >= Y || sx < 0 || sx >= X) continue;
-      const int src = sy * X + sx;
-      for (int k = 0; k < K; ++k) {
-        if (!alive[k * plane + src]) continue;
-        const long long s = in.at(k, sy, sx);
-        const float mx = in.px[s];
-        const float my = in.py[s];
-        if (dest_code(mx, my, sy, sx, inv_h) != (dy + 1) * 3 + dx + 1)
-          continue;
-        if (run < K) {
-          const long long d = out.at(run, y, x);
-          out.px[d] = mx;
-          out.py[d] = my;
-        }
-        ++run;
-      }
-    }
-  }
-  const int kept = min(run, K);
-  for (int d = kept; d < K; ++d) {
-    const long long o = out.at(d, y, x);
-    out.px[o] = 0.0f;
-    out.py[o] = 0.0f;
-  }
-  for (int d = 0; d < K; ++d) out_alive[d * plane + cell] = d < kept;
-  out_count[cell] = kept;
-  out_drop[cell] = run - kept;
-}
-
-// The shared memory of one K1 / K4 tile of TY x TX destination cells and
-// its halo of H = (TY + 2)(TX + 2) source cells, in this order: the
-// marched positions of the halo's live markers in (cell, slot) order, H K
-// float2; the exclusive prefix of the halo's counts, H + 1 ints; the
-// scan's 32 warp sums; each destination's picked markers, slot-major, TY
-// TX K u16 (so H K may not exceed 65536); the destination code of each
-// marched marker, H K bytes.  ops/cuda/marker_fused_kernel.py
+// The shared memory of one tile of TY x TX cells and its halo of H =
+// (TY + 2 halo)(TX + 2 halo) cells (halo 1, or 0 for K5), in this order:
+// the positions of the halo's live markers in (cell, slot) order, H K
+// float2; K6's alive mask of each halo cell, H u64; the exclusive prefix of
+// the halo's numbers of live markers, H + 1 ints; the scan's 32 warp sums;
+// then for the re-bins each destination's picked markers, slot-major, TY TX
+// K u16 (so H K may not exceed 65536), and the destination code of each
+// live marker, H K bytes.  ops/cuda/marker_fused_kernel.py
 // `tile_smem_bytes` computes the same total.
 struct TileLayout {
-  int HX, H, T, K;
-  __host__ __device__ TileLayout(int ty, int tx, int k)
-      : HX(tx + 2), H((ty + 2) * (tx + 2)), T(ty * tx), K(k) {}
+  int halo, HX, H, T, K;
+  bool gather, masks;
+  __host__ __device__ TileLayout(Pass p, int ty, int tx, int k)
+      : halo(p == Pass::kMarch ? 0 : 1),
+        HX(tx + 2 * halo),
+        H((ty + 2 * halo) * HX),
+        T(ty * tx),
+        K(k),
+        gather(p != Pass::kMarch),
+        masks(p == Pass::kRebin) {}
+  __host__ __device__ size_t masks_at() const { return 8ull * H * K; }
+  __host__ __device__ size_t start_at() const {
+    return masks_at() + (masks ? 8ull * H : 0);
+  }
+  __host__ __device__ size_t pick_at() const {
+    return start_at() + 4ull * (H + 1) + 4ull * 32;
+  }
+  __host__ __device__ size_t code_at() const {
+    return pick_at() + (gather ? 2ull * T * K : 0);
+  }
   __host__ __device__ size_t bytes() const {
-    return 9ull * H * K + 4ull * (H + 1) + 4ull * 32 + 2ull * T * K;
+    return code_at() + (gather ? 1ull * H * K : 0);
   }
 };
 
 constexpr int kTileThreadsMax = 512;
+// what a thread loads before it uses any of it: kSlotBatch slots of a
+// cell (K6's alive bytes, K5's copied slots), kMarkerBatch of K6's markers
+constexpr int kSlotBatch = 8, kMarkerBatch = 4;
 
 // Exclusive prefix of a[0..n) in place, with a[n] the total, over the
 // block (blockDim.x a multiple of 32): each thread sums a contiguous run,
@@ -350,87 +300,196 @@ __device__ int exclusive_scan(int* a, int n, int* warp_sum) {
   return total;
 }
 
-// K1 and K4: one CTA per tile (see the top of this file).
-__global__ void __launch_bounds__(kTileThreadsMax, 2)
-march_rebin_tiles(Grid g, const int32_t* __restrict__ count, int K,
-                  Store<const float> in, const float* __restrict__ dt_ptr,
-                  int iters, float h, float inv_h,
-                  const uint8_t* __restrict__ dead, Store<float> out,
-                  int32_t* __restrict__ out_count,
-                  int32_t* __restrict__ out_drop, int TY, int TX) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const TileLayout L(TY, TX, K);
-  float2* pos = reinterpret_cast<float2*>(smem);
-  int* start = reinterpret_cast<int*>(pos + L.H * K);
-  int* warp_sum = start + L.H + 1;
-  uint16_t* pick = reinterpret_cast<uint16_t*>(warp_sum + 32);
-  uint8_t* code = reinterpret_cast<uint8_t*>(pick + L.T * K);
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int Y = g.Y, X = g.X;
-  const int hy0 = blockIdx.y * TY - 1, hx0 = blockIdx.x * TX - 1;
+// The position of the (r + 1)-th set bit of m (r < popcount(m)).
+__device__ __forceinline__ int nth_set_bit(uint64_t m, int r) {
+  for (int i = 0; i < r; ++i) m &= m - 1;
+  return __ffsll(static_cast<long long>(m)) - 1;
+}
 
-  // 0. the halo's counts (0 beyond the grid); where the halo holds a live
-  // marker, their prefix
+// What a tile pass reads and writes; each pass uses its own part.
+struct TileArgs {
+  Grid g;                           // the march's planes (K6: Y, X only)
+  const int32_t* __restrict__ count;  // K1, K4, K5
+  const uint8_t* __restrict__ alive;  // K6: [K, Y, X] 0/1
+  const uint8_t* __restrict__ dead;   // K1, K4, K6
+  const float* __restrict__ dt;       // K1, K4, K5: one f32 on device
+  Store<const float> in;
+  Store<float> out;
+  int32_t* __restrict__ out_count;  // K1, K4, K6
+  int32_t* __restrict__ out_drop;   // K1, K4, K6
+  uint8_t* __restrict__ out_alive;  // K6: [K, Y, X] 0/1
+  int K, iters, TY, TX;
+  float h, inv_h;
+};
+
+// One tile of pass P (see the top of this file).
+template <Pass P>
+__device__ __forceinline__ void tile_pass(const TileArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileLayout L(P, a.TY, a.TX, a.K);
+  float2* pos = reinterpret_cast<float2*>(smem);
+  uint64_t* mask = reinterpret_cast<uint64_t*>(smem + L.masks_at());
+  int* start = reinterpret_cast<int*>(smem + L.start_at());
+  int* warp_sum = start + L.H + 1;
+  uint16_t* pick = reinterpret_cast<uint16_t*>(smem + L.pick_at());
+  uint8_t* code = smem + L.code_at();
+  const int t = threadIdx.x, nt = blockDim.x, K = a.K;
+  const int Y = a.g.Y, X = a.g.X;
+  const long long plane = static_cast<long long>(Y) * X;
+  const int hy0 = blockIdx.y * a.TY - L.halo;
+  const int hx0 = blockIdx.x * a.TX - L.halo;
+
+  // 0. the halo's live markers a cell (none beyond the grid); where the
+  // halo holds one, their prefix
   int any = 0;
   for (int s = t; s < L.H; s += nt) {
     const int y = hy0 + s / L.HX, x = hx0 + s % L.HX;
-    start[s] = (y >= 0 && y < Y && x >= 0 && x < X)
-                   ? min(max(count[y * X + x], 0), K)
-                   : 0;
-    any |= start[s];
+    const bool inside = y >= 0 && y < Y && x >= 0 && x < X;
+    int n;
+    if constexpr (P == Pass::kRebin) {
+      // the alive bytes of kSlotBatch slots loaded at once, then their
+      // bits
+      uint64_t m = 0;
+      for (int k0 = 0; inside && k0 < K; k0 += kSlotBatch) {
+        uint8_t b[kSlotBatch];
+#pragma unroll
+        for (int i = 0; i < kSlotBatch; ++i)
+          b[i] = k0 + i < K ? a.alive[(k0 + i) * plane + y * X + x] : 0;
+#pragma unroll
+        for (int i = 0; i < kSlotBatch; ++i)
+          if (b[i]) m |= 1ull << (k0 + i);
+      }
+      mask[s] = m;
+      n = __popcll(m);
+    } else {
+      n = inside ? min(max(a.count[y * X + x], 0), K) : 0;
+    }
+    start[s] = n;
+    any |= n;
   }
   const bool live = __syncthreads_or(any);
   if (live) {
     const int total = exclusive_scan(start, L.H, warp_sum);
 
-    // 1. march the halo's live markers into shared memory
-    const float dt = *dt_ptr;
-    for (int j = t; j < total; j += nt) {
-      int s = 0, hi = L.H;  // start[s] <= j < start[hi]
-      while (hi - s > 1) {
-        const int mid = (s + hi) >> 1;
-        if (start[mid] <= j) s = mid; else hi = mid;
+    // 1. each live marker's position (marched, but for K6) and
+    // destination code, into shared memory.  K6 loads the positions of
+    // kMarkerBatch markers a thread at once: with no march to wait on,
+    // the loads' latency is its cost.
+    constexpr int B = P == Pass::kRebin ? kMarkerBatch : 1;
+    float dt = 0.0f;
+    if constexpr (P != Pass::kRebin) dt = *a.dt;
+    for (int j0 = t; j0 < total; j0 += B * nt) {
+      int home[B];
+      float2 m[B];
+#pragma unroll
+      for (int i = 0; i < B; ++i) {
+        const int j = j0 + i * nt;
+        if (j >= total) continue;
+        int s = 0, hi = L.H;  // start[s] <= j < start[hi]
+        while (hi - s > 1) {
+          const int mid = (s + hi) >> 1;
+          if (start[mid] <= j) s = mid; else hi = mid;
+        }
+        int k = j - start[s];
+        if constexpr (P == Pass::kRebin) k = nth_set_bit(mask[s], k);
+        const long long src = a.in.at(k, hy0 + s / L.HX, hx0 + s % L.HX);
+        home[i] = s;
+        m[i] = make_float2(a.in.px[src], a.in.py[src]);
       }
-      const int y = hy0 + s / L.HX, x = hx0 + s % L.HX;
-      const long long src = in.at(j - start[s], y, x);
-      const float2 m = march_marker(g, in.px[src], in.py[src], y, x, dt,
-                                    iters, h, inv_h);
-      pos[j] = m;
-      code[j] = static_cast<uint8_t>(dest_code(m.x, m.y, y, x, inv_h));
+#pragma unroll
+      for (int i = 0; i < B; ++i) {
+        const int j = j0 + i * nt;
+        if (j >= total) continue;
+        const int y = hy0 + home[i] / L.HX, x = hx0 + home[i] % L.HX;
+        if constexpr (P != Pass::kRebin)
+          m[i] = march_marker(a.g, m[i].x, m[i].y, y, x, dt, a.iters, a.h,
+                              a.inv_h);
+        pos[j] = m[i];
+        if constexpr (P != Pass::kMarch)
+          code[j] =
+              static_cast<uint8_t>(dest_code(m[i].x, m[i].y, y, x, a.inv_h));
+      }
     }
     __syncthreads();
   }
 
-  // 2. gather each destination's arrivals, then write its slots
+  // 2. write each cell's slots plane by plane
   for (int c = t; c < L.T; c += nt) {
-    const int ty = c / TX, tx = c - ty * TX;
-    const int y = hy0 + 1 + ty, x = hx0 + 1 + tx;
+    const int ty = c / a.TX, tx = c - ty * a.TX;
+    const int y = hy0 + L.halo + ty, x = hx0 + L.halo + tx;
     if (y >= Y || x >= X) continue;
-    const int cell = y * X + x;
-    int run = 0;
-    if (live && !dead[cell]) {
-      for (int o = 0; o < 9; ++o) {
-        const int dy = kOffsets[o][0], dx = kOffsets[o][1];
-        const int s = (ty + 1 - dy) * L.HX + (tx + 1 - dx);
-        const int want = (dy + 1) * 3 + dx + 1;
-        for (int j = start[s]; j < start[s + 1]; ++j) {
-          if (code[j] != want) continue;
-          if (run < K) pick[run * L.T + c] = static_cast<uint16_t>(j);
-          ++run;
+    if constexpr (P == Pass::kMarch) {
+      // the marched live slots, the dead ones copied through (kSlotBatch
+      // slots' loads issued before their stores)
+      const int first = live ? start[c] : 0;
+      const int n = live ? start[c + 1] - first : 0;
+      for (int k0 = 0; k0 < K; k0 += kSlotBatch) {
+        float2 m[kSlotBatch];
+#pragma unroll
+        for (int i = 0; i < kSlotBatch; ++i) {
+          const int k = k0 + i;
+          if (k < n) {
+            m[i] = pos[first + k];
+          } else if (k < K) {
+            const long long src = a.in.at(k, y, x);
+            m[i] = make_float2(a.in.px[src], a.in.py[src]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kSlotBatch && k0 + i < K; ++i) {
+          const long long o = a.out.at(k0 + i, y, x);
+          a.out.px[o] = m[i].x;
+          a.out.py[o] = m[i].y;
         }
       }
+    } else {
+      // gather the arrivals in OFFSETS_OWN_FIRST and k order
+      const int cell = y * X + x;
+      int run = 0;
+      if (live && !a.dead[cell]) {
+        for (int o = 0; o < 9; ++o) {
+          const int dy = kOffsets[o][0], dx = kOffsets[o][1];
+          const int s = (ty + 1 - dy) * L.HX + (tx + 1 - dx);
+          const int want = (dy + 1) * 3 + dx + 1;
+          for (int j = start[s]; j < start[s + 1]; ++j) {
+            if (code[j] != want) continue;
+            if (run < K) pick[run * L.T + c] = static_cast<uint16_t>(j);
+            ++run;
+          }
+        }
+      }
+      const int kept = min(run, K);
+      for (int d = 0; d < K; ++d) {
+        const float2 m =
+            d < kept ? pos[pick[d * L.T + c]] : make_float2(0.0f, 0.0f);
+        const long long o = a.out.at(d, y, x);
+        a.out.px[o] = m.x;
+        a.out.py[o] = m.y;
+      }
+      if constexpr (P == Pass::kRebin)
+        for (int d = 0; d < K; ++d) a.out_alive[d * plane + cell] = d < kept;
+      a.out_count[cell] = kept;
+      a.out_drop[cell] = run - kept;
     }
-    const int kept = min(run, K);
-    for (int d = 0; d < K; ++d) {
-      const float2 m =
-          d < kept ? pos[pick[d * L.T + c]] : make_float2(0.0f, 0.0f);
-      const long long o = out.at(d, y, x);
-      out.px[o] = m.x;
-      out.py[o] = m.y;
-    }
-    out_count[cell] = kept;
-    out_drop[cell] = run - kept;
   }
+}
+
+// K1 and K4
+__global__ void __launch_bounds__(kTileThreadsMax, 2)
+march_rebin_tiles(TileArgs a) {
+  tile_pass<Pass::kMarchRebin>(a);
+}
+
+// K6
+__global__ void __launch_bounds__(kTileThreadsMax, 2)
+rebin_tiles(TileArgs a) {
+  tile_pass<Pass::kRebin>(a);
+}
+
+// K5
+__global__ void __launch_bounds__(kTileThreadsMax, 2)
+march_tiles(TileArgs a) {
+  tile_pass<Pass::kMarch>(a);
 }
 
 Grid make_grid(int Y, int X, const void* u, const void* v,
@@ -440,14 +499,38 @@ Grid make_grid(int Y, int X, const void* u, const void* v,
           static_cast<const uint8_t*>(solid)};
 }
 
-constexpr int kThreads = 256;
-
-// The launch of K1 / K4: tiles_y x tiles_x CTAs of `threads` threads (a
+// A launch of pass P: tiles_y x tiles_x CTAs of `threads` threads (a
 // multiple of 32, at most kTileThreadsMax), each a tile of tile_y x tile_x
 // cells; the tiles must cover the grid.
 struct TilePlan {
   int tile_y, tile_x, tiles_y, tiles_x, threads;
 };
+
+template <Pass P>
+int launch_tiles(void (*kernel)(TileArgs), TileArgs a, TilePlan p,
+                 void* stream) {
+  const TileLayout L(P, p.tile_y, p.tile_x, a.K);
+  if (p.tile_y < 1 || p.tile_x < 1 || a.K < 1 ||
+      (L.gather && L.H * a.K > 65536) || (L.masks && a.K > 64) ||
+      static_cast<long long>(p.tiles_y) * p.tile_y < a.g.Y ||
+      static_cast<long long>(p.tiles_x) * p.tile_x < a.g.X ||
+      p.threads < 32 || p.threads > kTileThreadsMax || p.threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = L.bytes();
+  static size_t allowed = 48 * 1024;  // without the opt-in below
+  if (bytes > allowed) {
+    const int rc = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes)));
+    if (rc) return rc;
+    allowed = bytes;
+  }
+  a.TY = p.tile_y;
+  a.TX = p.tile_x;
+  kernel<<<dim3(p.tiles_x, p.tiles_y), p.threads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return eu_launch_status();
+}
 
 // K1 (padded = false) and K4 (padded = true); `slots` and `out` share the
 // layout.
@@ -456,32 +539,20 @@ int march_rebin(bool padded, int Y, int X, int K, int iters, float h,
                 const void* fluid, const void* solid, const void* dead,
                 const void* slots, const void* dt, void* out,
                 void* out_count, void* out_drop, TilePlan p, void* stream) {
-  const TileLayout L(p.tile_y, p.tile_x, K);
-  if (p.tile_y < 1 || p.tile_x < 1 || K < 1 || L.H * K > 65536 ||
-      static_cast<long long>(p.tiles_y) * p.tile_y < Y ||
-      static_cast<long long>(p.tiles_x) * p.tile_x < X ||
-      p.threads < 32 || p.threads > kTileThreadsMax || p.threads % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = L.bytes();
-  static size_t allowed = 48 * 1024;  // without the opt-in below
-  if (bytes > allowed) {
-    const int rc = static_cast<int>(cudaFuncSetAttribute(
-        march_rebin_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes)));
-    if (rc) return rc;
-    allowed = bytes;
-  }
-  march_rebin_tiles<<<dim3(p.tiles_x, p.tiles_y), p.threads, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      make_grid(Y, X, u, v, fluid, solid),
-      static_cast<const int32_t*>(count), K,
-      slot_store(static_cast<const float*>(slots), K, Y, X, padded),
-      static_cast<const float*>(dt), iters, h, inv_h,
-      static_cast<const uint8_t*>(dead),
-      slot_store(static_cast<float*>(out), K, Y, X, padded),
-      static_cast<int32_t*>(out_count), static_cast<int32_t*>(out_drop),
-      p.tile_y, p.tile_x);
-  return eu_launch_status();
+  TileArgs a{};
+  a.g = make_grid(Y, X, u, v, fluid, solid);
+  a.count = static_cast<const int32_t*>(count);
+  a.dead = static_cast<const uint8_t*>(dead);
+  a.dt = static_cast<const float*>(dt);
+  a.in = slot_store(static_cast<const float*>(slots), K, Y, X, padded);
+  a.out = slot_store(static_cast<float*>(out), K, Y, X, padded);
+  a.out_count = static_cast<int32_t*>(out_count);
+  a.out_drop = static_cast<int32_t*>(out_drop);
+  a.K = K;
+  a.iters = iters;
+  a.h = h;
+  a.inv_h = inv_h;
+  return launch_tiles<Pass::kMarchRebin>(march_rebin_tiles, a, p, stream);
 }
 
 }  // namespace
@@ -518,41 +589,47 @@ EU_API int eu_march_rebin_padded(int Y, int X, int K, int iters, float h,
                      {tile_y, tile_x, tiles_y, tiles_x, threads}, stream);
 }
 
-// K5: px, py, out_px, out_py [K, Y, X] f32.  Slots k < count are marched,
-// the rest keep their position.
+// K5: slots, out [2K, Y, X] f32 (the [2, K, Y, X] store).  Slots k < count
+// are marched, the rest keep their position.  The tile plan as K1's, for
+// K5's layout.
 EU_API int eu_march(int Y, int X, int K, int iters, float h, float inv_h,
                     const void* u, const void* v, const void* count,
-                    const void* fluid, const void* solid, const void* px,
-                    const void* py, const void* dt, void* out_px,
-                    void* out_py, void* stream) {
-  const long long n = static_cast<long long>(K) * Y * X;
-  march_kernel<<<eu_blocks(n, kThreads), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      make_grid(Y, X, u, v, fluid, solid),
-      static_cast<const int32_t*>(count), K,
-      planes(static_cast<const float*>(px), static_cast<const float*>(py), Y,
-             X, false),
-      static_cast<const float*>(dt), iters, h, inv_h,
-      planes(static_cast<float*>(out_px), static_cast<float*>(out_py), Y, X,
-             false));
-  return eu_launch_status();
+                    const void* fluid, const void* solid, const void* slots,
+                    const void* dt, void* out, int tile_y, int tile_x,
+                    int tiles_y, int tiles_x, int threads, void* stream) {
+  TileArgs a{};
+  a.g = make_grid(Y, X, u, v, fluid, solid);
+  a.count = static_cast<const int32_t*>(count);
+  a.dt = static_cast<const float*>(dt);
+  a.in = slot_store(static_cast<const float*>(slots), K, Y, X, false);
+  a.out = slot_store(static_cast<float*>(out), K, Y, X, false);
+  a.K = K;
+  a.iters = iters;
+  a.h = h;
+  a.inv_h = inv_h;
+  return launch_tiles<Pass::kMarch>(
+      march_tiles, a, {tile_y, tile_x, tiles_y, tiles_x, threads}, stream);
 }
 
-// K6: px, py, out_px, out_py [K, Y, X] f32; alive, out_alive [K, Y, X] u8
-// (0/1); dead [Y, X] u8; out_count, out_drop [Y, X] i32.
-EU_API int eu_rebin(int Y, int X, int K, float inv_h, const void* px,
-                    const void* py, const void* alive, const void* dead,
-                    void* out_px, void* out_py, void* out_alive,
-                    void* out_count, void* out_drop, void* stream) {
-  rebin_kernel<<<eu_blocks(static_cast<long long>(Y) * X, kThreads),
-                 kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      Y, X, K, static_cast<const uint8_t*>(alive),
-      planes(static_cast<const float*>(px), static_cast<const float*>(py), Y,
-             X, false),
-      static_cast<const uint8_t*>(dead), inv_h,
-      planes(static_cast<float*>(out_px), static_cast<float*>(out_py), Y, X,
-             false),
-      static_cast<int32_t*>(out_count), static_cast<int32_t*>(out_drop),
-      static_cast<uint8_t*>(out_alive));
-  return eu_launch_status();
+// K6: slots, out [2K, Y, X] f32; alive, out_alive [K, Y, X] u8 (0/1; any
+// slot may be alive); dead [Y, X] u8; out_count, out_drop [Y, X] i32.  The
+// tile plan as K1's, for K6's layout.
+EU_API int eu_rebin(int Y, int X, int K, float inv_h, const void* slots,
+                    const void* alive, const void* dead, void* out,
+                    void* out_alive, void* out_count, void* out_drop,
+                    int tile_y, int tile_x, int tiles_y, int tiles_x,
+                    int threads, void* stream) {
+  TileArgs a{};
+  a.g = make_grid(Y, X, nullptr, nullptr, nullptr, nullptr);
+  a.alive = static_cast<const uint8_t*>(alive);
+  a.dead = static_cast<const uint8_t*>(dead);
+  a.in = slot_store(static_cast<const float*>(slots), K, Y, X, false);
+  a.out = slot_store(static_cast<float*>(out), K, Y, X, false);
+  a.out_alive = static_cast<uint8_t*>(out_alive);
+  a.out_count = static_cast<int32_t*>(out_count);
+  a.out_drop = static_cast<int32_t*>(out_drop);
+  a.K = K;
+  a.inv_h = inv_h;
+  return launch_tiles<Pass::kRebin>(
+      rebin_tiles, a, {tile_y, tile_x, tiles_y, tiles_x, threads}, stream);
 }

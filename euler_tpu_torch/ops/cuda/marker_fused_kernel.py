@@ -1,6 +1,6 @@
 """K1 and K4: the fused marker pass
-(`euler_tpu/ops/pallas/marker_fused_kernel.py`), and the loader of the
-marker library that K5 and K6 share.
+(`euler_tpu/ops/pallas/marker_fused_kernel.py`), the tile plan that K1,
+K4, K5 and K6 share, and the loader of their library.
 
 `march_rebin` replaces the Pallas kernel `_fused_kernel` launched by
 `march_rebin_pallas` (marker_fused_kernel.py:823-970), same contract:
@@ -17,8 +17,10 @@ markers of the tile and a one-cell halo into shared memory, then
 re-bins from there as a per-destination gather in OFFSETS_OWN_FIRST
 order, which needs no atomics and gives the plain version's slot
 assignment exactly; it is built with -fmad=false so positions match the
-plain version bit for bit.  `tile_plan` sizes the tiles for (Y, X, K).
-With dt = 0 the pass is a bitwise identity on the store.
+plain version bit for bit.  `tile_plan` sizes the tiles for (Y, X, K)
+and the kernel: K5 (`marker_kernel`) and K6 (`rebin_kernel`) run the
+same tiled pass with a layout of their own.  With dt = 0 the pass is a
+bitwise identity on the store.
 
 `march_rebin_plain` is the plain version: `markers_slots.march_slots`
 followed by `markers_slots.rebin_slots`.
@@ -54,23 +56,33 @@ from euler_tpu_torch.ops.markers_slots import (
 # [2K, Y + 2 PAD_Y, X + 2 PAD_X]
 PAD_Y, PAD_X = 8, 128
 
-# K1 / K4 tiles: TILE_X cells wide (a warp's stores of one slot plane are
-# one tile row), TILE_THREADS threads a CTA, and the tallest of TILE_YS
-# that leaves room for a second CTA on an H100 SM (the kernel asks for two
-# CTAs an SM at most 64 registers a thread), else the tallest that fits
-# alone.  A CTA may use 227 KB of shared memory, an SM holds 228 KB and
-# keeps 1 KB of it for each CTA.
+# The marker tiles are TILE_X cells wide (a warp's stores of one slot
+# plane are one tile row).  K1 / K4: TILE_THREADS threads a CTA and the
+# tallest of TILE_YS that leaves room for a second CTA on an H100 SM, else
+# the tallest that fits alone.  K5 / K6: the (rows, threads) of
+# UNFUSED_TILES that keeps the most threads resident on an SM, the first
+# on a tie (smaller CTAs overlap more of each other's load latency).  The
+# kernels ask for at most REGISTERS_MAX registers a thread; an SM holds
+# SM_REGISTERS registers and SM_THREADS threads.  A CTA may use 227 KB of
+# shared memory, an SM holds 228 KB and keeps 1 KB of it for each CTA.
 TILE_X = 32
 TILE_YS = (32, 16, 8)
 TILE_THREADS = 512
+UNFUSED_TILES = ((8, 256), (16, 512), (32, 512))
+REGISTERS_MAX = 64
+SM_REGISTERS = 65_536
+SM_THREADS = 2_048
 SMEM_BYTES_MAX = 232_448
 SM_SMEM_BYTES = 233_472
 CTA_RESERVED_BYTES = 1_024
+# the kernels of the tiled pass (csrc/marker_pass.cu `Pass`): K1 and K4
+# march and re-bin, K6 re-bins by the alive plane, K5 marches
+TILE_KERNELS = ("K1", "K4", "K5", "K6")
 
 
 class TilePlan(NamedTuple):
-    """K1 / K4's launch (csrc/marker_pass.cu `TilePlan`) and the shared
-    memory of one CTA."""
+    """A marker kernel's launch (csrc/marker_pass.cu `TilePlan`) and the
+    shared memory of one CTA."""
     tile_y: int
     tile_x: int
     tiles_y: int  # CTAs down the grid
@@ -79,38 +91,68 @@ class TilePlan(NamedTuple):
     smem_bytes: int
 
 
-def tile_smem_bytes(tile_y: int, tile_x: int, K: int) -> int:
-    """The shared memory of one tile (csrc/marker_pass.cu `TileLayout`):
-    the halo's H = (tile_y + 2)(tile_x + 2) cells hold up to H K live
-    markers, each a marched position (8 bytes) and a destination code (1);
-    the prefix of the halo's counts (H + 1 ints) and 32 warp sums; each
-    destination cell's K picks (2 bytes each)."""
-    h = (tile_y + 2) * (tile_x + 2)
-    return 9 * h * K + 4 * (h + 1) + 4 * 32 + 2 * tile_y * tile_x * K
+def tile_smem_bytes(tile_y: int, tile_x: int, K: int,
+                    kernel: str = "K1") -> int:
+    """The shared memory of one tile of `kernel` (csrc/marker_pass.cu
+    `TileLayout`).  The re-bins (K1, K4, K6) read a one-cell halo, K5
+    none: the tile's H = (tile_y + 2 halo)(tile_x + 2 halo) cells hold up
+    to H K live markers, each a position (8 bytes) and, for the re-bins, a
+    destination code (1); the prefix of the cells' live numbers (H + 1
+    ints) and 32 warp sums; for the re-bins each destination cell's K
+    picks (2 bytes each); for K6 each halo cell's alive mask (8 bytes)."""
+    if kernel not in TILE_KERNELS:
+        raise ValueError(f"no tiled marker kernel {kernel!r}")
+    halo = 0 if kernel == "K5" else 1
+    h = (tile_y + 2 * halo) * (tile_x + 2 * halo)
+    nbytes = 8 * h * K + 4 * (h + 1) + 4 * 32
+    if kernel != "K5":
+        nbytes += h * K + 2 * tile_y * tile_x * K
+    if kernel == "K6":
+        nbytes += 8 * h
+    return nbytes
 
 
-def tile_plan(Y: int, X: int, K: int) -> TilePlan:
-    """K1 / K4's launch over a [Y, X] grid with K slots a cell: tiles of
+def resident_ctas(tile_y: int, threads: int, K: int, kernel: str) -> int:
+    """The CTAs of `kernel`'s tiles of tile_y x TILE_X cells and `threads`
+    threads that an H100 SM holds at once (0: the tile does not fit a
+    CTA: its shared memory, or a re-bin's 16-bit halo marker index, or
+    K6's 64-bit alive mask)."""
+    nbytes = tile_smem_bytes(tile_y, TILE_X, K, kernel)
+    if (nbytes > SMEM_BYTES_MAX
+            or (kernel != "K5" and (tile_y + 2) * (TILE_X + 2) * K > 2**16)
+            or (kernel == "K6" and K > 64)):
+        return 0
+    return min(SM_SMEM_BYTES // (nbytes + CTA_RESERVED_BYTES),
+               SM_REGISTERS // (threads * REGISTERS_MAX),
+               SM_THREADS // threads)
+
+
+def tile_plan(Y: int, X: int, K: int, kernel: str = "K1") -> TilePlan:
+    """`kernel`'s launch over a [Y, X] grid with K slots a cell: tiles of
     tile_y x TILE_X cells (the ragged edge tiles are masked in the
-    kernel).  Raises when no tile height of TILE_YS fits: the kernel
-    addresses a halo marker in 16 bits and a CTA's shared memory is
-    bounded."""
-    def fits(ty, ctas):
-        nbytes = tile_smem_bytes(ty, TILE_X, K)
-        return (nbytes <= SMEM_BYTES_MAX
-                and ctas * (nbytes + CTA_RESERVED_BYTES) <= SM_SMEM_BYTES
-                and (ty + 2) * (TILE_X + 2) * K <= 2**16)
-
-    for ctas in (2, 1):
-        for ty in TILE_YS:
-            if fits(ty, ctas):
-                return TilePlan(ty, TILE_X, -(-Y // ty), -(-X // TILE_X),
-                                TILE_THREADS, tile_smem_bytes(ty, TILE_X, K))
-    raise ValueError(
-        f"slots_per_cell {K}: a tile of {TILE_YS[-1]} x {TILE_X} cells "
-        f"needs {tile_smem_bytes(TILE_YS[-1], TILE_X, K)} bytes of shared "
-        f"memory, more than the {SMEM_BYTES_MAX} a block may use on an "
-        "H100")
+    kernel), chosen as the comment above TILE_X says.  Raises when no
+    tile fits a CTA."""
+    if kernel in ("K5", "K6"):
+        fits = [(resident_ctas(ty, n, K, kernel) * n, -i, ty, n)
+                for i, (ty, n) in enumerate(UNFUSED_TILES)]
+        resident, _, ty, threads = max(fits)
+    else:
+        resident, threads = 0, TILE_THREADS
+        for ctas in (2, 1):
+            ty = next((ty for ty in TILE_YS if resident_ctas(
+                ty, threads, K, kernel) >= ctas), None)
+            if ty is not None:
+                resident = ctas
+                break
+    if not resident:
+        ty = UNFUSED_TILES[0][0] if kernel in ("K5", "K6") else TILE_YS[-1]
+        raise ValueError(
+            f"{kernel} with slots_per_cell {K}: a tile of {ty} x {TILE_X} "
+            f"cells needs {tile_smem_bytes(ty, TILE_X, K, kernel)} bytes "
+            f"of shared memory, more than the {SMEM_BYTES_MAX} a block may "
+            "use on an H100, or more halo markers than 16 bits index")
+    return TilePlan(ty, TILE_X, -(-Y // ty), -(-X // TILE_X), threads,
+                    tile_smem_bytes(ty, TILE_X, K, kernel))
 
 
 def march_rebin_plain(cfg: SimConfig, u, v, fluid, solid, slots, dt, count,
@@ -134,8 +176,9 @@ def marker_lib():
     for name in ("eu_march_rebin", "eu_march_rebin_padded"):
         _build.bind(lib, name, [I, I, I, I, Fl, Fl] + [P] * 11 + [I] * 5
                     + [P])
-    _build.bind(lib, "eu_march", [I, I, I, I, Fl, Fl] + [P] * 11)
-    _build.bind(lib, "eu_rebin", [I, I, I, Fl] + [P] * 10)
+    _build.bind(lib, "eu_march", [I, I, I, I, Fl, Fl] + [P] * 8 + [I] * 5
+                + [P])
+    _build.bind(lib, "eu_rebin", [I, I, I, Fl] + [P] * 7 + [I] * 5 + [P])
     return lib
 
 

@@ -3,19 +3,21 @@
 `advect_markers` replaces the Pallas kernel `_march_kernel` launched by
 `advect_markers_pallas` (marker_kernel.py:286-352), the march of the
 unfused marker pass (`fuse_marker_pass=False`): velocity interpolation,
-the DDA collision march (main.c:464-537) and the advance.  px, py
-[K, Y, X] and the live count per cell in; (px', py') out.  Slot k of a
-cell is marched when k < count; every other slot keeps its input
+the DDA collision march (main.c:464-537) and the advance.  The [2, K, Y,
+X] marker store and the live count per cell in; a new store out.  Slot k
+of a cell is marched when k < count; every other slot keeps its input
 position, as `markers_slots.advect_markers_slots` keeps it (the Pallas
-kernel copies slots >= its tile's largest count through), so the output
-is a whole new store.
+kernel copies slots >= its tile's largest count through).
 
 On an H100 the march is bound by bytes: it reads and writes the whole
 store (64 MB each way at 1024², K = 8).  The CUDA source
-(`csrc/marker_pass.cu` `march_kernel`) runs one thread per slot, marches
-a live slot through K1's `march_marker` and copies a dead one; it is
-built with -fmad=false, so positions match the plain version bit for
-bit.  With dt = 0 it is a bitwise identity.
+(`csrc/marker_pass.cu` `march_tiles`) is K1's tiled pass without a halo:
+one CTA per tile takes the block prefix of its cells' counts, marches
+one thread per live marker (none for a dead slot) through K1's
+`march_marker` into shared memory, and writes the store plane by plane,
+the dead slots copied through.  Built with -fmad=false, so positions
+match the plain version bit for bit.  With dt = 0 it is a bitwise
+identity.
 
 `advect_markers_plain` is the plain version: `markers_slots.march_slots`
 on `live_slots(count)`.
@@ -28,31 +30,30 @@ import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
-from euler_tpu_torch.ops.cuda.marker_fused_kernel import marker_lib
+from euler_tpu_torch.ops.cuda.marker_fused_kernel import marker_lib, tile_plan
 from euler_tpu_torch.ops.markers_slots import live_slots, march_slots
 
 
-def advect_markers_plain(cfg: SimConfig, u, v, fluid, solid, px, py, dt,
+def advect_markers_plain(cfg: SimConfig, u, v, fluid, solid, markers, dt,
                          count):
     """The march as plain PyTorch ops."""
-    return march_slots(cfg, u, v, fluid, solid, px, py,
-                       live_slots(count, px.shape[0]), dt)
+    return torch.stack(march_slots(cfg, u, v, fluid, solid, markers[0],
+                                   markers[1],
+                                   live_slots(count, markers.shape[1]), dt))
 
 
-def advect_markers(cfg: SimConfig, u, v, fluid, solid, px, py, dt, count):
-    """The marker march.  Returns (px', py') [K, Y, X].  CUDA tensors run
-    the kernel; CPU tensors the plain version."""
-    if px.device.type == "cpu":
+def advect_markers(cfg: SimConfig, u, v, fluid, solid, markers, dt, count):
+    """The marker march.  Returns the new [2, K, Y, X] store.  CUDA tensors
+    run the kernel; CPU tensors the plain version."""
+    if markers.device.type == "cpu":
         _build.PLAIN_CALLS["K5"] += 1
-        return advect_markers_plain(cfg, u, v, fluid, solid, px, py, dt,
+        return advect_markers_plain(cfg, u, v, fluid, solid, markers, dt,
                                     count)
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
     f = torch.float32
-    dev = px.device
+    dev = markers.device
     plane = (Y, X)
-    store = (K, Y, X)
-    p_px = _build.require(px, "px", f, store, dev)
-    p_py = _build.require(py, "py", f, store, dev)
+    p_markers = _build.require(markers, "markers", f, (2, K, Y, X), dev)
     p_u = _build.require(u, "u", f, plane, dev)
     p_v = _build.require(v, "v", f, plane, dev)
     p_count = _build.require(count, "count", torch.int32, plane, dev)
@@ -60,14 +61,15 @@ def advect_markers(cfg: SimConfig, u, v, fluid, solid, px, py, dt, count):
     p_solid = _build.require(solid, "solid", torch.bool, plane, dev)
     p_dt = _build.require(dt, "dt", f, (), dev)
 
-    out = torch.empty((2, K, Y, X), dtype=f, device=dev)
+    plan = tile_plan(Y, X, K, "K5")
+    out = torch.empty_like(markers)
     h = np.float32(cfg.side_length)
     lib = marker_lib()
     _build.LAUNCHES["K5"] += 1
     rc = lib.eu_march(
         Y, X, K, cfg.marker_march_iters, float(h),
         float(np.float32(1.0) / h), p_u, p_v, p_count, p_fluid, p_solid,
-        p_px, p_py, p_dt, out[0].data_ptr(), out[1].data_ptr(),
-        _build.stream())
+        p_markers, p_dt, out.data_ptr(), plan.tile_y, plan.tile_x,
+        plan.tiles_y, plan.tiles_x, plan.threads, _build.stream())
     _build.check(lib, rc, "eu_march")
-    return out[0], out[1]
+    return out

@@ -38,11 +38,6 @@ OFFSETS_OWN_FIRST = [(0, 0)] + [
 ]
 
 
-def slot_views(cfg: SimConfig, state: FluidState):
-    """(px [K,Y,X], py [K,Y,X], valid [K,Y,X]) views of the marker store."""
-    return state.markers[0], state.markers[1], state.alive
-
-
 def live_slots(count, K: int):
     """Front-compacted validity: slot k of a cell is live iff k < count."""
     k = torch.arange(K, dtype=count.dtype, device=count.device)
@@ -194,26 +189,27 @@ def advect_markers_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
                          dt):
     """The march alone through the K5 wrapper (the CUDA kernel on CUDA
     tensors, its plain version on CPU tensors): slots k < marker_count
-    are marched, the rest keep their position."""
+    are marched, the rest keep their position.  The wrapper's new store
+    becomes `state.markers` as it is."""
     from euler_tpu_torch.ops.cuda.marker_kernel import advect_markers
 
-    px, py, _alive = slot_views(cfg, state)
-    opx, opy = advect_markers(cfg, state.u, state.v, state.fluid, scn.solid,
-                              px, py, dt, state.marker_count)
-    return state.replace(markers=torch.stack([opx, opy]))
+    return state.replace(markers=advect_markers(
+        cfg, state.u, state.v, state.fluid, scn.solid, state.markers, dt,
+        state.marker_count))
 
 
 def refresh_marker_counts_slots(cfg: SimConfig, scn: Scenario,
                                 state: FluidState):
     """Re-bin, drop markers in sink/solid cells and recount, through the
-    K6 wrapper, on the state's alive plane; writes the new alive plane."""
+    K6 wrapper, on the state's alive plane; writes the new alive plane.
+    The wrapper's new store becomes `state.markers` as it is."""
     from euler_tpu_torch.ops.cuda.rebin_kernel import rebin_markers
 
-    px, py, alive = slot_views(cfg, state)
-    opx, opy, alive, count, drop = rebin_markers(cfg, px, py, alive,
-                                                 scn.sink | scn.solid)
+    markers, alive, count, drop = rebin_markers(cfg, state.markers,
+                                                state.alive,
+                                                scn.sink | scn.solid)
     return state.replace(
-        markers=torch.stack([opx, opy]),
+        markers=markers,
         alive=alive,
         prev_marker_count=state.marker_count,
         marker_count=count,

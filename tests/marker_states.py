@@ -1,6 +1,7 @@
-"""Seeded slot-marker states for the K1 / K4 tests, made with numpy and
-importing nothing of JAX (tests/test_torch_marker_tiles.py on the CPU,
-tests/test_torch_cuda.py on the card).
+"""Seeded slot-marker states for the tests of the marker kernels K1, K4,
+K5 and K6, made with numpy and importing nothing of JAX
+(tests/test_torch_marker_tiles.py on the CPU, tests/test_torch_cuda.py
+on the card).
 
 `marker_state(Y, X, K, fill, seed)` gives the inputs of
 `march_rebin(cfg, u, v, fluid, solid, slots, dt, count, dead=dead)`:
@@ -14,6 +15,17 @@ across edges and corners.  `fill`:
   "full": every open cell holds K markers, so that cells receiving
           arrivals overflow and drop;
   "empty": no marker at all.
+With `stale=True` the dead slots hold seeded positions in their cell (as
+in a store that K5 copied through) instead of zeros.
+
+`rebin_state(Y, X, K, fill, seed, holes)` gives the inputs of the re-bin
+`rebin_markers(cfg, markers, alive, dead)`: marker_state's live markers
+marched one substep by the plain march.  With `holes=True` the alive
+plane is not front-compacted: a seeded 30% of its live slots are cleared
+and, but for fill "empty", 10% of the dead slots are set alive with a
+position in their cell (marched too), so that live slots lie beyond a
+cell's count.  Every live marker stays within one cell of its home, as
+the CFL limit keeps it.
 """
 
 from __future__ import annotations
@@ -22,14 +34,24 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.config import SimConfig
+from euler_tpu_torch.ops.markers_slots import live_slots, march_slots
 
 
 def marker_config(Y: int, X: int, K: int) -> SimConfig:
     return SimConfig(nx=X, ny=Y, marker_layout="slots", slots_per_cell=K)
 
 
+def _in_cell(rng, shape, h):
+    """Seeded positions (px, py) [K, Y, X] inside each slot's cell."""
+    K, Y, X = shape
+    ys, xs = np.mgrid[0:Y, 0:X].astype(np.float32)
+    px = ((xs[None] + rng.uniform(0.02, 0.98, shape)) * h).astype(np.float32)
+    py = ((ys[None] + rng.uniform(0.02, 0.98, shape)) * h).astype(np.float32)
+    return px, py
+
+
 def marker_state(Y: int, X: int, K: int, fill: str = "mixed",
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cpu", stale: bool = False):
     """(cfg, u, v, fluid, solid, slots [2K, Y, X], dt, count, dead)."""
     rng = np.random.default_rng(seed)
     cfg = marker_config(Y, X, K)
@@ -52,13 +74,14 @@ def marker_state(Y: int, X: int, K: int, fill: str = "mixed",
     count[solid | sink] = 0  # a pass deletes what a dead cell holds
     k = np.arange(K)[:, None, None]
     live = k < count[None]
-    ys, xs = np.mgrid[0:Y, 0:X].astype(np.float32)
-    px = ((xs[None] + rng.uniform(0.02, 0.98, (K, Y, X))) * h).astype(
-        np.float32)
-    py = ((ys[None] + rng.uniform(0.02, 0.98, (K, Y, X))) * h).astype(
-        np.float32)
-    px[~live] = 0.0
-    py[~live] = 0.0
+    px, py = _in_cell(rng, (K, Y, X), h)
+    if stale:
+        spx, spy = _in_cell(np.random.default_rng(seed + 1), (K, Y, X), h)
+        px[~live] = spx[~live]
+        py[~live] = spy[~live]
+    else:
+        px[~live] = 0.0
+        py[~live] = 0.0
     speed = np.float32(0.9) * h  # cells a substep at dt = 1
     u = rng.uniform(-1.0, 1.0, (Y, X)).astype(np.float32) * speed
     v = rng.uniform(-1.0, 1.0, (Y, X)).astype(np.float32) * speed
@@ -71,3 +94,25 @@ def marker_state(Y: int, X: int, K: int, fill: str = "mixed",
     return (cfg, t(u), t(v), count_t > 0, t(solid), t(slots),
             torch.ones((), dtype=torch.float32, device=device), count_t,
             t(sink | solid))
+
+
+def rebin_state(Y: int, X: int, K: int, fill: str = "mixed", seed: int = 0,
+                holes: bool = False, device="cpu"):
+    """(cfg, markers [2, K, Y, X], alive [K, Y, X], dead)."""
+    cfg, u, v, fluid, solid, slots, dt, count, dead = marker_state(
+        Y, X, K, fill, seed)
+    live = live_slots(count, K)
+    alive = live
+    px, py = slots[:K], slots[K:]
+    if holes:
+        rng = np.random.default_rng(seed + 2)
+        alive = live & torch.as_tensor(rng.random((K, Y, X)) >= 0.3)
+        if fill != "empty":
+            extra = ~live & torch.as_tensor(rng.random((K, Y, X)) < 0.1)
+            spx, spy = _in_cell(rng, (K, Y, X), np.float32(cfg.side_length))
+            px = torch.where(extra, torch.as_tensor(spx), px)
+            py = torch.where(extra, torch.as_tensor(spy), py)
+            alive = alive | extra
+    px, py = march_slots(cfg, u, v, fluid, solid, px, py, alive, dt)
+    return (cfg, torch.stack([px, py]).to(device), alive.to(device),
+            dead.to(device))

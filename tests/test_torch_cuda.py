@@ -25,10 +25,11 @@ from euler_tpu_torch.ops.cuda import pcg_kernel as k89
 from euler_tpu_torch.ops.cuda import pcg_stream_kernel as k12
 from euler_tpu_torch.ops.cuda import rebin_kernel as k6
 from euler_tpu_torch.ops.cuda import substep_kernel as k2
+from euler_tpu_torch.ops import markers_slots as tms
 from euler_tpu_torch.ops.forces import max_speed_sq
 from euler_tpu_torch.ops.project import divergence_rhs, pressure_matrix_diag
 
-from marker_states import marker_state
+from marker_states import marker_state, rebin_state
 
 pytestmark = pytest.mark.cuda
 
@@ -101,28 +102,120 @@ def _marker_args(developed, zero_dt):
 def test_march_bitwise(developed, zero_dt):
     """K5: every slot, live and dead, bitwise; dt = 0 is an identity."""
     cfg, scn, st, dt, args = _marker_args(developed, zero_dt)
-    px, py = st.markers[0], st.markers[1]
-    got = k5.advect_markers(*args, px, py, dt, st.marker_count)
-    want = k5.advect_markers_plain(*args, px, py, dt, st.marker_count)
-    for a, b, was in zip(got, want, (px, py)):
-        assert torch.equal(a, b)
-        assert torch.equal(a, was) == zero_dt
+    got = k5.advect_markers(*args, st.markers, dt, st.marker_count)
+    want = k5.advect_markers_plain(*args, st.markers, dt, st.marker_count)
+    assert got.shape == st.markers.shape and torch.equal(got, want)
+    assert torch.equal(got, st.markers) == zero_dt
+
+
+def _holed(alive, seed):
+    """`alive` with a seeded 30% of its live slots cleared: holes, so the
+    plane is not front-compacted (every live marker keeps a real
+    position)."""
+    g = torch.Generator(device=alive.device).manual_seed(seed)
+    keep = torch.rand(alive.shape, generator=g, device=alive.device) >= 0.3
+    return alive & keep
+
+
+@pytest.mark.parametrize("alive", ["state", "holes"])
+@pytest.mark.parametrize("zero_dt", [False, True])
+def test_rebin_bitwise(developed, zero_dt, alive):
+    """K6 on K5's output with the state's alive plane, and with one with
+    holes: the whole store, alive, counts and drops bitwise."""
+    cfg, scn, st, dt, args = _marker_args(developed, zero_dt)
+    marched = k5.advect_markers(*args, st.markers, dt, st.marker_count)
+    valid = st.alive if alive == "state" else _holed(st.alive, 9)
+    if alive == "holes":
+        count = valid.sum(0, dtype=torch.int32)
+        front = tms.live_slots(count, cfg.slots_per_cell)
+        assert not torch.equal(valid, front)
+    dead = scn.sink | scn.solid
+    got = k6.rebin_markers(cfg, marched, valid, dead)
+    want = k6.rebin_markers_plain(cfg, marched, valid, dead)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if zero_dt and alive == "state":
+        assert torch.equal(got[0], st.markers)
+        assert torch.equal(got[2], st.marker_count)
+
+
+# K5 and K6 on seeded states (tests/marker_states.py): ragged grids at K =
+# 8 and 16, cells driven over K, an empty store
+UNFUSED_CASES = [(100, 136, 8, "mixed"), (100, 136, 16, "full"),
+                 (257, 130, 8, "full"), (257, 130, 16, "mixed"),
+                 (257, 130, 8, "empty")]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
 @pytest.mark.parametrize("zero_dt", [False, True])
-def test_rebin_bitwise(developed, zero_dt):
-    """K6 on K5's output with the state's alive plane, bitwise."""
-    cfg, scn, st, dt, args = _marker_args(developed, zero_dt)
-    px, py = k5.advect_markers(*args, st.markers[0], st.markers[1], dt,
-                               st.marker_count)
-    dead = scn.sink | scn.solid
-    got = k6.rebin_markers(cfg, px, py, st.alive, dead)
-    want = k6.rebin_markers_plain(cfg, px, py, st.alive, dead)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+@pytest.mark.parametrize("Y,X,K,fill", UNFUSED_CASES)
+def test_march_tiles_bitwise(Y, X, K, fill, zero_dt):
+    """K5 on a store whose dead slots hold stale positions: every slot
+    bitwise its plain version's, the dead ones copied through."""
+    _needs_card()
+    cfg, u, v, fluid, solid, slots, dt, count, dead = marker_state(
+        Y, X, K, fill, seed=Y * X + K, device="cuda", stale=True)
     if zero_dt:
-        assert torch.equal(torch.stack(got[:2]), st.markers)
-        assert torch.equal(got[3], st.marker_count)
+        dt = torch.zeros((), device="cuda")
+    markers = slots.reshape(2, K, Y, X)
+    args = (cfg, u, v, fluid, solid, markers, dt, count)
+    got = k5.advect_markers(*args)
+    want = k5.advect_markers_plain(*args)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    live = torch.stack([tms.live_slots(count, K)] * 2)
+    assert torch.equal(got[~live], markers[~live])
+    assert torch.equal(got, markers) == (zero_dt or fill == "empty")
+
+
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("Y,X,K,fill", UNFUSED_CASES)
+def test_rebin_tiles_bitwise(Y, X, K, fill, holes):
+    """K6 on marched seeded stores, the alive plane front-compacted or
+    with holes and live slots beyond the count: the whole store, alive,
+    counts and drops bitwise its plain version's."""
+    _needs_card()
+    cfg, markers, alive, dead = rebin_state(Y, X, K, fill, seed=Y * X + K,
+                                            holes=holes, device="cuda")
+    got = k6.rebin_markers(cfg, markers, alive, dead)
+    want = k6.rebin_markers_plain(cfg, markers, alive, dead)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if fill == "full" and not holes:
+        assert int(got[3].sum()) > 0
+
+
+def test_unfused_passes_keep_the_kernels_store(developed, monkeypatch):
+    """`advect_markers_slots` and `refresh_marker_counts_slots` take the
+    kernels' [2, K, Y, X] output as `state.markers` as it is: the very
+    tensor, and no copy or concatenation runs on the card."""
+    cfg, scn, st, dt = developed
+    outs = {}
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            outs[name] = fn(*a, **kw)
+            return outs[name]
+        return call
+
+    monkeypatch.setattr(k5, "advect_markers", spy("K5", k5.advect_markers))
+    monkeypatch.setattr(k6, "rebin_markers", spy("K6", k6.rebin_markers))
+    before = dict(_build.LAUNCHES)
+    marched = tms.advect_markers_slots(cfg, scn, st, dt)
+    rebinned = tms.refresh_marker_counts_slots(cfg, scn, marched)
+    assert marched.markers is outs["K5"]
+    assert rebinned.markers is outs["K6"][0]
+    assert rebinned.alive is outs["K6"][1]
+    assert _build.LAUNCHES["K5"] == before.get("K5", 0) + 1
+    assert _build.LAUNCHES["K6"] == before.get("K6", 0) + 1
+    for fn in (lambda: tms.advect_markers_slots(cfg, scn, st, dt),
+               lambda: tms.refresh_marker_counts_slots(cfg, scn, marched)):
+        names = _kernel_launches(fn)
+        assert not [n for n in names
+                    if "Cat" in n or "opy" in n or "emcpy" in n], names
 
 
 def _interior(out, cfg):
@@ -223,9 +316,8 @@ def _kernel_launches(fn):
 
 @pytest.mark.parametrize("kernel", ["K1", "K4", "K5", "K6"])
 def test_marker_kernels_launch_once(developed, kernel):
-    """K1 and K4 are one launch of the tiled kernel a call and allocate
-    nothing but their outputs (no marched scratch); K5 and K6 are one
-    launch of their own."""
+    """Each marker kernel is one launch of its tiled pass a call and
+    allocates nothing but its outputs (no marched scratch)."""
     cfg, scn, st, dt, args = _marker_args(developed, False)
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
     dead = scn.sink | scn.solid
@@ -236,23 +328,22 @@ def test_marker_kernels_launch_once(developed, kernel):
             dead=dead)),
         "K4": ("march_rebin_tiles", lambda: k1.march_rebin_padded(
             *args, padded, dt, st.marker_count, dead=dead)),
-        "K5": ("march_kernel", lambda: k5.advect_markers(
-            *args, st.markers[0], st.markers[1], dt, st.marker_count)),
-        "K6": ("rebin_kernel", lambda: k6.rebin_markers(
-            cfg, st.markers[0], st.markers[1], st.alive, dead)),
+        "K5": ("march_tiles", lambda: (k5.advect_markers(
+            *args, st.markers, dt, st.marker_count),)),
+        "K6": ("rebin_tiles", lambda: k6.rebin_markers(
+            cfg, st.markers, st.alive, dead)),
     }
     name, fn = calls[kernel]
     before = _build.LAUNCHES[kernel]
     launched = _kernel_launches(fn)
     assert len(launched) == 1 and name in launched[0], launched
     assert _build.LAUNCHES[kernel] == before + 2
-    if kernel in ("K1", "K4"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        out = fn()
-        assert torch.cuda.max_memory_allocated() - held == sum(
-            t.numel() * t.element_size() for t in out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    assert torch.cuda.max_memory_allocated() - held == sum(
+        t.numel() * t.element_size() for t in out)
 
 
 def test_substep_matches_plain(developed):

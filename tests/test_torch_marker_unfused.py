@@ -6,8 +6,10 @@ obstacles, with dt x 1.5 so that markers collide and cross cells:
     in interpret mode (live slots atol 1e-4, tests/test_pallas_markers.py:
     22-47) and against the jnp `advect_markers_slots` on every slot;
   * K6's plain version against the Pallas re-bin `rebin_markers_pallas`
-    in interpret mode, fed the same numpy inputs: positions, alive plane,
-    counts and drops bitwise;
+    in interpret mode, fed the same numpy inputs (the state's alive
+    plane, and one with holes: not front-compacted, slots beyond the
+    count alive): positions, alive plane, counts and drops bitwise;
+  * the state passes keep the wrappers' store as `state.markers`;
   * the route: 2 frames through `sim.step_frame` equal to the port's own
     K1 route in every field, and against the JAX `step_frame` with the
     same switches (its marker pass as jnp ops, its solvers' Pallas
@@ -63,9 +65,25 @@ def _inputs(scenario):
 
 
 def _march(cfg, scn, st, dt):
+    """K5's new [2, K, Y, X] store."""
     return k5.advect_markers(cfg, st.u, st.v, st.fluid, scn.solid,
-                             st.markers[0], st.markers[1], dt,
-                             st.marker_count)
+                             st.markers, dt, st.marker_count)
+
+
+def _holed(cfg, px, py, alive, seed):
+    """(px, py, alive) with a seeded 30% of the live slots cleared and 5%
+    of the dead slots set alive at their cell's centre: holes, and live
+    slots beyond a cell's count.  Every live marker stays within one cell
+    of its home, as the CFL limit keeps it: beyond that the Pallas re-bin
+    (exact destination cell) and the jnp one (offset clamped to [-1, 1],
+    as the port's) part ways."""
+    rng = np.random.default_rng(seed)
+    extra = ~alive & (rng.random(alive.shape) < 0.05)
+    h = np.float32(cfg.side_length)
+    ys, xs = np.mgrid[0:cfg.ny, 0:cfg.nx].astype(np.float32)
+    px = np.where(extra, (xs + np.float32(0.5)) * h, px).astype(np.float32)
+    py = np.where(extra, (ys + np.float32(0.5)) * h, py).astype(np.float32)
+    return px, py, (alive & (rng.random(alive.shape) >= 0.3)) | extra
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS)
@@ -102,39 +120,69 @@ def test_state_march_matches_jnp_on_every_slot(scenario):
         atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("scenario", SCENARIOS)
-def test_rebin_matches_pallas_kernel(scenario):
-    """Fed the same numpy inputs: the marched store, the alive plane and
-    the dead plane, all bitwise."""
+@pytest.mark.parametrize("scenario,holes", [
+    pytest.param(s, h, id=s + ("-holes" if h else ""))
+    for s in SCENARIOS for h in (False, True)])
+def test_rebin_matches_pallas_kernel(scenario, holes):
+    """Fed the same numpy inputs: the marched store, the alive plane (the
+    state's, or one with holes) and the dead plane, all bitwise."""
     cfg, scn, st, jscn, jst, dt = _inputs(scenario)
     px, py = (n(a) for a in _march(cfg, scn, st, dt))
     alive, dead = n(st.alive), n(scn.sink | scn.solid)
+    if holes:
+        px, py, alive = _holed(cfg, px, py, alive, seed=len(scenario))
+        front = n(tms.live_slots(torch.as_tensor(alive.sum(0)), 8))
+        assert not np.array_equal(alive, front)
     before = _build.PLAIN_CALLS["K6"]
-    got = k6.rebin_markers(cfg, torch.as_tensor(px), torch.as_tensor(py),
+    got = k6.rebin_markers(cfg, torch.as_tensor(np.stack([px, py])),
                            torch.as_tensor(alive), torch.as_tensor(dead))
     assert _build.PLAIN_CALLS["K6"] == before + 1
     opx, opy, ova, count, drop = rebin_markers_pallas(
         jax_config(cfg), jnp.asarray(px), jnp.asarray(py),
         jnp.asarray(alive.astype(np.float32)),
         jnp.asarray(dead.astype(np.float32)), True)
-    want = (opx, opy, np.asarray(ova) != 0, count, drop)
-    for name, a, b in zip(("px", "py", "alive", "count", "drop"), got,
-                          want):
+    want = (np.stack([opx, opy]), np.asarray(ova) != 0, count, drop)
+    for name, a, b in zip(("store", "alive", "count", "drop"), got, want):
         np.testing.assert_array_equal(n(a), np.asarray(b), err_msg=name)
-    assert (n(got[3]) != n(st.marker_count)).any()  # markers crossed cells
+    assert (n(got[2]) != n(st.marker_count)).any()  # markers crossed cells
 
 
 def test_zero_dt_is_identity():
     cfg = _config()
     scn, st = port_state(developed_numpy(64))
-    opx, opy = _march(cfg, scn, st, torch.tensor(0.0))
-    assert torch.equal(opx, st.markers[0]) and torch.equal(opy, st.markers[1])
-    px, py, alive, count, drop = k6.rebin_markers(
-        cfg, opx, opy, st.alive, scn.sink | scn.solid)
-    assert torch.equal(torch.stack([px, py]), st.markers)
+    marched = _march(cfg, scn, st, torch.tensor(0.0))
+    assert torch.equal(marched, st.markers)
+    markers, alive, count, drop = k6.rebin_markers(
+        cfg, marched, st.alive, scn.sink | scn.solid)
+    assert torch.equal(markers, st.markers)
     assert torch.equal(alive, st.alive)
     assert torch.equal(count, st.marker_count)
     assert not drop.any()
+
+
+def test_state_passes_take_the_wrappers_store(monkeypatch):
+    """`advect_markers_slots` and `refresh_marker_counts_slots` keep the
+    K5 / K6 wrappers' [2, K, Y, X] store as `state.markers`, the very
+    tensor (on the card: the kernel's output, no copy)."""
+    cfg = _config()
+    scn, st = port_state(developed_numpy(64))
+    outs = {}
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            outs[name] = fn(*a, **kw)
+            return outs[name]
+        return call
+
+    monkeypatch.setattr(k5, "advect_markers", spy("K5", k5.advect_markers))
+    monkeypatch.setattr(k6, "rebin_markers", spy("K6", k6.rebin_markers))
+    marched = tms.advect_markers_slots(cfg, scn, st, cfl_dt(cfg, st))
+    rebinned = tms.refresh_marker_counts_slots(cfg, scn, marched)
+    assert marched.markers is outs["K5"]
+    assert marched.markers.shape == st.markers.shape
+    assert rebinned.markers is outs["K6"][0]
+    assert rebinned.alive is outs["K6"][1]
+    assert torch.equal(rebinned.marker_count, outs["K6"][2])
 
 
 def _frames(cfg, scn, st):
