@@ -18,8 +18,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      iterations, which it must take exactly; the Galerkin hierarchy and
      Chebyshev rows it builds bitwise equal to `mg_host_operands`; its
      coarse cycle in one launch a visit bitwise equal to one launch per
-     level operation), K7 grid
-     stage, K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep
+     level operation), K7 grid stage (bitwise, and its rainbow form's four
+     planes), K8 Jacobi-PCG solve, K9 Jacobi projection, K10 Jacobi substep
      (and the stream syncs of one K8 and one K10 solve);
   4. times 20 frames of the main path (dam break, slot markers K=8,
      Galerkin MG-PCG to tol_rel 1e-4 with warm start, fused projection),
@@ -28,8 +28,9 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      jacobi`: 100 iterations, tol 1e-6, tol_rel 1e-6, no warm start) after
      4 warm-up frames;
   6. runs the secondary routes, 2 warm-up and 4 timed frames each:
-     Jacobi unfused (K8), Jacobi + rainbow (K9), MG + rainbow (K3), Jacobi
-     unfused with `use_pallas_grid` (K7, K8), and the main path on the
+     Jacobi unfused (K7, K8), Jacobi + rainbow (K7 in its rainbow form,
+     K9), MG + rainbow (K7, K3), Jacobi unfused with `use_pallas_grid`
+     (K7, K8), and the main path on the
      three marker routes from the same dam break, `marker_k1` (K1, K2,
      K3), `marker_unfused` (K5, K6, K2, K3) and `padded_store` (K4, K2,
      K3), the last two bitwise equal at their end to the first, the whole
@@ -37,32 +38,38 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
   7. times each kernel beside its plain version with CUDA events, and K5
      and K6 also on that state's markers in a store of 16 slots a cell;
   8. runs `bench.py --size 2048` (the main path's config at 2048², where
-     the JAX package's size gates take the plain grid stage and K11): 2
-     warm-up + 4 timed frames with its peak device memory, then K1 timed
-     on that state, K11 (F = 2) against its plain version on that state,
+     the JAX package's size gates take the unfused grid stage, K7 on the
+     card, and K11): 2 warm-up + 4 timed frames with its peak device
+     memory, then K1 timed and K7 held bitwise and timed on that state,
+     K11 (F = 2) against its plain version on that state,
      the hierarchy and rows it builds on the card bitwise equal to
      `stream_host_operands`, its stream syncs in one solve, K11 timed;
-  9. runs `bench.py --size 4096 --precon jacobi` (the plain grid stage and
-     K12): 1 warm-up + 2 timed frames with its peak device memory, then K1
-     timed on that state, K12 and K11 (F = 4, with the MG config; its
-     hierarchy bitwise as at 2048²) against their plain versions on that
-     state, K12 timed;
- 10. runs the Jacobi and marker card tests of tests/test_torch_cuda.py
-     (pytest -k, a process of its own: K8's caps, non-finite and zero RHS
-     on K8-K10, workspace reuse, two grids in turn; K1 and K4 on ragged
-     grids at K = 4, 8 and 16, K5 and K6 at K = 8 and 16 (K6 also on
-     alive planes with holes), bitwise; one launch a marker kernel call;
-     the unfused passes keep the kernels' store as the state's).
+  9. runs `bench.py --size 4096 --precon jacobi` (K7 and K12): 1 warm-up
+     + 2 timed frames with its peak device memory, then K1 timed and K7
+     held bitwise and timed on that state, K12 and K11 (F = 4, with the
+     MG config; its hierarchy bitwise as at 2048²) against their plain
+     versions on that state, K12 timed;
+ 10. runs the Jacobi, marker and grid-stage card tests of
+     tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
+     caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
+     in turn; K1 and K4 on ragged grids at K = 4, 8 and 16, K5 and K6 at
+     K = 8 and 16 (K6 also on alive planes with holes), bitwise; one
+     launch a marker kernel call; the unfused passes keep the kernels'
+     store as the state's; K7 bitwise on ragged grids and under other
+     tiles, one launch a call, and K2's and K10's grid stage bitwise
+     K7's).
 With --profile, each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
 overlapping spans of K8-K10's sweeps once) and its idle share; and the
 mean span of a Jacobi sweep launch (K8-K10's and K12's sweep_a, sweep_b;
 K8-K10's start while the sweep before them finishes, so their spans
-include that wait and are not kernel times).
+include that wait and are not kernel times); and the grid-stage spans
+(K7's tiled launch, alone or inside K2 or K10; one a substep, though
+the profiler on the card now and then drops a span).
 Each path runs with the launch counts set to 0 just before it and read
-just after: its kernels must have launched and no plain version may have
-run.  Prints one JSON line of per-kernel results, the card's name and
+just after: its kernels must have launched (K7 once a substep) and no
+plain version may have run.  Prints one JSON line of per-kernel results, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.  Exits
 non-zero, with no result, on any failure or when no CUDA device exists.
 Imports nothing of JAX.
@@ -455,6 +462,10 @@ def run_path(cfg, scn, state, frames: int, kernels, label: str,
     log(f"   launches {launches}; plain-version calls {plain}")
     for k in kernels:
         check(launches.get(k, 0) > 0, f"{label}: {k} did not launch")
+    if "K7" in kernels:  # the grid stage of every substep
+        check(launches["K7"] == cfg.max_substeps * frames,
+              f"{label}: K7 launched {launches['K7']} times in {frames} "
+              "frames")
     for k in bypassed:
         check(launches.get(k, 0) == 0, f"{label}: {k} launched")
     check(plain == 0, f"{label}: a plain version ran")
@@ -908,6 +919,61 @@ def time_k1(cfg, scn, state, summary) -> None:
         f"({nbytes / 1e6:.1f} MB, {n_live} live markers)")
 
 
+def check_k7(cfg, args, dt, label: str) -> float:
+    """K7 against its plain version on the card, bit for bit: ut and vt,
+    and the rainbow form's four planes (ut, vt and the extrapolated
+    velocities).  Returns the max abs error (0.0)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    want = (k7.grid_stage_plain(cfg, dt, *args)
+            + k7.extrapolate_zero(cfg, *args))
+    err = 0.0
+    for got in (k7.grid_stage(cfg, *args, dt),
+                k7.grid_stage(cfg, *args, dt, extrapolated=True)):
+        for g, w in zip(got, want):
+            err = max(err, (g - w).abs().max().item())
+            check(torch.equal(bits(g), bits(w)),
+                  f"K7 at {label}: differs from its plain version")
+    log(f"   K7 at {label}: ut, vt and the rainbow form's four planes "
+        f"bitwise equal to the plain version (max err {err:.3g})")
+    return err
+
+
+def time_k7(cfg, scn, state, summary) -> None:
+    """K7 on `state` bit for bit against its plain version, then its time
+    a call (best of two rounds of REPS calls, CUDA events) and its device
+    time (`device_ms`) beside its bound, into `summary` as k7_ms and
+    k7_device_ms."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+    from euler_tpu_torch.ops.forces import max_speed_sq
+
+    Y, X = cfg.ny, cfg.nx
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, state.u, state.v),
+                          torch.tensor(cfg.frame_time, device=state.u.device))
+    args = (state.u, state.v, state.fluid, state.prev_fluid, scn.solid)
+    check_k7(cfg, args, dt, f"{Y}x{X}")
+
+    def call():
+        return k7.grid_stage(cfg, *args, dt)
+
+    ms = min(cuda_ms(call, REPS) for _ in range(2))
+    dev = min(device_ms(call, REPS) for _ in range(2))
+    nbytes, _ = BOUNDS["K7"](Y * X, 0, 0)
+    summary["k7_ms"] = ms
+    summary["k7_device_ms"] = dev
+    log(f"   K7 at {Y}x{X}: {ms:.4f} ms a call, device time {dev:.4f} ms; "
+        f"bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms by bytes "
+        f"({nbytes / 1e6:.1f} MB)")
+
+
 def run_large(size, results, summaries, launches, profile_prefix=None):
     """The paths beyond the fused kernels' gates: `bench.py --size 2048`
     (MG: the plain grid stage and K11) and `--size 4096 --precon jacobi`
@@ -934,7 +1000,8 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
             state = sim.step_frame(cfg, scn, state)
         bypassed = ["K2", "K3"] if mg else ["K8", "K9", "K10"]
         state, summaries[label] = run_path(cfg, scn, state, frames,
-                                           ["K1", kernel], label, bypassed)
+                                           ["K1", "K7", kernel], label,
+                                           bypassed)
         if mg:
             check(summaries[label]["div_inf"] < 1.0,
                   f"{label}: div_inf too large")
@@ -944,8 +1011,9 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
         with Phase(f"{label}: profile"):
             profile(cfg, scn, state, f"{profile_prefix}.{label}.txt", label)
 
-    with Phase(f"{label}: K1 on the path's state"):
+    with Phase(f"{label}: K1 and K7 on the path's state"):
         time_k1(cfg, scn, state, summaries[label])
+        time_k7(cfg, scn, state, summaries[label])
 
     with Phase(f"{label}: solvers vs plain versions on the card"):
         dt, ut, vt, b, a_diag = substep_system(cfg, scn, state)
@@ -1131,13 +1199,8 @@ def run(args) -> dict:
         # the substep's own system: the RHS of the advected velocities
         ut, vt = k7.grid_stage_plain(cfg, dt, state.u, state.v, fl, pfl,
                                      scn.solid)
-        u7, v7 = k7.grid_stage(cfg, state.u, state.v, fl, pfl, scn.solid, dt)
-        err7 = max((u7 - ut).abs().max().item(),
-                   (v7 - vt).abs().max().item())
-        log(f"   K7: ut/vt max err {err7:.3g} (atol 2e-4; bitwise: "
-            f"{torch.equal(u7, ut) and torch.equal(v7, vt)})")
-        check(err7 <= 2e-4, "K7 velocities differ > 2e-4")
-        results["K7"] = {"max_abs_err": err7}
+        results["K7"] = {"max_abs_err": check_k7(
+            cfg, (state.u, state.v, fl, pfl, scn.solid), dt, f"{SIZE}²")}
         b = divergence_rhs(cfg, ut, vt, fl, dt)
         a_diag = pressure_matrix_diag(cfg, scn.solid, fl)
         err3 = 0.0
@@ -1246,11 +1309,11 @@ def run(args) -> dict:
         scfg.solver, fuse_projection=False))
     # route: (config, its kernels, the kernels whose launch count it gives)
     routes = {
-        "jacobi_unfused": (unfused, ["K1", "K8"], ["K8"]),
-        "jacobi_rainbow": (speed_config(SIZE, rainbow=True), ["K1", "K9"],
-                           ["K9"]),
-        "mg_rainbow": (dataclasses.replace(cfg, rainbow=True), ["K1", "K3"],
-                       []),
+        "jacobi_unfused": (unfused, ["K1", "K7", "K8"], ["K8"]),
+        "jacobi_rainbow": (speed_config(SIZE, rainbow=True),
+                           ["K1", "K7", "K9"], ["K9"]),
+        "mg_rainbow": (dataclasses.replace(cfg, rainbow=True),
+                       ["K1", "K7", "K3"], []),
         "jacobi_pallas_grid": (dataclasses.replace(
             unfused, use_pallas_grid=True), ["K1", "K7", "K8"], ["K7"]),
     }
@@ -1339,11 +1402,11 @@ def run(args) -> dict:
             profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
                     "speed")
 
-    with Phase("the Jacobi and marker card tests (pytest, "
+    with Phase("the Jacobi, marker and grid-stage card tests (pytest, "
                "tests/test_torch_cuda.py)"):
         torch.cuda.empty_cache()
         run_card_tests("jacobi or tiles or launch_once or march_bitwise or "
-                       "rebin_bitwise or kernels_store")
+                       "rebin_bitwise or kernels_store or grid")
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
@@ -1411,6 +1474,7 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
     dev_us = 0.0
     n_kernels = 0
     n_sync = 0
+    n_grid = 0  # grid-stage spans: K7's tiled launch, alone or in K2 / K10
     for e in events:
         d = getattr(e, "device_time_total", None)
         if d is None:
@@ -1422,6 +1486,8 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
         if d > 0:
             dev_us += d
             n_kernels += e.count
+            if "grid_tiles" in e.key:
+                n_grid += e.count
             if "sweep_a" in e.key or "sweep_b" in e.key:
                 log(f"   {label}: {e.key[:48]}: {d / e.count:.2f} us a "
                     f"launch span, the wait for the kernel before it "
@@ -1435,7 +1501,8 @@ def profile(cfg, scn, state, path: str, label: str) -> None:
         f"active substeps in the last), idle share "
         f"{1 - dev_ms / ms_frame:.3f}; table in {path}")
     log(f"   {label}: device busy (union of spans) {busy_ms:.3f} ms/frame, "
-        f"idle share {1 - busy_ms / ms_frame:.3f}")
+        f"idle share {1 - busy_ms / ms_frame:.3f}; {n_grid} grid-stage "
+        f"spans in {frames} frames of {cfg.max_substeps} substeps")
     for line in table.splitlines()[:20]:
         log(f"   {line}")
 

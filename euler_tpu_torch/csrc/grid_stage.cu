@@ -3,8 +3,8 @@
 //
 // K7 (`eu_grid_passes`) replaces the Pallas kernel
 // euler_tpu/ops/pallas/grid_kernel.py `_grid_kernel` (launched by
-// `grid_stage_pallas`, the unfused routes' grid stage): passes A and B
-// below, nothing else.
+// `grid_stage_pallas`, the unfused routes' grid stage): `grid_passes`
+// of grid_stage.cuh, one tiled launch, nothing else.
 //
 // K2 replaces the Pallas kernel euler_tpu/ops/pallas/substep_kernel.py
 // `_substep_kernel` (launched by `project_substep_mg`): its grid stage
@@ -16,20 +16,20 @@
 // CFL maxsq (main.c:808-820).
 //
 // What bounds it on an H100: bytes.  Each pass is a stencil over a few
-// [Y, X] planes (4 MB each at 1024²): the grid stage reads u, v, three
-// u8 masks and writes two planes twice; the tail reads p, the masks and
-// the velocities once.  Together a few tens of MB a substep.
+// [Y, X] planes (4 MB each at 1024²): the grid stage reads u, v and three
+// u8 masks and writes ut and vt; the RHS reads them back; the tail reads
+// p, the masks and the velocities once.  Together a few tens of MB a
+// substep.
 //
-// Design: one thread per cell — pass A (extrapolate + zero_bounds into
-// zu/zv, materialised because pass B reads their 3x3 neighbourhood), pass
-// B (advection + gravity + zero_bounds), the RHS (which also writes the
-// packed matrix and copies the warm-start guess), and the tail (the clamp
-// of the workspace's pressure into a fresh plane, then the face update
-// reading the clamped neighbours, so it is split into two launches) with
-// the maxsq by a two-stage reduction.
-// The passes and the tail live in grid_stage.cuh, which jacobi_pcg.cu
-// (K9, K10) shares.  Built with -fmad=false so the grid stage rounds as
-// the plain PyTorch version does.
+// Design: the grid stage is K7's tiled launch (`grid_passes`, the
+// extrapolated velocities kept in shared memory); then one thread per
+// cell: the RHS (which also writes the packed matrix and copies the
+// warm-start guess), and the tail (the clamp of the workspace's pressure
+// into a fresh plane, then the face update reading the clamped
+// neighbours, so it is split into two launches) with the maxsq by a
+// two-stage reduction.  The grid stage and the tail live in
+// grid_stage.cuh, which jacobi_pcg.cu (K9, K10) shares.  Built with
+// -fmad=false so the grid stage rounds as the plain PyTorch version does.
 #include "grid_stage.cuh"
 
 namespace {
@@ -55,38 +55,42 @@ __global__ void rhs_kernel(Masks m, const float* __restrict__ ut,
 
 }  // namespace
 
-// K7: the grid stage of (u, v) into (ut, vt).  u, v: [Y, X] f32 in; fl,
-// pfl, so: [Y, X] u8; zu, zv: [Y, X] scratch; dt: one f32 on the device.
+// K7: the grid stage of (u, v) into (ut, vt), on tiles of ty x tx cells
+// and `threads` threads a CTA.  u, v: [Y, X] f32 in; fl, pfl, so: [Y, X]
+// u8; dt: one f32 on the device; uu, vv: null, or [Y, X] f32 out, the
+// extrapolated, zeroed velocities (the rainbow form).
 EU_API int eu_grid_passes(int Y, int X, float inv_h, float g, const void* fl,
                           const void* pfl, const void* so, const void* u,
-                          const void* v, const void* dt, void* zu, void* zv,
-                          void* ut, void* vt, void* stream) {
-  return grid_passes(make_masks(Y, X, fl, pfl, so), inv_h, g,
-                     static_cast<const float*>(u),
+                          const void* v, const void* dt, void* ut, void* vt,
+                          void* uu, void* vv, int ty, int tx, int threads,
+                          void* stream) {
+  return grid_passes(make_masks(Y, X, fl, pfl, so), GridTile{ty, tx, threads},
+                     inv_h, g, static_cast<const float*>(u),
                      static_cast<const float*>(v),
-                     static_cast<const float*>(dt), static_cast<float*>(zu),
-                     static_cast<float*>(zv), static_cast<float*>(ut),
-                     static_cast<float*>(vt), static_cast<cudaStream_t>(stream));
+                     static_cast<const float*>(dt), static_cast<float*>(ut),
+                     static_cast<float*>(vt), static_cast<float*>(uu),
+                     static_cast<float*>(vv),
+                     static_cast<cudaStream_t>(stream));
 }
 
-// Grid stage + RHS.  u, v: [Y, X] f32 in; fl, pfl, so: [Y, X] u8;
-// zu, zv: [Y, X] scratch; ut, vt: [Y, X] out; r: [Y, X] RHS out; p0
-// (nullable): warm-start guess copied into p; packed: [Y, X] out.  dt,
-// dt_proj: one f32 each on the device.
+// Grid stage (K7's, on tiles of ty x tx cells and `threads` threads) +
+// RHS.  u, v: [Y, X] f32 in; fl, pfl, so: [Y, X] u8; ut, vt: [Y, X] out;
+// r: [Y, X] RHS out; p0 (nullable): warm-start guess copied into p;
+// packed: [Y, X] out.  dt, dt_proj: one f32 each on the device.
 EU_API int eu_grid_stage(int Y, int X, float inv_h, float g, float scale,
                          const void* fl, const void* pfl, const void* so,
                          const void* u, const void* v, const void* dt,
-                         const void* dt_proj, const void* p0, void* zu,
-                         void* zv, void* ut, void* vt, void* r, void* p,
-                         void* packed, void* stream) {
+                         const void* dt_proj, const void* p0, void* ut,
+                         void* vt, void* r, void* p, void* packed, int ty,
+                         int tx, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Masks m = make_masks(Y, X, fl, pfl, so);
   const unsigned nb = eu_blocks(static_cast<long long>(Y) * X, kThreads);
-  int rc = grid_passes(m, inv_h, g, static_cast<const float*>(u),
+  int rc = grid_passes(m, GridTile{ty, tx, threads}, inv_h, g,
+                       static_cast<const float*>(u),
                        static_cast<const float*>(v),
-                       static_cast<const float*>(dt), static_cast<float*>(zu),
-                       static_cast<float*>(zv), static_cast<float*>(ut),
-                       static_cast<float*>(vt), s);
+                       static_cast<const float*>(dt), static_cast<float*>(ut),
+                       static_cast<float*>(vt), nullptr, nullptr, s);
   if (rc) return rc;
   rhs_kernel<<<nb, kThreads, 0, s>>>(m, static_cast<const float*>(ut),
                                      static_cast<const float*>(vt),

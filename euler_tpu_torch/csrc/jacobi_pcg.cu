@@ -397,25 +397,26 @@ EU_API int eu_jacobi_project(void* solver, int max_iters, float tol,
                     static_cast<cudaStream_t>(stream));
 }
 
-// K10: the grid stage of (u, v) (passes A and B, with dt, through the two
-// s planes as scratch) into (u2, v2), then K9's body in place on them.
-// pfl: [Y, X] u8.
+// K10: the grid stage of (u, v) (K7's tiled launch, on tiles of ty x tx
+// cells and `threads` threads, with dt) into (u2, v2), then K9's body in
+// place on them.  pfl: [Y, X] u8.
 EU_API int eu_jacobi_substep(void* solver, int max_iters, float tol,
                              float tol_rel, float inv_h, float g,
                              float scale, float c, const void* fl,
                              const void* pfl, const void* so, const void* dt,
                              const void* dt_proj, const void* u,
                              const void* v, void* u2, void* v2, void* msq,
-                             void* stream) {
+                             int ty, int tx, int threads, void* stream) {
   const JacobiSolver* J = as_solver(solver);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Masks m = make_masks(J->Y, J->X, fl, pfl, so);
   float* uo = static_cast<float*>(u2);
   float* vo = static_cast<float*>(v2);
   const float* dtf = static_cast<const float*>(dt);
-  const int rc = grid_passes(m, inv_h, g, static_cast<const float*>(u),
-                             static_cast<const float*>(v), dtf, J->s[0],
-                             J->s[1], uo, vo, st);
+  const int rc = grid_passes(m, GridTile{ty, tx, threads}, inv_h, g,
+                             static_cast<const float*>(u),
+                             static_cast<const float*>(v), dtf, uo, vo,
+                             nullptr, nullptr, st);
   if (rc) return rc;
   return J->project(m, max_iters, tol, tol_rel, inv_h, scale, c, dtf,
                     static_cast<const float*>(dt_proj), uo, vo, uo, vo,

@@ -122,12 +122,12 @@ def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")

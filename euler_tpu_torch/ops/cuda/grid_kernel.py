@@ -3,23 +3,29 @@
 `grid_stage` replaces the Pallas kernel `_grid_kernel` launched by
 `grid_stage_pallas` (grid_kernel.py:172-221), same contract: extrapolate
 -> zero_bounds -> advect -> gravity -> zero_bounds (main.c:865-889) of
-(u, v), returning (ut, vt).  The substep takes it on the unfused mono
-route when `use_pallas_grid` is set, as the JAX package does.
+(u, v), returning (ut, vt).  On the card it is the grid stage of every
+substep route that is not fused (the JAX package's K7 route, and the
+routes where it leaves the grid stage to XLA); with `extrapolated=True`
+(rainbow) it also returns the extrapolated, zeroed velocities, which the
+colours' advection reads.
 
 On an H100 it is bound by bytes: u and v in, three u8 masks, ut and vt
-out, 19 bytes a cell (20 MB at 1024²).  It is passes A and B of
-`csrc/grid_stage.cuh` (K2's grid stage; the advection reads the
-extrapolated planes' 3x3 neighbourhood, so pass A materialises them),
-launched alone from `csrc/grid_stage.cu`.
+out, 19 bytes a cell (20 MB at 1024²).  It is one launch of
+`csrc/grid_stage.cuh` `grid_passes` (K2's and K10's grid stage too): one
+CTA per tile of `grid_tile_plan`, which stages the tile's window in
+shared memory and keeps the extrapolated velocities there, so nothing
+but ut and vt (and uu, vv) is written.
 
 `grid_stage_plain` is the plain version, the op sequence of
-tests/test_pallas_grid.py:27-36; its two halves `extrapolate_zero` and
-`advect_forces` are also the unfused routes' grid stage where K7 is not
-taken (rainbow advects its colours with the extrapolated velocities).
-`grid_lib` builds and binds `csrc/grid_stage.cu`, which K2 also uses.
+tests/test_pallas_grid.py:27-36; its first half `extrapolate_zero` is
+also what the rainbow form returns beside it.  `grid_lib` builds and
+binds `csrc/grid_stage.cu`, which K2 also uses.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +34,65 @@ from euler_tpu_torch.ops.advect import advect_u, advect_v
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.extrapolate import extrapolate
 from euler_tpu_torch.ops.forces import apply_body_forces, zero_bounds
+
+# K7's tiles (csrc/grid_stage.cuh `GridTile`): TILE_Y x TILE_X cells and
+# TILE_THREADS threads a CTA, or TILE_X_WIDE cells across where the grid
+# holds at least WIDE_MIN_TILES such tiles: the fastest of the sweep in
+# PERF.md §6 at 1024², 2048² and 4096² (tools/grid_tile_lab.py).  Wider
+# tiles load less halo a cell, but below ~4096 tiles (about 5 rounds of
+# the 6 CTAs an H100 SM holds at 40 registers a thread) the last round's
+# tail costs more than that saves.  The kernel is built for the widths of
+# TILE_XS; a tile must fit the SMEM_BYTES_MAX bytes of shared memory a
+# launch gets without opting in to more.
+TILE_Y = 16
+TILE_X = 32
+TILE_X_WIDE = 64
+WIDE_MIN_TILES = 4096
+TILE_THREADS = 256
+TILE_XS = (32, 64, 128)
+SMEM_BYTES_MAX = 48 * 1024
+
+
+class GridTilePlan(NamedTuple):
+    """K7's launch (csrc/grid_stage.cuh `GridTile`) and the shared memory
+    of one CTA."""
+    tile_y: int
+    tile_x: int
+    tiles_y: int  # CTAs down the grid
+    tiles_x: int  # CTAs across it
+    threads: int
+    smem_bytes: int
+
+
+def grid_tile_smem_bytes(tile_y: int, tile_x: int) -> int:
+    """The shared memory of one K7 tile (csrc/grid_stage.cuh
+    `grid_tile_smem`): u and v (4 bytes each) and the u/v property bits
+    (1) over the window of (tile_y + 4) x (tile_x + 4) cells, the
+    extrapolated u and v (4 each) over the tile and its one-cell ring, and
+    the mask bits (1) over (tile_y + 5) x (tile_x + 5) cells."""
+    return (9 * (tile_y + 4) * (tile_x + 4) + 8 * (tile_y + 2) * (tile_x + 2)
+            + (tile_y + 5) * (tile_x + 5))
+
+
+@functools.lru_cache(maxsize=64)
+def grid_tile_plan(Y: int, X: int, tile_y: int = TILE_Y,
+                   tile_x: int | None = None,
+                   threads: int = TILE_THREADS) -> GridTilePlan:
+    """K7's launch over a [Y, X] grid: tiles of tile_y x tile_x cells
+    (by default as the comment above TILE_Y says; the ragged edge tiles,
+    and grids smaller than one tile, are masked in the kernel).  Raises
+    for a tile the kernel does not take."""
+    if tile_x is None:
+        wide = -(-Y // tile_y) * -(-X // TILE_X_WIDE) >= WIDE_MIN_TILES
+        tile_x = TILE_X_WIDE if wide else TILE_X
+    smem = grid_tile_smem_bytes(tile_y, tile_x)
+    if (tile_x not in TILE_XS or tile_y < 1 or threads % 32
+            or not 32 <= threads <= 512 or smem > SMEM_BYTES_MAX):
+        raise ValueError(f"no K7 tile of {tile_y} x {tile_x} cells and "
+                         f"{threads} threads ({smem} bytes of shared "
+                         "memory)")
+    return GridTilePlan(tile_y, tile_x, -(-Y // tile_y), -(-X // tile_x),
+                        threads, smem)
 
 
 def extrapolate_zero(cfg: SimConfig, u, v, fluid, prev_fluid, solid):
@@ -55,22 +120,34 @@ def grid_stage_plain(cfg: SimConfig, dt, u, v, fluid, prev_fluid, solid):
     return advect_forces(cfg, uu, vv, fluid, solid, dt)
 
 
+@functools.cache
 def grid_lib():
+    """csrc/grid_stage.cu: K7 (`eu_grid_passes`), K2's grid stage + RHS
+    (`eu_grid_stage`) and its tail (`eu_project_tail`), built and bound
+    once."""
     lib = _build.load("grid_stage", flags=["-fmad=false"])
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_grid_passes", [I, I, F, F] + [P] * 11)
-    _build.bind(lib, "eu_grid_stage", [I, I, F, F, F] + [P] * 16)
+    _build.bind(lib, "eu_grid_passes", [I, I, F, F] + [P] * 10 + [I] * 3
+                + [P])
+    _build.bind(lib, "eu_grid_stage", [I, I, F, F, F] + [P] * 13 + [I] * 3
+                + [P])
     _build.bind(lib, "eu_project_tail", [I, I, F] + [P] * 10)
     return lib
 
 
-def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt):
-    """The grid stage of one substep.  Returns (ut, vt).  CUDA tensors run
-    the kernel; CPU tensors the plain version."""
+def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt, *,
+               extrapolated: bool = False):
+    """The grid stage of one substep.  Returns (ut, vt), with
+    `extrapolated` (ut, vt, uu, vv): uu, vv the extrapolated, zeroed
+    velocities (`extrapolate_zero`).  CUDA tensors run the kernel; CPU
+    tensors the plain version."""
     if u.device.type == "cpu":
         _build.PLAIN_CALLS["K7"] += 1
-        return grid_stage_plain(cfg, dt, u, v, fluid, prev_fluid, solid)
-    plane = (cfg.ny, cfg.nx)
+        uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid)
+        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt)
+        return (ut, vt, uu, vv) if extrapolated else (ut, vt)
+    Y, X = cfg.ny, cfg.nx
+    plane = (Y, X)
     f = torch.float32
     dev = u.device
     ptr = [_build.require(fluid, "fluid", torch.bool, plane),
@@ -79,13 +156,14 @@ def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt):
            _build.require(u, "u", f, plane, dev),
            _build.require(v, "v", f, plane, dev),
            _build.require(dt, "dt", f, (), dev)]
-    zu, zv, ut, vt = (torch.empty(plane, dtype=f, device=dev)
-                      for _ in range(4))
+    out = [torch.empty(plane, dtype=f, device=dev)
+           for _ in range(4 if extrapolated else 2)]
+    ptr += [t.data_ptr() for t in out] + [None] * (4 - len(out))
+    plan = grid_tile_plan(Y, X)
     lib = grid_lib()
     _build.LAUNCHES["K7"] += 1
-    rc = lib.eu_grid_passes(
-        cfg.ny, cfg.nx, 1.0 / cfg.side_length, cfg.gravity, *ptr,
-        zu.data_ptr(), zv.data_ptr(), ut.data_ptr(), vt.data_ptr(),
-        _build.stream())
+    rc = lib.eu_grid_passes(Y, X, 1.0 / cfg.side_length, cfg.gravity, *ptr,
+                            plan.tile_y, plan.tile_x, plan.threads,
+                            _build.stream())
     _build.check(lib, rc, "eu_grid_passes")
-    return ut, vt
+    return tuple(out)

@@ -230,10 +230,9 @@ class MgWorkspace:
     planes and active flags of the hierarchy; per level from `ls` down x,
     b, z, rr, d, dn (K3's level 0 takes r for b); the packed matrix, r, p,
     s, As; the block partials; the Chebyshev rows (K11: one row more, the
-    fine level's); the scalars and flags; K2's grid-stage scratch and tail
-    partials (K3) or K11's preconditioned residual z.  A solve reads and
-    writes only these, so nothing it returns may alias them: callers copy
-    out."""
+    fine level's); the scalars and flags; K2's tail partials (K3) or
+    K11's preconditioned residual z.  A solve reads and writes only these,
+    so nothing it returns may alias them: callers copy out."""
 
     def __init__(self, cfg: SimConfig, device, ls: int = 0):
         s = cfg.solver
@@ -254,7 +253,6 @@ class MgWorkspace:
             new(plane) for _ in range(5))
         nb = -(-Y * X // 256)
         if ls == 0:
-            self.zu, self.zv = new(plane), new(plane)
             self.tail_part = new((2 * nb,))
         else:
             self.z = new(plane)

@@ -116,14 +116,14 @@ def jacobi_lib():
     _build.bind(lib, "eu_jacobi_solve", [P, I, F, F] + [P] * 5)
     _build.bind(lib, "eu_jacobi_project", [P, I, F, F, F, F, F] + [P] * 10)
     _build.bind(lib, "eu_jacobi_substep", [P, I, F, F, F, F, F, F]
-                + [P] * 11)
+                + [P] * 10 + [I] * 3 + [P])
     return lib
 
 
 class JacobiWorkspace:
     """The device buffers of one grid's Jacobi solves and the CUDA solver
     over them (csrc/jacobi_pcg.cu): the operator code, r, p, As and two s
-    planes (K10's grid stage takes them as scratch), the chain values of
+    planes, the chain values of
     the reductions, the scalars and flags, K9/K10's tail partials, and the
     graph of one chunk of iterations.  A solve reads and writes only
     these, so nothing it returns may alias them."""

@@ -15,17 +15,16 @@ iterations, residual, msq) and no pressure.
 On an H100 the head and tail (`csrc/grid_stage.cu`) are bound by bytes:
 one-thread-per-cell stencils over a few 4 MB planes at 1024².  The
 middle is K3's MG-PCG (`csrc/mg_pcg.cu`) on K3's cached workspace
-(`mg_kernel.workspace`), bound by launches and barriers.  The design
-keeps the two grid-stage passes the Pallas kernel has (the advection
-reads the extrapolated planes' 3x3 neighbourhood) and fuses the rest per
-launch; the head writes the RHS, the warm-start guess and the packed
-matrix straight into the workspace, the solve builds the hierarchy there,
-and the tail clamps the workspace's pressure into a fresh plane; see the
-source.  K10 is bound as K9 is (`pcg_kernel.py`): its
-grid stage is two of K2's passes (`csrc/grid_stage.cuh`), then about
-100 Jacobi iterations of 9.5 plane passes each (`csrc/jacobi_pcg.cu`), on
-K9's cached workspace (`pcg_kernel.workspace`), whose two s planes the
-grid stage takes as scratch.
+(`mg_kernel.workspace`), bound by launches and barriers.  The grid stage
+is K7's tiled launch (`csrc/grid_stage.cuh` `grid_passes`, on
+`grid_kernel.grid_tile_plan`'s tiles, the extrapolated velocities in
+shared memory only); the head writes the RHS, the warm-start guess and
+the packed matrix straight into the workspace, the solve builds the
+hierarchy there, and the tail clamps the workspace's pressure into a
+fresh plane; see the source.  K10 is bound as K9 is (`pcg_kernel.py`):
+its grid stage is the same launch, then about 100 Jacobi iterations of
+9.5 plane passes each (`csrc/jacobi_pcg.cu`), on K9's cached workspace
+(`pcg_kernel.workspace`).
 
 `project_substep_mg_plain` is K2's plain version, the op sequence of
 tests/test_substep_fused.py:31-68 with the plain MG-PCG;
@@ -43,7 +42,11 @@ import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
-from euler_tpu_torch.ops.cuda.grid_kernel import grid_lib, grid_stage_plain
+from euler_tpu_torch.ops.cuda.grid_kernel import (
+    grid_lib,
+    grid_stage_plain,
+    grid_tile_plan,
+)
 from euler_tpu_torch.ops.cuda.mg_kernel import (
     mg_fits,
     mg_pallas_fits,
@@ -134,14 +137,15 @@ def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     ut, vt, p = (torch.empty(plane, dtype=f, device=dev) for _ in range(3))
     msq = torch.empty((), dtype=f, device=dev)
     h = cfg.side_length
+    plan = grid_tile_plan(Y, X)
     lib = grid_lib()
     _build.LAUNCHES["K2"] += 1
     rc = lib.eu_grid_stage(
         Y, X, 1.0 / h, cfg.gravity, h * h * cfg.density,
         ptr["fl"], ptr["pfl"], ptr["so"], ptr["u"], ptr["v"], ptr["dt"],
-        ptr["dtp"], p0_ptr, ws.zu.data_ptr(), ws.zv.data_ptr(),
-        ut.data_ptr(), vt.data_ptr(), ws.r.data_ptr(), ws.p.data_ptr(),
-        ws.packed0.data_ptr(), _build.stream())
+        ptr["dtp"], p0_ptr, ut.data_ptr(), vt.data_ptr(), ws.r.data_ptr(),
+        ws.p.data_ptr(), ws.packed0.data_ptr(), plan.tile_y, plan.tile_x,
+        plan.threads, _build.stream())
     _build.check(lib, rc, "eu_grid_stage")
 
     iters, resid = ws.solve(warm)
@@ -177,10 +181,12 @@ def project_substep_jacobi(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     u2, v2 = ws.plane(), ws.plane()
     msq = ws.scal.new_empty(())
     h = cfg.side_length
+    plan = grid_tile_plan(cfg.ny, cfg.nx)
     _build.LAUNCHES["K10"] += 1
     rc = ws.lib.eu_jacobi_substep(
         ws.handle, *solver_args(cfg), 1.0 / h, cfg.gravity,
         h * h * cfg.density, -1.0 / (cfg.density * h), *ptr, u2.data_ptr(),
-        v2.data_ptr(), msq.data_ptr(), _build.stream())
+        v2.data_ptr(), msq.data_ptr(), plan.tile_y, plan.tile_x,
+        plan.threads, _build.stream())
     _build.check(ws.lib, rc, "eu_jacobi_substep")
     return (u2, v2, *ws.result(), msq)

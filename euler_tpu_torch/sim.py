@@ -31,10 +31,14 @@ TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
   * fused (`fuse_projection`, mono, no sources, and the fused kernel's
     gate): grid stage + projection in one wrapper call, K2 (MG-PCG, K3
     inside) or K10 (Jacobi);
-  * otherwise the grid stage, K7 with `use_pallas_grid` in mono, else
-    plain ops (with the colours' advection in rainbow mode), then K9
-    (Jacobi with `fuse_projection`, under its gate) or `project()`, whose
-    solve is K8, K3, K11 or K12 by the gates of `solve_pressure`.
+  * otherwise the grid stage, then K9 (Jacobi with `fuse_projection`,
+    under its gate) or `project()`, whose solve is K8, K3, K11 or K12 by
+    the gates of `solve_pressure`.  The JAX package runs that grid stage
+    as its K7 with `use_pallas_grid` in mono, else as XLA ops; the port
+    takes the `use_pallas=True` routes, so on the card it is K7 on every
+    such route ("plain" in `route` included), in rainbow mode K7's form
+    that also returns the extrapolated velocities, with which the
+    colours are advected by plain ops.
 Nothing here reads a device value on the host; the solvers' stop flags
 are the only syncs.
 """
@@ -46,12 +50,7 @@ import torch
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
 from euler_tpu_torch.ops.advect import advect_p
-from euler_tpu_torch.ops.cuda import pcg_kernel, substep_kernel
-from euler_tpu_torch.ops.cuda.grid_kernel import (
-    advect_forces,
-    extrapolate_zero,
-    grid_stage,
-)
+from euler_tpu_torch.ops.cuda import grid_kernel, pcg_kernel, substep_kernel
 from euler_tpu_torch.ops.extrapolate import extrapolate
 from euler_tpu_torch.ops.cuda.marker_fused_kernel import (
     pad_slot_store,
@@ -117,10 +116,13 @@ def _use_fused_projection(cfg: SimConfig) -> bool:
 
 
 def route(cfg: SimConfig, scn: Scenario):
-    """(grid stage, projection) of a substep: ("fused", "K2" or "K10"),
-    or the grid stage "K7" or "plain" with the projection "K9" or the
-    solve of `project()` ("K8", "K3", "K11", "K12", or None where the JAX
-    package runs its jnp `pcg_loop`)."""
+    """(grid stage, projection) of a substep, as the JAX package names
+    them: ("fused", "K2" or "K10"), or the grid stage "K7" or "plain"
+    with the projection "K9" or the solve of `project()` ("K8", "K3",
+    "K11", "K12", or None where the JAX package runs its jnp `pcg_loop`).
+    On the card "plain" runs K7 too: `substep` takes K7 for every grid
+    stage that is not fused, so `use_pallas_grid` changes nothing
+    there."""
     if _use_fused_substep(cfg, scn):
         return "fused", "K2" if cfg.solver.preconditioner == "mg" else "K10"
     grid = "K7" if cfg.use_pallas_grid and not cfg.rainbow else "plain"
@@ -159,7 +161,7 @@ def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
         state = _colors(state, lambda q: extrapolate(cfg, q, fluid, prev,
                                                      "p"))
 
-    grid, proj = route(cfg, scn)
+    proj = route(cfg, scn)[1]
     if proj == "K10":
         u2, v2, iters, _resid, msq = substep_kernel.project_substep_jacobi(
             cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid)
@@ -170,14 +172,12 @@ def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
             cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid, state.p)
         return state.replace(u=u2, v=v2, p=p2), msq, iters
 
-    if grid == "K7":
-        ut, vt = grid_stage(cfg, state.u, state.v, fluid, prev, solid, dt)
-    else:
-        uu, vv = extrapolate_zero(cfg, state.u, state.v, fluid, prev, solid)
-        if cfg.rainbow:
-            state = _colors(state,
-                            lambda q: advect_p(cfg, q, uu, vv, fluid, dt))
-        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt)
+    ut, vt, *extrapolated = grid_kernel.grid_stage(
+        cfg, state.u, state.v, fluid, prev, solid, dt,
+        extrapolated=cfg.rainbow)
+    if cfg.rainbow:
+        uu, vv = extrapolated
+        state = _colors(state, lambda q: advect_p(cfg, q, uu, vv, fluid, dt))
     if proj == "K9":
         u2, v2, iters, _resid, msq = pcg_kernel.project_jacobi(
             cfg, dt_proj, ut, vt, fluid, solid)

@@ -35,6 +35,7 @@ from euler_tpu_torch.core.state import (
     shift_right,
     shift_up,
 )
+from euler_tpu_torch.ops.cuda import grid_kernel as tk7
 from euler_tpu_torch.ops.cuda import pcg_kernel as tpk
 from euler_tpu_torch.ops.cuda import substep_kernel as tsk
 from euler_tpu_torch.ops.project import pressure_matrix_diag
@@ -446,8 +447,11 @@ def test_project_entry_points(fake_lib, kernel):
     assert call[4:k] == pytest.approx(consts, rel=1e-7)
     assert call[k:k + len(ins)] == tuple(t.data_ptr() for t in ins)
     u2, v2, _, _, msq = out
-    assert call[k + len(ins):] == (u2.data_ptr(), v2.data_ptr(),
-                                   msq.data_ptr(), STREAM)
+    tail = (u2.data_ptr(), v2.data_ptr(), msq.data_ptr())
+    if kernel == "K10":  # its grid stage's tiles (K7's)
+        plan = tk7.grid_tile_plan(cfg.ny, cfg.nx)
+        tail += (plan.tile_y, plan.tile_x, plan.threads)
+    assert call[k + len(ins):] == tail + (STREAM,)
     held = {t.data_ptr() for t in ws.buffers()}
     assert held.isdisjoint(t.data_ptr() for t in (u2, v2, msq))
     assert len(_calls(fake_lib, "eu_jacobi_create")) == 1

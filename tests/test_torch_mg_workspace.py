@@ -189,7 +189,9 @@ def test_workspace_layout(fake_libs, ls):
             assert None not in cycle
     assert tuple(ws.rows.shape) == (L + (ls > 0), 1 + 2 * max(
         cfg.solver.mg_cheby_degree, cfg.solver.mg_coarse_iters))
-    assert hasattr(ws, "z") == (ls > 0) and hasattr(ws, "zu") == (ls == 0)
+    assert hasattr(ws, "z") == (ls > 0)
+    assert hasattr(ws, "tail_part") == (ls == 0)
+    assert not hasattr(ws, "zu") and not hasattr(ws, "zv")
     assert ws.nbytes == sum(t.numel() * t.element_size() for t in ws.keep)
     ws.close()
     assert fake_libs[lib].calls[-1][0] == "eu_mg_destroy"
