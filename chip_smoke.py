@@ -49,7 +49,23 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      held bitwise and timed on that state, K12 and K11 (F = 4, with the
      MG config; its hierarchy bitwise as at 2048²) against their plain
      versions on that state, K12 timed;
- 10. runs the Jacobi, marker and grid-stage card tests of
+ 10. runs the text scenarios and the CLI: `python -m euler_tpu_torch
+     scenarios/waterfall.txt --frames 50` (40 x 100, 60 sources: K1, S1,
+     K7, K8), `... --size 1024x1024 --frames 4` (MG: K1, S1, K7, K3) and
+     `preset:dam_break --size 1024x1024 --frames 20` (K1, K2, K3), each
+     as a process of its own (exit 0, its frames/s line) and in process
+     (a warm-up frame, then the counted frames: no K2, K10 or K4 with
+     sources; the 1024² waterfall's div_inf off its source cells <= 1,
+     the source cells keeping their inflow's divergence as in the JAX
+     package); the waterfall on the
+     card against the CPU, 2 frames (counts, alive, drops, RNG and
+     colours bitwise, u and v within 5e-3); S1 bitwise against its plain
+     version on the developed waterfall states (as they are, inactive,
+     and exhausted part-way), and timed; K1 and K7 bitwise and K8 to its
+     check at 40 x 100 and 40 x 99; draw_frame and
+     draw_frame_downsampled of card states byte-equal to the CPU's
+     render; a checkpoint round trip and resume on the card;
+ 11. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
      in turn; K1 and K4 on ragged grids at K = 4, 8 and 16, K5 and K6 at
@@ -57,8 +73,8 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      launch a marker kernel call; the unfused passes keep the kernels'
      store as the state's; K7 bitwise on ragged grids and under other
      tiles, one launch a call, and K2's and K10's grid stage bitwise
-     K7's).
-With --profile, each profile logs the device kernel time of a frame (the
+     K7's; S1 bitwise on seeded cases; the waterfall card vs CPU).
+With --profile, the three CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
 overlapping spans of K8-K10's sweeps once) and its idle share; and the
@@ -81,6 +97,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -196,6 +213,8 @@ JACOBI_FLOPS = 20
 MG_FLOPS = 60
 MARKER_FLOPS = 28
 REBIN_FLOPS = 6
+SOURCE_OPS = 10       # a source's test and colour write
+SOURCE_EMIT_OPS = 40  # two xorshift64* draws, two positions, the writes
 BOUNDS = {
     # u, v f32; fluid, solid, dead u8; count i32 in; live positions in;
     # the whole store, count, drop i32 out (K4: the same on the padded
@@ -231,6 +250,13 @@ BOUNDS = {
     # b f32; a_diag i32; fluid u8 in; p f32 out
     "K11": lambda n, iters, live: (13 * n, MG_FLOPS * iters * n),
     "K12": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
+    # n = S sources, live = markers emitted: each source's (y, x), valid
+    # and count read, its r, g, b written; each emission's position,
+    # alive byte and count written; ~20 bytes of scalars (RNG, counts,
+    # flags).  Integer and f32 operations (hsv_basis, two RNG draws an
+    # emission), counted against the f32 rate
+    "S1": lambda n, iters, live: (25 * n + 13 * live + 20,
+                                  SOURCE_OPS * n + SOURCE_EMIT_OPS * live),
 }
 KERNELS = {
     "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
@@ -257,6 +283,10 @@ KERNELS = {
             "euler_tpu/ops/pallas/mg_stream_kernel.py:464"),
     "K12": ("jacobi_stream_pcg", "euler_tpu_torch/csrc/jacobi_stream.cu",
             "euler_tpu/ops/pallas/pcg_stream_kernel.py:266"),
+    # not a Pallas kernel: the JAX package runs this as a lax.scan
+    "S1": ("source_emission", "euler_tpu_torch/csrc/sources.cu",
+           "euler_tpu/ops/markers_slots.py:415 (update_fluid_sources_slots, "
+           "a lax.scan, no pallas_call)"),
 }
 
 
@@ -318,16 +348,19 @@ def marker_configs(cfg):
             "K4": dataclasses.replace(cfg, marker_padded_store=True)}
 
 
-def div_inf(cfg, state):
+def div_inf(cfg, state, exclude=None):
     """max |div u| * h^2 rho on fluid cells after the last projection
-    (bench.py's post_projection_div_inf)."""
+    (bench.py's post_projection_div_inf), over the cells not in the
+    `exclude` mask when one is given."""
     import torch
 
     from euler_tpu_torch.ops.project import divergence_rhs
 
     one = torch.ones((), dtype=state.u.dtype, device=state.u.device)
-    return float(divergence_rhs(cfg, state.u, state.v, state.fluid,
-                                one).abs().max())
+    div = divergence_rhs(cfg, state.u, state.v, state.fluid, one).abs()
+    if exclude is not None:
+        div = torch.where(exclude, 0.0, div)
+    return float(div.max())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -373,7 +406,7 @@ def device_ms(fn, reps: int) -> float:
 
 # the kernels that are one launch a call, whose device time `time_pair`
 # also takes (`device_ms`)
-ONE_LAUNCH = ("K1", "K4", "K5", "K6", "K7")
+ONE_LAUNCH = ("K1", "K4", "K5", "K6", "K7", "S1")
 
 
 def check(cond: bool, what: str) -> None:
@@ -488,9 +521,11 @@ def build_all():
     from euler_tpu_torch.ops.cuda import mg_kernel as k3
     from euler_tpu_torch.ops.cuda import pcg_kernel as k89
     from euler_tpu_torch.ops.cuda import pcg_stream_kernel as k12
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.native import get_lib as encoder_lib
 
     loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
-               k89.jacobi_lib, k12.stream_lib]
+               k89.jacobi_lib, k12.stream_lib, s1.source_lib, encoder_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -511,7 +546,7 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     of each and the bound of the kernel's call; for a kernel of ONE_LAUNCH
     also its device time (`device_ms`, best of two rounds)."""
     out = kern()
-    iters = 0 if name in ("K1", "K4", "K5", "K6", "K7") else int(
+    iters = 0 if name in ONE_LAUNCH else int(
         out[1] if name in ("K3", "K8", "K11", "K12") else out[2])
     t_p1 = cuda_ms(plain_fn, reps)
     t_k1 = cuda_ms(kern, reps)
@@ -1060,6 +1095,329 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
         log(f"   {kernel}: a zero RHS exits with 0 iterations")
 
 
+# The CLI's three runs (python -m euler_tpu_torch): label -> (arguments,
+# frames, the kernels its frames run, the kernels they must bypass).
+# Sources take the unfused routes: never K2, K10 or K4.
+CLI_RUNS = {
+    "cli_waterfall": (["scenarios/waterfall.txt"], 50,
+                      ["K1", "S1", "K7", "K8"], ["K2", "K10", "K4", "K3"]),
+    "cli_waterfall_1024": (["scenarios/waterfall.txt", "--size",
+                            "1024x1024"], 4, ["K1", "S1", "K7", "K3"],
+                           ["K2", "K10", "K4"]),
+    "cli_dam_break_1024": (["preset:dam_break", "--size", "1024x1024"], 20,
+                           ["K1", "K2", "K3"], ["S1"]),
+}
+
+
+def cli_state(argv, cpu=False):
+    """(cfg, scn, state) as the CLI builds them from `argv`, on the card
+    (on the CPU with `cpu`)."""
+    from euler_tpu_torch import cli
+
+    return cli._build(cli.parse_args(argv + (["--cpu"] if cpu else [])))
+
+
+S1_FIELDS = ("markers", "alive", "marker_count", "r", "g", "b", "rng",
+             "alive_count", "source_exhausted")
+
+
+def s1_copy(st):
+    """`st` with its own copy of every field S1 writes in place."""
+    return st.replace(**{k: getattr(st, k).clone() for k in S1_FIELDS})
+
+
+def to_cpu(scn, st):
+    """The same scenario and state as CPU tensors."""
+    from euler_tpu_torch import convert
+
+    return (convert.scenario_from_numpy(convert.scenario_to_numpy(scn),
+                                        device="cpu"),
+            convert.state_from_numpy(convert.state_to_numpy(st),
+                                     device="cpu"))
+
+
+def run_cli_subprocesses() -> dict:
+    """Each CLI run as a user runs it, headless, in a process of its own:
+    it must exit 0 and print its frames/s line.  Returns {label: line}."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    lines = {}
+    for label, (argv, frames, _, _) in CLI_RUNS.items():
+        cmd = [sys.executable, "-m", "euler_tpu_torch", *argv, "--frames",
+               str(frames)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        log(f"   {label}: python -m euler_tpu_torch {' '.join(argv)} "
+            f"--frames {frames}: rc {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s: {last}")
+        check(proc.returncode == 0 and " frames/s, " in last,
+              f"{label}: the CLI failed (rc {proc.returncode}):\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        lines[label] = last
+    return lines
+
+
+def check_small_kernels(cfg, scn, st, label: str) -> dict:
+    """K1, K7 and K8 against their plain versions on the card at a small,
+    ragged grid (`st` a developed waterfall state): K1's store, counts
+    and drops and K7's planes bitwise; K8 (its reduction order is not the
+    plain version's) to its standing check, the same iterations and p
+    within 1e-3 of scale, and whether it is bitwise too.  Returns the
+    max errors by kernel."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import pcg_kernel as k89
+    from euler_tpu_torch.ops.forces import max_speed_sq
+    from euler_tpu_torch.ops.project import (
+        divergence_rhs,
+        pressure_matrix_diag,
+    )
+
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
+                          torch.tensor(cfg.frame_time, device=st.u.device))
+    dead = scn.sink | scn.solid
+    args = (cfg, st.u, st.v, st.fluid, scn.solid,
+            st.markers.reshape(2 * K, Y, X), dt, st.marker_count)
+    got = k1.march_rebin(*args, dead=dead)
+    want = k1.march_rebin_plain(*args, dead=dead)
+    for g, w, what in zip(got, want, ("store", "counts", "drops")):
+        check(torch.equal(g, w), f"K1 at {label}: {what} differ from the "
+              "plain version")
+    err = {"K1": (got[0] - want[0]).abs().max().item()}
+    fl, pfl = st.fluid, st.prev_fluid
+    err["K7"] = check_k7(cfg, (st.u, st.v, fl, pfl, scn.solid), dt, label)
+    ut, vt = k7.grid_stage_plain(cfg, dt, st.u, st.v, fl, pfl, scn.solid)
+    b = divergence_rhs(cfg, ut, vt, fl, dt)
+    a_diag = pressure_matrix_diag(cfg, scn.solid, fl)
+    p_k, i_k, _ = k89.solve_pressure_jacobi(cfg, b, a_diag, fl)
+    p_p, i_p, _ = k89.solve_pressure_jacobi_plain(cfg, b, a_diag, fl)
+    scale = p_p.abs().max().item()
+    err["K8"] = (p_k - p_p).abs().max().item()
+    check(int(i_k) == int(i_p), f"K8 at {label}: iterations differ")
+    check(err["K8"] <= 1e-3 * scale, f"K8 at {label}: p differs > "
+          "1e-3*scale")
+    log(f"   K1 at {label}: store, counts and drops bitwise; K8: "
+        f"{int(i_k)} iterations as the plain version, p max err "
+        f"{err['K8']:.3g} of scale {scale:.3g} (bitwise: "
+        f"{torch.equal(p_k, p_p)})")
+    return err
+
+
+def check_s1(cfg, scn, st, label: str) -> float:
+    """S1 against its plain version on the card, from copies of `st`:
+    as it is, with the substep inactive, and with alive_count at
+    max_markers - 3 (the stream exhausted part-way): every field it
+    writes bitwise.  Returns the max abs error of the store (0.0)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.ops.markers_slots import source_pass_slots
+
+    err = 0.0
+    for case in ("as is", "inactive", "exhaustion"):
+        base = s1_copy(st)
+        if case == "exhaustion":
+            base.alive_count.fill_(cfg.max_markers - 3)
+        act = torch.tensor(case != "inactive", device=st.u.device)
+        got, want = s1_copy(base), s1_copy(base)
+        s1.emit_sources(cfg, scn, got, act)
+        source_pass_slots(cfg, scn, want, act)
+        for k in S1_FIELDS:
+            # the RNG compared as int64: uint32 has few torch ops
+            a, b = getattr(got, k), getattr(want, k)
+            check(torch.equal(a.to(torch.int64), b.to(torch.int64))
+                  if k == "rng" else torch.equal(a, b),
+                  f"S1 at {label} ({case}): {k} differs from the plain "
+                  "version")
+        err = max(err, (got.markers - want.markers).abs().max().item())
+        emitted = int(got.alive_count) - int(base.alive_count)
+        log(f"   S1 at {label} ({case}): every field bitwise the plain "
+            f"version's; {emitted} markers emitted, exhausted "
+            f"{bool(got.source_exhausted)}")
+        if case == "inactive":
+            check(emitted == 0 and torch.equal(got.markers, base.markers),
+                  "S1: an inactive substep emitted")
+        if case == "exhaustion":
+            check(bool(got.source_exhausted)
+                  and int(got.alive_count) == cfg.max_markers - 1,
+                  "S1: the stream did not end at max_markers - 1")
+    return err
+
+
+def time_s1(cfg, scn, st, results) -> None:
+    """S1 and its plain version timed on copies of `st` (each call emits
+    into its own copy, so later calls find fuller cells), with its bound
+    for the first call's work."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.ops.markers_slots import source_pass_slots
+
+    act = torch.ones((), dtype=torch.bool, device=st.u.device)
+    probe = s1_copy(st)
+    s1.emit_sources(cfg, scn, probe, act)
+    emitted = int(probe.alive_count) - int(st.alive_count)
+    k_state, p_state = s1_copy(st), s1_copy(st)
+    time_pair(results, "S1",
+              lambda: s1.emit_sources(cfg, scn, k_state, act),
+              lambda: source_pass_slots(cfg, scn, p_state, act),
+              scn.num_sources, emitted, REPS)
+    log(f"   S1: {scn.num_sources} sources, {emitted} emitted in the first "
+        "call")
+
+
+def check_render(cfg, scn, st, label: str, windows) -> None:
+    """draw_frame and draw_frame_downsampled of a card state byte-equal to
+    the CPU's render of the same state, in mono and rainbow."""
+    from euler_tpu_torch.render.ansi import draw_frame
+    from euler_tpu_torch.render.downsample import draw_frame_downsampled
+
+    scn_c, st_c = to_cpu(scn, st)
+    for rainbow in (False, True):
+        rcfg = dataclasses.replace(cfg, rainbow=rainbow)
+        for rows, cols in windows:
+            for fn in (draw_frame, draw_frame_downsampled):
+                if fn is draw_frame and (cfg.ny - 2 > rows
+                                         or cfg.nx - 2 > cols):
+                    continue
+                got = fn(rcfg, scn, st, rows, cols)
+                check(got == fn(rcfg, scn_c, st_c, rows, cols),
+                      f"{label}: {fn.__name__} ({rows}x{cols}, rainbow "
+                      f"{rainbow}) differs from the CPU render")
+    log(f"   {label}: draw_frame / draw_frame_downsampled byte-equal to the "
+        f"CPU's render of the same state (windows {windows}, mono and "
+        "rainbow)")
+
+
+def check_checkpoint(cfg, scn, st, label: str) -> None:
+    """save, load onto the card, bitwise; one frame from the loaded state
+    bitwise the frame from the original."""
+    import tempfile
+
+    import torch
+
+    from euler_tpu_torch import convert, sim
+    from euler_tpu_torch.io import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ck.npz")
+        checkpoint.save(path, cfg, scn, st)
+        cfg2, scn2, st2 = checkpoint.load(path, device=st.u.device)
+    check(cfg2 == cfg, f"{label}: the config did not round-trip")
+    a, b = convert.state_to_numpy(st), convert.state_to_numpy(st2)
+    for k in a:
+        check(a[k].tobytes() == b[k].tobytes(),
+              f"{label}: {k} did not round-trip")
+    check(st2.u.is_cuda and st2.markers.is_cuda, f"{label}: not loaded "
+          "onto the card")
+    on = convert.state_to_numpy(sim.step_frame(cfg, scn, st))
+    resumed = convert.state_to_numpy(sim.step_frame(cfg2, scn2, st2))
+    for k in on:
+        check(on[k].tobytes() == resumed[k].tobytes(),
+              f"{label}: a resumed frame differs in {k}")
+    torch.cuda.synchronize()
+    log(f"   {label}: checkpoint round trip bitwise; a resumed frame "
+        "bitwise the frame run on")
+
+
+def run_text_scenarios(results, summaries, launches, profile_prefix=None):
+    """The text scenarios, source emission and the CLI: the CLI's three
+    runs as subprocesses, then in process (a warm-up frame, as the CLI
+    takes, then the counted frames); the waterfall against the CPU, S1,
+    K1, K7 and K8 against their plain versions at 40 x 100 and 40 x 99,
+    the 1024² waterfall's div_inf, the renderer and a checkpoint on card
+    states."""
+    import torch
+
+    from euler_tpu_torch import sim
+
+    with Phase("the CLI: three headless runs, a process each"):
+        summaries["cli_lines"] = run_cli_subprocesses()
+
+    with Phase("waterfall 40x100, CLI config: card vs CPU, 2 frames"):
+        cfg, scn_g, st_g = cli_state(CLI_RUNS["cli_waterfall"][0])
+        _, scn_c, st_c = cli_state(CLI_RUNS["cli_waterfall"][0], cpu=True)
+        for _ in range(2):
+            st_g = sim.step_frame(cfg, scn_g, st_g)
+            st_c = sim.step_frame(cfg, scn_c, st_c)
+        for name in ("marker_count", "alive", "alive_count",
+                     "dropped_markers", "source_exhausted", "r", "g", "b"):
+            check(torch.equal(getattr(st_g, name).cpu(),
+                              getattr(st_c, name)),
+                  f"waterfall: {name} differs between card and CPU")
+        check(torch.equal(st_g.rng.cpu().to(torch.int64),
+                          st_c.rng.to(torch.int64)),
+              "waterfall: the RNG differs between card and CPU")
+        du = (st_g.u.cpu() - st_c.u).abs().max().item()
+        dv = (st_g.v.cpu() - st_c.v).abs().max().item()
+        log(f"   counts, alive, alive_count, drops "
+            f"({int(st_g.dropped_markers)}), RNG and colours bitwise; max "
+            f"|du| {du:.3g}, |dv| {dv:.3g} (atol 5e-3)")
+        check(du <= 5e-3 and dv <= 5e-3, "waterfall: velocities differ "
+              "> 5e-3")
+
+    states = {}
+    for label, (argv, frames, kernels, bypassed) in CLI_RUNS.items():
+        with Phase(f"{label} in process: 1 warm-up + {frames} frames"):
+            held = reset_peak()
+            cfg, scn, st = cli_state(argv)
+            st = sim.step_frame(cfg, scn, st)
+            st, summaries[label] = run_path(cfg, scn, st, frames, kernels,
+                                            label, bypassed)
+            record_peak(summaries[label], held)
+            syncs = stream_syncs(lambda: sim.step_frame(cfg, scn, st))
+            summaries[label]["syncs_per_frame"] = syncs
+            log(f"   {label}: {syncs} stream syncs in a frame")
+            if scn.num_sources:
+                # a source cell keeps the divergence of its inflow (the
+                # JAX package's too: max |div| = 3.0566 at source cells
+                # 5 frames into the converged waterfall at 128² and 256²
+                # in both), so the projection is judged away from them
+                away = div_inf(cfg, st, scn.source)
+                summaries[label]["div_inf_off_sources"] = away
+                log(f"   {label}: div_inf {summaries[label]['div_inf']:.6g} "
+                    f"on all fluid cells, {away:.6g} off the source cells")
+            if label == "cli_waterfall_1024":
+                check(summaries[label]["div_inf_off_sources"] <= 1.0,
+                      f"{label}: div_inf off the sources > 1")
+            states[label] = (cfg, scn, st)
+        if profile_prefix:
+            with Phase(f"{label}: profile"):
+                profile(cfg, scn, st, f"{profile_prefix}.{label}.txt", label)
+    launches["S1"] = summaries["cli_waterfall"]["launches"]["S1"]
+
+    with Phase("S1, K1, K7, K8 vs plain at 40x100 and 40x99; render; "
+               "checkpoint"):
+        cfg, scn, st = states["cli_waterfall"]
+        errs = check_small_kernels(cfg, scn, st, "40x100")
+        s1_err = check_s1(cfg, scn, st, "40x100")
+        cfg99, scn99, st99 = cli_state(["scenarios/waterfall.txt", "--size",
+                                        "40x99"])
+        for _ in range(20):
+            st99 = sim.step_frame(cfg99, scn99, st99)
+        for k, e in check_small_kernels(cfg99, scn99, st99,
+                                        "40x99").items():
+            errs[k] = max(errs[k], e)
+        s1_err = max(s1_err, check_s1(cfg99, scn99, st99, "40x99"))
+        bcfg, bscn, bst = states["cli_waterfall_1024"]
+        s1_err = max(s1_err, check_s1(bcfg, bscn, bst, "1024²"))
+        results["S1"] = {"max_abs_err": s1_err}
+        summaries["small_grid_max_abs_err"] = errs
+        time_s1(cfg, scn, st, results)
+        check_render(cfg, scn, st, "waterfall 40x100",
+                     [(30, 110), (20, 50), (12, 40)])
+        check_render(bcfg, bscn, bst, "waterfall 1024²", [(24, 80)])
+        check_checkpoint(cfg, scn, st, "waterfall 40x100")
+        check_checkpoint(bcfg, bscn, bst, "waterfall 1024²")
+    del states
+
+
 def run_card_tests(selection: str) -> None:
     """The card tests of tests/test_torch_cuda.py that `selection` picks
     (pytest -k), in a process of their own on the libraries built here;
@@ -1396,6 +1754,8 @@ def run(args) -> dict:
     for size in LARGE:
         run_large(size, results, summaries, launches, args.profile)
 
+    run_text_scenarios(results, summaries, launches, args.profile)
+
     if args.profile:
         with Phase("profile"):
             profile(cfg, scn, state, f"{args.profile}.mg.txt", "mg")
@@ -1406,7 +1766,7 @@ def run(args) -> dict:
                "tests/test_torch_cuda.py)"):
         torch.cuda.empty_cache()
         run_card_tests("jacobi or tiles or launch_once or march_bitwise or "
-                       "rebin_bitwise or kernels_store or grid")
+                       "rebin_bitwise or kernels_store or grid or source")
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
@@ -1515,8 +1875,11 @@ def main(argv=None) -> int:
                          "routes and the 2048² and 4096² paths to "
                          "PREFIX.mg.txt, PREFIX.speed.txt, "
                          "PREFIX.marker_k1.txt, PREFIX.marker_unfused.txt, "
-                         "PREFIX.padded_store.txt, PREFIX.mg_2048.txt and "
-                         "PREFIX.jacobi_4096.txt")
+                         "PREFIX.padded_store.txt, PREFIX.mg_2048.txt, "
+                         "PREFIX.jacobi_4096.txt, and of the three CLI "
+                         "runs to PREFIX.cli_waterfall.txt, "
+                         "PREFIX.cli_waterfall_1024.txt and "
+                         "PREFIX.cli_dam_break_1024.txt")
     args = ap.parse_args(argv)
 
     try:

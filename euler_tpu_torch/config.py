@@ -29,9 +29,9 @@ because the port has one implementation of each:
   * RB-GS / V-cycle knobs that the Chebyshev smoother does not read:
     `mg_pre_smooth`, `mg_post_smooth`.
 
-Configurations outside the ported slices (global layout, sources, IC(0),
-no preconditioner, MG other than Galerkin with Chebyshev smoothing, f64,
-the frame-stale hierarchy) make `sim.step_frame` raise
+Configurations outside the ported slices (global layout, IC(0), no
+preconditioner, MG other than Galerkin with Chebyshev smoothing, f64,
+the frame-stale hierarchy, `cfl` above 1) make `sim.step_frame` raise
 NotImplementedError.
 """
 

@@ -66,9 +66,6 @@ def _finish(cfg: SimConfig, solid, fluid, source, sink, seed=0,
         source_yx=t(np.stack([sy, sx], axis=1).astype(np.int32)),
         source_valid=t(np.ones((len(sy),), bool)),
     )
-    if scn.num_sources:
-        raise NotImplementedError(
-            "source emission is ROADMAP queue 1 item M8")
     state = zeros_state(cfg, rng_mod.initial_device_state(), device)
     state = state.replace(
         markers=t(markers), alive=t(alive),

@@ -1,10 +1,10 @@
-"""Rainbow colours (`euler_tpu/ops/color.py`): `hsv_basis` follows
-misc/color.h:16-33 and `colorize` main.c:187-201.  The renderer's
-`linear_to_srgb` and `float_to_byte_color` come with the renderer
-(ROADMAP queue 1 item M10)."""
+"""Colour machinery (`euler_tpu/ops/color.py`): `hsv_basis`,
+`linear_to_srgb` and `float_to_byte_color` follow misc/color.h:6-33,
+`colorize` main.c:187-201."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from euler_tpu_torch.config import SimConfig
@@ -35,3 +35,19 @@ def colorize(cfg: SimConfig, scn: Scenario, state: FluidState) -> FluidState:
         g=torch.where(fluid, hsv_basis(t), state.g),
         b=torch.where(fluid, hsv_basis(t - 2.0), state.b),
     )
+
+
+def linear_to_srgb(x):
+    """Approximate gamma (misc/color.h:11-13): max(x, 0) ** (1 / 2.2) in
+    f32.  The power is taken in f64 and rounded once to f32, which agrees
+    with the JAX package's f32 pow far more often than torch's f32 pow
+    does (and with it on every byte `render.ansi` makes of it); the card
+    and the CPU then give the same bytes."""
+    e = float(np.float32(1 / 2.2))
+    return torch.pow(torch.clamp_min(x, 0.0).double(), e).to(x.dtype)
+
+
+def float_to_byte_color(x: np.ndarray) -> np.ndarray:
+    """misc/color.h:6-9, on the host."""
+    end = np.nextafter(np.float32(256.0), np.float32(0.0))
+    return np.clip(end * x, 0.0, end).astype(np.int32)

@@ -64,18 +64,26 @@ def _nvcc() -> str:
     return found
 
 
+def hashed_path(name: str, sources, flags) -> Path:
+    """build/euler_tpu_torch/lib<name>-<hash>.so, the hash over the
+    sources' names and bytes and the flags: an edited source or flag
+    gives a new file, an unchanged one the same."""
+    digest = hashlib.sha256()
+    for path in sources:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def load(name: str, flags=()) -> ctypes.CDLL:
     """Compile csrc/<name>.cu (if its hash changed) and load it."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
     all_flags = ARCH_FLAGS + BASE_FLAGS + list(flags)
-    digest = hashlib.sha256()
-    for path in [src] + sorted(CSRC.glob("*.cuh")):
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    digest.update(" ".join(all_flags).encode())
-    lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    lib_path = hashed_path(name, [src] + sorted(CSRC.glob("*.cuh")),
+                           all_flags)
     record = {"seconds": 0.0, "ptxas": ""}
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -264,3 +264,87 @@ def finish_marker_pass(cfg: SimConfig, state: FluidState, oslots, count,
         alive_count=count.sum(dtype=torch.int32),
         dropped_markers=state.dropped_markers + drop.sum(dtype=torch.int32),
     )
+
+
+def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
+                      active=None) -> None:
+    """Source emission on the slot layout (main.c:276-298), the plain
+    version of S1 (`ops/cuda/source_kernel.py`), as the JAX package's
+    `update_fluid_sources_slots` computes it.  Updates the state's colour
+    planes, store, alive plane, counts, RNG, alive_count and
+    source_exhausted in place:
+
+      * the colour pass writes hsv_basis(t + 2), (t), (t - 2) on the
+        source cells, t = f32(0.6) / f32(source_color_period) *
+        frame_count, in mono too (markers_slots.py:431-439);
+      * the emission walks the sources in order: a valid source whose
+        cell holds fewer than markers_per_cell and K markers emits one
+        marker into slot `count`, unless the stream is exhausted
+        (alive_count reached max_markers - 1) or `active` is False; it
+        draws the Y jitter before the X jitter (gcc's argument order at
+        main.c:288) and keeps the old RNG state when it does not emit.
+    Reads no device value on the host."""
+    from euler_tpu_torch.core.rng import randf32
+    from euler_tpu_torch.ops.color import hsv_basis
+
+    f = state.r.dtype
+    q = float(np.float32(0.6) / np.float32(cfg.source_color_period))
+    t = q * state.frame_count.to(f)
+    src = scn.source
+    for plane, phase in ((state.r, t + 2.0), (state.g, t),
+                         (state.b, t - 2.0)):
+        plane.copy_(torch.where(src, hsv_basis(phase), plane))
+
+    S = scn.num_sources
+    if S == 0:
+        return
+    K, max_count = cfg.slots_per_cell, cfg.max_markers
+    h = float(np.float32(cfg.side_length))
+    ys = scn.source_yx[:, 0].long()
+    xs = scn.source_yx[:, 1].long()
+    counts = state.marker_count[ys, xs]
+    if active is None:
+        active = torch.ones((), dtype=torch.bool, device=state.r.device)
+    lanes = state.rng.to(torch.int64)
+    alive_count = state.alive_count.clone()
+    exhausted = state.source_exhausted | (alive_count == max_count - 1)
+    cans, pos_x, pos_y = [], [], []
+    for i in range(S):
+        can = (scn.source_valid[i] & ~exhausted
+               & (counts[i] < cfg.markers_per_cell) & (counts[i] < K)
+               & active)
+        ry, lanes_a = randf32(lanes)
+        rx, lanes_b = randf32(lanes_a)
+        lanes = torch.where(can, lanes_b, lanes)
+        pos_x.append((xs[i].to(f) + rx) * h)
+        pos_y.append((ys[i].to(f) + ry) * h)
+        alive_count = alive_count + can.to(torch.int32)
+        exhausted = exhausted | (alive_count == max_count - 1)
+        cans.append(can)
+
+    # the emitted marker's slot is the cell's count (front-compacted
+    # slots); a source that does not emit writes its slot's old value
+    can = torch.stack(cans)
+    k = torch.clamp(counts, max=K - 1).long()
+    for c, pos in ((0, pos_x), (1, pos_y)):
+        plane = state.markers[c]
+        plane[k, ys, xs] = torch.where(can, torch.stack(pos),
+                                       plane[k, ys, xs])
+    state.alive[k, ys, xs] = state.alive[k, ys, xs] | can
+    state.marker_count[ys, xs] = counts + can.to(torch.int32)
+    state.rng.copy_(lanes.to(torch.uint32))
+    state.alive_count.copy_(alive_count)
+    state.source_exhausted.copy_(exhausted)
+
+
+def update_fluid_sources_slots(cfg: SimConfig, scn: Scenario,
+                               state: FluidState, active=None):
+    """Source emission through the S1 wrapper (the CUDA kernel on CUDA
+    tensors, `source_pass_slots` on CPU tensors), in place on the state's
+    tensors; returns the state.  The caller hands it tensors it owns:
+    `sim.step_frame` copies the fields it carries from its input (colours,
+    alive plane, RNG, source_exhausted) once at the start of a frame."""
+    from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
+
+    emit_sources(cfg, scn, state, active)
+    return state

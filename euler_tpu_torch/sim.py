@@ -25,7 +25,11 @@ package with `use_pallas_markers=True` chooses it (markers_slots.py:
     before the substeps and unpadded once after them;
   * "K5+K6", the march and the re-bin as two kernels
     (`fuse_marker_pass=False`).
-Then comes the route `route` names, chosen as the JAX package with
+With sources, S1 then emits (`update_fluid_sources_slots`, in place on
+tensors the frame owns: `step_frame` copies the fields it carries from
+its input once), after the rainbow colours' extrapolation and before the
+grid stage, which sees the fluid mask after emission (JAX sim.py:
+115-127).  Then comes the route `route` names, chosen as the JAX package with
 `use_pallas=True` chooses it, by the same size gates (written for the
 TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
   * fused (`fuse_projection`, mono, no sources, and the fused kernel's
@@ -57,7 +61,11 @@ from euler_tpu_torch.ops.cuda.marker_fused_kernel import (
     unpad_slot_store,
 )
 from euler_tpu_torch.ops.forces import max_speed_sq
-from euler_tpu_torch.ops.markers_slots import live_slots, marker_pass_slots
+from euler_tpu_torch.ops.markers_slots import (
+    live_slots,
+    marker_pass_slots,
+    update_fluid_sources_slots,
+)
 from euler_tpu_torch.ops.project import project, solver_route
 
 
@@ -68,9 +76,15 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
     if cfg.marker_layout != "slots":
         raise NotImplementedError(
             "marker_layout='global' is ROADMAP queue 1 item M9")
-    if scn.num_sources > 0:
+    if cfg.cfl > 1.0:
         raise NotImplementedError(
-            "source emission is ROADMAP queue 1 item M8")
+            f"cfl {cfg.cfl} > 1: a marker can move more than one cell a "
+            "substep, where the JAX package's re-bins disagree with each "
+            "other (its jnp re-bin clamps the move to one cell, its Pallas "
+            "K6 takes the exact cell, which no cell gathers from, its "
+            "Pallas K1 codes the move as one of 9 and aliases it); the "
+            "port, which clamps, refuses it on every slot marker route "
+            "(ROADMAP queue 3, closed item 1)")
     if s.preconditioner == "ic0":
         raise NotImplementedError(
             "the IC(0) preconditioner is ROADMAP queue 1 item M9")
@@ -149,17 +163,23 @@ def _colors(state: FluidState, fn):
 
 
 def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
-            defer_alive: bool = False):
+            defer_alive: bool = False, active=None):
     """One CFL substep with dt chosen.  Returns (state, msq,
     pcg_iterations).  On the "K4" marker route `state.markers` is the
-    padded store that `step_frame` keeps through the frame."""
+    padded store that `step_frame` keeps through the frame.  `active`
+    False suppresses source emission (S1 updates the state's tensors in
+    place; `step_frame` hands it tensors the frame owns)."""
     state = marker_pass_slots(cfg, scn, state, dt, defer_alive=defer_alive,
                               route=marker_route(cfg, scn))
-    fluid, prev, solid = state.fluid, state.prev_fluid, scn.solid
     if cfg.rainbow:
         # colours extrapolate before sources run (main.c:859-863)
+        fluid, prev = state.fluid, state.prev_fluid
         state = _colors(state, lambda q: extrapolate(cfg, q, fluid, prev,
                                                      "p"))
+    if scn.num_sources:
+        state = update_fluid_sources_slots(cfg, scn, state, active)
+    # the grid stage sees the fluid mask after emission (main.c:289)
+    fluid, prev, solid = state.fluid, state.prev_fluid, scn.solid
 
     proj = route(cfg, scn)[1]
     if proj == "K10":
@@ -212,6 +232,13 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
     padded_store = marker_route(cfg, scn) == "K4"
     if padded_store:
         state = state.replace(markers=pad_slot_store(cfg, state.markers))
+    if scn.num_sources:
+        # S1 writes in place: the frame takes its own copies of the fields
+        # it would otherwise share with the caller's state (the marker
+        # pass and the selects give fresh tensors for the rest)
+        state = state.replace(**{
+            name: getattr(state, name).clone()
+            for name in ("r", "g", "b", "alive", "rng", "source_exhausted")})
     frame_time = torch.tensor(cfg.frame_time, dtype=f, device=dev)
     msq = max_speed_sq(cfg, state.u, state.v)
     n_active = torch.zeros((), dtype=torch.int32, device=dev)
@@ -221,14 +248,17 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
         dt = torch.where(active, _dt_from_msq(cfg, msq, frame_time), 0.0)
         dt_proj = torch.where(active, dt, torch.inf)
         new, new_msq, iters = substep(cfg, scn, state, dt, dt_proj,
-                                      defer_alive=defer_alive)
+                                      defer_alive=defer_alive,
+                                      active=active)
 
         def sel(name):
             return torch.where(active, getattr(new, name),
                                getattr(state, name))
 
         keep = ["u", "v", "prev_marker_count", "p"]
-        if cfg.rainbow:
+        if cfg.rainbow or scn.num_sources:
+            # the JAX package keeps them always; in mono without sources
+            # they never change
             keep += ["r", "g", "b"]
         state = new.replace(**{name: sel(name) for name in keep})
         msq = torch.where(active, new_msq, msq)

@@ -518,21 +518,30 @@ def test_jacobi_stops_at_the_cap(developed, cap):
     assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
 
 
-def _sweeps(fn):
+def _sweeps(fn, sessions: int = 3):
     """fn()'s result and the launches of K8-K10's sweep A and sweep B on
-    the card while it runs (torch.profiler)."""
+    the card while it runs (torch.profiler).  The sweeps launch in pairs,
+    8 of each a graph chunk, so a session whose counts differ or are not
+    multiples of 8 has lost records (the profiler on the card now and
+    then drops some: a session counted 31 and 32 of 104 each): it is
+    taken again, fn() run anew, up to `sessions` times."""
     from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    counts = {"sweep_a": 0, "sweep_b": 0}
-    for e in prof.key_averages():
-        for name in counts:
-            if name in e.key and not e.key.startswith("cuda"):
-                counts[name] += e.count
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        counts = {"sweep_a": 0, "sweep_b": 0}
+        for e in prof.key_averages():
+            for name in counts:
+                if name in e.key and not e.key.startswith("cuda"):
+                    counts[name] += e.count
+        if counts["sweep_a"] == counts["sweep_b"] and \
+                counts["sweep_a"] % 8 == 0:
+            break
     return out, counts
 
 
@@ -1094,3 +1103,80 @@ def test_inactive_substep_is_free(developed):
     assert int(it) == 0 and float(res) == 0.0
     for x in (u, v, msq, p):
         assert torch.isfinite(x).all()
+
+
+# --- S1: source emission --------------------------------------------------
+
+def _source_inputs(case):
+    from euler_tpu_torch import convert
+
+    from source_states import source_case
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg, scn_np, st_np, active = source_case(case)
+    scn = convert.scenario_from_numpy(scn_np, device="cuda")
+    return cfg, scn, st_np, torch.tensor(active, device="cuda")
+
+
+S1_FIELDS = ["markers", "alive", "marker_count", "r", "g", "b", "rng",
+             "alive_count", "source_exhausted"]
+
+
+@pytest.mark.parametrize("case", ["active", "inactive", "exhaustion",
+                                  "exhausted", "per_cell", "K", "padded"])
+def test_source_pass_bitwise(case):
+    """S1 against its plain version on the card, from the same seeded
+    state: every field it writes bitwise (the RNG as int64)."""
+    from euler_tpu_torch import convert
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+
+    cfg, scn, st_np, active = _source_inputs(case)
+    got = convert.state_from_numpy(st_np, device="cuda")
+    want = convert.state_from_numpy(st_np, device="cuda")
+    _build.LAUNCHES.clear()
+    s1.emit_sources(cfg, scn, got, active)
+    assert _build.LAUNCHES["S1"] == 1
+    tms.source_pass_slots(cfg, scn, want, active)
+    for name in S1_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "rng":
+            a, b = a.to(torch.int64), b.to(torch.int64)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    if case == "inactive":
+        before = convert.state_from_numpy(st_np, device="cuda")
+        for name in ("markers", "alive", "marker_count", "alive_count"):
+            assert torch.equal(getattr(got, name), getattr(before, name))
+        assert torch.equal(got.rng.to(torch.int64),
+                           before.rng.to(torch.int64))
+
+
+def test_source_frames_match_cpu_plain():
+    """Waterfall in the CLI's 40 x 100 config, 2 frames on the card
+    (K1, S1, K7, K8) against the CPU's plain versions: counts, alive,
+    RNG, drops and colours bitwise, u and v within 5e-3."""
+    from euler_tpu_torch import cli
+    from euler_tpu_torch.core.scenario import load_scenario
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = cli.build_config(cli.parse_args(["scenarios/waterfall.txt"]))
+    scn_g, st_g = load_scenario("scenarios/waterfall.txt", cfg,
+                                device="cuda")
+    scn_c, st_c = load_scenario("scenarios/waterfall.txt", cfg, device="cpu")
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    for _ in range(2):
+        st_g = sim.step_frame(cfg, scn_g, st_g)
+    assert sum(_build.PLAIN_CALLS.values()) == 0
+    assert {k for k, v in _build.LAUNCHES.items() if v} == {
+        "K1", "S1", "K7", "K8"}
+    for _ in range(2):
+        st_c = sim.step_frame(cfg, scn_c, st_c)
+    for name in ("marker_count", "alive", "alive_count", "dropped_markers",
+                 "source_exhausted", "r", "g", "b"):
+        assert torch.equal(getattr(st_g, name).cpu(), getattr(st_c, name))
+    assert torch.equal(st_g.rng.cpu().to(torch.int64),
+                       st_c.rng.to(torch.int64))
+    assert (st_g.u.cpu() - st_c.u).abs().max() <= 5e-3
+    assert (st_g.v.cpu() - st_c.v).abs().max() <= 5e-3

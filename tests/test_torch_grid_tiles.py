@@ -237,7 +237,8 @@ def _entries(source: str) -> dict:
     ("marker_fused_kernel.marker_lib", "marker_pass.cu"),
     ("mg_kernel._lib", "mg_pcg.cu"),
     ("mg_kernel._stream_lib", "mg_stream.cu"),
-    ("pcg_stream_kernel.stream_lib", "jacobi_stream.cu")])
+    ("pcg_stream_kernel.stream_lib", "jacobi_stream.cu"),
+    ("source_kernel.source_lib", "sources.cu")])
 def test_bindings_match_the_sources(loader, source, monkeypatch):
     """Every entry a wrapper binds takes as many arguments in the CUDA
     source as its ctypes binding passes (ctypes passes what it is given:

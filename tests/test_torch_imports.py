@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from euler_tpu_torch import convert
-from euler_tpu_torch.core import presets, state
+from euler_tpu_torch.core import presets, scenario, state
+from euler_tpu_torch.io import checkpoint
 from euler_tpu_torch.ops.cuda import _build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -33,12 +34,24 @@ MODULES = [
     "euler_tpu_torch.ops.cuda.mg_stream_kernel",
     "euler_tpu_torch.ops.cuda.pcg_kernel",
     "euler_tpu_torch.ops.cuda.pcg_stream_kernel",
+    "euler_tpu_torch.ops.cuda.source_kernel",
     "euler_tpu_torch.ops.color",
     "euler_tpu_torch.ops.project",
+    "euler_tpu_torch.core.rng",
+    "euler_tpu_torch.core.scenario",
+    "euler_tpu_torch.models",
+    "euler_tpu_torch.render.ansi",
+    "euler_tpu_torch.render.downsample",
+    "euler_tpu_torch.render.terminal",
+    "euler_tpu_torch.native",
+    "euler_tpu_torch.native.encoder",
+    "euler_tpu_torch.io.checkpoint",
+    "euler_tpu_torch.cli",
 ]
 ENTRY_POINTS = [presets.dam_break, presets.block_obstacles, presets._finish,
                 state.zeros_state, convert.state_from_numpy,
-                convert.scenario_from_numpy]
+                convert.scenario_from_numpy, scenario.build_scenario,
+                scenario.load_scenario, checkpoint.load]
 
 
 def _env():
@@ -126,3 +139,24 @@ def test_default_device_without_a_card_raises():
 
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         presets.dam_break(SimConfig(nx=32, ny=32, marker_layout="slots"))
+
+
+@pytest.mark.parametrize("entry", ["scenario", "cli"])
+def test_scenarios_and_cli_default_to_the_card(entry):
+    """A text scenario, and the CLI without --cpu, go to the card: torch's
+    own error when there is none, no CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the test covers GPU-less hosts")
+    if entry == "scenario":
+        from euler_tpu_torch.config import SimConfig
+
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            scenario.load_scenario(str(REPO / "scenarios/basic.txt"),
+                                   SimConfig(marker_layout="slots"))
+        return
+    out = subprocess.run(
+        [sys.executable, "-m", "euler_tpu_torch", "scenarios/basic.txt",
+         "--frames", "1"], cwd=REPO, env=_env(), capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "frames/s" not in out.stdout

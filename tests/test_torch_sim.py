@@ -99,13 +99,25 @@ def test_outside_the_slice_raises(kind):
 
 
 def test_sources_raise():
+    """Sources no longer raise (they did until the port had source
+    emission): a dam break with one source cell runs and emits there,
+    the unfused route taking it, while cfl > 1 still raises."""
     cfg = port_config(64)
     scn, st = dam_break(cfg, device="cpu")
+    source = torch.zeros_like(scn.source)
+    source[40, 20] = True
     scn = dataclasses.replace(
-        scn, source_yx=torch.tensor([[10, 10]], dtype=torch.int32),
+        scn, source=source,
+        source_yx=torch.tensor([[40, 20]], dtype=torch.int32),
         source_valid=torch.tensor([True]))
+    assert sim.route(cfg, scn) == ("plain", "K3")
+    st1 = sim.step_frame(cfg, scn, st)
+    assert int(st.marker_count[40, 20]) == 0
+    assert int(st1.marker_count[40, 20]) > 0 or int(st1.marker_count[
+        39:42, 19:22].sum()) > 0
+    assert not torch.equal(st1.rng, st.rng)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.step_frame(cfg, scn, st)
+        sim.step_frame(dataclasses.replace(cfg, cfl=2.0), scn, st)
 
 
 def test_inactive_substeps_keep_state():

@@ -106,12 +106,22 @@ def test_route_frames_match_jax(frames, frame):
 
 @pytest.mark.parametrize("kind", ["sources", "ic0"])
 def test_sources_and_ic0_still_raise(kind):
+    """IC(0) raises.  Sources no longer do (the port has source
+    emission): the speed mode with a source runs unfused and draws from
+    the RNG, and raises only above cfl 1, as every slot route does."""
     scn, st = port_state(developed_numpy(64))
     cfg = speed_config(64)
     if kind == "sources":
+        source = torch.zeros_like(scn.source)
+        source[50, 40] = True  # in the air above the water
         scn = dataclasses.replace(
-            scn, source_yx=torch.tensor([[10, 10]], dtype=torch.int32),
+            scn, source=source,
+            source_yx=torch.tensor([[50, 40]], dtype=torch.int32),
             source_valid=torch.tensor([True]))
+        assert sim.route(cfg, scn)[0] != "fused"
+        new = sim.step_frame(cfg, scn, st)
+        assert not torch.equal(new.rng, st.rng)
+        cfg = dataclasses.replace(cfg, cfl=1.5)
     else:
         cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
             cfg.solver, preconditioner="ic0"))
