@@ -51,13 +51,21 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      versions on that state, K12 timed;
  10. runs the text scenarios and the CLI: `python -m euler_tpu_torch
      scenarios/waterfall.txt --frames 50` (40 x 100, 60 sources: K1, S1,
-     K7, K8), `... --size 1024x1024 --frames 4` (MG: K1, S1, K7, K3) and
-     `preset:dam_break --size 1024x1024 --frames 20` (K1, K2, K3), each
-     as a process of its own (exit 0, its frames/s line) and in process
-     (a warm-up frame, then the counted frames: no K2, K10 or K4 with
-     sources; the 1024² waterfall's div_inf off its source cells <= 1,
-     the source cells keeping their inflow's divergence as in the JAX
-     package); the waterfall on the
+     K7, K8), `... --size 1024x1024 --frames 4` (MG: K1, S1, K7, K3),
+     `preset:dam_break --size 1024x1024 --frames 20` (K1, K2, K3), and
+     where the MG levels need padding, `scenarios/waterfall.txt --size
+     1080x1920 --frames 4` (K1, S1, K7, P3; no K2, K3, K4, K10 or K11)
+     and `preset:dam_break --size 1200x1200 --frames 4` (K1, K7, P3),
+     each as a process of its own (exit 0, its frames/s line) and in
+     process (a warm-up frame, then the counted frames: no K2, K10 or K4
+     with sources; P3 once a substep; the 1024² and 1080 x 1920
+     waterfalls' div_inf off their source cells <= 1, the source cells
+     keeping their inflow's divergence as in the JAX package, the 1200²
+     dam break's <= 1); P3 against its plain version on the last two
+     states (cold, warm, capped at 3 iterations, which it must take
+     exactly; its hierarchy and rows bitwise against
+     `mg_host_operands`, its coarse cycle bitwise against one launch per
+     level operation) and timed at both; the waterfall on the
      card against the CPU, 2 frames (counts, alive, drops, RNG and
      colours bitwise, u and v within 5e-3); S1 bitwise against its plain
      version on the developed waterfall states (as they are, inactive,
@@ -92,8 +100,11 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      K7's; S1 bitwise on seeded cases; the waterfall card vs CPU), then
      tests/test_torch_cuda_global.py and the parity corpora on the card:
      tests/goldens to frame 50 (counts exact, u and v within 5e-3) and
-     tests/goldens/ref_binary byte for byte to the JAX test's horizons.
-With --profile, the three CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
+     tests/goldens/ref_binary byte for byte to the JAX test's horizons,
+     then P3's card tests that the P3 phase above does not repeat
+     (tests/test_torch_cuda_mg_padded.py: 999², the 2160 x 3840
+     hierarchy, a zero RHS and the cap, the workspace per grid).
+With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
 overlapping spans of K8-K10's sweeps once) and its idle share; and the
@@ -296,6 +307,9 @@ BOUNDS = {
     "P1": lambda n, iters, live: (21 * n, JACOBI_FLOPS * iters * n),
     # f64: a_diag i32, fluid u8, r f64 in; z f64 out
     "P2": lambda n, iters, live: (21 * n, IC0_FLOPS * n),
+    # b, x0 f32; a_diag i32; fluid u8 in; p f32 out (P1's loop and the MG
+    # cycle: K3's operations an iteration)
+    "P3": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
 }
 KERNELS = {
     "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
@@ -340,6 +354,10 @@ KERNELS = {
     "P2": ("ic0_preconditioner", "euler_tpu_torch/csrc/pcg_general.cu",
            "euler_tpu/ops/ic0.py:35 (make_ic0_preconditioner, jnp "
            "fori_loops, no pallas_call)"),
+    "P3": ("padded_mg_pcg", "euler_tpu_torch/csrc/pcg_mg.cu",
+           "euler_tpu/ops/project.py:115 (pcg_loop, a jnp while_loop, with "
+           "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner on "
+           "padded levels; no pallas_call)"),
 }
 
 
@@ -586,7 +604,7 @@ def build_all():
 
     loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
                k89.jacobi_lib, k12.stream_lib, s1.source_lib, encoder_lib,
-               g12.global_lib, p12.general_lib]
+               g12.global_lib, p12.general_lib, p12.mg_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -608,7 +626,7 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     also its device time (`device_ms`, best of two rounds)."""
     out = kern()
     iters = 0 if name in ONE_LAUNCH + ("G2", "P2") else int(
-        out[1] if name in ("K3", "K8", "K11", "K12", "P1", "G1")
+        out[1] if name in ("K3", "K8", "K11", "K12", "P1", "P3", "G1")
         else out[2])
     t_p1 = cuda_ms(plain_fn, reps)
     t_k1 = cuda_ms(kern, reps)
@@ -1157,7 +1175,7 @@ def run_large(size, results, summaries, launches, profile_prefix=None):
         log(f"   {kernel}: a zero RHS exits with 0 iterations")
 
 
-# The CLI's three runs (python -m euler_tpu_torch): label -> (arguments,
+# The CLI's runs (python -m euler_tpu_torch): label -> (arguments,
 # frames, the kernels its frames run, the kernels they must bypass).
 # Sources take the unfused routes: never K2, K10 or K4.
 CLI_RUNS = {
@@ -1168,6 +1186,12 @@ CLI_RUNS = {
                            ["K2", "K10", "K4"]),
     "cli_dam_break_1024": (["preset:dam_break", "--size", "1024x1024"], 20,
                            ["K1", "K2", "K3"], ["S1"]),
+    # the converged mode where the MG levels do not halve evenly: P3
+    "cli_waterfall_1080p": (["scenarios/waterfall.txt", "--size",
+                             "1080x1920"], 4, ["K1", "S1", "K7", "P3"],
+                            ["K2", "K3", "K4", "K10", "K11"]),
+    "cli_dam_break_1200": (["preset:dam_break", "--size", "1200x1200"], 4,
+                           ["K1", "K7", "P3"], ["K2", "K3", "K11", "S1"]),
     # the reference's own configuration: the global layout, Jacobi budget
     "cli_filter_no_pallas": (["scenarios/filter.txt", "--no-pallas"], 50,
                              ["G1", "G2", "K7", "K8"],
@@ -1395,17 +1419,17 @@ def check_checkpoint(cfg, scn, st, label: str) -> None:
 
 
 def run_text_scenarios(results, summaries, launches, profile_prefix=None):
-    """The text scenarios, source emission and the CLI: the CLI's three
-    runs as subprocesses, then in process (a warm-up frame, as the CLI
-    takes, then the counted frames); the waterfall against the CPU, S1,
-    K1, K7 and K8 against their plain versions at 40 x 100 and 40 x 99,
-    the 1024² waterfall's div_inf, the renderer and a checkpoint on card
-    states."""
+    """The text scenarios, source emission and the CLI: the CLI's runs
+    as subprocesses, then in process (a warm-up frame, as the CLI takes,
+    then the counted frames); the waterfall against the CPU, S1, K1, K7
+    and K8 against their plain versions at 40 x 100 and 40 x 99, the
+    waterfalls' div_inf, the renderer and a checkpoint on card states;
+    P3 on the 1080 x 1920 and 1200² states (`run_padded_mg`)."""
     import torch
 
     from euler_tpu_torch import sim
 
-    with Phase("the CLI: three headless runs, a process each"):
+    with Phase("the CLI: its headless runs, a process each"):
         summaries["cli_lines"] = run_cli_subprocesses()
 
     with Phase("waterfall 40x100, CLI config: card vs CPU, 2 frames"):
@@ -1451,9 +1475,17 @@ def run_text_scenarios(results, summaries, launches, profile_prefix=None):
                 summaries[label]["div_inf_off_sources"] = away
                 log(f"   {label}: div_inf {summaries[label]['div_inf']:.6g} "
                     f"on all fluid cells, {away:.6g} off the source cells")
-            if label == "cli_waterfall_1024":
+            if label in ("cli_waterfall_1024", "cli_waterfall_1080p"):
                 check(summaries[label]["div_inf_off_sources"] <= 1.0,
                       f"{label}: div_inf off the sources > 1")
+            if label == "cli_dam_break_1200":
+                check(summaries[label]["div_inf"] <= 1.0,
+                      f"{label}: div_inf > 1")
+            if "P3" in kernels:  # every substep's solve, active or not
+                got = summaries[label]["launches"]["P3"]
+                check(got == cfg.max_substeps * frames,
+                      f"{label}: P3 launched {got} times in {frames} "
+                      "frames")
             if label == "cli_filter_no_pallas":
                 for k in kernels:  # once a substep, every substep
                     got = summaries[label]["launches"].get(k, 0)
@@ -1491,7 +1523,104 @@ def run_text_scenarios(results, summaries, launches, profile_prefix=None):
         check_render(bcfg, bscn, bst, "waterfall 1024²", [(24, 80)])
         check_checkpoint(cfg, scn, st, "waterfall 40x100")
         check_checkpoint(bcfg, bscn, bst, "waterfall 1024²")
+
+    run_padded_mg(results, summaries, launches, states)
     del states
+
+
+def check_p3_hierarchy(cfg, b, a_diag, fl, label: str) -> None:
+    """The packed level 0 (padded where the grid is odd), every coarse
+    level's c, e, n planes and the Chebyshev rows P3 builds on the card
+    for a solve of (b, a_diag, fl) bitwise equal to `mg_host_operands`
+    (its levels padded as the JAX hierarchy pads them); then one
+    preconditioner application on b through the coarse cycle and through
+    one launch per level operation, bitwise equal."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import mg_kernel as k3
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    p12.solve_pressure_general(cfg, b, a_diag, fl)
+    ws = p12.workspace(cfg, b.device)
+    shapes, packed0, planes, rows = k3.mg_host_operands(cfg, a_diag, fl)
+    check(ws.shapes == shapes, f"P3 at {label}: level plan {ws.shapes}")
+    check(torch.equal(ws.packed0, packed0), f"P3 at {label}: packed plane "
+          "differs")
+    for l, (want, got) in enumerate(zip(planes, ws.levels), start=1):
+        for name, a, c in zip("cen", want, got):
+            check(torch.equal(a, c), f"P3 at {label}: hierarchy level {l} "
+                  f"{name} differs from mg_host_operands")
+    check(torch.equal(ws.rows, rows), f"P3 at {label}: Chebyshev rows "
+          "differ from mg_host_operands")
+    Y0, X0 = shapes[0]
+    r = torch.nn.functional.pad(b, (0, X0 - cfg.nx, 0, Y0 - cfg.ny))
+    fused, per_op = ws.cycle(r, per_op=False), ws.cycle(r, per_op=True)
+    check(bool(fused.abs().max() > 0), f"P3 at {label}: the cycle returned "
+          "zero")
+    check(torch.equal(fused, per_op), f"P3 at {label}: the coarse cycle in "
+          "one launch differs from one launch per level operation")
+    log(f"   P3 at {label}: levels {shapes}; hierarchy and Chebyshev rows "
+        f"{tuple(rows.shape)} bitwise equal to mg_host_operands; coarse "
+        "cycle bitwise equal to one launch per level operation")
+
+
+P3_TIMED = ("cli_dam_break_1200", "cli_waterfall_1080p")  # the line's last
+
+
+def run_padded_mg(results, summaries, launches, states) -> None:
+    """P3 on the states of the CLI's 1080 x 1920 waterfall and 1200² dam
+    break: against its plain version (cold and warm, and capped at 3
+    iterations, which it must take exactly), its hierarchy, rows and
+    coarse cycle bitwise, then timed beside its plain version."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    systems = {}
+    with Phase("P3 vs plain at 1080x1920 and 1200²: cold, warm, capped at "
+               "3; hierarchy and coarse cycle bitwise"):
+        err = 0.0
+        for label in P3_TIMED:
+            cfg, scn, st = states[label]
+            check(sim.route(cfg, scn)[1] == "P3", f"{label}: not P3")
+            _, _, _, b, a_diag = substep_system(cfg, scn, st)
+            fl = st.fluid
+            p0 = torch.where(fl, st.p, 0.0)
+            systems[label] = (cfg, b, a_diag, fl, p0)
+            for x0 in (None, p0):
+                err = max(err, check_solve(
+                    f"P3 {'warm' if x0 is not None else 'cold'} "
+                    f"{cfg.ny}x{cfg.nx}",
+                    p12.solve_pressure_general(cfg, b, a_diag, fl, x0=x0),
+                    p12.solve_pressure_general_plain(cfg, b, a_diag, fl, x0),
+                    5e-4, same_iters=False))
+            check_p3_hierarchy(cfg, b, a_diag, fl, f"{cfg.ny}x{cfg.nx}")
+        cfg, b, a_diag, fl, p0 = systems["cli_dam_break_1200"]
+        capped = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, max_iterations=3))
+        got = p12.solve_pressure_general(capped, b, a_diag, fl, x0=p0)
+        want = p12.solve_pressure_general_plain(capped, b, a_diag, fl, p0)
+        check(int(got[1]) == int(want[1]) == 3, "P3 capped at 3 iterations "
+              "did not take exactly 3")
+        err = max(err, check_solve("P3 (max_iterations 3) 1200x1200", got,
+                                   want, 5e-4, same_iters=True))
+        results["P3"] = {"max_abs_err": err}
+
+    with Phase("P3 vs plain times at 1200² and 1080x1920 (CUDA events)"):
+        for label in P3_TIMED:
+            cfg, b, a_diag, fl, p0 = systems[label]
+            timed = {}
+            time_pair(timed, "P3",
+                      lambda: p12.solve_pressure_general(cfg, b, a_diag, fl,
+                                                         x0=p0),
+                      lambda: p12.solve_pressure_general_plain(
+                          cfg, b, a_diag, fl, p0),
+                      cfg.ny * cfg.nx, 0, 2)
+            summaries[f"p3_{label}"] = timed["P3"]
+        # the kernels line keeps the 1080 x 1920 call
+        results["P3"].update(timed["P3"])
+    launches["P3"] = summaries["cli_waterfall_1080p"]["launches"]["P3"]
 
 
 def run_card_tests(selection: str,
@@ -2176,6 +2305,12 @@ def run(args) -> dict:
                               "tests/test_torch_goldens.py",
                               "tests/test_torch_ref_binary.py"))
 
+    with Phase("P3's card tests beside the 1200² and 1080x1920 checks above "
+               "(pytest, tests/test_torch_cuda_mg_padded.py)"):
+        torch.cuda.empty_cache()
+        run_card_tests("999 or 2160 or zero or workspace",
+                       files=("tests/test_torch_cuda_mg_padded.py",))
+
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -2284,10 +2419,12 @@ def main(argv=None) -> int:
                          "PREFIX.mg.txt, PREFIX.speed.txt, "
                          "PREFIX.marker_k1.txt, PREFIX.marker_unfused.txt, "
                          "PREFIX.padded_store.txt, PREFIX.mg_2048.txt, "
-                         "PREFIX.jacobi_4096.txt, of the four CLI runs to "
+                         "PREFIX.jacobi_4096.txt, of the six CLI runs to "
                          "PREFIX.cli_waterfall.txt, "
                          "PREFIX.cli_waterfall_1024.txt, "
-                         "PREFIX.cli_dam_break_1024.txt and "
+                         "PREFIX.cli_dam_break_1024.txt, "
+                         "PREFIX.cli_waterfall_1080p.txt, "
+                         "PREFIX.cli_dam_break_1200.txt and "
                          "PREFIX.cli_filter_no_pallas.txt, and of the 1024² "
                          "global dam break to PREFIX.global_f32.txt and "
                          "PREFIX.global_f64.txt")

@@ -10,8 +10,9 @@ Fixed-rate pacing (main.c:1034-1038, misc/time.c:17-31).
 
 The configuration is the one the JAX CLI's `_build` makes: by default
 and with --pallas the slot layout, the converged MG-PCG solve (with the
-fused substep where it fits) from 512² up and the reference's Jacobi
-budget below; with --no-pallas the reference's own configuration, the
+fused substep where it fits; at sizes whose MG levels do not halve
+evenly, such as 1080x1920, 720x1280 or 1200x1200, the unfused grid stage
+K7 and P3) from 512² up and the reference's Jacobi budget below; with --no-pallas the reference's own configuration, the
 global marker layout with the Jacobi budget (the JAX CLI's non-Pallas
 path).  The port takes its hand-written kernels on every route (G1, G2
 and K7 with K8 or P1 for --no-pallas), so --cpu means "the same

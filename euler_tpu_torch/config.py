@@ -16,9 +16,9 @@ the march K5 and the re-bin K6 with `fuse_marker_pass=False`.
 stage + projection (K2 for MG, K10 for Jacobi) and a Jacobi substep the
 fused projection (K9) where their gates let it; `use_pallas_grid` runs
 the unfused mono grid stage as K7; the rest goes through
-`ops.project.project` (K8, K3, K11 or K12).  Fields that choose between
-JAX implementations of the same arithmetic are read by nothing here,
-because the port has one implementation of each:
+`ops.project.project` (K8, K3, K11, K12, P1 or P3).  Fields that choose
+between JAX implementations of the same arithmetic are read by nothing
+here, because the port has one implementation of each:
 
   * TPU-only devices: `marker_tile`, `marker_kmax_specialize`,
     `marker_packed_insert`, `marker_interior_fast`, `pallas_interpret`
@@ -29,10 +29,10 @@ because the port has one implementation of each:
   * RB-GS / V-cycle knobs that the Chebyshev smoother does not read:
     `mg_pre_smooth`, `mg_post_smooth`.
 
-Configurations outside the ported slices (global layout, IC(0), no
-preconditioner, MG other than Galerkin with Chebyshev smoothing, f64,
-the frame-stale hierarchy, `cfl` above 1) make `sim.step_frame` raise
-NotImplementedError.
+Configurations outside the ported slices (MG other than Galerkin with
+Chebyshev smoothing, f64 MG, f64 grid fields, the frame-stale hierarchy,
+`cfl` above 1) make `sim.step_frame` raise NotImplementedError naming
+their ROADMAP item (`sim.check_slice`).
 """
 
 from __future__ import annotations

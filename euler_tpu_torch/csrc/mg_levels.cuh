@@ -115,15 +115,28 @@ __device__ __forceinline__ float fluid0(const Lvl& L, int k) {
 }
 
 // ---- the level operations, one cell each ----
+//
+// Padded levels (P3, csrc/pcg_mg.cu): a level is stored at its padded
+// shape, even wherever it is coarsened (multigrid.build_galerkin_hierarchy
+// pads an odd level with inactive cells), so a child level of L holds
+// L.Y / 2 x L.X / 2 cells of its own and, where that is odd and the child
+// is coarsened in turn, a row or column of pad after them.  The
+// restrictions take the child's stored width Xc and write 0 to the pad's
+// b_c; the prolongation reads the child at that width.  K3's and K11's
+// levels halve evenly, so Xc = L.X / 2 there, no cell is pad, and every
+// cell takes the operations it took before.
 
 // degree-1 pre-smooth from zero fused with the restriction: for coarse
-// cell t, x = b/theta and rr = b - A b/theta on its 4 children, and
-// b_c = the 2x2 sum of rr
+// cell t of a child Xc cells wide, x = b/theta and rr = b - A b/theta on
+// its 4 children, and b_c = the 2x2 sum of rr (0 in the child's pad)
 __device__ __forceinline__ void pre1_restrict_at(const Lvl& L, const float* b,
                                                  float* x, float* bc,
-                                                 float it, int t) {
-  const int Xc = L.X / 2;
+                                                 float it, int Xc, int t) {
   const int I = t / Xc, J = t - I * Xc;
+  if (2 * I >= L.Y || 2 * J >= L.X) {
+    bc[t] = 0.0f;
+    return;
+  }
   float rr[2][2];
   for (int a = 0; a < 2; ++a)
     for (int c = 0; c < 2; ++c) {
@@ -138,12 +151,16 @@ __device__ __forceinline__ void pre1_restrict_at(const Lvl& L, const float* b,
                     __fadd_rn(rr[0][1], rr[1][1]));
 }
 
-// b_c = R(b - A x) at coarse cell t
+// b_c = R(b - A x) at coarse cell t of a child Xc cells wide (0 in its
+// pad)
 __device__ __forceinline__ void restrict_full_at(const Lvl& L, const float* b,
                                                  const float* x, float* bc,
-                                                 int t) {
-  const int Xc = L.X / 2;
+                                                 int Xc, int t) {
   const int I = t / Xc, J = t - I * Xc;
+  if (2 * I >= L.Y || 2 * J >= L.X) {
+    bc[t] = 0.0f;
+    return;
+  }
   float rr[2][2];
   for (int a = 0; a < 2; ++a)
     for (int c = 0; c < 2; ++c) {
@@ -156,11 +173,13 @@ __device__ __forceinline__ void restrict_full_at(const Lvl& L, const float* b,
                     __fadd_rn(rr[0][1], rr[1][1]));
 }
 
-// x += P z_c (constant injection, masked by fluid at level 0)
+// x += P z_c (constant injection from a child Xc cells wide, masked by
+// fluid at level 0); every cell of L has its parent inside the child's
+// own cells, never in its pad
 __device__ __forceinline__ void prolong_add_at(const Lvl& L, const float* zc,
-                                               float* x, int t) {
+                                               float* x, int Xc, int t) {
   const int i = t / L.X, j = t - i * L.X;
-  float add = zc[(i / 2) * (L.X / 2) + j / 2];
+  float add = zc[(i / 2) * Xc + j / 2];
   if (L.pk) add = __fmul_rn(fluid0(L, t), add);
   x[t] = __fadd_rn(x[t], add);
 }
@@ -254,33 +273,36 @@ __device__ __forceinline__ void coarse_solve_block(const Lvl& L,
 // the same value before any kernel of the iteration can change it, so
 // the early return is uniform.
 
-__global__ void pre1_restrict(Lvl L, const float* __restrict__ b,
+// the restrictions run over the child's stored Yc x Xc cells
+__global__ void pre1_restrict(Lvl L, int Yc, int Xc,
+                              const float* __restrict__ b,
                               float* __restrict__ x, float* __restrict__ bc,
                               const float* __restrict__ row,
                               const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (L.Y / 2) * (L.X / 2)) return;
-  pre1_restrict_at(L, b, x, bc, row[0], t);
+  if (t >= Yc * Xc) return;
+  pre1_restrict_at(L, b, x, bc, row[0], Xc, t);
 }
 
-__global__ void restrict_full(Lvl L, const float* __restrict__ b,
+__global__ void restrict_full(Lvl L, int Yc, int Xc,
+                              const float* __restrict__ b,
                               const float* __restrict__ x,
                               float* __restrict__ bc,
                               const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (L.Y / 2) * (L.X / 2)) return;
-  restrict_full_at(L, b, x, bc, t);
+  if (t >= Yc * Xc) return;
+  restrict_full_at(L, b, x, bc, Xc, t);
 }
 
-__global__ void prolong_add(Lvl L, const float* __restrict__ zc,
+__global__ void prolong_add(Lvl L, int Xc, const float* __restrict__ zc,
                             float* __restrict__ x,
                             const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= L.Y * L.X) return;
-  prolong_add_at(L, zc, x, t);
+  prolong_add_at(L, zc, x, Xc, t);
 }
 
 // with DOT, also the per-block partial sums of z * b (the PCG <z, r> at
@@ -532,8 +554,9 @@ struct Solve {
   unsigned blocks(int l) const {
     return eu_blocks(static_cast<long long>(lv[l].Y) * lv[l].X, kThreads);
   }
+  // the restriction of level l: a thread per stored cell of level l + 1
   unsigned coarse_blocks(int l) const {
-    return eu_blocks(static_cast<long long>(lv[l].Y / 2) * (lv[l].X / 2),
+    return eu_blocks(static_cast<long long>(lv[l + 1].Y) * lv[l + 1].X,
                      kThreads);
   }
 
@@ -575,24 +598,25 @@ struct Solve {
       }
       return 0;
     }
+    const int Yc = lv[l + 1].Y, Xc = lv[l + 1].X;
     if (deg == 1) {
       pre1_restrict<<<coarse_blocks(l), kThreads, 0, s>>>(
-          lv[l], b[l], x[l], b[l + 1], row(l), flags);
+          lv[l], Yc, Xc, b[l], x[l], b[l + 1], row(l), flags);
       if ((rc = eu_launch_status())) return rc;
     } else {
       if ((rc = cheby(l, true))) return rc;
-      restrict_full<<<coarse_blocks(l), kThreads, 0, s>>>(lv[l], b[l], x[l],
-                                                          b[l + 1], flags);
+      restrict_full<<<coarse_blocks(l), kThreads, 0, s>>>(
+          lv[l], Yc, Xc, b[l], x[l], b[l + 1], flags);
       if ((rc = eu_launch_status())) return rc;
     }
     for (int v = 0; v < visits(l); ++v) {
       if (v > 0) {
         restrict_full<<<coarse_blocks(l), kThreads, 0, s>>>(
-            lv[l], b[l], x[l], b[l + 1], flags);
+            lv[l], Yc, Xc, b[l], x[l], b[l + 1], flags);
         if ((rc = eu_launch_status())) return rc;
       }
       if ((rc = cycle(l + 1, false))) return rc;
-      prolong_add<<<blocks(l), kThreads, 0, s>>>(lv[l], zout(l + 1), x[l],
+      prolong_add<<<blocks(l), kThreads, 0, s>>>(lv[l], Xc, zout(l + 1), x[l],
                                                  flags);
       if ((rc = eu_launch_status())) return rc;
     }
@@ -662,17 +686,19 @@ template <bool CL>
 __device__ __forceinline__ void descend(const Solve& S, int l, int first,
                                         int stride) {
   const Lvl L = S.lv[l];
-  const int nc = (L.Y / 2) * (L.X / 2);
+  const int Xc = S.lv[l + 1].X;
+  const int nc = S.lv[l + 1].Y * Xc;
   const float* const b = S.b[l];
   float* const x = S.x[l];
   float* const bc = S.b[l + 1];
   if (S.deg == 1) {
     const float it = S.row(l)[0];
     for (int t = first; t < nc; t += stride)
-      pre1_restrict_at(L, b, x, bc, it, t);
+      pre1_restrict_at(L, b, x, bc, it, Xc, t);
   } else {
     cheby_dev<CL>(S, l, true, first, stride);
-    for (int t = first; t < nc; t += stride) restrict_full_at(L, b, x, bc, t);
+    for (int t = first; t < nc; t += stride)
+      restrict_full_at(L, b, x, bc, Xc, t);
   }
   level_sync<CL>();
 }
@@ -682,9 +708,10 @@ __device__ __forceinline__ void ascend(const Solve& S, int l, int first,
                                        int stride) {
   const Lvl L = S.lv[l];
   const int n = L.Y * L.X;
+  const int Xc = S.lv[l + 1].X;
   float* const x = S.x[l];
   const float* const zc = S.zout(l + 1);
-  for (int t = first; t < n; t += stride) prolong_add_at(L, zc, x, t);
+  for (int t = first; t < n; t += stride) prolong_add_at(L, zc, x, Xc, t);
   level_sync<CL>();
   if (S.deg == 1) {
     const float it = S.row(l)[0];
@@ -836,13 +863,23 @@ inline int make_solve(Solve* S, int L, const int* shapes,
   for (int l = S->fused + 1; l < L; ++l)
     S->fused_smem += static_cast<int>(sizeof(float)) * kFusedPlanes *
                      S->lv[l].Y * S->lv[l].X;
-  if (S->fused_smem > 227 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (S->fused_smem > 48 * 1024)
-    return static_cast<int>(cudaFuncSetAttribute(
-        coarse_cycle, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        S->fused_smem));
-  return 0;
+  if (S->fused_smem <= 48 * 1024) return 0;
+  // the limit is the kernel's, not this solver's: raise it to all the
+  // card allows, so that a solver made later with a smaller coarse end
+  // cannot lower it under this one's launches
+  cudaFuncAttributes fa;
+  int rc = static_cast<int>(cudaFuncGetAttributes(&fa, coarse_cycle));
+  int dev = 0, optin = 0;
+  if (!rc) rc = static_cast<int>(cudaGetDevice(&dev));
+  if (!rc)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  if (rc) return rc;
+  const int most = optin - static_cast<int>(fa.sharedSizeBytes);
+  if (S->fused_smem > most) return static_cast<int>(cudaErrorInvalidValue);
+  if (fa.maxDynamicSharedSizeBytes >= most) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      coarse_cycle, cudaFuncAttributeMaxDynamicSharedMemorySize, most));
 }
 
 // The PCG recurrence of one solve on the packed fine level L0 (the loop

@@ -97,28 +97,32 @@ __global__ void fine_lmax(Lvl L0, float* __restrict__ part,
   write_max(g, part);
 }
 
-// the level below L: its c, e, n planes, active flags and per-block
-// maxima of its Gershgorin row value (the west and south couplings
-// recomputed from L)
+// the level below L, stored Yc x Xc (L / 2, and where P3 pads it, a row
+// or column of inactive pad more: zero weights, not active): its c, e, n
+// planes, active flags and per-block maxima of its Gershgorin row value
+// (the west and south couplings recomputed from L)
 template <bool PACKED>
-__global__ void coarsen(Lvl L, const uint8_t* __restrict__ act,
+__global__ void coarsen(Lvl L, int Yc, int Xc,
+                        const uint8_t* __restrict__ act,
                         float* __restrict__ c, float* __restrict__ e,
                         float* __restrict__ n, uint8_t* __restrict__ act_c,
                         float* __restrict__ part,
                         const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
-  const int Yc = L.Y / 2, Xc = L.X / 2;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   float g = 0.0f;
   if (t < Yc * Xc) {
     const int I = t / Xc, J = t - I * Xc;
-    const Edge q = coarse_at<PACKED>(L, act, I, J);
+    const bool pad = 2 * I >= L.Y || 2 * J >= L.X;
+    const Edge q = pad ? Edge{0.0f, 0.0f, 0.0f, false}
+                       : coarse_at<PACKED>(L, act, I, J);
     c[t] = q.c;
     e[t] = q.e;
     n[t] = q.n;
     act_c[t] = q.act;
-    g = gershgorin(q, J > 0 ? coarse_at<PACKED>(L, act, I, J - 1).e : 0.0f,
-                   I > 0 ? coarse_at<PACKED>(L, act, I - 1, J).n : 0.0f);
+    if (!pad)
+      g = gershgorin(q, J > 0 ? coarse_at<PACKED>(L, act, I, J - 1).e : 0.0f,
+                     I > 0 ? coarse_at<PACKED>(L, act, I - 1, J).n : 0.0f);
   }
   write_max(g, part);
 }
@@ -212,13 +216,14 @@ struct MgSolver {
     int rc = eu_launch_status();
     for (int l = 0; !rc && l + 1 < HL; ++l) {
       float* part = hpart + R.off[l + 1];
+      const int Yc = hl[l + 1].Y, Xc = hl[l + 1].X;
       if (l == 0)
         coarsen<true><<<blocks(1), kThreads, 0, st>>>(
-            hl[0], nullptr, c[1], e[1], n[1], act[1], part, fl);
+            hl[0], Yc, Xc, nullptr, c[1], e[1], n[1], act[1], part, fl);
       else
         coarsen<false><<<blocks(l + 1), kThreads, 0, st>>>(
-            hl[l], act[l], c[l + 1], e[l + 1], n[l + 1], act[l + 1], part,
-            fl);
+            hl[l], Yc, Xc, act[l], c[l + 1], e[l + 1], n[l + 1], act[l + 1],
+            part, fl);
       rc = eu_launch_status();
     }
     if (rc) return rc;

@@ -33,275 +33,18 @@
 // Each reduction is per-CTA partials whose last CTA (atomic ticket after
 // a fence) folds them in a fixed order, so a solve is deterministic; the
 // order is not the plain loop's, so the last bits of p may differ from
-// it.  Built with -fmad=false, in the plain version's operand order.
-#include "common.cuh"
+// it.  Built with -fmad=false, in the plain version's operand order.  The
+// loop's kernels and their order are pcg_loop.cuh's, shared with P3
+// (pcg_mg.cu, the loop with the MG cycle as its preconditioner).
+#include "pcg_loop.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
+using namespace pcg;
+
 constexpr int kIcThreads = 1024;
-constexpr int kChunk = 8;
-constexpr int kBatch = 13;
 // the shared memory P2 may take (the H100's opt-in limit is 227 KB)
 constexpr size_t kIcSmem = 200 * 1024;
-
-enum Precon { kNone = 0, kJacobi = 1, kIc0 = 2 };
-// scalars (T) and flags (int) on the device
-enum { S_TOL, S_SIGMA, S_ALPHA, S_BETA, S_RESID, S_N };
-enum { F_DONE, F_ITERS, F_CAP, F_NONZERO, F_CONV, F_TICKET, F_N };
-
-template <typename T>
-__device__ __forceinline__ T tmax(T a, T b) {  // NaN-propagating
-  return (a > b || a != a) ? a : b;
-}
-
-// thread 0 gets the block's sum (OP 0) or NaN-propagating max (OP 1)
-template <int OP, typename T>
-__device__ T block_reduce_t(T v) {
-  __shared__ T part[32];
-  for (int o = 16; o > 0; o >>= 1) {
-    const T n = __shfl_down_sync(0xffffffffu, v, o);
-    v = OP == 0 ? v + n : tmax(v, n);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  v = threadIdx.x < nw ? part[threadIdx.x] : T(0);
-  if (warp == 0)
-    for (int o = 16; o > 0; o >>= 1) {
-      const T n = __shfl_down_sync(0xffffffffu, v, o);
-      v = OP == 0 ? v + n : tmax(v, n);
-    }
-  __syncthreads();
-  return v;
-}
-
-// Every CTA's partial into part[]; true in the last CTA to finish, whose
-// thread 0 then holds the fold of all partials in *out (fixed order).
-template <int OP, typename T>
-__device__ bool last_block_reduce(T v, T* part, int* ticket, T* out) {
-  __shared__ bool s_last;
-  v = block_reduce_t<OP>(v);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = v;
-    __threadfence();
-    s_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
-  }
-  __syncthreads();
-  if (!s_last) return false;
-  __threadfence();
-  T acc = T(0);
-  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x);
-       i += blockDim.x) {
-    const T v_i = __ldcg(part + i);  // other CTAs' partials: not from L1
-    acc = OP == 0 ? acc + v_i : tmax(acc, v_i);
-  }
-  acc = block_reduce_t<OP>(acc);
-  if (threadIdx.x == 0) {
-    *out = acc;
-    *ticket = 0;
-  }
-  return true;
-}
-
-struct Ws {
-  int Y, X;
-  uint8_t* code;  // fluid << 3 | a_diag
-  void* p;
-  void* r;
-  void* d;
-  void* z;
-  void* ad;
-  void* pre;  // IC(0) E_inv
-  void* q;    // IC(0) forward-solve plane (global fallback)
-  void* part;
-  void* scal;
-  int* flags;
-};
-
-template <typename T>
-struct Planes {
-  T *p, *r, *d, *z, *ad, *pre, *q, *part, *scal;
-  __device__ explicit Planes(const Ws& w)
-      : p(static_cast<T*>(w.p)), r(static_cast<T*>(w.r)),
-        d(static_cast<T*>(w.d)), z(static_cast<T*>(w.z)),
-        ad(static_cast<T*>(w.ad)), pre(static_cast<T*>(w.pre)),
-        q(static_cast<T*>(w.q)), part(static_cast<T*>(w.part)),
-        scal(static_cast<T*>(w.scal)) {}
-};
-
-__device__ __forceinline__ bool fl_of(uint8_t c) { return (c & 8) != 0; }
-__device__ __forceinline__ int a_of(uint8_t c) { return c & 7; }
-
-// apply_a (ops/project.py): a s - (((s_l + s_r) + s_d) + s_u) on fluid
-template <typename T>
-__device__ __forceinline__ T apply_at(const T* s, uint8_t c, int i, int y,
-                                      int x, int Y, int X) {
-  if (!fl_of(c)) return T(0);
-  const T sl = x > 0 ? s[i - 1] : T(0);
-  const T sr = x + 1 < X ? s[i + 1] : T(0);
-  const T sd = y > 0 ? s[i - X] : T(0);
-  const T su = y + 1 < Y ? s[i + X] : T(0);
-  return static_cast<T>(a_of(c)) * s[i] - (((sl + sr) + sd) + su);
-}
-
-// make_preconditioner's pointwise forms
-template <typename T, int PK>
-__device__ __forceinline__ T precon_at(T r, uint8_t c) {
-  if (!fl_of(c)) return T(0);
-  if (PK == kJacobi && a_of(c) > 0) return r / static_cast<T>(a_of(c));
-  return r;
-}
-
-static inline unsigned grid_blocks(int n) {
-  return min(eu_blocks(n, kThreads), static_cast<unsigned>(kMaxBlocks));
-}
-
-#define GRID_STRIDE(i, n)                                               \
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < (n);          \
-       i += gridDim.x * blockDim.x)
-
-// head: the operator code, r = b, p = 0, max|b| -> tol, the early-out
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    head_init(Ws w, const int32_t* a_diag, const uint8_t* fluid, const T* b,
-              int cap, double tol, double tol_rel, bool warm) {
-  Planes<T> P(w);
-  const int n = w.Y * w.X;
-  T m = T(0);
-  GRID_STRIDE(i, n) {
-    const uint8_t c = fluid[i] ? static_cast<uint8_t>(8 | a_diag[i]) : 0;
-    w.code[i] = c;
-    P.r[i] = b[i];
-    P.p[i] = T(0);
-    m = tmax(m, fabs(b[i]));
-  }
-  T bn;
-  if (last_block_reduce<1>(m, P.part, w.flags + F_TICKET, &bn) &&
-      threadIdx.x == 0) {
-    P.scal[S_TOL] = tmax(static_cast<T>(tol), static_cast<T>(tol_rel) * bn);
-    P.scal[S_RESID] = bn;
-    const bool nonzero = bn != T(0);
-    w.flags[F_NONZERO] = nonzero;
-    w.flags[F_ITERS] = 0;
-    w.flags[F_CAP] = cap;
-    w.flags[F_CONV] = 0;
-    w.flags[F_DONE] = (!warm && !nonzero) || cap <= 0;
-  }
-}
-
-// warm start: p = nonzero ? x0 : 0
-template <typename T>
-__global__ void __launch_bounds__(kThreads) head_x0(Ws w, const T* x0) {
-  Planes<T> P(w);
-  const bool nonzero = w.flags[F_NONZERO] != 0;
-  GRID_STRIDE(i, w.Y * w.X) P.p[i] = nonzero ? x0[i] : T(0);
-}
-
-// warm start: r = b - A p, and the early stop if it already converged
-template <typename T>
-__global__ void __launch_bounds__(kThreads) head_residual(Ws w) {
-  Planes<T> P(w);
-  T m = T(0);
-  GRID_STRIDE(i, w.Y * w.X) {
-    const int y = i / w.X, x = i - y * w.X;
-    const T r = P.r[i] - apply_at(P.p, w.code[i], i, y, x, w.Y, w.X);
-    P.r[i] = r;
-    m = tmax(m, fabs(r));
-  }
-  T rm;
-  if (last_block_reduce<1>(m, P.part, w.flags + F_TICKET, &rm) &&
-      threadIdx.x == 0) {
-    P.scal[S_RESID] = rm;
-    w.flags[F_DONE] = !w.flags[F_NONZERO] || !(rm > P.scal[S_TOL]) ||
-                      w.flags[F_CAP] <= 0;
-  }
-}
-
-// z = M^-1 r (IC(0): already in z), <z, r>.  HEAD: d = z, sigma.  Else:
-// beta, sigma, the count and the stop.
-template <typename T, int PK, bool HEAD>
-__global__ void __launch_bounds__(kThreads) precon_dot(Ws w) {
-  if (!HEAD && w.flags[F_DONE]) return;
-  Planes<T> P(w);
-  T acc = T(0);
-  GRID_STRIDE(i, w.Y * w.X) {
-    const T r = P.r[i];
-    T z;
-    if (PK == kIc0) {
-      z = P.z[i];
-    } else {
-      z = precon_at<T, PK>(r, w.code[i]);
-      P.z[i] = z;
-    }
-    if (HEAD) P.d[i] = z;
-    acc = acc + z * r;
-  }
-  T dot;
-  if (last_block_reduce<0>(acc, P.part, w.flags + F_TICKET, &dot) &&
-      threadIdx.x == 0) {
-    if (HEAD) {
-      P.scal[S_SIGMA] = dot;
-    } else {
-      const T sigma = P.scal[S_SIGMA];
-      P.scal[S_BETA] = dot / (sigma != T(0) ? sigma : T(1));
-      P.scal[S_SIGMA] = dot;
-      const int it = w.flags[F_ITERS] + 1;
-      w.flags[F_ITERS] = it;
-      w.flags[F_DONE] = w.flags[F_CONV] || it >= w.flags[F_CAP];
-    }
-  }
-}
-
-// Ad = A d, <Ad, d>, alpha = sigma / <Ad, d> (1 for 0)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) iter_ad(Ws w) {
-  if (w.flags[F_DONE]) return;
-  Planes<T> P(w);
-  T acc = T(0);
-  GRID_STRIDE(i, w.Y * w.X) {
-    const int y = i / w.X, x = i - y * w.X;
-    const T ad = apply_at(P.d, w.code[i], i, y, x, w.Y, w.X);
-    P.ad[i] = ad;
-    acc = acc + ad * P.d[i];
-  }
-  T zs;
-  if (last_block_reduce<0>(acc, P.part, w.flags + F_TICKET, &zs) &&
-      threadIdx.x == 0)
-    P.scal[S_ALPHA] = P.scal[S_SIGMA] / (zs != T(0) ? zs : T(1));
-}
-
-// p += alpha d, r -= alpha Ad, max|r|, conv = not (max|r| > tol)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) iter_update(Ws w) {
-  if (w.flags[F_DONE]) return;
-  Planes<T> P(w);
-  const T alpha = P.scal[S_ALPHA];
-  T m = T(0);
-  GRID_STRIDE(i, w.Y * w.X) {
-    P.p[i] = P.p[i] + alpha * P.d[i];
-    const T r = P.r[i] - alpha * P.ad[i];
-    P.r[i] = r;
-    m = tmax(m, fabs(r));
-  }
-  T rm;
-  if (last_block_reduce<1>(m, P.part, w.flags + F_TICKET, &rm) &&
-      threadIdx.x == 0) {
-    P.scal[S_RESID] = rm;
-    w.flags[F_CONV] = !(rm > P.scal[S_TOL]);
-  }
-}
-
-// d = z + beta d
-template <typename T>
-__global__ void __launch_bounds__(kThreads) iter_dir(Ws w) {
-  if (w.flags[F_DONE]) return;
-  Planes<T> P(w);
-  const T beta = P.scal[S_BETA];
-  GRID_STRIDE(i, w.Y * w.X) P.d[i] = P.z[i] + beta * P.d[i];
-}
 
 // ---- P2: IC(0) on anti-diagonals, one CTA -----------------------------
 
@@ -457,59 +200,34 @@ struct Solver {
   cudaGraphExec_t exec;
   cudaEvent_t replayed;
 
-  unsigned blocks() const { return grid_blocks(w.Y * w.X); }
-
-  template <typename T, int PK>
-  int iteration_t(cudaStream_t st) const {
-    const unsigned nb = blocks();
-    iter_ad<T><<<nb, kThreads, 0, st>>>(w);
-    iter_update<T><<<nb, kThreads, 0, st>>>(w);
-    if (PK == kIc0) {
-      const int rc = launch_ic0_apply<T>(
-          w.Y, w.X, w.code, static_cast<const T*>(w.pre),
-          static_cast<const T*>(w.r), static_cast<T*>(w.z),
-          static_cast<T*>(w.q), w.flags + F_DONE, st);
-      if (rc) return rc;
-    }
-    precon_dot<T, PK, false><<<nb, kThreads, 0, st>>>(w);
-    iter_dir<T><<<nb, kThreads, 0, st>>>(w);
-    return eu_launch_status();
+  // P2 in an iteration: guarded by the stop flag
+  template <typename T>
+  int ic0_step(cudaStream_t st) const {
+    return launch_ic0_apply<T>(w.Y, w.X, w.code, static_cast<const T*>(w.pre),
+                               static_cast<const T*>(w.r),
+                               static_cast<T*>(w.z), static_cast<T*>(w.q),
+                               w.flags + F_DONE, st);
   }
 
-  template <typename T, int PK>
-  int head_t(const int32_t* a_diag, const uint8_t* fluid, const T* b,
-             const T* x0, int cap, double tol, double tol_rel,
-             cudaStream_t st) const {
-    const unsigned nb = blocks();
-    head_init<T><<<nb, kThreads, 0, st>>>(w, a_diag, fluid, b, cap, tol,
-                                          tol_rel, x0 != nullptr);
-    if (x0 != nullptr) {
-      head_x0<T><<<nb, kThreads, 0, st>>>(w, x0);
-      head_residual<T><<<nb, kThreads, 0, st>>>(w);
-    }
-    int rc = eu_launch_status();
+  // P2 in the head: E_inv built anew, then applied
+  template <typename T>
+  int ic0_head(cudaStream_t st) const {
+    const int rc = launch_ic0_build<T>(w.Y, w.X, w.code,
+                                       static_cast<T*>(w.pre), st);
     if (rc) return rc;
-    if (PK == kIc0) {
-      if ((rc = launch_ic0_build<T>(w.Y, w.X, w.code, static_cast<T*>(w.pre),
-                                    st)))
-        return rc;
-      if ((rc = launch_ic0_apply<T>(w.Y, w.X, w.code,
-                                    static_cast<const T*>(w.pre),
-                                    static_cast<const T*>(w.r),
-                                    static_cast<T*>(w.z),
-                                    static_cast<T*>(w.q), nullptr, st)))
-        return rc;
-    }
-    precon_dot<T, PK, true><<<nb, kThreads, 0, st>>>(w);
-    return eu_launch_status();
+    return launch_ic0_apply<T>(w.Y, w.X, w.code, static_cast<const T*>(w.pre),
+                               static_cast<const T*>(w.r),
+                               static_cast<T*>(w.z), static_cast<T*>(w.q),
+                               nullptr, st);
   }
 
   template <typename T>
   int dispatch_iteration(cudaStream_t st) const {
+    const auto ic0 = [this](cudaStream_t s) { return ic0_step<T>(s); };
     switch (precon) {
-      case kNone: return iteration_t<T, kNone>(st);
-      case kJacobi: return iteration_t<T, kJacobi>(st);
-      default: return iteration_t<T, kIc0>(st);
+      case kNone: return enqueue_iteration<T, kNone>(w, ic0, st);
+      case kJacobi: return enqueue_iteration<T, kJacobi>(w, ic0, st);
+      default: return enqueue_iteration<T, kIc0>(w, ic0, st);
     }
   }
 
@@ -526,34 +244,18 @@ struct Solver {
     const uint8_t* f = static_cast<const uint8_t*>(fluid);
     const T* bb = static_cast<const T*>(b);
     const T* xx = static_cast<const T*>(x0);
+    const auto ic0 = [this](cudaStream_t s) { return ic0_head<T>(s); };
     switch (precon) {
       case kNone:
-        return head_t<T, kNone>(a, f, bb, xx, cap, tol, tol_rel, st);
+        return enqueue_head<T, kNone>(w, a, f, bb, xx, cap, tol, tol_rel,
+                                      ic0, st);
       case kJacobi:
-        return head_t<T, kJacobi>(a, f, bb, xx, cap, tol, tol_rel, st);
+        return enqueue_head<T, kJacobi>(w, a, f, bb, xx, cap, tol, tol_rel,
+                                        ic0, st);
       default:
-        return head_t<T, kIc0>(a, f, bb, xx, cap, tol, tol_rel, st);
+        return enqueue_head<T, kIc0>(w, a, f, bb, xx, cap, tol, tol_rel, ic0,
+                                     st);
     }
-  }
-
-  // the chunks up to the cap, the stop flag read before each batch but
-  // the first
-  int iterate(int cap, cudaStream_t st) const {
-    const int chunks = (cap + kChunk - 1) / kChunk;
-    int rc = 0;
-    for (int k = 0; k < chunks; ++k) {
-      if (k > 0 && k % kBatch == 0) {
-        int done = 0;
-        if ((rc = static_cast<int>(cudaMemcpyAsync(
-                 &done, w.flags + F_DONE, sizeof(int),
-                 cudaMemcpyDeviceToHost, st))))
-          return rc;
-        if ((rc = static_cast<int>(cudaStreamSynchronize(st)))) return rc;
-        if (done) break;
-      }
-      if ((rc = static_cast<int>(cudaGraphLaunch(exec, st)))) return rc;
-    }
-    return static_cast<int>(cudaEventRecord(replayed, st));
   }
 };
 
@@ -569,7 +271,7 @@ EU_API int eu_pcg_create(int Y, int X, int f64, int precon, void* code,
                          void* flags, void** out) {
   *out = nullptr;
   Solver* S = new Solver{};
-  S->w = Ws{Y, X, static_cast<uint8_t*>(code), p, r, d, z, ad, pre, q,
+  S->w = Ws{Y, X, Y, X, static_cast<uint8_t*>(code), p, r, d, z, ad, pre, q,
             part, scal, static_cast<int*>(flags)};
   S->f64 = f64;
   S->precon = precon;
@@ -621,7 +323,7 @@ EU_API int eu_pcg_solve(void* solver, int cap, double tol, double tol_rel,
                         : S->head<float>(a_diag, fluid, b, x0, cap, tol,
                                          tol_rel, st);
   if (rc) return rc;
-  return S->iterate(cap, st);
+  return replay(S->exec, S->replayed, S->w.flags, cap, kBatch, st);
 }
 
 // P2 alone: z = M^-1 r of IC(0) for a_diag ([Y, X] i32) and fluid ([Y, X]

@@ -23,12 +23,16 @@ K11 (`mg_stream_kernel`) solves on the same workspaces with its root
 below the fine level (`csrc/mg_stream.cu`, the same solver).
 
 `mg_pallas_fits` is the JAX package's gate for K3 (mg_kernel.py:748);
-`mg_fits` is the CUDA levels' own check that the sizes halve evenly.
+`mg_fits` is its check that the sizes halve evenly (the JAX Pallas MG
+levels are not padded).  `padded_level_shapes` is the level plan of the
+JAX `build_galerkin_hierarchy`, which pads an odd level before
+coarsening it: P3 (`ops/cuda/pcg_general_kernel.py`) stores its levels
+at those shapes.
 
 `mg_host_operands` is the plain version of the hierarchy build (K11's
-too, through `stream_host_operands`): the Galerkin hierarchy by 2x2 block
-sums and the Chebyshev rows from each level's measured Gershgorin bound,
-in PyTorch.
+too, through `stream_host_operands`, and P3's): the Galerkin hierarchy by
+2x2 block sums and the Chebyshev rows from each level's measured
+Gershgorin bound, in PyTorch.
 `solve_pressure_mg_plain` is the plain version of the solve: a PCG loop
 of the same shape as `_mg_pcg_solve` around `multigrid.cycle_galerkin`.
 """
@@ -68,15 +72,38 @@ def _level_shapes(Y: int, X: int, min_size: int):
     return shapes
 
 
-def mg_fits(cfg: SimConfig) -> bool:
-    """f32 Galerkin MG with Chebyshev smoothing, and level sizes that stay
-    even down to mg_min_size (the CUDA levels are not padded)."""
+def padded_level_shapes(Y: int, X: int, min_size: int,
+                        max_levels: int = 16):
+    """The level shapes of build_galerkin_hierarchy as stored, fine to
+    coarse: a level that is coarsened is first padded to even, so
+    1080 x 1920 gives ... 270 x 480, 136 x 240 (135 rows and a row of
+    pad), 68 x 120, 34 x 60, 17 x 30, and 999² gives 1000² ... 126², 64²,
+    32²."""
+    shapes = [(Y, X)]
+    for _ in range(max_levels):
+        Yl, Xl = shapes[-1]
+        if min(Yl, Xl) <= min_size:
+            break
+        shapes[-1] = Yl, Xl = Yl + Yl % 2, Xl + Xl % 2
+        shapes.append((Yl // 2, Xl // 2))
+    return shapes
+
+
+def galerkin_cheby_f32(cfg: SimConfig) -> bool:
+    """f32 Galerkin MG with Chebyshev smoothing: the MG the CUDA levels
+    run (K2, K3, K11 and P3)."""
     s = cfg.solver
-    if not (s.preconditioner == "mg" and s.dtype == "float32"
-            and s.mg_scheme == "galerkin" and s.mg_smoother == "cheby"):
+    return (s.preconditioner == "mg" and s.dtype == "float32"
+            and s.mg_scheme == "galerkin" and s.mg_smoother == "cheby")
+
+
+def mg_fits(cfg: SimConfig) -> bool:
+    """`galerkin_cheby_f32`, and level sizes that stay even down to
+    mg_min_size (the JAX Pallas MG levels are not padded)."""
+    if not galerkin_cheby_f32(cfg):
         return False
-    Yl, Xl = _level_shapes(cfg.ny, cfg.nx, s.mg_min_size)[-1]
-    return min(Yl, Xl) <= s.mg_min_size
+    Yl, Xl = _level_shapes(cfg.ny, cfg.nx, cfg.solver.mg_min_size)[-1]
+    return min(Yl, Xl) <= cfg.solver.mg_min_size
 
 
 def mg_pallas_fits(cfg: SimConfig) -> bool:
@@ -84,23 +111,16 @@ def mg_pallas_fits(cfg: SimConfig) -> bool:
     return mg_fits(cfg) and int(cfg.ny * cfg.nx * 4 * 10.5) <= _VMEM_BUDGET
 
 
-def _cycle_kwargs(cfg: SimConfig):
-    s = cfg.solver
-    return dict(coarse_iters=s.mg_coarse_iters,
-                w=2 if s.mg_cycle == "w" else 1,
-                cheby_degree=s.mg_cheby_degree, cheby_ratio=s.mg_cheby_ratio,
-                coarse_ratio=s.mg_coarse_ratio, w_depth=s.mg_w_depth)
-
-
 def mg_host_operands(cfg: SimConfig, a_diag, fluid):
-    """(shapes, packed0, coef_planes, coef_rows) for the CUDA solver:
-    the packed level-0 plane a_diag + 8*fluid, the coarse levels' (c, e, n)
-    planes, and one Chebyshev row per level [inv_theta, c_prev_0, c_r_0,
-    ...] (the coarsest carries the coarse-solve schedule), zero-padded to
-    1 + 2*max(degree)."""
+    """(shapes, packed0, coef_planes, coef_rows) for the CUDA solver at
+    the stored level shapes (`padded_level_shapes`): the packed level-0
+    plane a_diag + 8*fluid (padded with 0 where the grid is odd), the
+    coarse levels' (c, e, n) planes, and one Chebyshev row per level
+    [inv_theta, c_prev_0, c_r_0, ...] (the coarsest carries the
+    coarse-solve schedule), zero-padded to 1 + 2*max(degree)."""
     s = cfg.solver
     f = torch.float32
-    shapes = _level_shapes(cfg.ny, cfg.nx, s.mg_min_size)
+    shapes = padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)
     L = len(shapes)
     levels = multigrid.build_galerkin_hierarchy(a_diag, fluid, f,
                                                 min_size=s.mg_min_size)
@@ -108,6 +128,9 @@ def mg_host_operands(cfg: SimConfig, a_diag, fluid):
         raise ValueError(f"hierarchy has {len(levels)} levels, expected {L}")
     fl = fluid.to(f)
     packed0 = a_diag.to(f) * fl + 8.0 * fl
+    Y0, X0 = shapes[0]
+    packed0 = torch.nn.functional.pad(packed0, (0, X0 - cfg.nx, 0,
+                                                Y0 - cfg.ny))
     coef_planes = [(lv.c, lv.e, lv.n) for lv in levels[1:]]
 
     deg = [s.mg_cheby_degree] * (L - 1) + [s.mg_coarse_iters]
@@ -169,12 +192,10 @@ def mg_pcg_plain(cfg: SimConfig, b, apply, precon, fluid, x0=None):
 def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
     """Plain MG-PCG: `mg_pcg_plain` preconditioned by `cycle_galerkin`
     over the whole hierarchy."""
-    levels = multigrid.build_galerkin_hierarchy(
-        a_diag, fluid, b.dtype, min_size=cfg.solver.mg_min_size)
-    kw = _cycle_kwargs(cfg)
-    return mg_pcg_plain(cfg, b, lambda x: apply_a(a_diag, fluid, x),
-                        lambda r: multigrid.cycle_galerkin(levels, r, **kw),
-                        fluid, x0)
+    return mg_pcg_plain(
+        cfg, b, lambda x: apply_a(a_diag, fluid, x),
+        multigrid.make_mg_preconditioner(cfg, a_diag, fluid, b.dtype),
+        fluid, x0)
 
 
 def _lib():
@@ -396,7 +417,8 @@ def solve_pressure_mg(cfg: SimConfig, b, a_diag, fluid, solid=None,
     if not mg_fits(cfg):
         raise NotImplementedError(
             "the CUDA MG-PCG needs f32 galerkin + cheby and level sizes "
-            "that halve evenly to mg_min_size (ROADMAP queue 1 item M11)")
+            "that halve evenly to mg_min_size (`ops/project.solve_pressure` "
+            "takes P3 where they do not)")
     plane = (cfg.ny, cfg.nx)
     f = torch.float32
     dev = b.device

@@ -41,7 +41,6 @@ from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops import multigrid
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.mg_kernel import (
-    _cycle_kwargs,
     _level_shapes,
     mg_fits,
     mg_host_operands,
@@ -95,7 +94,7 @@ def solve_pressure_mg_stream_plain(cfg: SimConfig, b, a_diag, fluid):
     it0, _ = multigrid.cheby_coefficients(levels[0].lmax.to(b.dtype), 1,
                                           s.mg_cheby_ratio)
     fl = fluid.to(b.dtype)
-    kw = _cycle_kwargs(cfg)
+    kw = multigrid.cycle_kwargs(cfg)
     Y, X = b.shape
 
     def apply(x):
@@ -136,7 +135,8 @@ def solve_pressure_mg_stream(cfg: SimConfig, b, a_diag, fluid, solid=None):
         raise NotImplementedError(
             "the CUDA MG-PCG with the level skip needs f32 galerkin + cheby, "
             "level sizes that halve evenly to mg_min_size and a resident "
-            "level below the root (ROADMAP queue 1 item M11)")
+            "level below the root (`ops/project.solve_pressure` takes P3 "
+            "where they do not)")
     plane = (cfg.ny, cfg.nx)
     dev = b.device
     _build.require(b, "b", torch.float32, plane)

@@ -1,5 +1,6 @@
-"""P1 and P2: the general PCG solve and the IC(0) preconditioner
-(`csrc/pcg_general.cu`).
+"""P1, P2 and P3: the general PCG solve and the IC(0) preconditioner
+(`csrc/pcg_general.cu`), and the same loop with the Galerkin MG cycle as
+its preconditioner (`csrc/pcg_mg.cu`).
 
 `solve_pressure_general` (P1) runs where the JAX package's
 `solve_pressure` falls through to its jnp `pcg_loop`
@@ -14,6 +15,20 @@ preconditioner step P1 runs once an iteration with IC(0); its plain
 version is `ops/ic0.make_ic0_preconditioner`.  Neither replaces a
 `pallas_call`.
 
+With `preconditioner="mg"` (f32, Galerkin, Chebyshev), the same wrapper
+runs P3: where the JAX package's MG falls through to its jnp `pcg_loop`
+(level sizes that do not halve evenly to mg_min_size: 1080 x 1920, 1200²,
+1448², 999²; K3's and K11's gates are the JAX package's), P1's loop with
+one MG cycle (csrc/mg_levels.cuh) as its preconditioner step, on a
+hierarchy built on the card each solve at the padded level shapes of
+`mg_kernel.padded_level_shapes`.  An odd grid is solved on its padded
+level-0 shape (the inputs at the top left, the pad not fluid) and p
+cropped.  P3 reads the stop flag after every chunk of 8 iterations (an
+MG solve stops within a few), not between batches of 13.  Its plain
+version is the same `pcg_loop` with `make_preconditioner` ("mg":
+`multigrid.make_mg_preconditioner`), and `mg_kernel.mg_host_operands`
+the plain version of its hierarchy build.
+
 On an H100 an iteration of P1 is bound by its five plane sweeps' bytes
 and three grid-wide reductions; P2 by its 2 (Y + X - 1) dependent
 diagonal steps (one CTA), not its bytes.  Every buffer lives in a
@@ -21,7 +36,7 @@ workspace cached per device, grid, precision and preconditioner, with a
 CUDA graph of 8 iterations that a solve replays up to its cap, reading
 the stop flag between batches of 13 replays (as K8).  The launch count
 "P1" counts solves; "P2" counts the solves that apply IC(0) inside P1
-and the calls of `ic0_apply`.
+and the calls of `ic0_apply`; "P3" counts the MG solves.
 """
 
 from __future__ import annotations
@@ -34,6 +49,12 @@ import torch
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
+from euler_tpu_torch.ops.cuda.mg_kernel import (
+    _PLANES_PER_LEVEL,
+    cycle_args,
+    galerkin_cheby_f32,
+    padded_level_shapes,
+)
 from euler_tpu_torch.ops.ic0 import make_ic0_preconditioner
 from euler_tpu_torch.ops.project import apply_a, make_preconditioner, pcg_loop
 
@@ -61,6 +82,21 @@ def general_lib():
     return lib
 
 
+@functools.cache
+def mg_lib():
+    """csrc/pcg_mg.cu: P3 (`eu_pcg_mg_*`)."""
+    lib = _build.load("pcg_mg", flags=["-fmad=false"])
+    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    D = ctypes.c_double
+    _build.bind(lib, "eu_pcg_mg_create",
+                [I] * 5 + [P] * 5 + [I] * 5 + [F, F] + [P] * 12
+                + [ctypes.POINTER(ctypes.c_void_p)])
+    _build.bind(lib, "eu_pcg_mg_destroy", [P])
+    _build.bind(lib, "eu_pcg_mg_solve", [P, I, D, D] + [P] * 5)
+    _build.bind(lib, "eu_pcg_mg_cycle", [P, I, P, P, P])
+    return lib
+
+
 def solve_pressure_general_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
     """`pcg_loop` with the configured preconditioner."""
     return pcg_loop(cfg, b, lambda s: apply_a(a_diag, fluid, s),
@@ -72,23 +108,36 @@ class GeneralWorkspace:
     with one preconditioner, and the CUDA solver over them."""
 
     def __init__(self, Y: int, X: int, dtype, precon: str, device):
-        self.code = torch.empty((Y, X), dtype=torch.uint8, device=device)
-        self.planes = torch.empty((7, Y, X), dtype=dtype, device=device)
-        self.part = torch.empty(_PARTS, dtype=dtype, device=device)
-        self.scal = torch.empty(_S_N, dtype=dtype, device=device)
-        self.flags = torch.empty(_F_N, dtype=torch.int32, device=device)
+        self._planes(Y, X, dtype, device)
         self.lib = general_lib()
+        self._solve, self._destroy = (self.lib.eu_pcg_solve,
+                                      self.lib.eu_pcg_destroy)
         self.handle = None
         handle = ctypes.c_void_p()
         with torch.cuda.device(device):
             rc = self.lib.eu_pcg_create(
                 Y, X, int(dtype == torch.float64), _PRECON[precon],
-                self.code.data_ptr(),
-                *(self.planes[k].data_ptr() for k in range(7)),
-                self.part.data_ptr(), self.scal.data_ptr(),
-                self.flags.data_ptr(), ctypes.byref(handle))
+                *self._loop_ptrs(), ctypes.byref(handle))
         _build.check(self.lib, rc, "eu_pcg_create")
         self.handle = handle.value
+
+    def _planes(self, Y, X, dtype, device):
+        """The loop's buffers: code, p, r, d, z, ad, pre, q, part, scal,
+        flags."""
+        self.code = torch.empty((Y, X), dtype=torch.uint8, device=device)
+        self.planes = torch.empty((7, Y, X), dtype=dtype, device=device)
+        self.part = torch.empty(_PARTS, dtype=dtype, device=device)
+        self.scal = torch.empty(_S_N, dtype=dtype, device=device)
+        self.flags = torch.empty(_F_N, dtype=torch.int32, device=device)
+        self.keep = [self.code, self.planes, self.part, self.scal,
+                     self.flags]
+
+    def _loop_ptrs(self):
+        """code, p, r, d, z, ad, pre, q, then part, scal, flags."""
+        return ([self.code.data_ptr()]
+                + [self.planes[k].data_ptr() for k in range(7)]
+                + [t.data_ptr() for t in (self.part, self.scal,
+                                          self.flags)])
 
     @property
     def p(self):
@@ -96,43 +145,144 @@ class GeneralWorkspace:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in
-                   (self.code, self.planes, self.part, self.scal,
-                    self.flags))
+        return sum(t.numel() * t.element_size() for t in self.keep)
+
+    def solve(self, s, a_diag, fluid, b, x0):
+        """One solve of A p = b (device pointers) with the caps of solver
+        config `s`: p stays in `self.p`."""
+        rc = self._solve(self.handle, s.max_iterations, float(s.tol),
+                         float(s.tol_rel), a_diag, fluid, b, x0,
+                         _build.stream())
+        _build.check(self.lib, rc, self._solve.__name__)
 
     def close(self):
+        """Free the solver once its last solve's replays have run."""
         handle, self.handle = self.handle, None
         if handle:
-            _build.check(self.lib, self.lib.eu_pcg_destroy(handle),
-                         "eu_pcg_destroy")
+            _build.check(self.lib, self._destroy(handle),
+                         self._destroy.__name__)
+
+
+class MgGeneralWorkspace(GeneralWorkspace):
+    """P3's buffers: the loop's planes at the padded level-0 shape, and per
+    coarse level the hierarchy's c, e, n planes and active flags and the
+    cycle's x, b, z, rr, d, dn; the packed level 0, the Chebyshev rows and
+    the hierarchy's partials; and the CUDA solver over them (its level-0
+    scratch is the loop's planes).  `shapes` are the stored level shapes
+    (`padded_level_shapes`)."""
+
+    def __init__(self, cfg: SimConfig, device):
+        s = cfg.solver
+        f = torch.float32
+        self.shapes = padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)
+        L = len(self.shapes)
+        if L > 16:
+            raise NotImplementedError(f"P3 takes at most 16 levels, not {L}")
+        Y, X = self.shapes[0]
+        self._planes(Y, X, f, device)
+
+        def new(shape, dtype=f):
+            t = torch.empty(shape, dtype=dtype, device=device)
+            self.keep.append(t)
+            return t
+
+        self.packed0 = new((Y, X))
+        deg = [s.mg_cheby_degree] * (L - 1) + [s.mg_coarse_iters]
+        self.rows = new((L, 1 + 2 * max(deg)))
+        self.hpart = new((sum(-(-Yl * Xl // 256) for Yl, Xl in self.shapes),))
+        self.levels = [tuple(new(shape) for _ in range(3))
+                       + (new(shape, torch.uint8),)
+                       for shape in self.shapes[1:]]
+        # level 0's pointers are the loop's planes, set by the library
+        planes, act = [0] * _PLANES_PER_LEVEL, [0]
+        for (c, e, n, active), shape in zip(self.levels, self.shapes[1:]):
+            planes += [c.data_ptr(), e.data_ptr(), n.data_ptr()]
+            planes += [new(shape).data_ptr() for _ in range(6)]
+            act.append(active.data_ptr())
+        flat = [v for sh in self.shapes for v in sh]
+        shape_arr = (ctypes.c_int * len(flat))(*flat)
+        plane_arr = (ctypes.c_void_p * len(planes))(*planes)
+        act_arr = (ctypes.c_void_p * L)(*act)
+        ptrs = self._loop_ptrs()
+        self.lib = mg_lib()
+        self._solve, self._destroy = (self.lib.eu_pcg_mg_solve,
+                                      self.lib.eu_pcg_mg_destroy)
+        self.handle = None
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            rc = self.lib.eu_pcg_mg_create(
+                Y, X, cfg.ny, cfg.nx, L, shape_arr, plane_arr, act_arr,
+                self.packed0.data_ptr(), self.rows.data_ptr(),
+                self.rows.shape[1], *cycle_args(cfg), s.mg_cheby_ratio,
+                s.mg_coarse_ratio, *ptrs[:8], ptrs[8],
+                self.hpart.data_ptr(), *ptrs[9:], ctypes.byref(handle))
+        _build.check(self.lib, rc, "eu_pcg_mg_create")
+        self.handle = handle.value
+
+    def cycle(self, r, per_op: bool):
+        """z = M r for `r` ([Y, X] f32 at the planes' shape) on the
+        hierarchy of the last solve, through the coarse cycle or one launch
+        per level operation (the card tests hold the two bitwise equal).
+        Overwrites the workspace's r and z.  Returns z, fresh."""
+        _build.require(r, "r", torch.float32, self.shapes[0], self.p.device)
+        z = torch.empty_like(r)
+        rc = self.lib.eu_pcg_mg_cycle(self.handle, int(per_op), r.data_ptr(),
+                                      z.data_ptr(), _build.stream())
+        _build.check(self.lib, rc, "eu_pcg_mg_cycle")
+        return z
 
 
 _WORKSPACES: collections.OrderedDict = collections.OrderedDict()
 
 
+def workspace_key(cfg: SimConfig, device) -> tuple:
+    """What a workspace's buffers and captured launches depend on: the
+    device, the grid, the solver dtype and the preconditioner, and for MG
+    the stored level shapes, the cycle schedule and the Chebyshev
+    ratios."""
+    s = cfg.solver
+    key = (str(device), cfg.ny, cfg.nx, s.dtype, s.preconditioner)
+    if s.preconditioner == "mg":
+        key += (tuple(padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)),
+                *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio)
+    return key
+
+
 def workspace(cfg: SimConfig, device) -> GeneralWorkspace:
     """The cached workspace of `cfg`'s grid, solver dtype and
-    preconditioner on `device`."""
+    preconditioner (and MG schedule) on `device`."""
     kind, dt = cfg.solver.preconditioner, cfg.solver.dtype
-    return _build.cached(
-        _WORKSPACES, (str(device), cfg.ny, cfg.nx, dt, kind),
-        lambda: GeneralWorkspace(cfg.ny, cfg.nx, getattr(torch, dt), kind,
-                                 device),
-        _MAX_WORKSPACES, _MAX_WORKSPACE_BYTES)
+
+    def make():
+        if kind == "mg":
+            return MgGeneralWorkspace(cfg, device)
+        return GeneralWorkspace(cfg.ny, cfg.nx, getattr(torch, dt), kind,
+                                device)
+
+    return _build.cached(_WORKSPACES, workspace_key(cfg, device), make,
+                         _MAX_WORKSPACES, _MAX_WORKSPACE_BYTES)
+
+
+def clear_workspaces() -> None:
+    """Close and drop every cached workspace."""
+    _build.close_all(_WORKSPACES)
 
 
 def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None):
     """PCG for A p = b with the configured preconditioner ("none",
-    "jacobi" in the jnp form, "ic0") in b's dtype (the solver's), from
-    `x0` when given.  Returns (p, iterations, residual).  CUDA tensors
-    run P1 (and P2 for IC(0)) on the cached workspace; CPU tensors the
-    plain version."""
-    if b.device.type == "cpu":
-        _build.PLAIN_CALLS["P1"] += 1
-        return solve_pressure_general_plain(cfg, b, a_diag, fluid, x0)
+    "jacobi" in the jnp form, "ic0"; "mg": P3) in b's dtype (the
+    solver's), from `x0` when given.  Returns (p, iterations, residual).
+    CUDA tensors run P1 (and P2 for IC(0)) or P3 on the cached workspace;
+    CPU tensors the plain version."""
     s = cfg.solver
-    if s.preconditioner not in _PRECON:
-        raise NotImplementedError(f"P1 has no {s.preconditioner!r} form")
+    name = "P3" if s.preconditioner == "mg" else "P1"
+    if b.device.type == "cpu":
+        _build.PLAIN_CALLS[name] += 1
+        return solve_pressure_general_plain(cfg, b, a_diag, fluid, x0)
+    if s.preconditioner not in _PRECON and not galerkin_cheby_f32(cfg):
+        raise NotImplementedError(
+            f"the general solve has no {s.preconditioner!r} form in "
+            f"{s.dtype} ({s.mg_scheme} / {s.mg_smoother})")
     dev = b.device
     plane = (cfg.ny, cfg.nx)
     dtype = getattr(torch, s.dtype)
@@ -142,14 +292,11 @@ def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None):
     p_x0 = (None if x0 is None
             else _build.require(x0, "x0", dtype, plane, dev))
     ws = workspace(cfg, dev)
-    _build.LAUNCHES["P1"] += 1
+    _build.LAUNCHES[name] += 1
     if s.preconditioner == "ic0":
         _build.LAUNCHES["P2"] += 1
-    rc = ws.lib.eu_pcg_solve(ws.handle, s.max_iterations, float(s.tol),
-                             float(s.tol_rel), p_a, p_fl, p_b, p_x0,
-                             _build.stream())
-    _build.check(ws.lib, rc, "eu_pcg_solve")
-    return (ws.p.clone(), ws.flags[_F_ITERS].clone(),
+    ws.solve(s, p_a, p_fl, p_b, p_x0)
+    return (ws.p[:cfg.ny, :cfg.nx].clone(), ws.flags[_F_ITERS].clone(),
             ws.scal[_S_RESID].clone())
 
 

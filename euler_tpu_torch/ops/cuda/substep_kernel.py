@@ -115,7 +115,8 @@ def project_substep_mg(cfg: SimConfig, dt, dt_proj, u, v, fluid,
     if not mg_fits(cfg):
         raise NotImplementedError(
             "the CUDA substep needs f32 galerkin + cheby and level sizes "
-            "that halve evenly to mg_min_size (ROADMAP queue 1 item M11)")
+            "that halve evenly to mg_min_size (`sim.substep` takes the "
+            "unfused grid stage and P3 where they do not)")
     Y, X = cfg.ny, cfg.nx
     f = torch.float32
     dev = u.device

@@ -176,3 +176,23 @@ def cycle_galerkin(levels, b, lvl: int = 0, coarse_iters: int = 12,
     x = cheby_smooth(level, x, b, cheby_degree, cheby_ratio)
     # the prolongation adds parent values everywhere; mask once on exit
     return torch.where(level.active, x, 0.0)[:Yb, :Xb]
+
+
+def cycle_kwargs(cfg) -> dict:
+    """`cycle_galerkin`'s schedule from `cfg.solver`."""
+    s = cfg.solver
+    return dict(coarse_iters=s.mg_coarse_iters,
+                w=2 if s.mg_cycle == "w" else 1,
+                cheby_degree=s.mg_cheby_degree, cheby_ratio=s.mg_cheby_ratio,
+                coarse_ratio=s.mg_coarse_ratio, w_depth=s.mg_w_depth)
+
+
+def make_mg_preconditioner(cfg, a_diag, fluid, dtype):
+    """z = M^-1 r of the JAX `make_mg_preconditioner` (multigrid.py:492)
+    with the Galerkin scheme: one cycle on the hierarchy of (a_diag,
+    fluid), padded where a level is odd.  The plain version of P3's
+    preconditioner step."""
+    levels = build_galerkin_hierarchy(a_diag, fluid, dtype,
+                                      min_size=cfg.solver.mg_min_size)
+    kw = cycle_kwargs(cfg)
+    return lambda r: cycle_galerkin(levels, r, **kw)

@@ -8,10 +8,13 @@ K3 (`ops/cuda/mg_kernel.py`), K11 (`ops/cuda/mg_stream_kernel.py`) or K12
 (`ops/cuda/pcg_stream_kernel.py`), in that order; where none fits, the
 JAX package runs its jnp `pcg_loop`, and the port runs P1
 (`ops/cuda/pcg_general_kernel.py`, the same loop as one CUDA solver, in
-f32 or f64, with no preconditioner, the jnp-form Jacobi or IC(0)); MG
-that falls through is not ported.  Every iterate stays exactly zero
-outside the fluid, so dense reductions equal the reference's
-fluid-masked ones.
+f32 or f64, with no preconditioner, the jnp-form Jacobi or IC(0)) or,
+for f32 Galerkin MG with Chebyshev smoothing (the CLI's converged mode at
+sizes whose levels do not halve evenly: 1080 x 1920, 1200², 1448²), P3,
+the same loop with the MG cycle on padded levels as its preconditioner;
+f64, RB-GS and rediscretized MG are not ported.  Every iterate stays
+exactly zero outside the fluid, so dense reductions equal the
+reference's fluid-masked ones.
 
 The RHS is taken in the grid's dtype and widened to the solver's, and
 the face update takes the pressure difference in the solver's dtype and
@@ -95,9 +98,10 @@ def jacobi_preconditioner_jnp(a_diag, fluid):
 
 def make_preconditioner(cfg: SimConfig, a_diag, fluid):
     """z = M^-1 r of the JAX `_make_preconditioner` for `pcg_loop` (the
-    plain version of P1): "jacobi" in its jnp form, "none", "ic0".  "mg"
-    is K3's and K11's own loop (`solve_pressure`)."""
+    plain version of P1 and P3): "jacobi" in its jnp form, "none", "ic0",
+    "mg" (the Galerkin cycle, `multigrid.make_mg_preconditioner`)."""
     kind = cfg.solver.preconditioner
+    dtype = getattr(torch, cfg.solver.dtype)
     if kind == "jacobi":
         return jacobi_preconditioner_jnp(a_diag, fluid)
     if kind == "none":
@@ -105,8 +109,12 @@ def make_preconditioner(cfg: SimConfig, a_diag, fluid):
     if kind == "ic0":
         from euler_tpu_torch.ops.ic0 import make_ic0_preconditioner
 
-        return make_ic0_preconditioner(a_diag, fluid,
-                                       getattr(torch, cfg.solver.dtype))
+        return make_ic0_preconditioner(a_diag, fluid, dtype)
+    if (kind == "mg" and cfg.solver.mg_scheme == "galerkin"
+            and cfg.solver.mg_smoother == "cheby"):
+        from euler_tpu_torch.ops.multigrid import make_mg_preconditioner
+
+        return make_mg_preconditioner(cfg, a_diag, fluid, dtype)
     raise NotImplementedError(f"preconditioner {kind!r} has no pcg_loop "
                               "form in the port")
 
@@ -156,7 +164,8 @@ def solver_route(cfg: SimConfig, solid_given: bool = True):
     """The kernel `solve_pressure` runs, by the JAX package's chain
     (ops/project.py:191-223): "K8", "K3" (only with the solid mask),
     "K11", "K12", or where it falls through to its jnp `pcg_loop`, "P1"
-    (no preconditioner, Jacobi, IC(0)) or None (MG, not ported)."""
+    (no preconditioner, Jacobi, IC(0)), "P3" (f32 Galerkin MG with
+    Chebyshev smoothing) or None (other MG, not ported)."""
     from euler_tpu_torch.ops.cuda import (
         mg_kernel,
         mg_stream_kernel,
@@ -174,12 +183,14 @@ def solver_route(cfg: SimConfig, solid_given: bool = True):
         return "K12"
     if cfg.solver.preconditioner in ("none", "jacobi", "ic0"):
         return "P1"
+    if mg_kernel.galerkin_cheby_f32(cfg):
+        return "P3"
     return None
 
 
 def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
     """PCG for A p = b (main.c:738-767).  Returns (p, iterations, resid).
-    Runs the kernel `solver_route` names; K3 and P1 read `x0`, as the
+    Runs the kernel `solver_route` names; K3, P1 and P3 read `x0`, as the
     JAX package's Pallas MG kernel and jnp loop do."""
     route = solver_route(cfg, solid is not None)
     if route == "K8":
@@ -202,16 +213,17 @@ def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
         )
 
         return solve_pressure_stream(cfg, b, a_diag, fluid)
-    if route == "P1":
+    if route in ("P1", "P3"):
         from euler_tpu_torch.ops.cuda.pcg_general_kernel import (
             solve_pressure_general,
         )
 
         return solve_pressure_general(cfg, b, a_diag, fluid, x0=x0)
+    s = cfg.solver
     raise NotImplementedError(
-        "MG where no kernel fits (level sizes that do not halve evenly to "
-        "mg_min_size): the JAX package runs its jnp pcg_loop with the XLA "
-        "MG preconditioner here (ROADMAP queue 1 item M11)")
+        f"MG {s.mg_scheme} / {s.mg_smoother} in {s.dtype}: the port runs f32 "
+        "Galerkin MG with Chebyshev smoothing only (f64 MG is ROADMAP queue "
+        "1 item M15, RB-GS and rediscretized MG item M14)")
 
 
 def clamp_pressure(p, fluid):

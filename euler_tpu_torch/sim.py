@@ -49,8 +49,10 @@ TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
     under its gate) or `project()`, whose solve is K8, K3, K11 or K12 by
     the gates of `solve_pressure`, or P1 where the JAX package falls
     through to its jnp `pcg_loop` (f64, no preconditioner, IC(0), Jacobi
-    beyond K8's and K12's gates).  The JAX package runs that grid stage
-    as its K7 with `use_pallas_grid` in mono, else as XLA ops; the port
+    beyond K8's and K12's gates), P3 for its MG there (level sizes that
+    do not halve evenly: 1080 x 1920, 1200², 1448²).  The JAX package
+    runs that grid stage as its K7 with `use_pallas_grid` in mono, else
+    as XLA ops; the port
     takes the `use_pallas=True` routes, so on the card it is K7 on every
     such route ("plain" in `route` included), in rainbow mode K7's form
     that also returns the extrapolated velocities, with which the
@@ -103,23 +105,23 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
                                          and s.mg_smoother == "cheby"):
         raise NotImplementedError(
             f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "
-            "Chebyshev smoothing is ported; the rest is ROADMAP queue 1 "
-            "item M14")
+            "Chebyshev smoothing is ported; the RB-GS smoother and the "
+            "rediscretized hierarchy are ROADMAP queue 1 item M14")
     if s.dtype not in ("float32", "float64"):
         raise ValueError(f"solver dtype {s.dtype!r}")
+    if s.preconditioner == "mg" and s.dtype != "float32":
+        raise NotImplementedError(
+            "f64 MG: the MG levels (K2, K3, K11, P3) are f32 (the f64 solve "
+            "with no preconditioner, Jacobi or IC(0) is ported, P1); "
+            "ROADMAP queue 1 item M15")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             "f64 grid fields: the grid-stage and marker kernels are f32 "
-            "(the f64 solve, solver.dtype, is ported)")
+            "(the f64 solve, solver.dtype, is ported); ROADMAP queue 1 "
+            "item M16")
     if s.mg_frame_hierarchy:
         raise NotImplementedError(
             "mg_frame_hierarchy is ROADMAP queue 1 item M14")
-    if route(cfg, scn)[1] is None:
-        raise NotImplementedError(
-            f"MG at {cfg.ny}x{cfg.nx}: no kernel fits (level sizes that "
-            "do not halve evenly to mg_min_size), the JAX package runs its "
-            "jnp pcg_loop with the XLA MG preconditioner here (ROADMAP "
-            "queue 1 item M11)")
 
 
 def _use_fused_substep(cfg: SimConfig, scn: Scenario) -> bool:
@@ -147,7 +149,8 @@ def route(cfg: SimConfig, scn: Scenario):
     them: ("fused", "K2" or "K10"), or the grid stage "K7" or "plain"
     with the projection "K9" or the solve of `project()` ("K8", "K3",
     "K11", "K12", or where the JAX package runs its jnp `pcg_loop`, "P1",
-    or None for MG, which the port does not run there).
+    "P3" for f32 Galerkin MG, or None for the MG `check_slice`
+    refuses).
     On the card "plain" runs K7 too: `substep` takes K7 for every grid
     stage that is not fused, so `use_pallas_grid` changes nothing
     there."""

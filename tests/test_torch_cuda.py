@@ -521,9 +521,10 @@ def test_jacobi_stops_at_the_cap(developed, cap):
 def _sweeps(fn, sessions: int = 3):
     """fn()'s result and the launches of K8-K10's sweep A and sweep B on
     the card while it runs (torch.profiler).  The sweeps launch in pairs,
-    8 of each a graph chunk, so a session whose counts differ or are not
-    multiples of 8 has lost records (the profiler on the card now and
-    then drops some: a session counted 31 and 32 of 104 each): it is
+    8 of each a graph chunk, and every solve replays at least one chunk,
+    so a profile whose counts differ, are not multiples of 8 or are 0
+    has lost records (the profiler on the card now and then drops some:
+    one counted 31 and 32 of 104 each, another none of 104): it is
     taken again, fn() run anew, up to `sessions` times."""
     from torch.profiler import ProfilerActivity
 
@@ -540,7 +541,7 @@ def _sweeps(fn, sessions: int = 3):
                 if name in e.key and not e.key.startswith("cuda"):
                     counts[name] += e.count
         if counts["sweep_a"] == counts["sweep_b"] and \
-                counts["sweep_a"] % 8 == 0:
+                counts["sweep_a"] % 8 == 0 and counts["sweep_a"]:
             break
     return out, counts
 

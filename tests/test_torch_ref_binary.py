@@ -16,12 +16,15 @@ reached the config's cap of 400.  Needs no JAX.
 Every frame to the horizon is compared.  One frame differs, on the CPU
 and on the card alike: filter.txt in rainbow at frame 16, where one
 colour channel of one cell is one level of 255 off (frames 15 and 17 to
-25 match).  The port computes the JAX package's functions op by op; the
-JAX package's compiled frame contracts some products and sums into fused
-multiply-adds (XLA on the CPU), so the two part by a rounding now and
-then, and by frame 16 a colour there sits on the other side of an 8-bit
-step.  `KNOWN_DIFFS` pins that frame, and the test holds it to exactly
-that one-level difference.
+25 match).  The port computes the JAX package's functions op by op, and
+op by op the JAX package gives the port's bytes: `step_frame` under
+`jax.disable_jit()` equals the port at every frame to 16 and parts from
+the corpus at 16, where its compiled `step_frame_jit` equals the corpus
+(tools/ref_binary_opbyop.py).  So the difference is XLA's compilation of
+the JAX frame, which contracts some products and sums into fused
+multiply-adds, not an operation of the port; by frame 16 a colour there
+sits on the other side of an 8-bit step.  `KNOWN_DIFFS` pins that frame,
+and the test holds it to exactly that one-level difference.
 """
 
 import functools

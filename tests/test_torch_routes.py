@@ -6,8 +6,7 @@ use_pallas_grid, `sim.route` names the grid stage and the projection
 kernel that the JAX `sim.substep` and `ops/project.solve_pressure` pick
 (sim.py:43-78, 141-212; project.py:191-223), and the level skip of K11
 (`_resident_start`, F) is the JAX package's.  Where the JAX package falls
-through to its jnp `pcg_loop`, the port runs P1, except for MG, where it
-raises naming ROADMAP M11.
+through to its jnp `pcg_loop`, the port runs P1, and for MG P3.
 
 `sim.marker_route` names the marker pass that the JAX `step_frame` runs
 with `use_pallas_markers=True` (markers_slots.py:354-386, sim.py:266-269,
@@ -58,8 +57,8 @@ def jax_route(jcfg):
                          (jps.stream_solver_fits, "K12")):
         if fits(jcfg):
             return grid, kernel
-    # the jnp pcg_loop: P1 in the port, MG not ported there
-    return grid, None if mg else "P1"
+    # the jnp pcg_loop: P1 in the port, P3 for (f32 Galerkin) MG
+    return grid, "P3" if mg else "P1"
 
 
 def _config(size, precon, fuse, rainbow, pallas_grid):
@@ -110,18 +109,20 @@ def test_bench_defaults(precon, size, want):
                                          ("jacobi", 4100)])
 def test_pcg_loop_fallthrough_raises(precon, size):
     """MG whose levels do not halve evenly, Jacobi beyond K8's budget with
-    rows not a multiple of 8: the JAX package's jnp pcg_loop.  MG still
-    raises; Jacobi runs P1 (it raised until P1 existed)."""
+    rows not a multiple of 8: the JAX package's jnp pcg_loop.  Neither
+    raises any more: MG runs P3 (it raised until P3 existed), Jacobi P1
+    (it raised until P1 existed).  f64 MG, which the JAX package also runs
+    there, still raises, naming its ROADMAP item."""
     cfg = _config(size, precon, True, False, False)
     want = jax_route(jax_config(cfg))[1]
     assert sim.route(cfg, NO_SOURCES)[1] == want
+    assert want == ("P3" if precon == "mg" else "P1")
+    sim.check_slice(cfg, NO_SOURCES)
     if precon == "mg":
-        assert want is None
-        with pytest.raises(NotImplementedError, match="M11"):
-            sim.check_slice(cfg, NO_SOURCES)
-    else:
-        assert want == "P1"
-        sim.check_slice(cfg, NO_SOURCES)
+        f64 = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, dtype="float64"))
+        with pytest.raises(NotImplementedError, match="M15"):
+            sim.check_slice(f64, NO_SOURCES)
 
 
 @functools.lru_cache(maxsize=None)
