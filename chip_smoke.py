@@ -89,7 +89,23 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      (G1, G2, K7, K8) and f64 Jacobi (P1), with their syncs and peak
      memory; 2 frames of the IC(0) path at 40 x 100 (P1, P2); G1, G2, P1
      and P2 timed beside their plain versions (P2 at 40 x 100 and 256²);
- 12. runs the Jacobi, marker, grid-stage and source card tests of
+ 12. runs the single-card batch and the diagnostics: 8 dam breaks
+     (seeds 0-7) at the main path's config through `HostBatchRunner`
+     (bench.py --batch 8), 1 warm-up + 4 timed frames, with its aggregate
+     cell-steps/s, peak memory and the MG workspace cache (one entry for
+     the 8); K1, K2 and K3 8 x 8 x 4 times and no plain version;
+     instances 0 and 7 stepped alone, every field bitwise equal to the
+     batch's, instance 0 timed alone; the five text scenarios at 40 x 100
+     (sources padded) through `step_frame_batched` on the card against
+     the CPU, 2 frames (K1, S1, K7, K8 once a substep an instance; counts,
+     alive, drops, RNG bitwise, u and v within 5e-3); `python -m
+     euler_tpu_torch scenarios/waterfall.txt --frames 20 --sherlock` as a
+     process (exit 0); in process, a NaN in u raises FloatingPointError,
+     the trap makes one torch sync a frame and none when off (torch's
+     sync debug mode), the frame timed with it on and off;
+     `dump_pressure_system` of a card state equal to the CPU's text; a
+     `profiler_trace` of a frame holding K1's kernel;
+ 13. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
      in turn; K1 and K4 on ragged grids at K = 4, 8 and 16, K5 and K6 at
@@ -103,7 +119,10 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      tests/goldens/ref_binary byte for byte to the JAX test's horizons,
      then P3's card tests that the P3 phase above does not repeat
      (tests/test_torch_cuda_mg_padded.py: 999², the 2160 x 3840
-     hierarchy, a zero RHS and the cap, the workspace per grid).
+     hierarchy, a zero RHS and the cap, the workspace per grid), then the
+     batch's (tests/test_torch_cuda_batch.py: each instance of an
+     interleaved batch bitwise equal to it alone, on every solver
+     workspace: K2/K3, K10, P3, K8, G1/G2 with K8, P1).
 With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -1961,6 +1980,272 @@ def run_global(results, summaries, launches, profile_prefix=None):
     torch.cuda.empty_cache()
 
 
+# BASELINE.json's "1024² headless scaled grid, batch of 8 scenarios"
+# (bench.py --batch 8): B dam breaks, seeds 0..B-1, stepped round-robin
+BATCH = 8
+BATCH_WARMUP = 1
+BATCH_FRAMES = 4
+BATCH_ALONE = (0, 7)  # instances also stepped alone: bitwise the batch's
+TEXT_BATCH = ("basic", "block", "filter", "waterfall", "weird-edges")
+TEXT_BATCH_FRAMES = 2
+SHERLOCK_FRAMES = 20
+
+
+def torch_syncs(fn) -> int:
+    """The stream synchronisations torch itself makes while `fn` runs (its
+    sync debug mode's warnings: a host read of a device value; the
+    solvers' own flag reads, made in their C code, are not counted)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def run_batch(summaries, launches, dev) -> None:
+    """The single-card batch: BATCH dam breaks at the main path's config
+    through `HostBatchRunner` (K1, K2, K3 once a substep an instance, one
+    MG workspace for all), instances 0 and 7 stepped alone and held
+    bitwise to the batch, one instance timed alone; the five text
+    scenarios through `step_frame_batched` on the card against the CPU."""
+    import torch
+
+    from euler_tpu_torch import cli, sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import mg_kernel
+    from euler_tpu_torch.parallel.batch import (
+        HostBatchRunner,
+        build_batch,
+        step_frame_batched,
+    )
+
+    cfg = main_config(SIZE)
+    Y, X, S = cfg.ny, cfg.nx, cfg.max_substeps
+    with Phase(f"batch of {BATCH} dam breaks {SIZE}² (HostBatchRunner): "
+               f"{BATCH_WARMUP} warm-up + {BATCH_FRAMES} timed frames"):
+        mg_kernel.clear_workspaces()
+        torch.cuda.empty_cache()
+        held = reset_peak()
+        pairs = [dam_break(cfg, seed=i, device=dev) for i in range(BATCH)]
+        runner = HostBatchRunner(cfg, pairs)
+        runner.run(BATCH_WARMUP)
+        runner.sync()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        runner.run(BATCH_FRAMES)
+        runner.sync()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        plain = sum(_build.PLAIN_CALLS.values())
+        n_frames = BATCH * BATCH_FRAMES
+        summary = {
+            "instances": BATCH,
+            "ms_per_instance_frame": 1e3 * elapsed / n_frames,
+            "cell_steps_per_s": Y * X * S * n_frames / elapsed,
+            "div_inf": max(div_inf(cfg, st) for st in runner.states),
+            "dropped_markers": [int(st.dropped_markers)
+                                for st in runner.states],
+            "launches": got,
+            "mg_workspaces": len(mg_kernel._WORKSPACES),
+        }
+        record_peak(summary, held)
+        summaries["batch"] = summary
+        log(f"   batch: {summary['ms_per_instance_frame']:.3f} ms an "
+            f"instance-frame, {summary['cell_steps_per_s']:.4g} cell-steps/s "
+            f"aggregate ({Y}x{X} x {S} substeps x {BATCH_FRAMES} frames x "
+            f"{BATCH} instances in {elapsed:.3f} s); div_inf "
+            f"{summary['div_inf']:.4g}; dropped {summary['dropped_markers']}")
+        log(f"   launches {got}; plain-version calls {plain}; "
+            f"{summary['mg_workspaces']} MG workspace(s) cached")
+        for k in ("K1", "K2", "K3"):
+            check(got.get(k, 0) == BATCH * S * BATCH_FRAMES,
+                  f"batch: {k} launched {got.get(k, 0)} times, not "
+                  f"{BATCH} x {S} x {BATCH_FRAMES}")
+            launches[k] = max(launches[k], got[k])
+        check(plain == 0, "batch: a plain version ran")
+        check(summary["mg_workspaces"] == 1, "batch: the instances did not "
+              "share one MG workspace")
+        check(summary["div_inf"] < 1.0, "batch: div_inf too large")
+        for st in runner.states:
+            for name in ("u", "v", "p", "markers"):
+                check(bool(torch.isfinite(getattr(st, name)).all()),
+                      f"batch: state.{name} not finite")
+
+    with Phase(f"instances {BATCH_ALONE} alone, {BATCH_WARMUP} + "
+               f"{BATCH_FRAMES} frames: bitwise the batch's"):
+        for i in BATCH_ALONE:
+            scn, st = pairs[i]
+            for _ in range(BATCH_WARMUP):
+                st = sim.step_frame(cfg, scn, st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BATCH_FRAMES):
+                st = sim.step_frame(cfg, scn, st)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            for f in dataclasses.fields(st):
+                a, b = getattr(st, f.name), getattr(runner.states[i], f.name)
+                if a.dtype == torch.uint32:
+                    a, b = a.to(torch.int64), b.to(torch.int64)
+                check(torch.equal(a, b), f"batch instance {i}: {f.name} "
+                      "differs from the instance stepped alone")
+            if i == BATCH_ALONE[0]:
+                summaries["batch_one_instance"] = {
+                    "ms_per_frame": 1e3 * elapsed / BATCH_FRAMES,
+                    "cell_steps_per_s": Y * X * S * BATCH_FRAMES / elapsed}
+                log(f"   instance {i} alone: "
+                    f"{1e3 * elapsed / BATCH_FRAMES:.3f} ms/frame, "
+                    f"{Y * X * S * BATCH_FRAMES / elapsed:.4g} cell-steps/s")
+            log(f"   instance {i}: every field (u, v, p, the store, counts, "
+                "drops, RNG) bitwise equal alone and in the batch")
+        del pairs, runner
+
+    with Phase(f"text-scenario batch {TEXT_BATCH} 40x100 (CLI config, "
+               f"sources padded), step_frame_batched: card vs CPU, "
+               f"{TEXT_BATCH_FRAMES} frames"):
+        root = Path(__file__).resolve().parent
+        texts = [(root / "scenarios" / f"{n}.txt").read_bytes()
+                 for n in TEXT_BATCH]
+        tcfg = cli.build_config(cli.parse_args(["scenarios/waterfall.txt"]))
+        scn_g, st_g = build_batch(texts, tcfg, device=dev)
+        scn_c, st_c = build_batch(texts, tcfg, device="cpu")
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(TEXT_BATCH_FRAMES):
+            st_g = step_frame_batched(tcfg, scn_g, st_g)
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        check(sum(_build.PLAIN_CALLS.values()) == 0,
+              "text batch: a plain version ran on the card")
+        n = len(texts) * tcfg.max_substeps * TEXT_BATCH_FRAMES
+        for k in ("K1", "S1", "K7", "K8"):
+            check(got.get(k, 0) == n, f"text batch: {k} launched "
+                  f"{got.get(k, 0)} times, not {n}")
+        for k in ("K2", "K10", "K4"):
+            check(got.get(k, 0) == 0, f"text batch: {k} launched")
+        for _ in range(TEXT_BATCH_FRAMES):
+            st_c = step_frame_batched(tcfg, scn_c, st_c)
+        for name in ("marker_count", "alive", "alive_count",
+                     "dropped_markers", "source_exhausted"):
+            check(torch.equal(getattr(st_g, name).cpu(),
+                              getattr(st_c, name)),
+                  f"text batch: {name} differs between card and CPU")
+        check(torch.equal(st_g.rng.cpu().to(torch.int64),
+                          st_c.rng.to(torch.int64)),
+              "text batch: the RNG differs between card and CPU")
+        du = (st_g.u.cpu() - st_c.u).abs().max().item()
+        dv = (st_g.v.cpu() - st_c.v).abs().max().item()
+        summaries["text_batch"] = {"launches": got, "max_abs_du": du,
+                                   "max_abs_dv": dv}
+        log(f"   launches {got}; counts, alive, alive_count, drops, "
+            f"exhausted and RNG bitwise; max |du| {du:.3g}, |dv| {dv:.3g} "
+            "(atol 5e-3)")
+        check(du <= 5e-3 and dv <= 5e-3, "text batch: velocities differ "
+              "> 5e-3")
+
+
+def run_diagnostics(summaries) -> None:
+    """--sherlock as a process; in process, the NaN trap raises on a NaN
+    in u, makes one torch sync a frame on and none off, and its frame
+    rate beside the switch off; `dump_pressure_system` of a card state
+    equals the CPU's text; `profiler_trace` records K1's kernel."""
+    import tempfile
+
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.utils import diagnostics
+
+    argv = ["scenarios/waterfall.txt"]
+    with Phase(f"--sherlock: python -m euler_tpu_torch {argv[0]} --frames "
+               f"{SHERLOCK_FRAMES} --sherlock; the trap in process; "
+               "dump_pressure_system; profiler_trace"):
+        root = Path(__file__).resolve().parent
+        cmd = [sys.executable, "-m", "euler_tpu_torch", *argv, "--frames",
+               str(SHERLOCK_FRAMES), "--sherlock"]
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=str(root)),
+                              timeout=600)
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        log(f"   --sherlock: rc {proc.returncode}: {last}")
+        check(proc.returncode == 0 and " frames/s, " in last,
+              f"--sherlock: the CLI failed (rc {proc.returncode}):\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        summary = {"cli_line": last}
+
+        cfg, scn, st = cli_state(argv)
+        for _ in range(4):
+            st = sim.step_frame(cfg, scn, st)
+        frame = lambda: sim.step_frame(cfg, scn, st)  # noqa: E731
+        off = torch_syncs(frame)
+        diagnostics.enable_fpmath_asserts()
+        try:
+            on = torch_syncs(frame)
+            bad = st.replace(u=st.u.clone())
+            ys, xs = torch.nonzero(st.fluid, as_tuple=True)
+            bad.u[ys[len(ys) // 2], xs[len(xs) // 2]] = float("nan")
+            try:
+                sim.step_frame(cfg, scn, bad)
+                raised = ""
+            except FloatingPointError as e:
+                raised = str(e)
+            ms = {}
+            for label, enabled in (("on", True), ("off", False),
+                                   ("on", True), ("off", False)):
+                diagnostics.enable_fpmath_asserts(enabled)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s = st
+                for _ in range(SHERLOCK_FRAMES):
+                    s = sim.step_frame(cfg, scn, s)
+                torch.cuda.synchronize()
+                t = 1e3 * (time.perf_counter() - t0) / SHERLOCK_FRAMES
+                ms[label] = min(ms.get(label, t), t)
+        finally:
+            diagnostics.enable_fpmath_asserts(False)
+        log(f"   torch syncs a frame: {off} with the trap off, {on} on; a "
+            f"NaN in u: {raised!r}")
+        log(f"   waterfall 40x100: {ms['off']:.3f} ms/frame with the trap "
+            f"off, {ms['on']:.3f} on (best of 2 x {SHERLOCK_FRAMES} frames)")
+        check(off == 0, "the frame read the device with the trap off")
+        check(on == 1, f"the trap made {on} torch syncs a frame, not 1")
+        check("u" in raised.split(": ")[-1], "a NaN in u did not raise "
+              "FloatingPointError naming u")
+        summary.update(torch_syncs_off=off, torch_syncs_on=on,
+                       ms_per_frame_off=ms["off"], ms_per_frame_on=ms["on"])
+
+        dt = 0.0123
+        text = diagnostics.dump_pressure_system(cfg, scn, st, dt)
+        text_cpu = diagnostics.dump_pressure_system(cfg, *to_cpu(scn, st),
+                                                    dt)
+        check(text == text_cpu, "dump_pressure_system: the card's text "
+              "differs from the CPU's")
+        log(f"   dump_pressure_system: {len(text)} characters, card equal "
+            "to CPU")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            with diagnostics.profiler_trace(logdir=tmp):
+                sim.step_frame(cfg, scn, st)
+            trace = (Path(tmp) / "trace.json").read_text()
+        check("march_rebin_tiles" in trace, "profiler_trace: K1's kernel "
+              "(march_rebin_tiles) is not in the trace")
+        log(f"   profiler_trace: {len(trace)} bytes, K1's "
+            "march_rebin_tiles in it")
+        summaries["sherlock"] = summary
+
+
 def run(args) -> dict:
     import torch
 
@@ -2285,6 +2570,10 @@ def run(args) -> dict:
 
     run_global(results, summaries, launches, args.profile)
 
+    run_batch(summaries, launches, dev)
+
+    run_diagnostics(summaries)
+
     if args.profile:
         with Phase("profile"):
             profile(cfg, scn, state, f"{args.profile}.mg.txt", "mg")
@@ -2310,6 +2599,11 @@ def run(args) -> dict:
         torch.cuda.empty_cache()
         run_card_tests("999 or 2160 or zero or workspace",
                        files=("tests/test_torch_cuda_mg_padded.py",))
+
+    with Phase("the batch's card tests: each instance of an interleaved "
+               "batch bitwise equal to it alone (pytest, "
+               "tests/test_torch_cuda_batch.py)"):
+        run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():

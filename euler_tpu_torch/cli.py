@@ -17,8 +17,9 @@ global marker layout with the Jacobi budget (the JAX CLI's non-Pallas
 path).  The port takes its hand-written kernels on every route (G1, G2
 and K7 with K8 or P1 for --no-pallas), so --cpu means "the same
 configuration on the CPU" (each kernel wrapper then takes its plain
-version), not the JAX CLI's XLA / global-layout path; --sherlock (NaN
-traps, ROADMAP queue 1 item M13) raises.
+version), not the JAX CLI's XLA / global-layout path.  --sherlock
+traps NaNs: a frame whose output state holds one raises
+FloatingPointError (`utils.diagnostics.enable_fpmath_asserts`).
 
 A render thread writes the latest frame to the terminal, so the step
 loop never waits on terminal I/O.
@@ -62,7 +63,8 @@ def parse_args(argv):
         "warm start) and the fused substep.  Default: on for grids >= "
         "512², off (the reference's Jacobi budget) below")
     ap.add_argument("--sherlock", action="store_true",
-                    help="trap NaNs (not ported: raises)")
+                    help="trap NaNs: raise FloatingPointError when a "
+                    "frame's output holds one")
     ap.add_argument("--load", default=None, metavar="CKPT",
                     help="resume from a checkpoint .npz (scenario ignored)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
@@ -270,8 +272,9 @@ def run_interactive(args):
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     if args.sherlock:
-        raise NotImplementedError(
-            "--sherlock (NaN traps) is ROADMAP queue 1 item M13")
+        from euler_tpu_torch.utils.diagnostics import enable_fpmath_asserts
+
+        enable_fpmath_asserts()
     if args.frames:
         run_headless(args)
     else:

@@ -28,13 +28,16 @@ def state_from_numpy(arrays: dict, device="cuda",
                      layout: str = "slots") -> FluidState:
     """FluidState from a dict of numpy arrays keyed by field name; a flat
     store is reshaped to [2, K, Y, X] for `layout` "slots" and kept as it
-    is for "global"."""
-    Y, X = np.shape(arrays["u"])
+    is for "global".  The arrays may carry a leading batch axis (a
+    stacked batch, as `parallel.batch.build_batch` makes one), the
+    scalars then being [B]."""
+    Y, X = np.shape(arrays["u"])[-2:]
+    lead = np.ndim(arrays["u"]) - 2
     out = {}
     for name in _STATE_FIELDS:
         a = np.asarray(arrays[name])
         if (layout == "slots" and name in ("markers", "alive")
-                and a.ndim in (1, 2)):
+                and a.ndim - lead in (1, 2)):
             K = a.shape[-1] // (Y * X)
             a = a.reshape(a.shape[:-1] + (K, Y, X))
         out[name] = torch.as_tensor(a.copy(), device=device)
@@ -50,14 +53,16 @@ def scenario_from_numpy(arrays: dict, device="cuda") -> Scenario:
 
 
 def state_to_numpy(state: FluidState) -> dict:
-    """Dict of numpy arrays in the JAX package's layouts (flat store)."""
+    """Dict of numpy arrays in the JAX package's layouts (flat store), a
+    leading batch axis kept."""
+    lead = state.u.ndim - 2
     out = {}
     for name in _STATE_FIELDS:
         a = getattr(state, name).detach().cpu().numpy()
         if name == "markers":
-            a = a.reshape(2, -1)
+            a = a.reshape(a.shape[:lead + 1] + (-1,))
         elif name == "alive":
-            a = a.reshape(-1)
+            a = a.reshape(a.shape[:lead] + (-1,))
         out[name] = a
     return out
 

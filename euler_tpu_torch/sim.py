@@ -58,7 +58,8 @@ TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
     that also returns the extrapolated velocities, with which the
     colours are advected by plain ops.
 Nothing here reads a device value on the host; the solvers' stop flags
-are the only syncs.
+are the only syncs, and with `utils.diagnostics.enable_fpmath_asserts`
+(the CLI's --sherlock) the NaN check of a frame's output state.
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ from euler_tpu_torch.ops.markers_slots import (
     update_fluid_sources_slots,
 )
 from euler_tpu_torch.ops.project import project, solver_route
+from euler_tpu_torch.utils import diagnostics
 
 
 def check_slice(cfg: SimConfig, scn: Scenario) -> None:
@@ -326,6 +328,7 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
         state = state.replace(
             alive=live_slots(state.marker_count, cfg.slots_per_cell))
     state = state.replace(frame_count=state.frame_count + 1)
+    diagnostics.check_frame(state)
     return state, {"n_active": n_active, "pcg_iters": pcg_iters,
                    "pcg_iters_max": pcg_iters_max}
 

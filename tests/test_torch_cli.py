@@ -3,8 +3,7 @@ builds equals the JAX CLI's `_build` with --pallas and with --no-pallas;
 a headless run (with --no-pallas too), a checkpointed run and its resume
 as subprocesses on the CPU; the interactive run through a
 pseudo-terminal, keys p, f and q, as tests/test_cli.py drives the JAX
-CLI; the options the port does not run raise, naming their ROADMAP
-item."""
+CLI; a headless run with --sherlock."""
 
 import dataclasses
 import os
@@ -115,11 +114,12 @@ def test_no_pallas_headless_run():
     assert m and m.groups() == ("3", "100", "40")
 
 
-@pytest.mark.parametrize("flag,item", [("--sherlock", "M13")])
-def test_unported_options_raise(flag, item):
-    out = _run("scenarios/basic.txt", "--frames", "1", "--cpu", flag)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and item in out.stderr
+def test_sherlock_headless_run():
+    """--sherlock (the NaN trap) on a clean run: exit 0, the usual line."""
+    out = _run("scenarios/basic.txt", "--frames", "2", "--cpu", "--sherlock")
+    assert out.returncode == 0, out.stderr
+    m = LINE.match(out.stdout.strip().splitlines()[-1])
+    assert m and m.groups() == ("2", "100", "40")
 
 
 def _drain(fd, timeout=0.3, max_wall=2.0):

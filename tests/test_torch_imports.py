@@ -51,6 +51,9 @@ MODULES = [
     "euler_tpu_torch.native.encoder",
     "euler_tpu_torch.io.checkpoint",
     "euler_tpu_torch.cli",
+    "euler_tpu_torch.parallel.batch",
+    "euler_tpu_torch.parallel.spatial",
+    "euler_tpu_torch.utils.diagnostics",
 ]
 ENTRY_POINTS = [presets.dam_break, presets.block_obstacles, presets._finish,
                 state.zeros_state, convert.state_from_numpy,
