@@ -99,8 +99,9 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      (sources padded) through `step_frame_batched` on the card against
      the CPU, 2 frames (K1, S1, K7, K8 once a substep an instance; counts,
      alive, drops, RNG bitwise, u and v within 5e-3); `python -m
-     euler_tpu_torch scenarios/waterfall.txt --frames 20 --sherlock` as a
-     process (exit 0); in process, a NaN in u raises FloatingPointError,
+     euler_tpu_torch scenarios/waterfall.txt --frames 100` as a process,
+     twice with `--sherlock` and twice without, in turn (exit 0, the
+     frames/s of each); in process, a NaN in u raises FloatingPointError,
      the trap makes one torch sync a frame and none when off (torch's
      sync debug mode), the frame timed with it on and off;
      `dump_pressure_system` of a card state equal to the CPU's text; a
@@ -1989,6 +1990,7 @@ BATCH_ALONE = (0, 7)  # instances also stepped alone: bitwise the batch's
 TEXT_BATCH = ("basic", "block", "filter", "waterfall", "weird-edges")
 TEXT_BATCH_FRAMES = 2
 SHERLOCK_FRAMES = 20
+SHERLOCK_CLI_FRAMES = 100  # each CLI process, with and without --sherlock
 
 
 def torch_syncs(fn) -> int:
@@ -2036,8 +2038,15 @@ def run_batch(summaries, launches, dev) -> None:
         mg_kernel.clear_workspaces()
         torch.cuda.empty_cache()
         held = reset_peak()
-        pairs = [dam_break(cfg, seed=i, device=dev) for i in range(BATCH)]
-        runner = HostBatchRunner(cfg, pairs)
+        # the runner holds the only reference to the initial states, so the
+        # peak is the batch's own; instances 0 and 7 are rebuilt from their
+        # seeds for the alone check
+        runner = HostBatchRunner(cfg, [dam_break(cfg, seed=i, device=dev)
+                                       for i in range(BATCH)])
+        nbytes = lambda x: sum(  # noqa: E731
+            getattr(x, f.name).nbytes for f in dataclasses.fields(x))
+        state_bytes = nbytes(runner.states[0])
+        scn_bytes = nbytes(runner.scns[0])
         runner.run(BATCH_WARMUP)
         runner.sync()
         torch.cuda.synchronize()
@@ -2061,6 +2070,15 @@ def run_batch(summaries, launches, dev) -> None:
             "mg_workspaces": len(mg_kernel._WORKSPACES),
         }
         record_peak(summary, held)
+        rest = (summary["max_memory_allocated"] - held
+                - BATCH * (state_bytes + scn_bytes)
+                - summary["mg_workspace_bytes"])
+        summary.update(state_bytes=state_bytes, scenario_bytes=scn_bytes,
+                       unattributed_bytes=rest)
+        log(f"   the batch's peak above what was held: {BATCH} states of "
+            f"{state_bytes} bytes, {BATCH} scenarios of {scn_bytes}, the MG "
+            f"workspace {summary['mg_workspace_bytes']}, the rest {rest} "
+            "(a frame's temporaries)")
         summaries["batch"] = summary
         log(f"   batch: {summary['ms_per_instance_frame']:.3f} ms an "
             f"instance-frame, {summary['cell_steps_per_s']:.4g} cell-steps/s "
@@ -2086,7 +2104,7 @@ def run_batch(summaries, launches, dev) -> None:
     with Phase(f"instances {BATCH_ALONE} alone, {BATCH_WARMUP} + "
                f"{BATCH_FRAMES} frames: bitwise the batch's"):
         for i in BATCH_ALONE:
-            scn, st = pairs[i]
+            scn, st = dam_break(cfg, seed=i, device=dev)
             for _ in range(BATCH_WARMUP):
                 st = sim.step_frame(cfg, scn, st)
             torch.cuda.synchronize()
@@ -2110,7 +2128,7 @@ def run_batch(summaries, launches, dev) -> None:
                     f"{Y * X * S * BATCH_FRAMES / elapsed:.4g} cell-steps/s")
             log(f"   instance {i}: every field (u, v, p, the store, counts, "
                 "drops, RNG) bitwise equal alone and in the batch")
-        del pairs, runner
+        del runner
 
     with Phase(f"text-scenario batch {TEXT_BATCH} 40x100 (CLI config, "
                f"sources padded), step_frame_batched: card vs CPU, "
@@ -2157,7 +2175,8 @@ def run_batch(summaries, launches, dev) -> None:
 
 
 def run_diagnostics(summaries) -> None:
-    """--sherlock as a process; in process, the NaN trap raises on a NaN
+    """The CLI as a process with and without --sherlock, in turn, at the
+    same frame count; in process, the NaN trap raises on a NaN
     in u, makes one torch sync a frame on and none off, and its frame
     rate beside the switch off; `dump_pressure_system` of a card state
     equals the CPU's text; `profiler_trace` records K1's kernel."""
@@ -2170,20 +2189,29 @@ def run_diagnostics(summaries) -> None:
 
     argv = ["scenarios/waterfall.txt"]
     with Phase(f"--sherlock: python -m euler_tpu_torch {argv[0]} --frames "
-               f"{SHERLOCK_FRAMES} --sherlock; the trap in process; "
+               f"{SHERLOCK_CLI_FRAMES} [--sherlock], 2 x each in turn; the "
+               "trap in process; "
                "dump_pressure_system; profiler_trace"):
         root = Path(__file__).resolve().parent
-        cmd = [sys.executable, "-m", "euler_tpu_torch", *argv, "--frames",
-               str(SHERLOCK_FRAMES), "--sherlock"]
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                              env=dict(os.environ, PYTHONPATH=str(root)),
-                              timeout=600)
-        last = (proc.stdout.strip().splitlines() or [""])[-1]
-        log(f"   --sherlock: rc {proc.returncode}: {last}")
-        check(proc.returncode == 0 and " frames/s, " in last,
-              f"--sherlock: the CLI failed (rc {proc.returncode}):\n"
-              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-        summary = {"cli_line": last}
+        fps, lines = {}, {}
+        for flags in (["--sherlock"], [], ["--sherlock"], []):
+            cmd = [sys.executable, "-m", "euler_tpu_torch", *argv,
+                   "--frames", str(SHERLOCK_CLI_FRAMES), *flags]
+            proc = subprocess.run(cmd, cwd=root, capture_output=True,
+                                  text=True, timeout=600,
+                                  env=dict(os.environ, PYTHONPATH=str(root)))
+            last = (proc.stdout.strip().splitlines() or [""])[-1]
+            label = "on" if flags else "off"
+            log(f"   CLI {' '.join(flags) or '(no --sherlock)'}: rc "
+                f"{proc.returncode}: {last}")
+            check(proc.returncode == 0 and " frames/s, " in last,
+                  f"the CLI {flags} failed (rc {proc.returncode}):\n"
+                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            rate = float(last.split(" frames/s, ")[0].split()[-1])
+            fps.setdefault(label, []).append(rate)
+            lines.setdefault(label, last)
+        summary = {"cli_line": lines["on"], "cli_frames_per_s_on": fps["on"],
+                   "cli_frames_per_s_off": fps["off"]}
 
         cfg, scn, st = cli_state(argv)
         for _ in range(4):
@@ -2204,7 +2232,7 @@ def run_diagnostics(summaries) -> None:
             ms = {}
             for label, enabled in (("on", True), ("off", False),
                                    ("on", True), ("off", False)):
-                diagnostics.enable_fpmath_asserts(enabled)
+                diagnostics._fpmath_asserts = enabled
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 s = st
@@ -2214,7 +2242,7 @@ def run_diagnostics(summaries) -> None:
                 t = 1e3 * (time.perf_counter() - t0) / SHERLOCK_FRAMES
                 ms[label] = min(ms.get(label, t), t)
         finally:
-            diagnostics.enable_fpmath_asserts(False)
+            diagnostics._fpmath_asserts = False
         log(f"   torch syncs a frame: {off} with the trap off, {on} on; a "
             f"NaN in u: {raised!r}")
         log(f"   waterfall 40x100: {ms['off']:.3f} ms/frame with the trap "
@@ -2235,14 +2263,19 @@ def run_diagnostics(summaries) -> None:
         log(f"   dump_pressure_system: {len(text)} characters, card equal "
             "to CPU")
 
-        with tempfile.TemporaryDirectory() as tmp:
-            with diagnostics.profiler_trace(logdir=tmp):
-                sim.step_frame(cfg, scn, st)
-            trace = (Path(tmp) / "trace.json").read_text()
+        # a profiler session on the card now and then loses kernel records
+        # (PERF.md §7): a trace without K1 is taken again, up to 3 times
+        for tries in range(1, 4):
+            with tempfile.TemporaryDirectory() as tmp:
+                with diagnostics.profiler_trace(logdir=tmp):
+                    sim.step_frame(cfg, scn, st)
+                trace = (Path(tmp) / "trace.json").read_text()
+            if "march_rebin_tiles" in trace:
+                break
         check("march_rebin_tiles" in trace, "profiler_trace: K1's kernel "
-              "(march_rebin_tiles) is not in the trace")
+              f"(march_rebin_tiles) is not in any of {tries} traces")
         log(f"   profiler_trace: {len(trace)} bytes, K1's "
-            "march_rebin_tiles in it")
+            f"march_rebin_tiles in it (trace {tries})")
         summaries["sherlock"] = summary
 
 

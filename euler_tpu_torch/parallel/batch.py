@@ -89,28 +89,27 @@ class HostBatchRunner:
     the card runs B per-instance frames back to back while the host
     queues the next (a frame reads the device only at its solvers' stop
     flags).  The JAX package's supported single-chip batch path
-    (bench.py --batch B)."""
+    (bench.py --batch B).
 
-    def __init__(self, cfg: SimConfig, pairs, spatial: bool | None = None):
-        """pairs: list of (Scenario, FluidState).  spatial: convert slot
-        stores to the [2, K, Y, X] planes (default: for the slot layout;
-        the port's own slot states are already in that form)."""
-        if spatial is None:
-            spatial = cfg.marker_layout == "slots"
-        if spatial:
-            from euler_tpu_torch.parallel.spatial import to_spatial
+    The JAX runner's `spatial` argument has no counterpart: it turns the
+    JAX package's flat slot store into [2, K, Y, X] planes, the form in
+    which the port keeps every slot state it makes (`core/state.py`,
+    `convert`, `io/checkpoint`), so there is nothing to convert."""
 
-            pairs = [(scn, to_spatial(cfg, st)) for scn, st in pairs]
+    def __init__(self, cfg: SimConfig, pairs):
+        """pairs: list of (Scenario, FluidState)."""
         self.cfg = cfg
         self.scns = [p[0] for p in pairs]
         self.states = [p[1] for p in pairs]
 
     def run(self, n_frames: int):
-        """Advance every instance n_frames; returns the states."""
+        """Advance every instance n_frames; returns the states.  Each
+        instance's state is replaced as soon as its next is queued, so the
+        runner holds B states and one frame's in flight, not 2B."""
         for _ in range(n_frames):
-            self.states = [step_frame(self.cfg, scn, st)
-                           for scn, st in zip(self.scns, self.states)]
-        return self.states
+            for i, scn in enumerate(self.scns):
+                self.states[i] = step_frame(self.cfg, scn, self.states[i])
+        return list(self.states)
 
     def sync(self):
         """Wait until every instance's queued work is done (a host read of

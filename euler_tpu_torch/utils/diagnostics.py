@@ -29,7 +29,7 @@ from euler_tpu_torch.ops.project import divergence_rhs, pressure_matrix_diag
 _fpmath_asserts = False
 
 
-def enable_fpmath_asserts(enabled: bool = True) -> None:
+def enable_fpmath_asserts() -> None:
     """SHERLOCK equivalent (misc/debug.c:4-10): from now on every frame
     (`sim.step_frame`, `step_frame_stats`, `run_frames`) checks the
     floating tensors of the state it returns and raises
@@ -37,9 +37,11 @@ def enable_fpmath_asserts(enabled: bool = True) -> None:
     package's `jax_debug_nans` only a frame's outputs are checked: the
     unfused projections make NaN on inactive substeps on purpose and the
     frame loop's select discards it.  The check reads the device once a
-    frame; with the switch off a frame reads nothing on the host."""
+    frame; with the switch off a frame reads nothing on the host.  As in
+    the JAX package there is no call that turns it off again; tests set
+    `_fpmath_asserts` back to False."""
     global _fpmath_asserts
-    _fpmath_asserts = enabled
+    _fpmath_asserts = True
 
 
 def check_frame(state) -> None:

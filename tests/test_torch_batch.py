@@ -214,7 +214,6 @@ def test_host_batch_matches_sequential():
     states = runner.run(2)
     sums = runner.sync()
     for (scn, st), st_b, s in zip(pairs, states, sums):
-        st = to_spatial(cfg, st)
         for _ in range(2):
             st = sim.step_frame(cfg, scn, st)
         _equal(st, st_b)

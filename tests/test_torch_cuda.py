@@ -7,6 +7,7 @@ JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import ctypes
 import dataclasses
 
 import pytest
@@ -300,28 +301,51 @@ def test_marker_pass_padded_tiles_bitwise(Y, X, K, fill, zero_dt):
         assert torch.equal(got[0], slots)
 
 
-def _kernel_launches(fn, sessions: int = 3):
-    """(names, calls): the names of the kernels, copies and sets the card
-    ran while fn() ran (torch.profiler), and how many times fn() was
-    called.  On the card a session now and then comes back with none of
-    them, though the wrappers' launch counts show the launch (seen for
-    one K1 call and one K7 call, after tests that had run fine): an empty
-    session is taken again, up to `sessions` times."""
-    from torch.profiler import ProfilerActivity
+# cuGraphNodeGetType's kinds that put work on the card by themselves
+_NODE_KINDS = {0: "kernel", 1: "Memcpy", 2: "Memset"}
+
+
+def _kernel_launches(fn):
+    """(names, calls): the kernels, copies and sets that one fn() call
+    puts on the card, and how many times fn() was called.  The call after
+    a warm-up one is captured into a CUDA graph and the graph's nodes are
+    read through the driver (cuGraphGetNodes; a kernel node by its
+    function's name, which holds the kernel's own).  A capture holds every
+    launch: a torch.profiler session on the card now and then comes back
+    without the kernel it ran (a K1 call three sessions in a row)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        rc = getattr(cu, name)(*args)
+        assert rc == 0, f"{name}: CUDA driver error {rc}"
 
     fn()
     torch.cuda.synchronize()
-    for calls in range(2, sessions + 2):
-        with torch.profiler.profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    return names, calls
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        name = _NODE_KINDS.get(kind.value, f"node of kind {kind.value}")
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2 begins with the CUfunction
+            params = (ctypes.c_void_p * 16)()
+            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+                 params)
+            fname = ctypes.c_char_p()
+            call("cuFuncGetName", ctypes.byref(fname),
+                 ctypes.c_void_p(params[0]))
+            name = fname.value.decode()
+        names.append(name)
+    del graph
+    return names, 2
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K4", "K5", "K6"])
@@ -518,7 +542,7 @@ def test_jacobi_stops_at_the_cap(developed, cap):
     assert (p - pp).abs().max() <= 1e-4 * pp.abs().max()
 
 
-def _sweeps(fn, sessions: int = 3):
+def _sweeps(fn, sessions: int = 5):
     """fn()'s result and the launches of K8-K10's sweep A and sweep B on
     the card while it runs (torch.profiler).  The sweeps launch in pairs,
     8 of each a graph chunk, and every solve replays at least one chunk,

@@ -78,7 +78,7 @@ def traps():
         yield on
     finally:
         jax.config.update("jax_debug_nans", False)
-        diagnostics.enable_fpmath_asserts(False)
+        diagnostics._fpmath_asserts = False
 
 
 def _with_nan(st):
