@@ -106,7 +106,23 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      sync debug mode), the frame timed with it on and off;
      `dump_pressure_system` of a card state equal to the CPU's text; a
      `profiler_trace` of a frame holding K1's kernel;
- 13. runs the Jacobi, marker, grid-stage and source card tests of
+ 13. runs K1 per row shard (M12's row-sharded marker pass): the dam
+     break at 256² and 1024², 3 frames on, cut into 4 and into 2 row
+     shards, each shard's rows with 8 rows of each neighbour (what
+     `parallel/cuda_shard.exchange_rows` delivers to a rank), K1 launched
+     on each with clamp_ny = Y and row_offset = r Yl - 8: each shard
+     bitwise its plain version, the interiors bitwise the unsharded K1
+     (slots, counts, drops); the 4 and the 2 shards' launches at 1024²
+     timed (device ms summed, beside the unsharded launch's and each
+     shard's byte bound); then on a one-rank NCCL group (a `file://`
+     store): 2 frames of the 1024² dam break with
+     `make_sharded_marker_pass` in `step_frame` (K1 on [16, 1040, 1024],
+     row_offset -8: once a substep, K2, K3, no plain version; every field
+     bitwise the unsharded frames), `make_sharded_step` on the batch of 8
+     for 2 frames (K1 and K2 8 x 8 x 2 times; bitwise
+     `step_frame_batched`), `make_dp_substep_mg` bitwise
+     `project_substep_mg`;
+ 14. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
      in turn; K1 and K4 on ragged grids at K = 4, 8 and 16, K5 and K6 at
@@ -123,7 +139,11 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      hierarchy, a zero RHS and the cap, the workspace per grid), then the
      batch's (tests/test_torch_cuda_batch.py: each instance of an
      interleaved batch bitwise equal to it alone, on every solver
-     workspace: K2/K3, K10, P3, K8, G1/G2 with K8, P1).
+     workspace: K2/K3, K10, P3, K8, G1/G2 with K8, P1), then K1's
+     row-shard card tests (tests/test_torch_cuda_shard.py: 2 and 4
+     shards of the 256² dam break and of seeded full stores at 200 x 136,
+     K = 8, and 120 x 72, K = 16, bitwise; the identity arguments) and
+     `dryrun_multichip(1, "nccl")` (a spawned NCCL rank).
 With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -336,6 +356,13 @@ KERNELS = {
            "euler_tpu/ops/pallas/marker_fused_kernel.py:941"),
     "K4": ("marker_pass_padded", "euler_tpu_torch/csrc/marker_pass.cu",
            "euler_tpu/ops/pallas/marker_fused_kernel.py:1030"),
+    # K1 per row shard: a call is the 4 shards' launches of the 1024² plane
+    # (clamp_ny / row_offset); launches from the one-rank NCCL frames
+    "K1s": ("marker_pass_row_shards", "euler_tpu_torch/csrc/marker_pass.cu",
+            "euler_tpu/ops/pallas/marker_fused_kernel.py:941 "
+            "(march_rebin_pallas with clamp_ny / row_offset, a launch per "
+            "row shard: euler_tpu/parallel/pallas_shard.py:65 "
+            "make_sharded_march_rebin)"),
     "K5": ("marker_march", "euler_tpu_torch/csrc/marker_pass.cu",
            "euler_tpu/ops/pallas/marker_kernel.py:332"),
     "K6": ("marker_rebin", "euler_tpu_torch/csrc/marker_pass.cu",
@@ -2279,6 +2306,236 @@ def run_diagnostics(summaries) -> None:
         summaries["sherlock"] = summary
 
 
+SHARDS = (4, 2)      # the row shards K1 runs on at the main path's size
+SHARD_CHECK = 256    # where each shard's K1 is held against its plain version
+SHARD_DEVELOP = 3    # frames of the dam break before the shard checks
+SHARD_FRAMES = 2     # frames of the one-rank NCCL runs
+
+
+def k1_blocks(cfg, planes, n):
+    """The n row shards of `planes` (u, v, fluid, solid, slots, count,
+    dead) with their 8-row halo (what `exchange_rows` gives each rank), the
+    shard's config and its K1 keyword arguments."""
+    from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
+
+    Yl = cfg.ny // n
+    cfg_l = dataclasses.replace(cfg, ny=Yl + 2 * H)
+    return [(cfg_l, [block_with_halo(a, n, r) for a in planes],
+             dict(clamp_ny=cfg.ny, row_offset=r * Yl - H)) for r in range(n)]
+
+
+def k1_shard_call(blocks, dt, kernel):
+    """`kernel` (K1's wrapper or its plain version) on every shard."""
+    return [kernel(c, *b[:5], dt, b[5], dead=b[6], **kw)
+            for c, b, kw in blocks]
+
+
+def developed_planes(size: int, dev):
+    """(cfg, scn, state, dt, K1's planes) of the dam break at size²,
+    SHARD_DEVELOP frames on."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.forces import max_speed_sq
+
+    cfg = main_config(size)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    scn, st = dam_break(cfg, device=dev)
+    for _ in range(SHARD_DEVELOP):
+        st = sim.step_frame(cfg, scn, st)
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
+                          torch.full((), cfg.frame_time, device=dev))
+    planes = (st.u, st.v, st.fluid, scn.solid,
+              st.markers.reshape(2 * K, Y, X), st.marker_count,
+              scn.sink | scn.solid)
+    return cfg, scn, st, dt, planes
+
+
+def equal_states(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x.to(torch.int64), y.to(torch.int64))
+               if x.dtype == torch.uint32 else torch.equal(x, y)
+               for x, y in ((getattr(a, f.name), getattr(b, f.name))
+                            for f in dataclasses.fields(a)))
+
+
+def run_shard(results, summaries, launches, dev) -> None:
+    """K1 per row shard on the card (each shard's launch on its padded
+    plane with clamp_ny / row_offset: interiors bitwise the unsharded K1
+    at 1024², each shard bitwise its plain version at 256² and 1024²,
+    timed), then on a one-rank NCCL group: the row-sharded marker pass in
+    `step_frame`, `make_sharded_step` on the batch of 8 and
+    `make_dp_substep_mg`, each bitwise its unsharded counterpart."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import substep_kernel as k2
+    from euler_tpu_torch.parallel import cuda_shard, mesh, spatial
+    from euler_tpu_torch.parallel.batch import stack, step_frame_batched
+
+    summary = {}
+    with Phase(f"K1 on {' and '.join(map(str, SHARDS))} row shards: "
+               f"bitwise the unsharded K1 at {SIZE}², each shard bitwise "
+               f"its plain version at {SHARD_CHECK}² and {SIZE}²; timed"):
+        for size in (SHARD_CHECK, SIZE):
+            cfg, scn, st, dt, planes = developed_planes(size, dev)
+            whole = k1.march_rebin(cfg, *planes[:5], dt, planes[5],
+                                   dead=planes[6])
+            for n in SHARDS:
+                Yl = size // n
+                blocks = k1_blocks(cfg, planes, n)
+                got = k1_shard_call(blocks, dt, k1.march_rebin)
+                plain = k1_shard_call(blocks, dt, k1.march_rebin_plain)
+                for r, (g, p) in enumerate(zip(got, plain)):
+                    for a, b, w, name in zip(g, p, whole,
+                                             ("slots", "count", "drop")):
+                        check(torch.equal(a, b), f"{size}², shard {r} of "
+                              f"{n}: K1's {name} differs from plain")
+                        check(torch.equal(a[..., 8:8 + Yl, :],
+                                          w[..., r * Yl:(r + 1) * Yl, :]),
+                              f"{size}², shard {r} of {n}: K1's {name} "
+                              "differs from the unsharded K1")
+                log(f"   {size}², {n} shards of [{2 * SLOTS}, {Yl + 16}, "
+                    f"{size}]: every shard bitwise its plain version; "
+                    "interiors bitwise the unsharded K1 (slots, counts, "
+                    "drops)")
+        # the timing, on the 1024² state
+        X = cfg.nx
+        n_live = int(planes[5].sum())
+        whole_call = lambda: k1.march_rebin(  # noqa: E731
+            cfg, *planes[:5], dt, planes[5], dead=planes[6])
+        whole_dev = min(device_ms(whole_call, REPS) for _ in range(2))
+        whole_bytes = BOUNDS["K1"](SIZE * X, 0, n_live)[0]
+        summary["unsharded"] = {"device_ms": whole_dev,
+                                "bound_ms": 1e3 * whole_bytes
+                                / HBM_BYTES_PER_S, "live": n_live}
+        log(f"   unsharded K1 {SIZE}²: device {whole_dev:.4f} ms, bound "
+            f"{summary['unsharded']['bound_ms']:.4f} ms by bytes "
+            f"({whole_bytes / 1e6:.1f} MB, {n_live} live markers)")
+        for n in SHARDS:
+            blocks = k1_blocks(cfg, planes, n)
+            call = lambda: k1_shard_call(  # noqa: E731
+                blocks, dt, k1.march_rebin)
+            plain = lambda: k1_shard_call(  # noqa: E731
+                blocks, dt, k1.march_rebin_plain)
+            t_p1, t_k1 = cuda_ms(plain, 2), cuda_ms(call, REPS)
+            t_k2, t_p2 = cuda_ms(call, REPS), cuda_ms(plain, 2)
+            dev_ms = min(device_ms(call, REPS) for _ in range(2))
+            nbytes = flops = 0
+            for c, b, kw in blocks:
+                live = int(b[5].sum())
+                nb, fl = BOUNDS["K1"](c.ny * X, 0, live)
+                nbytes, flops = nbytes + nb, flops + fl
+                log(f"   shard row_offset {kw['row_offset']}: [{2 * SLOTS}, "
+                    f"{c.ny}, {X}], {live} live markers, byte bound "
+                    f"{1e3 * nb / HBM_BYTES_PER_S:.4f} ms ({nb / 1e6:.1f} "
+                    "MB)")
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * flops / F32_FLOP_PER_S
+            row = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
+                   "device_ms": dev_ms, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations", "library_ms": None}
+            summary[f"shards_{n}"] = row
+            log(f"   {n} shards' K1 launches {SIZE}²: device {dev_ms:.4f} ms "
+                f"summed (unsharded {whole_dev:.4f}); events "
+                f"{t_k1:.4f} / {t_k2:.4f} ms; plain {t_p1:.3f} / "
+                f"{t_p2:.3f} ms; bound {row['bound_ms']:.4f} ms by "
+                f"{row['bound_by']} ({nbytes / 1e6:.1f} MB, the halos "
+                "twice)")
+            if n == 4:
+                results["K1s"] = {"max_abs_err": 0.0, **row}
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"one-rank NCCL group: the row-sharded marker pass in "
+               f"step_frame, make_sharded_step on the batch of {BATCH}, "
+               f"make_dp_substep_mg; {SIZE}², {SHARD_FRAMES} frames"), \
+            tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            ymesh = spatial.spatial_mesh(1, x=1)
+            bscn, bst = spatial.shard_spatial(cfg, ymesh, scn, st)
+            marker_pass = cuda_shard.make_sharded_marker_pass(cfg, ymesh)
+            torch.cuda.synchronize()
+            reset_counts()
+            hooked = bst
+            for _ in range(SHARD_FRAMES):
+                hooked = sim.step_frame(cfg, bscn, hooked,
+                                        marker_pass=marker_pass)
+            torch.cuda.synchronize()
+            got = dict(_build.LAUNCHES)
+            plain = sum(_build.PLAIN_CALLS.values())
+            ref = st
+            for _ in range(SHARD_FRAMES):
+                ref = sim.step_frame(cfg, scn, ref)
+            log(f"   marker pass on a y of 1 rank: launches {got}, plain "
+                f"calls {plain}; alive_count {int(hooked.alive_count)}, "
+                f"dropped {int(hooked.dropped_markers)}")
+            check(equal_states(hooked, ref), "the row-sharded marker pass "
+                  "in step_frame differs from the unsharded frames")
+            check(equal_states(spatial.gather_spatial(cfg, ymesh, hooked),
+                               hooked), "gather_spatial on one rank")
+            check(got.get("K1") == SHARD_FRAMES * cfg.max_substeps
+                  and got.get("K2", 0) > 0 and got.get("K3", 0) > 0
+                  and plain == 0, f"sharded marker pass frames: launches "
+                  f"{got}, plain calls {plain}")
+            launches["K1s"] = got["K1"]
+            summary["marker_pass_launches"] = got
+
+            dmesh = mesh.make_mesh(1, data=1)
+            pairs = [dam_break(cfg, seed=i, device=dev) for i in range(BATCH)]
+            scn8, st8 = (stack([p[i] for p in pairs]) for i in (0, 1))
+            del pairs
+            sscn, sst = mesh.shard_batch(dmesh, scn8, st8)
+            step = mesh.make_sharded_step(cfg, dmesh)
+            torch.cuda.synchronize()
+            reset_counts()
+            for _ in range(SHARD_FRAMES):
+                sst = step(sscn, sst)
+            torch.cuda.synchronize()
+            got = dict(_build.LAUNCHES)
+            plain = sum(_build.PLAIN_CALLS.values())
+            for _ in range(SHARD_FRAMES):
+                st8 = step_frame_batched(cfg, scn8, st8)
+            per = BATCH * SHARD_FRAMES * cfg.max_substeps
+            log(f"   data axis of 1 rank, batch of {BATCH}: launches {got}, "
+                f"plain calls {plain}")
+            check(equal_states(sst, st8), "make_sharded_step differs from "
+                  "step_frame_batched")
+            check(equal_states(mesh.gather_batch(dmesh, sst), sst),
+                  "gather_batch on one rank")
+            check(got.get("K1") == per and got.get("K2") == per
+                  and got.get("K3", 0) > 0 and plain == 0,
+                  f"make_sharded_step: launches {got}, plain calls {plain}")
+            summary["data_axis_launches"] = got
+            del scn8, st8, sscn, sst
+
+            one = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid, st.p)
+            reset_counts()
+            out = cuda_shard.make_dp_substep_mg(cfg, dmesh)(
+                dt, dt, *(a[None] for a in one))
+            got = dict(_build.LAUNCHES)
+            want = k2.project_substep_mg(cfg, dt, dt, *one)
+            check(all(torch.equal(a[0], b) for a, b in zip(out, want)),
+                  "make_dp_substep_mg differs from project_substep_mg")
+            check(got.get("K2") == 1 and not _build.PLAIN_CALLS,
+                  f"make_dp_substep_mg: launches {got}")
+            log(f"   make_dp_substep_mg {SIZE}²: bitwise project_substep_mg "
+                f"({int(out[2][0])} iterations), launches {got}")
+        finally:
+            dist.destroy_process_group()
+    summaries["shard"] = summary
+
+
 def run(args) -> dict:
     import torch
 
@@ -2607,6 +2864,8 @@ def run(args) -> dict:
 
     run_diagnostics(summaries)
 
+    run_shard(results, summaries, launches, dev)
+
     if args.profile:
         with Phase("profile"):
             profile(cfg, scn, state, f"{args.profile}.mg.txt", "mg")
@@ -2637,6 +2896,11 @@ def run(args) -> dict:
                "batch bitwise equal to it alone (pytest, "
                "tests/test_torch_cuda_batch.py)"):
         run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
+
+    with Phase("K1's row-shard card tests and the dry run on one NCCL rank "
+               "(pytest, tests/test_torch_cuda_shard.py)"):
+        run_card_tests("shards or identity or dryrun",
+                       files=("tests/test_torch_cuda_shard.py",))
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():

@@ -25,6 +25,13 @@ bitwise identity on the store.
 `march_rebin_plain` is the plain version: `markers_slots.march_slots`
 followed by `markers_slots.rebin_slots`.
 
+K1 also runs on one row shard's plane (`parallel/cuda_shard.py`, the
+JAX `march_rebin_pallas(..., clamp_ny=, row_offset=)`,
+marker_fused_kernel.py:823-876): cfg.ny is then the shard's rows with
+their halo, `clamp_ny` the global row count of the interpolation clamps
+and `row_offset` the global row of plane row 0.  Their defaults (cfg.ny
+and 0) are the whole plane's, the same launch as before they existed.
+
 `march_rebin_padded` (K4) replaces the same Pallas kernel launched by
 `march_rebin_padded` (marker_fused_kernel.py:973-1062): K1's function on
 the persistent padded store [2K, Y+16, X+256] with the interior at
@@ -155,14 +162,26 @@ def tile_plan(Y: int, X: int, K: int, kernel: str = "K1") -> TilePlan:
                     tile_smem_bytes(ty, TILE_X, K, kernel))
 
 
+def _shard_rows(cfg: SimConfig, clamp_ny, row_offset):
+    """(clamp_ny, row_offset) checked: cfg.ny and 0 by default."""
+    clamp_ny = cfg.ny if clamp_ny is None else int(clamp_ny)
+    row_offset = int(row_offset)
+    if clamp_ny < 2:
+        raise ValueError(f"clamp_ny {clamp_ny}: the global grid needs two "
+                         "rows at least")
+    return clamp_ny, row_offset
+
+
 def march_rebin_plain(cfg: SimConfig, u, v, fluid, solid, slots, dt, count,
-                      *, dead):
+                      *, dead, clamp_ny=None, row_offset=0):
     """March + re-bin as plain PyTorch ops."""
+    clamp_ny, row_offset = _shard_rows(cfg, clamp_ny, row_offset)
     K = slots.shape[0] // 2
     valid = live_slots(count, K)
     px, py = march_slots(cfg, u, v, fluid, solid, slots[:K], slots[K:],
-                         valid, dt)
-    opx, opy, ocount, drop = rebin_slots(cfg, px, py, valid, dead)
+                         valid, dt, clamp_ny, row_offset)
+    opx, opy, ocount, drop = rebin_slots(cfg, px, py, valid, dead,
+                                         row_offset)
     return torch.cat([opx, opy]), ocount, drop
 
 
@@ -173,9 +192,10 @@ def marker_lib():
     and bound once (binding costs the host ~10 µs a call)."""
     lib = _build.load("marker_pass", flags=["-fmad=false"])
     P, I, Fl = _build.PTR, _build.INT, _build.FLOAT
-    for name in ("eu_march_rebin", "eu_march_rebin_padded"):
-        _build.bind(lib, name, [I, I, I, I, Fl, Fl] + [P] * 11 + [I] * 5
-                    + [P])
+    _build.bind(lib, "eu_march_rebin", [I, I, I, I, Fl, Fl, I, I]
+                + [P] * 11 + [I] * 5 + [P])
+    _build.bind(lib, "eu_march_rebin_padded", [I, I, I, I, Fl, Fl]
+                + [P] * 11 + [I] * 5 + [P])
     _build.bind(lib, "eu_march", [I, I, I, I, Fl, Fl] + [P] * 8 + [I] * 5
                 + [P])
     _build.bind(lib, "eu_rebin", [I, I, I, Fl] + [P] * 7 + [I] * 5 + [P])
@@ -183,22 +203,27 @@ def marker_lib():
 
 
 def march_rebin(cfg: SimConfig, u, v, fluid, solid, slots, dt, count, *,
-                dead):
+                dead, clamp_ny=None, row_offset=0):
     """Fused marker pass.  Returns (slots', count', drop).  CUDA tensors
-    run the kernel; CPU tensors the plain version."""
+    run the kernel; CPU tensors the plain version.  clamp_ny and
+    row_offset place a row shard's plane in the global grid (see the top
+    of this module)."""
     if slots.device.type == "cpu":
         _build.PLAIN_CALLS["K1"] += 1
         return march_rebin_plain(cfg, u, v, fluid, solid, slots, dt, count,
-                                 dead=dead)
+                                 dead=dead, clamp_ny=clamp_ny,
+                                 row_offset=row_offset)
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
     return _launch("K1", "eu_march_rebin", cfg, u, v, fluid, solid, slots,
-                   (2 * K, Y, X), dt, count, dead)
+                   (2 * K, Y, X), dt, count, dead,
+                   _shard_rows(cfg, clamp_ny, row_offset))
 
 
 def _launch(kernel, entry, cfg, u, v, fluid, solid, slots, store_shape, dt,
-            count, dead):
+            count, dead, shard_rows=()):
     """K1's launch through `entry`, on a store of `store_shape`, counted
-    as `kernel`'s."""
+    as `kernel`'s; `shard_rows` is K1's (clamp_ny, row_offset), which K4's
+    entry does not take."""
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
     f = torch.float32
     dev = slots.device
@@ -221,8 +246,8 @@ def _launch(kernel, entry, cfg, u, v, fluid, solid, slots, store_shape, dt,
     _build.LAUNCHES[kernel] += 1
     rc = getattr(lib, entry)(
         Y, X, K, cfg.marker_march_iters, float(h),
-        float(np.float32(1.0) / h), p_u, p_v, p_count, p_fluid, p_solid,
-        p_dead, p_slots, p_dt, out.data_ptr(), out_count.data_ptr(),
+        float(np.float32(1.0) / h), *shard_rows, p_u, p_v, p_count, p_fluid,
+        p_solid, p_dead, p_slots, p_dt, out.data_ptr(), out_count.data_ptr(),
         out_drop.data_ptr(), plan.tile_y, plan.tile_x, plan.tiles_y,
         plan.tiles_x, plan.threads, _build.stream())
     _build.check(lib, rc, entry)

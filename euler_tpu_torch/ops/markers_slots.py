@@ -55,13 +55,15 @@ def _shift2(a, dy: int, dx: int, fill=0):
     return out != 0 if is_bool else out
 
 
-def velocity_at_slots(cfg: SimConfig, u, v, fluid, px, py):
-    """Staggered velocity at per-slot positions (main.c:440-449)."""
+def velocity_at_slots(cfg: SimConfig, u, v, fluid, px, py,
+                      clamp_ny: int | None = None, row_offset: int = 0):
+    """Staggered velocity at per-slot positions (main.c:440-449);
+    clamp_ny, row_offset as `interpolate_stencil` takes them."""
     inv_h = float(np.float32(1.0) / np.float32(cfg.side_length))
     vx = interpolate_stencil(cfg, u, fluid, px * inv_h - 1.0,
-                             py * inv_h - 0.5, "u")
+                             py * inv_h - 0.5, "u", clamp_ny, row_offset)
     vy = interpolate_stencil(cfg, v, fluid, px * inv_h - 0.5,
-                             py * inv_h - 1.0, "v")
+                             py * inv_h - 1.0, "v", clamp_ny, row_offset)
     return vx, vy
 
 
@@ -70,24 +72,28 @@ def _time_to(p0, p1, vel):
     return torch.where(nz, (p1 - p0) / torch.where(nz, vel, 1.0), _FLT_MAX)
 
 
-def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt):
+def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt,
+                clamp_ny: int | None = None, row_offset: int = 0):
     """main.c:464-537 on the slot layout: the DDA collision march of every
     live slot, `marker_march_iters` masked iterations, then the advance.
-    Dead slots keep their position."""
+    Dead slots keep their position.  On a row shard's plane, positions
+    are global: `row_offset` is the global row of plane row 0 and
+    `clamp_ny` the global row count (`interpolate_stencil`)."""
     Y, X = cfg.ny, cfg.nx
     h = float(np.float32(cfg.side_length))
     inv_h = float(np.float32(1.0) / np.float32(cfg.side_length))
     dev = px.device
     dt = torch.as_tensor(dt, dtype=px.dtype, device=dev)
 
-    vx, vy = velocity_at_slots(cfg, u, v, fluid, px, py)
+    vx, vy = velocity_at_slots(cfg, u, v, fluid, px, py, clamp_ny,
+                               row_offset)
 
     site_x = torch.arange(X, dtype=torch.int32, device=dev)
     site_y = torch.arange(Y, dtype=torch.int32, device=dev)[:, None]
     solid_p = F.pad(solid.to(torch.uint8), (1, 1, 1, 1)) != 0
 
     def solid_at(yy, xx):
-        dy = torch.clamp(yy - site_y, -1, 1)
+        dy = torch.clamp(yy - (site_y + row_offset), -1, 1)
         dx = torch.clamp(xx - site_x, -1, 1)
         return solid_p[(site_y + 1 + dy).long(), (site_x + 1 + dx).long()]
 
@@ -143,21 +149,23 @@ def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt):
             torch.where(valid, my + t * vy, py))
 
 
-def rebin_slots(cfg: SimConfig, px, py, valid, dead):
+def rebin_slots(cfg: SimConfig, px, py, valid, dead, row_offset: int = 0):
     """Re-bin marched slots into their new home cells (main.c:102-117):
     nine shifted insert passes in OFFSETS_OWN_FIRST order; within a
     destination cell, arrivals are ranked by a running count and the
     first K kept.  Arrivals into a dead (sink or solid) cell are deleted
     and not counted.  Returns (px', py', count, drop) with drop the
     [Y, X] plane of per-destination capacity drops; slots at and beyond
-    a cell's count are zero."""
+    a cell's count are zero.  `row_offset`: the global row of plane row
+    0 on a row shard's plane (positions are global)."""
     Y, X, K = cfg.ny, cfg.nx, px.shape[0]
     inv_h = float(np.float32(1.0) / np.float32(cfg.side_length))
     dev = px.device
 
     site_x = torch.arange(X, dtype=torch.int32, device=dev)
     site_y = torch.arange(Y, dtype=torch.int32, device=dev)[:, None]
-    ody = torch.clamp(torch.floor(py * inv_h).to(torch.int32) - site_y, -1, 1)
+    ody = torch.clamp(torch.floor(py * inv_h).to(torch.int32)
+                      - (site_y + row_offset), -1, 1)
     odx = torch.clamp(torch.floor(px * inv_h).to(torch.int32) - site_x, -1, 1)
 
     count = torch.zeros((Y, X), dtype=torch.int32, device=dev)

@@ -1,0 +1,158 @@
+"""The data axis: a batch of scenario instances split over ranks
+(`euler_tpu/parallel/mesh.py`).
+
+The JAX package lays its devices out as a ("data", "y", "x") mesh and
+lets GSPMD split a batch over "data" (and the grid over "y" and "x").
+The port runs one process per rank on `torch.distributed`: NCCL with a
+card a rank, or gloo on the CPU, as the caller initialises the default
+process group (`dryrun.launch` does so; nothing here picks a backend).
+`make_mesh` lays the ranks out with the JAX package's rule as a
+`DeviceMesh` of the same three named dimensions.
+
+Each rank holds its own slice of the batch (`shard_batch`) and steps it
+with `parallel/batch.step_frame_batched`: the instances are independent,
+so the step needs no communication.  `gather_batch` all-gathers the
+slices over "data" for checks.  A mesh whose "y" or "x" dimension is
+larger than 1 would also split each instance's grid over rows, which
+needs the sharded solve (ROADMAP M12 part c): `make_sharded_step`
+refuses it rather than replicate the grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from euler_tpu_torch.config import SimConfig
+from euler_tpu_torch.core.state import FluidState, Scenario
+from euler_tpu_torch.parallel.batch import step_frame_batched
+
+AXES = ("data", "y", "x")
+# the backend each device kind runs on; the caller initialises it
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+PART_C = ("sharding the grid over rows needs the sharded solve, ROADMAP "
+          "M12 part c (halo.py's PCG, make_spatial_step), not yet ported")
+
+
+def world(world_size: int | None, device: str) -> int:
+    """The default group's size, checked against `world_size` and against
+    the backend that `device` runs on (NCCL for "cuda", gloo for "cpu").
+    Raises when no group is initialised, when the backend is the other
+    one, or when "cuda" is asked for on a host without a card."""
+    if device not in BACKENDS:
+        raise ValueError(f"device {device!r}: the mesh runs on 'cuda' "
+                         "(NCCL) or 'cpu' (gloo)")
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialised: call "
+                           "init_process_group (NCCL on cards, gloo on the "
+                           "CPU) first, or use parallel.dryrun.launch")
+    backend = dist.get_backend()
+    if backend != BACKENDS[device]:
+        raise ValueError(f"a {device!r} mesh runs on {BACKENDS[device]}; "
+                         f"the default group runs {backend}")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a 'cuda' mesh needs an NVIDIA GPU")
+    n = dist.get_world_size()
+    if world_size is not None and world_size != n:
+        raise ValueError(f"world_size {world_size}: the mesh spans the "
+                         f"default group's {n} ranks")
+    return n
+
+
+def square_factor(n: int) -> int:
+    """The largest divisor of n not above its square root (the JAX
+    package's square-ish split, mesh.py:45-52)."""
+    return next(c for c in range(math.isqrt(n), 0, -1) if n % c == 0)
+
+
+def make_mesh(world_size: int | None = None, data: int | None = None,
+              x: int = 1, device: str = "cuda") -> DeviceMesh:
+    """A ("data", "y", "x") mesh over the default group's ranks, laid out
+    as `euler_tpu/parallel/mesh.py:33` lays its devices: `x` columns, and
+    the rest split data-major, square-ish unless `data` is given."""
+    n = world(world_size, device)
+    if x < 1 or n % x:
+        raise ValueError(f"{n} ranks don't split into x={x} columns")
+    spatial = n // x
+    if data is None:
+        data = square_factor(spatial)
+    if data < 1 or spatial % data:
+        raise ValueError(f"{spatial} ranks don't split into data={data}")
+    return init_device_mesh(device, (data, spatial // data, x),
+                            mesh_dim_names=AXES)
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    """The ranks along the mesh dimension named `axis`."""
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank's tensors live on: its card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _slice(batch, lo: int, hi: int, device):
+    return type(batch)(**{
+        f.name: getattr(batch, f.name)[lo:hi].to(device).contiguous()
+        for f in dataclasses.fields(batch)})
+
+
+def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
+    """This rank's slice of a stacked batch (`parallel/batch.py`):
+    instances [d B/D, (d+1) B/D) for its coordinate d of the D along
+    "data", on its device.  B must divide by D, as in the JAX package."""
+    n, d = axis_size(mesh, "data"), mesh.get_local_rank("data")
+    B = state.u.shape[0]
+    if B % n:
+        raise ValueError(f"a batch of {B} does not split over data={n}")
+    b = B // n
+    dev = mesh_device(mesh)
+    return (_slice(scn, d * b, (d + 1) * b, dev),
+            _slice(state, d * b, (d + 1) * b, dev))
+
+
+def make_sharded_step(cfg: SimConfig, mesh: DeviceMesh):
+    """One frame of this rank's slice of the batch (`step_frame_batched`
+    on it).  Raises NotImplementedError on a mesh with "y" or "x" larger
+    than 1: the JAX step then also shards each grid's rows, which is
+    ROADMAP M12 part c."""
+    if axis_size(mesh, "y") * axis_size(mesh, "x") > 1:
+        raise NotImplementedError(f"make_sharded_step on a mesh of shape "
+                                  f"{tuple(mesh.shape)}: {PART_C}")
+
+    def step(scn: Scenario, state: FluidState) -> FluidState:
+        return step_frame_batched(cfg, scn, state)
+
+    return step
+
+
+# the dtypes the collectives carry a tensor of these as: NCCL has no
+# unsigned 32-bit type, and a bool travels as its bytes
+WIRE = {torch.bool: torch.uint8, torch.uint32: torch.int32}
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """`t` of every rank of `group`, in group rank order, concatenated
+    along `dim` (equal shapes on every rank)."""
+    wire = WIRE.get(t.dtype)
+    src = (t.view(wire) if wire else t).contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim)
+    return out.view(t.dtype) if wire else out
+
+
+def gather_batch(mesh: DeviceMesh, state: FluidState) -> FluidState:
+    """The whole batch on every rank: each rank's slice all-gathered over
+    "data", in instance order."""
+    group = mesh.get_group("data")
+    return FluidState(**{
+        f.name: all_gather_cat(getattr(state, f.name), group, 0)
+        for f in dataclasses.fields(state)})

@@ -32,6 +32,11 @@ A substep is the marker pass `marker_route` names: in the global layout
     before the substeps and unpadded once after them;
   * "K5+K6", the march and the re-bin as two kernels
     (`fuse_marker_pass=False`).
+`step_frame(..., marker_pass=)` replaces that pass by a function of
+`marker_pass_slots`'s contract (slot layout only), as the JAX package's
+does (sim.py:82-112, 234-236): `parallel/cuda_shard.py`'s row-sharded K1
+is one.  It takes the fused passes' deferred alive plane and never the
+padded store.
 With sources, S1 then emits (in place on tensors the frame owns: on the
 slot routes `step_frame` copies the fields it carries from its input
 once; in the global layout, where an inactive substep's marker pass is
@@ -185,15 +190,17 @@ def _colors(state: FluidState, fn):
 
 
 def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt, dt_proj,
-            defer_alive: bool = False, active=None):
+            defer_alive: bool = False, active=None, marker_pass=None):
     """One CFL substep with dt chosen.  Returns (state, msq,
     pcg_iterations).  On the "K4" marker route `state.markers` is the
     padded store that `step_frame` keeps through the frame.  `active`
     False suppresses source emission (S1 updates the state's tensors in
     place; on the slot routes `step_frame` hands it tensors the frame
-    owns)."""
+    owns).  `marker_pass`, when given, runs in place of the route's."""
     mroute = marker_route(cfg, scn)
-    if mroute == "G1+G2":
+    if marker_pass is not None:
+        state = marker_pass(cfg, scn, state, dt, defer_alive=defer_alive)
+    elif mroute == "G1+G2":
         state = get_marker_pass(cfg)(cfg, scn, state, dt)
     else:
         state = marker_pass_slots(cfg, scn, state, dt,
@@ -262,7 +269,8 @@ def _dt_from_msq(cfg: SimConfig, msq, frame_time):
     return torch.minimum(dt, frame_time)
 
 
-def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
+def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
+                     marker_pass=None):
     """One frame.  Returns (state, stats) with stats the device tensors
     `n_active` (active substeps), `pcg_iters` (PCG iterations summed
     over the active substeps) and `pcg_iters_max` (the most one active
@@ -271,9 +279,13 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
     f = state.u.dtype
     dev = state.u.device
     fast = cfg.marker_layout == "slots"
-    # only the fused slot passes leave the alive plane to the frame's end
-    defer_alive = fast and cfg.fuse_marker_pass
-    padded_store = marker_route(cfg, scn) == "K4"
+    if marker_pass is not None and not fast:
+        raise ValueError("marker_pass replaces the slot layout's marker "
+                         "pass; the global layout has none to replace")
+    # only the fused slot passes (and a given one, JAX sim.py:266-269)
+    # leave the alive plane to the frame's end
+    defer_alive = fast and (cfg.fuse_marker_pass or marker_pass is not None)
+    padded_store = marker_route(cfg, scn) == "K4" and marker_pass is None
     if padded_store:
         state = state.replace(markers=pad_slot_store(cfg, state.markers))
     if scn.num_sources and fast:
@@ -298,7 +310,7 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
         dt_proj = torch.where(active, dt, torch.inf)
         new, new_msq, iters = substep(cfg, scn, state, dt, dt_proj,
                                       defer_alive=defer_alive,
-                                      active=active)
+                                      active=active, marker_pass=marker_pass)
 
         def sel(name):
             a, b = getattr(new, name), getattr(state, name)
@@ -333,8 +345,11 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
                    "pcg_iters_max": pcg_iters_max}
 
 
-def step_frame(cfg: SimConfig, scn: Scenario, state: FluidState) -> FluidState:
-    return _step_frame_impl(cfg, scn, state)[0]
+def step_frame(cfg: SimConfig, scn: Scenario, state: FluidState,
+               marker_pass=None) -> FluidState:
+    """One frame; `marker_pass` replaces the slot layout's marker pass
+    (see the top of this module)."""
+    return _step_frame_impl(cfg, scn, state, marker_pass)[0]
 
 
 def step_frame_stats(cfg: SimConfig, scn: Scenario, state: FluidState):

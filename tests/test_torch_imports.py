@@ -18,6 +18,7 @@ from euler_tpu_torch import convert
 from euler_tpu_torch.core import presets, scenario, state
 from euler_tpu_torch.io import checkpoint
 from euler_tpu_torch.ops.cuda import _build
+from euler_tpu_torch.parallel import mesh, spatial
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = [
@@ -53,12 +54,16 @@ MODULES = [
     "euler_tpu_torch.cli",
     "euler_tpu_torch.parallel.batch",
     "euler_tpu_torch.parallel.spatial",
+    "euler_tpu_torch.parallel.mesh",
+    "euler_tpu_torch.parallel.cuda_shard",
+    "euler_tpu_torch.parallel.dryrun",
     "euler_tpu_torch.utils.diagnostics",
 ]
 ENTRY_POINTS = [presets.dam_break, presets.block_obstacles, presets._finish,
                 state.zeros_state, convert.state_from_numpy,
                 convert.scenario_from_numpy, scenario.build_scenario,
-                scenario.load_scenario, checkpoint.load]
+                scenario.load_scenario, checkpoint.load, mesh.make_mesh,
+                spatial.spatial_mesh]
 
 
 def _env():
