@@ -122,7 +122,21 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      for 2 frames (K1 and K2 8 x 8 x 2 times; bitwise
      `step_frame_batched`), `make_dp_substep_mg` bitwise
      `project_substep_mg`;
- 14. runs the Jacobi, marker, grid-stage and source card tests of
+ 14. runs the frame on row blocks (M12 part c), each block of a grid one
+     thread of an in-process `comm.LocalGroup` on the card: P4 (the
+     sharded PCG) on 1, 2 and 4 row blocks of the 1024² substep system,
+     Jacobi at the speed mode's budget and block MG to tol_rel 1e-4,
+     timed (CUDA events) and profiled (the summed spans of P4's kernels),
+     against the unsharded P1 / P3 and (4 blocks) the plain P4,
+     and on a one-rank NCCL group bitwise the 1-block solve; K7 and S1
+     on 4 row blocks at 1024², each block bitwise its plain version and
+     the interiors bitwise the unsharded kernel, timed; the waterfall
+     (Jacobi budget) and the dam break (speed mode) at 1024² on 4 blocks,
+     1 + 2 frames (K1, S1, K7, P4 once a block a substep, no plain
+     version), against 1 block of the same code (at most 4 cells'
+     counts apart, every velocity within 1e-3); the 40 x 100 waterfall
+     on 4 blocks of 10 rows, card against CPU (plain versions);
+ 15. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
      in turn; K1 and K4 on ragged grids at K = 4, 8 and 16, K5 and K6 at
@@ -142,8 +156,10 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      workspace: K2/K3, K10, P3, K8, G1/G2 with K8, P1), then K1's
      row-shard card tests (tests/test_torch_cuda_shard.py: 2 and 4
      shards of the 256² dam break and of seeded full stores at 200 x 136,
-     K = 8, and 120 x 72, K = 16, bitwise; the identity arguments) and
-     `dryrun_multichip(1, "nccl")` (a spawned NCCL rank).
+     K = 8, and 120 x 72, K = 16, bitwise; the identity arguments), the
+     row-block card tests there (K7 and S1 on row blocks bitwise, P4
+     against its plain version, the 40 x 100 waterfall on 4 blocks card
+     vs CPU) and `dryrun_multichip(1, "nccl")` (a spawned NCCL rank).
 With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -350,7 +366,35 @@ BOUNDS = {
     # b, x0 f32; a_diag i32; fluid u8 in; p f32 out (P1's loop and the MG
     # cycle: K3's operations an iteration)
     "P3": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
+    # b f32; a_diag i32; fluid u8 in; p f32 out (P1's loop on blocks)
+    "P4": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
 }
+
+
+def k7_rows_bound(rows: int, X: int, n: int):
+    """(bytes, operations) of K7 on n row blocks of `rows` rows: each
+    block reads the rows its kept rows depend on (u, v with 2 rows of
+    each neighbour, the three masks with 2 before and 3 after:
+    grid_stage.cuh's window) and writes its kept rows of ut, vt once."""
+    nbytes = n * X * (8 * (rows + 4) + 3 * (rows + 5) + 8 * rows)
+    return nbytes, GRID_STAGE_FLOPS * n * rows * X
+
+
+def s1_rows_bound(S: int, emitted: int, n: int):
+    """(bytes, operations) of S1 on n row blocks: every block reads the
+    source list (y, x, valid), the all-reduced [S] counts and the
+    scalars, and walks every source and emission; the colours of the S
+    source cells and each emission's position, alive byte and count are
+    written once, by the block that owns the row."""
+    nbytes = n * (13 * S + 20) + 12 * S + 13 * emitted
+    return nbytes, n * (SOURCE_OPS * S + SOURCE_EMIT_OPS * emitted)
+
+
+# P4's sweeps an iteration, at the fewest bytes its kernels move a cell
+# (pcg_loop.cuh): Ad = A d (code, d in; ad out: 9), p and r (p, d, r, ad
+# in; p, r out: 24), z and <z, r> (r, code in; z out: 9), d (z, d in; d
+# out: 12)
+P4_SWEEP_BYTES = 54
 KERNELS = {
     "K1": ("marker_pass", "euler_tpu_torch/csrc/marker_pass.cu",
            "euler_tpu/ops/pallas/marker_fused_kernel.py:941"),
@@ -405,6 +449,19 @@ KERNELS = {
            "euler_tpu/ops/project.py:115 (pcg_loop, a jnp while_loop, with "
            "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner on "
            "padded levels; no pallas_call)"),
+    # the frame on row blocks: a call is the 4 blocks' launches at 1024²;
+    # launches from the 4-block waterfall frames
+    "K7s": ("grid_stage_row_blocks", "euler_tpu_torch/csrc/grid_stage.cu",
+            "euler_tpu/ops/pallas/grid_kernel.py:205 (the grid stage of the "
+            "row-sharded frame, euler_tpu/parallel/pallas_shard.py:133 "
+            "make_spatial_step_pallas, which GSPMD partitions)"),
+    "S1s": ("source_emission_row_blocks", "euler_tpu_torch/csrc/sources.cu",
+            "euler_tpu/ops/markers_slots.py:415 (update_fluid_sources_slots "
+            "in the row-sharded frame, a lax.scan, no pallas_call)"),
+    "P4": ("sharded_pcg", "euler_tpu_torch/csrc/pcg_shard.cu",
+           "euler_tpu/parallel/halo.py:88 (_pcg_sharded: pcg_loop under "
+           "shard_map with psum / pmax and a ppermute halo, no "
+           "pallas_call)"),
 }
 
 
@@ -647,11 +704,12 @@ def build_all():
     from euler_tpu_torch.ops.cuda import source_kernel as s1
     from euler_tpu_torch.ops.cuda import global_marker_kernel as g12
     from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+    from euler_tpu_torch.ops.cuda import pcg_shard_kernel as p4
     from euler_tpu_torch.native import get_lib as encoder_lib
 
     loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
                k89.jacobi_lib, k12.stream_lib, s1.source_lib, encoder_lib,
-               g12.global_lib, p12.general_lib, p12.mg_lib]
+               g12.global_lib, p12.general_lib, p12.mg_lib, p4.shard_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -2536,6 +2594,485 @@ def run_shard(results, summaries, launches, dev) -> None:
     summaries["shard"] = summary
 
 
+# the frame on row blocks (M12 part c): in-process blocks of one card
+ROW_BLOCKS = (1, 2, 4)   # blocks of the P4 solves at SIZE²
+ROW_N = 4                # blocks of the frames
+ROW_WARMUP, ROW_TIMED = 1, 2  # frames of the 1024² waterfall on blocks
+ROW_SMALL_FRAMES = 4     # frames of the 40 x 100 waterfall on blocks
+# what the blocks' frames are held to against 1 block of the same code:
+# the reductions of P4 fold the blocks in another order, so a velocity
+# differs in its last bits (max |dv| 7.65e-5 on the dam break, 0 on the
+# waterfall: PERF.md §6), and a marker near a cell's edge could then
+# land in the other cell (0 cells on both).  So: at most this many cells'
+# counts apart, and every velocity within ROW_FRAME_ATOL (~13x the
+# reading)
+ROW_FRAME_COUNT_CELLS = 4
+ROW_FRAME_ATOL = 1e-3
+# the 40 x 100 waterfall, card (kernels) vs CPU (plain versions) on the
+# same blocks: counts, alive, RNG bitwise, velocities within
+ROW_SMALL_ATOL = 1e-4
+WATERFALL_JACOBI_1024 = ["scenarios/waterfall.txt", "--size", "1024x1024",
+                         "--no-converged"]
+
+
+def block_rank(cfg, b, a_diag, fl, n, plain=False):
+    """A block's solve of (b, a_diag, fl) cut into n row blocks: P4, or
+    with `plain` its plain version `halo.pcg_sharded` on the same card
+    tensors; for `comm.LocalGroup.run`."""
+    from euler_tpu_torch.parallel import halo
+
+    Yl = cfg.ny // n
+
+    def rank(comm):
+        rows = slice(comm.rank("y") * Yl, (comm.rank("y") + 1) * Yl)
+        args = [t[rows].contiguous() for t in (b, a_diag, fl)]
+        if plain:
+            return halo.pcg_sharded(cfg, comm, ("y",), *args)
+        return halo.make_sharded_pressure_solver(cfg, comm,
+                                                 stats=True)(*args)
+
+    return rank
+
+
+def block_solve(cfg, b, a_diag, fl, n, dev, plain=False):
+    """`block_rank`'s solve on n in-process row blocks, once to warm up
+    and once timed with CUDA events around the blocks' calls.  Returns
+    (p put together, iterations, residual, ms)."""
+    import torch
+
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    rank = block_rank(cfg, b, a_diag, fl, n, plain)
+    with LocalGroup(n, device=dev) as g:
+        g.run(rank)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = g.run(rank)
+        end.record()
+        torch.cuda.synchronize()
+    check(len({int(o[1]) for o in out}) == 1
+          and len({float(o[2]) for o in out}) == 1,
+          f"P4 on {n} blocks: the blocks' iterations or residuals differ")
+    return (torch.cat([o[0] for o in out]), int(out[0][1]),
+            float(out[0][2]), start.elapsed_time(end))
+
+
+def block_spans(cfg, b, a_diag, fl, n, dev):
+    """`kernel_spans_ms` of one P4 solve on n in-process row blocks, after
+    one to warm up."""
+    import torch
+
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    rank = block_rank(cfg, b, a_diag, fl, n)
+    with LocalGroup(n, device=dev) as g:
+        g.run(rank)
+        torch.cuda.synchronize()
+        return kernel_spans_ms(lambda: g.run(rank))
+
+
+def block_frames(cfg, scn, st, n, dev, warm: int, timed: int):
+    """`spatial.make_spatial_step` on n in-process row blocks of (scn, st)
+    on `dev`: `warm` frames, then `timed` frames with the launch counts
+    set to 0 just before and read just after.  Returns (the state put
+    together, ms a timed frame, launches, plain calls)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.parallel import spatial
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    cuda = torch.device(dev).type == "cuda"
+    with LocalGroup(n, device=dev) as g:
+        made = g.run(lambda comm: (spatial.make_spatial_step(cfg, comm),
+                                   *spatial.shard_spatial(cfg, comm, scn,
+                                                          st)))
+        states = [m[2] for m in made]
+
+        def advance(frames):
+            def rank(comm):
+                step, bscn, b = made[comm.r][0], made[comm.r][1], \
+                    states[comm.r]
+                for _ in range(frames):
+                    b = step(bscn, b)
+                states[comm.r] = b
+            g.run(rank)
+
+        advance(warm)
+        if cuda:
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        advance(timed)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / max(timed, 1)
+        launches = dict(_build.LAUNCHES)
+        plain = sum(_build.PLAIN_CALLS.values())
+        whole = g.run(lambda comm: spatial.gather_spatial(
+            cfg, comm, states[comm.r]))[0]
+    return whole, ms, launches, plain
+
+
+def frame_diff(a, b) -> dict:
+    """How far two states of one grid are apart: the cells whose count
+    differs, the largest velocity difference, the alive counts."""
+    import torch
+
+    du = torch.maximum((a.u - b.u).abs(), (a.v - b.v).abs())
+    return {"count_cells": int((a.marker_count != b.marker_count).sum()),
+            "cells": a.u.numel(), "max_dv": float(du.max()),
+            "alive": (int(a.alive_count), int(b.alive_count))}
+
+
+def frames_agree(d: dict) -> bool:
+    """Whether the blocks' frames are within what ROW_FRAME_COUNT_CELLS
+    and ROW_FRAME_ATOL allow of 1 block's."""
+    return (d["count_cells"] <= ROW_FRAME_COUNT_CELLS
+            and d["max_dv"] <= ROW_FRAME_ATOL)
+
+
+def run_row_blocks(results, summaries, launches, dev) -> None:
+    """The frame on row blocks on the card (M12 part c: P4, K7 and S1 per
+    row block, K1 per row shard), every block of a grid played by one
+    thread of an in-process `comm.LocalGroup`: P4's solves of the 1024²
+    substep system, the waterfall at 1024² and at 40 x 100 on 4 blocks."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.ops.markers_slots import source_pass_slots
+    from euler_tpu_torch.ops.project import apply_a
+    from euler_tpu_torch.parallel import halo, spatial
+    from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
+
+    summary = {}
+    cfg, scn, st, dt, _ = developed_planes(SIZE, dev)
+    _, ut, vt, b, a_diag = substep_system(cfg, scn, st)
+    fl = st.fluid
+    n_cells = SIZE * SIZE
+    configs = {"jacobi": speed_config(SIZE), "mg": main_config(SIZE)}
+    with Phase(f"P4 on 1, 2 and 4 in-process row blocks of the {SIZE}² "
+               "substep system (Jacobi at the speed mode's budget, block "
+               "MG to tol_rel 1e-4): against the unsharded P1 / P3 and "
+               "the plain P4; a one-rank NCCL group bitwise 1 block"), \
+            tempfile.TemporaryDirectory() as tmp:
+        for label, c in configs.items():
+            ref = p13.solve_pressure_general(c, b, a_diag, fl)
+            t_ref = cuda_ms(lambda: p13.solve_pressure_general(
+                c, b, a_diag, fl), REPS)
+            scale = float(ref[0].abs().max())
+            row = {"unsharded_ms": t_ref, "unsharded_iters": int(ref[1])}
+            log(f"   {label}: unsharded {'P3' if label == 'mg' else 'P1'} "
+                f"{t_ref:.3f} ms, {int(ref[1])} iterations, |p| {scale:.4g}")
+            for n in ROW_BLOCKS:
+                reset_counts()
+                p, it, res, ms = block_solve(c, b, a_diag, fl, n, dev)
+                check(_build.LAUNCHES["P4"] == 2 * n
+                      and not _build.PLAIN_CALLS,
+                      f"P4 {label} on {n} blocks: launches "
+                      f"{dict(_build.LAUNCHES)}")
+                err = float((p - ref[0]).abs().max()) / scale
+                true_res = float((b - apply_a(a_diag, fl, p)).abs().max())
+                if label == "jacobi":
+                    # the cap: the same 100 iterations as P1, the order of
+                    # the reductions apart
+                    check(it == int(ref[1]) and err <= 1e-4,
+                          f"P4 jacobi on {n} blocks: {it} iterations, p "
+                          f"{err:.3g} of scale from P1")
+                else:
+                    # converged, as P3: its stop test met, the pressure
+                    # within 1e-3 of P3's scale (f32, tol_rel 1e-4)
+                    tol = max(c.solver.tol,
+                              c.solver.tol_rel * float(b.abs().max()))
+                    check(res <= tol and err <= 1e-3,
+                          f"P4 mg on {n} blocks: resid {res:.3g} (tol "
+                          f"{tol:.3g}), p {err:.3g} of scale from P3")
+                row[f"blocks_{n}"] = {"ms": ms, "iters": it, "resid": res,
+                                      "true_resid": true_res,
+                                      "err_vs_unsharded": err}
+                log(f"   {label}, {n} blocks: {ms:.3f} ms a solve (CUDA "
+                    f"events around the blocks' calls), {it} iterations, "
+                    f"resid {res:.4g} (|b - A p| {true_res:.4g}), p within "
+                    f"{err:.3g} of scale of the unsharded solve")
+                if n == ROW_N:
+                    q, it_q, res_q, ms_q = block_solve(c, b, a_diag, fl, n,
+                                                       dev, plain=True)
+                    kerr = float((p - q).abs().max())
+                    check(abs(it - it_q) <= (0 if label == "jacobi" else 1)
+                          and kerr <= (1e-4 if label == "jacobi" else 1e-3)
+                          * scale,
+                          f"P4 {label} on {n} blocks vs plain: {it} vs "
+                          f"{it_q} iterations, p {kerr:.3g} apart")
+                    row["plain"] = {"ms": ms_q, "iters": it_q,
+                                    "max_abs_err": kerr}
+                    log(f"   {label}, {n} blocks, plain P4: {ms_q:.3f} ms, "
+                        f"{it_q} iterations; kernels vs plain p "
+                        f"{kerr:.3g} apart")
+            # one rank of NCCL: bitwise the 1-block in-process solve
+            one = block_solve(c, b, a_diag, fl, 1, dev)
+            dist.init_process_group(
+                "nccl", init_method=f"file://{tmp}/store_{label}",
+                world_size=1, rank=0)
+            try:
+                ymesh = spatial.spatial_mesh(1, x=1)
+                solve = halo.make_sharded_pressure_solver(c, ymesh,
+                                                          stats=True)
+                got = solve(b, a_diag, fl)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], one[0]) and int(got[1]) == one[1]
+                      and float(got[2]) == one[2],
+                      f"P4 {label}: the one-rank NCCL solve differs from "
+                      "1 in-process block")
+            finally:
+                dist.destroy_process_group()
+            log(f"   {label}: one-rank NCCL solve bitwise the 1-block "
+                f"in-process solve ({one[1]} iterations)")
+            summary[f"p4_{label}"] = row
+        jac, mg = summary["p4_jacobi"], summary["p4_mg"]
+        log(f"   block MG iterations {[mg[f'blocks_{n}']['iters'] for n in ROW_BLOCKS]} "
+            f"vs Jacobi's {[jac[f'blocks_{n}']['iters'] for n in ROW_BLOCKS]} "
+            f"(1, 2, 4 blocks)")
+        r4 = jac[f"blocks_{ROW_N}"]
+        nbytes, flops = BOUNDS["P4"](n_cells, r4["iters"], 0)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / F32_FLOP_PER_S
+        sweep = 1e3 * P4_SWEEP_BYTES * n_cells * r4["iters"] / HBM_BYTES_PER_S
+        results["P4"] = {"ms": r4["ms"], "plain_ms": jac["plain"]["ms"],
+                         "max_abs_err": jac["plain"]["max_abs_err"],
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations", "library_ms": None}
+        summary["p4_sweep_bound_ms"] = sweep
+        log(f"   P4 (Jacobi, {ROW_N} blocks): bound "
+            f"{results['P4']['bound_ms']:.4f} ms by "
+            f"{results['P4']['bound_by']}; its sweeps' bound ("
+            f"{P4_SWEEP_BYTES} bytes a cell an iteration) {sweep:.4f} ms")
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"K7 and S1 per row block at {SIZE}²: each block's launch "
+               "bitwise its plain version, the interiors bitwise the "
+               "unsharded kernel; timed"):
+        Yl = SIZE // ROW_N
+        cfg_h = dataclasses.replace(cfg, ny=Yl + 2 * H)
+        grid = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
+        blocks = [[block_with_halo(a, ROW_N, r) for a in grid]
+                  for r in range(ROW_N)]
+        kw = [dict(clamp_ny=SIZE, row_offset=r * Yl - H)
+              for r in range(ROW_N)]
+        whole = k7.grid_stage(cfg, *grid, dt)
+        for r in range(ROW_N):
+            got = k7.grid_stage(cfg_h, *blocks[r], dt, **kw[r])
+            want = k7.grid_stage_plain(cfg_h, dt, *blocks[r], **kw[r])
+            for a, w_, u_, name in zip(got, want, whole, ("ut", "vt")):
+                check(torch.equal(a, w_), f"K7 block {r}: {name} differs "
+                      "from its plain version")
+                check(torch.equal(a[H:H + Yl], u_[r * Yl:(r + 1) * Yl]),
+                      f"K7 block {r}: {name} differs from the unsharded K7")
+        k7_call = lambda: [k7.grid_stage(cfg_h, *blocks[r], dt, **kw[r])  # noqa: E731,E501
+                           for r in range(ROW_N)]
+        k7_plain = lambda: [k7.grid_stage_plain(cfg_h, dt, *blocks[r],  # noqa: E731,E501
+                                                **kw[r])
+                            for r in range(ROW_N)]
+        t_p1, t_k1 = cuda_ms(k7_plain, REPS), cuda_ms(k7_call, REPS)
+        t_k2, t_p2 = cuda_ms(k7_call, REPS), cuda_ms(k7_plain, REPS)
+        dev_ms = min(device_ms(k7_call, REPS) for _ in range(2))
+        nbytes, flops = k7_rows_bound(Yl, SIZE, ROW_N)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / F32_FLOP_PER_S
+        results["K7s"] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
+                          "device_ms": dev_ms, "max_abs_err": 0.0,
+                          "bound_ms": max(t_bytes, t_ops),
+                          "bound_by": "bytes" if t_bytes >= t_ops
+                          else "operations", "library_ms": None}
+        log(f"   K7 on {ROW_N} blocks of [{cfg_h.ny}, {SIZE}]: bitwise; "
+            f"device {dev_ms:.4f} ms summed (unsharded "
+            f"{results['K7'].get('device_ms', float('nan')):.4f}); events "
+            f"{t_k1:.4f} / {t_k2:.4f} ms; plain {t_p1:.3f} / {t_p2:.3f} "
+            f"ms; bound {results['K7s']['bound_ms']:.4f} ms by "
+            f"{results['K7s']['bound_by']}")
+
+        wcfg, wscn, wst = cli_state(WATERFALL_JACOBI_1024)
+        for _ in range(2):
+            wst = sim.step_frame(wcfg, wscn, wst)
+        Yl = wcfg.ny // ROW_N
+        ys = wscn.source_yx[:, 0].long()
+        xs = wscn.source_yx[:, 1].long()
+        counts = torch.where(wscn.source_valid, wst.marker_count[ys, xs],
+                             0).to(torch.int32)
+        act = torch.ones((), dtype=torch.bool, device=dev)
+        rows = [slice(r * Yl, (r + 1) * Yl) for r in range(ROW_N)]
+        bscn = [dataclasses.replace(
+            wscn, **{k: getattr(wscn, k)[rw].contiguous()
+                     for k in ("solid", "source", "sink")}) for rw in rows]
+
+        def s1_blocks():
+            return [wst.replace(**{
+                k: getattr(wst, k)[..., rw, :].clone(
+                    memory_format=torch.contiguous_format)
+                for k in ("markers", "alive", "marker_count", "r", "g",
+                          "b")}, **{
+                k: getattr(wst, k).clone()
+                for k in ("rng", "alive_count", "source_exhausted")})
+                for rw in rows]
+
+        def s1_call(fn, blks):
+            for r, blk in enumerate(blks):
+                fn(wcfg, bscn[r], blk, act, r * Yl, counts)
+            return blks
+
+        whole_s1 = s1_copy(wst)
+        s1.emit_sources(wcfg, wscn, whole_s1, act)
+        got = s1_call(s1.emit_sources, s1_blocks())
+        want = s1_call(source_pass_slots, s1_blocks())
+        for r, (g_, w_) in enumerate(zip(got, want)):
+            for k in S1_FIELDS:
+                a_, b_ = getattr(g_, k), getattr(w_, k)
+                check(torch.equal(a_.to(torch.int64), b_.to(torch.int64))
+                      if k == "rng" else torch.equal(a_, b_),
+                      f"S1 block {r}: {k} differs from its plain version")
+                full = getattr(whole_s1, k)
+                if full.dim() >= 2:
+                    full = full[..., rows[r], :]
+                check(torch.equal(a_.to(torch.int64), full.to(torch.int64))
+                      if k == "rng" else torch.equal(a_, full),
+                      f"S1 block {r}: {k} differs from the unsharded S1")
+        emitted = int(whole_s1.alive_count) - int(wst.alive_count)
+        blocks_of = sorted({int(y) // Yl for y in ys.tolist()})
+        # each call emits into the same blocks, so later calls find
+        # fuller cells (as `time_s1`)
+        k_blks, p_blks = s1_blocks(), s1_blocks()
+        t_p1 = cuda_ms(lambda: s1_call(source_pass_slots, p_blks), 1)
+        t_k1 = cuda_ms(lambda: s1_call(s1.emit_sources, k_blks), REPS)
+        t_k2 = cuda_ms(lambda: s1_call(s1.emit_sources, k_blks), REPS)
+        t_p2 = cuda_ms(lambda: s1_call(source_pass_slots, p_blks), 1)
+        nbytes, flops = s1_rows_bound(wscn.num_sources, emitted, ROW_N)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / F32_FLOP_PER_S
+        results["S1s"] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
+                          "max_abs_err": 0.0,
+                          "bound_ms": max(t_bytes, t_ops),
+                          "bound_by": "bytes" if t_bytes >= t_ops
+                          else "operations", "library_ms": None}
+        log(f"   S1 on {ROW_N} row blocks of the {SIZE}² waterfall "
+            f"({wscn.num_sources} sources in blocks {blocks_of}, {emitted} "
+            f"emitted): bitwise its plain version and the unsharded S1; "
+            f"{t_k1:.4f} / {t_k2:.4f} ms the {ROW_N} launches, plain "
+            f"{t_p1:.3f} / {t_p2:.3f} ms")
+
+    with Phase(f"the {SIZE}² waterfall (Jacobi budget) and dam break "
+               f"(speed mode) on {ROW_N} row blocks: {ROW_WARMUP} warm-up "
+               f"+ {ROW_TIMED} timed frames, K1, S1, K7, P4 and no plain "
+               "version; against 1 block"):
+        got, ms, got_l, plain = block_frames(wcfg, wscn, wst, ROW_N, dev,
+                                             ROW_WARMUP, ROW_TIMED)
+        log(f"   {ROW_N} blocks: {ms:.1f} ms a frame; launches {got_l}, "
+            f"plain calls {plain}")
+        check(all(got_l.get(k, 0) > 0 for k in ("K1", "S1", "K7", "P4"))
+              and plain == 0, f"row blocks: launches {got_l}, plain "
+              f"calls {plain}")
+        per = ROW_N * wcfg.max_substeps * ROW_TIMED
+        check(all(got_l.get(k) == per for k in ("K1", "S1", "K7", "P4")),
+              f"row blocks: not one launch a block a substep: {got_l}")
+        for k, name in (("K7s", "K7"), ("S1s", "S1"), ("P4", "P4")):
+            launches[k] = got_l.get(name, 0)
+        one, ms1, one_l, plain1 = block_frames(wcfg, wscn, wst, 1, dev,
+                                               ROW_WARMUP, ROW_TIMED)
+        d = frame_diff(got, one)
+        log(f"   1 block: {ms1:.1f} ms a frame; {ROW_N} blocks vs 1: "
+            f"{d['count_cells']} of {d['cells']} cells' counts differ "
+            f"(<= {ROW_FRAME_COUNT_CELLS}), max |dv| {d['max_dv']:.3g} "
+            f"(<= {ROW_FRAME_ATOL}); alive {d['alive']}")
+        for name in ("u", "v", "p", "markers"):
+            check(bool(torch.isfinite(getattr(got, name)).all()),
+                  f"row blocks: {name} not finite")
+        check(frames_agree(d), f"{ROW_N} blocks vs 1: {d}")
+        summary["frame_1024"] = {"blocks": ROW_N, "ms_per_frame": ms,
+                                 "ms_per_frame_1_block": ms1,
+                                 "launches": got_l, "vs_1_block": d,
+                                 "div_inf": div_inf(wcfg, got,
+                                                    exclude=wscn.source)}
+        log(f"   div_inf off the source cells "
+            f"{summary['frame_1024']['div_inf']:.4g}")
+        # the waterfall's fluid stays in the top block for these frames;
+        # the dam break fills every block from its first frame
+        dcfg = speed_config(SIZE)
+        dscn, dst = dam_break(dcfg, device=dev)
+        got, ms, got_l, plain = block_frames(dcfg, dscn, dst, ROW_N, dev,
+                                             ROW_WARMUP, ROW_TIMED)
+        one, ms1, _, _ = block_frames(dcfg, dscn, dst, 1, dev, ROW_WARMUP,
+                                      ROW_TIMED)
+        d = frame_diff(got, one)
+        log(f"   dam break {SIZE}² (speed mode's solver): {ROW_N} blocks "
+            f"{ms:.1f} ms a frame, 1 block {ms1:.1f}; launches {got_l}, "
+            f"plain calls {plain}; {d['count_cells']} cells' counts "
+            f"differ, max |dv| {d['max_dv']:.3g}; alive {d['alive']}")
+        check(plain == 0 and got_l.get("K1") == per
+              and got_l.get("P4") == per and got_l.get("K7") == per,
+              f"dam break on row blocks: launches {got_l}")
+        check(frames_agree(d), f"dam break, {ROW_N} blocks vs 1: {d}")
+        summary["dam_break_1024"] = {"ms_per_frame": ms,
+                                     "ms_per_frame_1_block": ms1,
+                                     "vs_1_block": d,
+                                     "div_inf": div_inf(dcfg, got)}
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"the 40 x 100 waterfall on {ROW_N} row blocks of 10 rows, "
+               f"{ROW_SMALL_FRAMES} frames: card (kernels) vs CPU (plain "
+               "versions) on the same blocks"):
+        scfg_, sscn, sst = cli_state(["scenarios/waterfall.txt"])
+        cscn, cst = to_cpu(sscn, sst)
+        got, _, got_l, plain = block_frames(scfg_, sscn, sst, ROW_N, dev, 0,
+                                            ROW_SMALL_FRAMES)
+        want, _, _, _ = block_frames(scfg_, cscn, cst, ROW_N, "cpu", 0,
+                                     ROW_SMALL_FRAMES)
+        check(plain == 0 and all(got_l.get(k, 0) > 0
+                                 for k in ("K1", "S1", "K7", "P4")),
+              f"40 x 100 on blocks: launches {got_l}, plain calls {plain}")
+        for name in ("marker_count", "alive", "alive_count",
+                     "dropped_markers", "rng"):
+            a_, b_ = getattr(got, name).cpu(), getattr(want, name)
+            check(torch.equal(a_.to(torch.int64), b_.to(torch.int64)),
+                  f"40 x 100 on blocks: {name} differs card vs CPU")
+        dv = max(float((got.u.cpu() - want.u).abs().max()),
+                 float((got.v.cpu() - want.v).abs().max()))
+        check(dv <= ROW_SMALL_ATOL, f"40 x 100 on blocks: |dv| {dv:.3g}")
+        log(f"   counts, alive, drops, RNG bitwise card vs CPU; max |dv| "
+            f"{dv:.3g} (atol {ROW_SMALL_ATOL}); sources in rows "
+            f"{sorted(set(sscn.source_yx[:, 0].tolist()))}; launches "
+            f"{got_l}")
+
+    # last: a profiler session over the blocks' threads slowed the host's
+    # later launches in this process (PERF.md §6), so nothing is timed
+    # after it
+    with Phase(f"P4's device time a solve of the {SIZE}² substep system "
+               "on 1, 2 and 4 blocks: the summed spans of one profiled "
+               "solve"):
+        for label, c in configs.items():
+            row = summary[f"p4_{label}"]
+            for n in ROW_BLOCKS:
+                spans = block_spans(c, b, a_diag, fl, n, dev)
+                own, lib = spans if spans else (None, None)
+                row[f"blocks_{n}"].update(device_ms=own, torch_device_ms=lib)
+                log(f"   {label}, {n} blocks: " + (
+                    f"P4's kernel spans {own:.4f} ms summed, torch's "
+                    f"kernels and copies (the group's folds and edge "
+                    f"copies) {lib:.4f} ms" if spans else
+                    "not measured (no kernel record in 3 profiles)"))
+        results["P4"]["device_ms"] = \
+            summary["p4_jacobi"][f"blocks_{ROW_N}"]["device_ms"]
+    summaries["row_blocks"] = summary
+
+
 def run(args) -> dict:
     import torch
 
@@ -2866,6 +3403,8 @@ def run(args) -> dict:
 
     run_shard(results, summaries, launches, dev)
 
+    run_row_blocks(results, summaries, launches, dev)
+
     if args.profile:
         with Phase("profile"):
             profile(cfg, scn, state, f"{args.profile}.mg.txt", "mg")
@@ -2897,9 +3436,10 @@ def run(args) -> dict:
                "tests/test_torch_cuda_batch.py)"):
         run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
 
-    with Phase("K1's row-shard card tests and the dry run on one NCCL rank "
-               "(pytest, tests/test_torch_cuda_shard.py)"):
-        run_card_tests("shards or identity or dryrun",
+    with Phase("the row-shard and row-block card tests and the dry run on "
+               "one NCCL rank (pytest, tests/test_torch_cuda_shard.py)"):
+        run_card_tests("shards or identity or dryrun or row_blocks or p4 "
+                       "or row_frame",
                        files=("tests/test_torch_cuda_shard.py",))
 
     kernels = []
@@ -2913,6 +3453,36 @@ def run(args) -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}
+
+
+def kernel_spans_ms(fn):
+    """torch.profiler over one call of fn(): the summed spans, in ms, of
+    the port's own kernels and of torch's kernels and copies (the
+    in-process group's folds and edge copies), or None when the profiler
+    recorded no kernel of the port in 3 tries (a profiler session on the
+    card now and then loses its records, PERF.md §7)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        own = lib = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.name()
+            span = e.end_ns() - e.start_ns()
+            if "at::" in name or name.startswith(("Memcpy", "Memset")):
+                lib += span
+            else:
+                own += span
+        if own > 0:
+            return own / 1e6, lib / 1e6
+    return None
 
 
 def device_busy_us(prof) -> float:

@@ -11,6 +11,15 @@
 // returns at once after the stop (so does the caller's step, on
 // flags[F_DONE]).  Each reduction is per-CTA partials whose last CTA
 // (atomic ticket after a fence) folds them in a fixed order.
+//
+// P4 (pcg_shard.cu) runs the same kernels on one block of a grid split
+// over ranks (SHARD = true): the operator reads the neighbour blocks' edge
+// rows and columns from exchanged buffers (`Halo`), in
+// euler_tpu/parallel/halo.py:84's order, and each reduction's block fold
+// goes to red[0] instead of being used at once; the host all-reduces it
+// over the blocks, and a `shard_finish` kernel does with the global value
+// what the last CTA does with the fold in P1 (the fin_* functions, shared
+// by both).
 #pragma once
 
 #include "common.cuh"
@@ -101,17 +110,30 @@ struct Ws {
   void* part;
   void* scal;
   int* flags;
+  void* red = nullptr;  // P4: the block fold of the last reduction
 };
 
 template <typename T>
 struct Planes {
-  T *p, *r, *d, *z, *ad, *pre, *q, *part, *scal;
+  T *p, *r, *d, *z, *ad, *pre, *q, *part, *scal, *red;
   __device__ explicit Planes(const Ws& w)
       : p(static_cast<T*>(w.p)), r(static_cast<T*>(w.r)),
         d(static_cast<T*>(w.d)), z(static_cast<T*>(w.z)),
         ad(static_cast<T*>(w.ad)), pre(static_cast<T*>(w.pre)),
         q(static_cast<T*>(w.q)), part(static_cast<T*>(w.part)),
-        scal(static_cast<T*>(w.scal)) {}
+        scal(static_cast<T*>(w.scal)), red(static_cast<T*>(w.red)) {}
+};
+
+// P4: the neighbour blocks' edges of the plane the operator reads, zeros at
+// the grid's edges: the row before row 0 and after row Y - 1 ([X] each),
+// the column before column 0 and after column X - 1 ([Y] each; null on a
+// block that spans every column)
+template <typename T>
+struct Halo {
+  const T* below;
+  const T* above;
+  const T* left;
+  const T* right;
 };
 
 __device__ __forceinline__ bool fl_of(uint8_t c) { return (c & 8) != 0; }
@@ -127,6 +149,80 @@ __device__ __forceinline__ T apply_at(const T* s, uint8_t c, int i, int y,
   const T sd = y > 0 ? s[i - X] : T(0);
   const T su = y + 1 < Y ? s[i + X] : T(0);
   return static_cast<T>(a_of(c)) * s[i] - (((sl + sr) + sd) + su);
+}
+
+// halo.py's local operator (P4): a s - (((s_l + s_r) + s_u) + s_d) on
+// fluid, the neighbours beyond the block from the exchanged edges
+template <typename T>
+__device__ __forceinline__ T apply_halo(const T* s, uint8_t c, int i, int y,
+                                        int x, int Y, int X,
+                                        const Halo<T>& h) {
+  if (!fl_of(c)) return T(0);
+  const T sl = x > 0 ? s[i - 1] : (h.left ? h.left[y] : T(0));
+  const T sr = x + 1 < X ? s[i + 1] : (h.right ? h.right[y] : T(0));
+  const T sd = y > 0 ? s[i - X] : h.below[x];
+  const T su = y + 1 < Y ? s[i + X] : h.above[x];
+  return static_cast<T>(a_of(c)) * s[i] - (((sl + sr) + su) + sd);
+}
+
+template <typename T, bool SHARD>
+__device__ __forceinline__ T apply_op(const T* s, uint8_t c, int i, int y,
+                                      int x, int Y, int X,
+                                      const Halo<T>& h) {
+  return SHARD ? apply_halo(s, c, i, y, x, Y, X, h)
+               : apply_at(s, c, i, y, x, Y, X);
+}
+
+// What each reduction's fold is used for (thread 0 of P1's last CTA, or
+// P4's finish kernel with the all-reduced value).
+// head: max|b| -> the tolerance, the early-out
+template <typename T>
+__device__ void fin_head_init(const Ws& w, T* scal, T bn, int cap,
+                              double tol, double tol_rel, bool warm) {
+  scal[S_TOL] = tmax(static_cast<T>(tol), static_cast<T>(tol_rel) * bn);
+  scal[S_RESID] = bn;
+  const bool nonzero = bn != T(0);
+  w.flags[F_NONZERO] = nonzero;
+  w.flags[F_ITERS] = 0;
+  w.flags[F_CAP] = cap;
+  w.flags[F_CONV] = 0;
+  w.flags[F_DONE] = (!warm && !nonzero) || cap <= 0;
+}
+
+// warm start: max|b - A x0| -> the early stop
+template <typename T>
+__device__ void fin_head_residual(const Ws& w, T* scal, T rm) {
+  scal[S_RESID] = rm;
+  w.flags[F_DONE] = !w.flags[F_NONZERO] || !(rm > scal[S_TOL]) ||
+                    w.flags[F_CAP] <= 0;
+}
+
+// <z, r>: sigma (HEAD), or beta, sigma, the count and the stop
+template <typename T, bool HEAD>
+__device__ void fin_precon_dot(const Ws& w, T* scal, T dot) {
+  if (HEAD) {
+    scal[S_SIGMA] = dot;
+  } else {
+    const T sigma = scal[S_SIGMA];
+    scal[S_BETA] = dot / (sigma != T(0) ? sigma : T(1));
+    scal[S_SIGMA] = dot;
+    const int it = w.flags[F_ITERS] + 1;
+    w.flags[F_ITERS] = it;
+    w.flags[F_DONE] = w.flags[F_CONV] || it >= w.flags[F_CAP];
+  }
+}
+
+// <Ad, d> -> alpha
+template <typename T>
+__device__ void fin_iter_ad(T* scal, T zs) {
+  scal[S_ALPHA] = scal[S_SIGMA] / (zs != T(0) ? zs : T(1));
+}
+
+// max|r| -> the convergence test
+template <typename T>
+__device__ void fin_iter_update(const Ws& w, T* scal, T rm) {
+  scal[S_RESID] = rm;
+  w.flags[F_CONV] = !(rm > scal[S_TOL]);
 }
 
 // make_preconditioner's pointwise forms
@@ -154,7 +250,7 @@ __device__ __forceinline__ int input_index(const Ws& w, int i) {
 
 // head: the operator code, r = b, p = 0, max|b| -> tol, the early-out (the
 // pad: not fluid, b = 0)
-template <typename T>
+template <typename T, bool SHARD = false>
 __global__ void __launch_bounds__(kThreads)
     head_init(Ws w, const int32_t* a_diag, const uint8_t* fluid, const T* b,
               int cap, double tol, double tol_rel, bool warm) {
@@ -174,14 +270,10 @@ __global__ void __launch_bounds__(kThreads)
   T bn;
   if (last_block_reduce<1>(m, P.part, w.flags + F_TICKET, &bn) &&
       threadIdx.x == 0) {
-    P.scal[S_TOL] = tmax(static_cast<T>(tol), static_cast<T>(tol_rel) * bn);
-    P.scal[S_RESID] = bn;
-    const bool nonzero = bn != T(0);
-    w.flags[F_NONZERO] = nonzero;
-    w.flags[F_ITERS] = 0;
-    w.flags[F_CAP] = cap;
-    w.flags[F_CONV] = 0;
-    w.flags[F_DONE] = (!warm && !nonzero) || cap <= 0;
+    if (SHARD)
+      P.red[0] = bn;
+    else
+      fin_head_init(w, P.scal, bn, cap, tol, tol_rel, warm);
   }
 }
 
@@ -197,28 +289,31 @@ __global__ void __launch_bounds__(kThreads) head_x0(Ws w, const T* x0) {
 }
 
 // warm start: r = b - A p, and the early stop if it already converged
-template <typename T>
-__global__ void __launch_bounds__(kThreads) head_residual(Ws w) {
+template <typename T, bool SHARD = false>
+__global__ void __launch_bounds__(kThreads)
+    head_residual(Ws w, Halo<T> h) {
   Planes<T> P(w);
   T m = T(0);
   GRID_STRIDE(i, w.Y * w.X) {
     const int y = i / w.X, x = i - y * w.X;
-    const T r = P.r[i] - apply_at(P.p, w.code[i], i, y, x, w.Y, w.X);
+    const T r =
+        P.r[i] - apply_op<T, SHARD>(P.p, w.code[i], i, y, x, w.Y, w.X, h);
     P.r[i] = r;
     m = tmax(m, fabs(r));
   }
   T rm;
   if (last_block_reduce<1>(m, P.part, w.flags + F_TICKET, &rm) &&
       threadIdx.x == 0) {
-    P.scal[S_RESID] = rm;
-    w.flags[F_DONE] = !w.flags[F_NONZERO] || !(rm > P.scal[S_TOL]) ||
-                      w.flags[F_CAP] <= 0;
+    if (SHARD)
+      P.red[0] = rm;
+    else
+      fin_head_residual(w, P.scal, rm);
   }
 }
 
 // z = M^-1 r (IC(0), MG: already in z), <z, r>.  HEAD: d = z, sigma.
 // Else: beta, sigma, the count and the stop.
-template <typename T, int PK, bool HEAD>
+template <typename T, int PK, bool HEAD, bool SHARD = false>
 __global__ void __launch_bounds__(kThreads) precon_dot(Ws w) {
   if (!HEAD && w.flags[F_DONE]) return;
   Planes<T> P(w);
@@ -238,39 +333,37 @@ __global__ void __launch_bounds__(kThreads) precon_dot(Ws w) {
   T dot;
   if (last_block_reduce<0>(acc, P.part, w.flags + F_TICKET, &dot) &&
       threadIdx.x == 0) {
-    if (HEAD) {
-      P.scal[S_SIGMA] = dot;
-    } else {
-      const T sigma = P.scal[S_SIGMA];
-      P.scal[S_BETA] = dot / (sigma != T(0) ? sigma : T(1));
-      P.scal[S_SIGMA] = dot;
-      const int it = w.flags[F_ITERS] + 1;
-      w.flags[F_ITERS] = it;
-      w.flags[F_DONE] = w.flags[F_CONV] || it >= w.flags[F_CAP];
-    }
+    if (SHARD)
+      P.red[0] = dot;
+    else
+      fin_precon_dot<T, HEAD>(w, P.scal, dot);
   }
 }
 
 // Ad = A d, <Ad, d>, alpha = sigma / <Ad, d> (1 for 0)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) iter_ad(Ws w) {
+template <typename T, bool SHARD = false>
+__global__ void __launch_bounds__(kThreads) iter_ad(Ws w, Halo<T> h) {
   if (w.flags[F_DONE]) return;
   Planes<T> P(w);
   T acc = T(0);
   GRID_STRIDE(i, w.Y * w.X) {
     const int y = i / w.X, x = i - y * w.X;
-    const T ad = apply_at(P.d, w.code[i], i, y, x, w.Y, w.X);
+    const T ad = apply_op<T, SHARD>(P.d, w.code[i], i, y, x, w.Y, w.X, h);
     P.ad[i] = ad;
     acc = acc + ad * P.d[i];
   }
   T zs;
   if (last_block_reduce<0>(acc, P.part, w.flags + F_TICKET, &zs) &&
-      threadIdx.x == 0)
-    P.scal[S_ALPHA] = P.scal[S_SIGMA] / (zs != T(0) ? zs : T(1));
+      threadIdx.x == 0) {
+    if (SHARD)
+      P.red[0] = zs;
+    else
+      fin_iter_ad(P.scal, zs);
+  }
 }
 
 // p += alpha d, r -= alpha Ad, max|r|, conv = not (max|r| > tol)
-template <typename T>
+template <typename T, bool SHARD = false>
 __global__ void __launch_bounds__(kThreads) iter_update(Ws w) {
   if (w.flags[F_DONE]) return;
   Planes<T> P(w);
@@ -285,8 +378,10 @@ __global__ void __launch_bounds__(kThreads) iter_update(Ws w) {
   T rm;
   if (last_block_reduce<1>(m, P.part, w.flags + F_TICKET, &rm) &&
       threadIdx.x == 0) {
-    P.scal[S_RESID] = rm;
-    w.flags[F_CONV] = !(rm > P.scal[S_TOL]);
+    if (SHARD)
+      P.red[0] = rm;
+    else
+      fin_iter_update(w, P.scal, rm);
   }
 }
 
@@ -305,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) iter_dir(Ws w) {
 template <typename T, int PK, class Precon>
 int enqueue_iteration(const Ws& w, Precon precon, cudaStream_t st) {
   const unsigned nb = grid_blocks(w.Y * w.X);
-  iter_ad<T><<<nb, kThreads, 0, st>>>(w);
+  iter_ad<T><<<nb, kThreads, 0, st>>>(w, Halo<T>{});
   iter_update<T><<<nb, kThreads, 0, st>>>(w);
   if (PK >= kIc0) {
     const int rc = precon(st);
@@ -328,7 +423,7 @@ int enqueue_head(const Ws& w, const int32_t* a_diag, const uint8_t* fluid,
                                         tol_rel, x0 != nullptr);
   if (x0 != nullptr) {
     head_x0<T><<<nb, kThreads, 0, st>>>(w, x0);
-    head_residual<T><<<nb, kThreads, 0, st>>>(w);
+    head_residual<T><<<nb, kThreads, 0, st>>>(w, Halo<T>{});
   }
   int rc = eu_launch_status();
   if (rc) return rc;

@@ -1,0 +1,258 @@
+// P4: the PCG loop on one block of a grid split over ranks, the port of
+// euler_tpu/parallel/halo.py `_pcg_sharded` (ops/project.py `pcg_loop`
+// under shard_map with psum / pmax reductions and a halo-exchanging
+// operator; no pallas_call).
+//
+// It is P1's loop (pcg_loop.cuh, its kernels with SHARD = true), driven
+// from the host one stage at a time, because a collective sits between
+// each reduction and its use:
+//   * the operator reads the edge rows (and columns, on 2D blocks) of the
+//     neighbour blocks from buffers the host exchanges before each apply,
+//     and adds them in halo.py:84's order: a s - (((l + r) + u) + d);
+//   * each reduction's block fold goes to red[0]; the host all-reduces it
+//     over the blocks (sum for sigma and <Ad, d>, NaN-propagating max for
+//     max|b| and max|r|), and the stage after it starts with a one-thread
+//     `shard_finish` that does what P1's last CTA does with its fold (the
+//     fin_* functions of pcg_loop.cuh).  The tolerance, the all-zero
+//     early-out, the count and the stop flag are thus the same on every
+//     block, so all blocks stop on the same iteration and enqueue the same
+//     collectives; every kernel returns at once after the stop.
+//   * the MG preconditioner ("mg", f32) is P3's cycle (mg_levels.cuh) on
+//     the block's own hierarchy, built on the card from the block's
+//     operator (block-Jacobi additive Schwarz, halo.py:113-134): no
+//     communication.
+// Stages, and the all-reduce the host runs after each (ops/cuda/
+// pcg_shard_kernel.py `HEAD` .. `ITERATION`):
+//   0 head_init (max|b|: max)             1 finish; x0
+//   2 warm: r = b - A x0 (max|r|: max)     3 [finish] [MG head] <z, r> (sum)
+//   4 finish: sigma
+//   5 Ad = A d, <Ad, d> (sum)             6 alpha; p, r (max|r|: max)
+//   7 conv; [MG cycle]; <z, r> (sum)      8 beta, count, stop; d
+// Built with -fmad=false, in the plain version's operand order.
+#define EU_FMAD 0
+#include "mg_solver.cuh"
+#include "pcg_loop.cuh"
+
+namespace {
+
+enum Fin { kFinInit, kFinResidual, kFinSigma0, kFinAlpha, kFinConv,
+           kFinBeta };
+
+// the use of the all-reduced red[0] (P1's last-CTA work); the iteration's
+// finishes return after the stop, as the iteration's kernels do
+template <typename T, int FIN>
+__global__ void shard_finish(pcg::Ws w, int cap, double tol, double tol_rel,
+                             bool warm) {
+  pcg::Planes<T> P(w);
+  const T v = P.red[0];
+  if (FIN == kFinInit) {
+    pcg::fin_head_init(w, P.scal, v, cap, tol, tol_rel, warm);
+  } else if (FIN == kFinResidual) {
+    pcg::fin_head_residual(w, P.scal, v);
+  } else if (FIN == kFinSigma0) {
+    pcg::fin_precon_dot<T, true>(w, P.scal, v);
+  } else {
+    if (w.flags[pcg::F_DONE]) return;
+    if (FIN == kFinAlpha)
+      pcg::fin_iter_ad(P.scal, v);
+    else if (FIN == kFinConv)
+      pcg::fin_iter_update(w, P.scal, v);
+    else
+      pcg::fin_precon_dot<T, false>(w, P.scal, v);
+  }
+}
+
+// level 0 of the cycle in packed form: the loop's operator code as a float
+// (pcg_mg.cu's)
+__global__ void pack_code(int n, const uint8_t* __restrict__ code,
+                          float* __restrict__ packed,
+                          const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) packed[t] = static_cast<float>(code[t]);
+}
+
+struct Shard {
+  pcg::Ws w;
+  int f64, precon;
+  MgSolver M;  // "mg": the block's hierarchy and cycle
+
+  int cycle(cudaStream_t st) const {
+    Solve S = M.S;
+    S.s = st;
+    return S.cycle(0, false);
+  }
+
+  int mg_head(cudaStream_t st) const {
+    const int n = w.Y * w.X;
+    pack_code<<<eu_blocks(n, kThreads), kThreads, 0, st>>>(n, w.code,
+                                                           M.packed0,
+                                                           w.flags);
+    int rc = eu_launch_status();
+    if (!rc) rc = M.hierarchy(st);
+    return rc ? rc : cycle(st);
+  }
+
+  template <typename T, int PK>
+  int stage(int k, int cap, double tol, double tol_rel, const void* a_diag,
+            const void* fluid, const void* b, const void* x0, pcg::Halo<T> h,
+            cudaStream_t st) const {
+    const unsigned nb = pcg::grid_blocks(w.Y * w.X);
+    const bool warm = x0 != nullptr;
+    auto fin = [&](auto kernel) {
+      kernel<<<1, 1, 0, st>>>(w, cap, tol, tol_rel, warm);
+    };
+    int rc = 0;
+    switch (k) {
+      case 0:
+        pcg::head_init<T, true><<<nb, pcg::kThreads, 0, st>>>(
+            w, static_cast<const int32_t*>(a_diag),
+            static_cast<const uint8_t*>(fluid), static_cast<const T*>(b),
+            cap, tol, tol_rel, warm);
+        break;
+      case 1:
+        fin(shard_finish<T, kFinInit>);
+        if (warm)
+          pcg::head_x0<T><<<nb, pcg::kThreads, 0, st>>>(
+              w, static_cast<const T*>(x0));
+        break;
+      case 2:
+        pcg::head_residual<T, true><<<nb, pcg::kThreads, 0, st>>>(w, h);
+        break;
+      case 3:
+        if (warm) fin(shard_finish<T, kFinResidual>);
+        if (PK == pcg::kMg &&
+            ((rc = eu_launch_status()) || (rc = mg_head(st))))
+          return rc;
+        pcg::precon_dot<T, PK, true, true><<<nb, pcg::kThreads, 0, st>>>(w);
+        break;
+      case 4:
+        fin(shard_finish<T, kFinSigma0>);
+        break;
+      case 5:
+        pcg::iter_ad<T, true><<<nb, pcg::kThreads, 0, st>>>(w, h);
+        break;
+      case 6:
+        fin(shard_finish<T, kFinAlpha>);
+        pcg::iter_update<T, true><<<nb, pcg::kThreads, 0, st>>>(w);
+        break;
+      case 7:
+        fin(shard_finish<T, kFinConv>);
+        if (PK == pcg::kMg &&
+            ((rc = eu_launch_status()) || (rc = cycle(st))))
+          return rc;
+        pcg::precon_dot<T, PK, false, true><<<nb, pcg::kThreads, 0, st>>>(w);
+        break;
+      case 8:
+        fin(shard_finish<T, kFinBeta>);
+        pcg::iter_dir<T><<<nb, pcg::kThreads, 0, st>>>(w);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return eu_launch_status();
+  }
+};
+
+}  // namespace
+
+// A solver over a workspace's buffers ([Y, X] planes of the solve's
+// precision: code u8, p, r, d, z, ad, pre, q; part: 1024; scal: S_N;
+// flags: F_N i32; red: 1), f64 0/1, precon 0 none / 1 Jacobi / 3 MG (f32).
+// MG (L > 0): the cycle's levels as eu_pcg_mg_create takes them (level 0
+// the planes' shape, its planes the loop's); L = 0 otherwise, and the MG
+// arguments unused.  *out is the handle.
+EU_API int eu_pcg_shard_create(int Y, int X, int f64, int precon, int L,
+                               const int* shapes, void* const* planes,
+                               void* const* act, void* packed0, void* rows,
+                               int ncoef, int deg, int coarse_deg, int w,
+                               int w_depth, float ratio, float coarse_ratio,
+                               void* code, void* p, void* r, void* d,
+                               void* z, void* ad, void* pre, void* q,
+                               void* part, void* hpart, void* scal,
+                               void* flags, void* red, void** out) {
+  *out = nullptr;
+  const bool mg = precon == pcg::kMg;
+  if ((mg && (f64 || L < 1 || L > 16 || shapes[0] != Y || shapes[1] != X)) ||
+      (!mg && precon != pcg::kNone && precon != pcg::kJacobi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Shard* S = new Shard{};
+  S->w = pcg::Ws{Y, X, Y, X, static_cast<uint8_t*>(code), p, r, d, z, ad,
+                 pre, q, part, scal, static_cast<int*>(flags), red};
+  S->f64 = f64;
+  S->precon = precon;
+  int rc = 0;
+  if (mg) {
+    // level 0 of the cycle is the loop's: b = r, its output in z (as P3)
+    void* pl[16 * P_COUNT];
+    for (int k = 0; k < L * P_COUNT; ++k) pl[k] = planes[k];
+    const bool post1 = deg == 1 && L > 1;
+    pl[P_X] = post1 ? pre : z;
+    pl[P_Z] = post1 ? z : nullptr;
+    pl[P_RR] = post1 ? q : pre;
+    pl[P_D] = post1 ? ad : q;
+    pl[P_DN] = post1 ? nullptr : ad;
+    rc = make_solve(&S->M.S, L, shapes, pl, packed0, static_cast<float*>(r),
+                    rows, ncoef, deg, coarse_deg, w, w_depth, part, flags,
+                    nullptr);
+    if (!rc)
+      rc = set_hierarchy(&S->M, L, shapes, pl, act, packed0, rows, ncoef,
+                         deg, coarse_deg, ratio, coarse_ratio, -1, hpart);
+  }
+  if (!rc)
+    rc = static_cast<int>(cudaMemset(flags, 0, sizeof(int) * pcg::F_N));
+  if (!rc) rc = static_cast<int>(cudaDeviceSynchronize());
+  if (rc) {
+    delete S;
+    return rc;
+  }
+  *out = S;
+  return 0;
+}
+
+EU_API int eu_pcg_shard_destroy(void* solver) {
+  delete static_cast<Shard*>(solver);
+  return 0;
+}
+
+// Stage k of a solve (see the top of this file) with a_diag ([Y, X] i32),
+// fluid ([Y, X] u8), b and x0 (null: a cold start) of the solver's
+// precision, and the exchanged edges of the plane the stage applies the
+// operator to (stages 2: p, 5: d; below / above [X], left / right [Y] or
+// null).  The solution stays in the workspace's p, the iterations in
+// flags[1], max|r| in scal[4].
+EU_API int eu_pcg_shard_stage(void* solver, int k, int cap, double tol,
+                              double tol_rel, const void* a_diag,
+                              const void* fluid, const void* b,
+                              const void* x0, const void* below,
+                              const void* above, const void* left,
+                              const void* right, void* stream) {
+  const Shard* S = static_cast<const Shard*>(solver);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S->f64) {
+    const pcg::Halo<double> h{static_cast<const double*>(below),
+                              static_cast<const double*>(above),
+                              static_cast<const double*>(left),
+                              static_cast<const double*>(right)};
+    return S->precon == pcg::kJacobi
+               ? S->stage<double, pcg::kJacobi>(k, cap, tol, tol_rel, a_diag,
+                                                fluid, b, x0, h, st)
+               : S->stage<double, pcg::kNone>(k, cap, tol, tol_rel, a_diag,
+                                              fluid, b, x0, h, st);
+  }
+  const pcg::Halo<float> h{static_cast<const float*>(below),
+                           static_cast<const float*>(above),
+                           static_cast<const float*>(left),
+                           static_cast<const float*>(right)};
+  switch (S->precon) {
+    case pcg::kJacobi:
+      return S->stage<float, pcg::kJacobi>(k, cap, tol, tol_rel, a_diag,
+                                           fluid, b, x0, h, st);
+    case pcg::kMg:
+      return S->stage<float, pcg::kMg>(k, cap, tol, tol_rel, a_diag, fluid,
+                                       b, x0, h, st);
+    default:
+      return S->stage<float, pcg::kNone>(k, cap, tol, tol_rel, a_diag,
+                                         fluid, b, x0, h, st);
+  }
+}

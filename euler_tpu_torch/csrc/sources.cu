@@ -35,6 +35,15 @@
 // S), slot 0 standing in for any it does not find (jnp.nonzero's
 // padding, markers.py:384-387), into a scratch list.
 //
+// On a row block of a grid split over ranks (parallel/spatial.py) the
+// planes are the block's Y rows, grid rows row_offset .. row_offset + Y - 1,
+// and `counts_in` holds every source cell's count, all-reduced over the
+// blocks: the walk reads those, so every block draws the same jitters and
+// keeps the same alive_count and exhausted flag, and writes colours,
+// markers, alive bits and counts only where the source's row is its own.
+// With row_offset 0, the whole plane and counts_in null the pass is the
+// unsharded one.
+//
 // Everything is read from and written to the card in place: the store,
 // alive plane, counts and colour planes, the RNG state (uint32 [2], hi
 // then lo), alive_count, the exhausted flag; active and frame_count are
@@ -70,12 +79,13 @@ __device__ __forceinline__ float randf32(uint64_t& x) {
 }
 
 struct SourceArgs {
-  int S, Y, X, K, per_cell, max_markers;
+  int S, Y, X, K, per_cell, max_markers, row_offset;
   float q, h;
   const int32_t* __restrict__ source_yx;  // [S, 2] (y, x)
   const uint8_t* __restrict__ valid;      // [S]
   const uint8_t* __restrict__ active;     // scalar
   const int32_t* __restrict__ frame_count;
+  const int32_t* __restrict__ counts_in;  // [S] or null
   float* __restrict__ markers;            // [2, K, Y, X]
   uint8_t* __restrict__ alive;            // [K, Y, X]
   int32_t* __restrict__ count;            // [Y, X]
@@ -97,6 +107,8 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
   const float cg = hsv_basis(t);
   const float cb = hsv_basis(t - 2.0f);
   const size_t plane = static_cast<size_t>(a.K) * a.Y * a.X;
+  // the grid cells of this block's rows
+  const int lo = a.row_offset * a.X, hi = lo + a.Y * a.X;
 
   uint64_t state = 0;
   int ac = 0;
@@ -114,13 +126,15 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
       const int i = base + j;
       const int cell = a.source_yx[2 * i] * a.X + a.source_yx[2 * i + 1];
       const uint8_t ok = a.valid[i];
+      const bool mine = cell >= lo && cell < hi;
       s_cell[j] = cell;
       s_valid[j] = ok;
-      s_count[j] = ok ? a.count[cell] : 0;
-      if (ok) {
-        a.r[cell] = cr;
-        a.g[cell] = cg;
-        a.b[cell] = cb;
+      s_count[j] = !ok ? 0 : (a.counts_in ? a.counts_in[i]
+                                          : a.count[cell - lo]);
+      if (ok && mine) {
+        a.r[cell - lo] = cr;
+        a.g[cell - lo] = cg;
+        a.b[cell - lo] = cb;
       }
     }
     __syncthreads();
@@ -132,13 +146,16 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
           const float ry = randf32(state);
           const float rx = randf32(state);
           const int cell = s_cell[j];
-          const int y = cell / a.X;
-          const int x = cell - y * a.X;
-          const size_t slot = static_cast<size_t>(c) * a.Y * a.X + cell;
-          a.markers[slot] = (static_cast<float>(x) + rx) * a.h;
-          a.markers[plane + slot] = (static_cast<float>(y) + ry) * a.h;
-          a.alive[slot] = 1;
-          a.count[cell] = c + 1;
+          if (cell >= lo && cell < hi) {
+            const int y = cell / a.X;
+            const int x = cell - y * a.X;
+            const size_t slot =
+                static_cast<size_t>(c) * a.Y * a.X + (cell - lo);
+            a.markers[slot] = (static_cast<float>(x) + rx) * a.h;
+            a.markers[plane + slot] = (static_cast<float>(y) + ry) * a.h;
+            a.alive[slot] = 1;
+            a.count[cell - lo] = c + 1;
+          }
           ac += 1;
         }
         exhausted = exhausted || ac == a.max_markers - 1;
@@ -305,13 +322,16 @@ EU_API int eu_source_pass_global(int S, int M, int X, int per_cell, float q,
   return eu_launch_status();
 }
 
+// S1: the planes are the Y rows from grid row row_offset (0 and the whole
+// plane, unsharded); counts_in: null, or [S] i32 every source cell's count
+// (a row block's walk).
 EU_API int eu_source_pass(int S, int Y, int X, int K, int per_cell,
-                          int max_markers, float q, float h,
+                          int max_markers, int row_offset, float q, float h,
                           const void* source_yx, const void* valid,
                           const void* active, const void* frame_count,
-                          void* markers, void* alive, void* count, void* r,
-                          void* g, void* b, void* rng, void* alive_count,
-                          void* exhausted, void* stream) {
+                          const void* counts_in, void* markers, void* alive,
+                          void* count, void* r, void* g, void* b, void* rng,
+                          void* alive_count, void* exhausted, void* stream) {
   SourceArgs a{};
   a.S = S;
   a.Y = Y;
@@ -319,6 +339,8 @@ EU_API int eu_source_pass(int S, int Y, int X, int K, int per_cell,
   a.K = K;
   a.per_cell = per_cell;
   a.max_markers = max_markers;
+  a.row_offset = row_offset;
+  a.counts_in = static_cast<const int32_t*>(counts_in);
   a.q = q;
   a.h = h;
   a.source_yx = static_cast<const int32_t*>(source_yx);

@@ -18,37 +18,47 @@ from euler_tpu_torch.core.state import (
 from euler_tpu_torch.ops.interp_stencil import interpolate_stencil
 
 
-def _site_index_grids(cfg: SimConfig, dtype, device):
+def _site_index_grids(cfg: SimConfig, dtype, device, row_offset: int = 0):
+    """The sites' (x, y) indices; y the grid row (plane row + row_offset
+    on a row block)."""
     xs = torch.arange(cfg.nx, dtype=dtype, device=device)[None, :]
-    ys = torch.arange(cfg.ny, dtype=dtype, device=device)[:, None]
+    ys = torch.arange(row_offset, row_offset + cfg.ny, dtype=dtype,
+                      device=device)[:, None]
     return xs.expand(cfg.ny, cfg.nx), ys.expand(cfg.ny, cfg.nx)
 
 
-def advect_u(cfg: SimConfig, u, v, fluid, dt):
-    """main.c:382-399."""
-    xs, ys = _site_index_grids(cfg, u.dtype, u.device)
+def advect_u(cfg: SimConfig, u, v, fluid, dt, clamp_ny=None,
+             row_offset: int = 0):
+    """main.c:382-399.  `clamp_ny`, `row_offset`: a row block's grid rows
+    (`ops/cuda/grid_kernel.grid_stage`)."""
+    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset)
+    xs, ys = _site_index_grids(cfg, u.dtype, u.device, row_offset)
     inv_h = 1.0 / cfg.side_length
     dx = u
     # v at the u site: v grid index (x+0.5, y-0.5)
-    dy = interpolate_stencil(cfg, v, fluid, xs + 0.5, ys - 0.5, "v")
+    dy = interpolate_stencil(cfg, v, fluid, xs + 0.5, ys - 0.5, "v", **rows)
     prev_x = xs - dx * dt * inv_h
     prev_y = ys - dy * dt * inv_h
-    out = interpolate_stencil(cfg, u, fluid, prev_x, prev_y, "u")
-    mask = u_property(fluid) & valid_region(cfg, "u", u.device)
+    out = interpolate_stencil(cfg, u, fluid, prev_x, prev_y, "u", **rows)
+    mask = u_property(fluid) & valid_region(cfg, "u", u.device, clamp_ny,
+                                            row_offset)
     return torch.where(mask, out, 0.0)
 
 
-def advect_v(cfg: SimConfig, u, v, fluid, dt):
+def advect_v(cfg: SimConfig, u, v, fluid, dt, clamp_ny=None,
+             row_offset: int = 0):
     """main.c:405-422."""
-    xs, ys = _site_index_grids(cfg, v.dtype, v.device)
+    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset)
+    xs, ys = _site_index_grids(cfg, v.dtype, v.device, row_offset)
     inv_h = 1.0 / cfg.side_length
     dy = v
     # u at the v site: u grid index (x-0.5, y+0.5)
-    dx = interpolate_stencil(cfg, u, fluid, xs - 0.5, ys + 0.5, "u")
+    dx = interpolate_stencil(cfg, u, fluid, xs - 0.5, ys + 0.5, "u", **rows)
     prev_x = xs - dx * dt * inv_h
     prev_y = ys - dy * dt * inv_h
-    out = interpolate_stencil(cfg, v, fluid, prev_x, prev_y, "v")
-    mask = v_property(fluid) & valid_region(cfg, "v", v.device)
+    out = interpolate_stencil(cfg, v, fluid, prev_x, prev_y, "v", **rows)
+    mask = v_property(fluid) & valid_region(cfg, "v", v.device, clamp_ny,
+                                            row_offset)
     return torch.where(mask, out, 0.0)
 
 

@@ -95,29 +95,37 @@ def grid_tile_plan(Y: int, X: int, tile_y: int = TILE_Y,
                         threads, smem)
 
 
-def extrapolate_zero(cfg: SimConfig, u, v, fluid, prev_fluid, solid):
+def extrapolate_zero(cfg: SimConfig, u, v, fluid, prev_fluid, solid,
+                     clamp_ny=None, row_offset=0):
     """extrapolate -> zero_bounds (main.c:865-870): the velocities the
-    advection reads (the colours' advection too)."""
-    uu = extrapolate(cfg, u, fluid, prev_fluid, "u")
-    vv = extrapolate(cfg, v, fluid, prev_fluid, "v")
-    return (zero_bounds(cfg, uu, fluid, solid, "u"),
-            zero_bounds(cfg, vv, fluid, solid, "v"))
+    advection reads (the colours' advection too).  `clamp_ny` and
+    `row_offset`: on a row block padded with its neighbours' rows, the
+    grid's row count and the grid row of its row 0 (see `grid_stage`)."""
+    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset)
+    uu = extrapolate(cfg, u, fluid, prev_fluid, "u", **rows)
+    vv = extrapolate(cfg, v, fluid, prev_fluid, "v", **rows)
+    return (zero_bounds(cfg, uu, fluid, solid, "u", **rows),
+            zero_bounds(cfg, vv, fluid, solid, "v", **rows))
 
 
-def advect_forces(cfg: SimConfig, uu, vv, fluid, solid, dt):
+def advect_forces(cfg: SimConfig, uu, vv, fluid, solid, dt, clamp_ny=None,
+                  row_offset=0):
     """advect -> gravity -> zero_bounds (main.c:871-889)."""
-    ut = advect_u(cfg, uu, vv, fluid, dt)
-    vt = advect_v(cfg, uu, vv, fluid, dt)
-    vt = apply_body_forces(cfg, vt, dt)
-    return (zero_bounds(cfg, ut, fluid, solid, "u"),
-            zero_bounds(cfg, vt, fluid, solid, "v"))
+    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset)
+    ut = advect_u(cfg, uu, vv, fluid, dt, **rows)
+    vt = advect_v(cfg, uu, vv, fluid, dt, **rows)
+    vt = apply_body_forces(cfg, vt, dt, **rows)
+    return (zero_bounds(cfg, ut, fluid, solid, "u", **rows),
+            zero_bounds(cfg, vt, fluid, solid, "v", **rows))
 
 
-def grid_stage_plain(cfg: SimConfig, dt, u, v, fluid, prev_fluid, solid):
+def grid_stage_plain(cfg: SimConfig, dt, u, v, fluid, prev_fluid, solid,
+                     clamp_ny=None, row_offset=0):
     """extrapolate -> zero_bounds -> advect -> gravity -> zero_bounds
     (main.c:865-889): the velocities the projection starts from."""
-    uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid)
-    return advect_forces(cfg, uu, vv, fluid, solid, dt)
+    uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid, clamp_ny,
+                              row_offset)
+    return advect_forces(cfg, uu, vv, fluid, solid, dt, clamp_ny, row_offset)
 
 
 @functools.cache
@@ -127,8 +135,8 @@ def grid_lib():
     once."""
     lib = _build.load("grid_stage", flags=["-fmad=false"])
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_grid_passes", [I, I, F, F] + [P] * 10 + [I] * 3
-                + [P])
+    _build.bind(lib, "eu_grid_passes", [I] * 4 + [F, F] + [P] * 10
+                + [I] * 3 + [P])
     _build.bind(lib, "eu_grid_stage", [I, I, F, F, F] + [P] * 13 + [I] * 3
                 + [P])
     _build.bind(lib, "eu_project_tail", [I, I, F] + [P] * 10)
@@ -136,15 +144,26 @@ def grid_lib():
 
 
 def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt, *,
-               extrapolated: bool = False):
+               extrapolated: bool = False, clamp_ny=None, row_offset=0):
     """The grid stage of one substep.  Returns (ut, vt), with
     `extrapolated` (ut, vt, uu, vv): uu, vv the extrapolated, zeroed
     velocities (`extrapolate_zero`).  CUDA tensors run the kernel; CPU
-    tensors the plain version."""
+    tensors the plain version.
+
+    On a row block (`parallel/spatial.py`) the planes are the block's
+    rows with H of each neighbour's around them (cfg.ny their count),
+    `clamp_ny` the grid's row count and `row_offset` the grid row of the
+    planes' row 0: the interpolation clamps, the v sample region,
+    gravity and the zero beyond the grid take grid rows, and the rows H
+    away from the planes' edges are those of the whole grid's stage, bit
+    for bit (the stage reads 3 rows around a cell at most).  cfg.ny and
+    0, the default, is a whole plane."""
     if u.device.type == "cpu":
         _build.PLAIN_CALLS["K7"] += 1
-        uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid)
-        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt)
+        uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid,
+                                  clamp_ny, row_offset)
+        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt, clamp_ny,
+                               row_offset)
         return (ut, vt, uu, vv) if extrapolated else (ut, vt)
     Y, X = cfg.ny, cfg.nx
     plane = (Y, X)
@@ -162,7 +181,9 @@ def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt, *,
     plan = grid_tile_plan(Y, X)
     lib = grid_lib()
     _build.LAUNCHES["K7"] += 1
-    rc = lib.eu_grid_passes(Y, X, 1.0 / cfg.side_length, cfg.gravity, *ptr,
+    rc = lib.eu_grid_passes(Y, X, Y if clamp_ny is None else clamp_ny,
+                            row_offset, 1.0 / cfg.side_length, cfg.gravity,
+                            *ptr,
                             plan.tile_y, plan.tile_x, plan.threads,
                             _build.stream())
     _build.check(lib, rc, "eu_grid_passes")

@@ -180,13 +180,36 @@ class MgGeneralWorkspace(GeneralWorkspace):
             raise NotImplementedError(f"P3 takes at most 16 levels, not {L}")
         Y, X = self.shapes[0]
         self._planes(Y, X, f, device)
+        levels = self._mg_levels(cfg, device)
+        ptrs = self._loop_ptrs()
+        self.lib = mg_lib()
+        self._solve, self._destroy = (self.lib.eu_pcg_mg_solve,
+                                      self.lib.eu_pcg_mg_destroy)
+        self.handle = None
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            rc = self.lib.eu_pcg_mg_create(
+                Y, X, cfg.ny, cfg.nx, *levels, *cycle_args(cfg),
+                s.mg_cheby_ratio, s.mg_coarse_ratio, *ptrs[:8], ptrs[8],
+                self.hpart.data_ptr(), *ptrs[9:], ctypes.byref(handle))
+        _build.check(self.lib, rc, "eu_pcg_mg_create")
+        self.handle = handle.value
+
+    def _mg_levels(self, cfg: SimConfig, device):
+        """The cycle's buffers at `self.shapes` (the loop's planes are
+        level 0): the packed level 0, the Chebyshev rows, the hierarchy's
+        partials and per coarse level c, e, n, active and the cycle's x,
+        b, z, rr, d, dn.  Returns the create call's (L, shapes, planes,
+        act, packed0, rows, ncoef) arguments."""
+        s, f = cfg.solver, torch.float32
+        L = len(self.shapes)
 
         def new(shape, dtype=f):
             t = torch.empty(shape, dtype=dtype, device=device)
             self.keep.append(t)
             return t
 
-        self.packed0 = new((Y, X))
+        self.packed0 = new(self.shapes[0])
         deg = [s.mg_cheby_degree] * (L - 1) + [s.mg_coarse_iters]
         self.rows = new((L, 1 + 2 * max(deg)))
         self.hpart = new((sum(-(-Yl * Xl // 256) for Yl, Xl in self.shapes),))
@@ -200,24 +223,10 @@ class MgGeneralWorkspace(GeneralWorkspace):
             planes += [new(shape).data_ptr() for _ in range(6)]
             act.append(active.data_ptr())
         flat = [v for sh in self.shapes for v in sh]
-        shape_arr = (ctypes.c_int * len(flat))(*flat)
-        plane_arr = (ctypes.c_void_p * len(planes))(*planes)
-        act_arr = (ctypes.c_void_p * L)(*act)
-        ptrs = self._loop_ptrs()
-        self.lib = mg_lib()
-        self._solve, self._destroy = (self.lib.eu_pcg_mg_solve,
-                                      self.lib.eu_pcg_mg_destroy)
-        self.handle = None
-        handle = ctypes.c_void_p()
-        with torch.cuda.device(device):
-            rc = self.lib.eu_pcg_mg_create(
-                Y, X, cfg.ny, cfg.nx, L, shape_arr, plane_arr, act_arr,
-                self.packed0.data_ptr(), self.rows.data_ptr(),
-                self.rows.shape[1], *cycle_args(cfg), s.mg_cheby_ratio,
-                s.mg_coarse_ratio, *ptrs[:8], ptrs[8],
-                self.hpart.data_ptr(), *ptrs[9:], ctypes.byref(handle))
-        _build.check(self.lib, rc, "eu_pcg_mg_create")
-        self.handle = handle.value
+        return (L, (ctypes.c_int * len(flat))(*flat),
+                (ctypes.c_void_p * len(planes))(*planes),
+                (ctypes.c_void_p * L)(*act), self.packed0.data_ptr(),
+                self.rows.data_ptr(), self.rows.shape[1])
 
     def cycle(self, r, per_op: bool):
         """z = M r for `r` ([Y, X] f32 at the planes' shape) on the

@@ -47,26 +47,36 @@ def source_lib():
     `eu_source_pass_global`), built and bound once."""
     lib = _build.load("sources", flags=["-fmad=false"])
     P, I, Fl = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_source_pass", [I] * 6 + [Fl, Fl] + [P] * 14)
+    _build.bind(lib, "eu_source_pass", [I] * 7 + [Fl, Fl] + [P] * 15)
     _build.bind(lib, "eu_source_pass_global", [I] * 4 + [Fl, Fl] + [P] * 15)
     return lib
 
 
 def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
-                 active=None) -> None:
+                 active=None, row_offset: int = 0, counts=None) -> None:
     """Source emission, in place on the state's tensors.  CUDA tensors
     run the kernel; CPU tensors the plain version.  `active` (a bool
     scalar tensor, or None for True) suppresses every emission when
-    False; the colour pass runs regardless, as in the JAX package."""
+    False; the colour pass runs regardless, as in the JAX package.
+
+    On a row block (slot layout, `parallel/spatial.py`) the state and
+    scenario planes are the block's rows from grid row `row_offset`, and
+    `counts` ([S] int32) every source cell's count, all-reduced over the
+    blocks; cfg is the whole grid's."""
     if scn.num_sources == 0:
         return
     slots = cfg.marker_layout == "slots"
+    if counts is not None and not slots:
+        raise ValueError("row blocks need the slot layout")
     if state.markers.device.type == "cpu":
         _build.PLAIN_CALLS["S1"] += 1
-        (source_pass_slots if slots else source_pass_global)(
-            cfg, scn, state, active)
+        if slots:
+            source_pass_slots(cfg, scn, state, active, row_offset, counts)
+        else:
+            source_pass_global(cfg, scn, state, active)
         return
-    Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
+    Y = cfg.ny if counts is None else state.marker_count.shape[0]
+    X, K = cfg.nx, cfg.slots_per_cell
     S = scn.num_sources
     dev = state.markers.device
     plane = (Y, X)
@@ -81,6 +91,11 @@ def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
         _build.require(active, "active", torch.bool, (), dev),
         _build.require(state.frame_count, "frame_count", torch.int32, (),
                        dev),
+    ]
+    if slots:
+        ptrs.append(None if counts is None else _build.require(
+            counts, "counts", torch.int32, (S,), dev))
+    ptrs += [
         _build.require(state.markers, "markers", f, (2,) + store, dev),
         _build.require(state.alive, "alive", torch.bool, store, dev),
         _build.require(state.marker_count, "marker_count", torch.int32,
@@ -100,7 +115,7 @@ def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
     _build.LAUNCHES["S1"] += 1
     if slots:
         rc = lib.eu_source_pass(S, Y, X, K, cfg.markers_per_cell,
-                                cfg.max_markers, q, h, *ptrs,
+                                cfg.max_markers, row_offset, q, h, *ptrs,
                                 _build.stream())
     else:
         free = torch.empty(S, dtype=torch.int32, device=dev)

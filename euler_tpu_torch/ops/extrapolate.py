@@ -20,8 +20,9 @@ def _neighborhood_sum(a):
     return rows[:, :-2] + rows[:, 1:-1] + rows[:, 2:]
 
 
-def extrapolate(cfg: SimConfig, q, fluid, prev_fluid, celltype: str):
-    region = valid_region(cfg, celltype, q.device)
+def extrapolate(cfg: SimConfig, q, fluid, prev_fluid, celltype: str,
+                clamp_ny=None, row_offset: int = 0):
+    region = valid_region(cfg, celltype, q.device, clamp_ny, row_offset)
     prop = property_of(fluid, celltype) & region
     prev_prop = property_of(prev_fluid, celltype) & region
     newly = (~prev_prop) & prop

@@ -288,7 +288,7 @@ def source_colours(cfg: SimConfig, scn: Scenario, state: FluidState) -> None:
 
 
 def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
-                      active=None) -> None:
+                      active=None, row_offset: int = 0, counts=None) -> None:
     """Source emission on the slot layout (main.c:276-298), the plain
     version of S1 (`ops/cuda/source_kernel.py`), as the JAX package's
     `update_fluid_sources_slots` computes it.  Updates the state's colour
@@ -304,7 +304,11 @@ def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
         (alive_count reached max_markers - 1) or `active` is False; it
         draws the Y jitter before the X jitter (gcc's argument order at
         main.c:288) and keeps the old RNG state when it does not emit.
-    Reads no device value on the host."""
+    Reads no device value on the host on a whole plane.  On a row block
+    (`parallel/spatial.py`) the planes are the block's rows from grid
+    row `row_offset` and `counts` every source cell's count, all-reduced
+    over the blocks: the walk reads those, and the block writes only the
+    sources of its rows (S1's row block)."""
     from euler_tpu_torch.core.rng import randf32
 
     source_colours(cfg, scn, state)
@@ -316,7 +320,12 @@ def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
     h = float(np.float32(cfg.side_length))
     ys = scn.source_yx[:, 0].long()
     xs = scn.source_yx[:, 1].long()
-    counts = state.marker_count[ys, xs]
+    ly, mine = ys, None  # the sources' rows on the planes
+    if counts is None:
+        counts = state.marker_count[ys, xs]
+    else:
+        ly = ys - row_offset
+        mine = (ly >= 0) & (ly < state.marker_count.shape[0])
     if active is None:
         active = torch.ones((), dtype=torch.bool, device=state.r.device)
     lanes = state.rng.to(torch.int64)
@@ -339,13 +348,21 @@ def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
     # the emitted marker's slot is the cell's count (front-compacted
     # slots); a source that does not emit writes its slot's old value
     can = torch.stack(cans)
-    k = torch.clamp(counts, max=K - 1).long()
-    for c, pos in ((0, pos_x), (1, pos_y)):
-        plane = state.markers[c]
-        plane[k, ys, xs] = torch.where(can, torch.stack(pos),
-                                       plane[k, ys, xs])
-    state.alive[k, ys, xs] = state.alive[k, ys, xs] | can
-    state.marker_count[ys, xs] = counts + can.to(torch.int32)
+    if mine is not None:
+        # a row block writes its own rows' sources only (a host read: the
+        # plain version runs on the CPU)
+        keep = mine.nonzero()[:, 0]
+        ly, xs, counts, can = ly[keep], xs[keep], counts[keep], can[keep]
+        pos_x = [pos_x[i] for i in keep.tolist()]
+        pos_y = [pos_y[i] for i in keep.tolist()]
+    if len(ly):
+        k = torch.clamp(counts, max=K - 1).long()
+        for c, pos in ((0, pos_x), (1, pos_y)):
+            plane = state.markers[c]
+            plane[k, ly, xs] = torch.where(can, torch.stack(pos),
+                                           plane[k, ly, xs])
+        state.alive[k, ly, xs] = state.alive[k, ly, xs] | can
+        state.marker_count[ly, xs] = counts + can.to(torch.int32)
     state.rng.copy_(lanes.to(torch.uint32))
     state.alive_count.copy_(alive_count)
     state.source_exhausted.copy_(exhausted)

@@ -119,15 +119,31 @@ def make_preconditioner(cfg: SimConfig, a_diag, fluid):
                               "form in the port")
 
 
-def pcg_loop(cfg: SimConfig, b, apply_fn, precon, x0=None):
+def _masked_dot(a, b):
+    # iterates are zero outside the fluid: the dense sum is the
+    # reference's fluid-masked dot (main.c:629-639)
+    return (a * b).sum()
+
+
+def _inf_norm(r):
+    return r.abs().max()
+
+
+def pcg_loop(cfg: SimConfig, b, apply_fn, precon, x0=None, dot=None,
+             inf_norm=None):
     """The PCG recurrence of main.c:738-767 (JAX `pcg_loop`): the
     all-zero early-out, the tolerance max(tol, tol_rel * ||b||_inf) with
     ||b|| taken before any warm-start subtraction, and the NaN-robust stop
     test not (max|r| > tol) after the p/r update.  `x0` (zero outside the
-    fluid) warm-starts it.  Reads the stop flag on the host once per
-    iteration.  Returns (p, iterations, residual)."""
+    fluid) warm-starts it.  `dot` and `inf_norm` are its reductions
+    (the local sums and maxima by default; `parallel/halo.py` passes
+    them all-reduced over the blocks, as the JAX package's psum and
+    pmax).  Reads the stop flag on the host once per iteration.  Returns
+    (p, iterations, residual)."""
     s = cfg.solver
-    b_norm = b.abs().max()
+    dot = _masked_dot if dot is None else dot
+    inf_norm = _inf_norm if inf_norm is None else inf_norm
+    b_norm = inf_norm(b)
     tol = torch.maximum(torch.tensor(s.tol, dtype=b.dtype, device=b.device),
                         s.tol_rel * b_norm)
     nonzero = b_norm != 0
@@ -138,26 +154,26 @@ def pcg_loop(cfg: SimConfig, b, apply_fn, precon, x0=None):
     else:
         p = torch.where(nonzero, x0.to(b.dtype), 0.0)
         r = b - apply_fn(p)
-        done = ~nonzero | ~(r.abs().max() > tol)
+        done = ~nonzero | ~(inf_norm(r) > tol)
     z = precon(r)
     d = z
-    sigma = (z * r).sum()
+    sigma = dot(z, r)
     iters = 0
     while iters < s.max_iterations and not bool(done):
         Ad = apply_fn(d)
-        zs = (Ad * d).sum()
+        zs = dot(Ad, d)
         alpha = sigma / torch.where(zs != 0, zs, 1.0)
         p = p + alpha * d
         r = r - alpha * Ad
-        done = ~(r.abs().max() > tol)
+        done = ~(inf_norm(r) > tol)
         z = precon(r)
-        sigma_new = (z * r).sum()
+        sigma_new = dot(z, r)
         beta = sigma_new / torch.where(sigma != 0, sigma, 1.0)
         d = z + beta * d
         sigma = sigma_new
         iters += 1
     return (p, torch.tensor(iters, dtype=torch.int32, device=b.device),
-            r.abs().max())
+            inf_norm(r))
 
 
 def solver_route(cfg: SimConfig, solid_given: bool = True):
@@ -231,19 +247,22 @@ def clamp_pressure(p, fluid):
     return torch.where(fluid, torch.clamp_min(p, 0.0), 0.0)
 
 
-def face_update(cfg: SimConfig, p, u, v, fluid, solid, dt):
+def face_update(cfg: SimConfig, p, u, v, fluid, solid, dt, clamp_ny=None,
+                row_offset: int = 0):
     """The 3-way solid/fluid/air face velocity update (main.c:782-806)
     with the clamped pressure: the pressure difference is taken in p's
-    dtype (the solver's) and narrowed to the grid's."""
+    dtype (the solver's) and narrowed to the grid's.  `clamp_ny`,
+    `row_offset`: a row block's grid rows (`core/state.valid_region`)."""
     f = u.dtype
+    rows = (clamp_ny, row_offset)
     c = torch.full((), -1.0 / (cfg.density * cfg.side_length), dtype=f,
                    device=u.device)
     dtf = torch.as_tensor(dt, device=u.device).to(f)
-    u_keep = (valid_region(cfg, "u", u.device) & ~u_property(solid)
+    u_keep = (valid_region(cfg, "u", u.device, *rows) & ~u_property(solid)
               & u_property(fluid))
     dp_x = (shift_right(p) - p).to(f)
     u2 = torch.where(u_keep, u + (c * dp_x) * dtf, 0.0)
-    v_keep = (valid_region(cfg, "v", v.device) & ~v_property(solid)
+    v_keep = (valid_region(cfg, "v", v.device, *rows) & ~v_property(solid)
               & v_property(fluid))
     dp_y = (shift_up(p) - p).to(f)
     v2 = torch.where(v_keep, v + (c * dp_y) * dtf, 0.0)

@@ -1,5 +1,6 @@
 """Several scenario instances on one card (`batch`), the slot store's
-spatial form and row blocks (`spatial`), and ranks on
+spatial form and the frame on row blocks (`spatial`), and ranks on
 `torch.distributed`: the data axis (`mesh`), K1 per row shard and K2
-per data rank (`cuda_shard`), and spawned ranks with the dry run
-(`dryrun`)."""
+per data rank (`cuda_shard`), the sharded solve (`halo`), the
+collectives of blocks, ranks or threads of one process (`comm`), and
+spawned ranks with the dry run (`dryrun`)."""

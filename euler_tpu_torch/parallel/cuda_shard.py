@@ -7,9 +7,11 @@ needs every interior cell's arrivals, which come from at most one row
 away, marched with their own 3x3 stencils, whose u_property / v_property
 read one row more: so H = 2 rows of each neighbour would do, and H = 8
 are exchanged, as the JAX package exchanges them for its DMA windows.
-`exchange_rows` sends each rank's first and last H rows to the ranks
-below and above it (`dist.batch_isend_irecv` on the "y" group; zeros
-beyond the global edges, as the unsharded kernel reads beyond the plane).
+`exchange_rows` (`parallel/comm.py`) sends each rank's first and last H
+rows to the ranks below and above it (`dist.batch_isend_irecv` on the
+"y" group; zeros beyond the global edges, as the unsharded kernel reads
+beyond the plane); a block of an in-process `comm.LocalGroup` takes its
+neighbours' rows from them.
 K1 then runs unchanged on the padded [.., Yl + 2H, X] block, told where
 that block lies: `clamp_ny` = Y, the global row count of its
 interpolation clamps, and `row_offset` = r Yl - H, the global row of the
@@ -22,10 +24,9 @@ the unsharded K1 (tests/test_torch_shard.py on gloo ranks;
 `markers_slots.marker_pass_slots` that `sim.step_frame(...,
 marker_pass=)` takes: it sums `alive_count` and the new drops over "y"
 (the JAX package's sums run over the whole plane); the slots, counts and
-alive plane stay the rank's own rows.  The rest of a frame on row blocks
-(the grid stage and the sharded solve) is ROADMAP M12 part c, so
-`make_spatial_step_pallas` refuses; on a "y" of one rank the pass runs
-inside the ordinary frame.
+alive plane stay the rank's own rows.  `make_spatial_step_pallas` is the
+whole frame on row blocks (`parallel/spatial.py`), this pass included;
+on a "y" of one rank the pass also runs inside the ordinary frame.
 
 `make_dp_substep_mg` runs K2 (`ops/cuda/substep_kernel.py`) on the one
 instance each rank of the "data" dimension holds.
@@ -36,57 +37,16 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda.marker_fused_kernel import march_rebin
 from euler_tpu_torch.ops.cuda.substep_kernel import project_substep_mg
 from euler_tpu_torch.ops.markers_slots import finish_marker_pass
-from euler_tpu_torch.parallel.mesh import PART_C, WIRE, axis_size
+from euler_tpu_torch.parallel.comm import as_comm, exchange_rows
+from euler_tpu_torch.parallel.mesh import axis_size
 
 H = 8  # halo rows a side: >= 2 for the pass, 8 as the JAX package's
-
-
-def _neighbour(mesh: DeviceMesh, axis: str, step: int) -> int:
-    """The global rank `step` places along `axis` from this rank."""
-    coord = list(mesh.get_coordinate())
-    coord[mesh.mesh_dim_names.index(axis)] += step
-    return int(mesh.mesh[tuple(coord)])
-
-
-def exchange_rows(x: torch.Tensor, mesh: DeviceMesh, h: int,
-                  axis: str = "y"):
-    """(below, above): the `h` rows (along dim -2) that precede this
-    rank's block and the `h` that follow it, from the ranks before and
-    after it along `axis`; zeros at the global edges."""
-    n, r = axis_size(mesh, axis), mesh.get_local_rank(axis)
-    if x.shape[-2] < h:
-        raise ValueError(f"a block of {x.shape[-2]} rows has no {h} rows "
-                         "to send")
-    wire = WIRE.get(x.dtype)
-    w = x.view(wire) if wire else x
-    edge = w.shape[:-2] + (h, w.shape[-1])
-    below = torch.zeros(edge, dtype=w.dtype, device=w.device)
-    above = torch.zeros(edge, dtype=w.dtype, device=w.device)
-    group = mesh.get_group(axis)
-    ops = []
-    if r > 0:
-        prev = _neighbour(mesh, axis, -1)
-        ops += [dist.P2POp(dist.irecv, below, prev, group),
-                dist.P2POp(dist.isend, w[..., :h, :].contiguous(), prev,
-                           group)]
-    if r < n - 1:
-        nxt = _neighbour(mesh, axis, 1)
-        ops += [dist.P2POp(dist.isend, w[..., -h:, :].contiguous(), nxt,
-                           group),
-                dist.P2POp(dist.irecv, above, nxt, group)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    if wire:
-        return below.view(x.dtype), above.view(x.dtype)
-    return below, above
 
 
 def block_with_halo(x: torch.Tensor, n: int, r: int, h: int = H):
@@ -100,18 +60,21 @@ def block_with_halo(x: torch.Tensor, n: int, r: int, h: int = H):
                                     :].contiguous()
 
 
-def _padded(x, mesh: DeviceMesh, axis: str):
-    below, above = exchange_rows(x, mesh, H, axis)
+def padded(x, comm, h: int = H, axis: str = "y"):
+    """`x` with the `h` rows of each neighbour block before and after it
+    (zeros beyond the grid's edges)."""
+    below, above = comm.exchange(x, h, axis)
     return torch.cat([below, x, above], -2)
 
 
-def make_sharded_march_rebin(cfg: SimConfig, mesh: DeviceMesh,
-                             axis: str = "y"):
+def make_sharded_march_rebin(cfg: SimConfig, mesh, axis: str = "y"):
     """K1 on this rank's block of rows (`pallas_shard.py:65`).  Returns
     fn(u, v, fluid, solid, slots, dt, count, dead) -> (slots', count',
     drop) on the block: [.., Yl, X] planes, slots the [2K, Yl, X] view
-    of the store."""
-    n = axis_size(mesh, axis)
+    of the store.  `mesh`: a `DeviceMesh` or a block of an in-process
+    `comm.LocalGroup`."""
+    comm = as_comm(mesh)
+    n = comm.size(axis)
     Y = cfg.ny
     if Y % n:
         raise ValueError(f"{Y} rows do not split over {axis}={n}")
@@ -120,13 +83,13 @@ def make_sharded_march_rebin(cfg: SimConfig, mesh: DeviceMesh,
         raise ValueError(f"a block of {Yl} rows is shallower than the "
                          f"halo's {H}")
     cfg_local = dataclasses.replace(cfg, ny=Yl + 2 * H)
-    row_offset = mesh.get_local_rank(axis) * Yl - H
+    row_offset = comm.rank(axis) * Yl - H
 
     def march_rebin_block(u, v, fluid, solid, slots, dt, count, dead):
-        padded = [_padded(a, mesh, axis)
-                  for a in (u, v, fluid, solid, slots, count, dead)]
+        padded_ = [padded(a, comm, H, axis)
+                   for a in (u, v, fluid, solid, slots, count, dead)]
         oslots, ocount, odrop = march_rebin(
-            cfg_local, *padded[:5], dt, padded[5], dead=padded[6],
+            cfg_local, *padded_[:5], dt, padded_[5], dead=padded_[6],
             clamp_ny=Y, row_offset=row_offset)
         return (oslots[:, H:H + Yl].contiguous(),
                 ocount[H:H + Yl].contiguous(), odrop[H:H + Yl].contiguous())
@@ -134,15 +97,14 @@ def make_sharded_march_rebin(cfg: SimConfig, mesh: DeviceMesh,
     return march_rebin_block
 
 
-def make_sharded_marker_pass(cfg: SimConfig, mesh: DeviceMesh,
-                             axis: str = "y"):
+def make_sharded_marker_pass(cfg: SimConfig, mesh, axis: str = "y"):
     """A drop-in for `markers_slots.marker_pass_slots` running K1 per row
     shard (`pallas_shard.py:109`): pass it to `sim.step_frame(...,
     marker_pass=)`.  The scenario and state are this rank's block
     (`spatial.shard_spatial`); `alive_count` and the new drops are summed
     over `axis`."""
     kernel = make_sharded_march_rebin(cfg, mesh, axis)
-    group = mesh.get_group(axis)
+    comm = as_comm(mesh)
 
     def marker_pass(cfg_: SimConfig, scn, state, dt, defer_alive=False):
         if cfg_ != cfg:
@@ -159,19 +121,26 @@ def make_sharded_marker_pass(cfg: SimConfig, mesh: DeviceMesh,
                                  defer_alive)
         sums = torch.stack([count.sum(dtype=torch.int32),
                             drop.sum(dtype=torch.int32)])
-        dist.all_reduce(sums, group=group)
+        comm.all_reduce(sums, "sum", (axis,))
         return out.replace(alive_count=sums[0],
                            dropped_markers=state.dropped_markers + sums[1])
 
     return marker_pass
 
 
-def make_spatial_step_pallas(cfg: SimConfig, mesh: DeviceMesh,
-                             axis: str = "y"):
+def make_spatial_step_pallas(cfg: SimConfig, mesh, axis: str = "y"):
     """The JAX package's frame on row blocks with the sharded marker pass
-    (`pallas_shard.py:133`): its grid stage and solve on row blocks are
-    ROADMAP M12 part c.  Raises NotImplementedError."""
-    raise NotImplementedError(f"make_spatial_step_pallas: {PART_C}")
+    (`pallas_shard.py:133`): fn(scn, state) -> state on this rank's
+    block.  The JAX step runs K1 per shard and solves on its XLA path
+    (pallas_shard.py:150-154, the jnp `pcg_loop` under GSPMD); the port's
+    is `spatial.make_spatial_step`, whose marker pass is this module's
+    K1 per row shard, its grid stage K7 and its solve P4 on the blocks.
+    Row blocks only ("y"; x = 1)."""
+    if axis != "y":
+        raise ValueError(f"row blocks split 'y', not {axis!r}")
+    from euler_tpu_torch.parallel.spatial import make_spatial_step
+
+    return make_spatial_step(cfg, mesh)
 
 
 def make_dp_substep_mg(cfg: SimConfig, mesh: DeviceMesh, axis: str = "data"):

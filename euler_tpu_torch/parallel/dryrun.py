@@ -14,11 +14,23 @@ dict of arrays, which `launch` hands back one dict a rank.  A rank that
 fails, or a run that outlasts LAUNCH_TIMEOUT_S, ends every rank and
 raises.
 
-`dryrun_multichip` runs the JAX dry run's paths (data-only mesh for the
-batch and the data-parallel K2, a "y"-only mesh at nx = 128 for the
-marker pass) and asserts what it asserts, and more: each sharded result
-equals its unsharded counterpart on the same rank, bit for bit.  The
-spatial step on a ("y", "x") mesh is ROADMAP M12 part c.
+`dryrun_multichip` runs the JAX dry run's paths (`__graft_entry__.py:
+26`) and asserts what it asserts, and more:
+  1. the batch on `make_mesh`'s own layout (data = 2, y = 2 at 4 ranks):
+     `make_sharded_step` steps each data rank's instances on its rows;
+  2. `spatial.make_spatial_step`, the whole frame on row blocks;
+  3. `cuda_shard.make_spatial_step_pallas` at nx = 128;
+  4. K1 per row shard (`make_sharded_marker_pass`), bitwise the
+     unsharded K1;
+  5. the data-parallel K2 on a data-only mesh, bitwise
+     `project_substep_mg`.
+Paths 1-3 are held to the unsharded frames (counts, alive and drops
+equal, u and v within FRAME_ATOL: the solve on blocks, P4, folds its
+sums in another order than K8).  Where the JAX run differs: its path 1
+keeps the global marker layout, whose [2, M] store the port does not
+split by rows, so path 1 runs the slot layout; a row block holds at
+least the marker pass's 8 halo rows, so the grids have 8 rows a block;
+and paths 1 and 2 stay on x = 1 (column blocks are ROADMAP M12 part d).
 """
 
 from __future__ import annotations
@@ -122,8 +134,25 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+# how far the frames on row blocks may stray from the unsharded frames in
+# u and v (the counts, alive plane and drops must be equal)
+FRAME_ATOL = 1e-4
+
+
+def _close_frames(got, want, what: str) -> None:
+    import torch
+
+    for name in ("marker_count", "alive", "alive_count", "dropped_markers",
+                 "frame_count"):
+        _check(torch.equal(getattr(got, name), getattr(want, name)),
+               f"{what}: {name} differs from the unsharded frames")
+    for name in ("u", "v"):
+        d = float((getattr(got, name) - getattr(want, name)).abs().max())
+        _check(d <= FRAME_ATOL, f"{what}: {name} off by {d:.3g}")
+
+
 def _dryrun_rank(n: int, backend: str) -> dict:
-    """The dry run's three paths on this rank; returns its figures."""
+    """The dry run's five paths on this rank; returns its figures."""
     import torch
 
     from euler_tpu_torch import sim
@@ -137,6 +166,7 @@ def _dryrun_rank(n: int, backend: str) -> dict:
     from euler_tpu_torch.parallel.cuda_shard import (
         make_dp_substep_mg,
         make_sharded_marker_pass,
+        make_spatial_step_pallas,
     )
     from euler_tpu_torch.parallel.mesh import (
         all_gather_cat,
@@ -148,32 +178,54 @@ def _dryrun_rank(n: int, backend: str) -> dict:
     )
     from euler_tpu_torch.parallel.spatial import (
         gather_spatial,
+        make_spatial_step,
         shard_spatial,
         spatial_mesh,
+        to_spatial,
     )
 
     device = BACKEND_DEVICE[backend]
-    # 1. the data axis: a batch of distinct scenarios (sources, solids),
-    # one instance a rank, each rank stepping its own
-    dmesh = make_mesh(n, data=n, device=device)
-    dev = mesh_device(dmesh)
-    cfg = SimConfig(nx=16, ny=8, max_substeps=2,
+    # 1. the batch on make_mesh's own layout (data x y): distinct scenarios
+    # (sources, solids), each data rank stepping its instances on its rows
+    mesh = make_mesh(n, device=device)
+    data, ys = mesh.mesh.shape[0], mesh.mesh.shape[1]
+    dev = mesh_device(mesh)
+    cfg = SimConfig(nx=16, ny=8 * ys, max_substeps=2, marker_layout="slots",
                     solver=SolverConfig(max_iterations=8))
-    texts = _texts(max(2, n), cfg.nx)
+    texts = _texts(max(2, data), cfg.nx)
     scn, st = build_batch(texts, cfg, device=dev)
-    out = gather_batch(dmesh, make_sharded_step(cfg, dmesh)(
-        *shard_batch(dmesh, scn, st)))
+    out = gather_batch(mesh, make_sharded_step(cfg, mesh)(
+        *shard_batch(mesh, scn, st)))
     ref = step_frame_batched(cfg, scn, st)
-    _check(int(out.frame_count.sum()) == len(texts), "data axis: frames")
-    for name in ("u", "v", "markers", "alive", "marker_count", "rng"):
-        _check(torch.equal(getattr(out, name), getattr(ref, name)),
-               f"data axis: {name} differs from the unsharded batch")
+    _check(int(out.frame_count.sum()) == len(texts), "batch: frames")
+    _close_frames(out, ref, f"batch on data={data} x y={ys}")
 
-    # 2. K1 per row shard on a "y"-only mesh, nx = 128 as the JAX run's
+    # 2. the whole frame on row blocks (the JAX run's smesh, x = 1)
+    smesh = spatial_mesh(n, x=1, device=device)
+    cfg_s = SimConfig(nx=16, ny=8 * n, marker_layout="slots",
+                      max_substeps=2, solver=SolverConfig(max_iterations=8))
+    scn_s, st_s = build_scenario(texts[0], cfg_s, device=dev)
+    out_s = gather_spatial(cfg_s, smesh, make_spatial_step(cfg_s, smesh)(
+        *shard_spatial(cfg_s, smesh, scn_s, st_s)))
+    _check(int(out_s.frame_count) == 1 and int(out_s.alive_count) > 0,
+           "spatial step: no frame or no marker alive")
+    _close_frames(out_s, sim.step_frame(cfg_s, scn_s, to_spatial(cfg_s,
+                                                                 st_s)),
+                  "spatial step")
+
+    # 3. the frame on row blocks with the row-sharded K1, nx = 128 as the
+    # JAX run's
     pmesh = spatial_mesh(n, x=1, device=device)
     cfg_p = SimConfig(nx=128, ny=max(8 * n, 16), marker_layout="slots",
                       max_substeps=2, solver=SolverConfig(max_iterations=8))
     scn2, st2 = build_scenario(texts[0], cfg_p, device=dev)
+    out_p = gather_spatial(cfg_p, pmesh, make_spatial_step_pallas(
+        cfg_p, pmesh)(*shard_spatial(cfg_p, pmesh, scn2, st2)))
+    _check(int(out_p.frame_count) == 1 and int(out_p.alive_count) > 0,
+           "pallas step: no frame or no marker alive")
+    _close_frames(out_p, sim.step_frame(cfg_p, scn2, st2), "pallas step")
+
+    # 4. K1 per row shard on the "y"-only mesh
     st2 = sim.step_frame(cfg_p, scn2, st2)
     dt = sim._dt_from_msq(cfg_p, max_speed_sq(cfg_p, st2.u, st2.v),
                           torch.full((), cfg_p.frame_time, device=dev))
@@ -187,7 +239,9 @@ def _dryrun_rank(n: int, backend: str) -> dict:
                f"marker pass: {name} differs from the unsharded K1")
     _check(int(got.alive_count) > 0, "marker pass: no marker alive")
 
-    # 3. K2 on one instance a rank (replicated: every rank the same)
+    # 5. K2 on one instance a rank of a data-only mesh (replicated: every
+    # rank the same)
+    dmesh = make_mesh(n, data=n, device=device)
     cfg_f = SimConfig(nx=64, ny=64, marker_layout="slots",
                       solver=SolverConfig(max_iterations=16,
                                           preconditioner="mg", tol_rel=1e-3,
@@ -206,18 +260,28 @@ def _dryrun_rank(n: int, backend: str) -> dict:
            "dp substep: differs from project_substep_mg")
     _check(int(iters[0]) > 0 and float(msq[0]) > 0.0, "dp substep: idle")
     return {"batch": len(texts), "frames": int(out.frame_count.sum()),
+            "layout": torch.tensor(mesh.mesh.shape),
+            "spatial_alive": int(out_s.alive_count),
+            "pallas_alive": int(out_p.alive_count),
             "alive_count": int(got.alive_count),
             "dropped": int(got.dropped_markers), "iters": int(iters[0]),
             "msq": float(msq[0])}
 
 
 def dryrun_multichip(n: int, backend: str = "gloo") -> list[dict]:
-    """The three paths on n ranks; prints one line a path and returns
+    """The five paths on n ranks; prints one line a path and returns
     each rank's figures."""
     results = launch(n, backend, _dryrun_rank, n, backend)
     r0 = results[0]
-    print(f"data axis: {int(r0['batch'])} instances over data={n}, "
-          f"{int(r0['frames'])} frames, bitwise the unsharded batch")
+    data, ys, _ = (int(v) for v in r0["layout"])
+    print(f"batch: {int(r0['batch'])} instances over data={data} x "
+          f"y={ys}, {int(r0['frames'])} frames, the unsharded batch's "
+          "counts")
+    print(f"spatial step: 16 x {8 * n} on {n} row blocks, alive_count "
+          f"{int(r0['spatial_alive'])}, the unsharded frame's counts")
+    print(f"pallas step: 128 x {max(8 * n, 16)} on {n} row blocks, "
+          f"alive_count {int(r0['pallas_alive'])}, the unsharded frame's "
+          "counts")
     print(f"marker pass: K1 on {n} row shards of 128 x {max(8 * n, 16)}, "
           f"alive_count {int(r0['alive_count'])}, dropped "
           f"{int(r0['dropped'])}, bitwise the unsharded K1")

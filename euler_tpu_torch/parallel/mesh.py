@@ -12,10 +12,11 @@ process group (`dryrun.launch` does so; nothing here picks a backend).
 Each rank holds its own slice of the batch (`shard_batch`) and steps it
 with `parallel/batch.step_frame_batched`: the instances are independent,
 so the step needs no communication.  `gather_batch` all-gathers the
-slices over "data" for checks.  A mesh whose "y" or "x" dimension is
-larger than 1 would also split each instance's grid over rows, which
-needs the sharded solve (ROADMAP M12 part c): `make_sharded_step`
-refuses it rather than replicate the grid.
+slices over "data" for checks.  On a mesh whose "y" dimension is larger
+than 1 each rank also holds only its block of rows of every instance,
+and `make_sharded_step` steps each instance of its slice with the frame
+on row blocks (`parallel/spatial.RowBlocks`, the slot layout); column
+blocks (x > 1) are ROADMAP M12 part d.
 """
 
 from __future__ import annotations
@@ -34,8 +35,7 @@ from euler_tpu_torch.parallel.batch import step_frame_batched
 AXES = ("data", "y", "x")
 # the backend each device kind runs on; the caller initialises it
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
-PART_C = ("sharding the grid over rows needs the sharded solve, ROADMAP "
-          "M12 part c (halo.py's PCG, make_spatial_step), not yet ported")
+PART_D = "ROADMAP M12 part d"
 
 
 def world(world_size: int | None, device: str) -> int:
@@ -98,39 +98,97 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device("cpu")
 
 
+# the fields whose last two dimensions are the grid's rows and columns
+STATE_PLANES = ("u", "v", "r", "g", "b", "markers", "alive", "marker_count",
+                "prev_marker_count", "p")
+SCENARIO_PLANES = ("solid", "source", "sink")
+
+
 def _slice(batch, lo: int, hi: int, device):
-    return type(batch)(**{
-        f.name: getattr(batch, f.name)[lo:hi].to(device).contiguous()
-        for f in dataclasses.fields(batch)})
+    return type(batch)(**{f.name: getattr(batch, f.name)[lo:hi].to(device)
+                          .contiguous() for f in dataclasses.fields(batch)})
+
+
+def block_rows(ny: int, n: int, r: int) -> tuple[int, int]:
+    """(first row, rows) of block r of a grid of `ny` rows split evenly
+    into n blocks."""
+    if ny % n:
+        raise ValueError(f"{ny} rows do not split over y={n}")
+    return r * (ny // n), ny // n
+
+
+def cut_rows(x, fields, lo: int, hi: int, device):
+    """`x` with rows [lo, hi) of each of its `fields` ([.., Y, X] planes),
+    those on `device`: the one row cut of `shard_batch` and
+    `spatial.shard_spatial`."""
+    return dataclasses.replace(x, **{
+        name: getattr(x, name)[..., lo:hi, :].to(device).contiguous()
+        for name in fields})
+
+
+def gather_rows(state: FluidState, gather) -> FluidState:
+    """`state` with the row blocks of each plane put together in row
+    order by `gather(t, dim)` (a `Comm`'s, or an all-gather over "y"):
+    the one row gather of `gather_batch` and `spatial.gather_spatial`."""
+    return state.replace(**{name: gather(getattr(state, name), -2)
+                            for name in STATE_PLANES})
 
 
 def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
     """This rank's slice of a stacked batch (`parallel/batch.py`):
     instances [d B/D, (d+1) B/D) for its coordinate d of the D along
-    "data", on its device.  B must divide by D, as in the JAX package."""
+    "data", on its device, and on a mesh with y > 1 its block of rows of
+    each (the slot store as [B, 2, K, Yl, X]).  B must divide by D, as
+    in the JAX package."""
     n, d = axis_size(mesh, "data"), mesh.get_local_rank("data")
     B = state.u.shape[0]
     if B % n:
         raise ValueError(f"a batch of {B} does not split over data={n}")
     b = B // n
     dev = mesh_device(mesh)
-    return (_slice(scn, d * b, (d + 1) * b, dev),
-            _slice(state, d * b, (d + 1) * b, dev))
+    ny = axis_size(mesh, "y")
+    if ny > 1 and state.markers.ndim != 5:
+        raise NotImplementedError(
+            "a batch on row blocks needs the slot layout's spatial store "
+            f"[B, 2, K, Y, X]; the global layout on row blocks is {PART_D}")
+    scn = _slice(scn, d * b, (d + 1) * b, dev)
+    state = _slice(state, d * b, (d + 1) * b, dev)
+    if ny > 1:
+        lo, rows = block_rows(state.u.shape[-2], ny,
+                              mesh.get_local_rank("y"))
+        scn = cut_rows(scn, SCENARIO_PLANES, lo, lo + rows, dev)
+        state = cut_rows(state, STATE_PLANES, lo, lo + rows, dev)
+    return scn, state
 
 
 def make_sharded_step(cfg: SimConfig, mesh: DeviceMesh):
-    """One frame of this rank's slice of the batch (`step_frame_batched`
-    on it).  Raises NotImplementedError on a mesh with "y" or "x" larger
-    than 1: the JAX step then also shards each grid's rows, which is
-    ROADMAP M12 part c."""
-    if axis_size(mesh, "y") * axis_size(mesh, "x") > 1:
-        raise NotImplementedError(f"make_sharded_step on a mesh of shape "
-                                  f"{tuple(mesh.shape)}: {PART_C}")
+    """One frame of this rank's slice of the batch: `step_frame_batched`
+    on it, or on a mesh with y > 1 each instance's frame on this rank's
+    rows (`spatial.RowBlocks` over "y", which refuses what it does not
+    run).  Raises NotImplementedError on a mesh with x > 1 (column
+    blocks, ROADMAP M12 part d)."""
+    if axis_size(mesh, "x") > 1:
+        raise NotImplementedError(
+            f"make_sharded_step on a mesh of shape {tuple(mesh.shape)}: "
+            f"column blocks (x > 1) are {PART_D}")
+    if axis_size(mesh, "y") == 1:
+        def step(scn: Scenario, state: FluidState) -> FluidState:
+            return step_frame_batched(cfg, scn, state)
 
-    def step(scn: Scenario, state: FluidState) -> FluidState:
-        return step_frame_batched(cfg, scn, state)
+        return step
 
-    return step
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.parallel.batch import instance, stack
+    from euler_tpu_torch.parallel.spatial import RowBlocks
+
+    blocks = RowBlocks(cfg, mesh)
+
+    def step_rows(scn: Scenario, state: FluidState) -> FluidState:
+        return stack([sim.step_frame(cfg, instance(scn, i),
+                                     instance(state, i), blocks=blocks)
+                      for i in range(state.u.shape[0])])
+
+    return step_rows
 
 
 # the dtypes the collectives carry a tensor of these as: NCCL has no
@@ -151,8 +209,10 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def gather_batch(mesh: DeviceMesh, state: FluidState) -> FluidState:
     """The whole batch on every rank: each rank's slice all-gathered over
-    "data", in instance order."""
-    group = mesh.get_group("data")
-    return FluidState(**{
-        f.name: all_gather_cat(getattr(state, f.name), group, 0)
-        for f in dataclasses.fields(state)})
+    "data", in instance order (and its rows over "y", in row order)."""
+    if axis_size(mesh, "y") > 1:
+        state = gather_rows(state, lambda t, dim: all_gather_cat(
+            t, mesh.get_group("y"), dim))
+    return FluidState(**{f.name: all_gather_cat(getattr(state, f.name),
+                                                mesh.get_group("data"), 0)
+                         for f in dataclasses.fields(state)})

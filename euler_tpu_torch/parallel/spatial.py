@@ -1,4 +1,4 @@
-"""The slot store's two forms and the row mesh
+"""The slot store's two forms, the row mesh, and the frame on row blocks
 (`euler_tpu/parallel/spatial.py`).
 
 The port keeps the slot store as spatial planes, positions [2, K, Y, X]
@@ -10,34 +10,72 @@ is the same memory.  `to_spatial` and `to_flat` reshape between the two.
 and `shard_spatial` gives each rank its block of rows of every
 [.., Y, X] plane, the slot planes included (spatial.py:80-110); scalars
 and the source list stay whole on every rank.  `gather_spatial` puts
-the blocks back together.  Only meshes with x = 1 are split here: the
-marker pass runs on such blocks (`parallel/cuda_shard.py`), and the
-frame step on them, `make_spatial_step`, needs the sharded solve (ROADMAP
-M12 part c).
+the blocks back together.  A block is a rank of a `DeviceMesh` or a
+block of an in-process `comm.LocalGroup` (one card playing n blocks).
+
+`make_spatial_step` is the frame on row blocks (spatial.py:113, which
+the JAX package leaves to GSPMD): `RowBlocks`, through
+`sim.step_frame(..., blocks=)`.  One substep on rank r's rows
+[r Yl, (r+1) Yl):
+  * the marker pass: K1 per row shard (`cuda_shard`), alive_count and
+    the drops summed over the blocks;
+  * the sources: S1 per row block.  Whether a source emits depends on its
+    cell's count and on alive_count, and the RNG advances only when it
+    emits, so the [S] counts of the source cells are all-reduced (each
+    block fills its own rows' entries), every block walks every source
+    with the same RNG, and each writes only its own rows;
+  * the grid stage: K7 on the block padded with H = 8 rows of u, v,
+    fluid, prev_fluid and solid from each neighbour, told the grid's
+    rows (`clamp_ny`, `row_offset`), the halo cropped;
+  * the projection, as `ops/project.project` on the block padded with
+    one row (the RHS reads v of the row below, a_diag solid on both
+    sides, the face update p of the row above): the solve is P4
+    (`halo.make_sharded_pressure_solver`, cfg.solver, warm-started from
+    the state's pressure as `project()` is);
+  * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
+    dt, `active` and the frame's counts are the same on every block.
+Refused, each naming its ROADMAP item (M12 part d): column blocks
+(x > 1), the MG and IC(0) preconditioners (the JAX spatial step runs a
+global MG cycle and a global IC(0) sweep under GSPMD, not P4's block
+ones), rainbow colour and the global marker layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from euler_tpu_torch import sim
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
+from euler_tpu_torch.ops.cuda import grid_kernel
+from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
+from euler_tpu_torch.ops.forces import max_speed_sq_parts
+from euler_tpu_torch.ops.project import (
+    clamp_pressure,
+    divergence_rhs,
+    face_update,
+    pressure_matrix_diag,
+)
+from euler_tpu_torch.parallel.comm import as_comm
+from euler_tpu_torch.parallel.cuda_shard import (
+    H,
+    make_sharded_marker_pass,
+    padded,
+)
+from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
 from euler_tpu_torch.parallel.mesh import (
-    PART_C,
-    all_gather_cat,
-    axis_size,
-    mesh_device,
+    PART_D,
+    SCENARIO_PLANES,
+    STATE_PLANES,
+    block_rows,
+    cut_rows,
+    gather_rows,
     square_factor,
     world,
 )
-
-# the fields whose last two dimensions are the grid's rows and columns
-STATE_PLANES = ("u", "v", "r", "g", "b", "markers", "alive", "marker_count",
-                "prev_marker_count", "p")
-SCENARIO_PLANES = ("solid", "source", "sink")
-
 
 def to_spatial(cfg: SimConfig, state: FluidState) -> FluidState:
     """Re-view flat [2, M] slot markers as spatial planes [2, K, Y, X]; a
@@ -74,23 +112,15 @@ def spatial_mesh(world_size: int | None = None, x: int | None = None,
     return init_device_mesh(device, (n // x, x), mesh_dim_names=("y", "x"))
 
 
-def row_block(cfg: SimConfig, mesh: DeviceMesh) -> tuple[int, int]:
+def row_block(cfg: SimConfig, mesh) -> tuple[int, int]:
     """(first row, rows) of this rank's block: the grid's rows split
     evenly over "y".  Raises on a mesh that also splits columns."""
-    if axis_size(mesh, "x") > 1:
-        raise NotImplementedError(f"column blocks (x = "
-                                  f"{axis_size(mesh, 'x')}): {PART_C}")
-    n = axis_size(mesh, "y")
-    if cfg.ny % n:
-        raise ValueError(f"{cfg.ny} rows do not split over y={n}")
-    rows = cfg.ny // n
-    return mesh.get_local_rank("y") * rows, rows
-
-
-def _rows(x, fields, lo: int, hi: int, device):
-    return dataclasses.replace(x, **{
-        name: getattr(x, name)[..., lo:hi, :].to(device).contiguous()
-        for name in fields})
+    comm = as_comm(mesh)
+    if comm.size("x") > 1:
+        raise NotImplementedError(
+            f"column blocks (x = {comm.size('x')}): the marker pass, the "
+            f"grid stage and the slot planes on column blocks are {PART_D}")
+    return block_rows(cfg.ny, comm.size("y"), comm.rank("y"))
 
 
 def shard_spatial(cfg: SimConfig, mesh: DeviceMesh, scn: Scenario,
@@ -100,23 +130,145 @@ def shard_spatial(cfg: SimConfig, mesh: DeviceMesh, scn: Scenario,
     [2, K, Yl, X] and [K, Yl, X]; scalars, the RNG and the source list
     whole (sources keep their global cells)."""
     lo, rows = row_block(cfg, mesh)
-    dev = mesh_device(mesh)
+    dev = as_comm(mesh).device
     state = to_spatial(cfg, state)
-    scn = _rows(scn, SCENARIO_PLANES, lo, lo + rows, dev)
+    scn = cut_rows(scn, SCENARIO_PLANES, lo, lo + rows, dev)
     scn = dataclasses.replace(scn, source_yx=scn.source_yx.to(dev),
                               source_valid=scn.source_valid.to(dev))
-    state = _rows(state, STATE_PLANES, lo, lo + rows, dev)
+    state = cut_rows(state, STATE_PLANES, lo, lo + rows, dev)
     return scn, state.replace(**{
         f.name: getattr(state, f.name).to(dev)
         for f in dataclasses.fields(state) if f.name not in STATE_PLANES})
 
 
-def gather_spatial(cfg: SimConfig, mesh: DeviceMesh, state: FluidState):
+def gather_spatial(cfg: SimConfig, mesh, state: FluidState):
     """Inverse of `shard_spatial` for the state: every rank's block
     all-gathered over "y", in row order, on every rank; the scalars are
     this rank's (the same on every rank)."""
     row_block(cfg, mesh)
-    group = mesh.get_group("y")
-    return state.replace(**{
-        name: all_gather_cat(getattr(state, name), group, -2)
-        for name in STATE_PLANES})
+    comm = as_comm(mesh)
+    return gather_rows(state, comm.gather)
+
+
+def check_row_frame(cfg: SimConfig) -> None:
+    """Raise NotImplementedError for what the frame on row blocks does not
+    run, naming its ROADMAP item."""
+    if cfg.marker_layout != "slots":
+        raise NotImplementedError(
+            "the global marker layout on row blocks: its [2, M] store is in "
+            f"marker order, not rows; {PART_D}")
+    if cfg.rainbow:
+        raise NotImplementedError(
+            "rainbow colour on row blocks (the colours' extrapolation and "
+            f"advection on the padded block): {PART_D}")
+    kind = cfg.solver.preconditioner
+    if kind in ("mg", "ic0"):
+        raise NotImplementedError(
+            f"the {kind!r} preconditioner in the frame on row blocks: the "
+            "JAX spatial step runs a global MG cycle (IC(0) sweep) under "
+            f"GSPMD, not P4's block-local one; {PART_D}")
+
+
+class RowBlocks:
+    """The frame on this block of rows (see the top of this module): pass
+    it to `sim.step_frame(cfg, scn, state, blocks=)` with the block's
+    scenario and state (`shard_spatial`).  `mesh`: a `DeviceMesh` (its
+    "y" dimension; x = 1) or a block of an in-process `LocalGroup`."""
+
+    def __init__(self, cfg: SimConfig, mesh):
+        check_row_frame(cfg)
+        self.cfg = cfg
+        self.comm = as_comm(mesh)
+        self.lo, self.rows = row_block(cfg, self.comm)
+        if self.rows < H:
+            raise ValueError(f"a block of {self.rows} rows is shallower "
+                             f"than the halo's {H}")
+        self.marker_pass = make_sharded_marker_pass(cfg, self.comm)
+        self.solve = make_sharded_pressure_solver(cfg, self.comm, ("y",),
+                                                  stats=True)
+        self.cfg_block = dataclasses.replace(cfg, ny=self.rows)
+        self.cfg_h = dataclasses.replace(cfg, ny=self.rows + 2 * H)
+        self.cfg_1 = dataclasses.replace(cfg, ny=self.rows + 2)
+
+    def max_speed_sq(self, cfg: SimConfig, u, v):
+        """`max_speed_sq` of the whole grid: the block's u and v maxima,
+        each all-reduced (max), summed."""
+        parts = torch.stack(max_speed_sq_parts(
+            self.cfg_block, u, v, clamp_ny=cfg.ny, row_offset=self.lo))
+        self.comm.all_reduce(parts, "max")
+        return parts[0] + parts[1]
+
+    def sources(self, cfg: SimConfig, scn: Scenario, state: FluidState,
+                active):
+        """S1 on the block: the source cells' counts all-reduced first."""
+        ly = scn.source_yx[:, 0].long() - self.lo
+        mine = scn.source_valid & (ly >= 0) & (ly < self.rows)
+        cells = state.marker_count[ly.clamp(0, self.rows - 1),
+                                   scn.source_yx[:, 1].long()]
+        counts = torch.where(mine, cells, 0).to(torch.int32)
+        self.comm.all_reduce(counts, "sum")
+        emit_sources(cfg, scn, state, active, row_offset=self.lo,
+                     counts=counts)
+        return state
+
+    def project(self, cfg: SimConfig, dt, u, v, fluid, fluid1, solid1, p0):
+        """`ops/project.project` on the block: fluid1, solid1 the block's
+        masks with one row of each neighbour's.  Returns (u', v',
+        pressure, iterations)."""
+        def one(a):
+            z = torch.zeros_like(a[:1])
+            return torch.cat([z, a, z], 0)
+
+        below, _ = self.comm.exchange(v, 1)
+        v1 = torch.cat([below, v, torch.zeros_like(below)], 0)
+        b = divergence_rhs(self.cfg_1, one(u), v1, fluid1, dt)[1:-1]
+        a_diag = pressure_matrix_diag(self.cfg_1, solid1, fluid1)[1:-1]
+        x0 = None
+        if cfg.solver.warm_start:
+            x0 = torch.where(fluid, p0, 0.0).to(b.dtype)
+        p, iters, _resid = self.solve(b.contiguous(), a_diag.contiguous(),
+                                      fluid, x0)
+        p = clamp_pressure(p, fluid)
+        p_below, p_above = self.comm.exchange(p, 1)
+        u1, v1 = face_update(self.cfg_1, torch.cat([p_below, p, p_above], 0),
+                             one(u), one(v), fluid1, solid1, dt,
+                             clamp_ny=cfg.ny, row_offset=self.lo - 1)
+        return u1[1:-1].contiguous(), v1[1:-1].contiguous(), p, iters
+
+    def substep(self, cfg: SimConfig, scn: Scenario, state: FluidState, dt,
+                dt_proj, defer_alive: bool = False, active=None):
+        """`sim.substep` on the block (`sim._step_frame_impl` calls it)."""
+        if cfg != self.cfg:
+            raise ValueError("the row blocks were made for another "
+                             "configuration")
+        state = self.marker_pass(cfg, scn, state, dt,
+                                 defer_alive=defer_alive)
+        if scn.num_sources:
+            state = self.sources(cfg, scn, state, active)
+        fluid = state.fluid
+        pad = [padded(a, self.comm) for a in
+               (state.u, state.v, fluid, state.prev_fluid, scn.solid)]
+        ut, vt = grid_kernel.grid_stage(self.cfg_h, *pad, dt,
+                                        clamp_ny=cfg.ny,
+                                        row_offset=self.lo - H)
+        keep = slice(H, H + self.rows)
+        one = slice(H - 1, H + self.rows + 1)
+        u2, v2, p, iters = self.project(
+            cfg, dt_proj, ut[keep].contiguous(), vt[keep].contiguous(), fluid,
+            pad[2][one], pad[4][one], state.p)
+        msq = self.max_speed_sq(cfg, u2, v2)
+        return (state.replace(u=u2, v=v2, p=p.to(state.p.dtype)), msq,
+                iters)
+
+
+def make_spatial_step(cfg: SimConfig, mesh):
+    """One frame of the full pipeline on this rank's block of rows
+    (spatial.py:113): fn(scn, state) -> state on the blocks
+    `shard_spatial` gives.  `mesh`: a ("y", "x") `DeviceMesh` with x = 1,
+    or a block of an in-process `LocalGroup`."""
+    blocks = RowBlocks(cfg, mesh)
+
+    def step(scn: Scenario, state: FluidState) -> FluidState:
+        return sim.step_frame(cfg, scn, state, blocks=blocks)
+
+    return step

@@ -36,7 +36,11 @@ A substep is the marker pass `marker_route` names: in the global layout
 `marker_pass_slots`'s contract (slot layout only), as the JAX package's
 does (sim.py:82-112, 234-236): `parallel/cuda_shard.py`'s row-sharded K1
 is one.  It takes the fused passes' deferred alive plane and never the
-padded store.
+padded store.  `step_frame(..., blocks=)` runs each substep as
+`blocks.substep` and takes the frame's speeds from
+`blocks.max_speed_sq`: `parallel/spatial.RowBlocks`, the frame on a
+rank's block of rows, whose every grid operation runs on its rows and
+whose frame-level values are all-reduced over the blocks.
 With sources, S1 then emits (in place on tensors the frame owns: on the
 slot routes `step_frame` copies the fields it carries from its input
 once; in the global layout, where an inactive substep's marker pass is
@@ -270,7 +274,7 @@ def _dt_from_msq(cfg: SimConfig, msq, frame_time):
 
 
 def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
-                     marker_pass=None):
+                     marker_pass=None, blocks=None):
     """One frame.  Returns (state, stats) with stats the device tensors
     `n_active` (active substeps), `pcg_iters` (PCG iterations summed
     over the active substeps) and `pcg_iters_max` (the most one active
@@ -284,8 +288,11 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
                          "pass; the global layout has none to replace")
     # only the fused slot passes (and a given one, JAX sim.py:266-269)
     # leave the alive plane to the frame's end
-    defer_alive = fast and (cfg.fuse_marker_pass or marker_pass is not None)
-    padded_store = marker_route(cfg, scn) == "K4" and marker_pass is None
+    defer_alive = fast and (cfg.fuse_marker_pass or marker_pass is not None
+                            or blocks is not None)
+    padded_store = (marker_route(cfg, scn) == "K4" and marker_pass is None
+                    and blocks is None)
+    speeds = max_speed_sq if blocks is None else blocks.max_speed_sq
     if padded_store:
         state = state.replace(markers=pad_slot_store(cfg, state.markers))
     if scn.num_sources and fast:
@@ -296,7 +303,7 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
             name: getattr(state, name).clone()
             for name in ("r", "g", "b", "alive", "rng", "source_exhausted")})
     frame_time = torch.full((), cfg.frame_time, dtype=f, device=dev)
-    msq = max_speed_sq(cfg, state.u, state.v)
+    msq = speeds(cfg, state.u, state.v)
     n_active = torch.zeros((), dtype=torch.int32, device=dev)
     pcg_iters = torch.zeros((), dtype=torch.int32, device=dev)
     pcg_iters_max = torch.zeros((), dtype=torch.int32, device=dev)
@@ -308,9 +315,14 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
         dt = torch.where(active, _dt_from_msq(cfg, msq, frame_time),
                          0.0 if fast else 1.0)
         dt_proj = torch.where(active, dt, torch.inf)
-        new, new_msq, iters = substep(cfg, scn, state, dt, dt_proj,
-                                      defer_alive=defer_alive,
-                                      active=active, marker_pass=marker_pass)
+        if blocks is None:
+            new, new_msq, iters = substep(
+                cfg, scn, state, dt, dt_proj, defer_alive=defer_alive,
+                active=active, marker_pass=marker_pass)
+        else:
+            new, new_msq, iters = blocks.substep(
+                cfg, scn, state, dt, dt_proj, defer_alive=defer_alive,
+                active=active)
 
         def sel(name):
             a, b = getattr(new, name), getattr(state, name)
@@ -346,10 +358,10 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
 
 
 def step_frame(cfg: SimConfig, scn: Scenario, state: FluidState,
-               marker_pass=None) -> FluidState:
-    """One frame; `marker_pass` replaces the slot layout's marker pass
-    (see the top of this module)."""
-    return _step_frame_impl(cfg, scn, state, marker_pass)[0]
+               marker_pass=None, blocks=None) -> FluidState:
+    """One frame; `marker_pass` replaces the slot layout's marker pass,
+    `blocks` steps a block of rows (see the top of this module)."""
+    return _step_frame_impl(cfg, scn, state, marker_pass, blocks)[0]
 
 
 def step_frame_stats(cfg: SimConfig, scn: Scenario, state: FluidState):

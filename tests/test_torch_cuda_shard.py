@@ -1,5 +1,6 @@
-"""K1 on row shards (`euler_tpu_torch/parallel/cuda_shard.py`) on the
-card, and the port's dry run on one NCCL rank.
+"""K1 on row shards (`euler_tpu_torch/parallel/cuda_shard.py`), the frame
+on row blocks' kernels (K7 and S1 per row block, P4) on the card, and the
+port's dry run on one NCCL rank.
 
 A card holds every shard of a plane here: shard r of n is its rows with
 8 rows of each neighbour (`cuda_shard.block_with_halo`, which is what
@@ -12,6 +13,19 @@ do not fill whole tiles, full stores that drop, at K = 8 and 16.
   * the shards' interiors put together equal the unsharded launch, bit
     for bit;
   * clamp_ny = Y, row_offset = 0 is the unsharded launch.
+The frame on row blocks (`parallel/spatial.py`):
+  * K7 on each padded block with clamp_ny / row_offset bitwise its plain
+    version and, cropped, the unsharded K7 (256² dam break, 2 and 4
+    blocks);
+  * S1 on 4 row blocks (the all-reduced counts given) bitwise its plain
+    version and, put together, the unsharded S1 (the waterfall, and a
+    scenario with sources in every block);
+  * P4 on in-process blocks (`comm.LocalGroup`) of a 64² system against
+    its plain version on the CPU: the same iterations (within 1 in f32),
+    p within 1e-9 (f64) or 1e-4 of its scale (f32), cold and warm;
+  * the 40 x 100 waterfall on 4 blocks, card against CPU: counts, alive,
+    RNG bitwise, u and v within 1e-4, every kernel launched and no plain
+    version run.
 The multi-rank exchange runs on gloo ranks (tests/test_torch_shard.py);
 the card's host has one card, so its NCCL run has one rank.
 
@@ -115,3 +129,243 @@ def test_dryrun_on_one_nccl_rank():
     _card()
     results = dryrun_multichip(1, "nccl")
     assert int(results[0]["frames"]) == 2 and int(results[0]["iters"]) > 0
+
+
+# ---- the frame on row blocks: K7 and S1 per row block, P4 -------------
+
+
+def _developed(cfg, frames, scenario=None):
+    _card()
+    from euler_tpu_torch.core.scenario import load_scenario
+
+    if scenario is None:
+        scn, st = dam_break(cfg, device="cuda")
+    else:
+        scn, st = load_scenario(scenario, cfg, device="cuda")
+    for _ in range(frames):
+        st = sim.step_frame(cfg, scn, st)
+    return scn, st
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_k7_row_blocks_bitwise(n):
+    """K7 on each padded block with clamp_ny = Y, row_offset = r Yl - 8
+    equals its plain version there, bit for bit, the whole padded output,
+    and its interior the unsharded K7; clamp_ny = Y, row_offset = 0 is
+    the unsharded launch."""
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+
+    cfg = SimConfig(nx=256, ny=256, marker_layout="slots",
+                    solver=SolverConfig(preconditioner="jacobi"))
+    scn, st = _developed(cfg, 3)
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
+                          torch.full((), cfg.frame_time, device="cuda"))
+    args = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
+    whole = k7.grid_stage(cfg, *args, dt)
+    same = k7.grid_stage(cfg, *args, dt, clamp_ny=cfg.ny, row_offset=0)
+    assert all(torch.equal(a, b) for a, b in zip(whole, same))
+    Y, Yl = cfg.ny, cfg.ny // n
+    cfg_l = dataclasses.replace(cfg, ny=Yl + 2 * H)
+    for r in range(n):
+        p = [block_with_halo(a, n, r) for a in args]
+        kw = dict(clamp_ny=Y, row_offset=r * Yl - H)
+        _build.LAUNCHES.clear()
+        got = k7.grid_stage(cfg_l, *p, dt, **kw)
+        assert _build.LAUNCHES["K7"] == 1
+        want = k7.grid_stage(cfg_l, *(a.cpu() for a in p), dt.cpu(), **kw)
+        for a, b, w, name in zip(got, want, whole, ("ut", "vt")):
+            assert torch.equal(a.cpu(), b), f"block {r}: {name} vs plain"
+            assert torch.equal(a[H:H + Yl], w[r * Yl:(r + 1) * Yl]), (
+                f"block {r}: {name} differs from the unsharded K7")
+
+
+def _s1_blocks(cfg, scn, st, n, device):
+    """S1 on each of n row blocks of (scn, st) on `device`; returns the
+    blocks' planes put together and block 0's scalars."""
+    from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
+
+    Yl = cfg.ny // n
+    ys, xs = scn.source_yx[:, 0].long(), scn.source_yx[:, 1].long()
+    counts = torch.where(scn.source_valid, st.marker_count[ys, xs],
+                         0).to(torch.int32).to(device)
+    planes = ("markers", "alive", "marker_count", "r", "g", "b")
+    out = {k: [] for k in planes}
+    for r in range(n):
+        rows = slice(r * Yl, (r + 1) * Yl)
+        b = st.replace(**{k: getattr(st, k)[..., rows, :].to(device)
+                          .clone(memory_format=torch.contiguous_format)
+                          for k in planes},
+                       **{k: getattr(st, k).to(device).clone() for k in
+                          ("rng", "alive_count", "source_exhausted",
+                           "frame_count")})
+        bs = dataclasses.replace(
+            scn, **{k: getattr(scn, k)[rows].to(device).contiguous()
+                    for k in ("solid", "source", "sink")},
+            source_yx=scn.source_yx.to(device),
+            source_valid=scn.source_valid.to(device))
+        emit_sources(cfg, bs, b, None, row_offset=r * Yl, counts=counts)
+        for k in planes:
+            out[k].append(getattr(b, k).cpu())
+        if r == 0:
+            scalars = [getattr(b, k).cpu().to(torch.int64) for k in
+                       ("rng", "alive_count", "source_exhausted")]
+    return {k: torch.cat(v, -2) for k, v in out.items()}, scalars
+
+
+@pytest.mark.parametrize("scenario,n", [("waterfall", 4),
+                                        ("sources_rows", 4)])
+def test_s1_row_blocks_bitwise(scenario, n):
+    """S1 on row blocks (the source cells' counts given, every block
+    walking every source) equals its plain version block by block and,
+    put together, the unsharded S1, bit for bit; `sources_rows` has
+    sources in every block."""
+    from euler_tpu_torch.core.scenario import build_scenario
+    from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
+
+    _card()
+    cfg = SimConfig(nx=100, ny=40, marker_layout="slots", max_substeps=2,
+                    solver=SolverConfig(max_iterations=30))
+    if scenario == "waterfall":
+        scn, st = _developed(cfg, 2, "scenarios/waterfall.txt")
+    else:
+        text = "\n".join("?" * (k % 3 + 1) + " " * 40 + "00"
+                         for k in range(36)) + "\n"
+        scn, st = build_scenario(text.encode(), cfg, device="cuda")
+        for _ in range(2):
+            st = sim.step_frame(cfg, scn, st)
+        rows = set(scn.source_yx[:, 0].tolist())
+        assert len({y // (cfg.ny // n) for y in rows}) == n
+    cpu = lambda t: t.cpu()  # noqa: E731
+    scn_c = dataclasses.replace(scn, **{f.name: cpu(getattr(scn, f.name))
+                                        for f in dataclasses.fields(scn)})
+    st_c = st.replace(**{f.name: cpu(getattr(st, f.name))
+                         for f in dataclasses.fields(st)})
+    whole = st.replace(**{k: getattr(st, k).clone() for k in
+                          ("markers", "alive", "marker_count", "r", "g", "b",
+                           "rng", "alive_count", "source_exhausted")})
+    emit_sources(cfg, scn, whole)
+    _build.LAUNCHES.clear()
+    got, got_s = _s1_blocks(cfg, scn, st, n, "cuda")
+    assert _build.LAUNCHES["S1"] == n
+    want, want_s = _s1_blocks(cfg, scn_c, st_c, n, "cpu")
+    for k in got:
+        assert torch.equal(got[k], want[k]), f"{k} vs plain"
+        assert torch.equal(got[k], getattr(whole, k).cpu()), (
+            f"{k} vs the unsharded S1")
+    for a, b in zip(got_s, want_s):
+        assert torch.equal(a, b)
+    assert int(got_s[1]) == int(whole.alive_count)
+
+
+def _system(N, dtype, seed=0):
+    """test_halo.py's 64² system: a box of fluid with a solid bar."""
+    import numpy as np
+
+    from euler_tpu_torch.ops.project import pressure_matrix_diag
+
+    rng = np.random.default_rng(seed)
+    fluid = np.zeros((N, N), bool)
+    fluid[1:-1, 1:-1] = True
+    solid = np.zeros((N, N), bool)
+    solid[N // 3:N // 3 + 4, 5:N * 3 // 4] = True
+    fluid &= ~solid
+    fl = torch.tensor(fluid)
+    a = pressure_matrix_diag(SimConfig(nx=N, ny=N), torch.tensor(solid), fl)
+    b = torch.tensor(rng.standard_normal((N, N)) * fluid, dtype=dtype)
+    return b, a, fl
+
+
+def _blocks_solve(cfg, b, a, fl, n, device, x0=None):
+    from euler_tpu_torch.parallel.comm import LocalGroup
+    from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
+
+    Yl = b.shape[0] // n
+
+    def rank(comm):
+        rows = slice(comm.rank("y") * Yl, (comm.rank("y") + 1) * Yl)
+        cut = lambda t: None if t is None else (  # noqa: E731
+            t[rows].to(device).contiguous())
+        solve = make_sharded_pressure_solver(cfg, comm, stats=True)
+        p, it, res = solve(cut(b), cut(a), cut(fl), cut(x0))
+        return p.cpu(), int(it), float(res)
+
+    with LocalGroup(n, device=device) as g:
+        out = g.run(rank)
+    assert len({o[1] for o in out}) == 1 and len({o[2] for o in out}) == 1
+    return torch.cat([o[0] for o in out]), out[0][1], out[0][2]
+
+
+@pytest.mark.parametrize("precon,dtype,n", [
+    ("jacobi", torch.float64, 1), ("jacobi", torch.float64, 4),
+    ("none", torch.float64, 2), ("jacobi", torch.float32, 4),
+    ("mg", torch.float32, 4)])
+def test_p4_matches_plain(precon, dtype, n):
+    """P4 on n in-process blocks of a 64² system against its plain
+    version on the same blocks: the same iterations, p within 1e-9 (f64)
+    or 1e-4 of p's scale (f32: the reductions' order differs); a warm
+    start too."""
+    _card()
+    b, a, fl = _system(64, dtype)
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    cfg = SimConfig(nx=64, ny=64, solver=SolverConfig(
+        max_iterations=600, tol=tol, dtype=str(dtype)[6:],
+        preconditioner=precon, mg_min_size=8))
+    _build.LAUNCHES.clear()
+    got = _blocks_solve(cfg, b, a, fl, n, "cuda")
+    assert _build.LAUNCHES["P4"] == n
+    want = _blocks_solve(cfg, b, a, fl, n, "cpu")
+    scale = float(want[0].abs().max())
+    close = 1e-9 if dtype == torch.float64 else 1e-4 * scale
+    assert abs(got[1] - want[1]) <= (0 if dtype == torch.float64 else 1)
+    assert float((got[0] - want[0]).abs().max()) <= close
+    x0 = torch.where(fl, want[0] * 0.5, 0.0)
+    warm = _blocks_solve(cfg, b, a, fl, n, "cuda", x0)
+    warm_plain = _blocks_solve(cfg, b, a, fl, n, "cpu", x0)
+    assert abs(warm[1] - warm_plain[1]) <= (
+        0 if dtype == torch.float64 else 1)
+    assert float((warm[0] - warm_plain[0]).abs().max()) <= close
+
+
+def test_row_frame_card_vs_cpu():
+    """The waterfall at 40 x 100 on 4 in-process row blocks (K1, S1, K7,
+    P4 per block) on the card against the same blocks' plain versions on
+    the CPU: counts, alive, RNG bitwise, u and v within 1e-4."""
+    from euler_tpu_torch.core.scenario import load_scenario
+    from euler_tpu_torch.parallel.comm import LocalGroup
+    from euler_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        make_spatial_step,
+        shard_spatial,
+    )
+
+    _card()
+    cfg = SimConfig(nx=100, ny=40, marker_layout="slots",
+                    solver=SolverConfig(max_iterations=100, tol_rel=1e-4))
+
+    scn, st = load_scenario("scenarios/waterfall.txt", cfg, device="cpu")
+
+    def run(device):
+        def rank(comm):
+            step = make_spatial_step(cfg, comm)
+            bs, b = shard_spatial(cfg, comm, scn, st)
+            for _ in range(4):
+                b = step(bs, b)
+            out = gather_spatial(cfg, comm, b)
+            return out.replace(**{f.name: getattr(out, f.name).cpu()
+                                  for f in dataclasses.fields(out)})
+
+        with LocalGroup(4, device=device) as g:
+            return g.run(rank)[0]
+
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    got = run("cuda")
+    assert all(_build.LAUNCHES[k] > 0 for k in ("K1", "S1", "K7", "P4"))
+    assert not any(_build.PLAIN_CALLS.values())
+    want = run("cpu")
+    for name in ("marker_count", "alive", "alive_count", "dropped_markers"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.rng.to(torch.int64), want.rng.to(torch.int64))
+    for name in ("u", "v"):
+        assert float((getattr(got, name) - getattr(want, name)).abs()
+                     .max()) <= 1e-4, name

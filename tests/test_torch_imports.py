@@ -18,7 +18,7 @@ from euler_tpu_torch import convert
 from euler_tpu_torch.core import presets, scenario, state
 from euler_tpu_torch.io import checkpoint
 from euler_tpu_torch.ops.cuda import _build
-from euler_tpu_torch.parallel import mesh, spatial
+from euler_tpu_torch.parallel import comm, mesh, spatial
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = [
@@ -38,6 +38,7 @@ MODULES = [
     "euler_tpu_torch.ops.cuda.source_kernel",
     "euler_tpu_torch.ops.cuda.global_marker_kernel",
     "euler_tpu_torch.ops.cuda.pcg_general_kernel",
+    "euler_tpu_torch.ops.cuda.pcg_shard_kernel",
     "euler_tpu_torch.ops.markers",
     "euler_tpu_torch.ops.ic0",
     "euler_tpu_torch.ops.color",
@@ -57,13 +58,15 @@ MODULES = [
     "euler_tpu_torch.parallel.mesh",
     "euler_tpu_torch.parallel.cuda_shard",
     "euler_tpu_torch.parallel.dryrun",
+    "euler_tpu_torch.parallel.comm",
+    "euler_tpu_torch.parallel.halo",
     "euler_tpu_torch.utils.diagnostics",
 ]
 ENTRY_POINTS = [presets.dam_break, presets.block_obstacles, presets._finish,
                 state.zeros_state, convert.state_from_numpy,
                 convert.scenario_from_numpy, scenario.build_scenario,
                 scenario.load_scenario, checkpoint.load, mesh.make_mesh,
-                spatial.spatial_mesh]
+                spatial.spatial_mesh, comm.LocalGroup]
 
 
 def _env():

@@ -16,13 +16,14 @@ group (tests/torch_shard_ranks.py `mesh_rank`):
     iterations within 1);
   * the row-sharded marker pass inside `step_frame` on each rank's "y"
     of one rank: bitwise the frame without it, K1 once a substep;
-  * the refusals: `make_sharded_step` on a mesh with y > 1 names ROADMAP
-    M12 part c, a "cuda" mesh on the gloo group and a world size the
-    group does not have raise.
+  * the refusals: `make_sharded_step` on a mesh with y > 1 in the global
+    marker layout names ROADMAP M12 part d (the frame on row blocks runs
+    the slot layout: tests/test_torch_spatial_step.py), a "cuda" mesh on
+    the gloo group and a world size the group does not have raise.
 In process: the hook against JAX's `step_frame(..., marker_pass=)`
 (counts, alive, drops bitwise, u and v within 5e-3: tests/
 test_torch_sim.py's frame tolerances), and `make_spatial_step_pallas`'s
-refusal.  And one `dryrun_multichip(4, "gloo")`.
+refusal of MG on row blocks.  And one `dryrun_multichip(4, "gloo")`.
 """
 
 import dataclasses
@@ -107,10 +108,11 @@ def test_sharded_marker_pass_in_the_frame(run):
 def test_refusals(run):
     for got in run:
         assert "NotImplementedError" in str(got["refuse_step"])
-        assert "part c" in str(got["refuse_step"])
+        assert "global marker layout" in str(got["refuse_step"])
+        assert "part d" in str(got["refuse_step"])
         assert "ValueError" in str(got["refuse_cuda"])
         assert "ValueError" in str(got["refuse_world"])
-    with pytest.raises(NotImplementedError, match="part c"):
+    with pytest.raises(NotImplementedError, match="MG.*part d"):
         make_spatial_step_pallas(ranks.main_config(32, 32), None)
 
 
@@ -159,5 +161,5 @@ def test_dryrun_multichip(capsys):
     assert len(results) == 4
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(":")[0] for ln in lines] == [
-        "data axis", "marker pass", "dp substep"]
+        "batch", "spatial step", "pallas step", "marker pass", "dp substep"]
     assert all(int(r["alive_count"]) > 0 for r in results)

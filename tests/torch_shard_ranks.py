@@ -198,3 +198,153 @@ def mesh_rank() -> dict:
     out["refuse_world"] = _raises(lambda: make_mesh(n + 1, device="cpu"))
     out.update({f"layout_{k}": v for k, v in layouts(n).items()})
     return out
+
+
+# ---- the sharded solve and the frame on row blocks (M12 part c) -------
+
+HALO_N = 64
+
+
+def halo_system(which: str):
+    """(b, fluid, solid) as numpy arrays: tests/test_halo.py:18-49's 64²
+    system ("rows": seed 0, one solid bar) or tests/test_halo2d.py:25-58's
+    ("blocks": seed 1, two solids)."""
+    import numpy as np
+
+    N = HALO_N
+    rng = np.random.default_rng(0 if which == "rows" else 1)
+    fluid = np.zeros((N, N), bool)
+    fluid[1:-1, 1:-1] = True
+    solid = np.zeros((N, N), bool)
+    solid[20:24, 5:50] = True
+    if which == "blocks":
+        solid[40:44, 30:34] = True
+    fluid &= ~solid
+    b = rng.standard_normal((N, N)) * fluid
+    return b, fluid, solid
+
+
+def halo_config(precon: str, dtype: str = "float64", tol: float = 1e-10,
+                **over) -> SimConfig:
+    return SimConfig(nx=HALO_N, ny=HALO_N, solver=SolverConfig(
+        max_iterations=600, tol=tol, dtype=dtype, preconditioner=precon,
+        mg_min_size=8, **over))
+
+
+def halo_block(comm, which: str, cfg: SimConfig, axes=("y",)):
+    """This block's (b, a_diag, fluid) of `halo_system(which)` on the CPU,
+    the grid split over the blocks of `comm` along `axes`."""
+    from euler_tpu_torch.ops.project import pressure_matrix_diag
+
+    b, fluid, solid = halo_system(which)
+    fl = torch.as_tensor(fluid)
+    a = pressure_matrix_diag(cfg, torch.as_tensor(solid), fl)
+    bt = torch.as_tensor(b, dtype=getattr(torch, cfg.solver.dtype))
+    ny, nx = comm.size("y"), comm.size("x") if "x" in axes else 1
+    Yl, Xl = HALO_N // ny, HALO_N // nx
+    ry, rx = comm.rank("y"), comm.rank("x") if "x" in axes else 0
+    cut = (slice(ry * Yl, (ry + 1) * Yl), slice(rx * Xl, (rx + 1) * Xl))
+    return bt[cut].contiguous(), a[cut].contiguous(), fl[cut].contiguous()
+
+
+def seeded_plane(seed: int = 7):
+    """A [64, 64] f64 plane from a seed, for the exchanges."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((HALO_N, HALO_N), generator=g, dtype=torch.float64)
+
+
+def exchanged(comm, axes=("y", "x")) -> dict:
+    """This block's cut of `seeded_plane` and what the exchanges give it:
+    `halo.halo_exchange_rows` and, with "x", `halo_exchange_cols`."""
+    from euler_tpu_torch.parallel import halo
+
+    ny, nx = comm.size("y"), comm.size("x")
+    Yl, Xl = HALO_N // ny, HALO_N // nx
+    ry, rx = comm.rank("y"), comm.rank("x")
+    x = seeded_plane()[ry * Yl:(ry + 1) * Yl, rx * Xl:(rx + 1) * Xl]
+    below, above = halo.halo_exchange_rows(x.contiguous(), comm)
+    out = {"below": below, "above": above, "ry": torch.tensor(ry),
+           "rx": torch.tensor(rx)}
+    if "x" in axes:
+        out["left"], out["right"] = halo.halo_exchange_cols(
+            x.contiguous(), comm)
+    return out
+
+
+def halo_rank() -> dict:
+    """On 4 gloo ranks: the exchanges and the Jacobi solve (f64) on a
+    ("y", "x") = 2 x 2 mesh of test_halo2d.py's system, and the block-MG
+    solve (f32) on 4 row blocks of test_halo.py's."""
+    from euler_tpu_torch.parallel.comm import MeshComm
+    from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
+
+    out = {}
+    mesh2 = spatial_mesh(4, x=2, device="cpu")
+    comm2 = MeshComm(mesh2)
+    out.update({f"ex_{k}": v for k, v in exchanged(comm2).items()})
+    cfg = halo_config("jacobi")
+    solve = make_sharded_pressure_solver(cfg, mesh2, ("y", "x"), stats=True)
+    p, it, res = solve(*halo_block(comm2, "blocks", cfg, ("y", "x")))
+    out.update(jac2d_p=p, jac2d_iters=it, jac2d_resid=res)
+    mesh4 = spatial_mesh(4, x=1, device="cpu")
+    cfg = halo_config("mg", "float32", 1e-4)
+    solve = make_sharded_pressure_solver(cfg, mesh4, stats=True)
+    p, it, res = solve(*halo_block(MeshComm(mesh4), "rows", cfg))
+    out.update(mg_p=p, mg_iters=it, mg_resid=res)
+    return out
+
+
+# tests/test_pallas_shard.py:30-33's configuration (the JAX package's
+# frame solves on its jnp pcg_loop there, as P4 does on blocks)
+FRAME_CFG = SimConfig(nx=64, ny=64, marker_layout="slots", max_substeps=2,
+                      solver=SolverConfig(max_iterations=40,
+                                          dtype="float32"))
+FRAME_DEVELOP, FRAME_STEPS = 3, 2
+# tests/test_spatial.py:29-37's: a source and solids
+TEXT_CFG = SimConfig(nx=32, ny=16, marker_layout="slots", max_substeps=2,
+                     solver=SolverConfig(max_iterations=30))
+TEXT = b"?  00\n   00\nX  00\nXX 00\n"
+TEXT_STEPS = 3
+
+
+def frame_rank() -> dict:
+    """On 4 gloo ranks: `cuda_shard.make_spatial_step_pallas` on a "y"
+    mesh of 4, FRAME_STEPS frames of the dam break developed FRAME_DEVELOP
+    frames by the unsharded port (gathered: `frame_*`); and
+    `mesh.make_sharded_step` on `make_mesh(4)` (data 2 x y 2) stepping a
+    batch of the text scenario and its mirror TEXT_STEPS frames
+    (gathered: `batch_*`)."""
+    from euler_tpu_torch.core.scenario import build_scenario
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.parallel.batch import stack
+    from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
+    from euler_tpu_torch.parallel.spatial import to_spatial
+
+    out = {}
+    ymesh = spatial_mesh(4, x=1, device="cpu")
+    scn, st = developed(FRAME_CFG, FRAME_DEVELOP)
+    step = make_spatial_step_pallas(FRAME_CFG, ymesh)
+    bscn, b = shard_spatial(FRAME_CFG, ymesh, scn, st)
+    _build.PLAIN_CALLS.clear()
+    for _ in range(FRAME_STEPS):
+        b = step(bscn, b)
+    out["frame_calls"] = torch.tensor([_build.PLAIN_CALLS[k] for k in
+                                       ("K1", "S1", "K7", "P4")])
+    out.update({f"frame_{k}": torch.as_tensor(v) for k, v in
+                convert.state_to_numpy(gather_spatial(FRAME_CFG, ymesh,
+                                                      b)).items()})
+
+    dmesh = make_mesh(4, device="cpu")
+    out["batch_layout"] = torch.tensor(dmesh.mesh.shape)
+    pairs = [build_scenario(t, TEXT_CFG, device="cpu")
+             for t in (TEXT, b"\n".join(r[::-1] for r in TEXT.split(b"\n")))]
+    scn2 = stack([p[0] for p in pairs])
+    st2 = stack([to_spatial(TEXT_CFG, p[1]) for p in pairs])
+    sscn, sst = shard_batch(dmesh, scn2, st2)
+    step2 = make_sharded_step(TEXT_CFG, dmesh)
+    for _ in range(TEXT_STEPS):
+        sst = step2(sscn, sst)
+    whole = gather_batch(dmesh, sst)
+    out.update({f"batch_{k}": torch.as_tensor(v) for k, v in
+                convert.state_to_numpy(whole).items()})
+    return out
