@@ -126,8 +126,9 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      thread of an in-process `comm.LocalGroup` on the card: P4 (the
      sharded PCG) on 1, 2 and 4 row blocks of the 1024² substep system,
      Jacobi at the speed mode's budget and block MG to tol_rel 1e-4,
-     timed (CUDA events) and profiled (the summed spans of P4's kernels),
-     against the unsharded P1 / P3 and (4 blocks) the plain P4,
+     timed (CUDA events) and profiled (the summed spans of P4's kernels,
+     after the column phase), against the unsharded P1 / P3 and (4
+     blocks) the plain P4,
      and on a one-rank NCCL group bitwise the 1-block solve; K7 and S1
      on 4 row blocks at 1024², each block bitwise its plain version and
      the interiors bitwise the unsharded kernel, timed; the waterfall
@@ -135,7 +136,17 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      1 + 2 frames (K1, S1, K7, P4 once a block a substep, no plain
      version), against 1 block of the same code (at most 4 cells'
      counts apart, every velocity within 1e-3); the 40 x 100 waterfall
-     on 4 blocks of 10 rows, card against CPU (plain versions);
+     on 4 blocks of 10 rows, card against CPU (plain versions); then the
+     frame on 2 x 2 ("y", "x") blocks (M12 part d's column blocks): K1,
+     K7 and S1 on the blocks padded with 8 rows and columns at 1024²
+     (`clamp_nx` / `col_offset`), each block bitwise its plain version
+     and the cropped outputs bitwise the unsharded launch, timed (device
+     ms summed beside one launch's); P4 (Jacobi, 100 iterations) on 2 x 2
+     blocks of the substep system, its iterations those of 1 block, p
+     within 1e-4 of scale, against the plain P4, timed and profiled; the
+     1024² waterfall and dam break on 2 x 2 blocks against 1 block (at
+     most 4 cells' counts apart, every velocity within 1e-3); the 40 x
+     100 waterfall on 2 x 2 blocks of 20 x 50, card against CPU;
  15. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
@@ -159,7 +170,9 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      K = 8, and 120 x 72, K = 16, bitwise; the identity arguments), the
      row-block card tests there (K7 and S1 on row blocks bitwise, P4
      against its plain version, the 40 x 100 waterfall on 4 blocks card
-     vs CPU) and `dryrun_multichip(1, "nccl")` (a spawned NCCL rank).
+     vs CPU), the column-block ones (K1, K7, S1 on 2 x 2 blocks bitwise,
+     the 40 x 100 waterfall on 2 x 2 blocks card vs CPU) and
+     `dryrun_multichip(1, "nccl")` (a spawned NCCL rank).
 With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -371,21 +384,49 @@ BOUNDS = {
 }
 
 
-def k7_rows_bound(rows: int, X: int, n: int):
-    """(bytes, operations) of K7 on n row blocks of `rows` rows: each
-    block reads the rows its kept rows depend on (u, v with 2 rows of
-    each neighbour, the three masks with 2 before and 3 after:
-    grid_stage.cuh's window) and writes its kept rows of ut, vt once."""
-    nbytes = n * X * (8 * (rows + 4) + 3 * (rows + 5) + 8 * rows)
-    return nbytes, GRID_STAGE_FLOPS * n * rows * X
+def window(rows: int, cols: int, before: int, after: int,
+           split: bool) -> int:
+    """The cells of a block of rows x cols cells with `before` cells
+    before it and `after` after it along the rows, and along the columns
+    too where `split` (column blocks; a row block spans the grid's
+    width)."""
+    return (rows + before + after) * (cols + (before + after) * split)
 
 
-def s1_rows_bound(S: int, emitted: int, n: int):
-    """(bytes, operations) of S1 on n row blocks: every block reads the
+def k7_blocks_bound(rows: int, cols: int, n: int, split: bool):
+    """(bytes, operations) of K7 on n blocks of rows x cols cells: each
+    block reads the cells its own cells depend on (u, v with 2 of each
+    neighbour's, the three masks with 2 before and 3 after:
+    grid_stage.cuh's window) and writes its own cells of ut, vt once."""
+    nbytes = n * (8 * window(rows, cols, 2, 2, split)
+                  + 3 * window(rows, cols, 2, 3, split) + 8 * rows * cols)
+    return nbytes, GRID_STAGE_FLOPS * n * rows * cols
+
+
+def k1_blocks_bound(rows: int, cols: int, live: int, n: int,
+                    k: int = SLOTS):
+    """(bytes, operations) of K1 on n column blocks of rows x cols cells,
+    `live` the live markers of the blocks' one-cell rings summed: each
+    block reads what its own cells' arrivals depend on (the markers homed
+    one cell around them, their positions and counts; u, v and solid
+    within their 3x3 windows, 2 cells around; fluid 2 before and 3 after
+    for the u/v properties; dead on its own cells) and writes its own
+    cells' store, count and drop once; every live marker of a ring is
+    marched."""
+    nbytes = n * (8 * window(rows, cols, 2, 2, True)
+                  + window(rows, cols, 2, 3, True)
+                  + window(rows, cols, 2, 2, True)
+                  + 4 * window(rows, cols, 1, 1, True)
+                  + rows * cols * (1 + 8 * k + 8)) + 8 * live
+    return nbytes, MARKER_FLOPS * live
+
+
+def s1_blocks_bound(S: int, emitted: int, n: int):
+    """(bytes, operations) of S1 on n blocks: every block reads the
     source list (y, x, valid), the all-reduced [S] counts and the
     scalars, and walks every source and emission; the colours of the S
     source cells and each emission's position, alive byte and count are
-    written once, by the block that owns the row."""
+    written once, by the block that owns the cell."""
     nbytes = n * (13 * S + 20) + 12 * S + 13 * emitted
     return nbytes, n * (SOURCE_OPS * S + SOURCE_EMIT_OPS * emitted)
 
@@ -462,6 +503,26 @@ KERNELS = {
            "euler_tpu/parallel/halo.py:88 (_pcg_sharded: pcg_loop under "
            "shard_map with psum / pmax and a ppermute halo, no "
            "pallas_call)"),
+    # the frame on 2 x 2 ("y", "x") blocks: a call is the 4 blocks'
+    # launches at 1024² (P4: one solve of the 4 blocks); launches from the
+    # 2 x 2 waterfall frames
+    "K1b": ("marker_pass_2x2_blocks", "euler_tpu_torch/csrc/marker_pass.cu",
+            "euler_tpu/ops/pallas/marker_fused_kernel.py:941 "
+            "(march_rebin_pallas with clamp_ny / row_offset, and the port's "
+            "clamp_nx / col_offset: a launch per (y, x) block of the frame "
+            "on blocks, euler_tpu/parallel/spatial.py:113 "
+            "make_spatial_step, which GSPMD partitions)"),
+    "K7b": ("grid_stage_2x2_blocks", "euler_tpu_torch/csrc/grid_stage.cu",
+            "euler_tpu/ops/pallas/grid_kernel.py:205 (the grid stage of the "
+            "frame on (y, x) blocks, euler_tpu/parallel/spatial.py:113 "
+            "make_spatial_step, which GSPMD partitions)"),
+    "S1b": ("source_emission_2x2_blocks", "euler_tpu_torch/csrc/sources.cu",
+            "euler_tpu/ops/markers_slots.py:415 (update_fluid_sources_slots "
+            "in the frame on (y, x) blocks, a lax.scan, no pallas_call)"),
+    "P4b": ("sharded_pcg_2x2_blocks", "euler_tpu_torch/csrc/pcg_shard.cu",
+            "euler_tpu/parallel/halo.py:88 (_pcg_sharded over (y, x): "
+            "pcg_loop under shard_map with psum / pmax and a ppermute halo "
+            "of rows and columns, no pallas_call)"),
 }
 
 
@@ -2615,35 +2676,46 @@ WATERFALL_JACOBI_1024 = ["scenarios/waterfall.txt", "--size", "1024x1024",
                          "--no-converged"]
 
 
-def block_rank(cfg, b, a_diag, fl, n, plain=False):
-    """A block's solve of (b, a_diag, fl) cut into n row blocks: P4, or
-    with `plain` its plain version `halo.pcg_sharded` on the same card
-    tensors; for `comm.LocalGroup.run`."""
+def block_rank(cfg, b, a_diag, fl, n, plain=False, x=1):
+    """A block's solve of (b, a_diag, fl) cut into n row blocks (and x
+    column blocks): P4, or with `plain` its plain version
+    `halo.pcg_sharded` on the same card tensors; for
+    `comm.LocalGroup.run`."""
     from euler_tpu_torch.parallel import halo
 
-    Yl = cfg.ny // n
+    Yl, Xl = cfg.ny // n, cfg.nx // x
+    axes = ("y", "x") if x > 1 else ("y",)
 
     def rank(comm):
-        rows = slice(comm.rank("y") * Yl, (comm.rank("y") + 1) * Yl)
-        args = [t[rows].contiguous() for t in (b, a_diag, fl)]
+        ry, rx = comm.rank("y"), comm.rank("x")
+        cut = (slice(ry * Yl, (ry + 1) * Yl), slice(rx * Xl, (rx + 1) * Xl))
+        args = [t[cut].contiguous() for t in (b, a_diag, fl)]
         if plain:
-            return halo.pcg_sharded(cfg, comm, ("y",), *args)
-        return halo.make_sharded_pressure_solver(cfg, comm,
+            return halo.pcg_sharded(cfg, comm, axes, *args)
+        return halo.make_sharded_pressure_solver(cfg, comm, axes,
                                                  stats=True)(*args)
 
     return rank
 
 
-def block_solve(cfg, b, a_diag, fl, n, dev, plain=False):
-    """`block_rank`'s solve on n in-process row blocks, once to warm up
+def together(parts, x):
+    """The blocks' [Yl, Xl] planes, in rank order, put back together."""
+    import torch
+
+    return torch.cat([torch.cat(parts[r:r + x], -1)
+                      for r in range(0, len(parts), x)], -2)
+
+
+def block_solve(cfg, b, a_diag, fl, n, dev, plain=False, x=1):
+    """`block_rank`'s solve on n x x in-process blocks, once to warm up
     and once timed with CUDA events around the blocks' calls.  Returns
     (p put together, iterations, residual, ms)."""
     import torch
 
     from euler_tpu_torch.parallel.comm import LocalGroup
 
-    rank = block_rank(cfg, b, a_diag, fl, n, plain)
-    with LocalGroup(n, device=dev) as g:
+    rank = block_rank(cfg, b, a_diag, fl, n, plain, x)
+    with LocalGroup(n, x, device=dev) as g:
         g.run(rank)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -2654,27 +2726,28 @@ def block_solve(cfg, b, a_diag, fl, n, dev, plain=False):
         torch.cuda.synchronize()
     check(len({int(o[1]) for o in out}) == 1
           and len({float(o[2]) for o in out}) == 1,
-          f"P4 on {n} blocks: the blocks' iterations or residuals differ")
-    return (torch.cat([o[0] for o in out]), int(out[0][1]),
+          f"P4 on {n} x {x} blocks: the blocks' iterations or residuals "
+          "differ")
+    return (together([o[0] for o in out], x), int(out[0][1]),
             float(out[0][2]), start.elapsed_time(end))
 
 
-def block_spans(cfg, b, a_diag, fl, n, dev):
-    """`kernel_spans_ms` of one P4 solve on n in-process row blocks, after
+def block_spans(cfg, b, a_diag, fl, n, dev, x=1):
+    """`kernel_spans_ms` of one P4 solve on n x x in-process blocks, after
     one to warm up."""
     import torch
 
     from euler_tpu_torch.parallel.comm import LocalGroup
 
-    rank = block_rank(cfg, b, a_diag, fl, n)
-    with LocalGroup(n, device=dev) as g:
+    rank = block_rank(cfg, b, a_diag, fl, n, x=x)
+    with LocalGroup(n, x, device=dev) as g:
         g.run(rank)
         torch.cuda.synchronize()
         return kernel_spans_ms(lambda: g.run(rank))
 
 
-def block_frames(cfg, scn, st, n, dev, warm: int, timed: int):
-    """`spatial.make_spatial_step` on n in-process row blocks of (scn, st)
+def block_frames(cfg, scn, st, n, dev, warm: int, timed: int, x=1):
+    """`spatial.make_spatial_step` on n x x in-process blocks of (scn, st)
     on `dev`: `warm` frames, then `timed` frames with the launch counts
     set to 0 just before and read just after.  Returns (the state put
     together, ms a timed frame, launches, plain calls)."""
@@ -2685,7 +2758,7 @@ def block_frames(cfg, scn, st, n, dev, warm: int, timed: int):
     from euler_tpu_torch.parallel.comm import LocalGroup
 
     cuda = torch.device(dev).type == "cuda"
-    with LocalGroup(n, device=dev) as g:
+    with LocalGroup(n, x, device=dev) as g:
         made = g.run(lambda comm: (spatial.make_spatial_step(cfg, comm),
                                    *spatial.shard_spatial(cfg, comm, scn,
                                                           st)))
@@ -2734,11 +2807,13 @@ def frames_agree(d: dict) -> bool:
             and d["max_dv"] <= ROW_FRAME_ATOL)
 
 
-def run_row_blocks(results, summaries, launches, dev) -> None:
+def run_row_blocks(results, summaries, launches, dev) -> dict:
     """The frame on row blocks on the card (M12 part c: P4, K7 and S1 per
     row block, K1 per row shard), every block of a grid played by one
     thread of an in-process `comm.LocalGroup`: P4's solves of the 1024²
-    substep system, the waterfall at 1024² and at 40 x 100 on 4 blocks."""
+    substep system, the waterfall at 1024² and at 40 x 100 on 4 blocks.
+    Returns what the column blocks' phases and the block profiles reuse:
+    the states, the substep system, the 1-block solves and frames."""
     import tempfile
 
     import torch
@@ -2756,11 +2831,14 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
     from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
 
     summary = {}
-    cfg, scn, st, dt, _ = developed_planes(SIZE, dev)
+    cfg, scn, st, dt, planes = developed_planes(SIZE, dev)
     _, ut, vt, b, a_diag = substep_system(cfg, scn, st)
     fl = st.fluid
     n_cells = SIZE * SIZE
     configs = {"jacobi": speed_config(SIZE), "mg": main_config(SIZE)}
+    shared = {"cfg": cfg, "scn": scn, "st": st, "dt": dt, "planes": planes,
+              "b": b, "a_diag": a_diag, "fl": fl, "configs": configs,
+              "unsharded": {}, "one_block": {}, "frames_1": {}}
     with Phase(f"P4 on 1, 2 and 4 in-process row blocks of the {SIZE}² "
                "substep system (Jacobi at the speed mode's budget, block "
                "MG to tol_rel 1e-4): against the unsharded P1 / P3 and "
@@ -2771,6 +2849,7 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
             t_ref = cuda_ms(lambda: p13.solve_pressure_general(
                 c, b, a_diag, fl), REPS)
             scale = float(ref[0].abs().max())
+            shared["unsharded"][label] = ref
             row = {"unsharded_ms": t_ref, "unsharded_iters": int(ref[1])}
             log(f"   {label}: unsharded {'P3' if label == 'mg' else 'P1'} "
                 f"{t_ref:.3f} ms, {int(ref[1])} iterations, |p| {scale:.4g}")
@@ -2800,6 +2879,8 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
                 row[f"blocks_{n}"] = {"ms": ms, "iters": it, "resid": res,
                                       "true_resid": true_res,
                                       "err_vs_unsharded": err}
+                if n == 1:
+                    shared["one_block"][label] = (p, it, res)
                 log(f"   {label}, {n} blocks: {ms:.3f} ms a solve (CUDA "
                     f"events around the blocks' calls), {it} iterations, "
                     f"resid {res:.4g} (|b - A p| {true_res:.4g}), p within "
@@ -2886,7 +2967,7 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
         t_p1, t_k1 = cuda_ms(k7_plain, REPS), cuda_ms(k7_call, REPS)
         t_k2, t_p2 = cuda_ms(k7_call, REPS), cuda_ms(k7_plain, REPS)
         dev_ms = min(device_ms(k7_call, REPS) for _ in range(2))
-        nbytes, flops = k7_rows_bound(Yl, SIZE, ROW_N)
+        nbytes, flops = k7_blocks_bound(Yl, SIZE, ROW_N, False)
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * flops / F32_FLOP_PER_S
         results["K7s"] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
@@ -2955,7 +3036,7 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
         t_k1 = cuda_ms(lambda: s1_call(s1.emit_sources, k_blks), REPS)
         t_k2 = cuda_ms(lambda: s1_call(s1.emit_sources, k_blks), REPS)
         t_p2 = cuda_ms(lambda: s1_call(source_pass_slots, p_blks), 1)
-        nbytes, flops = s1_rows_bound(wscn.num_sources, emitted, ROW_N)
+        nbytes, flops = s1_blocks_bound(wscn.num_sources, emitted, ROW_N)
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * flops / F32_FLOP_PER_S
         results["S1s"] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
@@ -2987,6 +3068,7 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
             launches[k] = got_l.get(name, 0)
         one, ms1, one_l, plain1 = block_frames(wcfg, wscn, wst, 1, dev,
                                                ROW_WARMUP, ROW_TIMED)
+        shared["frames_1"]["waterfall"] = (wcfg, wscn, wst, one, ms1)
         d = frame_diff(got, one)
         log(f"   1 block: {ms1:.1f} ms a frame; {ROW_N} blocks vs 1: "
             f"{d['count_cells']} of {d['cells']} cells' counts differ "
@@ -3011,6 +3093,7 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
                                              ROW_WARMUP, ROW_TIMED)
         one, ms1, _, _ = block_frames(dcfg, dscn, dst, 1, dev, ROW_WARMUP,
                                       ROW_TIMED)
+        shared["frames_1"]["dam_break"] = (dcfg, dscn, dst, one, ms1)
         d = frame_diff(got, one)
         log(f"   dam break {SIZE}² (speed mode's solver): {ROW_N} blocks "
             f"{ms:.1f} ms a frame, 1 block {ms1:.1f}; launches {got_l}, "
@@ -3051,26 +3134,360 @@ def run_row_blocks(results, summaries, launches, dev) -> None:
             f"{sorted(set(sscn.source_yx[:, 0].tolist()))}; launches "
             f"{got_l}")
 
-    # last: a profiler session over the blocks' threads slowed the host's
-    # later launches in this process (PERF.md §6), so nothing is timed
-    # after it
-    with Phase(f"P4's device time a solve of the {SIZE}² substep system "
-               "on 1, 2 and 4 blocks: the summed spans of one profiled "
-               "solve"):
-        for label, c in configs.items():
-            row = summary[f"p4_{label}"]
-            for n in ROW_BLOCKS:
-                spans = block_spans(c, b, a_diag, fl, n, dev)
-                own, lib = spans if spans else (None, None)
-                row[f"blocks_{n}"].update(device_ms=own, torch_device_ms=lib)
-                log(f"   {label}, {n} blocks: " + (
-                    f"P4's kernel spans {own:.4f} ms summed, torch's "
-                    f"kernels and copies (the group's folds and edge "
-                    f"copies) {lib:.4f} ms" if spans else
-                    "not measured (no kernel record in 3 profiles)"))
-        results["P4"]["device_ms"] = \
-            summary["p4_jacobi"][f"blocks_{ROW_N}"]["device_ms"]
     summaries["row_blocks"] = summary
+    return shared
+
+
+# the frame on column blocks (M12 part d): 2 x 2 in-process blocks
+COL_N = 2  # blocks a side
+# The speed mode's 100 f32 Jacobi iterations stop far from convergence,
+# so the order in which P4 folds its sums moves p by ~2e-6 of its scale
+# a solve, and the dam break amplifies that: on 2 x 2 (and 1 x 2) blocks
+# 16 cells' counts and max |dv| 1.07e-3 apart from 1 block after 3
+# frames, on 4 x 1 blocks 4 cells and 4.2e-4 after 5 (an NVIDIA H100,
+# tools/block_drift_lab.py; PERF.md §6).  With the solve in f64 the same
+# frames stay 0 cells apart and within 1.2e-10 (2 x 2) over 5 frames:
+# the layout computes the 1-block frame,
+# the folds aside.  So the 2 x 2 dam break is held to 1 block with an
+# f64 solve, counts equal and every velocity within COL_F64_ATOL (an
+# f32 ulp at |v| ~ 10), and its f32 frames are timed and reported.
+COL_F64_ATOL = 1e-6
+
+
+def col_cut(k: int, rows: int, cols: int):
+    """The cells of block k (rank order) of a COL_N x COL_N layout of
+    rows x cols blocks."""
+    r, c = divmod(k, COL_N)
+    return (slice(r * rows, (r + 1) * rows), slice(c * cols, (c + 1) * cols))
+
+
+def run_col_blocks(results, summaries, launches, dev, shared) -> None:
+    """The frame on 2 x 2 ("y", "x") blocks on the card (M12 part d's
+    column blocks: K1, K7 and S1 given column offsets, P4 over ("y",
+    "x")), every block one thread of an in-process `comm.LocalGroup`:
+    the kernels per block at 1024², P4's Jacobi solve of the 1024²
+    substep system, the waterfall and the dam break at 1024² and the
+    waterfall at 40 x 100.  Reuses the row phase's states, solves and
+    1-block frames (`shared`)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.ops.markers_slots import source_pass_slots
+    from euler_tpu_torch.ops.project import apply_a
+    from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
+
+    summary = {}
+    n = COL_N
+    nb = n * n
+    cfg, scn, st, dt, planes = (shared[k] for k in
+                                ("cfg", "scn", "st", "dt", "planes"))
+    Yl, Xl = cfg.ny // n, cfg.nx // n
+    cfg_b = dataclasses.replace(cfg, ny=Yl + 2 * H, nx=Xl + 2 * H)
+    kw = [dict(clamp_ny=cfg.ny, row_offset=r * Yl - H, clamp_nx=cfg.nx,
+               col_offset=c * Xl - H) for r in range(n) for c in range(n)]
+    crop = (..., slice(H, H + Yl), slice(H, H + Xl))
+
+    def padded_blocks(arrays):
+        return [[block_with_halo(a, n, r, H, n, c) for a in arrays]
+                for r in range(n) for c in range(n)]
+
+    def bound(nbytes, flops):
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / F32_FLOP_PER_S
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    def timed(call, plain, plain_reps=REPS):
+        t_p1, t_k1 = cuda_ms(plain, plain_reps), cuda_ms(call, REPS)
+        t_k2, t_p2 = cuda_ms(call, REPS), cuda_ms(plain, plain_reps)
+        return (min(t_k1, t_k2), min(t_p1, t_p2),
+                f"events {t_k1:.4f} / {t_k2:.4f} ms; plain {t_p1:.3f} / "
+                f"{t_p2:.3f} ms")
+
+    with Phase(f"K1, K7 and S1 on {n} x {n} blocks at {SIZE}² (blocks "
+               f"padded with {H} rows and columns): each block's launch "
+               "bitwise its plain version, the cropped outputs bitwise "
+               "the unsharded launch's cells; timed"):
+        # K1 on the developed dam break
+        k1b = padded_blocks(planes)
+        whole = k1.march_rebin(cfg, *planes[:5], dt, planes[5],
+                               dead=planes[6])
+        k1_call = lambda: [k1.march_rebin(  # noqa: E731
+            cfg_b, *p[:5], dt, p[5], dead=p[6], **kw[k])
+            for k, p in enumerate(k1b)]
+        k1_plain = lambda: [k1.march_rebin_plain(  # noqa: E731
+            cfg_b, *p[:5], dt, p[5], dead=p[6], **kw[k])
+            for k, p in enumerate(k1b)]
+        for k, (g, p) in enumerate(zip(k1_call(), k1_plain())):
+            for a, w_, u_, name in zip(g, p, whole,
+                                       ("slots", "count", "drop")):
+                check(torch.equal(a, w_), f"K1 block {k}: {name} differs "
+                      "from its plain version")
+                check(torch.equal(a[crop], u_[(..., *col_cut(k, Yl, Xl))]),
+                      f"K1 block {k}: {name} differs from the unsharded K1")
+        t_k, t_p, events = timed(k1_call, k1_plain, 2)
+        dev_ms = min(device_ms(k1_call, REPS) for _ in range(2))
+        count = planes[5]
+        live = sum(int(count[max(r * Yl - 1, 0):(r + 1) * Yl + 1,
+                             max(c * Xl - 1, 0):(c + 1) * Xl + 1].sum())
+                   for r in range(n) for c in range(n))
+        results["K1b"] = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+                          "max_abs_err": 0.0, "library_ms": None,
+                          **bound(*k1_blocks_bound(Yl, Xl, live, nb))}
+        log(f"   K1 on {nb} blocks of [{2 * SLOTS}, {cfg_b.ny}, "
+            f"{cfg_b.nx}]: bitwise; device {dev_ms:.4f} ms summed "
+            f"(unsharded {results['K1'].get('device_ms', float('nan')):.4f}"
+            f"); {events}; bound {results['K1b']['bound_ms']:.4f} ms by "
+            f"{results['K1b']['bound_by']} ({live} live markers in the "
+            "blocks' rings)")
+
+        # K7 on the same state
+        grid = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
+        k7b = padded_blocks(grid)
+        whole = k7.grid_stage(cfg, *grid, dt)
+        k7_call = lambda: [k7.grid_stage(cfg_b, *p, dt, **kw[k])  # noqa: E731
+                           for k, p in enumerate(k7b)]
+        k7_plain = lambda: [k7.grid_stage_plain(  # noqa: E731
+            cfg_b, dt, *p, **kw[k]) for k, p in enumerate(k7b)]
+        for k, (g, p) in enumerate(zip(k7_call(), k7_plain())):
+            for a, w_, u_, name in zip(g, p, whole, ("ut", "vt")):
+                check(torch.equal(a, w_), f"K7 block {k}: {name} differs "
+                      "from its plain version")
+                check(torch.equal(a[crop], u_[col_cut(k, Yl, Xl)]),
+                      f"K7 block {k}: {name} differs from the unsharded K7")
+        t_k, t_p, events = timed(k7_call, k7_plain)
+        dev_ms = min(device_ms(k7_call, REPS) for _ in range(2))
+        results["K7b"] = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+                          "max_abs_err": 0.0, "library_ms": None,
+                          **bound(*k7_blocks_bound(Yl, Xl, nb, True))}
+        log(f"   K7 on {nb} blocks of [{cfg_b.ny}, {cfg_b.nx}]: bitwise; "
+            f"device {dev_ms:.4f} ms summed (unsharded "
+            f"{results['K7'].get('device_ms', float('nan')):.4f}); "
+            f"{events}; bound {results['K7b']['bound_ms']:.4f} ms by "
+            f"{results['K7b']['bound_by']}")
+
+        # S1 on the 1024² waterfall
+        wcfg, wscn, wst = shared["frames_1"]["waterfall"][:3]
+        ys = wscn.source_yx[:, 0].long()
+        xs = wscn.source_yx[:, 1].long()
+        counts = torch.where(wscn.source_valid, wst.marker_count[ys, xs],
+                             0).to(torch.int32)
+        act = torch.ones((), dtype=torch.bool, device=dev)
+        wYl, wXl = wcfg.ny // n, wcfg.nx // n
+        cuts = [col_cut(k, wYl, wXl) for k in range(nb)]
+        bscn = [dataclasses.replace(
+            wscn, **{f: getattr(wscn, f)[cut].contiguous()
+                     for f in ("solid", "source", "sink")}) for cut in cuts]
+
+        def s1_blocks():
+            return [wst.replace(**{
+                f: getattr(wst, f)[(..., *cut)].clone(
+                    memory_format=torch.contiguous_format)
+                for f in ("markers", "alive", "marker_count", "r", "g",
+                          "b")}, **{
+                f: getattr(wst, f).clone()
+                for f in ("rng", "alive_count", "source_exhausted")})
+                for cut in cuts]
+
+        def s1_call(fn, blks):
+            for k, blk in enumerate(blks):
+                fn(wcfg, bscn[k], blk, act, cuts[k][0].start, counts,
+                   cuts[k][1].start)
+            return blks
+
+        whole_s1 = s1_copy(wst)
+        s1.emit_sources(wcfg, wscn, whole_s1, act)
+        got = s1_call(s1.emit_sources, s1_blocks())
+        want = s1_call(source_pass_slots, s1_blocks())
+        for k, (g_, w_) in enumerate(zip(got, want)):
+            for f in S1_FIELDS:
+                a_, b_ = getattr(g_, f), getattr(w_, f)
+                full = getattr(whole_s1, f)
+                if full.dim() >= 2:
+                    full = full[(..., *cuts[k])]
+                for other, what in ((b_, "its plain version"),
+                                    (full, "the unsharded S1")):
+                    check(torch.equal(a_.to(torch.int64),
+                                      other.to(torch.int64))
+                          if f == "rng" else torch.equal(a_, other),
+                          f"S1 block {k}: {f} differs from {what}")
+        emitted = int(whole_s1.alive_count) - int(wst.alive_count)
+        holding = sorted({divmod(int(y) // wYl * n + int(x) // wXl, n)
+                          for y, x in wscn.source_yx.tolist()})
+        k_blks, p_blks = s1_blocks(), s1_blocks()
+        t_k, t_p, events = timed(lambda: s1_call(s1.emit_sources, k_blks),
+                                 lambda: s1_call(source_pass_slots, p_blks),
+                                 1)
+        results["S1b"] = {"ms": t_k, "plain_ms": t_p, "max_abs_err": 0.0,
+                          "library_ms": None,
+                          **bound(*s1_blocks_bound(wscn.num_sources,
+                                                   emitted, nb))}
+        log(f"   S1 on {nb} blocks of the {SIZE}² waterfall "
+            f"({wscn.num_sources} sources in blocks {holding} (row, "
+            f"column), {emitted} emitted): bitwise its plain version and "
+            f"the unsharded S1; {events} the {nb} launches; bound "
+            f"{results['S1b']['bound_ms']:.3g} ms")
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"P4 (Jacobi, the speed mode's budget) on {n} x {n} blocks "
+               f"of the {SIZE}² substep system: against the 1-block solve "
+               "and the plain P4"):
+        c = shared["configs"]["jacobi"]
+        b, a_diag, fl = shared["b"], shared["a_diag"], shared["fl"]
+        ref = shared["unsharded"]["jacobi"]
+        one = shared["one_block"]["jacobi"]
+        scale = float(ref[0].abs().max())
+        reset_counts()
+        p, it, res, ms = block_solve(c, b, a_diag, fl, n, dev, x=n)
+        check(_build.LAUNCHES["P4"] == 2 * nb and not _build.PLAIN_CALLS,
+              f"P4 on {n} x {n} blocks: launches {dict(_build.LAUNCHES)}")
+        err1 = float((p - one[0]).abs().max()) / scale
+        err = float((p - ref[0]).abs().max()) / scale
+        true_res = float((b - apply_a(a_diag, fl, p)).abs().max())
+        check(it == one[1] == int(ref[1]) and err1 <= 1e-4 and err <= 1e-4,
+              f"P4 on {n} x {n} blocks: {it} iterations (1 block "
+              f"{one[1]}), p {err1:.3g} of scale from 1 block, {err:.3g} "
+              "from P1")
+        q, it_q, _, ms_q = block_solve(c, b, a_diag, fl, n, dev, plain=True,
+                                       x=n)
+        kerr = float((p - q).abs().max())
+        check(it == it_q and kerr <= 1e-4 * scale,
+              f"P4 on {n} x {n} blocks vs plain: {it} vs {it_q} "
+              f"iterations, p {kerr:.3g} apart")
+        row = {"ms": ms, "iters": it, "resid": res, "true_resid": true_res,
+               "err_vs_1_block": err1, "err_vs_unsharded": err,
+               "plain": {"ms": ms_q, "iters": it_q, "max_abs_err": kerr}}
+        summary["p4_jacobi"] = {f"blocks_{n}x{n}": row}
+        results["P4b"] = {"ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
+                          "library_ms": None,
+                          **bound(*BOUNDS["P4"](cfg.ny * cfg.nx, it, 0))}
+        rows_ms = summaries["row_blocks"]["p4_jacobi"][f"blocks_{ROW_N}"][
+            "ms"]
+        log(f"   {n} x {n} blocks: {ms:.3f} ms a solve (CUDA events around "
+            f"the blocks' calls; {ROW_N} row blocks {rows_ms:.3f}), {it} "
+            f"iterations as 1 block, p within {err1:.3g} of scale "
+            f"of 1 block and {err:.3g} of P1; resid {res:.4g} (|b - A p| "
+            f"{true_res:.4g}); plain P4 {ms_q:.3f} ms, {it_q} iterations, "
+            f"p {kerr:.3g} apart")
+
+    with Phase(f"the {SIZE}² waterfall (Jacobi budget) and dam break "
+               f"(speed mode) on {n} x {n} blocks: {ROW_WARMUP} warm-up + "
+               f"{ROW_TIMED} timed frames, K1, S1, K7, P4 and no plain "
+               "version; against 1 block"):
+        dcfg = shared["frames_1"]["dam_break"][0]
+        f64 = dataclasses.replace(dcfg, solver=dataclasses.replace(
+            dcfg.solver, dtype="float64"))
+        for label, gate in (("waterfall", "f32"), ("dam_break", None),
+                            ("dam_break_f64", "f64")):
+            fcfg, fscn, fst, one, ms1 = shared["frames_1"][
+                label.removesuffix("_f64")]
+            if gate == "f64":
+                fcfg = f64
+                one, ms1, _, _ = block_frames(fcfg, fscn, fst, 1, dev,
+                                              ROW_WARMUP, ROW_TIMED)
+            per = nb * fcfg.max_substeps * ROW_TIMED
+            got, ms, got_l, plain = block_frames(fcfg, fscn, fst, n, dev,
+                                                 ROW_WARMUP, ROW_TIMED, x=n)
+            names = (("K1", "S1", "K7", "P4") if fscn.num_sources
+                     else ("K1", "K7", "P4"))
+            check(plain == 0 and all(got_l.get(k) == per for k in names),
+                  f"{label} on {n} x {n} blocks: not one launch a block a "
+                  f"substep: {got_l}, plain calls {plain}")
+            for name in ("u", "v", "p", "markers"):
+                check(bool(torch.isfinite(getattr(got, name)).all()),
+                      f"{label} on {n} x {n} blocks: {name} not finite")
+            d = frame_diff(got, one)
+            held = {"f32": f"<= {ROW_FRAME_COUNT_CELLS} cells, max |dv| <= "
+                           f"{ROW_FRAME_ATOL}",
+                    "f64": f"0 cells, max |dv| <= {COL_F64_ATOL}",
+                    None: "reported: P4's f32 folds, see COL_F64_ATOL"}[gate]
+            log(f"   {label}: {n} x {n} blocks {ms:.1f} ms a frame, 1 block "
+                f"{ms1:.1f}; launches {got_l}; {d['count_cells']} of "
+                f"{d['cells']} cells' counts differ, max |dv| "
+                f"{d['max_dv']:.3g} ({held}); alive {d['alive']}")
+            if gate == "f32":
+                check(frames_agree(d), f"{label}, {n} x {n} blocks vs 1: "
+                      f"{d}")
+            elif gate == "f64":
+                check(d["count_cells"] == 0 and d["max_dv"] <= COL_F64_ATOL,
+                      f"{label}, {n} x {n} blocks vs 1: {d}")
+            check(d["alive"][0] == d["alive"][1],
+                  f"{label}, {n} x {n} blocks vs 1: alive {d['alive']}")
+            summary[f"{label}_1024"] = {
+                "ms_per_frame": ms, "ms_per_frame_1_block": ms1,
+                "launches": got_l, "vs_1_block": d,
+                "div_inf": div_inf(fcfg, got, exclude=fscn.source
+                                   if fscn.num_sources else None)}
+            if label == "waterfall":
+                for k, name in (("K1b", "K1"), ("K7b", "K7"),
+                                ("S1b", "S1"), ("P4b", "P4")):
+                    launches[k] = got_l.get(name, 0)
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"the 40 x 100 waterfall on {n} x {n} blocks of 20 x 50, "
+               f"{ROW_SMALL_FRAMES} frames: card (kernels) vs CPU (plain "
+               "versions) on the same blocks"):
+        scfg_, sscn, sst = cli_state(["scenarios/waterfall.txt"])
+        cscn, cst = to_cpu(sscn, sst)
+        got, _, got_l, plain = block_frames(scfg_, sscn, sst, n, dev, 0,
+                                            ROW_SMALL_FRAMES, x=n)
+        want, _, _, _ = block_frames(scfg_, cscn, cst, n, "cpu", 0,
+                                     ROW_SMALL_FRAMES, x=n)
+        check(plain == 0 and all(got_l.get(k, 0) > 0
+                                 for k in ("K1", "S1", "K7", "P4")),
+              f"40 x 100 on {n} x {n} blocks: launches {got_l}, plain "
+              f"calls {plain}")
+        for name in ("marker_count", "alive", "alive_count",
+                     "dropped_markers", "rng"):
+            a_, b_ = getattr(got, name).cpu(), getattr(want, name)
+            check(torch.equal(a_.to(torch.int64), b_.to(torch.int64)),
+                  f"40 x 100 on {n} x {n} blocks: {name} differs card vs "
+                  "CPU")
+        dv = max(float((got.u.cpu() - want.u).abs().max()),
+                 float((got.v.cpu() - want.v).abs().max()))
+        check(dv <= ROW_SMALL_ATOL,
+              f"40 x 100 on {n} x {n} blocks: |dv| {dv:.3g}")
+        summary["small_40x100"] = {"max_dv": dv, "launches": got_l}
+        log(f"   counts, alive, drops, RNG bitwise card vs CPU; max |dv| "
+            f"{dv:.3g} (atol {ROW_SMALL_ATOL}); launches {got_l}")
+    summaries["col_blocks"] = summary
+
+
+def run_block_profiles(results, summaries, shared, dev) -> None:
+    """P4's device time a solve of the 1024² substep system on 1, 2 and 4
+    row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi): the
+    summed kernel spans of one profiled solve each.  Run after every
+    timing of the block phases: a profiler session over the blocks'
+    threads slowed the host's later launches in this process (PERF.md
+    §6), so nothing is timed after it."""
+    b, a_diag, fl = shared["b"], shared["a_diag"], shared["fl"]
+    layouts = [(label, n, 1) for label in shared["configs"]
+               for n in ROW_BLOCKS] + [("jacobi", COL_N, COL_N)]
+    with Phase(f"P4's device time a solve of the {SIZE}² substep system "
+               "on 1, 2 and 4 row blocks and on 2 x 2 blocks: the summed "
+               "spans of one profiled solve"):
+        for label, n, x in layouts:
+            c = shared["configs"][label]
+            key = "row_blocks" if x == 1 else "col_blocks"
+            name = f"blocks_{n}" if x == 1 else f"blocks_{n}x{x}"
+            row = summaries[key][f"p4_{label}"][name]
+            spans = block_spans(c, b, a_diag, fl, n, dev, x)
+            own, lib = spans if spans else (None, None)
+            row.update(device_ms=own, torch_device_ms=lib)
+            log(f"   {label}, {n} x {x} blocks: " + (
+                f"P4's kernel spans {own:.4f} ms summed, torch's "
+                f"kernels and copies (the group's folds and edge "
+                f"copies) {lib:.4f} ms" if spans else
+                "not measured (no kernel record in 3 profiles)"))
+        results["P4"]["device_ms"] = \
+            summaries["row_blocks"]["p4_jacobi"][f"blocks_{ROW_N}"][
+                "device_ms"]
+        results["P4b"]["device_ms"] = \
+            summaries["col_blocks"]["p4_jacobi"][f"blocks_{COL_N}x{COL_N}"][
+                "device_ms"]
 
 
 def run(args) -> dict:
@@ -3403,7 +3820,12 @@ def run(args) -> dict:
 
     run_shard(results, summaries, launches, dev)
 
-    run_row_blocks(results, summaries, launches, dev)
+    shared = run_row_blocks(results, summaries, launches, dev)
+
+    run_col_blocks(results, summaries, launches, dev, shared)
+
+    run_block_profiles(results, summaries, shared, dev)
+    del shared
 
     if args.profile:
         with Phase("profile"):
@@ -3436,10 +3858,11 @@ def run(args) -> dict:
                "tests/test_torch_cuda_batch.py)"):
         run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
 
-    with Phase("the row-shard and row-block card tests and the dry run on "
-               "one NCCL rank (pytest, tests/test_torch_cuda_shard.py)"):
+    with Phase("the row-shard, row-block and column-block card tests and "
+               "the dry run on one NCCL rank (pytest, "
+               "tests/test_torch_cuda_shard.py)"):
         run_card_tests("shards or identity or dryrun or row_blocks or p4 "
-                       "or row_frame",
+                       "or row_frame or col_blocks or col_frame",
                        files=("tests/test_torch_cuda_shard.py",))
 
     kernels = []

@@ -146,27 +146,32 @@ def property_of(p_value: torch.Tensor, celltype: str) -> torch.Tensor:
 
 
 def valid_region(cfg: SimConfig, celltype: str, device="cpu", clamp_ny=None,
-                 row_offset: int = 0) -> torch.Tensor:
+                 row_offset: int = 0, clamp_nx=None,
+                 col_offset: int = 0) -> torch.Tensor:
     """bool [Y, X] mask of the logical sample region for a cell type.
 
-    On a row block (`parallel/spatial.py`) plane row i is grid row
-    i + row_offset of a grid of `clamp_ny` rows: rows outside the grid
-    lie outside every region, and the v region ends at the grid's last
-    row, not the block's."""
+    On a block (`parallel/spatial.py`) plane row i is grid row
+    i + row_offset of a grid of `clamp_ny` rows, and plane column j grid
+    column j + col_offset of a grid of `clamp_nx` columns: cells outside
+    the grid lie outside every region, the v region ends at the grid's
+    last row and the u region at its last column, not the block's."""
     m = torch.ones((cfg.ny, cfg.nx), dtype=torch.bool, device=device)
     if celltype not in ("p", "u", "v"):
         raise ValueError(celltype)
-    if clamp_ny is None and row_offset == 0:
-        if celltype == "u":
-            m[:, -1] = False
-        elif celltype == "v":
-            m[-1, :] = False
-        return m
-    gy = torch.arange(cfg.ny, device=device) + row_offset
-    last = (cfg.ny if clamp_ny is None else clamp_ny) - (celltype == "v")
-    m &= ((gy >= 0) & (gy < last))[:, None]
-    if celltype == "u":
+    rows = clamp_ny is not None or row_offset != 0
+    cols = clamp_nx is not None or col_offset != 0
+    if not rows and celltype == "v":
+        m[-1, :] = False
+    elif rows:
+        gy = torch.arange(cfg.ny, device=device) + row_offset
+        last = (cfg.ny if clamp_ny is None else clamp_ny) - (celltype == "v")
+        m &= ((gy >= 0) & (gy < last))[:, None]
+    if not cols and celltype == "u":
         m[:, -1] = False
+    elif cols:
+        gx = torch.arange(cfg.nx, device=device) + col_offset
+        last = (cfg.nx if clamp_nx is None else clamp_nx) - (celltype == "u")
+        m &= ((gx >= 0) & (gx < last))[None, :]
     return m
 
 

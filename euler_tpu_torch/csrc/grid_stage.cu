@@ -58,11 +58,13 @@ __global__ void rhs_kernel(Masks m, const float* __restrict__ ut,
 // K7: the grid stage of (u, v) into (ut, vt), on tiles of ty x tx cells
 // and `threads` threads a CTA.  u, v: [Y, X] f32 in; fl, pfl, so: [Y, X]
 // u8; dt: one f32 on the device; uu, vv: null, or [Y, X] f32 out, the
-// extrapolated, zeroed velocities (the rainbow form).  clamp_ny, row_offset:
-// Y and 0 on a whole plane; on a row block padded with its neighbours'
-// rows, the grid's row count and the grid row of the block's row 0.
+// extrapolated, zeroed velocities (the rainbow form).  clamp_ny, row_offset,
+// clamp_nx, col_offset: Y, 0, X, 0 on a whole plane; on a block padded
+// with its neighbours' rows and columns, the grid's row and column counts
+// and the grid row and column of the block's cell (0, 0).
 EU_API int eu_grid_passes(int Y, int X, int clamp_ny, int row_offset,
-                          float inv_h, float g, const void* fl,
+                          int clamp_nx, int col_offset, float inv_h,
+                          float g, const void* fl,
                           const void* pfl, const void* so, const void* u,
                           const void* v, const void* dt, void* ut, void* vt,
                           void* uu, void* vv, int ty, int tx, int threads,
@@ -70,6 +72,8 @@ EU_API int eu_grid_passes(int Y, int X, int clamp_ny, int row_offset,
   Masks m = make_masks(Y, X, fl, pfl, so);
   m.gY = clamp_ny;
   m.off = row_offset;
+  m.gX = clamp_nx;
+  m.offx = col_offset;
   return grid_passes(m, GridTile{ty, tx, threads},
                      inv_h, g, static_cast<const float*>(u),
                      static_cast<const float*>(v),

@@ -44,11 +44,13 @@ struct Masks {
   const uint8_t* __restrict__ fl;   // fluid
   const uint8_t* __restrict__ pfl;  // fluid at the previous substep
   const uint8_t* __restrict__ so;   // solid
-  // K7 on a row block padded with its neighbours' rows (parallel/
-  // spatial.py): the grid's row count (0: Y, a whole plane) and the
-  // grid's row of plane row 0.  The interpolation clamps, the v sample
-  // region, gravity's rows and the zero beyond the grid take grid rows.
-  int gY = 0, off = 0;
+  // K7 on a block padded with its neighbours' rows and columns
+  // (parallel/spatial.py): the grid's row and column counts (0: Y, X, a
+  // whole plane) and the grid's row and column of plane cell (0, 0).
+  // The interpolation clamps, the u and v sample regions, the sites'
+  // coordinates, gravity's rows and the zero beyond the grid take grid
+  // rows and columns.
+  int gY = 0, off = 0, gX = 0, offx = 0;
 
   __device__ bool at(const uint8_t* m, int i, int j) const {
     return ld(m, i, j, Y, X) != 0;
@@ -120,6 +122,7 @@ struct TileView {
   static constexpr int PW = TX + 4, ZW = TX + 2;
   int Y, X, y0, x0;
   int GY, off;        // the grid's rows, the grid row of plane row 0
+  int GX, offx;       // the grid's columns, the grid column of plane col 0
   const uint8_t* pr;  // property bits over the window
   const float* zu;    // extrapolated velocities over the ring
   const float* zv;
@@ -131,13 +134,15 @@ struct TileView {
     return (y - y0 + 1) * ZW + (x - x0 + 1);
   }
   // interpolate_stencil of the extrapolated u or v (by V) at idx around
-  // site (sy, sx), idx_y and sy grid rows; the base back on the plane
+  // site (sy, sx), idx and the site in grid rows and columns; the base
+  // back on the plane
   template <bool V>
   __device__ float interp(float idx_x, float idx_y, int sx, int sy) const {
     int bx, by;
     float fx, fy;
-    clamped_base(idx_x, sx, V ? X : X - 1, &bx, &fx);
+    clamped_base(idx_x, sx, V ? GX : GX - 1, &bx, &fx);
     clamped_base(idx_y, sy, V ? GY - 1 : GY, &by, &fy);
+    bx -= offx;
     by -= off;
     const float* q = V ? zv : zu;
     const int kw = w(by, bx), sh = kPropFl + (V ? kPropV : 0);
@@ -167,6 +172,7 @@ __global__ void __launch_bounds__(512)
   const int MH = ty + 5, PH = ty + 4, ZH = ty + 2;
   const int Y = m.Y, X = m.X;
   const int GY = m.gY > 0 ? m.gY : Y, off = m.off;
+  const int GX = m.gX > 0 ? m.gX : X, offx = m.offx;
   const int y0 = blockIdx.y * ty, x0 = blockIdx.x * TX;
   extern __shared__ float smem[];
   float* su = smem;
@@ -184,8 +190,8 @@ __global__ void __launch_bounds__(512)
   constexpr int WW = (TX + 8) / 4;  // words a widened row
   const bool vec =
       (X & 3) == 0 && y0 >= 2 && y0 + ty + 3 <= Y && y0 - 2 + off >= 0 &&
-      y0 + ty + 3 + off <= GY && x0 >= 4 &&
-      x0 + TX + 4 <= X &&
+      y0 + ty + 3 + off <= GY && x0 >= 4 && x0 - 4 + offx >= 0 &&
+      x0 + TX + 4 <= X && x0 + TX + 4 + offx <= GX &&
       ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(v)) &
        15) == 0 &&
       ((reinterpret_cast<uintptr_t>(m.fl) | reinterpret_cast<uintptr_t>(m.pfl) |
@@ -219,9 +225,9 @@ __global__ void __launch_bounds__(512)
   }
   for (int k = threadIdx.x; !vec && k < MH * MW; k += blockDim.x) {
     const int i = k / MW, j = k - i * MW;
-    const int y = y0 - 2 + i, x = x0 - 2 + j, gy = y + off;
-    const bool in =
-        y >= 0 && y < Y && gy >= 0 && gy < GY && x >= 0 && x < X;
+    const int y = y0 - 2 + i, x = x0 - 2 + j, gy = y + off, gx = x + offx;
+    const bool in = y >= 0 && y < Y && gy >= 0 && gy < GY && x >= 0 &&
+                    x < X && gx >= 0 && gx < GX;
     const int t = y * X + x;
     mk[k] = in ? (m.fl[t] ? kMaskFl : 0) | (m.pfl[t] ? kMaskPfl : 0) |
                      (m.so[t] ? kMaskSo : 0)
@@ -232,16 +238,17 @@ __global__ void __launch_bounds__(512)
     }
   }
   __syncthreads();
-  // the u/v properties, inside their sample regions (u: x < X-1, v: grid
-  // row < GY-1): a mask of the cell or of the one after it
+  // the u/v properties, inside their sample regions (u: grid column <
+  // GX-1, v: grid row < GY-1): a mask of the cell or of the one after it
   for (int k = threadIdx.x; k < PH * PW; k += blockDim.x) {
     const int i = k / PW, j = k - i * PW;
-    const int y = y0 - 2 + i, x = x0 - 2 + j, gy = y + off;
+    const int y = y0 - 2 + i, x = x0 - 2 + j, gy = y + off, gx = x + offx;
     const int a = mk[i * MW + j];
     const bool row = y >= 0 && y < Y && gy >= 0;
-    const int pu = (row && gy < GY && x >= 0 && x < X - 1)
+    const bool col = x >= 0 && x < X && gx >= 0;
+    const int pu = (row && gy < GY && col && gx < GX - 1)
                        ? (a | mk[i * MW + j + 1]) : 0;
-    const int pv = (row && gy < GY - 1 && x >= 0 && x < X)
+    const int pv = (row && gy < GY - 1 && col && gx < GX)
                        ? (a | mk[(i + 1) * MW + j]) : 0;
     pr[k] = static_cast<uint8_t>(pu | (pv << kPropV));
   }
@@ -257,22 +264,22 @@ __global__ void __launch_bounds__(512)
 
   // advect_u / advect_v (main.c:382-422), gravity (main.c:539-545),
   // zero_bounds (main.c:888-889) of the tile's cells
-  const TileView<TX> tv{Y, X, y0, x0, GY, off, pr, zu, zv};
+  const TileView<TX> tv{Y, X, y0, x0, GY, off, GX, offx, pr, zu, zv};
   const float dt = *dt_ptr;
   for (int k = threadIdx.x; k < ty * TX; k += blockDim.x) {
     const int y = y0 + k / TX, x = x0 + k % TX;
     if (y >= Y || x >= X) continue;
-    const int t = y * X + x, zc = tv.z(y, x), gy = y + off;
+    const int t = y * X + x, zc = tv.z(y, x), gy = y + off, gx = x + offx;
     const int pc = pr[tv.w(y, x)];  // the site's property bits
-    const float xs = static_cast<float>(x), ys = static_cast<float>(gy);
+    const float xs = static_cast<float>(gx), ys = static_cast<float>(gy);
     float uo = 0.0f;
     if (pc & (1 << kPropFl)) {
       const float dxu = zu[zc];
       const float dyu =
-          tv.template interp<true>(xs + 0.5f, ys - 0.5f, x, gy);
+          tv.template interp<true>(xs + 0.5f, ys - 0.5f, gx, gy);
       const float px = xs - dxu * dt * inv_h;
       const float py = ys - dyu * dt * inv_h;
-      uo = tv.template interp<false>(px, py, x, gy);
+      uo = tv.template interp<false>(px, py, gx, gy);
       if (pc & (1 << kPropSo)) uo = 0.0f;
     }
     float vo = 0.0f;
@@ -280,10 +287,10 @@ __global__ void __launch_bounds__(512)
     if (vmask) {
       const float dyv = zv[zc];
       const float dxv =
-          tv.template interp<false>(xs - 0.5f, ys + 0.5f, x, gy);
+          tv.template interp<false>(xs - 0.5f, ys + 0.5f, gx, gy);
       const float px = xs - dxv * dt * inv_h;
       const float py = ys - dyv * dt * inv_h;
-      vo = tv.template interp<true>(px, py, x, gy);
+      vo = tv.template interp<true>(px, py, gx, gy);
     }
     if (gy < GY - 1) vo = vo + g * dt;  // every V sample, fluid or not
     if (!vmask || (pc & (1 << (kPropV + kPropSo)))) vo = 0.0f;

@@ -52,16 +52,19 @@
 // Built with -fmad=false so every product and sum rounds as the plain
 // PyTorch version's do: positions and counts match it bit for bit.
 //
-// K1 also runs on one row shard of a plane (parallel/cuda_shard.py): the
-// shard's rows with H = 8 rows of each neighbour above and below, which
-// is then the [Y, X] plane here.  Marker positions stay global, so the
-// march and the re-bin take the site's global row (its plane row plus
-// `row_offset`, the global row of plane row 0) and the interpolation
-// clamps the global row count `clamp_ny`; a clamped base row goes back to
-// a plane row before any load.  The rows a shard keeps are those of the
-// whole plane bit for bit: their arrivals come from one row away, marched
-// from rows within two, and u_property / v_property read one row more,
-// all inside the H rows.  On a whole plane clamp_ny = Y, row_offset = 0.
+// K1 also runs on one block of a plane (parallel/cuda_shard.py): the
+// block's cells with H = 8 rows and columns of each neighbour around
+// them (the corners from the diagonal neighbours), which is then the
+// [Y, X] plane here.  Marker positions stay global, so the march and the
+// re-bin take the site's global row and column (its plane row plus
+// `row_offset`, its plane column plus `col_offset`: the global row and
+// column of plane cell (0, 0)) and the interpolation clamps the global
+// row and column counts `clamp_ny`, `clamp_nx`; a clamped base goes back
+// to a plane cell before any load.  The cells a block keeps are those of
+// the whole plane bit for bit: their arrivals come from one cell away,
+// marched from cells within two, and u_property / v_property read one
+// cell more, all inside the H rows and columns.  On a whole plane
+// clamp_ny = Y, row_offset = 0, clamp_nx = X, col_offset = 0.
 #include "common.cuh"
 
 namespace {
@@ -75,6 +78,7 @@ __device__ __forceinline__ float time_to(float p0, float p1, float vel) {
 struct Grid {
   int Y, X;
   int clamp_ny, row_offset;  // the global row count, the global row of 0
+  int clamp_nx, col_offset;  // the global column count, column of 0
   const float* __restrict__ u;
   const float* __restrict__ v;
   const uint8_t* __restrict__ fluid_mask;
@@ -92,14 +96,15 @@ struct Grid {
     return (i >= 0 && i < Y && j >= 0 && j < X) &&
            (fluid(i, j) || fluid(i + 1, j));
   }
-  // interpolate_stencil of u (size (X-1, clamp_ny)) / v (size (X,
-  // clamp_ny-1)) at the site of global row sy; the base row back on the
-  // plane
+  // interpolate_stencil of u (size (clamp_nx-1, clamp_ny)) / v (size
+  // (clamp_nx, clamp_ny-1)) at the site of global row sy and column sx;
+  // the base back on the plane
   __device__ float interp_u(float idx_x, float idx_y, int sx, int sy) const {
     int bx, by;
     float fx, fy;
-    clamped_base(idx_x, sx, X - 1, &bx, &fx);
+    clamped_base(idx_x, sx, clamp_nx - 1, &bx, &fx);
     clamped_base(idx_y, sy, clamp_ny, &by, &fy);
+    bx -= col_offset;
     by -= row_offset;
     bool v00 = uprop(by, bx), v01 = uprop(by, bx + 1);
     bool v10 = uprop(by + 1, bx), v11 = uprop(by + 1, bx + 1);
@@ -112,8 +117,9 @@ struct Grid {
   __device__ float interp_v(float idx_x, float idx_y, int sx, int sy) const {
     int bx, by;
     float fx, fy;
-    clamped_base(idx_x, sx, X, &bx, &fx);
+    clamped_base(idx_x, sx, clamp_nx, &bx, &fx);
     clamped_base(idx_y, sy, clamp_ny - 1, &by, &fy);
+    bx -= col_offset;
     by -= row_offset;
     bool v00 = vprop(by, bx), v01 = vprop(by, bx + 1);
     bool v10 = vprop(by + 1, bx), v11 = vprop(by + 1, bx + 1);
@@ -123,10 +129,11 @@ struct Grid {
     float q11 = v11 ? ld(v, by + 1, bx + 1, Y, X) : 0.0f;
     return bilinear(q00, q01, q10, q11, fx, fy, v00, v01, v10, v11);
   }
-  // solid probe within the 3x3 window of the site of global row sy
+  // solid probe within the 3x3 window of the site of global row sy and
+  // column sx
   __device__ bool solid_at(int yy, int xx, int sy, int sx) const {
     int dy = min(max(yy - sy, -1), 1), dx = min(max(xx - sx, -1), 1);
-    return ld(solid, sy - row_offset + dy, sx + dx, Y, X) != 0;
+    return ld(solid, sy - row_offset + dy, sx - col_offset + dx, Y, X) != 0;
   }
 };
 
@@ -156,8 +163,8 @@ Store<T> slot_store(T* slots, int K, int Y, int X, bool padded) {
           padded ? kPadX : 0};
 }
 
-// March one live marker at (px, py), homed in cell (y, x) (y its global
-// row), through dt:
+// March one live marker at (px, py), homed in cell (y, x) (its global
+// row and column), through dt:
 // velocity sampling, the bounded DDA collision march and the advance
 // (main.c:464-537).
 __device__ __forceinline__ float2 march_marker(const Grid& g, float px,
@@ -217,8 +224,8 @@ __device__ __forceinline__ float2 march_marker(const Grid& g, float px,
   return make_float2(mx + tt * vx, my + tt * vy);
 }
 
-// The destination of a marker at (mx, my) homed in (sy, sx) (sy its
-// global row): the offset
+// The destination of a marker at (mx, my) homed in (sy, sx) (its global
+// row and column): the offset
 // (dy, dx) of its new cell, clamped to the 3x3 window, as the code
 // (dy + 1) * 3 + dx + 1.
 __device__ __forceinline__ int dest_code(float mx, float my, int sy, int sx,
@@ -418,9 +425,9 @@ __device__ __forceinline__ void tile_pass(const TileArgs& a) {
       for (int i = 0; i < B; ++i) {
         const int j = j0 + i * nt;
         if (j >= total) continue;
-        // the home cell's global row
+        // the home cell's global row and column
         const int y = hy0 + home[i] / L.HX + a.g.row_offset;
-        const int x = hx0 + home[i] % L.HX;
+        const int x = hx0 + home[i] % L.HX + a.g.col_offset;
         if constexpr (P != Pass::kRebin)
           m[i] = march_marker(a.g, m[i].x, m[i].y, y, x, dt, a.iters, a.h,
                               a.inv_h);
@@ -512,11 +519,11 @@ march_tiles(TileArgs a) {
   tile_pass<Pass::kMarch>(a);
 }
 
-// A whole plane's grid (clamp_ny = Y, row_offset = 0); K1 on a row shard
-// sets its own two.
+// A whole plane's grid (clamp_ny = Y, row_offset = 0, clamp_nx = X,
+// col_offset = 0); K1 on a block sets its own four.
 Grid make_grid(int Y, int X, const void* u, const void* v,
                const void* fluid, const void* solid) {
-  return {Y, X, Y, 0, static_cast<const float*>(u),
+  return {Y, X, Y, 0, X, 0, static_cast<const float*>(u),
           static_cast<const float*>(v), static_cast<const uint8_t*>(fluid),
           static_cast<const uint8_t*>(solid)};
 }
@@ -555,9 +562,11 @@ int launch_tiles(void (*kernel)(TileArgs), TileArgs a, TilePlan p,
 }
 
 // K1 (padded = false) and K4 (padded = true); `slots` and `out` share the
-// layout.  clamp_ny, row_offset: see the top of this file.
+// layout.  clamp_ny, row_offset, clamp_nx, col_offset: see the top of
+// this file.
 int march_rebin(bool padded, int Y, int X, int K, int iters, float h,
-                float inv_h, int clamp_ny, int row_offset, const void* u,
+                float inv_h, int clamp_ny, int row_offset, int clamp_nx,
+                int col_offset, const void* u,
                 const void* v, const void* count, const void* fluid,
                 const void* solid, const void* dead, const void* slots,
                 const void* dt, void* out, void* out_count, void* out_drop,
@@ -566,6 +575,8 @@ int march_rebin(bool padded, int Y, int X, int K, int iters, float h,
   a.g = make_grid(Y, X, u, v, fluid, solid);
   a.g.clamp_ny = clamp_ny;
   a.g.row_offset = row_offset;
+  a.g.clamp_nx = clamp_nx;
+  a.g.col_offset = col_offset;
   a.count = static_cast<const int32_t*>(count);
   a.dead = static_cast<const uint8_t*>(dead);
   a.dt = static_cast<const float*>(dt);
@@ -584,21 +595,23 @@ int march_rebin(bool padded, int Y, int X, int K, int iters, float h,
 
 // K1.  slots/out: [2K, Y, X] f32; count/out_count/out_drop: [Y, X] i32;
 // u, v: [Y, X] f32; fluid, solid, dead: [Y, X] u8; dt: one f32 on device;
-// clamp_ny, row_offset: Y and 0 on a whole plane, the global row count and
-// the global row of plane row 0 on a row shard's plane; the tile plan
-// (tile_y, tile_x, tiles_y, tiles_x, threads) from
-// ops/cuda/marker_fused_kernel.py `tile_plan`.
+// clamp_ny, row_offset, clamp_nx, col_offset: Y, 0, X and 0 on a whole
+// plane, the global row and column counts and the global row and column
+// of plane cell (0, 0) on a block's plane; the tile plan (tile_y, tile_x,
+// tiles_y, tiles_x, threads) from ops/cuda/marker_fused_kernel.py
+// `tile_plan`.
 EU_API int eu_march_rebin(int Y, int X, int K, int iters, float h,
                           float inv_h, int clamp_ny, int row_offset,
-                          const void* u, const void* v, const void* count,
+                          int clamp_nx, int col_offset, const void* u,
+                          const void* v, const void* count,
                           const void* fluid, const void* solid,
                           const void* dead, const void* slots, const void* dt,
                           void* out, void* out_count, void* out_drop,
                           int tile_y, int tile_x, int tiles_y, int tiles_x,
                           int threads, void* stream) {
   return march_rebin(false, Y, X, K, iters, h, inv_h, clamp_ny, row_offset,
-                     u, v, count, fluid, solid, dead, slots, dt, out,
-                     out_count, out_drop,
+                     clamp_nx, col_offset, u, v, count, fluid, solid, dead,
+                     slots, dt, out, out_count, out_drop,
                      {tile_y, tile_x, tiles_y, tiles_x, threads}, stream);
 }
 
@@ -612,7 +625,7 @@ EU_API int eu_march_rebin_padded(int Y, int X, int K, int iters, float h,
                                  void* out, void* out_count, void* out_drop,
                                  int tile_y, int tile_x, int tiles_y,
                                  int tiles_x, int threads, void* stream) {
-  return march_rebin(true, Y, X, K, iters, h, inv_h, Y, 0, u, v, count,
+  return march_rebin(true, Y, X, K, iters, h, inv_h, Y, 0, X, 0, u, v, count,
                      fluid, solid, dead, slots, dt, out, out_count, out_drop,
                      {tile_y, tile_x, tiles_y, tiles_x, threads}, stream);
 }

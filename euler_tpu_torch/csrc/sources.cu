@@ -35,14 +35,16 @@
 // S), slot 0 standing in for any it does not find (jnp.nonzero's
 // padding, markers.py:384-387), into a scratch list.
 //
-// On a row block of a grid split over ranks (parallel/spatial.py) the
-// planes are the block's Y rows, grid rows row_offset .. row_offset + Y - 1,
-// and `counts_in` holds every source cell's count, all-reduced over the
+// On a block of a grid split over ranks (parallel/spatial.py) the planes
+// are the block's Y rows and X columns, grid rows row_offset ..
+// row_offset + Y - 1 and columns col_offset .. col_offset + X - 1, and
+// `counts_in` holds every source cell's count, all-reduced over the
 // blocks: the walk reads those, so every block draws the same jitters and
 // keeps the same alive_count and exhausted flag, and writes colours,
-// markers, alive bits and counts only where the source's row is its own.
-// With row_offset 0, the whole plane and counts_in null the pass is the
-// unsharded one.
+// markers, alive bits and counts only where the source's row and column
+// both lie in the block, at its local cell (y - row_offset) X + (x -
+// col_offset).  With both offsets 0, the whole plane and counts_in null
+// the pass is the unsharded one.
 //
 // Everything is read from and written to the card in place: the store,
 // alive plane, counts and colour planes, the RNG state (uint32 [2], hi
@@ -79,7 +81,7 @@ __device__ __forceinline__ float randf32(uint64_t& x) {
 }
 
 struct SourceArgs {
-  int S, Y, X, K, per_cell, max_markers, row_offset;
+  int S, Y, X, K, per_cell, max_markers, row_offset, col_offset;
   float q, h;
   const int32_t* __restrict__ source_yx;  // [S, 2] (y, x)
   const uint8_t* __restrict__ valid;      // [S]
@@ -98,7 +100,9 @@ struct SourceArgs {
 };
 
 __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
-  __shared__ int32_t s_cell[kChunk];
+  __shared__ int32_t s_cell[kChunk];  // the local cell, -1: not the block's
+  __shared__ int32_t s_y[kChunk];     // the grid row and column
+  __shared__ int32_t s_x[kChunk];
   __shared__ int32_t s_count[kChunk];
   __shared__ uint8_t s_valid[kChunk];
 
@@ -107,8 +111,6 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
   const float cg = hsv_basis(t);
   const float cb = hsv_basis(t - 2.0f);
   const size_t plane = static_cast<size_t>(a.K) * a.Y * a.X;
-  // the grid cells of this block's rows
-  const int lo = a.row_offset * a.X, hi = lo + a.Y * a.X;
 
   uint64_t state = 0;
   int ac = 0;
@@ -124,17 +126,20 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
     const int n = min(kChunk, a.S - base);
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const int i = base + j;
-      const int cell = a.source_yx[2 * i] * a.X + a.source_yx[2 * i + 1];
+      const int y = a.source_yx[2 * i], x = a.source_yx[2 * i + 1];
+      const int ly = y - a.row_offset, lx = x - a.col_offset;
+      const int cell = ly * a.X + lx;
       const uint8_t ok = a.valid[i];
-      const bool mine = cell >= lo && cell < hi;
-      s_cell[j] = cell;
+      const bool mine = ly >= 0 && ly < a.Y && lx >= 0 && lx < a.X;
+      s_cell[j] = mine ? cell : -1;
+      s_y[j] = y;
+      s_x[j] = x;
       s_valid[j] = ok;
-      s_count[j] = !ok ? 0 : (a.counts_in ? a.counts_in[i]
-                                          : a.count[cell - lo]);
+      s_count[j] = !ok ? 0 : (a.counts_in ? a.counts_in[i] : a.count[cell]);
       if (ok && mine) {
-        a.r[cell - lo] = cr;
-        a.g[cell - lo] = cg;
-        a.b[cell - lo] = cb;
+        a.r[cell] = cr;
+        a.g[cell] = cg;
+        a.b[cell] = cb;
       }
     }
     __syncthreads();
@@ -146,15 +151,12 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
           const float ry = randf32(state);
           const float rx = randf32(state);
           const int cell = s_cell[j];
-          if (cell >= lo && cell < hi) {
-            const int y = cell / a.X;
-            const int x = cell - y * a.X;
-            const size_t slot =
-                static_cast<size_t>(c) * a.Y * a.X + (cell - lo);
-            a.markers[slot] = (static_cast<float>(x) + rx) * a.h;
-            a.markers[plane + slot] = (static_cast<float>(y) + ry) * a.h;
+          if (cell >= 0) {
+            const size_t slot = static_cast<size_t>(c) * a.Y * a.X + cell;
+            a.markers[slot] = (static_cast<float>(s_x[j]) + rx) * a.h;
+            a.markers[plane + slot] = (static_cast<float>(s_y[j]) + ry) * a.h;
             a.alive[slot] = 1;
-            a.count[cell - lo] = c + 1;
+            a.count[cell] = c + 1;
           }
           ac += 1;
         }
@@ -322,11 +324,12 @@ EU_API int eu_source_pass_global(int S, int M, int X, int per_cell, float q,
   return eu_launch_status();
 }
 
-// S1: the planes are the Y rows from grid row row_offset (0 and the whole
-// plane, unsharded); counts_in: null, or [S] i32 every source cell's count
-// (a row block's walk).
+// S1: the planes are the Y rows and X columns from grid row row_offset and
+// column col_offset (0, 0 and the whole plane, unsharded); counts_in:
+// null, or [S] i32 every source cell's count (a block's walk).
 EU_API int eu_source_pass(int S, int Y, int X, int K, int per_cell,
-                          int max_markers, int row_offset, float q, float h,
+                          int max_markers, int row_offset, int col_offset,
+                          float q, float h,
                           const void* source_yx, const void* valid,
                           const void* active, const void* frame_count,
                           const void* counts_in, void* markers, void* alive,
@@ -340,6 +343,7 @@ EU_API int eu_source_pass(int S, int Y, int X, int K, int per_cell,
   a.per_cell = per_cell;
   a.max_markers = max_markers;
   a.row_offset = row_offset;
+  a.col_offset = col_offset;
   a.counts_in = static_cast<const int32_t*>(counts_in);
   a.q = q;
   a.h = h;

@@ -96,36 +96,41 @@ def grid_tile_plan(Y: int, X: int, tile_y: int = TILE_Y,
 
 
 def extrapolate_zero(cfg: SimConfig, u, v, fluid, prev_fluid, solid,
-                     clamp_ny=None, row_offset=0):
+                     clamp_ny=None, row_offset=0, clamp_nx=None,
+                     col_offset=0):
     """extrapolate -> zero_bounds (main.c:865-870): the velocities the
-    advection reads (the colours' advection too).  `clamp_ny` and
-    `row_offset`: on a row block padded with its neighbours' rows, the
-    grid's row count and the grid row of its row 0 (see `grid_stage`)."""
-    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset)
-    uu = extrapolate(cfg, u, fluid, prev_fluid, "u", **rows)
-    vv = extrapolate(cfg, v, fluid, prev_fluid, "v", **rows)
-    return (zero_bounds(cfg, uu, fluid, solid, "u", **rows),
-            zero_bounds(cfg, vv, fluid, solid, "v", **rows))
+    advection reads (the colours' advection too).  `clamp_ny`,
+    `row_offset`, `clamp_nx`, `col_offset`: on a block padded with its
+    neighbours' cells, the grid's row and column counts and the grid row
+    and column of its cell (0, 0) (see `grid_stage`)."""
+    at = dict(clamp_ny=clamp_ny, row_offset=row_offset, clamp_nx=clamp_nx,
+              col_offset=col_offset)
+    uu = extrapolate(cfg, u, fluid, prev_fluid, "u", **at)
+    vv = extrapolate(cfg, v, fluid, prev_fluid, "v", **at)
+    return (zero_bounds(cfg, uu, fluid, solid, "u", **at),
+            zero_bounds(cfg, vv, fluid, solid, "v", **at))
 
 
 def advect_forces(cfg: SimConfig, uu, vv, fluid, solid, dt, clamp_ny=None,
-                  row_offset=0):
+                  row_offset=0, clamp_nx=None, col_offset=0):
     """advect -> gravity -> zero_bounds (main.c:871-889)."""
-    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset)
-    ut = advect_u(cfg, uu, vv, fluid, dt, **rows)
-    vt = advect_v(cfg, uu, vv, fluid, dt, **rows)
-    vt = apply_body_forces(cfg, vt, dt, **rows)
-    return (zero_bounds(cfg, ut, fluid, solid, "u", **rows),
-            zero_bounds(cfg, vt, fluid, solid, "v", **rows))
+    at = dict(clamp_ny=clamp_ny, row_offset=row_offset, clamp_nx=clamp_nx,
+              col_offset=col_offset)
+    ut = advect_u(cfg, uu, vv, fluid, dt, **at)
+    vt = advect_v(cfg, uu, vv, fluid, dt, **at)
+    vt = apply_body_forces(cfg, vt, dt, **at)
+    return (zero_bounds(cfg, ut, fluid, solid, "u", **at),
+            zero_bounds(cfg, vt, fluid, solid, "v", **at))
 
 
 def grid_stage_plain(cfg: SimConfig, dt, u, v, fluid, prev_fluid, solid,
-                     clamp_ny=None, row_offset=0):
+                     clamp_ny=None, row_offset=0, clamp_nx=None,
+                     col_offset=0):
     """extrapolate -> zero_bounds -> advect -> gravity -> zero_bounds
     (main.c:865-889): the velocities the projection starts from."""
-    uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid, clamp_ny,
-                              row_offset)
-    return advect_forces(cfg, uu, vv, fluid, solid, dt, clamp_ny, row_offset)
+    at = (clamp_ny, row_offset, clamp_nx, col_offset)
+    uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid, *at)
+    return advect_forces(cfg, uu, vv, fluid, solid, dt, *at)
 
 
 @functools.cache
@@ -135,7 +140,7 @@ def grid_lib():
     once."""
     lib = _build.load("grid_stage", flags=["-fmad=false"])
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_grid_passes", [I] * 4 + [F, F] + [P] * 10
+    _build.bind(lib, "eu_grid_passes", [I] * 6 + [F, F] + [P] * 10
                 + [I] * 3 + [P])
     _build.bind(lib, "eu_grid_stage", [I, I, F, F, F] + [P] * 13 + [I] * 3
                 + [P])
@@ -144,26 +149,28 @@ def grid_lib():
 
 
 def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt, *,
-               extrapolated: bool = False, clamp_ny=None, row_offset=0):
+               extrapolated: bool = False, clamp_ny=None, row_offset=0,
+               clamp_nx=None, col_offset=0):
     """The grid stage of one substep.  Returns (ut, vt), with
     `extrapolated` (ut, vt, uu, vv): uu, vv the extrapolated, zeroed
     velocities (`extrapolate_zero`).  CUDA tensors run the kernel; CPU
     tensors the plain version.
 
-    On a row block (`parallel/spatial.py`) the planes are the block's
-    rows with H of each neighbour's around them (cfg.ny their count),
-    `clamp_ny` the grid's row count and `row_offset` the grid row of the
-    planes' row 0: the interpolation clamps, the v sample region,
-    gravity and the zero beyond the grid take grid rows, and the rows H
+    On a block (`parallel/spatial.py`) the planes are the block's cells
+    with H of each neighbour's rows and columns around them (cfg.ny,
+    cfg.nx their counts), `clamp_ny` / `clamp_nx` the grid's row and
+    column counts and `row_offset` / `col_offset` the grid row and
+    column of the planes' cell (0, 0): the interpolation clamps, the u
+    and v sample regions, the sites' grid coordinates, gravity and the
+    zero beyond the grid take grid rows and columns, and the cells H
     away from the planes' edges are those of the whole grid's stage, bit
-    for bit (the stage reads 3 rows around a cell at most).  cfg.ny and
-    0, the default, is a whole plane."""
+    for bit (the stage reads 3 cells around a cell at most).  cfg.ny,
+    cfg.nx and 0, the defaults, are a whole plane."""
+    at = (clamp_ny, row_offset, clamp_nx, col_offset)
     if u.device.type == "cpu":
         _build.PLAIN_CALLS["K7"] += 1
-        uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid,
-                                  clamp_ny, row_offset)
-        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt, clamp_ny,
-                               row_offset)
+        uu, vv = extrapolate_zero(cfg, u, v, fluid, prev_fluid, solid, *at)
+        ut, vt = advect_forces(cfg, uu, vv, fluid, solid, dt, *at)
         return (ut, vt, uu, vv) if extrapolated else (ut, vt)
     Y, X = cfg.ny, cfg.nx
     plane = (Y, X)
@@ -182,7 +189,8 @@ def grid_stage(cfg: SimConfig, u, v, fluid, prev_fluid, solid, dt, *,
     lib = grid_lib()
     _build.LAUNCHES["K7"] += 1
     rc = lib.eu_grid_passes(Y, X, Y if clamp_ny is None else clamp_ny,
-                            row_offset, 1.0 / cfg.side_length, cfg.gravity,
+                            row_offset, X if clamp_nx is None else clamp_nx,
+                            col_offset, 1.0 / cfg.side_length, cfg.gravity,
                             *ptr,
                             plan.tile_y, plan.tile_x, plan.threads,
                             _build.stream())

@@ -25,12 +25,14 @@ bitwise identity on the store.
 `march_rebin_plain` is the plain version: `markers_slots.march_slots`
 followed by `markers_slots.rebin_slots`.
 
-K1 also runs on one row shard's plane (`parallel/cuda_shard.py`, the
-JAX `march_rebin_pallas(..., clamp_ny=, row_offset=)`,
-marker_fused_kernel.py:823-876): cfg.ny is then the shard's rows with
-their halo, `clamp_ny` the global row count of the interpolation clamps
-and `row_offset` the global row of plane row 0.  Their defaults (cfg.ny
-and 0) are the whole plane's, the same launch as before they existed.
+K1 also runs on one block's plane (`parallel/cuda_shard.py`, the JAX
+`march_rebin_pallas(..., clamp_ny=, row_offset=)`,
+marker_fused_kernel.py:823-876, on rows; the port also splits columns):
+cfg.ny and cfg.nx are then the block's rows and columns with their halo,
+`clamp_ny` / `clamp_nx` the global row and column counts of the
+interpolation clamps and `row_offset` / `col_offset` the global row and
+column of plane cell (0, 0).  Their defaults (cfg.ny, 0, cfg.nx, 0) are
+the whole plane's, the same launch as before they existed.
 
 `march_rebin_padded` (K4) replaces the same Pallas kernel launched by
 `march_rebin_padded` (marker_fused_kernel.py:973-1062): K1's function on
@@ -162,26 +164,31 @@ def tile_plan(Y: int, X: int, K: int, kernel: str = "K1") -> TilePlan:
                     tile_smem_bytes(ty, TILE_X, K, kernel))
 
 
-def _shard_rows(cfg: SimConfig, clamp_ny, row_offset):
-    """(clamp_ny, row_offset) checked: cfg.ny and 0 by default."""
+def _block_at(cfg: SimConfig, clamp_ny, row_offset, clamp_nx, col_offset):
+    """(clamp_ny, row_offset, clamp_nx, col_offset) checked: cfg.ny, 0,
+    cfg.nx and 0 by default."""
     clamp_ny = cfg.ny if clamp_ny is None else int(clamp_ny)
-    row_offset = int(row_offset)
     if clamp_ny < 2:
         raise ValueError(f"clamp_ny {clamp_ny}: the global grid needs two "
                          "rows at least")
-    return clamp_ny, row_offset
+    if clamp_nx is not None and int(clamp_nx) < 2:
+        raise ValueError(f"clamp_nx {clamp_nx}: a grid split into column "
+                         "blocks needs two columns at least")
+    clamp_nx = cfg.nx if clamp_nx is None else int(clamp_nx)
+    return clamp_ny, int(row_offset), clamp_nx, int(col_offset)
 
 
 def march_rebin_plain(cfg: SimConfig, u, v, fluid, solid, slots, dt, count,
-                      *, dead, clamp_ny=None, row_offset=0):
+                      *, dead, clamp_ny=None, row_offset=0, clamp_nx=None,
+                      col_offset=0):
     """March + re-bin as plain PyTorch ops."""
-    clamp_ny, row_offset = _shard_rows(cfg, clamp_ny, row_offset)
+    at = _block_at(cfg, clamp_ny, row_offset, clamp_nx, col_offset)
     K = slots.shape[0] // 2
     valid = live_slots(count, K)
     px, py = march_slots(cfg, u, v, fluid, solid, slots[:K], slots[K:],
-                         valid, dt, clamp_ny, row_offset)
-    opx, opy, ocount, drop = rebin_slots(cfg, px, py, valid, dead,
-                                         row_offset)
+                         valid, dt, *at)
+    opx, opy, ocount, drop = rebin_slots(cfg, px, py, valid, dead, at[1],
+                                         at[3])
     return torch.cat([opx, opy]), ocount, drop
 
 
@@ -192,7 +199,7 @@ def marker_lib():
     and bound once (binding costs the host ~10 µs a call)."""
     lib = _build.load("marker_pass", flags=["-fmad=false"])
     P, I, Fl = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_march_rebin", [I, I, I, I, Fl, Fl, I, I]
+    _build.bind(lib, "eu_march_rebin", [I, I, I, I, Fl, Fl, I, I, I, I]
                 + [P] * 11 + [I] * 5 + [P])
     _build.bind(lib, "eu_march_rebin_padded", [I, I, I, I, Fl, Fl]
                 + [P] * 11 + [I] * 5 + [P])
@@ -203,27 +210,28 @@ def marker_lib():
 
 
 def march_rebin(cfg: SimConfig, u, v, fluid, solid, slots, dt, count, *,
-                dead, clamp_ny=None, row_offset=0):
+                dead, clamp_ny=None, row_offset=0, clamp_nx=None,
+                col_offset=0):
     """Fused marker pass.  Returns (slots', count', drop).  CUDA tensors
-    run the kernel; CPU tensors the plain version.  clamp_ny and
-    row_offset place a row shard's plane in the global grid (see the top
-    of this module)."""
+    run the kernel; CPU tensors the plain version.  clamp_ny, row_offset,
+    clamp_nx and col_offset place a block's plane in the global grid (see
+    the top of this module)."""
+    at = dict(clamp_ny=clamp_ny, row_offset=row_offset, clamp_nx=clamp_nx,
+              col_offset=col_offset)
     if slots.device.type == "cpu":
         _build.PLAIN_CALLS["K1"] += 1
         return march_rebin_plain(cfg, u, v, fluid, solid, slots, dt, count,
-                                 dead=dead, clamp_ny=clamp_ny,
-                                 row_offset=row_offset)
+                                 dead=dead, **at)
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
     return _launch("K1", "eu_march_rebin", cfg, u, v, fluid, solid, slots,
-                   (2 * K, Y, X), dt, count, dead,
-                   _shard_rows(cfg, clamp_ny, row_offset))
+                   (2 * K, Y, X), dt, count, dead, _block_at(cfg, **at))
 
 
 def _launch(kernel, entry, cfg, u, v, fluid, solid, slots, store_shape, dt,
-            count, dead, shard_rows=()):
+            count, dead, block_at=()):
     """K1's launch through `entry`, on a store of `store_shape`, counted
-    as `kernel`'s; `shard_rows` is K1's (clamp_ny, row_offset), which K4's
-    entry does not take."""
+    as `kernel`'s; `block_at` is K1's (clamp_ny, row_offset, clamp_nx,
+    col_offset), which K4's entry does not take."""
     Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
     f = torch.float32
     dev = slots.device
@@ -246,7 +254,7 @@ def _launch(kernel, entry, cfg, u, v, fluid, solid, slots, store_shape, dt,
     _build.LAUNCHES[kernel] += 1
     rc = getattr(lib, entry)(
         Y, X, K, cfg.marker_march_iters, float(h),
-        float(np.float32(1.0) / h), *shard_rows, p_u, p_v, p_count, p_fluid,
+        float(np.float32(1.0) / h), *block_at, p_u, p_v, p_count, p_fluid,
         p_solid, p_dead, p_slots, p_dt, out.data_ptr(), out_count.data_ptr(),
         out_drop.data_ptr(), plan.tile_y, plan.tile_x, plan.tiles_y,
         plan.tiles_x, plan.threads, _build.stream())

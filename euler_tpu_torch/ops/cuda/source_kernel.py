@@ -47,36 +47,39 @@ def source_lib():
     `eu_source_pass_global`), built and bound once."""
     lib = _build.load("sources", flags=["-fmad=false"])
     P, I, Fl = _build.PTR, _build.INT, _build.FLOAT
-    _build.bind(lib, "eu_source_pass", [I] * 7 + [Fl, Fl] + [P] * 15)
+    _build.bind(lib, "eu_source_pass", [I] * 8 + [Fl, Fl] + [P] * 15)
     _build.bind(lib, "eu_source_pass_global", [I] * 4 + [Fl, Fl] + [P] * 15)
     return lib
 
 
 def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
-                 active=None, row_offset: int = 0, counts=None) -> None:
+                 active=None, row_offset: int = 0, counts=None,
+                 col_offset: int = 0) -> None:
     """Source emission, in place on the state's tensors.  CUDA tensors
     run the kernel; CPU tensors the plain version.  `active` (a bool
     scalar tensor, or None for True) suppresses every emission when
     False; the colour pass runs regardless, as in the JAX package.
 
-    On a row block (slot layout, `parallel/spatial.py`) the state and
-    scenario planes are the block's rows from grid row `row_offset`, and
-    `counts` ([S] int32) every source cell's count, all-reduced over the
-    blocks; cfg is the whole grid's."""
+    On a block (slot layout, `parallel/spatial.py`) the state and
+    scenario planes are the block's cells from grid row `row_offset` and
+    column `col_offset`, and `counts` ([S] int32) every source cell's
+    count, all-reduced over the blocks; cfg is the whole grid's."""
     if scn.num_sources == 0:
         return
     slots = cfg.marker_layout == "slots"
     if counts is not None and not slots:
-        raise ValueError("row blocks need the slot layout")
+        raise ValueError("blocks need the slot layout")
     if state.markers.device.type == "cpu":
         _build.PLAIN_CALLS["S1"] += 1
         if slots:
-            source_pass_slots(cfg, scn, state, active, row_offset, counts)
+            source_pass_slots(cfg, scn, state, active, row_offset, counts,
+                              col_offset)
         else:
             source_pass_global(cfg, scn, state, active)
         return
-    Y = cfg.ny if counts is None else state.marker_count.shape[0]
-    X, K = cfg.nx, cfg.slots_per_cell
+    Y, X = ((cfg.ny, cfg.nx) if counts is None
+            else tuple(state.marker_count.shape))
+    K = cfg.slots_per_cell
     S = scn.num_sources
     dev = state.markers.device
     plane = (Y, X)
@@ -115,7 +118,8 @@ def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
     _build.LAUNCHES["S1"] += 1
     if slots:
         rc = lib.eu_source_pass(S, Y, X, K, cfg.markers_per_cell,
-                                cfg.max_markers, row_offset, q, h, *ptrs,
+                                cfg.max_markers, row_offset, col_offset, q,
+                                h, *ptrs,
                                 _build.stream())
     else:
         free = torch.empty(S, dtype=torch.int32, device=dev)

@@ -21,8 +21,10 @@ def _neighborhood_sum(a):
 
 
 def extrapolate(cfg: SimConfig, q, fluid, prev_fluid, celltype: str,
-                clamp_ny=None, row_offset: int = 0):
-    region = valid_region(cfg, celltype, q.device, clamp_ny, row_offset)
+                clamp_ny=None, row_offset: int = 0, clamp_nx=None,
+                col_offset: int = 0):
+    region = valid_region(cfg, celltype, q.device, clamp_ny, row_offset,
+                          clamp_nx, col_offset)
     prop = property_of(fluid, celltype) & region
     prev_prop = property_of(prev_fluid, celltype) & region
     newly = (~prev_prop) & prop

@@ -10,17 +10,21 @@ from euler_tpu_torch.core.state import property_of, valid_region
 
 
 def apply_body_forces(cfg: SimConfig, v, dt, clamp_ny=None,
-                      row_offset: int = 0):
+                      row_offset: int = 0, clamp_nx=None,
+                      col_offset: int = 0):
     """Gravity on every V sample (main.c:539-545), fluid or not."""
-    region = valid_region(cfg, "v", v.device, clamp_ny, row_offset)
+    region = valid_region(cfg, "v", v.device, clamp_ny, row_offset,
+                          clamp_nx, col_offset)
     g = torch.as_tensor(cfg.gravity, dtype=v.dtype, device=v.device)
     return torch.where(region, v + g * dt, v)
 
 
 def zero_bounds(cfg: SimConfig, q, fluid, solid, celltype: str,
-                clamp_ny=None, row_offset: int = 0):
+                clamp_ny=None, row_offset: int = 0, clamp_nx=None,
+                col_offset: int = 0):
     """Zero non-fluid and solid faces (main.c:822-832)."""
-    region = valid_region(cfg, celltype, q.device, clamp_ny, row_offset)
+    region = valid_region(cfg, celltype, q.device, clamp_ny, row_offset,
+                          clamp_nx, col_offset)
     keep = property_of(fluid, celltype) & ~property_of(solid, celltype)
     return torch.where(keep & region, q, 0.0)
 
@@ -32,10 +36,11 @@ def max_speed_sq(cfg: SimConfig, u, v):
 
 
 def max_speed_sq_parts(cfg: SimConfig, u, v, clamp_ny=None,
-                       row_offset: int = 0):
-    """(maxsq over U, maxsq over V): on row blocks each is all-reduced
-    (max) before the sum (`parallel/spatial.py`)."""
-    rows = (clamp_ny, row_offset)
+                       row_offset: int = 0, clamp_nx=None,
+                       col_offset: int = 0):
+    """(maxsq over U, maxsq over V): on blocks each is all-reduced (max)
+    before the sum (`parallel/spatial.py`)."""
+    rows = (clamp_ny, row_offset, clamp_nx, col_offset)
     mu = torch.where(valid_region(cfg, "u", u.device, *rows), u * u,
                      0.0).max()
     mv = torch.where(valid_region(cfg, "v", v.device, *rows), v * v,

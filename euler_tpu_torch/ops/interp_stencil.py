@@ -19,18 +19,22 @@ from euler_tpu_torch.ops.interp import bilinear, clamp_hi
 
 
 def interpolate_stencil(cfg: SimConfig, q, fluid, idx_x, idx_y, celltype: str,
-                        clamp_ny: int | None = None, row_offset: int = 0):
+                        clamp_ny: int | None = None, row_offset: int = 0,
+                        clamp_nx: int | None = None, col_offset: int = 0):
     """interpolate (main.c:337-364) for per-site samples [..., Y, X] with
     |idx - site| <= 1 in each axis; leading axes (the K slots of the
     marker store) broadcast against the [Y, X] fields.
 
-    On a row shard's plane (the marker pass of parallel/cuda_shard.py)
-    the sample indices are global: `row_offset` is the global row of
-    plane row 0 and `clamp_ny` the global row count that the row clamp
-    uses (cfg.ny and 0 on a whole plane)."""
+    On a block's plane (the marker pass of parallel/cuda_shard.py) the
+    sample indices are global: `row_offset` / `col_offset` are the global
+    row / column of plane row / column 0 and `clamp_ny` / `clamp_nx` the
+    global row / column counts that the clamps use (cfg.ny, cfg.nx and 0
+    on a whole plane)."""
     size_x, size_y = grid_size(cfg, celltype)
     if clamp_ny is not None:
         size_y += clamp_ny - cfg.ny
+    if clamp_nx is not None:
+        size_x += clamp_nx - cfg.nx
     ix = torch.clamp(idx_x.to(q.dtype), 0.0, clamp_hi(size_x))
     iy = torch.clamp(idx_y.to(q.dtype), 0.0, clamp_hi(size_y))
     whole_x = torch.floor(ix)
@@ -44,7 +48,7 @@ def interpolate_stencil(cfg: SimConfig, q, fluid, idx_x, idx_y, celltype: str,
     site_y = torch.arange(Y, device=dev)[:, None]
     # window column/row of the base in the padded field: site (+1 for
     # the pad) when the base is the site, else the cell before it
-    col0 = site_x + torch.where(whole_x.long() == site_x, 1, 0)
+    col0 = site_x + torch.where(whole_x.long() == site_x + col_offset, 1, 0)
     row0 = site_y + torch.where(whole_y.long() == site_y + row_offset, 1, 0)
 
     prop = property_of(fluid, celltype)

@@ -56,14 +56,17 @@ def _shift2(a, dy: int, dx: int, fill=0):
 
 
 def velocity_at_slots(cfg: SimConfig, u, v, fluid, px, py,
-                      clamp_ny: int | None = None, row_offset: int = 0):
+                      clamp_ny: int | None = None, row_offset: int = 0,
+                      clamp_nx: int | None = None, col_offset: int = 0):
     """Staggered velocity at per-slot positions (main.c:440-449);
-    clamp_ny, row_offset as `interpolate_stencil` takes them."""
+    clamp_ny, row_offset, clamp_nx, col_offset as `interpolate_stencil`
+    takes them."""
     inv_h = float(np.float32(1.0) / np.float32(cfg.side_length))
+    at = (clamp_ny, row_offset, clamp_nx, col_offset)
     vx = interpolate_stencil(cfg, u, fluid, px * inv_h - 1.0,
-                             py * inv_h - 0.5, "u", clamp_ny, row_offset)
+                             py * inv_h - 0.5, "u", *at)
     vy = interpolate_stencil(cfg, v, fluid, px * inv_h - 0.5,
-                             py * inv_h - 1.0, "v", clamp_ny, row_offset)
+                             py * inv_h - 1.0, "v", *at)
     return vx, vy
 
 
@@ -73,12 +76,14 @@ def _time_to(p0, p1, vel):
 
 
 def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt,
-                clamp_ny: int | None = None, row_offset: int = 0):
+                clamp_ny: int | None = None, row_offset: int = 0,
+                clamp_nx: int | None = None, col_offset: int = 0):
     """main.c:464-537 on the slot layout: the DDA collision march of every
     live slot, `marker_march_iters` masked iterations, then the advance.
-    Dead slots keep their position.  On a row shard's plane, positions
-    are global: `row_offset` is the global row of plane row 0 and
-    `clamp_ny` the global row count (`interpolate_stencil`)."""
+    Dead slots keep their position.  On a block's plane, positions are
+    global: `row_offset` / `col_offset` are the global row / column of
+    plane row / column 0 and `clamp_ny` / `clamp_nx` the global row /
+    column counts (`interpolate_stencil`)."""
     Y, X = cfg.ny, cfg.nx
     h = float(np.float32(cfg.side_length))
     inv_h = float(np.float32(1.0) / np.float32(cfg.side_length))
@@ -86,7 +91,7 @@ def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt,
     dt = torch.as_tensor(dt, dtype=px.dtype, device=dev)
 
     vx, vy = velocity_at_slots(cfg, u, v, fluid, px, py, clamp_ny,
-                               row_offset)
+                               row_offset, clamp_nx, col_offset)
 
     site_x = torch.arange(X, dtype=torch.int32, device=dev)
     site_y = torch.arange(Y, dtype=torch.int32, device=dev)[:, None]
@@ -94,7 +99,7 @@ def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt,
 
     def solid_at(yy, xx):
         dy = torch.clamp(yy - (site_y + row_offset), -1, 1)
-        dx = torch.clamp(xx - site_x, -1, 1)
+        dx = torch.clamp(xx - (site_x + col_offset), -1, 1)
         return solid_p[(site_y + 1 + dy).long(), (site_x + 1 + dx).long()]
 
     def idx(p):
@@ -149,15 +154,17 @@ def march_slots(cfg: SimConfig, u, v, fluid, solid, px, py, valid, dt,
             torch.where(valid, my + t * vy, py))
 
 
-def rebin_slots(cfg: SimConfig, px, py, valid, dead, row_offset: int = 0):
+def rebin_slots(cfg: SimConfig, px, py, valid, dead, row_offset: int = 0,
+                col_offset: int = 0):
     """Re-bin marched slots into their new home cells (main.c:102-117):
     nine shifted insert passes in OFFSETS_OWN_FIRST order; within a
     destination cell, arrivals are ranked by a running count and the
     first K kept.  Arrivals into a dead (sink or solid) cell are deleted
     and not counted.  Returns (px', py', count, drop) with drop the
     [Y, X] plane of per-destination capacity drops; slots at and beyond
-    a cell's count are zero.  `row_offset`: the global row of plane row
-    0 on a row shard's plane (positions are global)."""
+    a cell's count are zero.  `row_offset` / `col_offset`: the global row
+    / column of plane row / column 0 on a block's plane (positions are
+    global)."""
     Y, X, K = cfg.ny, cfg.nx, px.shape[0]
     inv_h = float(np.float32(1.0) / np.float32(cfg.side_length))
     dev = px.device
@@ -166,7 +173,8 @@ def rebin_slots(cfg: SimConfig, px, py, valid, dead, row_offset: int = 0):
     site_y = torch.arange(Y, dtype=torch.int32, device=dev)[:, None]
     ody = torch.clamp(torch.floor(py * inv_h).to(torch.int32)
                       - (site_y + row_offset), -1, 1)
-    odx = torch.clamp(torch.floor(px * inv_h).to(torch.int32) - site_x, -1, 1)
+    odx = torch.clamp(torch.floor(px * inv_h).to(torch.int32)
+                      - (site_x + col_offset), -1, 1)
 
     count = torch.zeros((Y, X), dtype=torch.int32, device=dev)
     drop = torch.zeros((Y, X), dtype=torch.int32, device=dev)
@@ -288,7 +296,8 @@ def source_colours(cfg: SimConfig, scn: Scenario, state: FluidState) -> None:
 
 
 def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
-                      active=None, row_offset: int = 0, counts=None) -> None:
+                      active=None, row_offset: int = 0, counts=None,
+                      col_offset: int = 0) -> None:
     """Source emission on the slot layout (main.c:276-298), the plain
     version of S1 (`ops/cuda/source_kernel.py`), as the JAX package's
     `update_fluid_sources_slots` computes it.  Updates the state's colour
@@ -304,11 +313,12 @@ def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
         (alive_count reached max_markers - 1) or `active` is False; it
         draws the Y jitter before the X jitter (gcc's argument order at
         main.c:288) and keeps the old RNG state when it does not emit.
-    Reads no device value on the host on a whole plane.  On a row block
-    (`parallel/spatial.py`) the planes are the block's rows from grid
-    row `row_offset` and `counts` every source cell's count, all-reduced
-    over the blocks: the walk reads those, and the block writes only the
-    sources of its rows (S1's row block)."""
+    Reads no device value on the host on a whole plane.  On a block
+    (`parallel/spatial.py`) the planes are the block's cells from grid
+    row `row_offset` and column `col_offset`, and `counts` every source
+    cell's count, all-reduced over the blocks: the walk reads those, and
+    the block writes only the sources whose row and column both lie in it
+    (S1's block)."""
     from euler_tpu_torch.core.rng import randf32
 
     source_colours(cfg, scn, state)
@@ -320,12 +330,13 @@ def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
     h = float(np.float32(cfg.side_length))
     ys = scn.source_yx[:, 0].long()
     xs = scn.source_yx[:, 1].long()
-    ly, mine = ys, None  # the sources' rows on the planes
+    ly, lx, mine = ys, xs, None  # the sources' cells on the planes
     if counts is None:
         counts = state.marker_count[ys, xs]
     else:
-        ly = ys - row_offset
-        mine = (ly >= 0) & (ly < state.marker_count.shape[0])
+        ly, lx = ys - row_offset, xs - col_offset
+        Yl, Xl = state.marker_count.shape
+        mine = (ly >= 0) & (ly < Yl) & (lx >= 0) & (lx < Xl)
     if active is None:
         active = torch.ones((), dtype=torch.bool, device=state.r.device)
     lanes = state.rng.to(torch.int64)
@@ -349,20 +360,20 @@ def source_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState,
     # slots); a source that does not emit writes its slot's old value
     can = torch.stack(cans)
     if mine is not None:
-        # a row block writes its own rows' sources only (a host read: the
+        # a block writes its own cells' sources only (a host read: the
         # plain version runs on the CPU)
         keep = mine.nonzero()[:, 0]
-        ly, xs, counts, can = ly[keep], xs[keep], counts[keep], can[keep]
+        ly, lx, counts, can = ly[keep], lx[keep], counts[keep], can[keep]
         pos_x = [pos_x[i] for i in keep.tolist()]
         pos_y = [pos_y[i] for i in keep.tolist()]
     if len(ly):
         k = torch.clamp(counts, max=K - 1).long()
         for c, pos in ((0, pos_x), (1, pos_y)):
             plane = state.markers[c]
-            plane[k, ly, xs] = torch.where(can, torch.stack(pos),
-                                           plane[k, ly, xs])
-        state.alive[k, ly, xs] = state.alive[k, ly, xs] | can
-        state.marker_count[ly, xs] = counts + can.to(torch.int32)
+            plane[k, ly, lx] = torch.where(can, torch.stack(pos),
+                                           plane[k, ly, lx])
+        state.alive[k, ly, lx] = state.alive[k, ly, lx] | can
+        state.marker_count[ly, lx] = counts + can.to(torch.int32)
     state.rng.copy_(lanes.to(torch.uint32))
     state.alive_count.copy_(alive_count)
     state.source_exhausted.copy_(exhausted)

@@ -248,13 +248,14 @@ def clamp_pressure(p, fluid):
 
 
 def face_update(cfg: SimConfig, p, u, v, fluid, solid, dt, clamp_ny=None,
-                row_offset: int = 0):
+                row_offset: int = 0, clamp_nx=None, col_offset: int = 0):
     """The 3-way solid/fluid/air face velocity update (main.c:782-806)
     with the clamped pressure: the pressure difference is taken in p's
     dtype (the solver's) and narrowed to the grid's.  `clamp_ny`,
-    `row_offset`: a row block's grid rows (`core/state.valid_region`)."""
+    `row_offset`, `clamp_nx`, `col_offset`: a block's place in the grid
+    (`core/state.valid_region`)."""
     f = u.dtype
-    rows = (clamp_ny, row_offset)
+    rows = (clamp_ny, row_offset, clamp_nx, col_offset)
     c = torch.full((), -1.0 / (cfg.density * cfg.side_length), dtype=f,
                    device=u.device)
     dtf = torch.as_tensor(dt, device=u.device).to(f)

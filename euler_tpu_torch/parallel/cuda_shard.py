@@ -1,32 +1,39 @@
-"""K1 per row shard, and K2 per instance of the data axis
+"""K1 per block, and K2 per instance of the data axis
 (`euler_tpu/parallel/pallas_shard.py`).
 
-The row-sharded marker pass.  Each rank of the mesh's "y" dimension owns
-rows [r Yl, (r+1) Yl) of the grid (`spatial.shard_spatial`).  The pass
-needs every interior cell's arrivals, which come from at most one row
-away, marched with their own 3x3 stencils, whose u_property / v_property
-read one row more: so H = 2 rows of each neighbour would do, and H = 8
-are exchanged, as the JAX package exchanges them for its DMA windows.
-`exchange_rows` (`parallel/comm.py`) sends each rank's first and last H
-rows to the ranks below and above it (`dist.batch_isend_irecv` on the
-"y" group; zeros beyond the global edges, as the unsharded kernel reads
-beyond the plane); a block of an in-process `comm.LocalGroup` takes its
-neighbours' rows from them.
-K1 then runs unchanged on the padded [.., Yl + 2H, X] block, told where
-that block lies: `clamp_ny` = Y, the global row count of its
-interpolation clamps, and `row_offset` = r Yl - H, the global row of the
-block's row 0 (marker positions are global).  Cropping the halo rows
-leaves every interior cell's slots, count and drop bit for bit those of
-the unsharded K1 (tests/test_torch_shard.py on gloo ranks;
-`chip_smoke.py` on the card).
+The sharded marker pass.  Each rank of the mesh's ("y", "x") dimensions
+owns rows [ry Yl, (ry+1) Yl) and columns [rx Xl, (rx+1) Xl) of the grid
+(`spatial.shard_spatial`; x = 1: all the columns).  The pass needs every
+interior cell's arrivals, which come from at most one cell away, marched
+with their own 3x3 stencils, whose u_property / v_property read one cell
+more: so H = 2 rows and columns of each neighbour would do, and H = 8
+are exchanged, as the JAX package exchanges rows for its DMA windows.
+`padded` exchanges the block's first and last H rows with the blocks
+before and after it along "y" (`comm.exchange`, `dist.batch_isend_irecv`
+on the "y" group; zeros beyond the grid's edges, as the unsharded kernel
+reads beyond the plane), then, where "x" splits the grid, the first and
+last H columns of that row-padded block along "x": the corners so come
+from the diagonal neighbours, which K1's 3x3 windows and the diagonal
+re-bin read.  A block of an in-process `comm.LocalGroup` takes its
+neighbours' cells from them.
+K1 then runs unchanged on the padded [.., Yl + 2H, Xl + 2H] block, told
+where that block lies: `clamp_ny` = Y and `clamp_nx` = X, the global row
+and column counts of its interpolation clamps, and `row_offset` = ry Yl -
+H and `col_offset` = rx Xl - H, the global row and column of the block's
+cell (0, 0) (marker positions are global).  Cropping the halo leaves
+every interior cell's slots, count and drop bit for bit those of the
+unsharded K1 (tests/test_torch_shard.py and tests/test_torch_col_blocks.py
+on the CPU; `chip_smoke.py` on the card).  A block shallower or narrower
+than H is refused.
 
 `make_sharded_marker_pass` is the drop-in for
 `markers_slots.marker_pass_slots` that `sim.step_frame(...,
-marker_pass=)` takes: it sums `alive_count` and the new drops over "y"
-(the JAX package's sums run over the whole plane); the slots, counts and
-alive plane stay the rank's own rows.  `make_spatial_step_pallas` is the
-whole frame on row blocks (`parallel/spatial.py`), this pass included;
-on a "y" of one rank the pass also runs inside the ordinary frame.
+marker_pass=)` takes: it sums `alive_count` and the new drops over the
+blocks (the JAX package's sums run over the whole plane); the slots,
+counts and alive plane stay the rank's own cells.
+`make_spatial_step_pallas` is the JAX package's frame on row blocks
+(`parallel/spatial.py`), this pass included; on a mesh of one block the
+pass also runs inside the ordinary frame.
 
 `make_dp_substep_mg` runs K2 (`ops/cuda/substep_kernel.py`) on the one
 instance each rank of the "data" dimension holds.
@@ -44,84 +51,112 @@ from euler_tpu_torch.ops.cuda.marker_fused_kernel import march_rebin
 from euler_tpu_torch.ops.cuda.substep_kernel import project_substep_mg
 from euler_tpu_torch.ops.markers_slots import finish_marker_pass
 from euler_tpu_torch.parallel.comm import as_comm, exchange_rows
-from euler_tpu_torch.parallel.mesh import axis_size
+from euler_tpu_torch.parallel.mesh import axis_size, block_span
 
-H = 8  # halo rows a side: >= 2 for the pass, 8 as the JAX package's
+H = 8  # halo cells a side: >= 2 for the pass, 8 as the JAX package's rows
 
 
-def block_with_halo(x: torch.Tensor, n: int, r: int, h: int = H):
+def block_with_halo(x: torch.Tensor, n: int, r: int, h: int = H,
+                    m: int = 1, c: int = 0):
     """Rows [r Yl - h, (r+1) Yl + h) of a whole [.., Y, X] plane split
-    into n blocks, zeros beyond its edges: what block r holds once
-    `exchange_rows` has padded it (one card holding every block)."""
+    into n x m blocks, and with m > 1 its columns [c Xl - h, (c+1) Xl +
+    h), zeros beyond its edges: what block (r, c) holds once `padded`
+    has padded it (one card holding every block)."""
     Yl = x.shape[-2] // n
     z = torch.zeros(x.shape[:-2] + (h, x.shape[-1]), dtype=x.dtype,
                     device=x.device)
-    return torch.cat([z, x, z], -2)[..., r * Yl:(r + 1) * Yl + 2 * h,
-                                    :].contiguous()
+    x = torch.cat([z, x, z], -2)[..., r * Yl:(r + 1) * Yl + 2 * h, :]
+    if m > 1:
+        Xl = x.shape[-1] // m
+        z = torch.zeros(x.shape[:-1] + (h,), dtype=x.dtype, device=x.device)
+        x = torch.cat([z, x, z], -1)[..., c * Xl:(c + 1) * Xl + 2 * h]
+    return x.contiguous()
 
 
-def padded(x, comm, h: int = H, axis: str = "y"):
-    """`x` with the `h` rows of each neighbour block before and after it
-    (zeros beyond the grid's edges)."""
-    below, above = comm.exchange(x, h, axis)
-    return torch.cat([below, x, above], -2)
+def split_columns(comm) -> bool:
+    """Whether the blocks of `comm` split the grid's columns ("x") too."""
+    return comm.size("x") > 1
 
 
-def make_sharded_march_rebin(cfg: SimConfig, mesh, axis: str = "y"):
-    """K1 on this rank's block of rows (`pallas_shard.py:65`).  Returns
-    fn(u, v, fluid, solid, slots, dt, count, dead) -> (slots', count',
-    drop) on the block: [.., Yl, X] planes, slots the [2K, Yl, X] view
-    of the store.  `mesh`: a `DeviceMesh` or a block of an in-process
-    `comm.LocalGroup`."""
+def block_axes(comm) -> tuple[str, ...]:
+    """The dimensions whose blocks split the grid: rows ("y"), and
+    columns ("x") where they are split; the frame's sums and maxima run
+    over these."""
+    return ("y", "x") if split_columns(comm) else ("y",)
+
+
+def padded(x, comm, h: int = H):
+    """`x` with the `h` rows of each neighbour block along "y" before and
+    after it, then, where "x" splits the columns, the `h` columns of each
+    neighbour's row-padded block (zeros beyond the grid's edges)."""
+    below, above = comm.exchange(x, h, "y")
+    x = torch.cat([below, x, above], -2)
+    if split_columns(comm):
+        left, right = comm.exchange(x, h, "x")
+        x = torch.cat([left, x, right], -1)
+    return x
+
+
+def make_sharded_march_rebin(cfg: SimConfig, mesh):
+    """K1 on this rank's block (`pallas_shard.py:65`, which splits rows
+    only): the grid's rows split over "y", its columns over "x".
+    Returns fn(u, v, fluid, solid, slots, dt, count, dead) -> (slots',
+    count', drop) on the block: [.., Yl, Xl] planes, slots the [2K, Yl,
+    Xl] view of the store.  `mesh`: a `DeviceMesh` or a block of an
+    in-process `comm.LocalGroup`."""
     comm = as_comm(mesh)
-    n = comm.size(axis)
-    Y = cfg.ny
-    if Y % n:
-        raise ValueError(f"{Y} rows do not split over {axis}={n}")
-    Yl = Y // n
-    if Yl < H:
-        raise ValueError(f"a block of {Yl} rows is shallower than the "
-                         f"halo's {H}")
+    Y, X = cfg.ny, cfg.nx
+    r0, Yl = block_span(Y, comm.size("y"), comm.rank("y"), "y")
+    c0, Xl = block_span(X, comm.size("x"), comm.rank("x"), "x")
+    cols = split_columns(comm)
+    if Yl < H or (cols and Xl < H):
+        raise ValueError(f"a block of {Yl} x {Xl} cells is shallower or "
+                         f"narrower than the halo's {H}")
     cfg_local = dataclasses.replace(cfg, ny=Yl + 2 * H)
-    row_offset = comm.rank(axis) * Yl - H
+    at = dict(clamp_ny=Y, row_offset=r0 - H)
+    keep = (slice(H, H + Yl), slice(None))
+    if cols:
+        cfg_local = dataclasses.replace(cfg_local, nx=Xl + 2 * H)
+        at.update(clamp_nx=X, col_offset=c0 - H)
+        keep = (slice(H, H + Yl), slice(H, H + Xl))
 
     def march_rebin_block(u, v, fluid, solid, slots, dt, count, dead):
-        padded_ = [padded(a, comm, H, axis)
+        padded_ = [padded(a, comm)
                    for a in (u, v, fluid, solid, slots, count, dead)]
         oslots, ocount, odrop = march_rebin(
-            cfg_local, *padded_[:5], dt, padded_[5], dead=padded_[6],
-            clamp_ny=Y, row_offset=row_offset)
-        return (oslots[:, H:H + Yl].contiguous(),
-                ocount[H:H + Yl].contiguous(), odrop[H:H + Yl].contiguous())
+            cfg_local, *padded_[:5], dt, padded_[5], dead=padded_[6], **at)
+        return (oslots[(..., *keep)].contiguous(),
+                ocount[keep].contiguous(), odrop[keep].contiguous())
 
     return march_rebin_block
 
 
-def make_sharded_marker_pass(cfg: SimConfig, mesh, axis: str = "y"):
-    """A drop-in for `markers_slots.marker_pass_slots` running K1 per row
-    shard (`pallas_shard.py:109`): pass it to `sim.step_frame(...,
+def make_sharded_marker_pass(cfg: SimConfig, mesh):
+    """A drop-in for `markers_slots.marker_pass_slots` running K1 per
+    block (`pallas_shard.py:109`): pass it to `sim.step_frame(...,
     marker_pass=)`.  The scenario and state are this rank's block
     (`spatial.shard_spatial`); `alive_count` and the new drops are summed
-    over `axis`."""
-    kernel = make_sharded_march_rebin(cfg, mesh, axis)
+    over the blocks."""
+    kernel = make_sharded_march_rebin(cfg, mesh)
     comm = as_comm(mesh)
+    over = block_axes(comm)
 
     def marker_pass(cfg_: SimConfig, scn, state, dt, defer_alive=False):
         if cfg_ != cfg:
             raise ValueError("the sharded marker pass was made for another "
                              "configuration")
         K = cfg.slots_per_cell
-        Yl, X = state.u.shape
+        Yl, Xl = state.u.shape
         dead = scn.sink | scn.solid
         oslots, count, drop = kernel(
             state.u, state.v, state.fluid, scn.solid,
-            state.markers.reshape(2 * K, Yl, X), dt, state.marker_count,
+            state.markers.reshape(2 * K, Yl, Xl), dt, state.marker_count,
             dead)
         out = finish_marker_pass(cfg, state, oslots, count, drop,
                                  defer_alive)
         sums = torch.stack([count.sum(dtype=torch.int32),
                             drop.sum(dtype=torch.int32)])
-        comm.all_reduce(sums, "sum", (axis,))
+        comm.all_reduce(sums, "sum", over)
         return out.replace(alive_count=sums[0],
                            dropped_markers=state.dropped_markers + sums[1])
 
@@ -134,12 +169,22 @@ def make_spatial_step_pallas(cfg: SimConfig, mesh, axis: str = "y"):
     block.  The JAX step runs K1 per shard and solves on its XLA path
     (pallas_shard.py:150-154, the jnp `pcg_loop` under GSPMD); the port's
     is `spatial.make_spatial_step`, whose marker pass is this module's
-    K1 per row shard, its grid stage K7 and its solve P4 on the blocks.
-    Row blocks only ("y"; x = 1)."""
+    K1 per block, its grid stage K7 and its solve P4 on the blocks.  Row
+    blocks only, as the JAX package asserts (pallas_shard.py:146-148):
+    ValueError on axis "x" or on a mesh with x > 1 (the column blocks
+    run through `spatial.make_spatial_step`)."""
+    from euler_tpu_torch.parallel.spatial import (
+        check_block_frame,
+        make_spatial_step,
+    )
+
     if axis != "y":
         raise ValueError(f"row blocks split 'y', not {axis!r}")
-    from euler_tpu_torch.parallel.spatial import make_spatial_step
-
+    check_block_frame(cfg)
+    if split_columns(as_comm(mesh)):
+        raise ValueError("the pallas marker sharding is row-(y-)sharded: "
+                         "use an x = 1 mesh, or spatial.make_spatial_step "
+                         "for column blocks")
     return make_spatial_step(cfg, mesh)
 
 

@@ -16,9 +16,11 @@ raises.
 
 `dryrun_multichip` runs the JAX dry run's paths (`__graft_entry__.py:
 26`) and asserts what it asserts, and more:
-  1. the batch on `make_mesh`'s own layout (data = 2, y = 2 at 4 ranks):
-     `make_sharded_step` steps each data rank's instances on its rows;
-  2. `spatial.make_spatial_step`, the whole frame on row blocks;
+  1. the batch on `make_mesh`'s own layout (data = 2, y = 2 at 4 ranks;
+     data = 2, y = 2, x = 2 at 8): `make_sharded_step` steps each data
+     rank's instances on its block;
+  2. `spatial.make_spatial_step`, the whole frame on blocks (y = n, or
+     y = n / 2 and x = 2);
   3. `cuda_shard.make_spatial_step_pallas` at nx = 128;
   4. K1 per row shard (`make_sharded_marker_pass`), bitwise the
      unsharded K1;
@@ -28,9 +30,11 @@ Paths 1-3 are held to the unsharded frames (counts, alive and drops
 equal, u and v within FRAME_ATOL: the solve on blocks, P4, folds its
 sums in another order than K8).  Where the JAX run differs: its path 1
 keeps the global marker layout, whose [2, M] store the port does not
-split by rows, so path 1 runs the slot layout; a row block holds at
-least the marker pass's 8 halo rows, so the grids have 8 rows a block;
-and paths 1 and 2 stay on x = 1 (column blocks are ROADMAP M12 part d).
+split into blocks, so path 1 runs the slot layout (the global layout on
+blocks is ROADMAP M12 part d); and a block holds at least the marker
+pass's 8 halo rows and columns, so the grids have 8 rows a block.  Paths
+1 and 2 split columns as the JAX run does (`__graft_entry__.py:64-66`):
+x = 2 where the rank count is even and at least 8, else x = 1.
 """
 
 from __future__ import annotations
@@ -151,6 +155,11 @@ def _close_frames(got, want, what: str) -> None:
         _check(d <= FRAME_ATOL, f"{what}: {name} off by {d:.3g}")
 
 
+def column_split(n: int) -> int:
+    """The JAX dry run's "x" for n devices (`__graft_entry__.py:64-66`)."""
+    return 2 if n % 2 == 0 and n >= 8 else 1
+
+
 def _dryrun_rank(n: int, backend: str) -> dict:
     """The dry run's five paths on this rank; returns its figures."""
     import torch
@@ -185,9 +194,11 @@ def _dryrun_rank(n: int, backend: str) -> dict:
     )
 
     device = BACKEND_DEVICE[backend]
-    # 1. the batch on make_mesh's own layout (data x y): distinct scenarios
-    # (sources, solids), each data rank stepping its instances on its rows
-    mesh = make_mesh(n, device=device)
+    x = column_split(n)
+    # 1. the batch on make_mesh's own layout (data x y x x): distinct
+    # scenarios (sources, solids), each data rank stepping its instances on
+    # its block
+    mesh = make_mesh(n, x=x, device=device)
     data, ys = mesh.mesh.shape[0], mesh.mesh.shape[1]
     dev = mesh_device(mesh)
     cfg = SimConfig(nx=16, ny=8 * ys, max_substeps=2, marker_layout="slots",
@@ -198,11 +209,11 @@ def _dryrun_rank(n: int, backend: str) -> dict:
         *shard_batch(mesh, scn, st)))
     ref = step_frame_batched(cfg, scn, st)
     _check(int(out.frame_count.sum()) == len(texts), "batch: frames")
-    _close_frames(out, ref, f"batch on data={data} x y={ys}")
+    _close_frames(out, ref, f"batch on data={data} x y={ys} x x={x}")
 
-    # 2. the whole frame on row blocks (the JAX run's smesh, x = 1)
-    smesh = spatial_mesh(n, x=1, device=device)
-    cfg_s = SimConfig(nx=16, ny=8 * n, marker_layout="slots",
+    # 2. the whole frame on blocks (the JAX run's smesh)
+    smesh = spatial_mesh(n, x=x, device=device)
+    cfg_s = SimConfig(nx=16 * x, ny=8 * (n // x), marker_layout="slots",
                       max_substeps=2, solver=SolverConfig(max_iterations=8))
     scn_s, st_s = build_scenario(texts[0], cfg_s, device=dev)
     out_s = gather_spatial(cfg_s, smesh, make_spatial_step(cfg_s, smesh)(
@@ -273,12 +284,13 @@ def dryrun_multichip(n: int, backend: str = "gloo") -> list[dict]:
     each rank's figures."""
     results = launch(n, backend, _dryrun_rank, n, backend)
     r0 = results[0]
-    data, ys, _ = (int(v) for v in r0["layout"])
+    data, ys, x = (int(v) for v in r0["layout"])
     print(f"batch: {int(r0['batch'])} instances over data={data} x "
-          f"y={ys}, {int(r0['frames'])} frames, the unsharded batch's "
-          "counts")
-    print(f"spatial step: 16 x {8 * n} on {n} row blocks, alive_count "
-          f"{int(r0['spatial_alive'])}, the unsharded frame's counts")
+          f"y={ys} x x={x}, {int(r0['frames'])} frames, the unsharded "
+          "batch's counts")
+    print(f"spatial step: {16 * x} x {8 * (n // x)} on {n // x} x {x} "
+          f"blocks, alive_count {int(r0['spatial_alive'])}, the unsharded "
+          "frame's counts")
     print(f"pallas step: 128 x {max(8 * n, 16)} on {n} row blocks, "
           f"alive_count {int(r0['pallas_alive'])}, the unsharded frame's "
           "counts")

@@ -12,11 +12,11 @@ process group (`dryrun.launch` does so; nothing here picks a backend).
 Each rank holds its own slice of the batch (`shard_batch`) and steps it
 with `parallel/batch.step_frame_batched`: the instances are independent,
 so the step needs no communication.  `gather_batch` all-gathers the
-slices over "data" for checks.  On a mesh whose "y" dimension is larger
-than 1 each rank also holds only its block of rows of every instance,
-and `make_sharded_step` steps each instance of its slice with the frame
-on row blocks (`parallel/spatial.RowBlocks`, the slot layout); column
-blocks (x > 1) are ROADMAP M12 part d.
+slices over "data" for checks.  On a mesh whose "y" or "x" dimension is
+larger than 1 each rank also holds only its block of rows and columns of
+every instance, and `make_sharded_step` steps each instance of its slice
+with the frame on blocks (`parallel/spatial.Blocks`, the slot layout;
+the global layout on blocks is ROADMAP M12 part d).
 """
 
 from __future__ import annotations
@@ -109,69 +109,87 @@ def _slice(batch, lo: int, hi: int, device):
                           .contiguous() for f in dataclasses.fields(batch)})
 
 
-def block_rows(ny: int, n: int, r: int) -> tuple[int, int]:
-    """(first row, rows) of block r of a grid of `ny` rows split evenly
-    into n blocks."""
-    if ny % n:
-        raise ValueError(f"{ny} rows do not split over y={n}")
-    return r * (ny // n), ny // n
+def block_span(size: int, n: int, r: int, axis: str) -> tuple[int, int]:
+    """(first, count) of block r of `size` rows ("y") or columns ("x")
+    split evenly into n blocks."""
+    if size % n:
+        what = "rows" if axis == "y" else "columns"
+        raise ValueError(f"{size} {what} do not split over {axis}={n}")
+    return r * (size // n), size // n
 
 
-def cut_rows(x, fields, lo: int, hi: int, device):
-    """`x` with rows [lo, hi) of each of its `fields` ([.., Y, X] planes),
-    those on `device`: the one row cut of `shard_batch` and
+def cut_block(x, fields, rows, cols, device):
+    """`x` with rows [r0, r0 + nr) and columns [c0, c0 + nc) of each of
+    its `fields` ([.., Y, X] planes), those on `device`, for rows = (r0,
+    nr) and cols = (c0, nc): the one cut of `shard_batch` and
     `spatial.shard_spatial`."""
+    (r0, nr), (c0, nc) = rows, cols
     return dataclasses.replace(x, **{
-        name: getattr(x, name)[..., lo:hi, :].to(device).contiguous()
-        for name in fields})
+        name: getattr(x, name)[..., r0:r0 + nr, c0:c0 + nc].to(device)
+        .contiguous() for name in fields})
 
 
-def gather_rows(state: FluidState, gather) -> FluidState:
-    """`state` with the row blocks of each plane put together in row
-    order by `gather(t, dim)` (a `Comm`'s, or an all-gather over "y"):
-    the one row gather of `gather_batch` and `spatial.gather_spatial`."""
-    return state.replace(**{name: gather(getattr(state, name), -2)
+def gather_block(state: FluidState, gather, axes=("x", "y")) -> FluidState:
+    """`state` with the blocks of each plane put together by
+    `gather(t, dim, axis)` (a `Comm`'s, or an all-gather over a mesh
+    dimension), over each of `axes` in turn: "x" joins columns (dim -1),
+    "y" rows (dim -2).  The one gather of `gather_batch` and
+    `spatial.gather_spatial`."""
+    dims = {"y": -2, "x": -1}
+
+    def whole(t):
+        for axis in axes:
+            t = gather(t, dims[axis], axis)
+        return t
+
+    return state.replace(**{name: whole(getattr(state, name))
                             for name in STATE_PLANES})
+
+
+def split_axes(mesh: DeviceMesh) -> tuple[str, ...]:
+    """The dimensions of `mesh` that split the grid: "y" where it or "x"
+    has more than one rank, and "x" where it does (columns first, the
+    order `gather_block` joins them in)."""
+    ny, nx = axis_size(mesh, "y"), axis_size(mesh, "x")
+    return (("x",) if nx > 1 else ()) + (("y",) if ny > 1 or nx > 1 else ())
 
 
 def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
     """This rank's slice of a stacked batch (`parallel/batch.py`):
     instances [d B/D, (d+1) B/D) for its coordinate d of the D along
-    "data", on its device, and on a mesh with y > 1 its block of rows of
-    each (the slot store as [B, 2, K, Yl, X]).  B must divide by D, as
-    in the JAX package."""
+    "data", on its device, and on a mesh with y > 1 or x > 1 its block of
+    rows and columns of each (the slot store as [B, 2, K, Yl, Xl]).  B
+    must divide by D, as in the JAX package."""
     n, d = axis_size(mesh, "data"), mesh.get_local_rank("data")
     B = state.u.shape[0]
     if B % n:
         raise ValueError(f"a batch of {B} does not split over data={n}")
     b = B // n
     dev = mesh_device(mesh)
-    ny = axis_size(mesh, "y")
-    if ny > 1 and state.markers.ndim != 5:
+    blocks = bool(split_axes(mesh))
+    if blocks and state.markers.ndim != 5:
         raise NotImplementedError(
-            "a batch on row blocks needs the slot layout's spatial store "
-            f"[B, 2, K, Y, X]; the global layout on row blocks is {PART_D}")
+            "a batch on blocks needs the slot layout's spatial store "
+            f"[B, 2, K, Y, X]; the global layout on blocks is {PART_D}")
     scn = _slice(scn, d * b, (d + 1) * b, dev)
     state = _slice(state, d * b, (d + 1) * b, dev)
-    if ny > 1:
-        lo, rows = block_rows(state.u.shape[-2], ny,
-                              mesh.get_local_rank("y"))
-        scn = cut_rows(scn, SCENARIO_PLANES, lo, lo + rows, dev)
-        state = cut_rows(state, STATE_PLANES, lo, lo + rows, dev)
+    if blocks:
+        Y, X = state.u.shape[-2:]
+        rows = block_span(Y, axis_size(mesh, "y"), mesh.get_local_rank("y"),
+                          "y")
+        cols = block_span(X, axis_size(mesh, "x"), mesh.get_local_rank("x"),
+                          "x")
+        scn = cut_block(scn, SCENARIO_PLANES, rows, cols, dev)
+        state = cut_block(state, STATE_PLANES, rows, cols, dev)
     return scn, state
 
 
 def make_sharded_step(cfg: SimConfig, mesh: DeviceMesh):
     """One frame of this rank's slice of the batch: `step_frame_batched`
-    on it, or on a mesh with y > 1 each instance's frame on this rank's
-    rows (`spatial.RowBlocks` over "y", which refuses what it does not
-    run).  Raises NotImplementedError on a mesh with x > 1 (column
-    blocks, ROADMAP M12 part d)."""
-    if axis_size(mesh, "x") > 1:
-        raise NotImplementedError(
-            f"make_sharded_step on a mesh of shape {tuple(mesh.shape)}: "
-            f"column blocks (x > 1) are {PART_D}")
-    if axis_size(mesh, "y") == 1:
+    on it, or on a mesh with y > 1 or x > 1 each instance's frame on this
+    rank's block (`spatial.Blocks` over "y" and "x", which refuses what
+    it does not run)."""
+    if not split_axes(mesh):
         def step(scn: Scenario, state: FluidState) -> FluidState:
             return step_frame_batched(cfg, scn, state)
 
@@ -179,16 +197,16 @@ def make_sharded_step(cfg: SimConfig, mesh: DeviceMesh):
 
     from euler_tpu_torch import sim
     from euler_tpu_torch.parallel.batch import instance, stack
-    from euler_tpu_torch.parallel.spatial import RowBlocks
+    from euler_tpu_torch.parallel.spatial import Blocks
 
-    blocks = RowBlocks(cfg, mesh)
+    blocks = Blocks(cfg, mesh)
 
-    def step_rows(scn: Scenario, state: FluidState) -> FluidState:
+    def step_blocks(scn: Scenario, state: FluidState) -> FluidState:
         return stack([sim.step_frame(cfg, instance(scn, i),
                                      instance(state, i), blocks=blocks)
                       for i in range(state.u.shape[0])])
 
-    return step_rows
+    return step_blocks
 
 
 # the dtypes the collectives carry a tensor of these as: NCCL has no
@@ -209,10 +227,12 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def gather_batch(mesh: DeviceMesh, state: FluidState) -> FluidState:
     """The whole batch on every rank: each rank's slice all-gathered over
-    "data", in instance order (and its rows over "y", in row order)."""
-    if axis_size(mesh, "y") > 1:
-        state = gather_rows(state, lambda t, dim: all_gather_cat(
-            t, mesh.get_group("y"), dim))
+    "data", in instance order (and its block over "x" and "y", in column
+    and row order)."""
+    axes = split_axes(mesh)
+    if axes:
+        state = gather_block(state, lambda t, dim, axis: all_gather_cat(
+            t, mesh.get_group(axis), dim), axes)
     return FluidState(**{f.name: all_gather_cat(getattr(state, f.name),
                                                 mesh.get_group("data"), 0)
                          for f in dataclasses.fields(state)})

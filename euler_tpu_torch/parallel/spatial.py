@@ -1,5 +1,5 @@
-"""The slot store's two forms, the row mesh, and the frame on row blocks
-(`euler_tpu/parallel/spatial.py`).
+"""The slot store's two forms, the ("y", "x") mesh, and the frame on
+blocks (`euler_tpu/parallel/spatial.py`).
 
 The port keeps the slot store as spatial planes, positions [2, K, Y, X]
 and validity [K, Y, X] (`core/state.py`); the JAX package's flat [2, M]
@@ -7,37 +7,42 @@ store (m = (k*Y + y)*X + x), as a JAX checkpoint or `convert` gives it,
 is the same memory.  `to_spatial` and `to_flat` reshape between the two.
 
 `spatial_mesh` lays the ranks out as a ("y", "x") mesh (spatial.py:64),
-and `shard_spatial` gives each rank its block of rows of every
-[.., Y, X] plane, the slot planes included (spatial.py:80-110); scalars
-and the source list stay whole on every rank.  `gather_spatial` puts
-the blocks back together.  A block is a rank of a `DeviceMesh` or a
+and `shard_spatial` gives each rank its block of rows and columns of
+every [.., Y, X] plane, the slot planes included (spatial.py:80-110);
+scalars and the source list stay whole on every rank.  `gather_spatial`
+puts the blocks back together.  A block is a rank of a `DeviceMesh` or a
 block of an in-process `comm.LocalGroup` (one card playing n blocks).
 
-`make_spatial_step` is the frame on row blocks (spatial.py:113, which
-the JAX package leaves to GSPMD): `RowBlocks`, through
-`sim.step_frame(..., blocks=)`.  One substep on rank r's rows
-[r Yl, (r+1) Yl):
-  * the marker pass: K1 per row shard (`cuda_shard`), alive_count and
-    the drops summed over the blocks;
-  * the sources: S1 per row block.  Whether a source emits depends on its
+`make_spatial_step` is the frame on blocks (spatial.py:113, which the
+JAX package leaves to GSPMD): `Blocks`, through `sim.step_frame(...,
+blocks=)`.  One substep on the block of rows [ry Yl, (ry+1) Yl) and
+columns [rx Xl, (rx+1) Xl) (x = 1: every column, and nothing below
+exchanges columns):
+  * the marker pass: K1 per block (`cuda_shard`), alive_count and the
+    drops summed over the blocks;
+  * the sources: S1 per block.  Whether a source emits depends on its
     cell's count and on alive_count, and the RNG advances only when it
     emits, so the [S] counts of the source cells are all-reduced (each
-    block fills its own rows' entries), every block walks every source
-    with the same RNG, and each writes only its own rows;
-  * the grid stage: K7 on the block padded with H = 8 rows of u, v,
-    fluid, prev_fluid and solid from each neighbour, told the grid's
-    rows (`clamp_ny`, `row_offset`), the halo cropped;
+    block fills its own cells' entries), every block walks every source
+    with the same RNG, and each writes only the sources whose row and
+    column both lie in it;
+  * the grid stage: K7 on the block padded with H = 8 rows and columns
+    of u, v, fluid, prev_fluid and solid from each neighbour (the
+    corners from the diagonal ones, `cuda_shard.padded`), told the
+    grid's rows and columns (`clamp_ny`, `row_offset`, `clamp_nx`,
+    `col_offset`), the halo cropped;
   * the projection, as `ops/project.project` on the block padded with
-    one row (the RHS reads v of the row below, a_diag solid on both
-    sides, the face update p of the row above): the solve is P4
-    (`halo.make_sharded_pressure_solver`, cfg.solver, warm-started from
-    the state's pressure as `project()` is);
+    one row and one column (the RHS reads v of the row before and u of
+    the column before, a_diag solid on all four sides, the face update p
+    of the row and the column after): the solve is P4
+    (`halo.make_sharded_pressure_solver` over ("y", "x"), cfg.solver,
+    warm-started from the state's pressure as `project()` is);
   * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
     dt, `active` and the frame's counts are the same on every block.
-Refused, each naming its ROADMAP item (M12 part d): column blocks
-(x > 1), the MG and IC(0) preconditioners (the JAX spatial step runs a
-global MG cycle and a global IC(0) sweep under GSPMD, not P4's block
-ones), rainbow colour and the global marker layout.
+Refused, each naming its ROADMAP item (M12 part d): the MG and IC(0)
+preconditioners (the JAX spatial step runs a global MG cycle and a
+global IC(0) sweep under GSPMD, not P4's block ones), rainbow colour and
+the global marker layout.
 """
 
 from __future__ import annotations
@@ -62,20 +67,23 @@ from euler_tpu_torch.ops.project import (
 from euler_tpu_torch.parallel.comm import as_comm
 from euler_tpu_torch.parallel.cuda_shard import (
     H,
+    block_axes,
     make_sharded_marker_pass,
     padded,
+    split_columns,
 )
 from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
 from euler_tpu_torch.parallel.mesh import (
     PART_D,
     SCENARIO_PLANES,
     STATE_PLANES,
-    block_rows,
-    cut_rows,
-    gather_rows,
+    block_span,
+    cut_block,
+    gather_block,
     square_factor,
     world,
 )
+
 
 def to_spatial(cfg: SimConfig, state: FluidState) -> FluidState:
     """Re-view flat [2, M] slot markers as spatial planes [2, K, Y, X]; a
@@ -112,30 +120,28 @@ def spatial_mesh(world_size: int | None = None, x: int | None = None,
     return init_device_mesh(device, (n // x, x), mesh_dim_names=("y", "x"))
 
 
-def row_block(cfg: SimConfig, mesh) -> tuple[int, int]:
-    """(first row, rows) of this rank's block: the grid's rows split
-    evenly over "y".  Raises on a mesh that also splits columns."""
+def block(cfg: SimConfig, mesh) -> tuple[int, int, int, int]:
+    """(first row, rows, first column, columns) of this rank's block: the
+    grid's rows split evenly over "y", its columns over "x"."""
     comm = as_comm(mesh)
-    if comm.size("x") > 1:
-        raise NotImplementedError(
-            f"column blocks (x = {comm.size('x')}): the marker pass, the "
-            f"grid stage and the slot planes on column blocks are {PART_D}")
-    return block_rows(cfg.ny, comm.size("y"), comm.rank("y"))
+    return (*block_span(cfg.ny, comm.size("y"), comm.rank("y"), "y"),
+            *block_span(cfg.nx, comm.size("x"), comm.rank("x"), "x"))
 
 
 def shard_spatial(cfg: SimConfig, mesh: DeviceMesh, scn: Scenario,
                   state: FluidState):
     """This rank's block of one (unbatched) scenario and state on its
-    device: rows [r Yl, (r+1) Yl) of every plane, the slot store as
-    [2, K, Yl, X] and [K, Yl, X]; scalars, the RNG and the source list
-    whole (sources keep their global cells)."""
-    lo, rows = row_block(cfg, mesh)
+    device: rows [ry Yl, (ry+1) Yl) and columns [rx Xl, (rx+1) Xl) of
+    every plane, the slot store as [2, K, Yl, Xl] and [K, Yl, Xl];
+    scalars, the RNG and the source list whole (sources keep their
+    global cells)."""
+    r0, rows, c0, cols = block(cfg, mesh)
     dev = as_comm(mesh).device
     state = to_spatial(cfg, state)
-    scn = cut_rows(scn, SCENARIO_PLANES, lo, lo + rows, dev)
+    scn = cut_block(scn, SCENARIO_PLANES, (r0, rows), (c0, cols), dev)
     scn = dataclasses.replace(scn, source_yx=scn.source_yx.to(dev),
                               source_valid=scn.source_valid.to(dev))
-    state = cut_rows(state, STATE_PLANES, lo, lo + rows, dev)
+    state = cut_block(state, STATE_PLANES, (r0, rows), (c0, cols), dev)
     return scn, state.replace(**{
         f.name: getattr(state, f.name).to(dev)
         for f in dataclasses.fields(state) if f.name not in STATE_PLANES})
@@ -143,103 +149,151 @@ def shard_spatial(cfg: SimConfig, mesh: DeviceMesh, scn: Scenario,
 
 def gather_spatial(cfg: SimConfig, mesh, state: FluidState):
     """Inverse of `shard_spatial` for the state: every rank's block
-    all-gathered over "y", in row order, on every rank; the scalars are
-    this rank's (the same on every rank)."""
-    row_block(cfg, mesh)
+    all-gathered over "x", in column order, then over "y", in row order,
+    on every rank; the scalars are this rank's (the same on every
+    rank)."""
+    block(cfg, mesh)
     comm = as_comm(mesh)
-    return gather_rows(state, comm.gather)
+    return gather_block(state, comm.gather, block_axes(comm)[::-1])
 
 
-def check_row_frame(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for what the frame on row blocks does not
+def check_block_frame(cfg: SimConfig) -> None:
+    """Raise NotImplementedError for what the frame on blocks does not
     run, naming its ROADMAP item."""
     if cfg.marker_layout != "slots":
         raise NotImplementedError(
-            "the global marker layout on row blocks: its [2, M] store is in "
-            f"marker order, not rows; {PART_D}")
+            "the global marker layout on blocks: its [2, M] store is in "
+            f"marker order, not rows and columns; {PART_D}")
     if cfg.rainbow:
         raise NotImplementedError(
-            "rainbow colour on row blocks (the colours' extrapolation and "
+            "rainbow colour on blocks (the colours' extrapolation and "
             f"advection on the padded block): {PART_D}")
     kind = cfg.solver.preconditioner
     if kind in ("mg", "ic0"):
         raise NotImplementedError(
-            f"the {kind!r} preconditioner in the frame on row blocks: the "
-            "JAX spatial step runs a global MG cycle (IC(0) sweep) under "
+            f"the {kind!r} preconditioner in the frame on blocks: the JAX "
+            "spatial step runs a global MG cycle (IC(0) sweep) under "
             f"GSPMD, not P4's block-local one; {PART_D}")
 
 
-class RowBlocks:
-    """The frame on this block of rows (see the top of this module): pass
-    it to `sim.step_frame(cfg, scn, state, blocks=)` with the block's
-    scenario and state (`shard_spatial`).  `mesh`: a `DeviceMesh` (its
-    "y" dimension; x = 1) or a block of an in-process `LocalGroup`."""
+class Blocks:
+    """The frame on this block of rows and columns (see the top of this
+    module): pass it to `sim.step_frame(cfg, scn, state, blocks=)` with
+    the block's scenario and state (`shard_spatial`).  `mesh`: a
+    `DeviceMesh` (its "y" and "x" dimensions) or a block of an
+    in-process `LocalGroup`.  On x = 1 nothing exchanges columns."""
 
     def __init__(self, cfg: SimConfig, mesh):
-        check_row_frame(cfg)
+        check_block_frame(cfg)
         self.cfg = cfg
         self.comm = as_comm(mesh)
-        self.lo, self.rows = row_block(cfg, self.comm)
-        if self.rows < H:
-            raise ValueError(f"a block of {self.rows} rows is shallower "
-                             f"than the halo's {H}")
+        self.lo, self.rows, self.lo_x, self.cols = block(cfg, self.comm)
+        self.split = split_columns(self.comm)
+        if self.rows < H or (self.split and self.cols < H):
+            raise ValueError(f"a block of {self.rows} x {self.cols} cells "
+                             f"is shallower or narrower than the halo's {H}")
+        self.axes = block_axes(self.comm)
         self.marker_pass = make_sharded_marker_pass(cfg, self.comm)
-        self.solve = make_sharded_pressure_solver(cfg, self.comm, ("y",),
+        self.solve = make_sharded_pressure_solver(cfg, self.comm, self.axes,
                                                   stats=True)
         self.cfg_block = dataclasses.replace(cfg, ny=self.rows)
         self.cfg_h = dataclasses.replace(cfg, ny=self.rows + 2 * H)
         self.cfg_1 = dataclasses.replace(cfg, ny=self.rows + 2)
+        # where each of those planes lies in the grid
+        self.at_block = dict(clamp_ny=cfg.ny, row_offset=self.lo)
+        self.at_h = dict(clamp_ny=cfg.ny, row_offset=self.lo - H)
+        self.at_1 = dict(clamp_ny=cfg.ny, row_offset=self.lo - 1)
+        if self.split:
+            self.cfg_block = dataclasses.replace(self.cfg_block,
+                                                 nx=self.cols)
+            self.cfg_h = dataclasses.replace(self.cfg_h,
+                                             nx=self.cols + 2 * H)
+            self.cfg_1 = dataclasses.replace(self.cfg_1, nx=self.cols + 2)
+            self.at_block.update(clamp_nx=cfg.nx, col_offset=self.lo_x)
+            self.at_h.update(clamp_nx=cfg.nx, col_offset=self.lo_x - H)
+            self.at_1.update(clamp_nx=cfg.nx, col_offset=self.lo_x - 1)
+
+    def keep(self, h: int, ring: int = 0):
+        """The block's own cells, with `ring` more a side, in a plane
+        padded with h a side."""
+        rows = slice(h - ring, h + self.rows + ring)
+        cols = slice(h - ring, h + self.cols + ring)
+        return (rows, cols) if self.split else rows
 
     def max_speed_sq(self, cfg: SimConfig, u, v):
         """`max_speed_sq` of the whole grid: the block's u and v maxima,
         each all-reduced (max), summed."""
-        parts = torch.stack(max_speed_sq_parts(
-            self.cfg_block, u, v, clamp_ny=cfg.ny, row_offset=self.lo))
-        self.comm.all_reduce(parts, "max")
+        parts = torch.stack(max_speed_sq_parts(self.cfg_block, u, v,
+                                               **self.at_block))
+        self.comm.all_reduce(parts, "max", self.axes)
         return parts[0] + parts[1]
 
     def sources(self, cfg: SimConfig, scn: Scenario, state: FluidState,
                 active):
         """S1 on the block: the source cells' counts all-reduced first."""
         ly = scn.source_yx[:, 0].long() - self.lo
+        lx = scn.source_yx[:, 1].long()
         mine = scn.source_valid & (ly >= 0) & (ly < self.rows)
-        cells = state.marker_count[ly.clamp(0, self.rows - 1),
-                                   scn.source_yx[:, 1].long()]
+        if self.split:
+            lx = lx - self.lo_x
+            mine = mine & (lx >= 0) & (lx < self.cols)
+            lx = lx.clamp(0, self.cols - 1)
+        cells = state.marker_count[ly.clamp(0, self.rows - 1), lx]
         counts = torch.where(mine, cells, 0).to(torch.int32)
-        self.comm.all_reduce(counts, "sum")
+        self.comm.all_reduce(counts, "sum", self.axes)
         emit_sources(cfg, scn, state, active, row_offset=self.lo,
-                     counts=counts)
+                     counts=counts, col_offset=self.lo_x)
         return state
+
+    def ring(self, a, below=None, above=None, left=None, right=None):
+        """[rows, cols] `a` with one row before and after it (`below`,
+        `above`, or zeros) and, on column blocks, one column (`left`,
+        `right`, [rows, 1], or zeros; zero corners): the plane the
+        projection's glue reads."""
+        z = None
+        if below is None or above is None:
+            z = torch.zeros_like(a[:1])
+        a = torch.cat([z if below is None else below, a,
+                       z if above is None else above], 0)
+        if not self.split:
+            return a
+        zc = torch.zeros_like(a[:, :1])
+
+        def column(c):
+            return zc if c is None else torch.cat([zc[:1], c, zc[:1]], 0)
+
+        return torch.cat([column(left), a, column(right)], 1)
 
     def project(self, cfg: SimConfig, dt, u, v, fluid, fluid1, solid1, p0):
         """`ops/project.project` on the block: fluid1, solid1 the block's
-        masks with one row of each neighbour's.  Returns (u', v',
-        pressure, iterations)."""
-        def one(a):
-            z = torch.zeros_like(a[:1])
-            return torch.cat([z, a, z], 0)
-
-        below, _ = self.comm.exchange(v, 1)
-        v1 = torch.cat([below, v, torch.zeros_like(below)], 0)
-        b = divergence_rhs(self.cfg_1, one(u), v1, fluid1, dt)[1:-1]
-        a_diag = pressure_matrix_diag(self.cfg_1, solid1, fluid1)[1:-1]
+        masks with one row (and column) of each neighbour's.  Returns
+        (u', v', pressure, iterations)."""
+        comm, inner = self.comm, self.keep(1)
+        below, _ = comm.exchange(v, 1)
+        left = comm.exchange(u, 1, "x")[0] if self.split else None
+        b = divergence_rhs(self.cfg_1, self.ring(u, left=left),
+                           self.ring(v, below), fluid1, dt)[inner]
+        a_diag = pressure_matrix_diag(self.cfg_1, solid1, fluid1)[inner]
         x0 = None
         if cfg.solver.warm_start:
             x0 = torch.where(fluid, p0, 0.0).to(b.dtype)
         p, iters, _resid = self.solve(b.contiguous(), a_diag.contiguous(),
                                       fluid, x0)
         p = clamp_pressure(p, fluid)
-        p_below, p_above = self.comm.exchange(p, 1)
-        u1, v1 = face_update(self.cfg_1, torch.cat([p_below, p, p_above], 0),
-                             one(u), one(v), fluid1, solid1, dt,
-                             clamp_ny=cfg.ny, row_offset=self.lo - 1)
-        return u1[1:-1].contiguous(), v1[1:-1].contiguous(), p, iters
+        p_below, p_above = comm.exchange(p, 1)
+        p_left = p_right = None
+        if self.split:
+            p_left, p_right = comm.exchange(p, 1, "x")
+        u1, v1 = face_update(
+            self.cfg_1, self.ring(p, p_below, p_above, p_left, p_right),
+            self.ring(u), self.ring(v), fluid1, solid1, dt, **self.at_1)
+        return u1[inner].contiguous(), v1[inner].contiguous(), p, iters
 
     def substep(self, cfg: SimConfig, scn: Scenario, state: FluidState, dt,
                 dt_proj, defer_alive: bool = False, active=None):
         """`sim.substep` on the block (`sim._step_frame_impl` calls it)."""
         if cfg != self.cfg:
-            raise ValueError("the row blocks were made for another "
+            raise ValueError("the blocks were made for another "
                              "configuration")
         state = self.marker_pass(cfg, scn, state, dt,
                                  defer_alive=defer_alive)
@@ -248,11 +302,8 @@ class RowBlocks:
         fluid = state.fluid
         pad = [padded(a, self.comm) for a in
                (state.u, state.v, fluid, state.prev_fluid, scn.solid)]
-        ut, vt = grid_kernel.grid_stage(self.cfg_h, *pad, dt,
-                                        clamp_ny=cfg.ny,
-                                        row_offset=self.lo - H)
-        keep = slice(H, H + self.rows)
-        one = slice(H - 1, H + self.rows + 1)
+        ut, vt = grid_kernel.grid_stage(self.cfg_h, *pad, dt, **self.at_h)
+        keep, one = self.keep(H), self.keep(H, 1)
         u2, v2, p, iters = self.project(
             cfg, dt_proj, ut[keep].contiguous(), vt[keep].contiguous(), fluid,
             pad[2][one], pad[4][one], state.p)
@@ -262,11 +313,11 @@ class RowBlocks:
 
 
 def make_spatial_step(cfg: SimConfig, mesh):
-    """One frame of the full pipeline on this rank's block of rows
-    (spatial.py:113): fn(scn, state) -> state on the blocks
-    `shard_spatial` gives.  `mesh`: a ("y", "x") `DeviceMesh` with x = 1,
-    or a block of an in-process `LocalGroup`."""
-    blocks = RowBlocks(cfg, mesh)
+    """One frame of the full pipeline on this rank's block of rows and
+    columns (spatial.py:113): fn(scn, state) -> state on the blocks
+    `shard_spatial` gives.  `mesh`: a ("y", "x") `DeviceMesh`, or a block
+    of an in-process `LocalGroup`."""
+    blocks = Blocks(cfg, mesh)
 
     def step(scn: Scenario, state: FluidState) -> FluidState:
         return sim.step_frame(cfg, scn, state, blocks=blocks)

@@ -34,13 +34,13 @@ A substep is the marker pass `marker_route` names: in the global layout
     (`fuse_marker_pass=False`).
 `step_frame(..., marker_pass=)` replaces that pass by a function of
 `marker_pass_slots`'s contract (slot layout only), as the JAX package's
-does (sim.py:82-112, 234-236): `parallel/cuda_shard.py`'s row-sharded K1
-is one.  It takes the fused passes' deferred alive plane and never the
+does (sim.py:82-112, 234-236): `parallel/cuda_shard.py`'s K1 per block is
+one.  It takes the fused passes' deferred alive plane and never the
 padded store.  `step_frame(..., blocks=)` runs each substep as
 `blocks.substep` and takes the frame's speeds from
-`blocks.max_speed_sq`: `parallel/spatial.RowBlocks`, the frame on a
-rank's block of rows, whose every grid operation runs on its rows and
-whose frame-level values are all-reduced over the blocks.
+`blocks.max_speed_sq`: `parallel/spatial.Blocks`, the frame on a
+rank's block of rows and columns, whose every grid operation runs on its
+cells and whose frame-level values are all-reduced over the blocks.
 With sources, S1 then emits (in place on tensors the frame owns: on the
 slot routes `step_frame` copies the fields it carries from its input
 once; in the global layout, where an inactive substep's marker pass is
@@ -360,7 +360,7 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
 def step_frame(cfg: SimConfig, scn: Scenario, state: FluidState,
                marker_pass=None, blocks=None) -> FluidState:
     """One frame; `marker_pass` replaces the slot layout's marker pass,
-    `blocks` steps a block of rows (see the top of this module)."""
+    `blocks` steps a block of the grid (see the top of this module)."""
     return _step_frame_impl(cfg, scn, state, marker_pass, blocks)[0]
 
 

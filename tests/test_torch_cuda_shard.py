@@ -26,6 +26,15 @@ The frame on row blocks (`parallel/spatial.py`):
   * the 40 x 100 waterfall on 4 blocks, card against CPU: counts, alive,
     RNG bitwise, u and v within 1e-4, every kernel launched and no plain
     version run.
+The frame on 2 x 2 column blocks (K1, K7 and S1 given clamp_nx /
+col_offset, P4 over ("y", "x")):
+  * K1 (the cases above) and K7 (the 256² dam break) on each block
+    padded with 8 rows and columns bitwise their plain versions and,
+    cropped, the unsharded launch; clamp_nx = X, col_offset = 0 is the
+    unsharded K1;
+  * S1 on 40 x 100 with a source in each 20 x 50 block, bitwise its
+    plain version and the unsharded S1;
+  * the 40 x 100 waterfall on 2 x 2 blocks, card against CPU, as above.
 The multi-rank exchange runs on gloo ranks (tests/test_torch_shard.py);
 the card's host has one card, so its NCCL run has one rank.
 
@@ -355,6 +364,179 @@ def test_row_frame_card_vs_cpu():
                                   for f in dataclasses.fields(out)})
 
         with LocalGroup(4, device=device) as g:
+            return g.run(rank)[0]
+
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    got = run("cuda")
+    assert all(_build.LAUNCHES[k] > 0 for k in ("K1", "S1", "K7", "P4"))
+    assert not any(_build.PLAIN_CALLS.values())
+    want = run("cpu")
+    for name in ("marker_count", "alive", "alive_count", "dropped_markers"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.rng.to(torch.int64), want.rng.to(torch.int64))
+    for name in ("u", "v"):
+        assert float((getattr(got, name) - getattr(want, name)).abs()
+                     .max()) <= 1e-4, name
+
+
+# ---- the frame on column blocks: K1, K7 and S1 per (y, x) block -------
+
+
+def _col_blocks(arrays, Y, X):
+    """The 2 x 2 blocks of [.., Y, X] `arrays` with 8 rows and columns of
+    each neighbour, and each block's place in the grid."""
+    Yl, Xl = Y // 2, X // 2
+    for r in range(2):
+        for c in range(2):
+            yield ((slice(r * Yl, (r + 1) * Yl), slice(c * Xl, (c + 1) * Xl)),
+                   [block_with_halo(a, 2, r, H, 2, c) for a in arrays],
+                   dict(clamp_ny=Y, row_offset=r * Yl - H, clamp_nx=X,
+                        col_offset=c * Xl - H))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k1_col_blocks_bitwise(case):
+    """K1 on each of 2 x 2 blocks padded with 8 rows and columns, with
+    clamp_ny / row_offset / clamp_nx / col_offset, equals its plain
+    version, the whole padded output, and cropped the unsharded K1;
+    clamp_nx = X, col_offset = 0 is the unsharded launch."""
+    cfg, u, v, fluid, solid, slots, dt, count, dead = CASES[case]()
+    Y, X = cfg.ny, cfg.nx
+    whole = k1.march_rebin(cfg, u, v, fluid, solid, slots, dt, count,
+                           dead=dead)
+    same = k1.march_rebin(cfg, u, v, fluid, solid, slots, dt, count,
+                          dead=dead, clamp_nx=X, col_offset=0)
+    assert all(torch.equal(a, b) for a, b in zip(whole, same))
+    cfg_b = dataclasses.replace(cfg, ny=Y // 2 + 2 * H, nx=X // 2 + 2 * H)
+    for cut, p, kw in _col_blocks((u, v, fluid, solid, slots, count, dead),
+                                  Y, X):
+        args = (cfg_b, *p[:5], dt, p[5])
+        _build.LAUNCHES.clear()
+        got = k1.march_rebin(*args, dead=p[6], **kw)
+        assert _build.LAUNCHES["K1"] == 1
+        want = k1.march_rebin_plain(*args, dead=p[6], **kw)
+        for a, b, w, name in zip(got, want, whole, ("slots", "count",
+                                                    "drop")):
+            assert torch.equal(a, b), f"{kw}: {name} differs from plain"
+            assert torch.equal(a[..., H:-H, H:-H], w[(..., *cut)]), (
+                f"{kw}: {name} differs from the unsharded K1")
+
+
+def test_k7_col_blocks_bitwise():
+    """K7 on 2 x 2 padded blocks of the developed 256² dam break equals
+    its plain version and, cropped, the unsharded K7."""
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+
+    cfg = SimConfig(nx=256, ny=256, marker_layout="slots",
+                    solver=SolverConfig(preconditioner="jacobi"))
+    scn, st = _developed(cfg, 3)
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
+                          torch.full((), cfg.frame_time, device="cuda"))
+    args = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
+    whole = k7.grid_stage(cfg, *args, dt)
+    cfg_b = dataclasses.replace(cfg, ny=128 + 2 * H, nx=128 + 2 * H)
+    for cut, p, kw in _col_blocks(args, cfg.ny, cfg.nx):
+        got = k7.grid_stage(cfg_b, *p, dt, **kw)
+        want = k7.grid_stage(cfg_b, *(a.cpu() for a in p), dt.cpu(), **kw)
+        for a, b, w, name in zip(got, want, whole, ("ut", "vt")):
+            assert torch.equal(a.cpu(), b), f"{kw}: {name} vs plain"
+            assert torch.equal(a[H:-H, H:-H], w[cut]), (
+                f"{kw}: {name} differs from the unsharded K7")
+
+
+def _col_sources(device):
+    """40 x 100 with a source in each 20 x 50 block, 2 frames on."""
+    from euler_tpu_torch.core.scenario import build_scenario
+
+    cfg = SimConfig(nx=100, ny=40, marker_layout="slots", max_substeps=2,
+                    solver=SolverConfig(max_iterations=30))
+    text = "\n".join(("?" if k % 6 == 0 else " ") + "00" + " " * 60
+                     + ("?" if k % 6 == 0 else " ") for k in range(36))
+    scn, st = build_scenario((text + "\n").encode(), cfg, device=device)
+    assert {(y // 20, x // 50) for y, x in scn.source_yx.tolist()} == {
+        (0, 0), (0, 1), (1, 0), (1, 1)}
+    for _ in range(2):
+        st = sim.step_frame(cfg, scn, st)
+    return cfg, scn, st
+
+
+def test_s1_col_blocks_bitwise():
+    """S1 on 2 x 2 blocks (the all-reduced counts given, every block
+    walking every source, each writing the sources of its own cells)
+    equals its plain version block by block and, put together, the
+    unsharded S1, bit for bit."""
+    from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
+
+    _card()
+    cfg, scn, st = _col_sources("cuda")
+    ys, xs = scn.source_yx[:, 0].long(), scn.source_yx[:, 1].long()
+    counts = torch.where(scn.source_valid, st.marker_count[ys, xs],
+                         0).to(torch.int32)
+    fields = ("markers", "alive", "marker_count", "r", "g", "b", "rng",
+              "alive_count", "source_exhausted")
+    whole = st.replace(**{k: getattr(st, k).clone() for k in fields})
+    emit_sources(cfg, scn, whole)
+    planes = fields[:6]
+    for cut, _, kw in _col_blocks((), cfg.ny, cfg.nx):
+        out = []
+        for device in ("cuda", "cpu"):
+            b = st.replace(**{k: getattr(st, k)[(..., *cut)].to(device)
+                              .clone(memory_format=torch.contiguous_format)
+                              for k in planes},
+                           **{k: getattr(st, k).to(device).clone() for k in
+                              fields[6:] + ("frame_count",)})
+            bs = dataclasses.replace(
+                scn, **{k: getattr(scn, k)[cut].to(device).contiguous()
+                        for k in ("solid", "source", "sink")},
+                source_yx=scn.source_yx.to(device),
+                source_valid=scn.source_valid.to(device))
+            _build.LAUNCHES.clear()
+            emit_sources(cfg, bs, b, None, row_offset=cut[0].start,
+                         counts=counts.to(device), col_offset=cut[1].start)
+            assert _build.LAUNCHES["S1"] == (device == "cuda")
+            out.append(b)
+        got, want = out
+        for k in fields:
+            a = getattr(got, k).cpu().to(torch.int64)
+            assert torch.equal(a, getattr(want, k).to(torch.int64)), (
+                f"{kw}: {k} vs plain")
+            w = getattr(whole, k)
+            if k in planes:
+                w = w[(..., *cut)]
+            assert torch.equal(a, w.cpu().to(torch.int64)), (
+                f"{kw}: {k} vs the unsharded S1")
+
+
+def test_col_frame_card_vs_cpu():
+    """The waterfall at 40 x 100 on 2 x 2 in-process blocks of 20 x 50
+    (K1, S1, K7, P4 per block, P4 over ("y", "x")) on the card against
+    the same blocks' plain versions on the CPU: counts, alive, RNG
+    bitwise, u and v within 1e-4."""
+    from euler_tpu_torch.core.scenario import load_scenario
+    from euler_tpu_torch.parallel.comm import LocalGroup
+    from euler_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        make_spatial_step,
+        shard_spatial,
+    )
+
+    _card()
+    cfg = SimConfig(nx=100, ny=40, marker_layout="slots",
+                    solver=SolverConfig(max_iterations=100, tol_rel=1e-4))
+    scn, st = load_scenario("scenarios/waterfall.txt", cfg, device="cpu")
+
+    def run(device):
+        def rank(comm):
+            step = make_spatial_step(cfg, comm)
+            bs, b = shard_spatial(cfg, comm, scn, st)
+            for _ in range(4):
+                b = step(bs, b)
+            out = gather_spatial(cfg, comm, b)
+            return out.replace(**{f.name: getattr(out, f.name).cpu()
+                                  for f in dataclasses.fields(out)})
+
+        with LocalGroup(2, 2, device=device) as g:
             return g.run(rank)[0]
 
     _build.LAUNCHES.clear()

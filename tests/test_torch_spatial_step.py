@@ -22,18 +22,16 @@ tests/test_torch_shard.py holds K1 to).
     tests/test_spatial.py:29-37's 32 x 16 text (a source, solids), 3
     frames; the 64² dam break on 4 blocks, bitwise the gloo ranks'
     counts; sources in every block of a 40 x 100 scenario, 2 frames;
-  * the refusals, each naming ROADMAP M12 part d.
+  * the refusals, each naming ROADMAP M12 part d, and what stays
+    refused of column blocks (tests/test_torch_col_blocks.py runs
+    them): a block narrower than the halo, the pallas step on x > 1.
 """
 
 import dataclasses
 import functools
 
-import numpy as np
 import pytest
-import torch
 
-from euler_tpu.sim import step_frame_jit
-from euler_tpu_torch import convert
 from euler_tpu_torch.core.scenario import build_scenario
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.parallel import spatial
@@ -42,53 +40,14 @@ from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
 from euler_tpu_torch.parallel.dryrun import launch
 
 import torch_shard_ranks as ranks
-from torch_parity import assert_live_close, jax_config, jax_state
-
-
-def _jax(cfg):
-    return dataclasses.replace(jax_config(cfg, interpret=False),
-                               use_pallas_markers=False)
-
-
-def _jax_frames(cfg, scn, st, frames):
-    """JAX `step_frame_jit` `frames` times from the port's (scn, st)."""
-    jcfg = _jax(cfg)
-    jscn, jst = jax_state((convert.scenario_to_numpy(scn),
-                           convert.state_to_numpy(st)))
-    for _ in range(frames):
-        jst = step_frame_jit(jcfg, jscn, jst)
-    return {f.name: np.asarray(getattr(jst, f.name))
-            for f in dataclasses.fields(jst)}
-
-
-def _assert_frame(cfg, got, want):
-    """got, want: numpy dicts of the flat layout (one instance)."""
-    for name in ("marker_count", "alive", "alive_count", "dropped_markers",
-                 "frame_count"):
-        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
-    np.testing.assert_array_equal(got["rng"].astype(np.int64),
-                                  want["rng"].astype(np.int64))
-    for name in ("u", "v"):
-        np.testing.assert_allclose(got[name], want[name], atol=1e-5, rtol=0,
-                                   err_msg=name)
-    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-    assert_live_close(cfg, got["markers"].reshape(2 * K, Y, X),
-                      want["markers"].reshape(2 * K, Y, X),
-                      got["marker_count"])
+from torch_parity import assert_frame as _assert_frame
+from torch_parity import block_frames, jax_frames as _jax_frames
 
 
 def _local_frames(cfg, scn, st, n, frames):
-    """`make_spatial_step` on n in-process blocks; the whole state as
+    """`make_spatial_step` on n in-process row blocks; the whole state as
     numpy (flat layout)."""
-    def rank(comm):
-        step = spatial.make_spatial_step(cfg, comm)
-        bscn, b = spatial.shard_spatial(cfg, comm, scn, st)
-        for _ in range(frames):
-            b = step(bscn, b)
-        return spatial.gather_spatial(cfg, comm, b)
-
-    with LocalGroup(n, device="cpu") as g:
-        return convert.state_to_numpy(g.run(rank)[0])
+    return block_frames(cfg, scn, st, n, 1, frames)
 
 
 @pytest.fixture(scope="module")
@@ -182,9 +141,20 @@ def test_frame_refusals(over, what):
 
 
 def test_column_blocks_refused():
-    def rank(comm):
+    """Column blocks run (tests/test_torch_col_blocks.py); what stays
+    refused is a block narrower than the halo's 8 columns, and the JAX
+    package's row-sharded pallas step on a mesh with x > 1 (ValueError,
+    as pallas_shard.py:146-148 asserts)."""
+    def narrow(comm):
         spatial.make_spatial_step(ranks.TEXT_CFG, comm)
 
+    with LocalGroup(1, 8, device="cpu") as g:
+        with pytest.raises(RuntimeError, match="narrower than the halo"):
+            g.run(narrow)
+
+    def pallas(comm):
+        make_spatial_step_pallas(ranks.TEXT_CFG, comm)
+
     with LocalGroup(2, 2, device="cpu") as g:
-        with pytest.raises(RuntimeError, match="column blocks.*part d"):
-            g.run(rank)
+        with pytest.raises(RuntimeError, match="ValueError.*x = 1 mesh"):
+            g.run(pallas)

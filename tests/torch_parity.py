@@ -164,3 +164,58 @@ def n(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def jax_frames(cfg: SimConfig, scn, st, frames: int) -> dict:
+    """JAX `step_frame_jit` `frames` times from the port's (scn, st), its
+    marker pass on the jnp path (bitwise its Pallas pass) and its solve
+    on the jnp `pcg_loop` (as the JAX package's sharded frames solve);
+    the state as numpy (flat layout)."""
+    from euler_tpu.sim import step_frame_jit
+
+    jcfg = dataclasses.replace(jax_config(cfg, interpret=False),
+                               use_pallas_markers=False)
+    jscn, jst = jax_state((convert.scenario_to_numpy(scn),
+                           convert.state_to_numpy(st)))
+    for _ in range(frames):
+        jst = step_frame_jit(jcfg, jscn, jst)
+    return {f.name: np.asarray(getattr(jst, f.name))
+            for f in dataclasses.fields(jst)}
+
+
+def assert_frame(cfg: SimConfig, got: dict, want: dict) -> None:
+    """A frame on blocks against JAX's (numpy dicts of the flat layout,
+    one instance): marker counts, the alive plane, alive_count, the drops
+    and the RNG equal; u and v within 1e-5; live marker positions within
+    1e-4 (XLA contracts the JAX march's products into FMAs on the CPU)."""
+    for name in ("marker_count", "alive", "alive_count", "dropped_markers",
+                 "frame_count"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    np.testing.assert_array_equal(got["rng"].astype(np.int64),
+                                  want["rng"].astype(np.int64))
+    for name in ("u", "v"):
+        np.testing.assert_allclose(got[name], want[name], atol=1e-5, rtol=0,
+                                   err_msg=name)
+    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
+    assert_live_close(cfg, got["markers"].reshape(2 * K, Y, X),
+                      want["markers"].reshape(2 * K, Y, X),
+                      got["marker_count"])
+
+
+def block_frames(cfg: SimConfig, scn, st, y: int, x: int,
+                 frames: int) -> dict:
+    """`spatial.make_spatial_step` on y x x in-process blocks
+    (`comm.LocalGroup`) of (scn, st), `frames` frames; the whole state
+    as numpy (flat layout)."""
+    from euler_tpu_torch.parallel import spatial
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    def rank(comm):
+        step = spatial.make_spatial_step(cfg, comm)
+        bscn, b = spatial.shard_spatial(cfg, comm, scn, st)
+        for _ in range(frames):
+            b = step(bscn, b)
+        return spatial.gather_spatial(cfg, comm, b)
+
+    with LocalGroup(y, x, device="cpu") as g:
+        return convert.state_to_numpy(g.run(rank)[0])

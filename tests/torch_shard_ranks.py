@@ -307,35 +307,33 @@ TEXT = b"?  00\n   00\nX  00\nXX 00\n"
 TEXT_STEPS = 3
 
 
-def frame_rank() -> dict:
-    """On 4 gloo ranks: `cuda_shard.make_spatial_step_pallas` on a "y"
-    mesh of 4, FRAME_STEPS frames of the dam break developed FRAME_DEVELOP
-    frames by the unsharded port (gathered: `frame_*`); and
-    `mesh.make_sharded_step` on `make_mesh(4)` (data 2 x y 2) stepping a
-    batch of the text scenario and its mirror TEXT_STEPS frames
-    (gathered: `batch_*`)."""
-    from euler_tpu_torch.core.scenario import build_scenario
-    from euler_tpu_torch.ops.cuda import _build
-    from euler_tpu_torch.parallel.batch import stack
-    from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
-    from euler_tpu_torch.parallel.spatial import to_spatial
-
-    out = {}
-    ymesh = spatial_mesh(4, x=1, device="cpu")
+def _frames(mesh, step_of) -> dict:
+    """FRAME_STEPS frames of the dam break developed FRAME_DEVELOP frames
+    by the unsharded port, stepped by `step_of(FRAME_CFG, mesh)` on this
+    rank's block and gathered (`frame_*`), with the plain versions' calls
+    (`frame_calls`: K1, S1, K7, P4)."""
     scn, st = developed(FRAME_CFG, FRAME_DEVELOP)
-    step = make_spatial_step_pallas(FRAME_CFG, ymesh)
-    bscn, b = shard_spatial(FRAME_CFG, ymesh, scn, st)
+    step = step_of(FRAME_CFG, mesh)
+    bscn, b = shard_spatial(FRAME_CFG, mesh, scn, st)
     _build.PLAIN_CALLS.clear()
     for _ in range(FRAME_STEPS):
         b = step(bscn, b)
-    out["frame_calls"] = torch.tensor([_build.PLAIN_CALLS[k] for k in
-                                       ("K1", "S1", "K7", "P4")])
+    out = {"frame_calls": torch.tensor([_build.PLAIN_CALLS[k] for k in
+                                        ("K1", "S1", "K7", "P4")])}
     out.update({f"frame_{k}": torch.as_tensor(v) for k, v in
-                convert.state_to_numpy(gather_spatial(FRAME_CFG, ymesh,
+                convert.state_to_numpy(gather_spatial(FRAME_CFG, mesh,
                                                       b)).items()})
+    return out
 
-    dmesh = make_mesh(4, device="cpu")
-    out["batch_layout"] = torch.tensor(dmesh.mesh.shape)
+
+def _batch(dmesh) -> dict:
+    """`mesh.make_sharded_step` on `dmesh` stepping a batch of the text
+    scenario and its mirror TEXT_STEPS frames (gathered: `batch_*`)."""
+    from euler_tpu_torch.core.scenario import build_scenario
+    from euler_tpu_torch.parallel.batch import stack
+    from euler_tpu_torch.parallel.spatial import to_spatial
+
+    out = {"batch_layout": torch.tensor(dmesh.mesh.shape)}
     pairs = [build_scenario(t, TEXT_CFG, device="cpu")
              for t in (TEXT, b"\n".join(r[::-1] for r in TEXT.split(b"\n")))]
     scn2 = stack([p[0] for p in pairs])
@@ -347,4 +345,28 @@ def frame_rank() -> dict:
     whole = gather_batch(dmesh, sst)
     out.update({f"batch_{k}": torch.as_tensor(v) for k, v in
                 convert.state_to_numpy(whole).items()})
+    return out
+
+
+def frame_rank() -> dict:
+    """On 4 gloo ranks: `cuda_shard.make_spatial_step_pallas` on a "y"
+    mesh of 4 (`_frames`); and `mesh.make_sharded_step` on `make_mesh(4)`
+    (data 2 x y 2, `_batch`)."""
+    from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
+
+    out = _frames(spatial_mesh(4, x=1, device="cpu"),
+                  make_spatial_step_pallas)
+    out.update(_batch(make_mesh(4, device="cpu")))
+    return out
+
+
+def col_frame_rank() -> dict:
+    """On 4 gloo ranks, column blocks: `spatial.make_spatial_step` on
+    `spatial_mesh(4, x=2)` (2 x 2 blocks of 32 x 32, `_frames`); and
+    `mesh.make_sharded_step` on `make_mesh(4, data=1, x=2)` (y 2 x x 2:
+    blocks of 8 x 16, `_batch`)."""
+    from euler_tpu_torch.parallel.spatial import make_spatial_step
+
+    out = _frames(spatial_mesh(4, x=2, device="cpu"), make_spatial_step)
+    out.update(_batch(make_mesh(4, data=1, x=2, device="cpu")))
     return out
