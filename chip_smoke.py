@@ -146,7 +146,21 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      within 1e-4 of scale, against the plain P4, timed and profiled; the
      1024² waterfall and dam break on 2 x 2 blocks against 1 block (at
      most 4 cells' counts apart, every velocity within 1e-3); the 40 x
-     100 waterfall on 2 x 2 blocks of 20 x 50, card against CPU;
+     100 waterfall on 2 x 2 blocks of 20 x 50, card against CPU; then the
+     frame's global MG solve on blocks (M12 part d item 1: P5,
+     `parallel/spatial_mg.py`) on the 1024² substep system: on 1 x 1
+     blocks bitwise P3 (`solve_pressure_general` called directly; p,
+     iterations, residual; cold and warm), on 2 x 2 and 4 x 1 blocks its
+     hierarchy, Chebyshev rows and one cycle bitwise P3's, its iterations
+     within 1 of P3's and p within 5e-4 of scale, P3 and P5 timed cold
+     and warm (CUDA events), the plain P5 once (2 x 2, warm); the 1024²
+     MG waterfall and dam break on 2 x 2 blocks against 1 block, 2
+     frames (K1, S1, K7, P5 once a block a substep, no P4 and no plain
+     version; the waterfall at most 4 cells' counts apart and every
+     velocity within 1e-3, each frame's figures logged); last, P4's, P5's
+     and P3's device time from one profiled solve each: a profiler
+     session over the blocks' threads slowed later host launches, so
+     nothing is timed after it;
  15. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
@@ -171,8 +185,11 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      row-block card tests there (K7 and S1 on row blocks bitwise, P4
      against its plain version, the 40 x 100 waterfall on 4 blocks card
      vs CPU), the column-block ones (K1, K7, S1 on 2 x 2 blocks bitwise,
-     the 40 x 100 waterfall on 2 x 2 blocks card vs CPU) and
-     `dryrun_multichip(1, "nccl")` (a spawned NCCL rank).
+     the 40 x 100 waterfall on 2 x 2 blocks card vs CPU), P5's (its
+     hierarchy and a cycle on 2 x 2 and 4 x 1 blocks of the 256² system
+     bitwise P3's, 1 x 1 blocks bitwise P3, the 64² MG dam break on 2 x 2
+     blocks card vs CPU) and `dryrun_multichip(1, "nccl")` (a spawned
+     NCCL rank).
 With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -381,6 +398,8 @@ BOUNDS = {
     "P3": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
     # b f32; a_diag i32; fluid u8 in; p f32 out (P1's loop on blocks)
     "P4": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
+    # P3's work on the same grid, whatever layout computes it
+    "P5": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
 }
 
 
@@ -523,6 +542,15 @@ KERNELS = {
             "euler_tpu/parallel/halo.py:88 (_pcg_sharded over (y, x): "
             "pcg_loop under shard_map with psum / pmax and a ppermute halo "
             "of rows and columns, no pallas_call)"),
+    # the frame's global MG solve on blocks: a call is one warm solve of
+    # the 2 x 2 blocks at 1024²; launches from the 2 x 2 MG waterfall
+    # frames
+    "P5": ("global_mg_pcg_2x2_blocks", "euler_tpu_torch/csrc/pcg_mg_blocks.cu",
+           "euler_tpu/ops/project.py:115 (pcg_loop with "
+           "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, the "
+           "whole grid's W-cycle, in the frame on (y, x) blocks, "
+           "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
+           "GSPMD partitions; no pallas_call)"),
 }
 
 
@@ -766,11 +794,13 @@ def build_all():
     from euler_tpu_torch.ops.cuda import global_marker_kernel as g12
     from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
     from euler_tpu_torch.ops.cuda import pcg_shard_kernel as p4
+    from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
     from euler_tpu_torch.native import get_lib as encoder_lib
 
     loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
                k89.jacobi_lib, k12.stream_lib, s1.source_lib, encoder_lib,
-               g12.global_lib, p12.general_lib, p12.mg_lib, p4.shard_lib]
+               g12.global_lib, p12.general_lib, p12.mg_lib, p4.shard_lib,
+               p5.blocks_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -3456,9 +3486,262 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
     summaries["col_blocks"] = summary
 
 
+# the frame's global MG solve on blocks (M12 part d item 1: P5)
+GMG_LAYOUTS = ((1, 1), (COL_N, COL_N), (4, 1))
+GMG_REPS = 3      # timed P5 solves (a few hundred ms each, host-bound)
+GMG_FRAMES = 2    # MG frames of the 1024² waterfall and dam break
+WATERFALL_MG_1024 = ["scenarios/waterfall.txt", "--size", "1024x1024"]
+
+
+def p5_group(cfg, b, a_diag, fl, x0, y, x, dev):
+    """A `LocalGroup` of y x x blocks on `dev` and each block's cut of
+    (b, a_diag, fl, fluid1, x0): fluid1 its fluid with one row (and
+    column) of each neighbour's, x0 None for a cold start."""
+    from euler_tpu_torch.parallel.comm import LocalGroup
+    from euler_tpu_torch.parallel.cuda_shard import padded
+
+    Yl, Xl = cfg.ny // y, cfg.nx // x
+
+    def cut(comm):
+        ry, rx = comm.rank("y"), comm.rank("x")
+        c = (slice(ry * Yl, (ry + 1) * Yl), slice(rx * Xl, (rx + 1) * Xl))
+        bb, aa, ff = (t[c].contiguous() for t in (b, a_diag, fl))
+        return (bb, aa, ff, padded(ff, comm, 1),
+                None if x0 is None else x0[c].contiguous())
+
+    g = LocalGroup(y, x, device=dev)
+    return g, g.run(cut)
+
+
+def p5_solve(cfg, g, inputs, plain=False):
+    """One solve on the blocks of `g` (`p5_group`): P5 through
+    `spatial_mg.solve_pressure_blocks`, or with `plain` its plain version
+    on the same card tensors.  Returns every block's (p, iterations,
+    residual)."""
+    from euler_tpu_torch.parallel import spatial_mg
+
+    def rank(comm):
+        axes = ("y", "x") if comm.size("x") > 1 else ("y",)
+        b, a, fl, fl1, x0 = inputs[comm.r]
+        if plain:
+            return spatial_mg.pcg_blocks_plain(
+                cfg, comm, axes, b, a, fl,
+                spatial_mg.fluid_ring(fl1, "x" in axes), x0)
+        return spatial_mg.solve_pressure_blocks(cfg, comm, axes, b, a, fl,
+                                                fl1, x0)
+
+    return g.run(rank)
+
+
+def check_p5_hierarchy(cfg, g, inputs, ws3, z3, label: str) -> None:
+    """The hierarchy P5 built in the blocks' last solve (the packed level 0
+    and the distributed levels put together, the gathered levels, the
+    Chebyshev rows) and one cycle of it on the blocks, bitwise P3's
+    (`ws3`, its last solve of the same system, and `z3`, its cycle of the
+    same RHS)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
+    from euler_tpu_torch.parallel import spatial_mg
+
+    def rank(comm):
+        axes = ("y", "x") if comm.size("x") > 1 else ("y",)
+        plan = spatial_mg.block_plan(cfg, comm, axes)
+        ws = p5.workspace(cfg, comm, plan, inputs[comm.r][0].device)
+
+        def whole(t):
+            return spatial_mg.gather_plane(t, comm, axes)
+
+        levels = [tuple(whole(ws.block[l][k]) for k in "cen")
+                  for l in range(1, plan.gather)]
+        levels += [tuple(ws.whole[l][k] for k in "cen")
+                   for l in range(plan.gather, len(plan.shapes))]
+        z = ws.cycle(comm, axes, inputs[comm.r][0])
+        return (plan.gather, whole(ws.packed0), levels, ws.rows.clone(),
+                whole(z))
+
+    gather, packed0, levels, rows, z = g.run(rank)[0]
+    check(torch.equal(packed0, ws3.packed0), f"P5 {label}: packed level 0 "
+          "differs from P3's")
+    check(len(levels) == len(ws3.levels), f"P5 {label}: {len(levels)} "
+          "coarse levels")
+    for l, (got, want) in enumerate(zip(levels, ws3.levels), start=1):
+        for name, a_, c_ in zip("cen", got, want[:3]):
+            check(torch.equal(a_, c_), f"P5 {label}: level {l} {name} "
+                  "differs from P3's")
+    check(torch.equal(rows, ws3.rows), f"P5 {label}: Chebyshev rows differ "
+          "from P3's")
+    check(bool(z3.abs().max() > 0) and torch.equal(z, z3),
+          f"P5 {label}: one cycle differs from P3's")
+    log(f"   P5 {label}: gather level {gather}; packed level 0, "
+        f"{len(levels)} coarse levels, the Chebyshev rows and one cycle "
+        "bitwise P3's")
+
+
+def run_global_mg_blocks(results, summaries, launches, dev, shared) -> None:
+    """The frame's global MG solve on ("y", "x") blocks on the card (M12
+    part d item 1: P5, `parallel/spatial_mg.py`), every block one thread
+    of an in-process `comm.LocalGroup`: on the 1024² substep system,
+    against P3 (`pcg_general_kernel.solve_pressure_general` called
+    directly: the 1024² route is K3) on 1 x 1, 2 x 2 and 4 x 1 blocks,
+    bitwise where the function is P3's (the hierarchy, a cycle, 1 x 1
+    blocks), timed; then the 1024² MG waterfall and dam break on 2 x 2
+    blocks against 1 block, each frame held to `frames_agree` (the dam
+    break is the case whose fluid crosses the blocks' edges).  Reuses the row phase's
+    system and states (`shared`)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+
+    summary = {}
+    c = shared["configs"]["mg"]
+    b, a_diag, fl, st = (shared[k] for k in ("b", "a_diag", "fl", "st"))
+    p0 = torch.where(fl, st.p, 0.0)
+    starts = {"cold": None, "warm": p0}
+    with Phase(f"P5 on {', '.join(f'{y} x {x}' for y, x in GMG_LAYOUTS)} "
+               f"in-process blocks of the {SIZE}² substep system: hierarchy "
+               "and one cycle bitwise P3's, 1 x 1 bitwise P3, iterations "
+               "within 1 and p within 5e-4 of scale elsewhere; P3 and P5 "
+               "timed cold and warm, the plain P5 once"):
+        refs = {}
+        for label, x0 in starts.items():
+            refs[label] = p13.solve_pressure_general(c, b, a_diag, fl, x0=x0)
+            t3 = cuda_ms(lambda: p13.solve_pressure_general(
+                c, b, a_diag, fl, x0=x0), REPS)
+            summary[f"p3_{label}"] = {"ms": t3, "iters": int(refs[label][1])}
+            log(f"   P3 {label}: {t3:.3f} ms a solve (CUDA events), "
+                f"{int(refs[label][1])} iterations")
+        # P3's workspace keeps the hierarchy of its last solve (warm, the
+        # same system)
+        ws3 = p13.workspace(c, dev)
+        z3 = ws3.cycle(b, per_op=False)
+        scale = float(refs["warm"][0].abs().max())
+        err_max = 0.0
+        for y, x in GMG_LAYOUTS:
+            for label, x0 in starts.items():
+                ref = refs[label]
+                g, inputs = p5_group(c, b, a_diag, fl, x0, y, x, dev)
+                with g:
+                    reset_counts()
+                    out = p5_solve(c, g, inputs)
+                    check(_build.LAUNCHES["P5"] == y * x
+                          and not _build.PLAIN_CALLS,
+                          f"P5 {y} x {x}: launches {dict(_build.LAUNCHES)}, "
+                          f"plain {dict(_build.PLAIN_CALLS)}")
+                    check(len({(int(o[1]), float(o[2])) for o in out}) == 1,
+                          f"P5 {y} x {x}: the blocks' iterations or "
+                          "residuals differ")
+                    p = together([o[0] for o in out], x)
+                    it, res = int(out[0][1]), float(out[0][2])
+                    err = float((p - ref[0]).abs().max()) / scale
+                    if (y, x) == (1, 1):
+                        check(torch.equal(p, ref[0]) and it == int(ref[1])
+                              and res == float(ref[2]),
+                              f"P5 1 x 1 {label}: not P3's bits ({it} vs "
+                              f"{int(ref[1])} iterations, p {err:.3g} of "
+                              "scale)")
+                    else:
+                        check(abs(it - int(ref[1])) <= 1 and err <= 5e-4,
+                              f"P5 {y} x {x} {label}: {it} iterations (P3 "
+                              f"{int(ref[1])}), p {err:.3g} of scale")
+                    ms = cuda_ms(lambda: p5_solve(c, g, inputs), GMG_REPS)
+                    row = {"ms": ms, "iters": it, "resid": res,
+                           "err_vs_p3": err}
+                    if label == "warm" and (y, x) != (1, 1):
+                        check_p5_hierarchy(c, g, inputs, ws3, z3,
+                                           f"{y} x {x}")
+                    if label == "warm" and (y, x) == (COL_N, COL_N):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        q = p5_solve(c, g, inputs, plain=True)
+                        torch.cuda.synchronize()
+                        ms_q = 1e3 * (time.perf_counter() - t0)
+                        kerr = float((p - together([o[0] for o in q], x))
+                                     .abs().max())
+                        check(abs(it - int(q[0][1])) <= 1
+                              and kerr <= 5e-4 * scale,
+                              f"P5 {y} x {x} vs plain: {it} vs "
+                              f"{int(q[0][1])} iterations, p {kerr:.3g} "
+                              "apart")
+                        row["plain"] = {"ms": ms_q, "iters": int(q[0][1]),
+                                        "max_abs_err": kerr}
+                        results["P5"] = {
+                            "ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
+                            "library_ms": None}
+                        nbytes, flops = BOUNDS["P5"](c.ny * c.nx, it, 0)
+                        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+                        t_ops = 1e3 * flops / F32_FLOP_PER_S
+                        results["P5"].update(
+                            bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops
+                            else "operations")
+                        log(f"   P5 {y} x {x} plain version (warm): "
+                            f"{ms_q:.1f} ms, {int(q[0][1])} iterations, p "
+                            f"{kerr:.3g} from P5; bound "
+                            f"{results['P5']['bound_ms']:.4f} ms by "
+                            f"{results['P5']['bound_by']} (P3's work)")
+                summary[f"blocks_{y}x{x}_{label}"] = row
+                if (y, x) != (1, 1):
+                    err_max = max(err_max, err)
+                log(f"   P5 {y} x {x} {label}: {ms:.2f} ms a solve (CUDA "
+                    f"events around the blocks' calls; P3 "
+                    f"{summary[f'p3_{label}']['ms']:.3f}), {it} iterations "
+                    f"(P3 {int(ref[1])}), p within {err:.3g} of P3's scale")
+        summary["max_err_vs_p3"] = err_max
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"the {SIZE}² MG waterfall and dam break on {COL_N} x "
+               f"{COL_N} blocks (P5), {GMG_FRAMES} frames, against 1 block "
+               "frame by frame"):
+        nb = COL_N * COL_N
+        wcfg = cli_state(WATERFALL_MG_1024)[0]
+        check(wcfg.solver.preconditioner == "mg" and wcfg.solver.warm_start,
+              f"the CLI's 1024² waterfall solves with {wcfg.solver}")
+        wscn, wst = shared["frames_1"]["waterfall"][1:3]
+        p5_launches = 0
+        for label, (fcfg, fscn, fst) in (
+                ("waterfall", (wcfg, wscn, wst)),
+                ("dam_break", (shared["cfg"], shared["scn"], shared["st"]))):
+            names = (("K1", "S1", "K7", "P5") if fscn.num_sources
+                     else ("K1", "K7", "P5"))
+            got, one, per_frame = fst, fst, []
+            for frame in range(1, GMG_FRAMES + 1):
+                got, ms, got_l, plain = block_frames(fcfg, fscn, got, COL_N,
+                                                     dev, 0, 1, x=COL_N)
+                per = nb * fcfg.max_substeps
+                check(plain == 0 and all(got_l.get(k) == per for k in names)
+                      and not got_l.get("P4"),
+                      f"MG {label} on {COL_N} x {COL_N} blocks: not one "
+                      f"launch a block a substep: {got_l}, plain {plain}")
+                if label == "waterfall":
+                    p5_launches += got_l["P5"]
+                one, ms1, _, _ = block_frames(fcfg, fscn, one, 1, dev, 0, 1)
+                for name in ("u", "v", "p", "markers"):
+                    check(bool(torch.isfinite(getattr(got, name)).all()),
+                          f"MG {label} on blocks: {name} not finite")
+                d = frame_diff(got, one)
+                d.update(ms_per_frame=ms, ms_per_frame_1_block=ms1)
+                per_frame.append(d)
+                log(f"   {label} frame {frame}: {COL_N} x {COL_N} blocks "
+                    f"{ms:.1f} ms, 1 block {ms1:.1f} ms; {d['count_cells']} "
+                    f"of {d['cells']} cells' counts apart, max |dv| "
+                    f"{d['max_dv']:.3g}; alive {d['alive']}")
+                check(frames_agree(d), f"MG {label}, {COL_N} x {COL_N} "
+                      f"blocks vs 1, frame {frame}: {d}")
+            summary[f"{label}_1024"] = {
+                "frames": per_frame,
+                "div_inf": div_inf(fcfg, got, exclude=fscn.source
+                                   if fscn.num_sources else None)}
+        launches["P5"] = p5_launches
+        log(f"   nvidia-smi: {smi_line()}")
+    summaries["global_mg_blocks"] = summary
+
+
 def run_block_profiles(results, summaries, shared, dev) -> None:
     """P4's device time a solve of the 1024² substep system on 1, 2 and 4
-    row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi): the
+    row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi), P5's
+    (warm) on 1 x 1, 2 x 2 and 4 x 1 blocks, and P3's beside them: the
     summed kernel spans of one profiled solve each.  Run after every
     timing of the block phases: a profiler session over the blocks'
     threads slowed the host's later launches in this process (PERF.md
@@ -3467,8 +3750,9 @@ def run_block_profiles(results, summaries, shared, dev) -> None:
     layouts = [(label, n, 1) for label in shared["configs"]
                for n in ROW_BLOCKS] + [("jacobi", COL_N, COL_N)]
     with Phase(f"P4's device time a solve of the {SIZE}² substep system "
-               "on 1, 2 and 4 row blocks and on 2 x 2 blocks: the summed "
-               "spans of one profiled solve"):
+               "on 1, 2 and 4 row blocks and on 2 x 2 blocks, P5's on 1 x "
+               "1, 2 x 2 and 4 x 1 blocks and P3's: the summed spans of one "
+               "profiled solve"):
         for label, n, x in layouts:
             c = shared["configs"][label]
             key = "row_blocks" if x == 1 else "col_blocks"
@@ -3488,6 +3772,41 @@ def run_block_profiles(results, summaries, shared, dev) -> None:
         results["P4b"]["device_ms"] = \
             summaries["col_blocks"]["p4_jacobi"][f"blocks_{COL_N}x{COL_N}"][
                 "device_ms"]
+        p5_profiles(results, summaries, shared, dev)
+
+
+def p5_profiles(results, summaries, shared, dev) -> None:
+    """P5's device time a warm solve (as the frame solves) of the 1024²
+    substep system on 1 x 1, 2 x 2 and 4 x 1 blocks, and P3's beside
+    it: the summed kernel spans of one profiled solve each."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+
+    b, a_diag, fl = shared["b"], shared["a_diag"], shared["fl"]
+    c = shared["configs"]["mg"]
+    p0 = torch.where(fl, shared["st"].p, 0.0)
+    gmg = summaries["global_mg_blocks"]
+    spans = kernel_spans_ms(lambda: p13.solve_pressure_general(
+        c, b, a_diag, fl, x0=p0))
+    gmg["p3_warm"]["device_ms"] = spans[0] if spans else None
+    log("   P3 warm: " + (f"kernel spans {spans[0]:.4f} ms summed"
+                          if spans else "not measured"))
+    for y, x in GMG_LAYOUTS:
+        g, inputs = p5_group(c, b, a_diag, fl, p0, y, x, dev)
+        with g:
+            p5_solve(c, g, inputs)
+            torch.cuda.synchronize()
+            spans = kernel_spans_ms(lambda: p5_solve(c, g, inputs))
+        own, lib = spans if spans else (None, None)
+        gmg[f"blocks_{y}x{x}_warm"].update(device_ms=own,
+                                           torch_device_ms=lib)
+        log(f"   P5 warm, {y} x {x} blocks: " + (
+            f"its kernel spans {own:.4f} ms summed, torch's kernels and "
+            f"copies (the group's folds, edge copies and gathers) "
+            f"{lib:.4f} ms" if spans else "not measured"))
+    results["P5"]["device_ms"] = gmg[f"blocks_{COL_N}x{COL_N}_warm"][
+        "device_ms"]
 
 
 def run(args) -> dict:
@@ -3824,6 +4143,8 @@ def run(args) -> dict:
 
     run_col_blocks(results, summaries, launches, dev, shared)
 
+    run_global_mg_blocks(results, summaries, launches, dev, shared)
+
     run_block_profiles(results, summaries, shared, dev)
     del shared
 
@@ -3858,11 +4179,11 @@ def run(args) -> dict:
                "tests/test_torch_cuda_batch.py)"):
         run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
 
-    with Phase("the row-shard, row-block and column-block card tests and "
-               "the dry run on one NCCL rank (pytest, "
+    with Phase("the row-shard, row-block, column-block and P5 card tests "
+               "and the dry run on one NCCL rank (pytest, "
                "tests/test_torch_cuda_shard.py)"):
         run_card_tests("shards or identity or dryrun or row_blocks or p4 "
-                       "or row_frame or col_blocks or col_frame",
+                       "or row_frame or col_blocks or col_frame or p5",
                        files=("tests/test_torch_cuda_shard.py",))
 
     kernels = []

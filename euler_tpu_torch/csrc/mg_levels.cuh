@@ -83,31 +83,53 @@ __device__ __forceinline__ float fmac(float a, float b, float c) {
 #endif
 }
 
+// What the level operations read one cell beyond a plane's edges: the
+// neighbour x[i, j +- 1], x[i +- 1, j] of the iterate, and the couplings
+// toward the west cell, e[i, j - 1], and the south cell, n[i - 1, j].
+// `Zeros`: a whole grid (K3, K11, P3), 0 beyond its edges.  P5
+// (pcg_mg_blocks.cu) reads a block's from its neighbours' edges.
+struct Zeros {
+  __device__ __forceinline__ float x(const float* p, int i, int j, int Y,
+                                     int X) const {
+    return ld(p, i, j, Y, X);
+  }
+  __device__ __forceinline__ float e_west(const float* e, int i, int j,
+                                          int Y, int X) const {
+    return ld(e, i, j - 1, Y, X);
+  }
+  __device__ __forceinline__ float n_south(const float* n, int i, int j,
+                                           int Y, int X) const {
+    return ld(n, i - 1, j, Y, X);
+  }
+};
+
 // A x at (i, j): the masked 5-point PCG matrix at level 0 (fl * (a x -
 // neighbours), fl in {0, 1}), the edge-weight operator (intrinsically
 // masked) above it, its first two products fused as CX ? c x + (e x_e) :
-// e x_e + (c x) and its west product fused when WEST
-template <bool CX, bool WEST>
+// e x_e + (c x) and its west product fused when WEST; what lies beyond
+// the plane from H
+template <bool CX, bool WEST, class H = Zeros>
 __device__ __forceinline__ float apply_at(const Lvl& L, const float* x, int i,
-                                          int j) {
+                                          int j, const H& h = H()) {
   const int k = i * L.X + j;
   if (L.pk) {
     const float p = L.pk[k];
     const float fl = p >= 8.0f ? 1.0f : 0.0f;
     const float a = __fsub_rn(p, __fmul_rn(8.0f, fl));
-    float nb = __fadd_rn(ld(x, i, j - 1, L.Y, L.X), ld(x, i, j + 1, L.Y, L.X));
-    nb = __fadd_rn(nb, ld(x, i + 1, j, L.Y, L.X));
-    nb = __fadd_rn(nb, ld(x, i - 1, j, L.Y, L.X));
+    float nb =
+        __fadd_rn(h.x(x, i, j - 1, L.Y, L.X), h.x(x, i, j + 1, L.Y, L.X));
+    nb = __fadd_rn(nb, h.x(x, i + 1, j, L.Y, L.X));
+    nb = __fadd_rn(nb, h.x(x, i - 1, j, L.Y, L.X));
     return __fmul_rn(fl, fmac(a, x[k], -nb));
   }
   const float c = L.c[k], xc = x[k];
-  const float e = L.e[k], xe = ld(x, i, j + 1, L.Y, L.X);
+  const float e = L.e[k], xe = h.x(x, i, j + 1, L.Y, L.X);
   float r = CX ? fmac(c, xc, __fmul_rn(e, xe)) : fmac(e, xe, __fmul_rn(c, xc));
-  const float ew = ld(L.e, i, j - 1, L.Y, L.X);
-  const float xw = ld(x, i, j - 1, L.Y, L.X);
+  const float ew = h.e_west(L.e, i, j, L.Y, L.X);
+  const float xw = h.x(x, i, j - 1, L.Y, L.X);
   r = WEST ? fmac(ew, xw, r) : __fadd_rn(r, __fmul_rn(ew, xw));
-  r = fmac(L.n[k], ld(x, i + 1, j, L.Y, L.X), r);
-  return fmac(ld(L.n, i - 1, j, L.Y, L.X), ld(x, i - 1, j, L.Y, L.X), r);
+  r = fmac(L.n[k], h.x(x, i + 1, j, L.Y, L.X), r);
+  return fmac(h.n_south(L.n, i, j, L.Y, L.X), h.x(x, i - 1, j, L.Y, L.X), r);
 }
 
 __device__ __forceinline__ float fluid0(const Lvl& L, int k) {
@@ -129,9 +151,11 @@ __device__ __forceinline__ float fluid0(const Lvl& L, int k) {
 // degree-1 pre-smooth from zero fused with the restriction: for coarse
 // cell t of a child Xc cells wide, x = b/theta and rr = b - A b/theta on
 // its 4 children, and b_c = the 2x2 sum of rr (0 in the child's pad)
+template <class H = Zeros>
 __device__ __forceinline__ void pre1_restrict_at(const Lvl& L, const float* b,
                                                  float* x, float* bc,
-                                                 float it, int Xc, int t) {
+                                                 float it, int Xc, int t,
+                                                 const H& h = H()) {
   const int I = t / Xc, J = t - I * Xc;
   if (2 * I >= L.Y || 2 * J >= L.X) {
     bc[t] = 0.0f;
@@ -143,8 +167,8 @@ __device__ __forceinline__ void pre1_restrict_at(const Lvl& L, const float* b,
       const int i = 2 * I + a, j = 2 * J + c, k = i * L.X + j;
       const float bv = b[k];
       x[k] = __fmul_rn(it, bv);
-      const float ab = c ? apply_at<true, false>(L, b, i, j)
-                         : apply_at<true, true>(L, b, i, j);
+      const float ab = c ? apply_at<true, false>(L, b, i, j, h)
+                         : apply_at<true, true>(L, b, i, j, h);
       rr[a][c] = fmac(-it, ab, bv);
     }
   bc[t] = __fadd_rn(__fadd_rn(rr[0][0], rr[1][0]),
@@ -153,9 +177,11 @@ __device__ __forceinline__ void pre1_restrict_at(const Lvl& L, const float* b,
 
 // b_c = R(b - A x) at coarse cell t of a child Xc cells wide (0 in its
 // pad)
+template <class H = Zeros>
 __device__ __forceinline__ void restrict_full_at(const Lvl& L, const float* b,
                                                  const float* x, float* bc,
-                                                 int Xc, int t) {
+                                                 int Xc, int t,
+                                                 const H& h = H()) {
   const int I = t / Xc, J = t - I * Xc;
   if (2 * I >= L.Y || 2 * J >= L.X) {
     bc[t] = 0.0f;
@@ -165,8 +191,8 @@ __device__ __forceinline__ void restrict_full_at(const Lvl& L, const float* b,
   for (int a = 0; a < 2; ++a)
     for (int c = 0; c < 2; ++c) {
       const int i = 2 * I + a, j = 2 * J + c;
-      const float ax = c ? apply_at<false, false>(L, x, i, j)
-                         : apply_at<true, true>(L, x, i, j);
+      const float ax = c ? apply_at<false, false>(L, x, i, j, h)
+                         : apply_at<true, true>(L, x, i, j, h);
       rr[a][c] = __fsub_rn(b[i * L.X + j], ax);
     }
   bc[t] = __fadd_rn(__fadd_rn(rr[0][0], rr[1][0]),
@@ -185,43 +211,46 @@ __device__ __forceinline__ void prolong_add_at(const Lvl& L, const float* zc,
 }
 
 // degree-1 post-smooth z = x + (b - A x)/theta; returns z * b
+template <class H = Zeros>
 __device__ __forceinline__ float post1_at(const Lvl& L, const float* b,
                                           const float* x, float* z, float it,
-                                          int t) {
+                                          int t, const H& h = H()) {
   const int i = t / L.X, j = t - i * L.X;
   const float bb = b[t];
   const float zz =
-      fmac(__fsub_rn(bb, apply_at<true, true>(L, x, i, j)), it, x[t]);
+      fmac(__fsub_rn(bb, apply_at<true, true>(L, x, i, j, h)), it, x[t]);
   z[t] = zz;
   return __fmul_rn(zz, bb);
 }
 
 // general-degree Chebyshev smoothing (cheby_smooth of ops/multigrid.py):
 // init, degree-1 steps, then x += d
+template <class H = Zeros>
 __device__ __forceinline__ void cheby_init_at(const Lvl& L, const float* b,
                                               float* x, float* rr, float* d,
                                               float it, int from_zero,
-                                              int t) {
+                                              int t, const H& h = H()) {
   const int i = t / L.X, j = t - i * L.X;
   float r;
   if (from_zero) {
     r = b[t];
   } else {
-    r = __fsub_rn(b[t], apply_at<false, true>(L, x, i, j));
+    r = __fsub_rn(b[t], apply_at<false, true>(L, x, i, j, h));
   }
   rr[t] = r;
   d[t] = __fmul_rn(r, it);
   if (from_zero) x[t] = 0.0f;
 }
 
+template <class H = Zeros>
 __device__ __forceinline__ void cheby_step_at(const Lvl& L, float* x,
                                               float* rr, const float* d,
                                               float* dn, float cp, float cr,
-                                              int t) {
+                                              int t, const H& h = H()) {
   const int i = t / L.X, j = t - i * L.X;
   const float dd = d[t];
   x[t] = __fadd_rn(x[t], dd);
-  const float r = __fsub_rn(rr[t], apply_at<true, true>(L, d, i, j));
+  const float r = __fsub_rn(rr[t], apply_at<true, true>(L, d, i, j, h));
   rr[t] = r;
   dn[t] = fmac(cp, dd, __fmul_rn(cr, r));
 }

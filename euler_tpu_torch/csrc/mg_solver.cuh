@@ -55,20 +55,36 @@ __device__ __forceinline__ Edge fine_at(const Lvl& L,
   return Edge{L.c[k], L.e[k], L.n[k], act[k] != 0};
 }
 
-// coarse cell (I, J) of A_c = P^T A P (multigrid.coarsen_galerkin): the
-// block's diagonals plus twice its inner couplings, the couplings that
-// cross to the east and north blocks, active when a child is
+// a level's cells in edge form, `fine_at`
 template <bool PACKED>
-__device__ Edge coarse_at(const Lvl& L, const uint8_t* __restrict__ act,
-                          int I, int J) {
-  const Edge q00 = fine_at<PACKED>(L, act, 2 * I, 2 * J);
-  const Edge q01 = fine_at<PACKED>(L, act, 2 * I, 2 * J + 1);
-  const Edge q10 = fine_at<PACKED>(L, act, 2 * I + 1, 2 * J);
-  const Edge q11 = fine_at<PACKED>(L, act, 2 * I + 1, 2 * J + 1);
+struct FineAt {
+  Lvl L;
+  const uint8_t* act;
+  __device__ __forceinline__ Edge at(int i, int j) const {
+    return fine_at<PACKED>(L, act, i, j);
+  }
+};
+
+// coarse cell (I, J) of A_c = P^T A P (multigrid.coarsen_galerkin) from
+// the cells F.at(i, j) of the level above: the block's diagonals plus
+// twice its inner couplings, the couplings that cross to the east and
+// north blocks, active when a child is (integers: exact in any order)
+template <class Fine>
+__device__ Edge coarse_of(const Fine& F, int I, int J) {
+  const Edge q00 = F.at(2 * I, 2 * J);
+  const Edge q01 = F.at(2 * I, 2 * J + 1);
+  const Edge q10 = F.at(2 * I + 1, 2 * J);
+  const Edge q11 = F.at(2 * I + 1, 2 * J + 1);
   const bool a = q00.act || q01.act || q10.act || q11.act;
   const float c = ((q00.c + q01.c) + (q10.c + q11.c)) +
                   2.0f * (q00.e + q10.e) + 2.0f * (q00.n + q01.n);
   return Edge{a ? c : 0.0f, q01.e + q11.e, q10.n + q11.n, a};
+}
+
+template <bool PACKED>
+__device__ Edge coarse_at(const Lvl& L, const uint8_t* __restrict__ act,
+                          int I, int J) {
+  return coarse_of(FineAt<PACKED>{L, act}, I, J);
 }
 
 // the Gershgorin row value c + |off-diagonals| of an active cell, from
@@ -174,6 +190,16 @@ __global__ void cheby_rows(Rows R, const float* __restrict__ part,
     row[0] = rows[0];
     for (int k = 1; k < R.ncoef; ++k) row[k] = 0.0f;
   }
+}
+
+// level 0 of the cycle in packed form, a_diag + 8 on fluid cells and 0
+// elsewhere, from the PCG loop's operator code 8 | a_diag (P3, P4, P5)
+__global__ void pack_code(int n, const uint8_t* __restrict__ code,
+                          float* __restrict__ packed,
+                          const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) packed[t] = static_cast<float>(code[t]);
 }
 
 // the head: the packed plane a_diag * fl + 8 * fl

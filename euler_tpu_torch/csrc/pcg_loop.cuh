@@ -12,14 +12,14 @@
 // flags[F_DONE]).  Each reduction is per-CTA partials whose last CTA
 // (atomic ticket after a fence) folds them in a fixed order.
 //
-// P4 (pcg_shard.cu) runs the same kernels on one block of a grid split
-// over ranks (SHARD = true): the operator reads the neighbour blocks' edge
-// rows and columns from exchanged buffers (`Halo`), in
-// euler_tpu/parallel/halo.py:84's order, and each reduction's block fold
-// goes to red[0] instead of being used at once; the host all-reduces it
-// over the blocks, and a `shard_finish` kernel does with the global value
-// what the last CTA does with the fold in P1 (the fin_* functions, shared
-// by both).
+// P4 (pcg_shard.cu) and P5 (pcg_mg_blocks.cu) run the same kernels on one
+// block of a grid split over ranks (SHARD = kHaloOrder, kGridOrder): the
+// operator reads the neighbour blocks' edge rows and columns from
+// exchanged buffers (`Halo`), in euler_tpu/parallel/halo.py:84's order
+// (P4) or in apply_a's, P1's (P5), and each reduction's block fold goes to
+// red[0] instead of being used at once; the host all-reduces it over the
+// blocks, and a `shard_finish` kernel does with the global value what the
+// last CTA does with the fold in P1 (the fin_* functions, shared by all).
 #pragma once
 
 #include "common.cuh"
@@ -38,6 +38,9 @@ enum Precon { kNone = 0, kJacobi = 1, kIc0 = 2, kMg = 3 };
 // scalars (T) and flags (int) on the device
 enum { S_TOL, S_SIGMA, S_ALPHA, S_BETA, S_RESID, S_N };
 enum { F_DONE, F_ITERS, F_CAP, F_NONZERO, F_CONV, F_TICKET, F_N };
+// the loop on a whole grid (P1, P3), or on a block whose operator reads
+// the neighbours' edges in halo.py's order (P4) or in apply_a's (P5)
+enum ShardOrder { kWhole = 0, kHaloOrder = 1, kGridOrder = 2 };
 
 template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) {  // NaN-propagating
@@ -151,9 +154,11 @@ __device__ __forceinline__ T apply_at(const T* s, uint8_t c, int i, int y,
   return static_cast<T>(a_of(c)) * s[i] - (((sl + sr) + sd) + su);
 }
 
-// halo.py's local operator (P4): a s - (((s_l + s_r) + s_u) + s_d) on
-// fluid, the neighbours beyond the block from the exchanged edges
-template <typename T>
+// the operator on a block, the neighbours beyond it from the exchanged
+// edges: halo.py's local operator a s - (((s_l + s_r) + s_u) + s_d) (P4,
+// kHaloOrder), or apply_a's a s - (((s_l + s_r) + s_d) + s_u) (P5), on
+// fluid
+template <typename T, int ORDER>
 __device__ __forceinline__ T apply_halo(const T* s, uint8_t c, int i, int y,
                                         int x, int Y, int X,
                                         const Halo<T>& h) {
@@ -162,15 +167,17 @@ __device__ __forceinline__ T apply_halo(const T* s, uint8_t c, int i, int y,
   const T sr = x + 1 < X ? s[i + 1] : (h.right ? h.right[y] : T(0));
   const T sd = y > 0 ? s[i - X] : h.below[x];
   const T su = y + 1 < Y ? s[i + X] : h.above[x];
-  return static_cast<T>(a_of(c)) * s[i] - (((sl + sr) + su) + sd);
+  const T nb = ORDER == kHaloOrder ? ((sl + sr) + su) + sd
+                                   : ((sl + sr) + sd) + su;
+  return static_cast<T>(a_of(c)) * s[i] - nb;
 }
 
-template <typename T, bool SHARD>
+template <typename T, int SHARD>
 __device__ __forceinline__ T apply_op(const T* s, uint8_t c, int i, int y,
                                       int x, int Y, int X,
                                       const Halo<T>& h) {
-  return SHARD ? apply_halo(s, c, i, y, x, Y, X, h)
-               : apply_at(s, c, i, y, x, Y, X);
+  return SHARD == kWhole ? apply_at(s, c, i, y, x, Y, X)
+                         : apply_halo<T, SHARD>(s, c, i, y, x, Y, X, h);
 }
 
 // What each reduction's fold is used for (thread 0 of P1's last CTA, or
@@ -233,6 +240,34 @@ __device__ __forceinline__ T precon_at(T r, uint8_t c) {
   return r;
 }
 
+// the finishes of P4 and P5: what the last CTA of P1 does with its fold,
+// done with the all-reduced red[0] by one thread; the iteration's
+// finishes return after the stop, as the iteration's kernels do
+enum Fin { kFinInit, kFinResidual, kFinSigma0, kFinAlpha, kFinConv,
+           kFinBeta };
+
+template <typename T, int FIN>
+__global__ void shard_finish(Ws w, int cap, double tol, double tol_rel,
+                             bool warm) {
+  Planes<T> P(w);
+  const T v = P.red[0];
+  if (FIN == kFinInit) {
+    fin_head_init(w, P.scal, v, cap, tol, tol_rel, warm);
+  } else if (FIN == kFinResidual) {
+    fin_head_residual(w, P.scal, v);
+  } else if (FIN == kFinSigma0) {
+    fin_precon_dot<T, true>(w, P.scal, v);
+  } else {
+    if (w.flags[F_DONE]) return;
+    if (FIN == kFinAlpha)
+      fin_iter_ad(P.scal, v);
+    else if (FIN == kFinConv)
+      fin_iter_update(w, P.scal, v);
+    else
+      fin_precon_dot<T, false>(w, P.scal, v);
+  }
+}
+
 static inline unsigned grid_blocks(int n) {
   return min(eu_blocks(n, kThreads), static_cast<unsigned>(kMaxBlocks));
 }
@@ -250,7 +285,7 @@ __device__ __forceinline__ int input_index(const Ws& w, int i) {
 
 // head: the operator code, r = b, p = 0, max|b| -> tol, the early-out (the
 // pad: not fluid, b = 0)
-template <typename T, bool SHARD = false>
+template <typename T, int SHARD = kWhole>
 __global__ void __launch_bounds__(kThreads)
     head_init(Ws w, const int32_t* a_diag, const uint8_t* fluid, const T* b,
               int cap, double tol, double tol_rel, bool warm) {
@@ -289,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) head_x0(Ws w, const T* x0) {
 }
 
 // warm start: r = b - A p, and the early stop if it already converged
-template <typename T, bool SHARD = false>
+template <typename T, int SHARD = kWhole>
 __global__ void __launch_bounds__(kThreads)
     head_residual(Ws w, Halo<T> h) {
   Planes<T> P(w);
@@ -313,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // z = M^-1 r (IC(0), MG: already in z), <z, r>.  HEAD: d = z, sigma.
 // Else: beta, sigma, the count and the stop.
-template <typename T, int PK, bool HEAD, bool SHARD = false>
+template <typename T, int PK, bool HEAD, int SHARD = kWhole>
 __global__ void __launch_bounds__(kThreads) precon_dot(Ws w) {
   if (!HEAD && w.flags[F_DONE]) return;
   Planes<T> P(w);
@@ -341,7 +376,7 @@ __global__ void __launch_bounds__(kThreads) precon_dot(Ws w) {
 }
 
 // Ad = A d, <Ad, d>, alpha = sigma / <Ad, d> (1 for 0)
-template <typename T, bool SHARD = false>
+template <typename T, int SHARD = kWhole>
 __global__ void __launch_bounds__(kThreads) iter_ad(Ws w, Halo<T> h) {
   if (w.flags[F_DONE]) return;
   Planes<T> P(w);
@@ -363,7 +398,7 @@ __global__ void __launch_bounds__(kThreads) iter_ad(Ws w, Halo<T> h) {
 }
 
 // p += alpha d, r -= alpha Ad, max|r|, conv = not (max|r| > tol)
-template <typename T, bool SHARD = false>
+template <typename T, int SHARD = kWhole>
 __global__ void __launch_bounds__(kThreads) iter_update(Ws w) {
   if (w.flags[F_DONE]) return;
   Planes<T> P(w);

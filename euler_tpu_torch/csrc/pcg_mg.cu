@@ -46,16 +46,6 @@
 
 namespace {
 
-// level 0 of the cycle in packed form, a_diag + 8 on fluid cells and 0
-// elsewhere: the loop's operator code 8 | a_diag as a float
-__global__ void pack_code(int n, const uint8_t* __restrict__ code,
-                          float* __restrict__ packed,
-                          const int* __restrict__ flags) {
-  if (flags[F_DONE]) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) packed[t] = static_cast<float>(code[t]);
-}
-
 struct PcgMg {
   pcg::Ws w;
   MgSolver M;  // the hierarchy and the cycle (its loop and graph unused)

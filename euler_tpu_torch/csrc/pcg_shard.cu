@@ -35,43 +35,6 @@
 
 namespace {
 
-enum Fin { kFinInit, kFinResidual, kFinSigma0, kFinAlpha, kFinConv,
-           kFinBeta };
-
-// the use of the all-reduced red[0] (P1's last-CTA work); the iteration's
-// finishes return after the stop, as the iteration's kernels do
-template <typename T, int FIN>
-__global__ void shard_finish(pcg::Ws w, int cap, double tol, double tol_rel,
-                             bool warm) {
-  pcg::Planes<T> P(w);
-  const T v = P.red[0];
-  if (FIN == kFinInit) {
-    pcg::fin_head_init(w, P.scal, v, cap, tol, tol_rel, warm);
-  } else if (FIN == kFinResidual) {
-    pcg::fin_head_residual(w, P.scal, v);
-  } else if (FIN == kFinSigma0) {
-    pcg::fin_precon_dot<T, true>(w, P.scal, v);
-  } else {
-    if (w.flags[pcg::F_DONE]) return;
-    if (FIN == kFinAlpha)
-      pcg::fin_iter_ad(P.scal, v);
-    else if (FIN == kFinConv)
-      pcg::fin_iter_update(w, P.scal, v);
-    else
-      pcg::fin_precon_dot<T, false>(w, P.scal, v);
-  }
-}
-
-// level 0 of the cycle in packed form: the loop's operator code as a float
-// (pcg_mg.cu's)
-__global__ void pack_code(int n, const uint8_t* __restrict__ code,
-                          float* __restrict__ packed,
-                          const int* __restrict__ flags) {
-  if (flags[F_DONE]) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) packed[t] = static_cast<float>(code[t]);
-}
-
 struct Shard {
   pcg::Ws w;
   int f64, precon;
@@ -105,46 +68,49 @@ struct Shard {
     int rc = 0;
     switch (k) {
       case 0:
-        pcg::head_init<T, true><<<nb, pcg::kThreads, 0, st>>>(
+        pcg::head_init<T, pcg::kHaloOrder><<<nb, pcg::kThreads, 0, st>>>(
             w, static_cast<const int32_t*>(a_diag),
             static_cast<const uint8_t*>(fluid), static_cast<const T*>(b),
             cap, tol, tol_rel, warm);
         break;
       case 1:
-        fin(shard_finish<T, kFinInit>);
+        fin(pcg::shard_finish<T, pcg::kFinInit>);
         if (warm)
           pcg::head_x0<T><<<nb, pcg::kThreads, 0, st>>>(
               w, static_cast<const T*>(x0));
         break;
       case 2:
-        pcg::head_residual<T, true><<<nb, pcg::kThreads, 0, st>>>(w, h);
+        pcg::head_residual<T, pcg::kHaloOrder>
+            <<<nb, pcg::kThreads, 0, st>>>(w, h);
         break;
       case 3:
-        if (warm) fin(shard_finish<T, kFinResidual>);
+        if (warm) fin(pcg::shard_finish<T, pcg::kFinResidual>);
         if (PK == pcg::kMg &&
             ((rc = eu_launch_status()) || (rc = mg_head(st))))
           return rc;
-        pcg::precon_dot<T, PK, true, true><<<nb, pcg::kThreads, 0, st>>>(w);
+        pcg::precon_dot<T, PK, true, pcg::kHaloOrder>
+            <<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       case 4:
-        fin(shard_finish<T, kFinSigma0>);
+        fin(pcg::shard_finish<T, pcg::kFinSigma0>);
         break;
       case 5:
-        pcg::iter_ad<T, true><<<nb, pcg::kThreads, 0, st>>>(w, h);
+        pcg::iter_ad<T, pcg::kHaloOrder><<<nb, pcg::kThreads, 0, st>>>(w, h);
         break;
       case 6:
-        fin(shard_finish<T, kFinAlpha>);
-        pcg::iter_update<T, true><<<nb, pcg::kThreads, 0, st>>>(w);
+        fin(pcg::shard_finish<T, pcg::kFinAlpha>);
+        pcg::iter_update<T, pcg::kHaloOrder><<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       case 7:
-        fin(shard_finish<T, kFinConv>);
+        fin(pcg::shard_finish<T, pcg::kFinConv>);
         if (PK == pcg::kMg &&
             ((rc = eu_launch_status()) || (rc = cycle(st))))
           return rc;
-        pcg::precon_dot<T, PK, false, true><<<nb, pcg::kThreads, 0, st>>>(w);
+        pcg::precon_dot<T, PK, false, pcg::kHaloOrder>
+            <<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       case 8:
-        fin(shard_finish<T, kFinBeta>);
+        fin(pcg::shard_finish<T, pcg::kFinBeta>);
         pcg::iter_dir<T><<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       default:

@@ -190,8 +190,9 @@ def check_solver(cfg: SimConfig) -> None:
             "order, block after block (ROADMAP M12 part d)")
     if s.preconditioner == "mg" and s.dtype != "float32":
         raise NotImplementedError(
-            "f64 MG: the MG levels (K2, K3, K11, P3, P4) are f32 (the f64 "
-            "solve with no preconditioner, Jacobi or IC(0) is ported, P1); "
+            "f64 MG: the MG levels (K2, K3, K11, P3, P4, P5) are f32 (the "
+            "f64 solve with no preconditioner, Jacobi or IC(0) is ported, "
+            "P1); "
             "ROADMAP queue 1 item M15")
     if s.preconditioner == "mg" and not galerkin_cheby_f32(cfg):
         raise NotImplementedError(

@@ -17,6 +17,7 @@ masks and an under-estimate makes Chebyshev diverge.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -41,13 +42,21 @@ class EdgeLevel:
     lmax: torch.Tensor    # 0-d Gershgorin bound max(c + |off-diagonals|)
 
 
-def _edge_level(c, e, n, active) -> EdgeLevel:
+def _edge_level(c, e, n, active, e_west=None, n_south=None) -> EdgeLevel:
+    """The level of weights (c, e, n) and its Gershgorin bound; on a block
+    of a grid (`parallel/spatial_mg.py`), `e_west` [Y] and `n_south` [X]
+    are the couplings across its west and south edges (zeros when not
+    given), and the bound is the block's, to be maxed over the blocks."""
     pos = c > 1e-12
     inv_c = (torch.where(active & pos, 1.0, 0.0).to(c.dtype)
              / torch.where(pos, c, 1.0))
     c = torch.where(active, c, 0.0)
+    west = shift_left(e) if e_west is None else torch.cat(
+        [e_west[:, None], e[:, :-1]], 1)
+    south = shift_down(n) if n_south is None else torch.cat(
+        [n_south[None], n[:-1]], 0)
     # off-diagonals are <= 0, so |row off-diagonal sum| = -(e + w + n + s)
-    offmag = -(e + shift_left(e) + n + shift_down(n))
+    offmag = -(e + west + n + south)
     lmax = torch.clamp_min(torch.where(active, c + offmag, 0.0).max(), 1.0)
     return EdgeLevel(c, e, n, inv_c, active, lmax)
 
@@ -77,8 +86,9 @@ def _blocks(a):
     return a.reshape(Y // 2, 2, X // 2, 2)
 
 
-def coarsen_galerkin(level: EdgeLevel) -> EdgeLevel:
-    """A_{l+1} = P^T A_l P for constant prolongation, by 2x2 block sums:
+def coarsen_planes(level: EdgeLevel):
+    """(c_c, e_c, n_c, active) of A_{l+1} = P^T A_l P for constant
+    prolongation, by 2x2 block sums:
       c_c = block diagonal sum + 2 * intra-block couplings,
       e_c = couplings crossing to the east block,
       n_c = couplings crossing to the north block."""
@@ -89,15 +99,20 @@ def coarsen_galerkin(level: EdgeLevel) -> EdgeLevel:
     e_c = e4[:, :, :, 1].sum(1)
     n_c = n4[:, 1, :, :].sum(-1)
     act = _blocks(level.active).any(3).any(1)
-    return _edge_level(c_c, e_c, n_c, act)
+    return c_c, e_c, n_c, act
 
 
-def build_galerkin_hierarchy(a_diag, fluid, dtype, min_size: int = 32,
-                             max_levels: int = 16):
-    """EdgeLevel list, fine to coarse (level 0 = the PCG matrix).  Odd
-    level sizes are padded with inactive cells before coarsening."""
-    levels = [fine_edge_level(a_diag, fluid, dtype)]
-    for _ in range(max_levels):
+def coarsen_galerkin(level: EdgeLevel) -> EdgeLevel:
+    """A_{l+1} = P^T A_l P (`coarsen_planes`) with its Gershgorin bound."""
+    return _edge_level(*coarsen_planes(level))
+
+
+def extend_hierarchy(levels, min_size: int = 32, max_levels: int = 16):
+    """Coarsen the last level of `levels` (fine to coarse, the grid's
+    level l at index l) down to min_size, padding an odd level with
+    inactive cells before coarsening it, to at most max_levels + 1
+    levels."""
+    while len(levels) <= max_levels:
         lv = levels[-1]
         Y, X = lv.c.shape
         if min(Y, X) <= min_size:
@@ -112,6 +127,14 @@ def build_galerkin_hierarchy(a_diag, fluid, dtype, min_size: int = 32,
             levels[-1] = lv
         levels.append(coarsen_galerkin(lv))
     return levels
+
+
+def build_galerkin_hierarchy(a_diag, fluid, dtype, min_size: int = 32,
+                             max_levels: int = 16):
+    """EdgeLevel list, fine to coarse (level 0 = the PCG matrix).  Odd
+    level sizes are padded with inactive cells before coarsening."""
+    return extend_hierarchy([fine_edge_level(a_diag, fluid, dtype)],
+                            min_size, max_levels)
 
 
 def cheby_coefficients(lmax, degree: int, ratio: float):
@@ -132,15 +155,18 @@ def cheby_coefficients(lmax, degree: int, ratio: float):
     return 1.0 / theta, coefs
 
 
-def cheby_smooth(level: EdgeLevel, x, b, degree: int, ratio: float):
-    """`degree` Chebyshev steps on [lmax/ratio, lmax] from iterate x."""
+def cheby_smooth(level: EdgeLevel, x, b, degree: int, ratio: float,
+                 apply=None):
+    """`degree` Chebyshev steps on [lmax/ratio, lmax] from iterate x;
+    `apply(x)` is A x (`apply_edge` of the level by default)."""
+    apply = functools.partial(apply_edge, level) if apply is None else apply
     inv_theta, coefs = cheby_coefficients(level.lmax.to(b.dtype), degree,
                                           ratio)
-    r = b - apply_edge(level, x)
+    r = b - apply(x)
     d = r * inv_theta
     for c_prev, c_r in coefs:
         x = x + d
-        r = r - apply_edge(level, d)
+        r = r - apply(d)
         d = c_prev * d + c_r * r
     return x
 

@@ -11,13 +11,16 @@ neighbours through a `comm` (`parallel/comm.py`):
   * `halo_exchange_rows` / `halo_exchange_cols`: the neighbour blocks'
     edge row (column) on either side, zeros at the grid's edges;
   * `apply_a_local`: the operator on a block, a s - (((left + right) +
-    up) + down) masked by fluid, in halo.py:84's order (not
-    `ops/project.apply_a`'s), with the block's a_diag the global one, cut;
+    up) + down) masked by fluid, in halo.py:84's order (or, with
+    `grid_order`, `ops/project.apply_a`'s: the order of the single-device
+    function GSPMD partitions in the frame on blocks, P5's), with the
+    block's a_diag the global one, cut;
   * `pcg_sharded`: the port's `ops/project.pcg_loop` with that operator,
     the dots summed and the maxima maxed over the blocks, and the
     preconditioner of `block_preconditioner`: the jnp-form Jacobi, none,
     or block-Jacobi additive Schwarz MG (one Galerkin cycle on each
-    block's own hierarchy, halo.py:113-134);
+    block's own hierarchy, halo.py:113-134); or a given one (P5's plain
+    version, `parallel/spatial_mg.py`, passes the global cycle);
   * `make_sharded_pressure_solver(cfg, mesh, axes, stats)`: the entry
     point, whose function takes this block's b, a_diag, fluid (and a
     warm start x0) and runs P4 (`ops/cuda/pcg_shard_kernel.py`) on CUDA
@@ -56,9 +59,11 @@ def halo_exchange_cols(x, comm):
     return comm.exchange(x, 1, "x")
 
 
-def apply_a_local(a_diag, fluid, s, comm, axes=("y",)):
+def apply_a_local(a_diag, fluid, s, comm, axes=("y",),
+                  grid_order: bool = False):
     """The masked 5-point operator on this block (halo.py:71-85), its
-    neighbour rows (and, with "x" in axes, columns) exchanged."""
+    neighbour rows (and, with "x" in axes, columns) exchanged; with
+    `grid_order` in `ops/project.apply_a`'s order."""
     below, above = halo_exchange_rows(s, comm)
     up = torch.cat([s[1:], above], 0)
     down = torch.cat([below, s[:-1]], 0)
@@ -68,7 +73,9 @@ def apply_a_local(a_diag, fluid, s, comm, axes=("y",)):
         right = torch.cat([s[:, 1:], rh], 1)
     else:
         left, right = shift_left(s), shift_right(s)
-    lap = a_diag.to(s.dtype) * s - (left + right + up + down)
+    nb = (left + right + down + up) if grid_order else (left + right + up
+                                                         + down)
+    lap = a_diag.to(s.dtype) * s - nb
     return torch.where(fluid, lap, 0.0)
 
 
@@ -93,10 +100,12 @@ def block_preconditioner(cfg: SimConfig, a_diag, fluid, dtype):
     return lambda r: torch.where(fluid, cycle_galerkin(levels, r, **kw), 0.0)
 
 
-def pcg_sharded(cfg: SimConfig, comm, axes, b, a_diag, fluid, x0=None):
+def pcg_sharded(cfg: SimConfig, comm, axes, b, a_diag, fluid, x0=None,
+                precon=None, grid_order: bool = False):
     """The plain version of P4: `pcg_loop` on this block with the
-    exchanging operator and the all-reduced dots and maxima.  Returns
-    (p, iterations, residual)."""
+    exchanging operator and the all-reduced dots and maxima, and
+    `block_preconditioner` (or `precon`; `grid_order`: the operator in
+    apply_a's order).  Returns (p, iterations, residual)."""
 
     def dot(x, y):
         t = (x * y).sum()
@@ -108,10 +117,11 @@ def pcg_sharded(cfg: SimConfig, comm, axes, b, a_diag, fluid, x0=None):
         comm.all_reduce(t, "max", axes)
         return t
 
+    if precon is None:
+        precon = block_preconditioner(cfg, a_diag, fluid, b.dtype)
     return pcg_loop(cfg, b, lambda s: apply_a_local(a_diag, fluid, s, comm,
-                                                    axes),
-                    block_preconditioner(cfg, a_diag, fluid, b.dtype),
-                    x0=x0, dot=dot, inf_norm=inf_norm)
+                                                    axes, grid_order),
+                    precon, x0=x0, dot=dot, inf_norm=inf_norm)
 
 
 def make_sharded_pressure_solver(cfg: SimConfig, mesh, axes=("y",),

@@ -34,15 +34,17 @@ exchanges columns):
   * the projection, as `ops/project.project` on the block padded with
     one row and one column (the RHS reads v of the row before and u of
     the column before, a_diag solid on all four sides, the face update p
-    of the row and the column after): the solve is P4
-    (`halo.make_sharded_pressure_solver` over ("y", "x"), cfg.solver,
-    warm-started from the state's pressure as `project()` is);
+    of the row and the column after), warm-started from the state's
+    pressure as `project()` is: with MG the solve is the JAX frame's, one
+    Galerkin cycle over the whole grid's hierarchy (`spatial_mg.
+    solve_pressure_blocks`, P5), else P4 (`halo.
+    make_sharded_pressure_solver` over ("y", "x"): Jacobi, none);
   * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
     dt, `active` and the frame's counts are the same on every block.
-Refused, each naming its ROADMAP item (M12 part d): the MG and IC(0)
-preconditioners (the JAX spatial step runs a global MG cycle and a
-global IC(0) sweep under GSPMD, not P4's block ones), rainbow colour and
-the global marker layout.
+Refused, each naming its ROADMAP item: IC(0) (the JAX spatial step runs
+a global IC(0) sweep under GSPMD, a sweep across the blocks in order),
+rainbow colour and the global marker layout (M12 part d); f64 MG (M15);
+RB-GS and rediscretized MG (M14).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from euler_tpu_torch import sim
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
 from euler_tpu_torch.ops.cuda import grid_kernel
+from euler_tpu_torch.ops.cuda.pcg_shard_kernel import check_solver
 from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
 from euler_tpu_torch.ops.forces import max_speed_sq_parts
 from euler_tpu_torch.ops.project import (
@@ -73,6 +76,7 @@ from euler_tpu_torch.parallel.cuda_shard import (
     split_columns,
 )
 from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
+from euler_tpu_torch.parallel.spatial_mg import make_block_mg_solver
 from euler_tpu_torch.parallel.mesh import (
     PART_D,
     SCENARIO_PLANES,
@@ -168,12 +172,13 @@ def check_block_frame(cfg: SimConfig) -> None:
         raise NotImplementedError(
             "rainbow colour on blocks (the colours' extrapolation and "
             f"advection on the padded block): {PART_D}")
-    kind = cfg.solver.preconditioner
-    if kind in ("mg", "ic0"):
+    if cfg.solver.preconditioner == "ic0":
         raise NotImplementedError(
-            f"the {kind!r} preconditioner in the frame on blocks: the JAX "
-            "spatial step runs a global MG cycle (IC(0) sweep) under "
-            f"GSPMD, not P4's block-local one; {PART_D}")
+            "the IC(0) preconditioner in the frame on blocks: the JAX "
+            "spatial step runs a global IC(0) sweep under GSPMD, which "
+            f"crosses the blocks in order; {PART_D}")
+    # f64 MG (M15), RB-GS and rediscretized MG (M14)
+    check_solver(cfg)
 
 
 class Blocks:
@@ -194,8 +199,12 @@ class Blocks:
                              f"is shallower or narrower than the halo's {H}")
         self.axes = block_axes(self.comm)
         self.marker_pass = make_sharded_marker_pass(cfg, self.comm)
-        self.solve = make_sharded_pressure_solver(cfg, self.comm, self.axes,
-                                                  stats=True)
+        self.mg = cfg.solver.preconditioner == "mg"
+        if self.mg:
+            self.solve = make_block_mg_solver(cfg, self.comm, self.axes)
+        else:
+            self.solve = make_sharded_pressure_solver(cfg, self.comm,
+                                                      self.axes, stats=True)
         self.cfg_block = dataclasses.replace(cfg, ny=self.rows)
         self.cfg_h = dataclasses.replace(cfg, ny=self.rows + 2 * H)
         self.cfg_1 = dataclasses.replace(cfg, ny=self.rows + 2)
@@ -277,8 +286,11 @@ class Blocks:
         x0 = None
         if cfg.solver.warm_start:
             x0 = torch.where(fluid, p0, 0.0).to(b.dtype)
-        p, iters, _resid = self.solve(b.contiguous(), a_diag.contiguous(),
-                                      fluid, x0)
+        b, a_diag = b.contiguous(), a_diag.contiguous()
+        if self.mg:
+            p, iters, _resid = self.solve(b, a_diag, fluid, fluid1, x0)
+        else:
+            p, iters, _resid = self.solve(b, a_diag, fluid, x0)
         p = clamp_pressure(p, fluid)
         p_below, p_above = comm.exchange(p, 1)
         p_left = p_right = None

@@ -343,6 +343,27 @@ def test_sharded_step_on_y_and_x_matches_jax(gloo):
             assert_frame(cfg, got, want)
 
 
+def test_sharded_step_mg_on_y_and_x_matches_jax(gloo):
+    """`make_sharded_step` on make_mesh(4, data=1, x=2) with the global MG
+    solve (P5's plain version, once a block a substep; no P4): each
+    instance against JAX, u and v within 2e-3 (the converged solve's
+    frames, tests/test_torch_global_mg.py)."""
+    cfg = ranks.TEXT_MG_CFG
+    texts = (ranks.TEXT,
+             b"\n".join(r[::-1] for r in ranks.TEXT.split(b"\n")))
+    per = 2 * ranks.TEXT_STEPS * cfg.max_substeps
+    for i, text in enumerate(texts):
+        scn, st = build_scenario(text, cfg, device="cpu")
+        want = jax_frames(cfg, scn, st, ranks.TEXT_STEPS)
+        for g in gloo:
+            assert g["mg_batch_layout"].tolist() == [1, 2, 2]
+            assert g["mg_batch_calls"].tolist() == [per, 0]
+            got = {k[9:]: v[i] for k, v in g.items()
+                   if k.startswith("mg_batch_")
+                   and k not in ("mg_batch_layout", "mg_batch_calls")}
+            assert_frame(cfg, got, want, 2e-3)
+
+
 def test_pallas_step_refuses_column_blocks():
     def rank(comm):
         make_spatial_step_pallas(ranks.FRAME_CFG, comm)

@@ -35,6 +35,14 @@ col_offset, P4 over ("y", "x")):
   * S1 on 40 x 100 with a source in each 20 x 50 block, bitwise its
     plain version and the unsharded S1;
   * the 40 x 100 waterfall on 2 x 2 blocks, card against CPU, as above.
+The frame's global MG solve on blocks (P5, `parallel/spatial_mg.py`):
+  * its hierarchy and one cycle on 2 x 2 and 4 x 1 blocks of the 256²
+    system bit for bit P3's;
+  * on 1 x 1 blocks P3 bit for bit (p, iterations, residual), cold and
+    warm; on 2 x 2 blocks iterations within 1, p within 5e-4 of scale;
+  * the 64² dam break on 2 x 2 blocks, card against CPU, 3 frames (P5
+    launched once a block a substep, no plain version; at most 4 cells'
+    counts apart, u and v within 2e-3).
 The multi-rank exchange runs on gloo ranks (tests/test_torch_shard.py);
 the card's host has one card, so its NCCL run has one rank.
 
@@ -551,3 +559,176 @@ def test_col_frame_card_vs_cpu():
     for name in ("u", "v"):
         assert float((getattr(got, name) - getattr(want, name)).abs()
                      .max()) <= 1e-4, name
+
+
+def _mg_system(size):
+    """(cfg, b, a_diag, fluid, p0) on the card: a substep's own system of
+    the dam break at size², 3 frames on, under bench.py's MG config (the
+    RHS of the advected velocities; the state's pressure, masked)."""
+    from euler_tpu_torch.ops.cuda.grid_kernel import grid_stage_plain
+    from euler_tpu_torch.ops.project import (
+        divergence_rhs,
+        pressure_matrix_diag,
+    )
+
+    _card()
+    cfg = SimConfig(nx=size, ny=size, marker_layout="slots",
+                    solver=SolverConfig(max_iterations=100, tol_rel=1e-4,
+                                        dtype="float32", preconditioner="mg",
+                                        warm_start=True))
+    scn, st = dam_break(cfg, device="cuda")
+    for _ in range(3):
+        st = sim.step_frame(cfg, scn, st)
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
+                          torch.full((), cfg.frame_time, device="cuda"))
+    ut, vt = grid_stage_plain(cfg, dt, st.u, st.v, st.fluid, st.prev_fluid,
+                              scn.solid)
+    b = divergence_rhs(cfg, ut, vt, st.fluid, dt)
+    a_diag = pressure_matrix_diag(cfg, scn.solid, st.fluid)
+    return cfg, b, a_diag, st.fluid, torch.where(st.fluid, st.p, 0.0)
+
+
+def _p5_blocks(cfg, y, x, fn):
+    """fn(comm, cut, axes) on y x x in-process blocks on the card, every
+    block's result in rank order."""
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    Yl, Xl = cfg.ny // y, cfg.nx // x
+
+    def rank(comm):
+        ry, rx = comm.rank("y"), comm.rank("x")
+        cut = (slice(ry * Yl, (ry + 1) * Yl), slice(rx * Xl, (rx + 1) * Xl))
+        return fn(comm, cut, ("y", "x") if x > 1 else ("y",))
+
+    with LocalGroup(y, x, device="cuda") as g:
+        return g.run(rank)
+
+
+def _p5_solve(cfg, b, a_diag, fl, y, x, x0=None):
+    """P5 on y x x blocks: (p put together, iterations, residual), the
+    same on every block."""
+    from euler_tpu_torch.parallel import spatial_mg
+    from euler_tpu_torch.parallel.cuda_shard import padded
+
+    def fn(comm, cut, axes):
+        p, it, res = spatial_mg.solve_pressure_blocks(
+            cfg, comm, axes, *(t[cut].contiguous() for t in (b, a_diag, fl)),
+            padded(fl[cut].contiguous(), comm, 1),
+            None if x0 is None else x0[cut].contiguous())
+        return spatial_mg.gather_plane(p, comm, axes), int(it), float(res)
+
+    out = _p5_blocks(cfg, y, x, fn)
+    assert len({o[1:] for o in out}) == 1
+    return out[0]
+
+
+@pytest.mark.parametrize("layout", [(2, 2), (4, 1)])
+def test_p5_hierarchy_and_cycle_bitwise(layout):
+    """P5's hierarchy (the packed level 0 and the distributed levels put
+    together, the gathered levels, the Chebyshev rows) and one cycle on
+    the blocks, gathered, bit for bit P3's (`MgGeneralWorkspace.cycle`)
+    on the 256² system (levels 256², 128² on the blocks, 64² and 32²
+    gathered)."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+    from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
+    from euler_tpu_torch.parallel import spatial_mg
+    from euler_tpu_torch.parallel.cuda_shard import padded
+
+    cfg, b, a_diag, fl, _ = _mg_system(256)
+    p13.solve_pressure_general(cfg, b, a_diag, fl)
+    ws3 = p13.workspace(cfg, b.device)
+    want_z = ws3.cycle(b, per_op=False)
+
+    def fn(comm, cut, axes):
+        spatial_mg.solve_pressure_blocks(
+            cfg, comm, axes, *(t[cut].contiguous() for t in (b, a_diag, fl)),
+            padded(fl[cut].contiguous(), comm, 1))
+        plan = spatial_mg.block_plan(cfg, comm, axes)
+        ws = p5.workspace(cfg, comm, plan, b.device)
+        whole = lambda t: spatial_mg.gather_plane(t, comm, axes)  # noqa
+        levels = [tuple(whole(ws.block[l][k]) for k in "cen")
+                  for l in range(1, plan.gather)]
+        levels += [tuple(ws.whole[l][k] for k in "cen")
+                   for l in range(plan.gather, len(plan.shapes))]
+        z = ws.cycle(comm, axes, b[cut].contiguous())
+        return (plan.gather, whole(ws.packed0), levels, ws.rows.clone(),
+                whole(z))
+
+    gather, packed0, levels, rows, z = _p5_blocks(cfg, *layout, fn)[0]
+    assert gather == 2 and len(levels) == len(ws3.levels) == 3
+    assert torch.equal(packed0, ws3.packed0)
+    for got, want in zip(levels, ws3.levels):
+        for a, c in zip(got, want[:3]):
+            assert torch.equal(a, c)
+    assert torch.equal(rows, ws3.rows)
+    assert bool(want_z.abs().max() > 0) and torch.equal(z, want_z)
+
+
+def test_p5_one_block_bitwise_p3():
+    """P5 on 1 x 1 blocks is P3 bit for bit (p, iterations, residual),
+    cold and warm; on 2 x 2 blocks the iterations within 1 and p within
+    5e-4 of scale; one P5 launch a block a solve, no plain call."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+
+    cfg, b, a_diag, fl, p0 = _mg_system(256)
+    for x0 in (None, p0):
+        want = p13.solve_pressure_general(cfg, b, a_diag, fl, x0=x0)
+        _build.LAUNCHES.clear()
+        _build.PLAIN_CALLS.clear()
+        p, it, res = _p5_solve(cfg, b, a_diag, fl, 1, 1, x0)
+        assert _build.LAUNCHES["P5"] == 1 and not _build.PLAIN_CALLS
+        assert torch.equal(p, want[0]) and it == int(want[1])
+        assert res == float(want[2])
+        p, it, res = _p5_solve(cfg, b, a_diag, fl, 2, 2, x0)
+        assert _build.LAUNCHES["P5"] == 5
+        scale = float(want[0].abs().max())
+        assert abs(it - int(want[1])) <= 1
+        assert float((p - want[0]).abs().max()) <= 5e-4 * scale
+
+
+def test_p5_col_frame_card_vs_cpu():
+    """The 64² dam break (mg_min_size 8) with the global MG solve on 2 x 2
+    in-process blocks, 3 frames: P5 on the card (launched once a block a
+    substep, no plain version) against its plain version on the CPU (P3's
+    rounding against the plain cycle's: at most 4 cells' counts apart,
+    as chip_smoke.py holds frames of two layouts, the live markers and
+    drops equal, u and v within 2e-3)."""
+    from euler_tpu_torch.parallel.comm import LocalGroup
+    from euler_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        make_spatial_step,
+        shard_spatial,
+    )
+
+    _card()
+    cfg = SimConfig(nx=64, ny=64, marker_layout="slots", max_substeps=2,
+                    solver=SolverConfig(max_iterations=100, tol_rel=1e-4,
+                                        dtype="float32", preconditioner="mg",
+                                        warm_start=True, mg_min_size=8))
+    scn, st = dam_break(cfg, device="cpu")
+
+    def run(device):
+        def rank(comm):
+            step = make_spatial_step(cfg, comm)
+            bs, b = shard_spatial(cfg, comm, scn, st)
+            for _ in range(3):
+                b = step(bs, b)
+            out = gather_spatial(cfg, comm, b)
+            return out.replace(**{f.name: getattr(out, f.name).cpu()
+                                  for f in dataclasses.fields(out)})
+
+        with LocalGroup(2, 2, device=device) as g:
+            return g.run(rank)[0]
+
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    got = run("cuda")
+    assert _build.LAUNCHES["P5"] == 4 * 3 * cfg.max_substeps
+    assert _build.LAUNCHES["P4"] == 0 and not any(_build.PLAIN_CALLS.values())
+    want = run("cpu")
+    assert int((got.marker_count != want.marker_count).sum()) <= 4
+    for name in ("alive_count", "dropped_markers"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name in ("u", "v"):
+        assert float((getattr(got, name) - getattr(want, name)).abs()
+                     .max()) <= 2e-3, name

@@ -242,7 +242,8 @@ def _entries(source: str) -> dict:
     ("global_marker_kernel.global_lib", "global_markers.cu"),
     ("pcg_general_kernel.general_lib", "pcg_general.cu"),
     ("pcg_general_kernel.mg_lib", "pcg_mg.cu"),
-    ("pcg_shard_kernel.shard_lib", "pcg_shard.cu")])
+    ("pcg_shard_kernel.shard_lib", "pcg_shard.cu"),
+    ("pcg_mg_blocks_kernel.blocks_lib", "pcg_mg_blocks.cu")])
 def test_bindings_match_the_sources(loader, source, monkeypatch):
     """Every entry a wrapper binds takes as many arguments in the CUDA
     source as its ctypes binding passes (ctypes passes what it is given:

@@ -23,7 +23,8 @@ group (tests/torch_shard_ranks.py `mesh_rank`):
 In process: the hook against JAX's `step_frame(..., marker_pass=)`
 (counts, alive, drops bitwise, u and v within 5e-3: tests/
 test_torch_sim.py's frame tolerances), and `make_spatial_step_pallas`'s
-refusal of MG on row blocks.  And one `dryrun_multichip(4, "gloo")`.
+refusal of IC(0) on row blocks (its MG runs: tests/test_torch_global_mg.
+py).  And one `dryrun_multichip(4, "gloo")`.
 """
 
 import dataclasses
@@ -112,8 +113,13 @@ def test_refusals(run):
         assert "part d" in str(got["refuse_step"])
         assert "ValueError" in str(got["refuse_cuda"])
         assert "ValueError" in str(got["refuse_world"])
-    with pytest.raises(NotImplementedError, match="MG.*part d"):
-        make_spatial_step_pallas(ranks.main_config(32, 32), None)
+    # the frame on blocks runs MG (the global cycle, P5); IC(0) on blocks
+    # stays refused
+    cfg = ranks.main_config(32, 32)
+    ic0 = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, preconditioner="ic0"))
+    with pytest.raises(NotImplementedError, match="IC\\(0\\).*part d"):
+        make_spatial_step_pallas(ic0, None)
 
 
 def test_mesh_needs_an_initialised_group():

@@ -22,9 +22,10 @@ tests/test_torch_shard.py holds K1 to).
     tests/test_spatial.py:29-37's 32 x 16 text (a source, solids), 3
     frames; the 64² dam break on 4 blocks, bitwise the gloo ranks'
     counts; sources in every block of a 40 x 100 scenario, 2 frames;
-  * the refusals, each naming ROADMAP M12 part d, and what stays
-    refused of column blocks (tests/test_torch_col_blocks.py runs
-    them): a block narrower than the halo, the pallas step on x > 1.
+  * the refusals, each naming its ROADMAP item (M12 part d; f64 MG M15,
+    RB-GS M14), and what stays refused of column blocks
+    (tests/test_torch_col_blocks.py runs them): a block narrower than the
+    halo, the pallas step on x > 1.
 """
 
 import dataclasses
@@ -124,19 +125,29 @@ def test_sources_in_every_block():
     _assert_frame(cfg, got, _jax_frames(cfg, scn, st, 2))
 
 
+# the ROADMAP item each refusal names, where it is not M12 part d
+ITEMS = {"f64 MG": "M15", "MG galerkin / rbgs": "M14"}
+
+
 @pytest.mark.parametrize("over,what", [
-    (dict(solver=dataclasses.replace(ranks.TEXT_CFG.solver,
-                                     preconditioner="mg")), "global MG"),
+    (dict(solver=dataclasses.replace(ranks.TEXT_MG_CFG.solver,
+                                     dtype="float64")), "f64 MG"),
     (dict(solver=dataclasses.replace(ranks.TEXT_CFG.solver,
                                      preconditioner="ic0")), "IC\\(0\\)"),
     (dict(rainbow=True), "rainbow"),
     (dict(marker_layout="global"), "global marker layout"),
+    (dict(solver=dataclasses.replace(ranks.TEXT_MG_CFG.solver,
+                                     mg_smoother="rbgs")),
+     "MG galerkin / rbgs"),
 ])
 def test_frame_refusals(over, what):
+    """What the frame on blocks refuses, each naming its ROADMAP item (the
+    global MG cycle runs: tests/test_torch_global_mg.py)."""
     cfg = dataclasses.replace(ranks.TEXT_CFG, **over)
-    with pytest.raises(NotImplementedError, match=f"{what}.*part d"):
+    item = ITEMS.get(what, "part d")
+    with pytest.raises(NotImplementedError, match=f"{what}.*{item}"):
         spatial.make_spatial_step(cfg, None)
-    with pytest.raises(NotImplementedError, match="part d"):
+    with pytest.raises(NotImplementedError, match=f"{what}.*{item}"):
         make_spatial_step_pallas(cfg, None)
 
 

@@ -305,6 +305,11 @@ TEXT_CFG = SimConfig(nx=32, ny=16, marker_layout="slots", max_substeps=2,
                      solver=SolverConfig(max_iterations=30))
 TEXT = b"?  00\n   00\nX  00\nXX 00\n"
 TEXT_STEPS = 3
+# the text with bench.py's converged MG solve (f32 Galerkin + Chebyshev,
+# tol_rel 1e-4, warm start; mg_min_size 8: levels 16 x 32 and 8 x 16)
+TEXT_MG_CFG = dataclasses.replace(TEXT_CFG, solver=SolverConfig(
+    max_iterations=100, dtype="float32", tol_rel=1e-4, preconditioner="mg",
+    warm_start=True, mg_min_size=8))
 
 
 def _frames(mesh, step_of) -> dict:
@@ -326,24 +331,25 @@ def _frames(mesh, step_of) -> dict:
     return out
 
 
-def _batch(dmesh) -> dict:
+def _batch(dmesh, cfg: SimConfig = TEXT_CFG, name: str = "batch") -> dict:
     """`mesh.make_sharded_step` on `dmesh` stepping a batch of the text
-    scenario and its mirror TEXT_STEPS frames (gathered: `batch_*`)."""
+    scenario and its mirror TEXT_STEPS frames under `cfg` (gathered:
+    `{name}_*`)."""
     from euler_tpu_torch.core.scenario import build_scenario
     from euler_tpu_torch.parallel.batch import stack
     from euler_tpu_torch.parallel.spatial import to_spatial
 
-    out = {"batch_layout": torch.tensor(dmesh.mesh.shape)}
-    pairs = [build_scenario(t, TEXT_CFG, device="cpu")
+    out = {f"{name}_layout": torch.tensor(dmesh.mesh.shape)}
+    pairs = [build_scenario(t, cfg, device="cpu")
              for t in (TEXT, b"\n".join(r[::-1] for r in TEXT.split(b"\n")))]
     scn2 = stack([p[0] for p in pairs])
-    st2 = stack([to_spatial(TEXT_CFG, p[1]) for p in pairs])
+    st2 = stack([to_spatial(cfg, p[1]) for p in pairs])
     sscn, sst = shard_batch(dmesh, scn2, st2)
-    step2 = make_sharded_step(TEXT_CFG, dmesh)
+    step2 = make_sharded_step(cfg, dmesh)
     for _ in range(TEXT_STEPS):
         sst = step2(sscn, sst)
     whole = gather_batch(dmesh, sst)
-    out.update({f"batch_{k}": torch.as_tensor(v) for k, v in
+    out.update({f"{name}_{k}": torch.as_tensor(v) for k, v in
                 convert.state_to_numpy(whole).items()})
     return out
 
@@ -364,9 +370,15 @@ def col_frame_rank() -> dict:
     """On 4 gloo ranks, column blocks: `spatial.make_spatial_step` on
     `spatial_mesh(4, x=2)` (2 x 2 blocks of 32 x 32, `_frames`); and
     `mesh.make_sharded_step` on `make_mesh(4, data=1, x=2)` (y 2 x x 2:
-    blocks of 8 x 16, `_batch`)."""
+    blocks of 8 x 16, `_batch`), with the Jacobi solve (`batch_*`) and
+    with the global MG solve (TEXT_MG_CFG, `mg_batch_*`)."""
     from euler_tpu_torch.parallel.spatial import make_spatial_step
 
     out = _frames(spatial_mesh(4, x=2, device="cpu"), make_spatial_step)
-    out.update(_batch(make_mesh(4, data=1, x=2, device="cpu")))
+    dmesh = make_mesh(4, data=1, x=2, device="cpu")
+    out.update(_batch(dmesh))
+    _build.PLAIN_CALLS.clear()
+    out.update(_batch(dmesh, TEXT_MG_CFG, "mg_batch"))
+    out["mg_batch_calls"] = torch.tensor([_build.PLAIN_CALLS[k]
+                                          for k in ("P5", "P4")])
     return out
