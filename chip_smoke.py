@@ -157,10 +157,22 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      MG waterfall and dam break on 2 x 2 blocks against 1 block, 2
      frames (K1, S1, K7, P5 once a block a substep, no P4 and no plain
      version; the waterfall at most 4 cells' counts apart and every
-     velocity within 1e-3, each frame's figures logged); last, P4's, P5's
-     and P3's device time from one profiled solve each: a profiler
-     session over the blocks' threads slowed later host launches, so
-     nothing is timed after it;
+     velocity within 1e-3, each frame's figures logged); then the
+     frame's global IC(0) solve on blocks (M12 part d item 2: P6,
+     `parallel/spatial_ic0.py`) on the developed 256² IC(0) dam break
+     (the golden solve, f64, cap 400): E_inv and one application on 2 x 2
+     and 4 x 1 blocks bitwise P2's, f64 and f32; on 1 x 1 blocks bitwise
+     P1 + P2 (p, iterations, residual; cold and warm), on 2 x 2 and 4 x 1
+     iterations within 1 and p within 1e-9 of scale, each solve timed
+     (CUDA events) beside P1 + P2; P6 against its plain version on the
+     same card tensors at 40 x 100 on 2 x 2 blocks, both timed; the 256²
+     dam break on 2 x 2 blocks, 2 frames, and on 4 x 1, 1 frame, against
+     1 block (K1, K7, P6 once a block a substep, no P1, P4 or plain
+     version; `frames_agree`); one cold solve of the 1024² system in f64
+     on 2 x 2 blocks, timed beside P1 + P2; last, P4's, P5's, P6's and
+     P3's (and P1 + P2's) device time from one profiled solve each: a
+     profiler session over the blocks' threads slowed later host
+     launches, so nothing is timed after it;
  15. runs the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
@@ -188,8 +200,11 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      the 40 x 100 waterfall on 2 x 2 blocks card vs CPU), P5's (its
      hierarchy and a cycle on 2 x 2 and 4 x 1 blocks of the 256² system
      bitwise P3's, 1 x 1 blocks bitwise P3, the 64² MG dam break on 2 x 2
-     blocks card vs CPU) and `dryrun_multichip(1, "nccl")` (a spawned
-     NCCL rank).
+     blocks card vs CPU), P6's (its sweeps on 2 x 2 and 4 x 1 blocks of
+     the 256² system bitwise P2's, 1 x 1 blocks bitwise P1 + P2, 40 x 100
+     against its plain version, the 64² IC(0) dam break on 2 x 2 blocks
+     card vs CPU) and `dryrun_multichip(1, "nccl")` (a spawned NCCL
+     rank).
 With --profile, the CLI runs are profiled too, and each profile logs the device kernel time of a frame (the
 sum of kernel spans) and the idle share it leaves, as before; beside them
 the device busy time (the union of kernel spans, which counts the
@@ -337,7 +352,8 @@ SOURCE_EMIT_OPS = 40  # two xorshift64* draws, two positions, the writes
 IC0_FLOPS = 16        # E_inv build 6, forward solve 5, back solve 5 a cell
 GLOBAL_PER_CELL = 4   # markers_per_cell: the global store has 4 slots a cell
 # the f64 kernels' operations count against the f64 rate
-FLOP_RATES = {"P1": F64_FLOP_PER_S, "P2": F64_FLOP_PER_S}
+FLOP_RATES = {"P1": F64_FLOP_PER_S, "P2": F64_FLOP_PER_S,
+              "P6": F64_FLOP_PER_S}
 BOUNDS = {
     # u, v f32; fluid, solid, dead u8; count i32 in; live positions in;
     # the whole store, count, drop i32 out (K4: the same on the padded
@@ -400,6 +416,11 @@ BOUNDS = {
     "P4": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
     # P3's work on the same grid, whatever layout computes it
     "P5": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
+    # P1 + P2's on the same grid (f64: b, a_diag i32, fluid u8 in; p out),
+    # a loop iteration and an IC(0) application an iteration; its
+    # dependent diagonal steps are logged beside it
+    "P6": lambda n, iters, live: (21 * n,
+                                  (JACOBI_FLOPS + IC0_FLOPS) * iters * n),
 }
 
 
@@ -549,6 +570,16 @@ KERNELS = {
            "euler_tpu/ops/project.py:115 (pcg_loop with "
            "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, the "
            "whole grid's W-cycle, in the frame on (y, x) blocks, "
+           "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
+           "GSPMD partitions; no pallas_call)"),
+    # the frame's global IC(0) solve on blocks: a call is one cold solve of
+    # the 40 x 100 system on 2 x 2 blocks; launches from the 2 frames of
+    # the 256² IC(0) dam break on 2 x 2 blocks
+    "P6": ("global_ic0_pcg_2x2_blocks",
+           "euler_tpu_torch/csrc/pcg_ic0_blocks.cu",
+           "euler_tpu/ops/project.py:115 (pcg_loop with "
+           "euler_tpu/ops/ic0.py:35 make_ic0_preconditioner, the whole "
+           "grid's IC(0), in the frame on (y, x) blocks, "
            "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
            "GSPMD partitions; no pallas_call)"),
 }
@@ -795,12 +826,13 @@ def build_all():
     from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
     from euler_tpu_torch.ops.cuda import pcg_shard_kernel as p4
     from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
+    from euler_tpu_torch.ops.cuda import pcg_ic0_blocks_kernel as p6
     from euler_tpu_torch.native import get_lib as encoder_lib
 
     loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
                k89.jacobi_lib, k12.stream_lib, s1.source_lib, encoder_lib,
                g12.global_lib, p12.general_lib, p12.mg_lib, p4.shard_lib,
-               p5.blocks_lib]
+               p5.blocks_lib, p6.ic0_blocks_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
@@ -3738,6 +3770,295 @@ def run_global_mg_blocks(results, summaries, launches, dev, shared) -> None:
     summaries["global_mg_blocks"] = summary
 
 
+# the frame's global IC(0) solve on blocks (M12 part d item 2: P6)
+IC0_LAYOUTS = ((1, 1), (COL_N, COL_N), (4, 1))
+IC0_SMALL = (40, 100)  # P6 against its plain version, 2 x 2 blocks
+IC0_REPS = 2           # timed P6 solves (host-bound)
+IC0_DEVELOP = 3        # frames of the 256² IC(0) dam break before the checks
+# p of the 1024² solve, which stops at the cap of 400 unconverged, against
+# P1 + P2's, in p's scale (1.37e-5 measured there on the H100)
+IC0_CAPPED_RTOL = 1e-4
+
+
+def ic0_slots_cfg(ny: int, nx: int, dtype: str = "float64"):
+    """The golden configuration's solve with IC(0) (f64, cap 400, tol
+    1e-6) on the slot layout at ny x nx, the solve in `dtype`."""
+    return dataclasses.replace(
+        golden_cfg(preconditioner="ic0", dtype=dtype), nx=nx, ny=ny,
+        marker_layout="slots")
+
+
+def p6_run(cfg, y, x, dev, fn, *planes):
+    """fn(comm, axes, *cuts) on a `LocalGroup` of y x x blocks on `dev`,
+    every block's result, with the group (open: close it)."""
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    Yl, Xl = cfg.ny // y, cfg.nx // x
+    cuts = []
+    for r in range(y * x):
+        c = (slice(r // x * Yl, (r // x + 1) * Yl),
+             slice(r % x * Xl, (r % x + 1) * Xl))
+        cuts.append([None if t is None else t[c].contiguous()
+                     for t in planes])
+    g = LocalGroup(y, x, device=dev)
+
+    def rank(comm):
+        return fn(comm, ("y", "x") if x > 1 else ("y",), *cuts[comm.r])
+
+    return g, rank
+
+
+def p6_solve(cfg, y, x, dev, b, a_diag, fl, x0=None, plain=False):
+    """P6 on y x x blocks through `spatial_ic0.solve_pressure_blocks_ic0`,
+    or with `plain` its plain version on the same card tensors: (the
+    group, its rank function), whose `g.run(rank)` gives every block's
+    (p, iterations, residual)."""
+    from euler_tpu_torch.parallel import spatial_ic0
+    from euler_tpu_torch.parallel.halo import pcg_sharded
+
+    def fn(comm, axes, b_, a_, f_, x_):
+        if plain:
+            return pcg_sharded(cfg, comm, axes, b_, a_, f_, x_,
+                               precon=spatial_ic0.block_ic0(
+                                   cfg, comm, axes, a_, f_),
+                               grid_order=True)
+        return spatial_ic0.solve_pressure_blocks_ic0(cfg, comm, axes, b_,
+                                                     a_, f_, x_)
+
+    return p6_run(cfg, y, x, dev, fn, b, a_diag, fl, x0)
+
+
+def events_ms(fn):
+    """(fn(), its ms by CUDA events around the call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def p6_result(out, x):
+    """(p put together, iterations, residual) of every block's solve,
+    checked to agree on the iterations and residual."""
+    check(len({(int(o[1]), float(o[2])) for o in out}) == 1,
+          "P6: the blocks' iterations or residuals differ")
+    return together([o[0] for o in out], x), int(out[0][1]), float(out[0][2])
+
+
+def run_ic0_blocks(results, summaries, launches, dev, shared) -> None:
+    """The frame's global IC(0) solve on ("y", "x") blocks on the card (M12
+    part d item 2: P6, `parallel/spatial_ic0.py`), every block one thread
+    of an in-process `comm.LocalGroup`: on the developed 256² IC(0) dam
+    break, the sweeps (E_inv and one application) bitwise P2's, the solve
+    against P1 + P2 (`pcg_general_kernel.solve_pressure_general`) on 1 x
+    1, 2 x 2 and 4 x 1 blocks, bitwise on 1 x 1, timed; P6 against its
+    plain version at 40 x 100; the 256² frames on 2 x 2 and 4 x 1 blocks
+    against 1 block; one cold solve of the 1024² system (the row phase's,
+    in f64) on 2 x 2 blocks, timed beside P1 + P2."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+    from euler_tpu_torch.parallel import spatial_ic0
+
+    summary = {}
+    n = IC0_SIZE
+    cfg = ic0_slots_cfg(n, n)
+    with Phase(f"P6 on {', '.join(f'{y} x {x}' for y, x in IC0_LAYOUTS)} "
+               f"in-process blocks of the {n}² IC(0) system: the sweeps "
+               "bitwise P2's (f64, f32), 1 x 1 bitwise P1 + P2, iterations "
+               "within 1 and p within 1e-9 of scale elsewhere; timed; the "
+               f"plain P6 at {IC0_SMALL[0]} x {IC0_SMALL[1]}"):
+        scn, st = dam_break(cfg, device=dev)
+        for _ in range(IC0_DEVELOP):
+            st = sim.step_frame(cfg, scn, st)
+        dt, _, _, b, a_diag = substep_system(cfg, scn, st)
+        fl = st.fluid
+        p0 = torch.where(fl, st.p, 0.0).to(torch.float64)
+        for dtype in ("float64", "float32"):
+            dcfg = ic0_slots_cfg(n, n, dtype)
+            r = b.to(getattr(torch, dtype))
+            z2, e2 = p12.ic0_apply(a_diag, fl, r, e_inv=True)
+            for y, x in IC0_LAYOUTS[1:]:
+                g, rank = p6_run(dcfg, y, x, dev, lambda comm, axes, *t:
+                                 spatial_ic0.precondition_blocks(
+                                     dcfg, comm, axes, *t), a_diag, fl, r)
+                with g:
+                    reset_counts()
+                    out = g.run(rank)
+                check(_build.LAUNCHES["P6"] == y * x
+                      and not _build.PLAIN_CALLS,
+                      f"P6 sweeps {y} x {x}: launches "
+                      f"{dict(_build.LAUNCHES)}, plain "
+                      f"{dict(_build.PLAIN_CALLS)}")
+                e_inv = together([o[0] for o in out], x)
+                z = together([o[1] for o in out], x)
+                check(bool(z2.abs().max() > 0) and torch.equal(e_inv, e2)
+                      and torch.equal(z, z2), f"P6 sweeps {y} x {x} "
+                      f"{dtype}: E_inv or z differs from P2's")
+                log(f"   P6 sweeps on {y} x {x} blocks, {dtype}: E_inv and "
+                    "one application bitwise P2's")
+        starts = {"cold": None, "warm": p0}
+        refs = {}
+        for label, x0 in starts.items():
+            refs[label] = p12.solve_pressure_general(cfg, b, a_diag, fl,
+                                                     x0=x0)
+            t12 = cuda_ms(lambda: p12.solve_pressure_general(
+                cfg, b, a_diag, fl, x0=x0), REPS)
+            summary[f"p1_p2_{label}"] = {"ms": t12,
+                                         "iters": int(refs[label][1])}
+            log(f"   P1 + P2 {label}: {t12:.3f} ms a solve (CUDA events), "
+                f"{int(refs[label][1])} iterations")
+        scale = float(refs["cold"][0].abs().max())
+        for y, x in IC0_LAYOUTS:
+            for label, x0 in starts.items():
+                ref = refs[label]
+                g, rank = p6_solve(cfg, y, x, dev, b, a_diag, fl, x0)
+                with g:
+                    reset_counts()
+                    (p, it, res), ms = events_ms(lambda: p6_result(
+                        g.run(rank), x))
+                    check(_build.LAUNCHES["P6"] == y * x
+                          and not _build.PLAIN_CALLS,
+                          f"P6 {y} x {x}: launches {dict(_build.LAUNCHES)}, "
+                          f"plain {dict(_build.PLAIN_CALLS)}")
+                    err = float((p - ref[0]).abs().max()) / scale
+                    if (y, x) == (1, 1):
+                        check(torch.equal(p, ref[0]) and it == int(ref[1])
+                              and res == float(ref[2]),
+                              f"P6 1 x 1 {label}: not P1 + P2's bits ({it} "
+                              f"vs {int(ref[1])} iterations, p {err:.3g} of "
+                              "scale)")
+                    else:
+                        check(abs(it - int(ref[1])) <= 1 and err <= 1e-9,
+                              f"P6 {y} x {x} {label}: {it} iterations (P1 + "
+                              f"P2 {int(ref[1])}), p {err:.3g} of scale")
+                summary[f"blocks_{y}x{x}_{label}"] = {
+                    "ms": ms, "iters": it, "resid": res, "err_vs_p1_p2": err}
+                log(f"   P6 {y} x {x} {label}: {ms:.2f} ms a solve (CUDA "
+                    f"events around the blocks' calls, the cold one making "
+                    f"the workspace; P1 + P2 "
+                    f"{summary[f'p1_p2_{label}']['ms']:.3f}), {it} "
+                    f"iterations (P1 + P2 {int(ref[1])}), p within "
+                    f"{err:.3g} of scale")
+
+        sy, sx = IC0_SMALL
+        scfg = ic0_slots_cfg(sy, sx)
+        sscn, sst = dam_break(scfg, device=dev)
+        for _ in range(IC0_DEVELOP):
+            sst = sim.step_frame(scfg, sscn, sst)
+        _, _, _, sb, sa = substep_system(scfg, sscn, sst)
+        sfl = sst.fluid
+        g, rank = p6_solve(scfg, COL_N, COL_N, dev, sb, sa, sfl)
+        gq, rank_q = p6_solve(scfg, COL_N, COL_N, dev, sb, sa, sfl,
+                              plain=True)
+        with g, gq:
+            p, it, _ = p6_result(g.run(rank), COL_N)
+            (q, it_q, _), ms_q = events_ms(lambda: p6_result(gq.run(rank_q),
+                                                             COL_N))
+            sscale = float(q.abs().max())
+            kerr = float((p - q).abs().max())
+            check(abs(it - it_q) <= 1 and kerr <= 1e-9 * sscale,
+                  f"P6 {sy} x {sx} vs plain: {it} vs {it_q} iterations, p "
+                  f"{kerr:.3g} apart (scale {sscale:.3g})")
+            ms = cuda_ms(lambda: g.run(rank), IC0_REPS)
+        nbytes, flops = BOUNDS["P6"](sy * sx, it, 0)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / FLOP_RATES["P6"]
+        results["P6"] = {"ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
+                         "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations"}
+        steps = 2 * (2 * COL_N - 1) * (sy // COL_N + sx // COL_N - 1)
+        summary[f"plain_{sy}x{sx}"] = {"ms": ms, "plain_ms": ms_q,
+                                       "iters": it, "plain_iters": it_q,
+                                       "max_abs_err": kerr,
+                                       "dependent_steps_an_iteration": steps}
+        log(f"   P6 {COL_N} x {COL_N} at {sy} x {sx}: {ms:.2f} ms a cold "
+            f"solve, its plain version on the same card tensors {ms_q:.1f} "
+            f"ms; {it} / {it_q} iterations, p {kerr:.3g} apart; bound "
+            f"{results['P6']['bound_ms']:.4g} ms by "
+            f"{results['P6']['bound_by']}, and {steps} dependent diagonal "
+            "steps an iteration (forward and back, staged)")
+        shared["ic0_small"] = (scfg, sb, sa, sfl)
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"the {n}² IC(0) dam break on {COL_N} x {COL_N} blocks "
+               "(P6), 2 frames, and on 4 x 1 blocks, 1 frame, against 1 "
+               "block frame by frame"):
+        per_layout = {}
+        p6_launches = 0
+        for (y, x), frames in (((COL_N, COL_N), 2), ((4, 1), 1)):
+            got, one, per_frame = st, st, []
+            for frame in range(1, frames + 1):
+                got, ms, got_l, plain = block_frames(cfg, scn, got, y, dev,
+                                                     0, 1, x=x)
+                per = y * x * cfg.max_substeps
+                check(plain == 0 and all(got_l.get(k) == per
+                                         for k in ("K1", "K7", "P6"))
+                      and not got_l.get("P4") and not got_l.get("P1"),
+                      f"IC(0) dam break on {y} x {x} blocks: not one launch "
+                      f"a block a substep: {got_l}, plain {plain}")
+                if (y, x) == (COL_N, COL_N):
+                    p6_launches += got_l["P6"]
+                one, ms1, _, _ = block_frames(cfg, scn, one, 1, dev, 0, 1)
+                for name in ("u", "v", "p", "markers"):
+                    check(bool(torch.isfinite(getattr(got, name)).all()),
+                          f"IC(0) on blocks: {name} not finite")
+                d = frame_diff(got, one)
+                d.update(ms_per_frame=ms, ms_per_frame_1_block=ms1)
+                per_frame.append(d)
+                log(f"   {y} x {x} frame {frame}: blocks {ms:.1f} ms, 1 "
+                    f"block {ms1:.1f} ms; {d['count_cells']} of {d['cells']}"
+                    f" cells' counts apart, max |dv| {d['max_dv']:.3g}; "
+                    f"alive {d['alive']}")
+                check(frames_agree(d), f"IC(0) dam break, {y} x {x} blocks "
+                      f"vs 1, frame {frame}: {d}")
+            per_layout[f"{y}x{x}"] = per_frame
+        summary[f"dam_break_{n}"] = per_layout
+        launches["P6"] = p6_launches
+
+    with Phase(f"one cold P6 solve of the {SIZE}² system (f64) on {COL_N} x "
+               f"{COL_N} blocks against P1 + P2"):
+        bcfg = ic0_slots_cfg(SIZE, SIZE)
+        bb = shared["b"].to(torch.float64)
+        ba, bfl = shared["a_diag"], shared["fl"]
+        ref = p12.solve_pressure_general(bcfg, bb, ba, bfl)
+        t12 = cuda_ms(lambda: p12.solve_pressure_general(bcfg, bb, ba, bfl),
+                      1)
+        g, rank = p6_solve(bcfg, COL_N, COL_N, dev, bb, ba, bfl)
+        with g:
+            (p, it, res), ms = events_ms(lambda: p6_result(g.run(rank),
+                                                           COL_N))
+        err = float((p - ref[0]).abs().max()) / float(ref[0].abs().max())
+        # a solve that stops at the cap has not converged: there the
+        # blocks' fold order, 400 iterations on, moves p by ~1e-5 of scale
+        capped = int(ref[1]) >= bcfg.solver.max_iterations
+        check(abs(it - int(ref[1])) <= 1
+              and err <= (IC0_CAPPED_RTOL if capped else 1e-9),
+              f"P6 {SIZE}² on {COL_N} x {COL_N}: {it} iterations (P1 + P2 "
+              f"{int(ref[1])}), p {err:.3g} of scale")
+        summary[f"solve_{SIZE}_{COL_N}x{COL_N}_cold"] = {
+            "ms": ms, "iters": it, "resid": res, "err_vs_p1_p2": err,
+            "p1_p2_ms": t12, "p1_p2_iters": int(ref[1]),
+            "p1_p2_resid": float(ref[2]), "capped": capped}
+        log(f"   P6 {SIZE}² on {COL_N} x {COL_N} blocks, cold: {ms:.1f} ms "
+            f"(CUDA events, its first solve: the workspace made), {it} "
+            f"iterations, residual {res:.4g}; P1 + P2 {t12:.2f} ms, "
+            f"{int(ref[1])}, {float(ref[2]):.4g}; p within {err:.3g} of "
+            "scale" + (" (both at the cap)" if capped else ""))
+        log(f"   nvidia-smi: {smi_line()}")
+        shared["ic0"] = (cfg, b, a_diag, fl, p0)
+    summaries["ic0_blocks"] = summary
+
+
 def run_block_profiles(results, summaries, shared, dev) -> None:
     """P4's device time a solve of the 1024² substep system on 1, 2 and 4
     row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi), P5's
@@ -3773,6 +4094,7 @@ def run_block_profiles(results, summaries, shared, dev) -> None:
             summaries["col_blocks"]["p4_jacobi"][f"blocks_{COL_N}x{COL_N}"][
                 "device_ms"]
         p5_profiles(results, summaries, shared, dev)
+        p6_profiles(results, summaries, shared, dev)
 
 
 def p5_profiles(results, summaries, shared, dev) -> None:
@@ -3807,6 +4129,44 @@ def p5_profiles(results, summaries, shared, dev) -> None:
             f"{lib:.4f} ms" if spans else "not measured"))
     results["P5"]["device_ms"] = gmg[f"blocks_{COL_N}x{COL_N}_warm"][
         "device_ms"]
+
+
+def p6_profiles(results, summaries, shared, dev) -> None:
+    """P6's device time a warm solve of the 256² IC(0) system on 1 x 1, 2 x
+    2 and 4 x 1 blocks, and P1 + P2's beside it, and of the kernels line's
+    40 x 100 call: the summed kernel spans of one profiled solve each."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    cfg, b, a_diag, fl, p0 = shared["ic0"]
+    summary = summaries["ic0_blocks"]
+    spans = kernel_spans_ms(lambda: p12.solve_pressure_general(
+        cfg, b, a_diag, fl, x0=p0))
+    summary["p1_p2_warm"]["device_ms"] = spans[0] if spans else None
+    log("   P1 + P2 warm: " + (f"kernel spans {spans[0]:.4f} ms summed"
+                              if spans else "not measured"))
+    for y, x in IC0_LAYOUTS:
+        g, rank = p6_solve(cfg, y, x, dev, b, a_diag, fl, p0)
+        with g:
+            g.run(rank)
+            spans = kernel_spans_ms(lambda: g.run(rank))
+        own, lib = spans if spans else (None, None)
+        summary[f"blocks_{y}x{x}_warm"].update(device_ms=own,
+                                                torch_device_ms=lib)
+        log(f"   P6 warm, {y} x {x} blocks: " + (
+            f"its kernel spans {own:.4f} ms summed, torch's kernels and "
+            f"copies (the group's folds and edge copies) {lib:.4f} ms"
+            if spans else "not measured"))
+    scfg, sb, sa, sfl = shared["ic0_small"]
+    g, rank = p6_solve(scfg, COL_N, COL_N, dev, sb, sa, sfl)
+    with g:
+        g.run(rank)
+        spans = kernel_spans_ms(lambda: g.run(rank))
+    small = summary[f"plain_{IC0_SMALL[0]}x{IC0_SMALL[1]}"]
+    small["device_ms"] = spans[0] if spans else None
+    results["P6"]["device_ms"] = small["device_ms"]
+    log(f"   P6 cold, {IC0_SMALL[0]} x {IC0_SMALL[1]} on {COL_N} x {COL_N} "
+        "blocks: " + (f"its kernel spans {spans[0]:.4f} ms summed"
+                      if spans else "not measured"))
 
 
 def run(args) -> dict:
@@ -4145,6 +4505,8 @@ def run(args) -> dict:
 
     run_global_mg_blocks(results, summaries, launches, dev, shared)
 
+    run_ic0_blocks(results, summaries, launches, dev, shared)
+
     run_block_profiles(results, summaries, shared, dev)
     del shared
 
@@ -4179,11 +4541,11 @@ def run(args) -> dict:
                "tests/test_torch_cuda_batch.py)"):
         run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
 
-    with Phase("the row-shard, row-block, column-block and P5 card tests "
+    with Phase("the row-shard, row-block, column-block, P5 and P6 card tests "
                "and the dry run on one NCCL rank (pytest, "
                "tests/test_torch_cuda_shard.py)"):
         run_card_tests("shards or identity or dryrun or row_blocks or p4 "
-                       "or row_frame or col_blocks or col_frame or p5",
+                       "or row_frame or col_blocks or col_frame or p5 or p6",
                        files=("tests/test_torch_cuda_shard.py",))
 
     kernels = []

@@ -36,109 +36,22 @@
 // it.  Built with -fmad=false, in the plain version's operand order.  The
 // loop's kernels and their order are pcg_loop.cuh's, shared with P3
 // (pcg_mg.cu, the loop with the MG cycle as its preconditioner).
+#include "ic0.cuh"
 #include "pcg_loop.cuh"
 
 namespace {
 
 using namespace pcg;
 
-constexpr int kIcThreads = 1024;
-// the shared memory P2 may take (the H100's opt-in limit is 227 KB)
-constexpr size_t kIcSmem = 200 * 1024;
+// ---- P2: IC(0) on anti-diagonals, one CTA (ic0.cuh) --------------------
 
-// ---- P2: IC(0) on anti-diagonals, one CTA -----------------------------
+using ic0::kIcSmem;
+using ic0::kIcThreads;
 
-template <typename T>
-__device__ __forceinline__ T inv_sqrt(T e) {
-  return T(1) / sqrt(e);
-}
-
-// the rows of diagonal d: y in [lo, hi], x = d - y
-__device__ __forceinline__ void diag_rows(int d, int Y, int X, int* lo,
-                                          int* hi) {
-  *lo = max(0, d - (X - 1));
-  *hi = min(Y - 1, d);
-}
-
-// E_inv into pre (main.c:586-600): e = a - pl^2 - pd^2, guarded
 template <typename T>
 __global__ void __launch_bounds__(kIcThreads)
     ic0_build(int Y, int X, const uint8_t* code, T* pre_out, bool smem) {
-  extern __shared__ __align__(16) unsigned char eu_smem[];
-  const int n = Y * X;
-  T* pre = smem ? reinterpret_cast<T*>(eu_smem) : pre_out;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) pre[i] = T(0);
-  __syncthreads();
-  for (int d = 0; d < Y + X - 1; ++d) {
-    int lo, hi;
-    diag_rows(d, Y, X, &lo, &hi);
-    for (int y = lo + static_cast<int>(threadIdx.x); y <= hi;
-         y += blockDim.x) {
-      const int x = d - y, i = y * X + x;
-      const uint8_t c = code[i];
-      if (!fl_of(c)) continue;
-      const T a = static_cast<T>(a_of(c));
-      const T b = x > 0 ? pre[i - 1] : T(0);
-      const T cc = y > 0 ? pre[i - X] : T(0);
-      T e = a - b * b - cc * cc;
-      if (e < T(0.25) * a) e = a != T(0) ? a : T(1);
-      pre[i] = inv_sqrt(e);
-    }
-    __syncthreads();
-  }
-  if (smem)
-    for (int i = threadIdx.x; i < n; i += blockDim.x) pre_out[i] = pre[i];
-}
-
-// z = M^-1 r: forward solve into q, back solve into z (main.c:602-626)
-template <typename T>
-__device__ void ic0_apply_body(int Y, int X, const uint8_t* code,
-                               const T* pre_g, const T* r, T* z_out,
-                               T* q_g, bool smem) {
-  extern __shared__ __align__(16) unsigned char eu_smem[];
-  const int n = Y * X;
-  T* pre = smem ? reinterpret_cast<T*>(eu_smem) : const_cast<T*>(pre_g);
-  T* q = smem ? pre + n : q_g;
-  T* z = smem ? q + n : z_out;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (smem) pre[i] = pre_g[i];
-    q[i] = T(0);
-    z[i] = T(0);
-  }
-  __syncthreads();
-  for (int d = 0; d < Y + X - 1; ++d) {
-    int lo, hi;
-    diag_rows(d, Y, X, &lo, &hi);
-    for (int y = lo + static_cast<int>(threadIdx.x); y <= hi;
-         y += blockDim.x) {
-      const int x = d - y, i = y * X + x;
-      if (!fl_of(code[i])) continue;
-      const T pl = x > 0 ? pre[i - 1] : T(0);
-      const T ql = x > 0 ? q[i - 1] : T(0);
-      const T pd = y > 0 ? pre[i - X] : T(0);
-      const T qd = y > 0 ? q[i - X] : T(0);
-      const T t = r[i] + pl * ql + pd * qd;
-      q[i] = t * pre[i];
-    }
-    __syncthreads();
-  }
-  for (int d = Y + X - 2; d >= 0; --d) {
-    int lo, hi;
-    diag_rows(d, Y, X, &lo, &hi);
-    for (int y = lo + static_cast<int>(threadIdx.x); y <= hi;
-         y += blockDim.x) {
-      const int x = d - y, i = y * X + x;
-      if (!fl_of(code[i])) continue;
-      const T p = pre[i];
-      const T zr = x + 1 < X ? z[i + 1] : T(0);
-      const T zu = y + 1 < Y ? z[i + X] : T(0);
-      const T t = q[i] + p * zr + p * zu;
-      z[i] = t * p;
-    }
-    __syncthreads();
-  }
-  if (smem)
-    for (int i = threadIdx.x; i < n; i += blockDim.x) z_out[i] = z[i];
+  ic0::build_body(Y, X, code, pre_out, smem, ic0::Zeros<T>{});
 }
 
 template <typename T>
@@ -146,7 +59,7 @@ __global__ void __launch_bounds__(kIcThreads)
     ic0_apply(int Y, int X, const uint8_t* code, const T* pre, const T* r,
               T* z, T* q, bool smem, const int* done) {
   if (done != nullptr && *done) return;
-  ic0_apply_body(Y, X, code, pre, r, z, q, smem);
+  ic0::apply_body(Y, X, code, pre, r, z, q, smem, ic0::Zeros<T>{});
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -154,12 +67,6 @@ __global__ void __launch_bounds__(kThreads)
               uint8_t* code) {
   GRID_STRIDE(i, n)
   code[i] = fluid[i] ? static_cast<uint8_t>(8 | a_diag[i]) : 0;
-}
-
-template <typename T>
-size_t ic0_smem(int Y, int X, int planes) {
-  const size_t bytes = static_cast<size_t>(planes) * Y * X * sizeof(T);
-  return bytes <= kIcSmem ? bytes : 0;
 }
 
 template <typename T>
@@ -177,7 +84,7 @@ int ic0_prepare() {  // let P2's kernels take up to kIcSmem
 template <typename T>
 int launch_ic0_build(int Y, int X, const uint8_t* code, T* pre,
                      cudaStream_t st) {
-  const size_t sm = ic0_smem<T>(Y, X, 1);
+  const size_t sm = ic0::smem_bytes<T>(Y, X, 1);
   ic0_build<T><<<1, kIcThreads, sm, st>>>(Y, X, code, pre, sm > 0);
   return eu_launch_status();
 }
@@ -186,7 +93,7 @@ template <typename T>
 int launch_ic0_apply(int Y, int X, const uint8_t* code, const T* pre,
                      const T* r, T* z, T* q, const int* done,
                      cudaStream_t st) {
-  const size_t sm = ic0_smem<T>(Y, X, 3);
+  const size_t sm = ic0::smem_bytes<T>(Y, X, 3);
   ic0_apply<T><<<1, kIcThreads, sm, st>>>(Y, X, code, pre, r, z, q, sm > 0,
                                           done);
   return eu_launch_status();

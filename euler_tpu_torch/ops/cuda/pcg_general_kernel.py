@@ -309,12 +309,15 @@ def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None):
             ws.scal[_S_RESID].clone())
 
 
-def ic0_apply(a_diag, fluid, r):
-    """z = M^-1 r of IC(0) (E_inv built anew) in r's dtype.  CUDA tensors
-    run P2; CPU tensors the plain version."""
+def ic0_apply(a_diag, fluid, r, e_inv: bool = False):
+    """z = M^-1 r of IC(0) (E_inv built anew) in r's dtype, or with
+    `e_inv` (z, E_inv).  CUDA tensors run P2; CPU tensors the plain
+    version."""
     if r.device.type == "cpu":
         _build.PLAIN_CALLS["P2"] += 1
-        return make_ic0_preconditioner(a_diag, fluid, r.dtype)(r)
+        apply = make_ic0_preconditioner(a_diag, fluid, r.dtype)
+        z = apply(r)
+        return (z, apply.e_inv) if e_inv else z
     Y, X = fluid.shape
     dev = r.device
     if r.dtype not in (torch.float32, torch.float64):
@@ -331,4 +334,4 @@ def ic0_apply(a_diag, fluid, r):
                           p_r, z.data_ptr(), code.data_ptr(),
                           pre.data_ptr(), q.data_ptr(), _build.stream())
     _build.check(lib, rc, "eu_ic0_apply")
-    return z
+    return (z, pre) if e_inv else z

@@ -18,11 +18,14 @@ plain version, `parallel/halo.pcg_sharded` (the port's `pcg_loop` with
 the same collectives).  A gloo group with CUDA tensors raises: P4 does
 not copy to the host.
 
-Preconditioners: "none", "jacobi" (the jnp form, halo.py:136-139) and
-"mg" in f32: block-Jacobi additive Schwarz, P3's cycle (csrc/
-mg_levels.cuh) on the block's own hierarchy, built on the card from the
-block's operator (the global a_diag, cut), at
-`mg_kernel.padded_level_shapes` of the block.
+Preconditioners: "none" (z = r on the fluid), "jacobi" (the jnp form,
+halo.py:136-139) and "mg" in f32: block-Jacobi additive Schwarz, P3's
+cycle (csrc/mg_levels.cuh) on the block's own hierarchy, built on the
+card from the block's operator (the global a_diag, cut), at
+`mg_kernel.padded_level_shapes` of the block.  `halo.
+make_sharded_pressure_solver` gives P4 "jacobi" for every preconditioner
+but "mg", as halo.py does; the frame on blocks gives it its own "none"
+and "jacobi" (its "mg" and "ic0" are P5's and P6's).
 
 There is no CUDA graph: a collective sits between every reduction and
 its use.  The host reads the stop flag after every chunk of 8
@@ -179,15 +182,11 @@ def workspace(cfg: SimConfig, comm, shape, device) -> ShardWorkspace:
 
 
 def check_solver(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for the solvers P4 does not run, naming
-    their ROADMAP items."""
+    """Raise NotImplementedError for the solvers that no solve on blocks
+    (P4, P5, P6) runs, naming their ROADMAP items."""
     s = cfg.solver
     if s.dtype not in ("float32", "float64"):
         raise ValueError(f"solver dtype {s.dtype!r}")
-    if s.preconditioner == "ic0":
-        raise NotImplementedError(
-            "IC(0) on blocks: its sweeps run across the whole grid in "
-            "order, block after block (ROADMAP M12 part d)")
     if s.preconditioner == "mg" and s.dtype != "float32":
         raise NotImplementedError(
             "f64 MG: the MG levels (K2, K3, K11, P3, P4, P5) are f32 (the "
@@ -198,7 +197,7 @@ def check_solver(cfg: SimConfig) -> None:
         raise NotImplementedError(
             f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "
             "Chebyshev smoothing is ported; ROADMAP queue 1 item M14")
-    if s.preconditioner not in _PRECON:
+    if s.preconditioner not in (*_PRECON, "ic0"):
         raise ValueError(f"preconditioner {s.preconditioner!r}")
 
 
@@ -208,11 +207,19 @@ def solve_pressure_sharded(cfg: SimConfig, comm, axes, b, a_diag, fluid,
     Returns (p, iterations, residual), the last two the same on every
     block."""
     check_solver(cfg)
+    kind = cfg.solver.preconditioner
+    if kind not in _PRECON:
+        raise ValueError(f"P4 runs {sorted(_PRECON)}, not {kind!r} (IC(0) "
+                         "on blocks is P6, parallel/spatial_ic0.py)")
     if b.device.type == "cpu":
+        from euler_tpu_torch.ops.project import make_preconditioner
         from euler_tpu_torch.parallel.halo import pcg_sharded
 
         _build.PLAIN_CALLS["P4"] += 1
-        return pcg_sharded(cfg, comm, axes, b, a_diag, fluid, x0)
+        precon = (None if kind == "mg"
+                  else make_preconditioner(cfg, a_diag, fluid))
+        return pcg_sharded(cfg, comm, axes, b, a_diag, fluid, x0,
+                           precon=precon)
     if comm.backend == "gloo":
         raise RuntimeError("P4 on CUDA tensors needs an NCCL group or an "
                            "in-process LocalGroup, not gloo")

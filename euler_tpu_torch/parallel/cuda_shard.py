@@ -169,8 +169,9 @@ def make_spatial_step_pallas(cfg: SimConfig, mesh, axis: str = "y"):
     block.  The JAX step runs K1 per shard and solves on its XLA path
     (pallas_shard.py:150-154, the jnp `pcg_loop` under GSPMD); the port's
     is `spatial.make_spatial_step`, whose marker pass is this module's
-    K1 per block, its grid stage K7 and its solve P5 (MG: the global
-    cycle, as the JAX step's) or P4 on the blocks.  Row
+    K1 per block, its grid stage K7 and its solve the JAX step's on the
+    blocks: P5 (MG, the whole grid's cycle), P6 (IC(0), the whole grid's
+    sweeps in stages) or P4 (Jacobi, none).  Row
     blocks only, as the JAX package asserts (pallas_shard.py:146-148):
     ValueError on axis "x" or on a mesh with x > 1 (the column blocks
     run through `spatial.make_spatial_step`)."""

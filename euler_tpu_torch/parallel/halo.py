@@ -17,21 +17,27 @@ neighbours through a `comm` (`parallel/comm.py`):
     block's a_diag the global one, cut;
   * `pcg_sharded`: the port's `ops/project.pcg_loop` with that operator,
     the dots summed and the maxima maxed over the blocks, and the
-    preconditioner of `block_preconditioner`: the jnp-form Jacobi, none,
-    or block-Jacobi additive Schwarz MG (one Galerkin cycle on each
-    block's own hierarchy, halo.py:113-134); or a given one (P5's plain
-    version, `parallel/spatial_mg.py`, passes the global cycle);
+    preconditioner of `block_preconditioner`, halo.py:113-139's rule:
+    block-Jacobi additive Schwarz MG for "mg" (one Galerkin cycle on each
+    block's own hierarchy), and the jnp-form Jacobi for every other
+    preconditioner, "none" and "ic0" included; or a given one (P4's own
+    none / Jacobi, P5's global cycle and P6's global IC(0) sweep pass
+    theirs);
   * `make_sharded_pressure_solver(cfg, mesh, axes, stats)`: the entry
     point, whose function takes this block's b, a_diag, fluid (and a
-    warm start x0) and runs P4 (`ops/cuda/pcg_shard_kernel.py`) on CUDA
+    warm start x0) and runs halo.py's function: P4
+    (`ops/cuda/pcg_shard_kernel.py`) with Jacobi, or block MG, on CUDA
     tensors, `pcg_sharded` on CPU tensors.  Every block returns the same
     iterations and residual.
 
-f64 MG (M15) and IC(0) (its sweeps run across the blocks in order,
-ROADMAP M12 part d) are refused.
+The frame on blocks keeps its own rule (`parallel/spatial.Blocks`: the
+JAX frame's "none" is no preconditioner and its "ic0" the whole grid's
+IC(0)), so it calls P4, P5 and P6 directly.  f64 MG (M15) is refused.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -80,14 +86,12 @@ def apply_a_local(a_diag, fluid, s, comm, axes=("y",),
 
 
 def block_preconditioner(cfg: SimConfig, a_diag, fluid, dtype):
-    """z = M^-1 r on this block: "jacobi" (halo.py:136-139, the jnp
-    form), "none", or "mg", one Galerkin cycle on the block's own
-    hierarchy masked by fluid (halo.py:113-134)."""
-    kind = cfg.solver.preconditioner
-    if kind == "jacobi":
+    """z = M^-1 r on this block by halo.py:113-139's rule: "mg", one
+    Galerkin cycle on the block's own hierarchy masked by fluid; every
+    other preconditioner ("jacobi", "none", "ic0") the jnp-form Jacobi
+    (halo.py:136-139)."""
+    if cfg.solver.preconditioner != "mg":
         return jacobi_preconditioner_jnp(a_diag, fluid)
-    if kind == "none":
-        return lambda r: torch.where(fluid, r, 0.0)
     from euler_tpu_torch.ops.multigrid import (
         build_galerkin_hierarchy,
         cycle_galerkin,
@@ -102,10 +106,11 @@ def block_preconditioner(cfg: SimConfig, a_diag, fluid, dtype):
 
 def pcg_sharded(cfg: SimConfig, comm, axes, b, a_diag, fluid, x0=None,
                 precon=None, grid_order: bool = False):
-    """The plain version of P4: `pcg_loop` on this block with the
+    """halo.py's `_pcg_sharded`: `pcg_loop` on this block with the
     exchanging operator and the all-reduced dots and maxima, and
     `block_preconditioner` (or `precon`; `grid_order`: the operator in
-    apply_a's order).  Returns (p, iterations, residual)."""
+    apply_a's order).  The plain version of P4, P5 and P6.  Returns (p,
+    iterations, residual)."""
 
     def dot(x, y):
         t = (x * y).sum()
@@ -132,12 +137,16 @@ def make_sharded_pressure_solver(cfg: SimConfig, mesh, axes=("y",),
     an in-process `comm.LocalGroup`.  Returns fn(b, a_diag, fluid,
     x0=None) -> p, or (p, iterations, residual) with `stats`, on this
     block's [Yl, Xl] planes (`x0`, zero outside the fluid, warm-starts
-    it, as `project()`'s)."""
+    it, as `project()`'s).  Every preconditioner but "mg" runs the
+    jnp-form Jacobi, as halo.py's does."""
     axes = tuple(axes)
     if axes not in (("y",), ("y", "x")):
         raise ValueError(f"axes {axes}: ('y',) or ('y', 'x')")
     check_solver(cfg)
     comm = as_comm(mesh)
+    if cfg.solver.preconditioner != "mg":
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, preconditioner="jacobi"))
 
     def solve(b, a_diag, fluid, x0=None):
         p, iters, resid = solve_pressure_sharded(cfg, comm, axes, b, a_diag,

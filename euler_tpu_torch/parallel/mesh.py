@@ -187,8 +187,9 @@ def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
 def make_sharded_step(cfg: SimConfig, mesh: DeviceMesh):
     """One frame of this rank's slice of the batch: `step_frame_batched`
     on it, or on a mesh with y > 1 or x > 1 each instance's frame on this
-    rank's block (`spatial.Blocks` over "y" and "x", which refuses what
-    it does not run)."""
+    rank's block (`spatial.Blocks` over "y" and "x": its solve the JAX
+    frame's, MG through P5, IC(0) through P6, Jacobi and none through
+    P4; it refuses what it does not run)."""
     if not split_axes(mesh):
         def step(scn: Scenario, state: FluidState) -> FluidState:
             return step_frame_batched(cfg, scn, state)

@@ -35,21 +35,26 @@ exchanges columns):
     one row and one column (the RHS reads v of the row before and u of
     the column before, a_diag solid on all four sides, the face update p
     of the row and the column after), warm-started from the state's
-    pressure as `project()` is: with MG the solve is the JAX frame's, one
+    pressure as `project()` is.  The solve is the JAX frame's, the whole
+    grid's `pcg_loop` with its `_make_preconditioner`: with MG one
     Galerkin cycle over the whole grid's hierarchy (`spatial_mg.
-    solve_pressure_blocks`, P5), else P4 (`halo.
-    make_sharded_pressure_solver` over ("y", "x"): Jacobi, none);
+    solve_pressure_blocks`, P5), with IC(0) the whole grid's IC(0) swept
+    across the blocks in stages (`spatial_ic0.solve_pressure_blocks_ic0`,
+    P6), with Jacobi or none P4 over ("y", "x") with that preconditioner
+    (`pcg_shard_kernel.solve_pressure_sharded`; not `halo.
+    make_sharded_pressure_solver`, which runs Jacobi for "none", as
+    halo.py does);
   * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
     dt, `active` and the frame's counts are the same on every block.
-Refused, each naming its ROADMAP item: IC(0) (the JAX spatial step runs
-a global IC(0) sweep under GSPMD, a sweep across the blocks in order),
-rainbow colour and the global marker layout (M12 part d); f64 MG (M15);
-RB-GS and rediscretized MG (M14).
+Refused, each naming its ROADMAP item: rainbow colour and the global
+marker layout (M12 part d); f64 MG (M15); RB-GS and rediscretized MG
+(M14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -58,7 +63,10 @@ from euler_tpu_torch import sim
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
 from euler_tpu_torch.ops.cuda import grid_kernel
-from euler_tpu_torch.ops.cuda.pcg_shard_kernel import check_solver
+from euler_tpu_torch.ops.cuda.pcg_shard_kernel import (
+    check_solver,
+    solve_pressure_sharded,
+)
 from euler_tpu_torch.ops.cuda.source_kernel import emit_sources
 from euler_tpu_torch.ops.forces import max_speed_sq_parts
 from euler_tpu_torch.ops.project import (
@@ -75,7 +83,7 @@ from euler_tpu_torch.parallel.cuda_shard import (
     padded,
     split_columns,
 )
-from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
+from euler_tpu_torch.parallel.spatial_ic0 import solve_pressure_blocks_ic0
 from euler_tpu_torch.parallel.spatial_mg import make_block_mg_solver
 from euler_tpu_torch.parallel.mesh import (
     PART_D,
@@ -172,11 +180,6 @@ def check_block_frame(cfg: SimConfig) -> None:
         raise NotImplementedError(
             "rainbow colour on blocks (the colours' extrapolation and "
             f"advection on the padded block): {PART_D}")
-    if cfg.solver.preconditioner == "ic0":
-        raise NotImplementedError(
-            "the IC(0) preconditioner in the frame on blocks: the JAX "
-            "spatial step runs a global IC(0) sweep under GSPMD, which "
-            f"crosses the blocks in order; {PART_D}")
     # f64 MG (M15), RB-GS and rediscretized MG (M14)
     check_solver(cfg)
 
@@ -203,8 +206,10 @@ class Blocks:
         if self.mg:
             self.solve = make_block_mg_solver(cfg, self.comm, self.axes)
         else:
-            self.solve = make_sharded_pressure_solver(cfg, self.comm,
-                                                      self.axes, stats=True)
+            solve = (solve_pressure_blocks_ic0
+                     if cfg.solver.preconditioner == "ic0"
+                     else solve_pressure_sharded)
+            self.solve = functools.partial(solve, cfg, self.comm, self.axes)
         self.cfg_block = dataclasses.replace(cfg, ny=self.rows)
         self.cfg_h = dataclasses.replace(cfg, ny=self.rows + 2 * H)
         self.cfg_1 = dataclasses.replace(cfg, ny=self.rows + 2)

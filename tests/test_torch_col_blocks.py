@@ -26,7 +26,8 @@ drops equal, u and v within 1e-5, live positions within 1e-4.
   (d) one spawn of 4 gloo ranks (tests/torch_shard_ranks.py
       `col_frame_rank`): `spatial_mesh(4, x=2)` frames of the dam break,
       and `make_sharded_step` on `make_mesh(4, data=1, x=2)` with the
-      text and its mirror, each instance against JAX;
+      text and its mirror (the Jacobi, the global MG and the global
+      IC(0) solves), each instance against JAX;
   (e) `make_spatial_step_pallas` raises ValueError on x > 1, as the JAX
       package asserts (pallas_shard.py:146-148).
 """
@@ -362,6 +363,26 @@ def test_sharded_step_mg_on_y_and_x_matches_jax(gloo):
                    if k.startswith("mg_batch_")
                    and k not in ("mg_batch_layout", "mg_batch_calls")}
             assert_frame(cfg, got, want, 2e-3)
+
+
+def test_sharded_step_ic0_on_y_and_x_matches_jax(gloo):
+    """`make_sharded_step` on make_mesh(4, data=1, x=2) with the global
+    IC(0) solve (P6's plain version, once a block a substep, its sweeps
+    staged across the gloo ranks; no P4): each instance against JAX."""
+    cfg = ranks.TEXT_IC0_CFG
+    texts = (ranks.TEXT,
+             b"\n".join(r[::-1] for r in ranks.TEXT.split(b"\n")))
+    per = 2 * ranks.TEXT_STEPS * cfg.max_substeps
+    for i, text in enumerate(texts):
+        scn, st = build_scenario(text, cfg, device="cpu")
+        want = jax_frames(cfg, scn, st, ranks.TEXT_STEPS)
+        for g in gloo:
+            assert g["ic0_batch_layout"].tolist() == [1, 2, 2]
+            assert g["ic0_batch_calls"].tolist() == [per, 0]
+            got = {k[10:]: v[i] for k, v in g.items()
+                   if k.startswith("ic0_batch_")
+                   and k not in ("ic0_batch_layout", "ic0_batch_calls")}
+            assert_frame(cfg, got, want)
 
 
 def test_pallas_step_refuses_column_blocks():

@@ -43,6 +43,14 @@ The frame's global MG solve on blocks (P5, `parallel/spatial_mg.py`):
   * the 64² dam break on 2 x 2 blocks, card against CPU, 3 frames (P5
     launched once a block a substep, no plain version; at most 4 cells'
     counts apart, u and v within 2e-3).
+The frame's global IC(0) solve on blocks (P6, `parallel/spatial_ic0.py`):
+  * E_inv and one application on 2 x 2 and 4 x 1 blocks of the 256²
+    system bit for bit P2's, f64 and f32;
+  * on 1 x 1 blocks P1 + P2 bit for bit, cold and warm; on 2 x 2 blocks
+    iterations within 1, p within 1e-9 of scale; at 40 x 100 on 2 x 2
+    blocks the plain version on the same card tensors;
+  * the 64² IC(0) dam break on 2 x 2 blocks, card against CPU, 2 frames
+    (P6 launched once a block a substep, no plain version).
 The multi-rank exchange runs on gloo ranks (tests/test_torch_shard.py);
 the card's host has one card, so its NCCL run has one rank.
 
@@ -293,8 +301,12 @@ def _system(N, dtype, seed=0):
 
 
 def _blocks_solve(cfg, b, a, fl, n, device, x0=None):
+    """P4 itself (`solve_pressure_sharded`: its "none" is z = r, as the
+    frame on blocks runs it) on n row blocks on `device`."""
+    from euler_tpu_torch.ops.cuda.pcg_shard_kernel import (
+        solve_pressure_sharded,
+    )
     from euler_tpu_torch.parallel.comm import LocalGroup
-    from euler_tpu_torch.parallel.halo import make_sharded_pressure_solver
 
     Yl = b.shape[0] // n
 
@@ -302,8 +314,8 @@ def _blocks_solve(cfg, b, a, fl, n, device, x0=None):
         rows = slice(comm.rank("y") * Yl, (comm.rank("y") + 1) * Yl)
         cut = lambda t: None if t is None else (  # noqa: E731
             t[rows].to(device).contiguous())
-        solve = make_sharded_pressure_solver(cfg, comm, stats=True)
-        p, it, res = solve(cut(b), cut(a), cut(fl), cut(x0))
+        p, it, res = solve_pressure_sharded(cfg, comm, ("y",), cut(b),
+                                            cut(a), cut(fl), cut(x0))
         return p.cpu(), int(it), float(res)
 
     with LocalGroup(n, device=device) as g:
@@ -732,3 +744,164 @@ def test_p5_col_frame_card_vs_cpu():
     for name in ("u", "v"):
         assert float((getattr(got, name) - getattr(want, name)).abs()
                      .max()) <= 2e-3, name
+
+
+def _ic0_system(ny, nx=None, dtype="float64"):
+    """(cfg, b, a_diag, fluid, p0) on the card: a substep's own system of
+    the dam break at ny x nx, 3 frames on, under the golden
+    configuration's solve with IC(0) (f64, cap 400; P1 + P2), in `dtype`
+    (the RHS of the advected velocities; the state's pressure, masked)."""
+    from euler_tpu_torch.ops.cuda.grid_kernel import grid_stage_plain
+    from euler_tpu_torch.ops.project import (
+        divergence_rhs,
+        pressure_matrix_diag,
+    )
+
+    _card()
+    cfg = SimConfig(nx=nx or ny, ny=ny, marker_layout="slots",
+                    solver=SolverConfig(max_iterations=400, dtype="float64",
+                                        preconditioner="ic0"))
+    scn, st = dam_break(cfg, device="cuda")
+    for _ in range(3):
+        st = sim.step_frame(cfg, scn, st)
+    dt = sim._dt_from_msq(cfg, max_speed_sq(cfg, st.u, st.v),
+                          torch.full((), cfg.frame_time, device="cuda"))
+    ut, vt = grid_stage_plain(cfg, dt, st.u, st.v, st.fluid, st.prev_fluid,
+                              scn.solid)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, dtype=dtype))
+    t = getattr(torch, dtype)
+    b = divergence_rhs(cfg, ut, vt, st.fluid, dt).to(t)
+    a_diag = pressure_matrix_diag(cfg, scn.solid, st.fluid)
+    return cfg, b, a_diag, st.fluid, torch.where(st.fluid, st.p, 0.0).to(t)
+
+
+def _p6(cfg, y, x, fn, *planes):
+    """fn(comm, axes, *cuts) on y x x in-process blocks on the card, the
+    blocks' results gathered: [(every output of fn put together)]."""
+    from euler_tpu_torch.parallel.spatial_mg import gather_plane
+
+    def call(comm, cut, axes):
+        out = fn(comm, axes, *(None if t is None else t[cut].contiguous()
+                               for t in planes))
+        return tuple(gather_plane(t, comm, axes) if t.dim() == 2
+                     else t.item() for t in out)
+
+    return _p5_blocks(cfg, y, x, call)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("layout", [(2, 2), (4, 1)])
+def test_p6_sweeps_bitwise_p2(layout, dtype):
+    """P6's E_inv and one application on the blocks of the 256² system,
+    gathered, bit for bit P2's (`ic0_apply`)."""
+    from euler_tpu_torch.ops.cuda.pcg_general_kernel import ic0_apply
+    from euler_tpu_torch.parallel import spatial_ic0
+
+    cfg, b, a_diag, fl, _ = _ic0_system(256, dtype=dtype)
+    z2, e2 = ic0_apply(a_diag, fl, b, e_inv=True)
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    e_inv, z = _p6(cfg, *layout, lambda comm, axes, a, f, r:
+                   spatial_ic0.precondition_blocks(cfg, comm, axes, a, f, r),
+                   a_diag, fl, b)[0]
+    assert _build.LAUNCHES["P6"] == layout[0] * layout[1]
+    assert not _build.PLAIN_CALLS
+    assert bool(z2.abs().max() > 0)
+    assert torch.equal(e_inv, e2) and torch.equal(z, z2)
+
+
+def _p6_solve(cfg, b, a_diag, fl, y, x, x0=None):
+    from euler_tpu_torch.parallel import spatial_ic0
+
+    out = _p6(cfg, y, x, lambda comm, axes, *t:
+              spatial_ic0.solve_pressure_blocks_ic0(cfg, comm, axes, *t),
+              b, a_diag, fl, x0)
+    assert len({o[1:] for o in out}) == 1
+    return out[0]
+
+
+def test_p6_one_block_bitwise_p1_p2():
+    """P6 on 1 x 1 blocks is P1 + P2 bit for bit (p, iterations,
+    residual), cold and warm; on 2 x 2 blocks the iterations within 1 and
+    p within 1e-9 of scale; one P6 launch a block a solve, no plain
+    call."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    cfg, b, a_diag, fl, p0 = _ic0_system(256)
+    for x0 in (None, p0):
+        want = p12.solve_pressure_general(cfg, b, a_diag, fl, x0=x0)
+        _build.LAUNCHES.clear()
+        _build.PLAIN_CALLS.clear()
+        p, it, res = _p6_solve(cfg, b, a_diag, fl, 1, 1, x0)
+        assert _build.LAUNCHES["P6"] == 1 and not _build.PLAIN_CALLS
+        assert torch.equal(p, want[0]) and it == int(want[1]) > 1
+        assert res == float(want[2])
+        p, it, res = _p6_solve(cfg, b, a_diag, fl, 2, 2, x0)
+        assert _build.LAUNCHES["P6"] == 5
+        assert abs(it - int(want[1])) <= 1
+        scale = float(want[0].abs().max())
+        assert float((p - want[0]).abs().max()) <= 1e-9 * scale
+
+
+def test_p6_matches_plain_on_the_card():
+    """P6 against its plain version on the same card tensors at 40 x 100
+    on 2 x 2 blocks: iterations within 1, p within 1e-9 of scale."""
+    from euler_tpu_torch.parallel import spatial_ic0
+    from euler_tpu_torch.parallel.halo import pcg_sharded
+
+    cfg, b, a_diag, fl, _ = _ic0_system(40, 100)
+    got = _p6_solve(cfg, b, a_diag, fl, 2, 2)
+    want = _p6(cfg, 2, 2, lambda comm, axes, bb, a, f: pcg_sharded(
+        cfg, comm, axes, bb, a, f,
+        precon=spatial_ic0.block_ic0(cfg, comm, axes, a, f),
+        grid_order=True), b, a_diag, fl)[0]
+    assert abs(got[1] - want[1]) <= 1 and got[1] > 1
+    scale = float(want[0].abs().max())
+    assert float((got[0] - want[0]).abs().max()) <= 1e-9 * scale
+
+
+def test_p6_col_frame_card_vs_cpu():
+    """The 64² dam break with the global IC(0) solve (f64) on 2 x 2
+    in-process blocks, 2 frames: P6 on the card (launched once a block a
+    substep, no plain version) against its plain version on the CPU: at
+    most 4 cells' counts apart, the drops equal, u and v within 1e-4."""
+    from euler_tpu_torch.parallel.comm import LocalGroup
+    from euler_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        make_spatial_step,
+        shard_spatial,
+    )
+
+    _card()
+    cfg = SimConfig(nx=64, ny=64, marker_layout="slots", max_substeps=2,
+                    solver=SolverConfig(max_iterations=400,
+                                        dtype="float64",
+                                        preconditioner="ic0"))
+    scn, st = dam_break(cfg, device="cpu")
+
+    def run(device):
+        def rank(comm):
+            step = make_spatial_step(cfg, comm)
+            bs, b = shard_spatial(cfg, comm, scn, st)
+            for _ in range(2):
+                b = step(bs, b)
+            out = gather_spatial(cfg, comm, b)
+            return out.replace(**{f.name: getattr(out, f.name).cpu()
+                                  for f in dataclasses.fields(out)})
+
+        with LocalGroup(2, 2, device=device) as g:
+            return g.run(rank)[0]
+
+    _build.LAUNCHES.clear()
+    _build.PLAIN_CALLS.clear()
+    got = run("cuda")
+    assert _build.LAUNCHES["P6"] == 4 * 2 * cfg.max_substeps
+    assert _build.LAUNCHES["P4"] == 0 and not any(_build.PLAIN_CALLS.values())
+    want = run("cpu")
+    assert int((got.marker_count != want.marker_count).sum()) <= 4
+    for name in ("alive_count", "dropped_markers"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name in ("u", "v"):
+        assert float((getattr(got, name) - getattr(want, name)).abs()
+                     .max()) <= 1e-4, name

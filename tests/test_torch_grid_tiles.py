@@ -243,7 +243,8 @@ def _entries(source: str) -> dict:
     ("pcg_general_kernel.general_lib", "pcg_general.cu"),
     ("pcg_general_kernel.mg_lib", "pcg_mg.cu"),
     ("pcg_shard_kernel.shard_lib", "pcg_shard.cu"),
-    ("pcg_mg_blocks_kernel.blocks_lib", "pcg_mg_blocks.cu")])
+    ("pcg_mg_blocks_kernel.blocks_lib", "pcg_mg_blocks.cu"),
+    ("pcg_ic0_blocks_kernel.ic0_blocks_lib", "pcg_ic0_blocks.cu")])
 def test_bindings_match_the_sources(loader, source, monkeypatch):
     """Every entry a wrapper binds takes as many arguments in the CUDA
     source as its ctypes binding passes (ctypes passes what it is given:

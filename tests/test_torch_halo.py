@@ -14,6 +14,11 @@ its single-device pieces (the tolerances are stated at each check):
     JAX `pcg_loop` with JAX's `apply_a` and those cycles block by block
     (the composite reference) and against JAX `solve_pressure`, in under
     half of Jacobi's iterations (tests/test_halo.py:91-95);
+  * halo.py's rule: every preconditioner but "mg" runs the jnp-form
+    Jacobi (halo.py:136-139), so "none" and "ic0" are the port's
+    "jacobi" bit for bit, and each is held against JAX
+    `halo.make_sharded_pressure_solver` on a one-device mesh (the same
+    iterations, p within 1e-12 of scale; f64, tol 1e-6);
   * the exchanges against the global neighbours, zeros at the edges;
   * the refusals, each naming its ROADMAP item;
   * `ops/project.pcg_loop`'s `dot` and `inf_norm` hooks leave P1's plain
@@ -236,8 +241,9 @@ def test_block_mg_solve_matches_jax(gloo):
 
 
 def test_warm_start_and_none():
-    """A warm start from the exact pressure stops at once; "none" (z = r
-    on the fluid) converges to the same pressure."""
+    """A warm start from the exact pressure stops at once; "none" runs
+    halo.py's Jacobi (not z = r), so its cold solve is "jacobi"'s bit for
+    bit and converges to the exact pressure."""
     cfg = ranks.halo_config("none")
     exact = torch.tensor(_jax_solve("rows"))
 
@@ -250,14 +256,52 @@ def test_warm_start_and_none():
 
     out = _blocks((4, 1), rank)
     cold = _whole([o[0][0] for o in out], (4, 1))
+    jac = _solve_blocks(ranks.halo_config("jacobi"), "rows", (4, 1))
+    assert torch.equal(cold, jac[0]) and int(out[0][0][1]) == jac[1]
     np.testing.assert_allclose(cold.numpy(), exact.numpy(), atol=1e-8,
                                rtol=0)
     assert int(out[0][1][1]) == 0
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_one_device(precon):
+    """JAX `halo.make_sharded_pressure_solver` on a one-device ("y",) mesh
+    (f64, tol 1e-6): (p, iterations)."""
+    from jax.sharding import Mesh
+
+    from euler_tpu.parallel import halo as jhalo
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("y",))
+    cfg = jax_config(ranks.halo_config(precon, tol=1e-6), interpret=False)
+    p, iters, _ = jhalo.make_sharded_pressure_solver(cfg, mesh, stats=True)(
+        *_jax_system("rows", jnp.float64))
+    return np.asarray(p), int(iters)
+
+
+@functools.lru_cache(maxsize=None)
+def _tol6_solve(precon, which, shape):
+    return _solve_blocks(ranks.halo_config(precon, tol=1e-6), which, shape)
+
+
+@pytest.mark.parametrize("precon", ["jacobi", "none", "ic0"])
+def test_every_preconditioner_but_mg_runs_jacobi(precon):
+    """halo.py's rule (halo.py:136-139): "none" and "ic0" are the port's
+    "jacobi" bit for bit on 4 row blocks and 2 x 2 blocks; on one block
+    each takes JAX `halo.make_sharded_pressure_solver`'s iterations on a
+    one-device mesh, p within 1e-12 of its scale."""
+    for which, shape in (("rows", (4, 1)), ("blocks", (2, 2))):
+        got = _tol6_solve(precon, which, shape)
+        want = _tol6_solve("jacobi", which, shape)
+        assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    p, iters, _ = _tol6_solve(precon, "rows", (1, 1))
+    jp, jiters = _jax_one_device(precon)
+    assert iters == jiters > 1
+    np.testing.assert_allclose(p.numpy(), jp, rtol=0,
+                               atol=1e-12 * np.abs(jp).max())
+
+
 @pytest.mark.parametrize("over,item", [
     (dict(preconditioner="mg", dtype="float64"), "M15"),
-    (dict(preconditioner="ic0"), "M12 part d"),
     (dict(preconditioner="mg", dtype="float32", mg_smoother="rbgs"),
      "M14"),
 ])

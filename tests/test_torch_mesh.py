@@ -44,6 +44,7 @@ from euler_tpu.sim import step_frame as jstep_frame
 from euler_tpu_torch import convert, sim
 from euler_tpu_torch.core.presets import dam_break
 from euler_tpu_torch.ops.markers_slots import marker_pass_slots
+from euler_tpu_torch.parallel.comm import LocalGroup
 from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
 from euler_tpu_torch.parallel.dryrun import dryrun_multichip, launch
 from euler_tpu_torch.parallel.mesh import make_mesh
@@ -113,13 +114,14 @@ def test_refusals(run):
         assert "part d" in str(got["refuse_step"])
         assert "ValueError" in str(got["refuse_cuda"])
         assert "ValueError" in str(got["refuse_world"])
-    # the frame on blocks runs MG (the global cycle, P5); IC(0) on blocks
-    # stays refused
+    # the frame on blocks runs MG (the global cycle, P5) and IC(0) (the
+    # global sweeps, P6): the row-block step with IC(0) is built
     cfg = ranks.main_config(32, 32)
     ic0 = dataclasses.replace(cfg, solver=dataclasses.replace(
-        cfg.solver, preconditioner="ic0"))
-    with pytest.raises(NotImplementedError, match="IC\\(0\\).*part d"):
-        make_spatial_step_pallas(ic0, None)
+        cfg.solver, preconditioner="ic0", dtype="float64"))
+    with LocalGroup(2, device="cpu") as g:
+        steps = g.run(lambda comm: make_spatial_step_pallas(ic0, comm))
+    assert all(callable(step) for step in steps)
 
 
 def test_mesh_needs_an_initialised_group():

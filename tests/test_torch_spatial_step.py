@@ -132,8 +132,6 @@ ITEMS = {"f64 MG": "M15", "MG galerkin / rbgs": "M14"}
 @pytest.mark.parametrize("over,what", [
     (dict(solver=dataclasses.replace(ranks.TEXT_MG_CFG.solver,
                                      dtype="float64")), "f64 MG"),
-    (dict(solver=dataclasses.replace(ranks.TEXT_CFG.solver,
-                                     preconditioner="ic0")), "IC\\(0\\)"),
     (dict(rainbow=True), "rainbow"),
     (dict(marker_layout="global"), "global marker layout"),
     (dict(solver=dataclasses.replace(ranks.TEXT_MG_CFG.solver,
@@ -142,7 +140,8 @@ ITEMS = {"f64 MG": "M15", "MG galerkin / rbgs": "M14"}
 ])
 def test_frame_refusals(over, what):
     """What the frame on blocks refuses, each naming its ROADMAP item (the
-    global MG cycle runs: tests/test_torch_global_mg.py)."""
+    global MG cycle and the global IC(0) run: tests/test_torch_global_mg.py,
+    tests/test_torch_ic0_blocks.py)."""
     cfg = dataclasses.replace(ranks.TEXT_CFG, **over)
     item = ITEMS.get(what, "part d")
     with pytest.raises(NotImplementedError, match=f"{what}.*{item}"):

@@ -310,6 +310,9 @@ TEXT_STEPS = 3
 TEXT_MG_CFG = dataclasses.replace(TEXT_CFG, solver=SolverConfig(
     max_iterations=100, dtype="float32", tol_rel=1e-4, preconditioner="mg",
     warm_start=True, mg_min_size=8))
+# the text with the golden configuration's solve and IC(0) (f64, cap 400)
+TEXT_IC0_CFG = dataclasses.replace(TEXT_CFG, solver=SolverConfig(
+    max_iterations=400, dtype="float64", preconditioner="ic0"))
 
 
 def _frames(mesh, step_of) -> dict:
@@ -370,8 +373,9 @@ def col_frame_rank() -> dict:
     """On 4 gloo ranks, column blocks: `spatial.make_spatial_step` on
     `spatial_mesh(4, x=2)` (2 x 2 blocks of 32 x 32, `_frames`); and
     `mesh.make_sharded_step` on `make_mesh(4, data=1, x=2)` (y 2 x x 2:
-    blocks of 8 x 16, `_batch`), with the Jacobi solve (`batch_*`) and
-    with the global MG solve (TEXT_MG_CFG, `mg_batch_*`)."""
+    blocks of 8 x 16, `_batch`), with the Jacobi solve (`batch_*`), with
+    the global MG solve (TEXT_MG_CFG, `mg_batch_*`) and with the global
+    IC(0) solve (TEXT_IC0_CFG, `ic0_batch_*`)."""
     from euler_tpu_torch.parallel.spatial import make_spatial_step
 
     out = _frames(spatial_mesh(4, x=2, device="cpu"), make_spatial_step)
@@ -381,4 +385,8 @@ def col_frame_rank() -> dict:
     out.update(_batch(dmesh, TEXT_MG_CFG, "mg_batch"))
     out["mg_batch_calls"] = torch.tensor([_build.PLAIN_CALLS[k]
                                           for k in ("P5", "P4")])
+    _build.PLAIN_CALLS.clear()
+    out.update(_batch(dmesh, TEXT_IC0_CFG, "ic0_batch"))
+    out["ic0_batch_calls"] = torch.tensor([_build.PLAIN_CALLS[k]
+                                           for k in ("P6", "P4")])
     return out
