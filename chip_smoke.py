@@ -169,7 +169,27 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      dam break on 2 x 2 blocks, 2 frames, and on 4 x 1, 1 frame, against
      1 block (K1, K7, P6 once a block a substep, no P1, P4 or plain
      version; `frames_agree`); one cold solve of the 1024² system in f64
-     on 2 x 2 blocks, timed beside P1 + P2; last, P4's, P5's, P6's and
+     on 2 x 2 blocks, timed beside P1 + P2; then rainbow colour and the
+     global marker layout on 2 x 2 blocks (M12 part d): K7's
+     extrapolated form on the padded blocks at 1024², each block bitwise
+     its plain version and its four cropped outputs bitwise the
+     unsharded launch's, timed, and `advect_p` on the padded blocks
+     bitwise the whole plane's; the 1024² rainbow MG waterfall and dam
+     break (K1, S1, K7, P5) against 1 block, 2 frames timed after 1
+     warm-up frame on a copy of the start (`frames_agree`, colours
+     within 5e-3); the 1024² global dam
+     break with an f64 Jacobi solve (G1 and G2 on the gathered grid on
+     every block, K7, P4) against 1 block, likewise: 0 cells apart, the
+     store, alive mask, counts and RNG bitwise; G1 and G2 on the blocks'
+     state bitwise their plain versions, their 4 launches (the whole
+     grid's, each) on the device beside one launch; S1's global form on
+     the blocks of the 1024² global waterfall bitwise its plain version
+     and the whole grid's launch on each block's cells, timed; filter.txt
+     and waterfall.txt in the reference's configuration (global, rainbow,
+     `--no-pallas`) at 40 x 100 on 2 x 2 blocks, 3 frames, card against
+     CPU (counts, alive, store order, drops, RNG bitwise; velocities,
+     colours, positions within their tolerances); last, P4's, P5's,
+     P6's and
      P3's (and P1 + P2's) device time from one profiled solve each: a
      profiler session over the blocks' threads slowed later host
      launches, so nothing is timed after it;
@@ -582,6 +602,21 @@ KERNELS = {
            "grid's IC(0), in the frame on (y, x) blocks, "
            "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
            "GSPMD partitions; no pallas_call)"),
+    # rainbow colour and the global layout on blocks: a call is the 2 x 2
+    # blocks' launches at 1024²
+    "K7r": ("grid_stage_rainbow_2x2_blocks",
+            "euler_tpu_torch/csrc/grid_stage.cu",
+            "euler_tpu/ops/pallas/grid_kernel.py:205 (the grid stage with "
+            "the extrapolated velocities the colours are advected with, "
+            "euler_tpu/sim.py:164-183, in the frame on (y, x) blocks, "
+            "euler_tpu/parallel/mesh.py:89 make_sharded_step, which GSPMD "
+            "partitions)"),
+    "S1g": ("source_emission_global_2x2_blocks",
+            "euler_tpu_torch/csrc/sources.cu",
+            "euler_tpu/ops/markers.py:308 (update_fluid_sources in the "
+            "frame on (y, x) blocks of the global layout, "
+            "euler_tpu/parallel/mesh.py:89 make_sharded_step; jnp, no "
+            "pallas_call)"),
 }
 
 
@@ -845,6 +880,25 @@ def build_all():
                 log(f"     {entry.group(2)[:int(entry.group(1))]}:")
             elif "registers" in line or "spill" in line:
                 log(f"     {line.strip()}")
+
+
+def bound_fields(nbytes, flops, rate=None):
+    """`bound_ms` and `bound_by` of a call that moves `nbytes` and does
+    `flops` operations (f32 unless `rate` says otherwise)."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / (rate or F32_FLOP_PER_S)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def timed_pair(call, plain, plain_reps=REPS):
+    """(kernel ms, plain ms, log text): CUDA events in turns, plain,
+    kernel, kernel, plain, the best of each."""
+    t_p1, t_k1 = cuda_ms(plain, plain_reps), cuda_ms(call, REPS)
+    t_k2, t_p2 = cuda_ms(call, REPS), cuda_ms(plain, plain_reps)
+    return (min(t_k1, t_k2), min(t_p1, t_p2),
+            f"events {t_k1:.4f} / {t_k2:.4f} ms; plain {t_p1:.3f} / "
+            f"{t_p2:.3f} ms")
 
 
 def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
@@ -2808,11 +2862,14 @@ def block_spans(cfg, b, a_diag, fl, n, dev, x=1):
         return kernel_spans_ms(lambda: g.run(rank))
 
 
-def block_frames(cfg, scn, st, n, dev, warm: int, timed: int, x=1):
-    """`spatial.make_spatial_step` on n x x in-process blocks of (scn, st)
+def block_frames(cfg, scn, st, n, dev, warm: int, timed: int, x=1,
+                 rewind=False):
+    """`spatial.make_block_step` on n x x in-process blocks of (scn, st)
     on `dev`: `warm` frames, then `timed` frames with the launch counts
-    set to 0 just before and read just after.  Returns (the state put
-    together, ms a timed frame, launches, plain calls)."""
+    set to 0 just before and read just after; with `rewind` the warm
+    frames run on a copy of the blocks' states and the timed ones from
+    the start again.  Returns (the state put together, ms a timed frame,
+    launches, plain calls)."""
     import torch
 
     from euler_tpu_torch.ops.cuda import _build
@@ -2821,9 +2878,9 @@ def block_frames(cfg, scn, st, n, dev, warm: int, timed: int, x=1):
 
     cuda = torch.device(dev).type == "cuda"
     with LocalGroup(n, x, device=dev) as g:
-        made = g.run(lambda comm: (spatial.make_spatial_step(cfg, comm),
-                                   *spatial.shard_spatial(cfg, comm, scn,
-                                                          st)))
+        made = g.run(lambda comm: (spatial.make_block_step(cfg, comm),
+                                   *spatial.shard_blocks(cfg, comm, scn,
+                                                         st)))
         states = [m[2] for m in made]
 
         def advance(frames):
@@ -2835,7 +2892,14 @@ def block_frames(cfg, scn, st, n, dev, warm: int, timed: int, x=1):
                 states[comm.r] = b
             g.run(rank)
 
+        start = list(states)
+        if rewind:
+            states[:] = [b.replace(**{f.name: getattr(b, f.name).clone()
+                                      for f in dataclasses.fields(b)})
+                         for b in start]
         advance(warm)
+        if rewind:
+            states[:] = start
         if cuda:
             torch.cuda.synchronize()
         reset_counts()
@@ -2846,7 +2910,7 @@ def block_frames(cfg, scn, st, n, dev, warm: int, timed: int, x=1):
         ms = 1e3 * (time.perf_counter() - t0) / max(timed, 1)
         launches = dict(_build.LAUNCHES)
         plain = sum(_build.PLAIN_CALLS.values())
-        whole = g.run(lambda comm: spatial.gather_spatial(
+        whole = g.run(lambda comm: spatial.gather_blocks(
             cfg, comm, states[comm.r]))[0]
     return whole, ms, launches, plain
 
@@ -3256,19 +3320,6 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
         return [[block_with_halo(a, n, r, H, n, c) for a in arrays]
                 for r in range(n) for c in range(n)]
 
-    def bound(nbytes, flops):
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * flops / F32_FLOP_PER_S
-        return {"bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-    def timed(call, plain, plain_reps=REPS):
-        t_p1, t_k1 = cuda_ms(plain, plain_reps), cuda_ms(call, REPS)
-        t_k2, t_p2 = cuda_ms(call, REPS), cuda_ms(plain, plain_reps)
-        return (min(t_k1, t_k2), min(t_p1, t_p2),
-                f"events {t_k1:.4f} / {t_k2:.4f} ms; plain {t_p1:.3f} / "
-                f"{t_p2:.3f} ms")
-
     with Phase(f"K1, K7 and S1 on {n} x {n} blocks at {SIZE}² (blocks "
                f"padded with {H} rows and columns): each block's launch "
                "bitwise its plain version, the cropped outputs bitwise "
@@ -3290,7 +3341,7 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
                       "from its plain version")
                 check(torch.equal(a[crop], u_[(..., *col_cut(k, Yl, Xl))]),
                       f"K1 block {k}: {name} differs from the unsharded K1")
-        t_k, t_p, events = timed(k1_call, k1_plain, 2)
+        t_k, t_p, events = timed_pair(k1_call, k1_plain, 2)
         dev_ms = min(device_ms(k1_call, REPS) for _ in range(2))
         count = planes[5]
         live = sum(int(count[max(r * Yl - 1, 0):(r + 1) * Yl + 1,
@@ -3298,7 +3349,7 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
                    for r in range(n) for c in range(n))
         results["K1b"] = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
                           "max_abs_err": 0.0, "library_ms": None,
-                          **bound(*k1_blocks_bound(Yl, Xl, live, nb))}
+                          **bound_fields(*k1_blocks_bound(Yl, Xl, live, nb))}
         log(f"   K1 on {nb} blocks of [{2 * SLOTS}, {cfg_b.ny}, "
             f"{cfg_b.nx}]: bitwise; device {dev_ms:.4f} ms summed "
             f"(unsharded {results['K1'].get('device_ms', float('nan')):.4f}"
@@ -3320,11 +3371,11 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
                       "from its plain version")
                 check(torch.equal(a[crop], u_[col_cut(k, Yl, Xl)]),
                       f"K7 block {k}: {name} differs from the unsharded K7")
-        t_k, t_p, events = timed(k7_call, k7_plain)
+        t_k, t_p, events = timed_pair(k7_call, k7_plain)
         dev_ms = min(device_ms(k7_call, REPS) for _ in range(2))
         results["K7b"] = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
                           "max_abs_err": 0.0, "library_ms": None,
-                          **bound(*k7_blocks_bound(Yl, Xl, nb, True))}
+                          **bound_fields(*k7_blocks_bound(Yl, Xl, nb, True))}
         log(f"   K7 on {nb} blocks of [{cfg_b.ny}, {cfg_b.nx}]: bitwise; "
             f"device {dev_ms:.4f} ms summed (unsharded "
             f"{results['K7'].get('device_ms', float('nan')):.4f}); "
@@ -3380,12 +3431,12 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
         holding = sorted({divmod(int(y) // wYl * n + int(x) // wXl, n)
                           for y, x in wscn.source_yx.tolist()})
         k_blks, p_blks = s1_blocks(), s1_blocks()
-        t_k, t_p, events = timed(lambda: s1_call(s1.emit_sources, k_blks),
-                                 lambda: s1_call(source_pass_slots, p_blks),
-                                 1)
+        t_k, t_p, events = timed_pair(
+            lambda: s1_call(s1.emit_sources, k_blks),
+            lambda: s1_call(source_pass_slots, p_blks), 1)
         results["S1b"] = {"ms": t_k, "plain_ms": t_p, "max_abs_err": 0.0,
                           "library_ms": None,
-                          **bound(*s1_blocks_bound(wscn.num_sources,
+                          **bound_fields(*s1_blocks_bound(wscn.num_sources,
                                                    emitted, nb))}
         log(f"   S1 on {nb} blocks of the {SIZE}² waterfall "
             f"({wscn.num_sources} sources in blocks {holding} (row, "
@@ -3425,7 +3476,8 @@ def run_col_blocks(results, summaries, launches, dev, shared) -> None:
         summary["p4_jacobi"] = {f"blocks_{n}x{n}": row}
         results["P4b"] = {"ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
                           "library_ms": None,
-                          **bound(*BOUNDS["P4"](cfg.ny * cfg.nx, it, 0))}
+                          **bound_fields(*BOUNDS["P4"](cfg.ny * cfg.nx, it,
+                                                       0))}
         rows_ms = summaries["row_blocks"]["p4_jacobi"][f"blocks_{ROW_N}"][
             "ms"]
         log(f"   {n} x {n} blocks: {ms:.3f} ms a solve (CUDA events around "
@@ -4059,6 +4111,338 @@ def run_ic0_blocks(results, summaries, launches, dev, shared) -> None:
     summaries["ic0_blocks"] = summary
 
 
+# rainbow colour and the global marker layout on blocks (M12 part d)
+CG_FRAMES = 2        # frames (timed after ROW_WARMUP on a copy) of the
+#                      1024² rainbow and global frames on blocks
+CG_SMALL_FRAMES = 3  # frames of the 40 x 100 runs, card vs CPU
+# colours card vs CPU on the same blocks (the CPU tests' rainbow tolerance
+# against the JAX package)
+CG_COLOR_ATOL = 5e-3
+# live marker positions card vs CPU (the CPU tests' tolerance)
+CG_POS_ATOL = 1e-4
+WATERFALL_GLOBAL_1024 = ["scenarios/waterfall.txt", "--size", "1024x1024",
+                         "--no-pallas"]
+
+
+def color_diff(a, b) -> float:
+    """The largest difference of r, g and b between two states."""
+    return max(float((getattr(a, c).cpu() - getattr(b, c).cpu()).abs().max())
+               for c in ("r", "g", "b"))
+
+
+def run_color_global_blocks(results, summaries, launches, dev,
+                            shared) -> None:
+    """Rainbow colour and the global marker layout on 2 x 2 ("y", "x")
+    blocks (M12 part d), every block one thread of an in-process
+    `comm.LocalGroup`: K7's extrapolated form and `advect_p` on the
+    padded blocks at 1024²; the 1024² rainbow MG waterfall and dam break
+    and the 1024² global dam break (f64 Jacobi) against 1 block; G1 and
+    G2 as every block runs them; S1's global form on the blocks of the
+    1024² global waterfall; filter.txt and waterfall.txt in the
+    reference's configuration at 40 x 100, card against CPU."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.config import SimConfig, SolverConfig
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.advect import advect_p
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import global_marker_kernel as g12
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.ops.forces import max_speed_sq
+    from euler_tpu_torch.ops.markers import source_pass_global
+    from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
+
+    summary = {}
+    n = COL_N
+    nb = n * n
+    cfg, scn, st, dt = (shared[k] for k in ("cfg", "scn", "st", "dt"))
+    Yl, Xl = cfg.ny // n, cfg.nx // n
+    cfg_b = dataclasses.replace(cfg, ny=Yl + 2 * H, nx=Xl + 2 * H)
+    kw = [dict(clamp_ny=cfg.ny, row_offset=r * Yl - H, clamp_nx=cfg.nx,
+               col_offset=c * Xl - H) for r in range(n) for c in range(n)]
+    crop = (..., slice(H, H + Yl), slice(H, H + Xl))
+
+    def k7_plain(c, p, at):
+        uu, vv = k7.extrapolate_zero(c, *p, **at)
+        return (*k7.advect_forces(c, uu, vv, p[2], p[4], dt, **at), uu, vv)
+
+    with Phase(f"K7's extrapolated form and advect_p on {n} x {n} blocks "
+               f"at {SIZE}² (padded with {H} rows and columns): each "
+               "block's K7 bitwise its plain version, the cropped outputs "
+               "bitwise the unsharded launch's; timed"):
+        grid = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
+        k7b = [[block_with_halo(a, n, r, H, n, c) for a in grid]
+               for r in range(n) for c in range(n)]
+        whole = k7.grid_stage(cfg, *grid, dt, extrapolated=True)
+        call = lambda: [k7.grid_stage(  # noqa: E731
+            cfg_b, *p, dt, extrapolated=True, **kw[k])
+            for k, p in enumerate(k7b)]
+        plain = lambda: [k7_plain(cfg_b, p, kw[k])  # noqa: E731
+                         for k, p in enumerate(k7b)]
+        outs = call()
+        for k, (g, p) in enumerate(zip(outs, plain())):
+            for a, w_, u_, name in zip(g, p, whole,
+                                       ("ut", "vt", "uu", "vv")):
+                check(torch.equal(a, w_), f"K7 (extrapolated) block {k}: "
+                      f"{name} differs from its plain version")
+                check(torch.equal(a[crop], u_[col_cut(k, Yl, Xl)]),
+                      f"K7 (extrapolated) block {k}: {name} differs from "
+                      "the unsharded K7")
+        t_k, t_p, events = timed_pair(call, plain)
+        dev_ms = min(device_ms(call, REPS) for _ in range(2))
+        nbytes, flops = k7_blocks_bound(Yl, Xl, nb, True)
+        results["K7r"] = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+                          "max_abs_err": 0.0, "library_ms": None,
+                          **bound_fields(nbytes + 8 * nb * Yl * Xl, flops)}
+        log(f"   K7 (extrapolated: ut, vt, uu, vv) on {nb} blocks of "
+            f"[{cfg_b.ny}, {cfg_b.nx}]: bitwise; device {dev_ms:.4f} ms "
+            f"summed; {events}; bound {results['K7r']['bound_ms']:.4f} ms "
+            f"by {results['K7r']['bound_by']}")
+        # the colours: a seeded plane advected with K7's padded uu, vv
+        gen = torch.Generator(device=dev).manual_seed(11)
+        q = torch.rand((cfg.ny, cfg.nx), generator=gen, device=dev)
+        want = advect_p(cfg, q, whole[2], whole[3], st.fluid, dt)
+        for k, (o, p) in enumerate(zip(outs, k7b)):
+            r, c = divmod(k, n)
+            got = advect_p(cfg_b, block_with_halo(q, n, r, H, n, c), o[2],
+                           o[3], p[2], dt, **kw[k])
+            check(torch.equal(got[crop], want[col_cut(k, Yl, Xl)]),
+                  f"advect_p block {k}: differs from the whole plane's")
+        changed = int((want != q).sum())
+        check(changed > 0, "advect_p moved no colour")
+        log(f"   advect_p on the {nb} padded blocks: bitwise the whole "
+            f"plane's ({changed} cells changed)")
+        summary["k7_extrapolated"] = {"ms": t_k, "plain_ms": t_p,
+                                      "device_ms": dev_ms}
+
+    def blocks_vs_one(label, fcfg, fscn, fst, names, frames):
+        """`frames` frames on n x n blocks and on 1 block, each timed
+        after ROW_WARMUP frames on a copy of the start (the compared
+        frames are the first `frames`: the fold order of P4 and P5 on
+        blocks moves more cells apart the more frames run); checks every
+        kernel of `names` launched once a block a timed substep and no
+        plain version ran; returns (blocks' state, 1 block's, row)."""
+        per = nb * fcfg.max_substeps * frames
+        got, ms, got_l, plain = block_frames(fcfg, fscn, fst, n, dev,
+                                             ROW_WARMUP, frames, x=n,
+                                             rewind=True)
+        check(plain == 0 and all(got_l.get(k) == per for k in names),
+              f"{label} on {n} x {n} blocks: not one launch a block a "
+              f"substep: {got_l}, plain calls {plain}")
+        one, ms1, _, _ = block_frames(fcfg, fscn, fst, 1, dev, ROW_WARMUP,
+                                      frames, rewind=True)
+        for name in ("u", "v", "p", "r", "g", "b", "markers"):
+            check(bool(torch.isfinite(getattr(got, name)).all()),
+                  f"{label} on {n} x {n} blocks: {name} not finite")
+        d = frame_diff(got, one)
+        d.update(max_dcolor=color_diff(got, one), ms_per_frame=ms,
+                 ms_per_frame_1_block=ms1, launches=got_l)
+        log(f"   {label}: {n} x {n} blocks {ms:.1f} ms a frame, 1 block "
+            f"{ms1:.1f}; launches {got_l}; {d['count_cells']} of "
+            f"{d['cells']} cells' counts apart, max |du|, |dv| "
+            f"{d['max_dv']:.3g}, max |dr|, |dg|, |db| "
+            f"{d['max_dcolor']:.3g}; alive {d['alive']}")
+        return got, one, d
+
+    with Phase(f"the {SIZE}² rainbow MG waterfall and dam break on {n} x "
+               f"{n} blocks (K1, S1, K7's extrapolated form, P5), "
+               f"{CG_FRAMES} frames, against 1 block"):
+        wcfg, wscn, wst = cli_state(WATERFALL_MG_1024 + ["--rainbow"])
+        check(wcfg.rainbow and wcfg.solver.preconditioner == "mg",
+              f"the CLI's rainbow waterfall: {wcfg}")
+        dcfg = dataclasses.replace(main_config(SIZE), rainbow=True)
+        dscn, dst = dam_break(dcfg, device=dev)
+        # the waterfall's sources all lie in one block; the dam break's
+        # fluid and colours cross the blocks' edges from its first frame
+        for label, (fcfg, fscn, fst) in (
+                ("rainbow waterfall", (wcfg, wscn, wst)),
+                ("rainbow dam break", (dcfg, dscn, dst))):
+            names = ("K1", "S1", "K7", "P5") if fscn.num_sources else (
+                "K1", "K7", "P5")
+            got, one, d = blocks_vs_one(label, fcfg, fscn, fst, names,
+                                        CG_FRAMES)
+            check(frames_agree(d) and d["max_dcolor"] <= CG_COLOR_ATOL
+                  and not d["launches"].get("P4"),
+                  f"{label}, {n} x {n} blocks vs 1: {d}")
+            check(color_diff(got, fst) > 0.0,
+                  f"{label}: the colours did not move")
+            summary[label.replace(" ", "_") + "_1024"] = d
+        launches["K7r"] = summary["rainbow_waterfall_1024"]["launches"].get(
+            "K7", 0)
+        del got, one, wscn, wst, dscn, dst
+
+    with Phase(f"the {SIZE}² global dam break (f64 Jacobi, P4) on {n} x "
+               f"{n} blocks (G1 + G2 on the gathered grid on every block), "
+               f"{CG_FRAMES} frames, against 1 block; G1 and G2 as the "
+               "blocks run them, timed"):
+        gcfg = SimConfig(nx=SIZE, ny=SIZE,
+                         solver=SolverConfig(dtype="float64"))
+        gscn, gst = dam_break(gcfg, device=dev)
+        got, one, d = blocks_vs_one("global dam break", gcfg, gscn, gst,
+                                    ("G1", "G2", "K7", "P4"), CG_FRAMES)
+        check(not d["launches"].get("K1") and not d["launches"].get("S1"),
+              f"global dam break on blocks: {d['launches']}")
+        for name in ("marker_count", "alive", "alive_count",
+                     "dropped_markers", "rng"):
+            check(torch.equal(getattr(got, name).to(torch.int64),
+                              getattr(one, name).to(torch.int64)),
+                  f"global dam break, {n} x {n} blocks vs 1: {name} "
+                  "differs")
+        live = one.alive
+        dpos = float((got.markers[:, live] - one.markers[:, live]).abs()
+                     .max())
+        d.update(store_bitwise=bool(torch.equal(got.markers, one.markers)),
+                 max_dpos=dpos)
+        check(d["count_cells"] == 0 and d["store_bitwise"],
+              f"global dam break, {n} x {n} blocks vs 1: {d}")
+        log("   the store (bitwise), alive mask, counts, RNG: equal")
+        summary["global_dam_break_1024"] = d
+
+        # every block runs the whole grid's G1 and G2: one launch each
+        # against its plain version on this state, then the device time
+        # of the nb launches the blocks make against one launch's
+        gdt = sim._dt_from_msq(gcfg, max_speed_sq(gcfg, one.u, one.v),
+                               torch.full((), gcfg.frame_time, device=dev))
+        check_g1(gcfg, gscn, one, gdt, f"{SIZE}², the blocks' state")
+        marched, _ = g12.advect_global(gcfg, gscn, one, gdt)
+        check_g2(gcfg, gscn, marched, one.alive, f"{SIZE}², the blocks' "
+                 "state")
+        for name, kern in (
+                ("G1", lambda: g12.advect_global(gcfg, gscn, one, gdt)),
+                ("G2", lambda: g12.refresh_global(gcfg, gscn, marched,
+                                                  one.alive))):
+            call = lambda kern=kern: [kern() for _ in range(nb)]  # noqa
+            dev_b = min(device_ms(call, REPS) for _ in range(2))
+            dev_1 = min(device_ms(kern, REPS) for _ in range(2))
+            d[f"{name.lower()}_device_ms"] = {"blocks": dev_b,
+                                              "one_launch": dev_1}
+            log(f"   {name} as {nb} blocks run it (the whole grid's, "
+                f"{int(one.alive_count)} live markers): device "
+                f"{dev_b:.4f} ms the {nb} launches, one launch {dev_1:.4f} "
+                f"({dev_b / dev_1:.2f}x)")
+        del got, one, gscn, gst, marched
+
+    with Phase(f"S1's global form on {n} x {n} blocks of the {SIZE}² "
+               "global waterfall: every block's launch bitwise its plain "
+               "version and the whole grid's launch on its cells; timed"):
+        gwcfg, gwscn, gwst = cli_state(WATERFALL_GLOBAL_1024)
+        check(gwcfg.marker_layout == "global", f"{gwcfg.marker_layout}")
+        for _ in range(2):
+            gwst = sim.step_frame(gwcfg, gwscn, gwst)
+        ys = gwscn.source_yx[:, 0].long()
+        xs = gwscn.source_yx[:, 1].long()
+        counts = torch.where(gwscn.source_valid, gwst.marker_count[ys, xs],
+                             0).to(torch.int32)
+        act = torch.ones((), dtype=torch.bool, device=dev)
+        wYl, wXl = gwcfg.ny // n, gwcfg.nx // n
+        cuts = [col_cut(k, wYl, wXl) for k in range(nb)]
+        bscn = [dataclasses.replace(
+            gwscn, **{f: getattr(gwscn, f)[cut].contiguous()
+                      for f in ("solid", "source", "sink")}) for cut in cuts]
+        planes = ("marker_count", "r", "g", "b")
+
+        def s1_blocks():
+            return [gwst.replace(
+                **{f: getattr(gwst, f)[cut].clone() for f in planes},
+                **{f: getattr(gwst, f).clone() for f in
+                   ("markers", "alive", "rng", "alive_count",
+                    "source_exhausted")}) for cut in cuts]
+
+        def s1_call(fn, blks):
+            for k, blk in enumerate(blks):
+                fn(gwcfg, bscn[k], blk, act, cuts[k][0].start, counts,
+                   cuts[k][1].start)
+            return blks
+
+        whole_s1 = s1_copy(gwst)
+        s1.emit_sources(gwcfg, gwscn, whole_s1, act)
+        reset_counts()
+        got = s1_call(s1.emit_sources, s1_blocks())
+        check(_build.LAUNCHES["S1"] == nb and not _build.PLAIN_CALLS,
+              f"S1 global on blocks: {dict(_build.LAUNCHES)}")
+        want = s1_call(source_pass_global, s1_blocks())
+        for k, (g_, w_) in enumerate(zip(got, want)):
+            for f in S1_FIELDS:
+                a_, b_ = getattr(g_, f), getattr(w_, f)
+                full = getattr(whole_s1, f)
+                if f in planes:
+                    full = full[cuts[k]]
+                for other, what in ((b_, "its plain version"),
+                                    (full, "the whole grid's S1")):
+                    check(torch.equal(a_.to(torch.int64),
+                                      other.to(torch.int64))
+                          if f == "rng" else torch.equal(a_, other),
+                          f"S1 global block {k}: {f} differs from {what}")
+        emitted = int(whole_s1.alive_count) - int(gwst.alive_count)
+        check(emitted > 0, "S1 global on blocks: nothing emitted")
+        k_blks, p_blks = s1_blocks(), s1_blocks()
+        t_k, t_p, events = timed_pair(
+            lambda: s1_call(s1.emit_sources, k_blks),
+            lambda: s1_call(source_pass_global, p_blks), 1)
+        results["S1g"] = {"ms": t_k, "plain_ms": t_p, "max_abs_err": 0.0,
+                          "library_ms": None,
+                          **bound_fields(*s1_blocks_bound(
+                              gwscn.num_sources, emitted, nb))}
+        log(f"   S1 global on {nb} blocks of the {SIZE}² waterfall "
+            f"({gwscn.num_sources} sources, {emitted} emitted): bitwise its "
+            f"plain version and the whole grid's S1 on its cells; {events} "
+            f"the {nb} launches; bound {results['S1g']['bound_ms']:.3g} ms")
+        del gwscn, gwst, whole_s1, got, want, k_blks, p_blks
+        torch.cuda.empty_cache()
+
+    with Phase(f"filter.txt and waterfall.txt in the reference's "
+               f"configuration (global, rainbow, --no-pallas) at 40 x 100 "
+               f"on {n} x {n} blocks of 20 x 50, {CG_SMALL_FRAMES} frames: "
+               "card (kernels) vs CPU (plain versions) on the same blocks"):
+        s1_launches = 0
+        for name in ("filter", "waterfall"):
+            argv = [f"scenarios/{name}.txt", "--no-pallas", "--rainbow"]
+            fcfg, fscn, fst = cli_state(argv)
+            check(fcfg.marker_layout == "global" and fcfg.rainbow,
+                  f"{name}: {fcfg}")
+            cscn, cst = to_cpu(fscn, fst)
+            got, _, got_l, plain = block_frames(fcfg, fscn, fst, n, dev, 0,
+                                                CG_SMALL_FRAMES, x=n)
+            want, _, _, _ = block_frames(fcfg, cscn, cst, n, "cpu", 0,
+                                         CG_SMALL_FRAMES, x=n)
+            names = ("G1", "G2", "K7", "P4") + (
+                ("S1",) if fscn.num_sources else ())
+            check(plain == 0 and all(got_l.get(k, 0) > 0 for k in names),
+                  f"{name} 40 x 100 on blocks: launches {got_l}, plain "
+                  f"calls {plain}")
+            for f in ("marker_count", "alive", "alive_count",
+                      "dropped_markers", "rng"):
+                check(torch.equal(getattr(got, f).cpu().to(torch.int64),
+                                  getattr(want, f).to(torch.int64)),
+                      f"{name} 40 x 100 on blocks: {f} differs card vs "
+                      "CPU")
+            dv = max(float((got.u.cpu() - want.u).abs().max()),
+                     float((got.v.cpu() - want.v).abs().max()))
+            dc = color_diff(got, want)
+            live = want.alive
+            dpos = float((got.markers.cpu()[:, live]
+                          - want.markers[:, live]).abs().max())
+            log(f"   {name}: counts, alive, store order, drops, RNG bitwise "
+                f"card vs CPU; max |du|, |dv| {dv:.3g} (atol "
+                f"{ROW_SMALL_ATOL}), max |dr|, |dg|, |db| {dc:.3g} (atol "
+                f"{CG_COLOR_ATOL}), live positions {dpos:.3g} (atol "
+                f"{CG_POS_ATOL}); alive_count {int(want.alive_count)}; "
+                f"launches {got_l}")
+            check(dv <= ROW_SMALL_ATOL and dc <= CG_COLOR_ATOL
+                  and dpos <= CG_POS_ATOL,
+                  f"{name} 40 x 100 on blocks, card vs CPU: |dv| {dv:.3g}, "
+                  f"|dc| {dc:.3g}, |dpos| {dpos:.3g}")
+            summary[f"{name}_40x100"] = {"max_dv": dv, "max_dcolor": dc,
+                                         "max_dpos": dpos,
+                                         "launches": got_l}
+            s1_launches += got_l.get("S1", 0)
+        launches["S1g"] = s1_launches
+        log(f"   nvidia-smi: {smi_line()}")
+    summaries["color_global_blocks"] = summary
+
+
 def run_block_profiles(results, summaries, shared, dev) -> None:
     """P4's device time a solve of the 1024² substep system on 1, 2 and 4
     row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi), P5's
@@ -4506,6 +4890,8 @@ def run(args) -> dict:
     run_global_mg_blocks(results, summaries, launches, dev, shared)
 
     run_ic0_blocks(results, summaries, launches, dev, shared)
+
+    run_color_global_blocks(results, summaries, launches, dev, shared)
 
     run_block_profiles(results, summaries, shared, dev)
     del shared

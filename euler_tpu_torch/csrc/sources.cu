@@ -33,18 +33,22 @@
 // in index order.  The block first finds the first S free slots (a scan
 // of the alive mask in chunks of the block's width, stopping once it has
 // S), slot 0 standing in for any it does not find (jnp.nonzero's
-// padding, markers.py:384-387), into a scratch list.
+// padding, markers.py:384-387), into a scratch list.  On a block of the
+// grid it takes the same offsets and counts_in as the slot form: every
+// block holds the whole store, in marker order, so every block appends
+// the same markers to the same slots, and writes colours and counts only
+// at its own cells.
 //
 // On a block of a grid split over ranks (parallel/spatial.py) the planes
 // are the block's Y rows and X columns, grid rows row_offset ..
 // row_offset + Y - 1 and columns col_offset .. col_offset + X - 1, and
 // `counts_in` holds every source cell's count, all-reduced over the
 // blocks: the walk reads those, so every block draws the same jitters and
-// keeps the same alive_count and exhausted flag, and writes colours,
-// markers, alive bits and counts only where the source's row and column
-// both lie in the block, at its local cell (y - row_offset) X + (x -
-// col_offset).  With both offsets 0, the whole plane and counts_in null
-// the pass is the unsharded one.
+// keeps the same alive_count and exhausted flag, and writes colours and
+// counts (and in the slot form markers and alive bits) only where the
+// source's row and column both lie in the block, at its local cell (y -
+// row_offset) X + (x - col_offset).  With both offsets 0, the whole plane
+// and counts_in null the pass is the unsharded one.
 //
 // Everything is read from and written to the card in place: the store,
 // alive plane, counts and colour planes, the RNG state (uint32 [2], hi
@@ -174,12 +178,13 @@ __global__ void __launch_bounds__(kThreads) source_pass(SourceArgs a) {
 }
 
 struct GlobalArgs {
-  int S, M, X, per_cell;
+  int S, M, Y, X, per_cell, row_offset, col_offset;
   float q, h;
   const int32_t* __restrict__ source_yx;  // [S, 2] (y, x)
   const uint8_t* __restrict__ valid;      // [S]
   const uint8_t* __restrict__ active;     // scalar
   const int32_t* __restrict__ frame_count;
+  const int32_t* __restrict__ counts_in;  // [S] or null
   float* __restrict__ markers;            // [2, M]
   uint8_t* __restrict__ alive;            // [M]
   int32_t* __restrict__ count;            // [Y, X]
@@ -194,7 +199,9 @@ struct GlobalArgs {
 
 __global__ void __launch_bounds__(kThreads) source_pass_global(
     GlobalArgs a) {
-  __shared__ int32_t s_cell[kChunk];
+  __shared__ int32_t s_cell[kChunk];  // the local cell, -1: not the block's
+  __shared__ int32_t s_y[kChunk];     // the grid row and column
+  __shared__ int32_t s_x[kChunk];
   __shared__ int32_t s_count[kChunk];
   __shared__ uint8_t s_valid[kChunk];
   __shared__ int32_t s_warp[kThreads / 32];
@@ -244,12 +251,17 @@ __global__ void __launch_bounds__(kThreads) source_pass_global(
     const int n = min(kChunk, a.S - base);
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const int i = base + j;
-      const int cell = a.source_yx[2 * i] * a.X + a.source_yx[2 * i + 1];
+      const int y = a.source_yx[2 * i], x = a.source_yx[2 * i + 1];
+      const int ly = y - a.row_offset, lx = x - a.col_offset;
+      const int cell = ly * a.X + lx;
       const uint8_t ok = a.valid[i];
-      s_cell[j] = cell;
+      const bool mine = ly >= 0 && ly < a.Y && lx >= 0 && lx < a.X;
+      s_cell[j] = mine ? cell : -1;
+      s_y[j] = y;
+      s_x[j] = x;
       s_valid[j] = ok;
-      s_count[j] = ok ? a.count[cell] : 0;
-      if (ok) {
+      s_count[j] = !ok ? 0 : (a.counts_in ? a.counts_in[i] : a.count[cell]);
+      if (ok && mine) {
         a.r[cell] = cr;
         a.g[cell] = cg;
         a.b[cell] = cb;
@@ -263,13 +275,11 @@ __global__ void __launch_bounds__(kThreads) source_pass_global(
           const float ry = randf32(state);
           const float rx = randf32(state);
           const int cell = s_cell[j];
-          const int y = cell / a.X;
-          const int x = cell - y * a.X;
           const int slot = a.free_slot[rank];
-          a.markers[slot] = (static_cast<float>(x) + rx) * a.h;
-          a.markers[a.M + slot] = (static_cast<float>(y) + ry) * a.h;
+          a.markers[slot] = (static_cast<float>(s_x[j]) + rx) * a.h;
+          a.markers[a.M + slot] = (static_cast<float>(s_y[j]) + ry) * a.h;
           a.alive[slot] = 1;
-          a.count[cell] = c + 1;
+          if (cell >= 0) a.count[cell] = c + 1;
           rank += 1;
           ac += 1;
         }
@@ -290,10 +300,12 @@ __global__ void __launch_bounds__(kThreads) source_pass_global(
 
 // S1's global form: as eu_source_pass on the [2, M] store and [M] alive
 // mask (M = max_markers), free_slot an [S] i32 scratch.
-EU_API int eu_source_pass_global(int S, int M, int X, int per_cell, float q,
+EU_API int eu_source_pass_global(int S, int M, int Y, int X, int per_cell,
+                                 int row_offset, int col_offset, float q,
                                  float h, const void* source_yx,
                                  const void* valid, const void* active,
-                                 const void* frame_count, void* markers,
+                                 const void* frame_count,
+                                 const void* counts_in, void* markers,
                                  void* alive, void* count, void* r, void* g,
                                  void* b, void* rng, void* alive_count,
                                  void* exhausted, void* free_slot,
@@ -301,8 +313,12 @@ EU_API int eu_source_pass_global(int S, int M, int X, int per_cell, float q,
   GlobalArgs a{};
   a.S = S;
   a.M = M;
+  a.Y = Y;
   a.X = X;
   a.per_cell = per_cell;
+  a.row_offset = row_offset;
+  a.col_offset = col_offset;
+  a.counts_in = static_cast<const int32_t*>(counts_in);
   a.q = q;
   a.h = h;
   a.source_yx = static_cast<const int32_t*>(source_yx);

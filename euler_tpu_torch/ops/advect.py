@@ -67,14 +67,22 @@ def advect_v(cfg: SimConfig, u, v, fluid, dt, clamp_ny=None,
     return torch.where(mask, out, 0.0)
 
 
-def advect_p(cfg: SimConfig, q, u, v, fluid, dt):
+def advect_p(cfg: SimConfig, q, u, v, fluid, dt, clamp_ny=None,
+             row_offset: int = 0, clamp_nx=None, col_offset: int = 0):
     """main.c:424-438: advect a cell-centred quantity (the colours) with
-    the face-averaged velocity; non-fluid cells keep their value."""
-    xs, ys = _site_index_grids(cfg, q.dtype, q.device)
+    the face-averaged velocity; non-fluid cells keep their value.  On a
+    block padded with its neighbours' cells (`parallel/spatial.Blocks`)
+    `clamp_ny`, `row_offset`, `clamp_nx`, `col_offset` give its place in
+    the grid, as for `advect_u`; the face averages read the padded
+    plane's row and column before each cell."""
+    rows = dict(clamp_ny=clamp_ny, row_offset=row_offset, clamp_nx=clamp_nx,
+                col_offset=col_offset)
+    xs, ys = _site_index_grids(cfg, q.dtype, q.device, row_offset,
+                               col_offset)
     inv_h = 1.0 / cfg.side_length
     dy = (v + shift_down(v)) * 0.5
     dx = (u + shift_left(u)) * 0.5
     prev_x = xs - dx * dt * inv_h
     prev_y = ys - dy * dt * inv_h
-    out = interpolate_stencil(cfg, q, fluid, prev_x, prev_y, "p")
+    out = interpolate_stencil(cfg, q, fluid, prev_x, prev_y, "p", **rows)
     return torch.where(fluid, out, q)

@@ -48,7 +48,7 @@ def source_lib():
     lib = _build.load("sources", flags=["-fmad=false"])
     P, I, Fl = _build.PTR, _build.INT, _build.FLOAT
     _build.bind(lib, "eu_source_pass", [I] * 8 + [Fl, Fl] + [P] * 15)
-    _build.bind(lib, "eu_source_pass_global", [I] * 4 + [Fl, Fl] + [P] * 15)
+    _build.bind(lib, "eu_source_pass_global", [I] * 7 + [Fl, Fl] + [P] * 16)
     return lib
 
 
@@ -60,22 +60,19 @@ def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
     scalar tensor, or None for True) suppresses every emission when
     False; the colour pass runs regardless, as in the JAX package.
 
-    On a block (slot layout, `parallel/spatial.py`) the state and
-    scenario planes are the block's cells from grid row `row_offset` and
-    column `col_offset`, and `counts` ([S] int32) every source cell's
-    count, all-reduced over the blocks; cfg is the whole grid's."""
+    On a block (`parallel/spatial.py`) the state and scenario planes are
+    the block's cells from grid row `row_offset` and column `col_offset`,
+    and `counts` ([S] int32) every source cell's count, all-reduced over
+    the blocks; cfg is the whole grid's.  In the global layout the block
+    holds the whole store, to which it appends what every block
+    appends."""
     if scn.num_sources == 0:
         return
     slots = cfg.marker_layout == "slots"
-    if counts is not None and not slots:
-        raise ValueError("blocks need the slot layout")
     if state.markers.device.type == "cpu":
         _build.PLAIN_CALLS["S1"] += 1
-        if slots:
-            source_pass_slots(cfg, scn, state, active, row_offset, counts,
-                              col_offset)
-        else:
-            source_pass_global(cfg, scn, state, active)
+        plain = source_pass_slots if slots else source_pass_global
+        plain(cfg, scn, state, active, row_offset, counts, col_offset)
         return
     Y, X = ((cfg.ny, cfg.nx) if counts is None
             else tuple(state.marker_count.shape))
@@ -95,9 +92,8 @@ def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
         _build.require(state.frame_count, "frame_count", torch.int32, (),
                        dev),
     ]
-    if slots:
-        ptrs.append(None if counts is None else _build.require(
-            counts, "counts", torch.int32, (S,), dev))
+    ptrs.append(None if counts is None else _build.require(
+        counts, "counts", torch.int32, (S,), dev))
     ptrs += [
         _build.require(state.markers, "markers", f, (2,) + store, dev),
         _build.require(state.alive, "alive", torch.bool, store, dev),
@@ -123,7 +119,8 @@ def emit_sources(cfg: SimConfig, scn: Scenario, state: FluidState,
                                 _build.stream())
     else:
         free = torch.empty(S, dtype=torch.int32, device=dev)
-        rc = lib.eu_source_pass_global(S, cfg.max_markers, X,
-                                       cfg.markers_per_cell, q, h, *ptrs,
+        rc = lib.eu_source_pass_global(S, cfg.max_markers, Y, X,
+                                       cfg.markers_per_cell, row_offset,
+                                       col_offset, q, h, *ptrs,
                                        free.data_ptr(), _build.stream())
     _build.check(lib, rc, "eu_source_pass")

@@ -228,7 +228,8 @@ def advect_markers(cfg: SimConfig, scn: Scenario, state: FluidState, dt):
 
 
 def source_pass_global(cfg: SimConfig, scn: Scenario, state: FluidState,
-                       active=None) -> None:
+                       active=None, row_offset: int = 0, counts=None,
+                       col_offset: int = 0) -> None:
     """Source emission in the global layout (main.c:276-298), the plain
     version of S1's global form, as the JAX `update_fluid_sources`
     computes it, in place on the state's colour planes, store, alive
@@ -240,7 +241,13 @@ def source_pass_global(cfg: SimConfig, scn: Scenario, state: FluidState,
         exhausted or `active` is False, drawing the Y jitter before the X
         jitter; the emitted markers, in walk order, go to the first free
         slots of the store in index order (the first S free slots, slot 0
-        standing in where fewer are free, as jnp.nonzero pads)."""
+        standing in where fewer are free, as jnp.nonzero pads).
+    On a block (`parallel/spatial.py`) the planes are the block's cells
+    from grid row `row_offset` and column `col_offset` and `counts` every
+    source cell's count, all-reduced over the blocks: the walk reads
+    those, the whole store (which every block holds) takes every emitted
+    marker, and the block writes only its own cells' counts (S1's
+    global form on a block)."""
     from euler_tpu_torch.core.rng import randf32
     from euler_tpu_torch.ops.markers_slots import source_colours
 
@@ -254,7 +261,13 @@ def source_pass_global(cfg: SimConfig, scn: Scenario, state: FluidState,
     dev = state.r.device
     ys = scn.source_yx[:, 0].long()
     xs = scn.source_yx[:, 1].long()
-    counts = state.marker_count[ys, xs]
+    ly, lx, mine = ys, xs, None  # the sources' cells on the planes
+    if counts is None:
+        counts = state.marker_count[ys, xs]
+    else:
+        ly, lx = ys - row_offset, xs - col_offset
+        Yl, Xl = state.marker_count.shape
+        mine = (ly >= 0) & (ly < Yl) & (lx >= 0) & (lx < Xl)
     if active is None:
         active = torch.ones((), dtype=torch.bool, device=dev)
     lanes = state.rng.to(torch.int64)
@@ -283,7 +296,12 @@ def source_pass_global(cfg: SimConfig, scn: Scenario, state: FluidState,
     state.markers[0, slots] = torch.stack(pos_x)[can]
     state.markers[1, slots] = torch.stack(pos_y)[can]
     state.alive[slots] = True
-    state.marker_count[ys, xs] = counts + can.to(torch.int32)
+    if mine is not None:
+        # a block writes its own cells' counts only (a host read: the
+        # plain version runs on the CPU)
+        keep = mine.nonzero()[:, 0]
+        ly, lx, counts, can = ly[keep], lx[keep], counts[keep], can[keep]
+    state.marker_count[ly, lx] = counts + can.to(torch.int32)
     state.rng.copy_(lanes.to(torch.uint32))
     state.alive_count.copy_(alive_count)
     state.source_exhausted.copy_(exhausted)

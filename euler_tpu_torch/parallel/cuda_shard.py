@@ -172,16 +172,19 @@ def make_spatial_step_pallas(cfg: SimConfig, mesh, axis: str = "y"):
     K1 per block, its grid stage K7 and its solve the JAX step's on the
     blocks: P5 (MG, the whole grid's cycle), P6 (IC(0), the whole grid's
     sweeps in stages) or P4 (Jacobi, none).  Row
-    blocks only, as the JAX package asserts (pallas_shard.py:146-148):
-    ValueError on axis "x" or on a mesh with x > 1 (the column blocks
-    run through `spatial.make_spatial_step`)."""
+    blocks of the slot layout only, as the JAX package asserts
+    (pallas_shard.py:146-148, spatial.py:43): ValueError on axis "x", on
+    a mesh with x > 1 (the column blocks run through
+    `spatial.make_spatial_step`) or on the global layout."""
     from euler_tpu_torch.parallel.spatial import (
         check_block_frame,
+        check_slot_layout,
         make_spatial_step,
     )
 
     if axis != "y":
         raise ValueError(f"row blocks split 'y', not {axis!r}")
+    check_slot_layout(cfg)
     check_block_frame(cfg)
     if split_columns(as_comm(mesh)):
         raise ValueError("the pallas marker sharding is row-(y-)sharded: "

@@ -17,8 +17,10 @@ raises.
 `dryrun_multichip` runs the JAX dry run's paths (`__graft_entry__.py:
 26`) and asserts what it asserts, and more:
   1. the batch on `make_mesh`'s own layout (data = 2, y = 2 at 4 ranks;
-     data = 2, y = 2, x = 2 at 8): `make_sharded_step` steps each data
-     rank's instances on its block;
+     data = 2, y = 2, x = 2 at 8) in the global marker layout, as the JAX
+     run keeps it: `make_sharded_step` steps each data rank's instances
+     on its block, every block holding each instance's whole [2, M]
+     store;
   2. `spatial.make_spatial_step`, the whole frame on blocks (y = n, or
      y = n / 2 and x = 2);
   3. `cuda_shard.make_spatial_step_pallas` at nx = 128;
@@ -28,13 +30,11 @@ raises.
      `project_substep_mg`.
 Paths 1-3 are held to the unsharded frames (counts, alive and drops
 equal, u and v within FRAME_ATOL: the solve on blocks, P4, folds its
-sums in another order than K8).  Where the JAX run differs: its path 1
-keeps the global marker layout, whose [2, M] store the port does not
-split into blocks, so path 1 runs the slot layout (the global layout on
-blocks is ROADMAP M12 part d); and a block holds at least the marker
-pass's 8 halo rows and columns, so the grids have 8 rows a block.  Paths
-1 and 2 split columns as the JAX run does (`__graft_entry__.py:64-66`):
-x = 2 where the rank count is even and at least 8, else x = 1.
+sums in another order than K8).  Where the JAX run differs: a block
+holds at least the marker pass's 8 halo rows and columns, so the grids
+have 8 rows a block.  Paths 1 and 2 split columns as the JAX run does
+(`__graft_entry__.py:64-66`): x = 2 where the rank count is even and at
+least 8, else x = 1.
 """
 
 from __future__ import annotations
@@ -195,13 +195,13 @@ def _dryrun_rank(n: int, backend: str) -> dict:
 
     device = BACKEND_DEVICE[backend]
     x = column_split(n)
-    # 1. the batch on make_mesh's own layout (data x y x x): distinct
-    # scenarios (sources, solids), each data rank stepping its instances on
-    # its block
+    # 1. the batch on make_mesh's own layout (data x y x x), in the global
+    # marker layout (SimConfig's default): distinct scenarios (sources,
+    # solids), each data rank stepping its instances on its block
     mesh = make_mesh(n, x=x, device=device)
     data, ys = mesh.mesh.shape[0], mesh.mesh.shape[1]
     dev = mesh_device(mesh)
-    cfg = SimConfig(nx=16, ny=8 * ys, max_substeps=2, marker_layout="slots",
+    cfg = SimConfig(nx=16, ny=8 * ys, max_substeps=2,
                     solver=SolverConfig(max_iterations=8))
     texts = _texts(max(2, data), cfg.nx)
     scn, st = build_batch(texts, cfg, device=dev)
@@ -286,8 +286,8 @@ def dryrun_multichip(n: int, backend: str = "gloo") -> list[dict]:
     r0 = results[0]
     data, ys, x = (int(v) for v in r0["layout"])
     print(f"batch: {int(r0['batch'])} instances over data={data} x "
-          f"y={ys} x x={x}, {int(r0['frames'])} frames, the unsharded "
-          "batch's counts")
+          f"y={ys} x x={x}, global marker layout, {int(r0['frames'])} "
+          "frames, the unsharded batch's counts")
     print(f"spatial step: {16 * x} x {8 * (n // x)} on {n // x} x {x} "
           f"blocks, alive_count {int(r0['spatial_alive'])}, the unsharded "
           "frame's counts")

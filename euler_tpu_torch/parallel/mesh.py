@@ -14,9 +14,11 @@ with `parallel/batch.step_frame_batched`: the instances are independent,
 so the step needs no communication.  `gather_batch` all-gathers the
 slices over "data" for checks.  On a mesh whose "y" or "x" dimension is
 larger than 1 each rank also holds only its block of rows and columns of
-every instance, and `make_sharded_step` steps each instance of its slice
-with the frame on blocks (`parallel/spatial.Blocks`, the slot layout;
-the global layout on blocks is ROADMAP M12 part d).
+every instance's planes, and `make_sharded_step` steps each instance of
+its slice with the frame on blocks (`parallel/spatial.Blocks`).  The
+global layout's [2, M] store, [M] alive mask and RNG are split over
+"data" alone and held whole on every block, as the JAX package's
+`state_sharding` replicates them over "y" and "x" (mesh.py:70-74).
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from euler_tpu_torch.parallel.batch import step_frame_batched
 AXES = ("data", "y", "x")
 # the backend each device kind runs on; the caller initialises it
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
-PART_D = "ROADMAP M12 part d"
 
 
 def world(world_size: int | None, device: str) -> int:
@@ -98,10 +99,21 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device("cpu")
 
 
-# the fields whose last two dimensions are the grid's rows and columns
-STATE_PLANES = ("u", "v", "r", "g", "b", "markers", "alive", "marker_count",
-                "prev_marker_count", "p")
+# the fields whose last two dimensions are the grid's rows and columns:
+# the grid's planes, and the slot layout's spatial store
+GRID_PLANES = ("u", "v", "r", "g", "b", "marker_count", "prev_marker_count",
+               "p")
+STATE_PLANES = GRID_PLANES + ("markers", "alive")
 SCENARIO_PLANES = ("solid", "source", "sink")
+
+
+def state_planes(state: FluidState) -> tuple[str, ...]:
+    """The fields of `state` (one instance or a batch) that a block holds
+    its rows and columns of: STATE_PLANES with the slot layout's spatial
+    store ([.., 2, K, Y, X]), GRID_PLANES with a flat one (the global
+    layout's [.., 2, M], which every block holds whole)."""
+    spatial = state.markers.ndim == state.u.ndim + 2
+    return STATE_PLANES if spatial else GRID_PLANES
 
 
 def _slice(batch, lo: int, hi: int, device):
@@ -133,17 +145,26 @@ def gather_block(state: FluidState, gather, axes=("x", "y")) -> FluidState:
     """`state` with the blocks of each plane put together by
     `gather(t, dim, axis)` (a `Comm`'s, or an all-gather over a mesh
     dimension), over each of `axes` in turn: "x" joins columns (dim -1),
-    "y" rows (dim -2).  The one gather of `gather_batch` and
-    `spatial.gather_spatial`."""
+    "y" rows (dim -2).  A flat store (the global layout's) is this
+    block's, after a check that every block holds the same.  The one
+    gather of `gather_batch` and `spatial.gather_blocks`."""
     dims = {"y": -2, "x": -1}
+    planes = state_planes(state)
 
     def whole(t):
         for axis in axes:
             t = gather(t, dims[axis], axis)
         return t
 
+    if planes == GRID_PLANES:
+        for name in ("markers", "alive"):
+            every = getattr(state, name)[None]
+            for axis in axes:
+                every = gather(every, 0, axis)
+            if not all(torch.equal(every[0], e) for e in every[1:]):
+                raise ValueError(f"the blocks' global {name} differ")
     return state.replace(**{name: whole(getattr(state, name))
-                            for name in STATE_PLANES})
+                            for name in planes})
 
 
 def split_axes(mesh: DeviceMesh) -> tuple[str, ...]:
@@ -158,8 +179,9 @@ def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
     """This rank's slice of a stacked batch (`parallel/batch.py`):
     instances [d B/D, (d+1) B/D) for its coordinate d of the D along
     "data", on its device, and on a mesh with y > 1 or x > 1 its block of
-    rows and columns of each (the slot store as [B, 2, K, Yl, Xl]).  B
-    must divide by D, as in the JAX package."""
+    rows and columns of each plane (the slot store as [B, 2, K, Yl, Xl];
+    the global layout's [B, 2, M] store whole).  B must divide by D, as
+    in the JAX package."""
     n, d = axis_size(mesh, "data"), mesh.get_local_rank("data")
     B = state.u.shape[0]
     if B % n:
@@ -167,10 +189,6 @@ def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
     b = B // n
     dev = mesh_device(mesh)
     blocks = bool(split_axes(mesh))
-    if blocks and state.markers.ndim != 5:
-        raise NotImplementedError(
-            "a batch on blocks needs the slot layout's spatial store "
-            f"[B, 2, K, Y, X]; the global layout on blocks is {PART_D}")
     scn = _slice(scn, d * b, (d + 1) * b, dev)
     state = _slice(state, d * b, (d + 1) * b, dev)
     if blocks:
@@ -180,16 +198,17 @@ def shard_batch(mesh: DeviceMesh, scn: Scenario, state: FluidState):
         cols = block_span(X, axis_size(mesh, "x"), mesh.get_local_rank("x"),
                           "x")
         scn = cut_block(scn, SCENARIO_PLANES, rows, cols, dev)
-        state = cut_block(state, STATE_PLANES, rows, cols, dev)
+        state = cut_block(state, state_planes(state), rows, cols, dev)
     return scn, state
 
 
 def make_sharded_step(cfg: SimConfig, mesh: DeviceMesh):
     """One frame of this rank's slice of the batch: `step_frame_batched`
     on it, or on a mesh with y > 1 or x > 1 each instance's frame on this
-    rank's block (`spatial.Blocks` over "y" and "x": its solve the JAX
-    frame's, MG through P5, IC(0) through P6, Jacobi and none through
-    P4; it refuses what it does not run)."""
+    rank's block (`spatial.Blocks` over "y" and "x", either marker layout,
+    rainbow or not: its solve the JAX frame's, MG through P5, IC(0)
+    through P6, Jacobi and none through P4; it refuses what it does not
+    run)."""
     if not split_axes(mesh):
         def step(scn: Scenario, state: FluidState) -> FluidState:
             return step_frame_batched(cfg, scn, state)

@@ -27,7 +27,8 @@ drops equal, u and v within 1e-5, live positions within 1e-4.
       `col_frame_rank`): `spatial_mesh(4, x=2)` frames of the dam break,
       and `make_sharded_step` on `make_mesh(4, data=1, x=2)` with the
       text and its mirror (the Jacobi, the global MG and the global
-      IC(0) solves), each instance against JAX;
+      IC(0) solves, and the global marker layout in rainbow), each
+      instance against JAX;
   (e) `make_spatial_step_pallas` raises ValueError on x > 1, as the JAX
       package asserts (pallas_shard.py:146-148).
 """
@@ -383,6 +384,30 @@ def test_sharded_step_ic0_on_y_and_x_matches_jax(gloo):
                    if k.startswith("ic0_batch_")
                    and k not in ("ic0_batch_layout", "ic0_batch_calls")}
             assert_frame(cfg, got, want)
+
+
+def test_sharded_step_global_rainbow_on_y_and_x_matches_jax(gloo):
+    """`make_sharded_step` on make_mesh(4, data=1, x=2) in the global
+    marker layout in rainbow (the reference's configuration): every block
+    holds the whole [2, M] store and runs G1, G2 and S1's global form on
+    it (their plain versions, once a block a substep); each instance
+    against JAX, the store in marker order."""
+    cfg = ranks.TEXT_GLOBAL_CFG
+    texts = (ranks.TEXT,
+             b"\n".join(r[::-1] for r in ranks.TEXT.split(b"\n")))
+    per = 2 * ranks.TEXT_STEPS * cfg.max_substeps
+    for i, text in enumerate(texts):
+        scn, st = build_scenario(text, cfg, device="cpu")
+        want = jax_frames(cfg, scn, st, ranks.TEXT_STEPS)
+        for g in gloo:
+            assert g["global_batch_layout"].tolist() == [1, 2, 2]
+            assert g["global_batch_calls"].tolist() == [per] * 4
+            got = {k[13:]: v[i] for k, v in g.items()
+                   if k.startswith("global_batch_")
+                   and k not in ("global_batch_layout",
+                                 "global_batch_calls")}
+            assert_frame(cfg, got, want)
+        assert int(want["alive_count"]) > int(st.alive_count)
 
 
 def test_pallas_step_refuses_column_blocks():

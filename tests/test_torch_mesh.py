@@ -16,15 +16,18 @@ group (tests/torch_shard_ranks.py `mesh_rank`):
     iterations within 1);
   * the row-sharded marker pass inside `step_frame` on each rank's "y"
     of one rank: bitwise the frame without it, K1 once a substep;
-  * the refusals: `make_sharded_step` on a mesh with y > 1 in the global
-    marker layout names ROADMAP M12 part d (the frame on row blocks runs
-    the slot layout: tests/test_torch_spatial_step.py), a "cuda" mesh on
-    the gloo group and a world size the group does not have raise.
+  * `make_sharded_step` on a "y" of 2 ranks (blocks of 8 x 32) with the
+    same batch in the global marker layout: every block marches the
+    whole store; held to the unsharded batch (counts, alive, the store's
+    order, the RNG equal; u, v and live positions within 1e-4);
+  * the refusals: a "cuda" mesh on the gloo group and a world size the
+    group does not have raise.
 In process: the hook against JAX's `step_frame(..., marker_pass=)`
 (counts, alive, drops bitwise, u and v within 5e-3: tests/
-test_torch_sim.py's frame tolerances), and `make_spatial_step_pallas`'s
-refusal of IC(0) on row blocks (its MG runs: tests/test_torch_global_mg.
-py).  And one `dryrun_multichip(4, "gloo")`.
+test_torch_sim.py's frame tolerances), a block under the halo's 8 rows
+refused, and the row-block step with IC(0) built (its MG runs:
+tests/test_torch_global_mg.py).  And one `dryrun_multichip(4,
+"gloo")`.
 """
 
 import dataclasses
@@ -44,10 +47,12 @@ from euler_tpu.sim import step_frame as jstep_frame
 from euler_tpu_torch import convert, sim
 from euler_tpu_torch.core.presets import dam_break
 from euler_tpu_torch.ops.markers_slots import marker_pass_slots
+from euler_tpu_torch.parallel.batch import build_batch, step_frame_batched
 from euler_tpu_torch.parallel.comm import LocalGroup
 from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
 from euler_tpu_torch.parallel.dryrun import dryrun_multichip, launch
 from euler_tpu_torch.parallel.mesh import make_mesh
+from euler_tpu_torch.parallel.spatial import Blocks
 
 import torch_shard_ranks as ranks
 from torch_parity import jax_config, pallas_interpret
@@ -109,11 +114,30 @@ def test_sharded_marker_pass_in_the_frame(run):
 
 def test_refusals(run):
     for got in run:
-        assert "NotImplementedError" in str(got["refuse_step"])
-        assert "global marker layout" in str(got["refuse_step"])
-        assert "part d" in str(got["refuse_step"])
         assert "ValueError" in str(got["refuse_cuda"])
         assert "ValueError" in str(got["refuse_world"])
+    # the global layout on blocks runs: y = 2 held to the unsharded batch
+    scn, st = build_batch(ranks.DATA_TEXTS, ranks.DATA_CFG, device="cpu")
+    want = convert.state_to_numpy(step_frame_batched(ranks.DATA_CFG, scn,
+                                                     st))
+    for got in run:
+        got = {k[7:]: v for k, v in got.items() if k.startswith("yblock_")}
+        for k in ("marker_count", "alive", "alive_count", "dropped_markers",
+                  "frame_count"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got["rng"].astype(np.int64),
+                                      want["rng"].astype(np.int64))
+        for k in ("u", "v"):
+            np.testing.assert_allclose(got[k], want[k], atol=1e-4, rtol=0,
+                                       err_msg=k)
+        live = want["alive"][:, None].repeat(2, 1)  # [B, 2, M]
+        np.testing.assert_allclose(got["markers"][live],
+                                   want["markers"][live], atol=1e-4, rtol=0)
+    assert int(want["alive_count"].sum()) > 0
+    # a block under the halo's 8 rows: DATA_CFG's 16 rows on 4 "y" blocks
+    with LocalGroup(4, device="cpu") as g:
+        with pytest.raises(RuntimeError, match="shallower"):
+            g.run(lambda comm: Blocks(ranks.DATA_CFG, comm))
     # the frame on blocks runs MG (the global cycle, P5) and IC(0) (the
     # global sweeps, P6): the row-block step with IC(0) is built
     cfg = ranks.main_config(32, 32)

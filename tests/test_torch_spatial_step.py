@@ -22,8 +22,11 @@ tests/test_torch_shard.py holds K1 to).
     tests/test_spatial.py:29-37's 32 x 16 text (a source, solids), 3
     frames; the 64² dam break on 4 blocks, bitwise the gloo ranks'
     counts; sources in every block of a 40 x 100 scenario, 2 frames;
-  * the refusals, each naming its ROADMAP item (M12 part d; f64 MG M15,
-    RB-GS M14), and what stays refused of column blocks
+  * the refusals, each naming its ROADMAP item (f64 MG M15, RB-GS M14),
+    the global layout refused by both steps with a ValueError naming the
+    JAX package's assert (spatial.py:43; `spatial.Blocks` runs it:
+    tests/test_torch_blocks_color_global.py), rainbow built and run by
+    both, and what stays refused of column blocks
     (tests/test_torch_col_blocks.py runs them): a block narrower than the
     halo, the pallas step on x > 1.
 """
@@ -125,8 +128,13 @@ def test_sources_in_every_block():
     _assert_frame(cfg, got, _jax_frames(cfg, scn, st, 2))
 
 
-# the ROADMAP item each refusal names, where it is not M12 part d
-ITEMS = {"f64 MG": "M15", "MG galerkin / rbgs": "M14"}
+# what each refusal raises and names: the ROADMAP item, or the JAX
+# package's assert that spatial sharding keeps the slot layout
+REFUSED = {"f64 MG": (NotImplementedError, "f64 MG.*M15"),
+           "MG galerkin / rbgs": (NotImplementedError,
+                                  "MG galerkin / rbgs.*M14"),
+           "global marker layout": (
+               ValueError, "slot markers.*euler_tpu/parallel/spatial.py:43")}
 
 
 @pytest.mark.parametrize("over,what", [
@@ -139,14 +147,29 @@ ITEMS = {"f64 MG": "M15", "MG galerkin / rbgs": "M14"}
      "MG galerkin / rbgs"),
 ])
 def test_frame_refusals(over, what):
-    """What the frame on blocks refuses, each naming its ROADMAP item (the
-    global MG cycle and the global IC(0) run: tests/test_torch_global_mg.py,
-    tests/test_torch_ic0_blocks.py)."""
+    """What the frame on blocks refuses, each naming its ROADMAP item or
+    the JAX assert (the global MG cycle and the global IC(0) run:
+    tests/test_torch_global_mg.py, tests/test_torch_ic0_blocks.py); and
+    rainbow, which both steps build and run on 2 row blocks."""
     cfg = dataclasses.replace(ranks.TEXT_CFG, **over)
-    item = ITEMS.get(what, "part d")
-    with pytest.raises(NotImplementedError, match=f"{what}.*{item}"):
+    if what == "rainbow":
+        scn, st = build_scenario(ranks.TEXT, cfg, device="cpu")
+
+        def rank(comm):
+            out = []
+            for make in (spatial.make_spatial_step,
+                         make_spatial_step_pallas):
+                bscn, b = spatial.shard_spatial(cfg, comm, scn, st)
+                out.append(int(make(cfg, comm)(bscn, b).frame_count))
+            return out
+
+        with LocalGroup(2, device="cpu") as g:
+            assert g.run(rank) == [[1, 1]] * 2
+        return
+    exc, match = REFUSED[what]
+    with pytest.raises(exc, match=match):
         spatial.make_spatial_step(cfg, None)
-    with pytest.raises(NotImplementedError, match=f"{what}.*{item}"):
+    with pytest.raises(exc, match=match):
         make_spatial_step_pallas(cfg, None)
 
 

@@ -183,13 +183,20 @@ def jax_frames(cfg: SimConfig, scn, st, frames: int) -> dict:
             for f in dataclasses.fields(jst)}
 
 
+# how far rainbow colours may stray from the JAX package's
+# (tests/test_torch_sim_routes.py's rainbow tolerance)
+COLOR_ATOL = 5e-3
+
+
 def assert_frame(cfg: SimConfig, got: dict, want: dict,
                  atol: float = 1e-5) -> None:
     """A frame on blocks against JAX's (numpy dicts of the flat layout,
-    one instance): marker counts, the alive plane, alive_count, the drops
-    and the RNG equal; u and v within `atol` (1e-5; the converged MG
-    frames 2e-3); live marker positions within 1e-4 (XLA contracts the
-    JAX march's products into FMAs on the CPU)."""
+    one instance): marker counts, the alive plane (the global layout's
+    alive mask, in marker order), alive_count, the drops and the RNG
+    equal; u and v within `atol` (1e-5; the converged MG frames 2e-3);
+    live marker positions within 1e-4 (XLA contracts the JAX march's
+    products into FMAs on the CPU); with `cfg.rainbow` r, g and b within
+    COLOR_ATOL."""
     for name in ("marker_count", "alive", "alive_count", "dropped_markers",
                  "frame_count"):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
@@ -198,6 +205,16 @@ def assert_frame(cfg: SimConfig, got: dict, want: dict,
     for name in ("u", "v"):
         np.testing.assert_allclose(got[name], want[name], atol=atol, rtol=0,
                                    err_msg=name)
+    if cfg.rainbow:
+        for name in ("r", "g", "b"):
+            np.testing.assert_allclose(got[name], want[name],
+                                       atol=COLOR_ATOL, rtol=0, err_msg=name)
+    if cfg.marker_layout != "slots":
+        live = want["alive"]
+        np.testing.assert_allclose(got["markers"][:, live],
+                                   want["markers"][:, live], atol=1e-4,
+                                   rtol=0, err_msg="markers")
+        return
     K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
     assert_live_close(cfg, got["markers"].reshape(2 * K, Y, X),
                       want["markers"].reshape(2 * K, Y, X),
@@ -206,18 +223,18 @@ def assert_frame(cfg: SimConfig, got: dict, want: dict,
 
 def block_frames(cfg: SimConfig, scn, st, y: int, x: int,
                  frames: int) -> dict:
-    """`spatial.make_spatial_step` on y x x in-process blocks
+    """`spatial.make_block_step` on y x x in-process blocks
     (`comm.LocalGroup`) of (scn, st), `frames` frames; the whole state
     as numpy (flat layout)."""
     from euler_tpu_torch.parallel import spatial
     from euler_tpu_torch.parallel.comm import LocalGroup
 
     def rank(comm):
-        step = spatial.make_spatial_step(cfg, comm)
-        bscn, b = spatial.shard_spatial(cfg, comm, scn, st)
+        step = spatial.make_block_step(cfg, comm)
+        bscn, b = spatial.shard_blocks(cfg, comm, scn, st)
         for _ in range(frames):
             b = step(bscn, b)
-        return spatial.gather_spatial(cfg, comm, b)
+        return spatial.gather_blocks(cfg, comm, b)
 
     with LocalGroup(y, x, device="cpu") as g:
         return convert.state_to_numpy(g.run(rank)[0])

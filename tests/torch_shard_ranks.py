@@ -150,8 +150,9 @@ def mesh_rank() -> dict:
     """On a data-only mesh of 2 ranks: the data axis on tests/
     test_parallel.py's batch (gathered); each rank's dam break stepped
     with the row-sharded marker pass in `step_frame` on its "y" of one
-    rank, and without; K2 on each rank's instance with its inputs; and
-    the refusals, as their messages."""
+    rank, and without; K2 on each rank's instance with its inputs; the
+    same batch, in the global layout, on a "y" of 2 ranks (`yblock_*`);
+    and the refusals, as their messages."""
     n = 2
     dmesh = make_mesh(n, data=n, device="cpu")
     rank = dmesh.get_local_rank("data")
@@ -193,7 +194,11 @@ def mesh_rank() -> dict:
         ("u", "v", "iters", "resid", "msq", "p"), res)})
 
     ymesh = make_mesh(n, data=1, device="cpu")
-    out["refuse_step"] = _raises(lambda: make_sharded_step(DATA_CFG, ymesh))
+    scn, st = build_batch(DATA_TEXTS, DATA_CFG, device="cpu")
+    got = gather_batch(ymesh, make_sharded_step(DATA_CFG, ymesh)(
+        *shard_batch(ymesh, scn, st)))
+    out.update({f"yblock_{k}": v for k, v in
+                convert.state_to_numpy(got).items()})
     out["refuse_cuda"] = _raises(lambda: make_mesh(n, device="cuda"))
     out["refuse_world"] = _raises(lambda: make_mesh(n + 1, device="cpu"))
     out.update({f"layout_{k}": v for k, v in layouts(n).items()})
@@ -313,6 +318,10 @@ TEXT_MG_CFG = dataclasses.replace(TEXT_CFG, solver=SolverConfig(
 # the text with the golden configuration's solve and IC(0) (f64, cap 400)
 TEXT_IC0_CFG = dataclasses.replace(TEXT_CFG, solver=SolverConfig(
     max_iterations=400, dtype="float64", preconditioner="ic0"))
+# the text in the reference's own configuration: the global marker layout
+# (the JAX package's default) in rainbow
+TEXT_GLOBAL_CFG = dataclasses.replace(TEXT_CFG, marker_layout="global",
+                                      rainbow=True)
 
 
 def _frames(mesh, step_of) -> dict:
@@ -334,10 +343,12 @@ def _frames(mesh, step_of) -> dict:
     return out
 
 
-def _batch(dmesh, cfg: SimConfig = TEXT_CFG, name: str = "batch") -> dict:
+def _batch(dmesh, cfg: SimConfig = TEXT_CFG, name: str = "batch",
+           calls=()) -> dict:
     """`mesh.make_sharded_step` on `dmesh` stepping a batch of the text
     scenario and its mirror TEXT_STEPS frames under `cfg` (gathered:
-    `{name}_*`)."""
+    `{name}_*`), with the plain calls of the kernels `calls` in those
+    frames (`{name}_calls`)."""
     from euler_tpu_torch.core.scenario import build_scenario
     from euler_tpu_torch.parallel.batch import stack
     from euler_tpu_torch.parallel.spatial import to_spatial
@@ -346,11 +357,16 @@ def _batch(dmesh, cfg: SimConfig = TEXT_CFG, name: str = "batch") -> dict:
     pairs = [build_scenario(t, cfg, device="cpu")
              for t in (TEXT, b"\n".join(r[::-1] for r in TEXT.split(b"\n")))]
     scn2 = stack([p[0] for p in pairs])
-    st2 = stack([to_spatial(cfg, p[1]) for p in pairs])
+    st2 = stack([to_spatial(cfg, p[1]) if cfg.marker_layout == "slots"
+                 else p[1] for p in pairs])
     sscn, sst = shard_batch(dmesh, scn2, st2)
     step2 = make_sharded_step(cfg, dmesh)
+    _build.PLAIN_CALLS.clear()
     for _ in range(TEXT_STEPS):
         sst = step2(sscn, sst)
+    if calls:
+        out[f"{name}_calls"] = torch.tensor([_build.PLAIN_CALLS[k]
+                                             for k in calls])
     whole = gather_batch(dmesh, sst)
     out.update({f"{name}_{k}": torch.as_tensor(v) for k, v in
                 convert.state_to_numpy(whole).items()})
@@ -374,19 +390,17 @@ def col_frame_rank() -> dict:
     `spatial_mesh(4, x=2)` (2 x 2 blocks of 32 x 32, `_frames`); and
     `mesh.make_sharded_step` on `make_mesh(4, data=1, x=2)` (y 2 x x 2:
     blocks of 8 x 16, `_batch`), with the Jacobi solve (`batch_*`), with
-    the global MG solve (TEXT_MG_CFG, `mg_batch_*`) and with the global
-    IC(0) solve (TEXT_IC0_CFG, `ic0_batch_*`)."""
+    the global MG solve (TEXT_MG_CFG, `mg_batch_*`), with the global
+    IC(0) solve (TEXT_IC0_CFG, `ic0_batch_*`) and in the global marker
+    layout in rainbow (TEXT_GLOBAL_CFG, `global_batch_*`, with the plain
+    calls of G1, G2, S1 and K7)."""
     from euler_tpu_torch.parallel.spatial import make_spatial_step
 
     out = _frames(spatial_mesh(4, x=2, device="cpu"), make_spatial_step)
     dmesh = make_mesh(4, data=1, x=2, device="cpu")
     out.update(_batch(dmesh))
-    _build.PLAIN_CALLS.clear()
-    out.update(_batch(dmesh, TEXT_MG_CFG, "mg_batch"))
-    out["mg_batch_calls"] = torch.tensor([_build.PLAIN_CALLS[k]
-                                          for k in ("P5", "P4")])
-    _build.PLAIN_CALLS.clear()
-    out.update(_batch(dmesh, TEXT_IC0_CFG, "ic0_batch"))
-    out["ic0_batch_calls"] = torch.tensor([_build.PLAIN_CALLS[k]
-                                           for k in ("P6", "P4")])
+    out.update(_batch(dmesh, TEXT_MG_CFG, "mg_batch", ("P5", "P4")))
+    out.update(_batch(dmesh, TEXT_IC0_CFG, "ic0_batch", ("P6", "P4")))
+    out.update(_batch(dmesh, TEXT_GLOBAL_CFG, "global_batch",
+                      ("G1", "G2", "S1", "K7")))
     return out
