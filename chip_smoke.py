@@ -436,6 +436,9 @@ BOUNDS = {
     "P4": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
     # P3's work on the same grid, whatever layout computes it
     "P5": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
+    # block MG on a block: b f32, a_diag i32, fluid u8 in, p f32 out; a
+    # cycle an iteration (K3's operations a cell)
+    "P4o": lambda n, iters, live: (13 * n, MG_FLOPS * iters * n),
     # P1 + P2's on the same grid (f64: b, a_diag i32, fluid u8 in; p out),
     # a loop iteration and an IC(0) application an iteration; its
     # dependent diagonal steps are logged beside it
@@ -464,19 +467,20 @@ def k7_blocks_bound(rows: int, cols: int, n: int, split: bool):
 
 
 def k1_blocks_bound(rows: int, cols: int, live: int, n: int,
-                    k: int = SLOTS):
-    """(bytes, operations) of K1 on n column blocks of rows x cols cells,
-    `live` the live markers of the blocks' one-cell rings summed: each
+                    k: int = SLOTS, split: bool = True):
+    """(bytes, operations) of K1 on n blocks of rows x cols cells (column
+    blocks; row blocks without `split`), `live` the live markers of the
+    blocks' one-cell rings summed: each
     block reads what its own cells' arrivals depend on (the markers homed
     one cell around them, their positions and counts; u, v and solid
     within their 3x3 windows, 2 cells around; fluid 2 before and 3 after
     for the u/v properties; dead on its own cells) and writes its own
     cells' store, count and drop once; every live marker of a ring is
     marched."""
-    nbytes = n * (8 * window(rows, cols, 2, 2, True)
-                  + window(rows, cols, 2, 3, True)
-                  + window(rows, cols, 2, 2, True)
-                  + 4 * window(rows, cols, 1, 1, True)
+    nbytes = n * (8 * window(rows, cols, 2, 2, split)
+                  + window(rows, cols, 2, 3, split)
+                  + window(rows, cols, 2, 2, split)
+                  + 4 * window(rows, cols, 1, 1, split)
                   + rows * cols * (1 + 8 * k + 8)) + 8 * live
     return nbytes, MARKER_FLOPS * live
 
@@ -592,6 +596,42 @@ KERNELS = {
            "whole grid's W-cycle, in the frame on (y, x) blocks, "
            "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
            "GSPMD partitions; no pallas_call)"),
+    # MG on blocks of an odd side: a call of K1, K7, S1 is the 8 row blocks'
+    # launches of 1080 x 1920 (135 rows, odd row offsets), of P5 one warm
+    # solve of the 8 blocks, gathering at level 0; launches from the 2 timed
+    # frames of the 1080 x 1920 MG waterfall on the 8 blocks
+    "K1o": ("marker_pass_8_odd_row_blocks",
+            "euler_tpu_torch/csrc/marker_pass.cu",
+            "euler_tpu/ops/pallas/marker_fused_kernel.py:941 "
+            "(march_rebin_pallas with clamp_ny / row_offset, a launch per "
+            "row block of the frame on blocks, "
+            "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
+            "GSPMD partitions)"),
+    "K7o": ("grid_stage_8_odd_row_blocks",
+            "euler_tpu_torch/csrc/grid_stage.cu",
+            "euler_tpu/ops/pallas/grid_kernel.py:205 (the grid stage of the "
+            "frame on blocks, euler_tpu/parallel/spatial.py:113 "
+            "make_spatial_step, which GSPMD partitions)"),
+    "S1o": ("source_emission_8_odd_row_blocks",
+            "euler_tpu_torch/csrc/sources.cu",
+            "euler_tpu/ops/markers_slots.py:415 (update_fluid_sources_slots "
+            "in the frame on blocks, a lax.scan, no pallas_call)"),
+    "P5o": ("global_mg_pcg_8_odd_row_blocks_gather_0",
+            "euler_tpu_torch/csrc/pcg_mg_blocks.cu",
+            "euler_tpu/ops/project.py:115 (pcg_loop with "
+            "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, the "
+            "whole grid's W-cycle on levels padded at :332-352, in the "
+            "frame on blocks, euler_tpu/parallel/spatial.py:113 "
+            "make_spatial_step, which GSPMD partitions; no pallas_call)"),
+    # halo.py's block MG on 8 row blocks of 1080 x 1920, each block's level
+    # 0 padded to 136 rows: a call is one cold solve of the 8 blocks;
+    # launches from that solve and its warm-up
+    "P4o": ("sharded_block_mg_pcg_8_odd_row_blocks",
+            "euler_tpu_torch/csrc/pcg_shard.cu",
+            "euler_tpu/parallel/halo.py:88 (_pcg_sharded with the block MG "
+            "of :113-134, each block's hierarchy padded as "
+            "euler_tpu/ops/multigrid.py:332-352 pads it: pcg_loop under "
+            "shard_map, no pallas_call)"),
     # the frame's global IC(0) solve on blocks: a call is one cold solve of
     # the 40 x 100 system on 2 x 2 blocks; launches from the 2 frames of
     # the 256² IC(0) dam break on 2 x 2 blocks
@@ -2933,6 +2973,119 @@ def frames_agree(d: dict) -> bool:
             and d["max_dv"] <= ROW_FRAME_ATOL)
 
 
+def k7_row_blocks(cfg, grid, dt, n: int, label: str) -> dict:
+    """K7 on n row blocks of `grid` (u, v, fluid, prev_fluid, solid), each
+    padded with H rows (`block_with_halo`, row offsets r Yl - H): every
+    block's launch bitwise its plain version and its kept rows bitwise
+    the unsharded launch's; timed in turns, and the device ms summed
+    beside one unsharded launch's.  Returns the kernels-line row."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import grid_kernel as k7
+    from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
+
+    Y, X = cfg.ny, cfg.nx
+    Yl = Y // n
+    cfg_h = dataclasses.replace(cfg, ny=Yl + 2 * H)
+    blocks = [[block_with_halo(a, n, r) for a in grid] for r in range(n)]
+    kw = [dict(clamp_ny=Y, row_offset=r * Yl - H) for r in range(n)]
+    whole = k7.grid_stage(cfg, *grid, dt)
+
+    def call():
+        return [k7.grid_stage(cfg_h, *blocks[r], dt, **kw[r])
+                for r in range(n)]
+
+    def plain():
+        return [k7.grid_stage_plain(cfg_h, dt, *blocks[r], **kw[r])
+                for r in range(n)]
+
+    for r, (got, want) in enumerate(zip(call(), plain())):
+        for a, w_, u_, name in zip(got, want, whole, ("ut", "vt")):
+            check(torch.equal(a, w_), f"K7 block {r}: {name} differs from "
+                  "its plain version")
+            check(torch.equal(a[H:H + Yl], u_[r * Yl:(r + 1) * Yl]),
+                  f"K7 block {r}: {name} differs from the unsharded K7")
+    t_k, t_p, events = timed_pair(call, plain)
+    dev_ms = min(device_ms(call, REPS) for _ in range(2))
+    one_ms = min(device_ms(lambda: k7.grid_stage(cfg, *grid, dt), REPS)
+                 for _ in range(2))
+    row = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+           "device_ms_one_launch": one_ms, "max_abs_err": 0.0,
+           "library_ms": None,
+           **bound_fields(*k7_blocks_bound(Yl, X, n, False))}
+    log(f"   K7 on {n} blocks of [{cfg_h.ny}, {X}] at {label} (row offsets "
+        f"{[k['row_offset'] for k in kw]}): bitwise; device {dev_ms:.4f} ms "
+        f"summed against {one_ms:.4f} for one launch; {events}; bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+    return row
+
+
+def s1_row_blocks(cfg, scn, st, n: int, dev, label: str) -> dict:
+    """S1 on n row blocks of (scn, st), each with its row offset and the
+    [S] counts all-reduced as the frame gives them: every block's launch
+    bitwise its plain version and the unsharded S1's rows; timed in
+    turns (each call emits into the same blocks, so later calls find
+    fuller cells, as `time_s1`).  Returns the kernels-line row."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import source_kernel as s1
+    from euler_tpu_torch.ops.markers_slots import source_pass_slots
+
+    Yl = cfg.ny // n
+    ys = scn.source_yx[:, 0].long()
+    xs = scn.source_yx[:, 1].long()
+    counts = torch.where(scn.source_valid, st.marker_count[ys, xs],
+                         0).to(torch.int32)
+    act = torch.ones((), dtype=torch.bool, device=dev)
+    rows = [slice(r * Yl, (r + 1) * Yl) for r in range(n)]
+    bscn = [dataclasses.replace(
+        scn, **{k: getattr(scn, k)[rw].contiguous()
+                for k in ("solid", "source", "sink")}) for rw in rows]
+
+    def blocks():
+        return [st.replace(**{
+            k: getattr(st, k)[..., rw, :].clone(
+                memory_format=torch.contiguous_format)
+            for k in ("markers", "alive", "marker_count", "r", "g", "b")},
+            **{k: getattr(st, k).clone()
+               for k in ("rng", "alive_count", "source_exhausted")})
+            for rw in rows]
+
+    def emit(fn, blks):
+        for r, blk in enumerate(blks):
+            fn(cfg, bscn[r], blk, act, r * Yl, counts)
+        return blks
+
+    whole = s1_copy(st)
+    s1.emit_sources(cfg, scn, whole, act)
+    got = emit(s1.emit_sources, blocks())
+    want = emit(source_pass_slots, blocks())
+    for r, (g_, w_) in enumerate(zip(got, want)):
+        for k in S1_FIELDS:
+            a_, full = getattr(g_, k), getattr(whole, k)
+            if full.dim() >= 2:
+                full = full[..., rows[r], :]
+            for other, what in ((getattr(w_, k), "its plain version"),
+                                (full, "the unsharded S1")):
+                check(torch.equal(a_.to(torch.int64), other.to(torch.int64))
+                      if k == "rng" else torch.equal(a_, other),
+                      f"S1 block {r}: {k} differs from {what}")
+    emitted = int(whole.alive_count) - int(st.alive_count)
+    holding = sorted({int(y) // Yl for y in ys.tolist()})
+    k_blks, p_blks = blocks(), blocks()
+    t_k, t_p, events = timed_pair(lambda: emit(s1.emit_sources, k_blks),
+                                  lambda: emit(source_pass_slots, p_blks),
+                                  1)
+    row = {"ms": t_k, "plain_ms": t_p, "max_abs_err": 0.0,
+           "library_ms": None,
+           **bound_fields(*s1_blocks_bound(scn.num_sources, emitted, n))}
+    log(f"   S1 on {n} row blocks of {label} ({scn.num_sources} sources in "
+        f"blocks {holding}, {emitted} emitted): bitwise its plain version "
+        f"and the unsharded S1; {events} the {n} launches; bound "
+        f"{row['bound_ms']:.3g} ms")
+    return row
+
+
 def run_row_blocks(results, summaries, launches, dev) -> dict:
     """The frame on row blocks on the card (M12 part c: P4, K7 and S1 per
     row block, K1 per row shard), every block of a grid played by one
@@ -2948,13 +3101,9 @@ def run_row_blocks(results, summaries, launches, dev) -> dict:
     from euler_tpu_torch import sim
     from euler_tpu_torch.core.presets import dam_break
     from euler_tpu_torch.ops.cuda import _build
-    from euler_tpu_torch.ops.cuda import grid_kernel as k7
     from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
-    from euler_tpu_torch.ops.cuda import source_kernel as s1
-    from euler_tpu_torch.ops.markers_slots import source_pass_slots
     from euler_tpu_torch.ops.project import apply_a
     from euler_tpu_torch.parallel import halo, spatial
-    from euler_tpu_torch.parallel.cuda_shard import H, block_with_halo
 
     summary = {}
     cfg, scn, st, dt, planes = developed_planes(SIZE, dev)
@@ -3069,112 +3218,13 @@ def run_row_blocks(results, summaries, launches, dev) -> dict:
     with Phase(f"K7 and S1 per row block at {SIZE}²: each block's launch "
                "bitwise its plain version, the interiors bitwise the "
                "unsharded kernel; timed"):
-        Yl = SIZE // ROW_N
-        cfg_h = dataclasses.replace(cfg, ny=Yl + 2 * H)
         grid = (st.u, st.v, st.fluid, st.prev_fluid, scn.solid)
-        blocks = [[block_with_halo(a, ROW_N, r) for a in grid]
-                  for r in range(ROW_N)]
-        kw = [dict(clamp_ny=SIZE, row_offset=r * Yl - H)
-              for r in range(ROW_N)]
-        whole = k7.grid_stage(cfg, *grid, dt)
-        for r in range(ROW_N):
-            got = k7.grid_stage(cfg_h, *blocks[r], dt, **kw[r])
-            want = k7.grid_stage_plain(cfg_h, dt, *blocks[r], **kw[r])
-            for a, w_, u_, name in zip(got, want, whole, ("ut", "vt")):
-                check(torch.equal(a, w_), f"K7 block {r}: {name} differs "
-                      "from its plain version")
-                check(torch.equal(a[H:H + Yl], u_[r * Yl:(r + 1) * Yl]),
-                      f"K7 block {r}: {name} differs from the unsharded K7")
-        k7_call = lambda: [k7.grid_stage(cfg_h, *blocks[r], dt, **kw[r])  # noqa: E731,E501
-                           for r in range(ROW_N)]
-        k7_plain = lambda: [k7.grid_stage_plain(cfg_h, dt, *blocks[r],  # noqa: E731,E501
-                                                **kw[r])
-                            for r in range(ROW_N)]
-        t_p1, t_k1 = cuda_ms(k7_plain, REPS), cuda_ms(k7_call, REPS)
-        t_k2, t_p2 = cuda_ms(k7_call, REPS), cuda_ms(k7_plain, REPS)
-        dev_ms = min(device_ms(k7_call, REPS) for _ in range(2))
-        nbytes, flops = k7_blocks_bound(Yl, SIZE, ROW_N, False)
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * flops / F32_FLOP_PER_S
-        results["K7s"] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
-                          "device_ms": dev_ms, "max_abs_err": 0.0,
-                          "bound_ms": max(t_bytes, t_ops),
-                          "bound_by": "bytes" if t_bytes >= t_ops
-                          else "operations", "library_ms": None}
-        log(f"   K7 on {ROW_N} blocks of [{cfg_h.ny}, {SIZE}]: bitwise; "
-            f"device {dev_ms:.4f} ms summed (unsharded "
-            f"{results['K7'].get('device_ms', float('nan')):.4f}); events "
-            f"{t_k1:.4f} / {t_k2:.4f} ms; plain {t_p1:.3f} / {t_p2:.3f} "
-            f"ms; bound {results['K7s']['bound_ms']:.4f} ms by "
-            f"{results['K7s']['bound_by']}")
-
+        results["K7s"] = k7_row_blocks(cfg, grid, dt, ROW_N, f"{SIZE}²")
         wcfg, wscn, wst = cli_state(WATERFALL_JACOBI_1024)
         for _ in range(2):
             wst = sim.step_frame(wcfg, wscn, wst)
-        Yl = wcfg.ny // ROW_N
-        ys = wscn.source_yx[:, 0].long()
-        xs = wscn.source_yx[:, 1].long()
-        counts = torch.where(wscn.source_valid, wst.marker_count[ys, xs],
-                             0).to(torch.int32)
-        act = torch.ones((), dtype=torch.bool, device=dev)
-        rows = [slice(r * Yl, (r + 1) * Yl) for r in range(ROW_N)]
-        bscn = [dataclasses.replace(
-            wscn, **{k: getattr(wscn, k)[rw].contiguous()
-                     for k in ("solid", "source", "sink")}) for rw in rows]
-
-        def s1_blocks():
-            return [wst.replace(**{
-                k: getattr(wst, k)[..., rw, :].clone(
-                    memory_format=torch.contiguous_format)
-                for k in ("markers", "alive", "marker_count", "r", "g",
-                          "b")}, **{
-                k: getattr(wst, k).clone()
-                for k in ("rng", "alive_count", "source_exhausted")})
-                for rw in rows]
-
-        def s1_call(fn, blks):
-            for r, blk in enumerate(blks):
-                fn(wcfg, bscn[r], blk, act, r * Yl, counts)
-            return blks
-
-        whole_s1 = s1_copy(wst)
-        s1.emit_sources(wcfg, wscn, whole_s1, act)
-        got = s1_call(s1.emit_sources, s1_blocks())
-        want = s1_call(source_pass_slots, s1_blocks())
-        for r, (g_, w_) in enumerate(zip(got, want)):
-            for k in S1_FIELDS:
-                a_, b_ = getattr(g_, k), getattr(w_, k)
-                check(torch.equal(a_.to(torch.int64), b_.to(torch.int64))
-                      if k == "rng" else torch.equal(a_, b_),
-                      f"S1 block {r}: {k} differs from its plain version")
-                full = getattr(whole_s1, k)
-                if full.dim() >= 2:
-                    full = full[..., rows[r], :]
-                check(torch.equal(a_.to(torch.int64), full.to(torch.int64))
-                      if k == "rng" else torch.equal(a_, full),
-                      f"S1 block {r}: {k} differs from the unsharded S1")
-        emitted = int(whole_s1.alive_count) - int(wst.alive_count)
-        blocks_of = sorted({int(y) // Yl for y in ys.tolist()})
-        # each call emits into the same blocks, so later calls find
-        # fuller cells (as `time_s1`)
-        k_blks, p_blks = s1_blocks(), s1_blocks()
-        t_p1 = cuda_ms(lambda: s1_call(source_pass_slots, p_blks), 1)
-        t_k1 = cuda_ms(lambda: s1_call(s1.emit_sources, k_blks), REPS)
-        t_k2 = cuda_ms(lambda: s1_call(s1.emit_sources, k_blks), REPS)
-        t_p2 = cuda_ms(lambda: s1_call(source_pass_slots, p_blks), 1)
-        nbytes, flops = s1_blocks_bound(wscn.num_sources, emitted, ROW_N)
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * flops / F32_FLOP_PER_S
-        results["S1s"] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
-                          "max_abs_err": 0.0,
-                          "bound_ms": max(t_bytes, t_ops),
-                          "bound_by": "bytes" if t_bytes >= t_ops
-                          else "operations", "library_ms": None}
-        log(f"   S1 on {ROW_N} row blocks of the {SIZE}² waterfall "
-            f"({wscn.num_sources} sources in blocks {blocks_of}, {emitted} "
-            f"emitted): bitwise its plain version and the unsharded S1; "
-            f"{t_k1:.4f} / {t_k2:.4f} ms the {ROW_N} launches, plain "
-            f"{t_p1:.3f} / {t_p2:.3f} ms")
+        results["S1s"] = s1_row_blocks(wcfg, wscn, wst, ROW_N, dev,
+                                       f"the {SIZE}² waterfall")
 
     with Phase(f"the {SIZE}² waterfall (Jacobi budget) and dam break "
                f"(speed mode) on {ROW_N} row blocks: {ROW_WARMUP} warm-up "
@@ -3597,32 +3647,42 @@ def p5_group(cfg, b, a_diag, fl, x0, y, x, dev):
     return g, g.run(cut)
 
 
-def p5_solve(cfg, g, inputs, plain=False):
+def p5_solve(cfg, g, inputs, plain=False, gather=None):
     """One solve on the blocks of `g` (`p5_group`): P5 through
-    `spatial_mg.solve_pressure_blocks`, or with `plain` its plain version
-    on the same card tensors.  Returns every block's (p, iterations,
-    residual)."""
+    `spatial_mg.solve_pressure_blocks` (with `gather`, through
+    `solve_mg_blocks` on the plan forced to gather there), or with
+    `plain` its plain version on the same card tensors.  Returns every
+    block's (p, iterations, residual)."""
+    from euler_tpu_torch.ops.cuda.pcg_mg_blocks_kernel import solve_mg_blocks
     from euler_tpu_torch.parallel import spatial_mg
 
     def rank(comm):
         axes = ("y", "x") if comm.size("x") > 1 else ("y",)
         b, a, fl, fl1, x0 = inputs[comm.r]
+        ring = spatial_mg.fluid_ring(fl1, "x" in axes)
         if plain:
-            return spatial_mg.pcg_blocks_plain(
-                cfg, comm, axes, b, a, fl,
-                spatial_mg.fluid_ring(fl1, "x" in axes), x0)
+            return spatial_mg.pcg_blocks_plain(cfg, comm, axes, b, a, fl,
+                                               ring, x0)
+        if gather is not None:
+            return solve_mg_blocks(
+                cfg, comm, axes,
+                spatial_mg.block_plan(cfg, comm, axes, gather), b, a, fl,
+                ring, x0)
         return spatial_mg.solve_pressure_blocks(cfg, comm, axes, b, a, fl,
                                                 fl1, x0)
 
     return g.run(rank)
 
 
-def check_p5_hierarchy(cfg, g, inputs, ws3, z3, label: str) -> None:
+def check_p5_hierarchy(cfg, g, inputs, ws3, z3, label: str,
+                       gather=None) -> None:
     """The hierarchy P5 built in the blocks' last solve (the packed level 0
     and the distributed levels put together, the gathered levels, the
-    Chebyshev rows) and one cycle of it on the blocks, bitwise P3's
-    (`ws3`, its last solve of the same system, and `z3`, its cycle of the
-    same RHS)."""
+    Chebyshev rows; at a gather level of 0 the whole levels each block
+    holds, level 0 at P3's padded shape) and one cycle of it on the
+    blocks, bitwise P3's (`ws3`, its last solve of the same system, and
+    `z3`, its cycle of the same RHS, cropped to the grid); `gather`: the
+    forced plan's, as `p5_solve` takes it."""
     import torch
 
     from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
@@ -3630,19 +3690,20 @@ def check_p5_hierarchy(cfg, g, inputs, ws3, z3, label: str) -> None:
 
     def rank(comm):
         axes = ("y", "x") if comm.size("x") > 1 else ("y",)
-        plan = spatial_mg.block_plan(cfg, comm, axes)
+        plan = spatial_mg.block_plan(cfg, comm, axes, gather)
         ws = p5.workspace(cfg, comm, plan, inputs[comm.r][0].device)
 
         def whole(t):
             return spatial_mg.gather_plane(t, comm, axes)
 
+        G = plan.gather
+        packed0 = ws.whole[0]["packed"] if G == 0 else whole(ws.packed0)
         levels = [tuple(whole(ws.block[l][k]) for k in "cen")
-                  for l in range(1, plan.gather)]
+                  for l in range(1, G)]
         levels += [tuple(ws.whole[l][k] for k in "cen")
-                   for l in range(plan.gather, len(plan.shapes))]
+                   for l in range(max(G, 1), len(plan.shapes))]
         z = ws.cycle(comm, axes, inputs[comm.r][0])
-        return (plan.gather, whole(ws.packed0), levels, ws.rows.clone(),
-                whole(z))
+        return G, packed0, levels, ws.rows.clone(), whole(z)
 
     gather, packed0, levels, rows, z = g.run(rank)[0]
     check(torch.equal(packed0, ws3.packed0), f"P5 {label}: packed level 0 "
@@ -3660,6 +3721,7 @@ def check_p5_hierarchy(cfg, g, inputs, ws3, z3, label: str) -> None:
     log(f"   P5 {label}: gather level {gather}; packed level 0, "
         f"{len(levels)} coarse levels, the Chebyshev rows and one cycle "
         "bitwise P3's")
+    return gather
 
 
 def run_global_mg_blocks(results, summaries, launches, dev, shared) -> None:
@@ -4443,6 +4505,321 @@ def run_color_global_blocks(results, summaries, launches, dev,
     summaries["color_global_blocks"] = summary
 
 
+# MG on blocks of an odd side (M12 part d): P5 gathering at level 0 and
+# P4's block MG on a padded level 0, with the CLI's 1080 x 1920 MG
+# waterfall on 8 row blocks of 135 rows (K1, K7, S1 at odd row offsets)
+ODD_N = 8           # row blocks of 1080 x 1920
+ODD_GRID = 999      # an odd grid (level 0 stored as 1000²), on 3 x 3 blocks
+ODD_GRID_N = 3
+ODD_DEVELOP = 3     # frames of each state before its checks
+ODD_WARMUP, ODD_TIMED = 1, 2  # frames of the waterfall on blocks
+WATERFALL_MG_1080 = ["scenarios/waterfall.txt", "--size", "1080x1920"]
+DAM_BREAK_1080 = ["preset:dam_break", "--size", "1080x1920"]
+
+
+def developed(cfg, scn, st, frames: int = ODD_DEVELOP):
+    from euler_tpu_torch import sim
+
+    for _ in range(frames):
+        st = sim.step_frame(cfg, scn, st)
+    return st
+
+
+def p5_bytes(cfg, g, inputs) -> int:
+    """The bytes of the P5 workspaces the blocks of `g` hold for `cfg`'s
+    plan (at gather level 0 each holds the whole grid's hierarchy)."""
+    from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
+    from euler_tpu_torch.parallel import spatial_mg
+
+    def rank(comm):
+        axes = ("y", "x") if comm.size("x") > 1 else ("y",)
+        plan = spatial_mg.block_plan(cfg, comm, axes)
+        return p5.workspace(cfg, comm, plan, inputs[comm.r][0].device).nbytes
+
+    return sum(g.run(rank))
+
+
+def run_odd_blocks(results, summaries, launches, dev, shared) -> None:
+    """MG on blocks with an odd side on the card (M12 part d), every block
+    one thread of an in-process `comm.LocalGroup`: P5 gathering at level
+    0 (the whole grid's hierarchy on every block) against P3 on the CLI's
+    1080 x 1920 waterfall system on 8 row blocks and on a 999² dam-break
+    system on 3 x 3 blocks, and forced to gather at level 0 on the 1024²
+    system against the default plan; P4's block MG on the 8 row blocks
+    (each block's level 0 padded) against its plain version; K1, K7 and
+    S1 at the 8 blocks' odd row offsets against the unsharded launch; and
+    the 1080 x 1920 MG waterfall on the 8 blocks against 1 block.  Puts
+    the 1080 x 1920 system into `shared` for the profiles."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.core.presets import dam_break
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import marker_fused_kernel as k1
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+    from euler_tpu_torch.ops.forces import max_speed_sq
+    from euler_tpu_torch.parallel.cuda_shard import H
+
+    summary = {}
+    wcfg, wscn, wst = cli_state(WATERFALL_MG_1080)
+    check(wcfg.solver.preconditioner == "mg" and wcfg.solver.warm_start
+          and (wcfg.ny, wcfg.nx) == (1080, 1920),
+          f"the CLI's 1080 x 1920 waterfall solves with {wcfg.solver}")
+    wst = developed(wcfg, wscn, wst)
+    ocfg = main_config(ODD_GRID)
+    oscn, ost = dam_break(ocfg, device=dev)
+    ost = developed(ocfg, oscn, ost)
+    with Phase(f"P5 gathering at level 0: the 1080 x 1920 waterfall system "
+               f"on {ODD_N} x 1 blocks of 135 rows and the {ODD_GRID}² dam "
+               f"break system on {ODD_GRID_N} x {ODD_GRID_N} blocks against "
+               "P3 (hierarchy, rows and a cycle bitwise, p within 5e-4 of "
+               "scale, iterations equal / within 1), cold and warm; the "
+               f"{SIZE}² system on 2 x 2 blocks forced to gather at level 0 "
+               "bitwise the default plan"):
+        cases = (("1080x1920", wcfg, wscn, wst, ODD_N, 1, 0),
+                 (f"{ODD_GRID}x{ODD_GRID}", ocfg, oscn, ost, ODD_GRID_N,
+                  ODD_GRID_N, 1))
+        for label, c, scn_, st_, y, x, it_tol in cases:
+            _, _, _, b, a_diag = substep_system(c, scn_, st_)
+            fl = st_.fluid
+            p0 = torch.where(fl, st_.p, 0.0)
+            if label == "1080x1920":
+                shared["odd"] = {"cfg": c, "b": b, "a_diag": a_diag,
+                                 "fl": fl, "p0": p0}
+            for start, x0 in (("cold", None), ("warm", p0)):
+                ref = p13.solve_pressure_general(c, b, a_diag, fl, x0=x0)
+                t3 = cuda_ms(lambda: p13.solve_pressure_general(
+                    c, b, a_diag, fl, x0=x0), REPS)
+                scale = float(ref[0].abs().max())
+                g, inputs = p5_group(c, b, a_diag, fl, x0, y, x, dev)
+                with g:
+                    reset_counts()
+                    out = p5_solve(c, g, inputs)
+                    check(_build.LAUNCHES["P5"] == y * x
+                          and not _build.PLAIN_CALLS,
+                          f"P5 {label} on {y} x {x}: launches "
+                          f"{dict(_build.LAUNCHES)}, plain "
+                          f"{dict(_build.PLAIN_CALLS)}")
+                    check(len({(int(o[1]), float(o[2])) for o in out}) == 1,
+                          f"P5 {label} on {y} x {x}: the blocks' iterations "
+                          "or residuals differ")
+                    p = together([o[0] for o in out], x)
+                    it, res = int(out[0][1]), float(out[0][2])
+                    err = float((p - ref[0]).abs().max()) / scale
+                    check(abs(it - int(ref[1])) <= it_tol and err <= 5e-4,
+                          f"P5 {label} on {y} x {x} {start}: {it} "
+                          f"iterations (P3 {int(ref[1])}), p {err:.3g} of "
+                          "scale from P3's")
+                    ms = cuda_ms(lambda: p5_solve(c, g, inputs), GMG_REPS)
+                    row = {"ms": ms, "iters": it, "resid": res,
+                           "err_vs_p3": err, "p3_ms": t3,
+                           "p3_iters": int(ref[1])}
+                    if start == "warm":
+                        # P3's workspace holds its last solve's hierarchy:
+                        # this system's
+                        ws3 = p13.workspace(c, dev)
+                        Y0, X0 = ws3.shapes[0]
+                        z3 = ws3.cycle(torch.nn.functional.pad(
+                            b, (0, X0 - c.nx, 0, Y0 - c.ny)),
+                            per_op=False)[:c.ny, :c.nx]
+                        gather = check_p5_hierarchy(c, g, inputs, ws3, z3,
+                                                    f"{label} on {y} x {x}")
+                        check(gather == 0, f"P5 {label} on {y} x {x}: "
+                              f"gather level {gather}, not 0")
+                        row.update(workspace_bytes=p5_bytes(c, g, inputs),
+                                   p3_workspace_bytes=ws3.nbytes)
+                        log(f"   P5 {label}: the {y * x} blocks' workspaces "
+                            f"{row['workspace_bytes']} bytes (P3's "
+                            f"{ws3.nbytes})")
+                    if label == "1080x1920" and start == "warm":
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        q = p5_solve(c, g, inputs, plain=True)
+                        torch.cuda.synchronize()
+                        ms_q = 1e3 * (time.perf_counter() - t0)
+                        kerr = float((p - together([o[0] for o in q], x))
+                                     .abs().max())
+                        check(abs(it - int(q[0][1])) <= 1
+                              and kerr <= 5e-4 * scale,
+                              f"P5 {label} vs plain: {it} vs {int(q[0][1])} "
+                              f"iterations, p {kerr:.3g} apart")
+                        row["plain"] = {"ms": ms_q, "iters": int(q[0][1]),
+                                        "max_abs_err": kerr}
+                        results["P5o"] = {
+                            "ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
+                            "library_ms": None,
+                            **bound_fields(*BOUNDS["P5"](c.ny * c.nx, it,
+                                                         0))}
+                        log(f"   P5 {label} plain version (warm): "
+                            f"{ms_q:.1f} ms, {int(q[0][1])} iterations, p "
+                            f"{kerr:.3g} from P5; bound "
+                            f"{results['P5o']['bound_ms']:.4f} ms by "
+                            f"{results['P5o']['bound_by']} (P3's work)")
+                summary[f"p5_{label}_{y}x{x}_{start}"] = row
+                log(f"   P5 {label} on {y} x {x} {start}: {ms:.2f} ms a "
+                    f"solve (P3 {t3:.3f}), {it} iterations (P3 "
+                    f"{int(ref[1])}), p within {err:.3g} of P3's scale")
+
+        c = shared["configs"]["mg"]
+        b, a_diag, fl = shared["b"], shared["a_diag"], shared["fl"]
+        p0 = torch.where(fl, shared["st"].p, 0.0)
+        ref = p13.solve_pressure_general(c, b, a_diag, fl, x0=p0)
+        ws3 = p13.workspace(c, dev)
+        z3 = ws3.cycle(b, per_op=False)
+        g, inputs = p5_group(c, b, a_diag, fl, p0, COL_N, COL_N, dev)
+        with g:
+            want = p5_solve(c, g, inputs)
+            check_p5_hierarchy(c, g, inputs, ws3, z3, f"{SIZE}² on 2 x 2, "
+                               "the default plan")
+            reset_counts()
+            got = p5_solve(c, g, inputs, gather=0)
+            check(_build.LAUNCHES["P5"] == COL_N * COL_N
+                  and not _build.PLAIN_CALLS,
+                  f"P5 gathering at 0: launches {dict(_build.LAUNCHES)}")
+            check(all(torch.equal(a_[0], w_[0]) and int(a_[1]) == int(w_[1])
+                      and float(a_[2]) == float(w_[2])
+                      for a_, w_ in zip(got, want)),
+                  f"P5 {SIZE}² on 2 x 2 gathering at 0: not the default "
+                  f"plan's bits ({int(got[0][1])} vs {int(want[0][1])} "
+                  "iterations)")
+            gather = check_p5_hierarchy(c, g, inputs, ws3, z3,
+                                        f"{SIZE}² on 2 x 2, gathering at 0",
+                                        gather=0)
+            check(gather == 0, f"the forced plan gathers at {gather}")
+            ms0 = cuda_ms(lambda: p5_solve(c, g, inputs, gather=0), GMG_REPS)
+            ms = cuda_ms(lambda: p5_solve(c, g, inputs), GMG_REPS)
+        summary[f"p5_{SIZE}_2x2_gather_0"] = {
+            "ms": ms0, "ms_default_plan": ms, "iters": int(got[0][1]),
+            "p3_iters": int(ref[1])}
+        log(f"   P5 {SIZE}² on 2 x 2 gathering at 0: p, iterations "
+            f"({int(got[0][1])}) and residual bitwise the default plan's; "
+            f"{ms0:.2f} ms a solve against {ms:.2f}")
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"P4's block MG on {ODD_N} row blocks of the 1080 x 1920 "
+               "waterfall system (each block's level 0 padded to 136 rows) "
+               "against its plain version on the same card tensors"):
+        c, b, a_diag, fl = (shared["odd"][k] for k in
+                            ("cfg", "b", "a_diag", "fl"))
+        reset_counts()
+        p, it, res, ms = block_solve(c, b, a_diag, fl, ODD_N, dev)
+        got_l = dict(_build.LAUNCHES)
+        check(got_l.get("P4") == 2 * ODD_N and not _build.PLAIN_CALLS,
+              f"P4 on {ODD_N} blocks: launches {got_l}, plain "
+              f"{dict(_build.PLAIN_CALLS)}")
+        q, it_q, res_q, ms_q = block_solve(c, b, a_diag, fl, ODD_N, dev,
+                                           plain=True)
+        scale = float(q.abs().max())
+        kerr = float((p - q).abs().max())
+        tol = max(c.solver.tol, c.solver.tol_rel * float(b.abs().max()))
+        check(abs(it - it_q) <= 1 and kerr <= 1e-4 * scale and res <= tol,
+              f"P4 block MG on {ODD_N} blocks vs plain: {it} vs {it_q} "
+              f"iterations, p {kerr:.3g} apart (scale {scale:.3g}), resid "
+              f"{res:.3g} (tol {tol:.3g})")
+        launches["P4o"] = got_l["P4"]
+        results["P4o"] = {"ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
+                          "library_ms": None,
+                          **bound_fields(*BOUNDS["P4o"](c.ny * c.nx, it,
+                                                        0))}
+        summary["p4_block_mg"] = {"ms": ms, "iters": it, "resid": res,
+                                  "plain": {"ms": ms_q, "iters": it_q,
+                                            "max_abs_err": kerr}}
+        log(f"   P4 block MG, {ODD_N} blocks: {ms:.2f} ms a solve, {it} "
+            f"iterations; plain {ms_q:.1f} ms, {it_q}; p {kerr:.3g} apart "
+            f"({kerr / scale:.3g} of scale); bound "
+            f"{results['P4o']['bound_ms']:.4f} ms by "
+            f"{results['P4o']['bound_by']}")
+
+    with Phase(f"K1, K7 and S1 on {ODD_N} row blocks of 1080 x 1920 (row "
+               "offsets 127, 262, ...): each block's launch bitwise its "
+               "plain version, the kept rows bitwise the unsharded launch; "
+               "timed"):
+        dcfg, dscn, dst = cli_state(DAM_BREAK_1080)
+        dst = developed(dcfg, dscn, dst)
+        Y, X, K = dcfg.ny, dcfg.nx, dcfg.slots_per_cell
+        Yl = Y // ODD_N
+        dt = sim._dt_from_msq(dcfg, max_speed_sq(dcfg, dst.u, dst.v),
+                              torch.full((), dcfg.frame_time, device=dev))
+        planes = (dst.u, dst.v, dst.fluid, dscn.solid,
+                  dst.markers.reshape(2 * K, Y, X), dst.marker_count,
+                  dscn.sink | dscn.solid)
+        blocks = k1_blocks(dcfg, planes, ODD_N)
+        offsets = [kw["row_offset"] for _, _, kw in blocks]
+        whole = k1.march_rebin(dcfg, *planes[:5], dt, planes[5],
+                               dead=planes[6])
+        call = lambda: k1_shard_call(blocks, dt, k1.march_rebin)  # noqa: E731
+        plain = lambda: k1_shard_call(  # noqa: E731
+            blocks, dt, k1.march_rebin_plain)
+        for r, (g_, p_) in enumerate(zip(call(), plain())):
+            for a_, w_, u_, name in zip(g_, p_, whole,
+                                        ("slots", "count", "drop")):
+                check(torch.equal(a_, w_), f"K1 block {r}: {name} differs "
+                      "from its plain version")
+                check(torch.equal(a_[..., H:H + Yl, :],
+                                  u_[..., r * Yl:(r + 1) * Yl, :]),
+                      f"K1 block {r}: {name} differs from the unsharded K1")
+        t_k, t_p, events = timed_pair(call, plain, 2)
+        dev_ms = min(device_ms(call, REPS) for _ in range(2))
+        one_ms = min(device_ms(lambda: k1.march_rebin(
+            dcfg, *planes[:5], dt, planes[5], dead=planes[6]), REPS)
+            for _ in range(2))
+        count = planes[5]
+        live = sum(int(count[max(r * Yl - 1, 0):(r + 1) * Yl + 1].sum())
+                   for r in range(ODD_N))
+        results["K1o"] = {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+                          "max_abs_err": 0.0, "library_ms": None,
+                          **bound_fields(*k1_blocks_bound(
+                              Yl, X, live, ODD_N, K, split=False))}
+        summary["k1"] = {"device_ms": dev_ms, "device_ms_one_launch": one_ms,
+                         "row_offsets": offsets, "live": int(count.sum())}
+        log(f"   K1 on {ODD_N} blocks of [{2 * K}, {Yl + 2 * H}, {X}] "
+            f"(row offsets {offsets}): bitwise; device {dev_ms:.4f} ms "
+            f"summed against {one_ms:.4f} for one launch; {events}; bound "
+            f"{results['K1o']['bound_ms']:.4f} ms by "
+            f"{results['K1o']['bound_by']} ({int(count.sum())} live "
+            "markers)")
+
+        grid = (dst.u, dst.v, dst.fluid, dst.prev_fluid, dscn.solid)
+        results["K7o"] = k7_row_blocks(dcfg, grid, dt, ODD_N,
+                                       "the 1080 x 1920 dam break")
+        results["S1o"] = s1_row_blocks(wcfg, wscn, wst, ODD_N, dev,
+                                       "the 1080 x 1920 waterfall")
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase(f"the 1080 x 1920 MG waterfall on {ODD_N} row blocks (P5 "
+               f"gathering at level 0) against 1 block: {ODD_WARMUP} "
+               f"warm-up frame on a copy, {ODD_TIMED} timed; K1, S1, K7, P5 "
+               "once a block a substep, no plain version"):
+        got, ms, got_l, plain = block_frames(wcfg, wscn, wst, ODD_N, dev,
+                                             ODD_WARMUP, ODD_TIMED,
+                                             rewind=True)
+        per = ODD_N * wcfg.max_substeps * ODD_TIMED
+        names = ("K1", "S1", "K7", "P5")
+        check(plain == 0 and all(got_l.get(k) == per for k in names)
+              and not got_l.get("P4"),
+              f"MG waterfall on {ODD_N} blocks: not one launch a block a "
+              f"substep: {got_l}, plain {plain}")
+        for k in names:
+            launches[f"{k}o"] = got_l[k]
+        one, ms1, _, _ = block_frames(wcfg, wscn, wst, 1, dev, ODD_WARMUP,
+                                      ODD_TIMED, rewind=True)
+        for name in ("u", "v", "p", "markers"):
+            check(bool(torch.isfinite(getattr(got, name)).all()),
+                  f"MG waterfall on {ODD_N} blocks: {name} not finite")
+        d = frame_diff(got, one)
+        check(frames_agree(d), f"MG waterfall, {ODD_N} blocks vs 1: {d}")
+        summary["waterfall_1080"] = {
+            "ms_per_frame": ms, "ms_per_frame_1_block": ms1,
+            "launches": got_l, "vs_1_block": d,
+            "div_inf": div_inf(wcfg, got, exclude=wscn.source)}
+        log(f"   {ODD_N} blocks {ms:.1f} ms a frame, 1 block {ms1:.1f}; "
+            f"{d['count_cells']} of {d['cells']} cells' counts apart, max "
+            f"|dv| {d['max_dv']:.3g}; alive {d['alive']}; div_inf off the "
+            f"sources {summary['waterfall_1080']['div_inf']:.4g}")
+        log(f"   nvidia-smi: {smi_line()}")
+    summaries["odd_blocks"] = summary
+
+
 def run_block_profiles(results, summaries, shared, dev) -> None:
     """P4's device time a solve of the 1024² substep system on 1, 2 and 4
     row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi), P5's
@@ -4456,8 +4833,9 @@ def run_block_profiles(results, summaries, shared, dev) -> None:
                for n in ROW_BLOCKS] + [("jacobi", COL_N, COL_N)]
     with Phase(f"P4's device time a solve of the {SIZE}² substep system "
                "on 1, 2 and 4 row blocks and on 2 x 2 blocks, P5's on 1 x "
-               "1, 2 x 2 and 4 x 1 blocks and P3's: the summed spans of one "
-               "profiled solve"):
+               "1, 2 x 2 and 4 x 1 blocks and P3's; at 1080 x 1920 P5 and "
+               f"P4's block MG on {ODD_N} row blocks: the summed spans of "
+               "one profiled solve"):
         for label, n, x in layouts:
             c = shared["configs"][label]
             key = "row_blocks" if x == 1 else "col_blocks"
@@ -4479,6 +4857,7 @@ def run_block_profiles(results, summaries, shared, dev) -> None:
                 "device_ms"]
         p5_profiles(results, summaries, shared, dev)
         p6_profiles(results, summaries, shared, dev)
+        odd_profiles(results, summaries, shared, dev)
 
 
 def p5_profiles(results, summaries, shared, dev) -> None:
@@ -4513,6 +4892,43 @@ def p5_profiles(results, summaries, shared, dev) -> None:
             f"{lib:.4f} ms" if spans else "not measured"))
     results["P5"]["device_ms"] = gmg[f"blocks_{COL_N}x{COL_N}_warm"][
         "device_ms"]
+
+
+def odd_profiles(results, summaries, shared, dev) -> None:
+    """On the 1080 x 1920 waterfall system: P5's device time a warm solve
+    on 8 row blocks (gathering at level 0) and P3's beside it, and P4's
+    block MG a cold solve on the 8 blocks: the summed kernel spans of one
+    profiled solve each."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+
+    c, b, a_diag, fl, p0 = (shared["odd"][k] for k in
+                            ("cfg", "b", "a_diag", "fl", "p0"))
+    odd = summaries["odd_blocks"]
+    spans = kernel_spans_ms(lambda: p13.solve_pressure_general(
+        c, b, a_diag, fl, x0=p0))
+    p3 = spans[0] if spans else None
+    g, inputs = p5_group(c, b, a_diag, fl, p0, ODD_N, 1, dev)
+    with g:
+        p5_solve(c, g, inputs)
+        torch.cuda.synchronize()
+        spans = kernel_spans_ms(lambda: p5_solve(c, g, inputs))
+    own, lib = spans if spans else (None, None)
+    odd[f"p5_1080x1920_{ODD_N}x1_warm"].update(
+        device_ms=own, torch_device_ms=lib, p3_device_ms=p3)
+    results["P5o"]["device_ms"] = own
+    log(f"   P5 warm, {ODD_N} x 1 blocks of 1080 x 1920 (gathering at 0): "
+        + (f"its kernel spans {own:.4f} ms summed, torch's kernels and "
+           f"copies {lib:.4f} ms" if spans else "not measured")
+        + (f"; P3 {p3:.4f} ms" if p3 is not None else "; P3 not measured"))
+    spans = block_spans(c, b, a_diag, fl, ODD_N, dev)
+    own, lib = spans if spans else (None, None)
+    odd["p4_block_mg"].update(device_ms=own, torch_device_ms=lib)
+    results["P4o"]["device_ms"] = own
+    log(f"   P4 block MG, {ODD_N} row blocks of 1080 x 1920: " + (
+        f"its kernel spans {own:.4f} ms summed, torch's kernels and copies "
+        f"{lib:.4f} ms" if spans else "not measured"))
 
 
 def p6_profiles(results, summaries, shared, dev) -> None:
@@ -4892,6 +5308,8 @@ def run(args) -> dict:
     run_ic0_blocks(results, summaries, launches, dev, shared)
 
     run_color_global_blocks(results, summaries, launches, dev, shared)
+
+    run_odd_blocks(results, summaries, launches, dev, shared)
 
     run_block_profiles(results, summaries, shared, dev)
     del shared

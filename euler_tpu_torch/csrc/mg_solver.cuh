@@ -193,13 +193,31 @@ __global__ void cheby_rows(Rows R, const float* __restrict__ part,
 }
 
 // level 0 of the cycle in packed form, a_diag + 8 on fluid cells and 0
-// elsewhere, from the PCG loop's operator code 8 | a_diag (P3, P4, P5)
-__global__ void pack_code(int n, const uint8_t* __restrict__ code,
-                          float* __restrict__ packed,
+// elsewhere, from the PCG loop's [Y, X] operator code 8 | a_diag (P3, P4,
+// P5), into a plane of row stride Xd: X, or a level 0 stored padded (P4's
+// odd-sided block), whose pad keeps the zeros it was made with
+__global__ void pack_code(int Y, int X, const uint8_t* __restrict__ code,
+                          float* __restrict__ packed, int Xd,
                           const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) packed[t] = static_cast<float>(code[t]);
+  if (t >= Y * X) return;
+  const int i = t / X, j = t - i * X;
+  packed[static_cast<long long>(i) * Xd + j] = static_cast<float>(code[t]);
+}
+
+// a [Y, X] window between two planes of row strides Xs and Xd: a block's
+// plane into the top left of its padded level 0 (P4), or the block's
+// cells out of the whole grid's (P5; src at the block's first cell)
+__global__ void copy_window(int Y, int X, const float* __restrict__ src,
+                            int Xs, float* __restrict__ dst, int Xd,
+                            const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Y * X) return;
+  const int i = t / X, j = t - i * X;
+  dst[static_cast<long long>(i) * Xd + j] =
+      src[static_cast<long long>(i) * Xs + j];
 }
 
 // the head: the packed plane a_diag * fl + 8 * fl

@@ -63,10 +63,8 @@ struct PcgMg {
 
   // the head's step: the packed level 0, the hierarchy and rows, z
   int head_step(cudaStream_t st) const {
-    const int n = w.Y * w.X;
-    pack_code<<<eu_blocks(n, kThreads), kThreads, 0, st>>>(n, w.code,
-                                                           M.packed0,
-                                                           w.flags);
+    pack_code<<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
+        w.Y, w.X, w.code, M.packed0, w.X, w.flags);
     int rc = eu_launch_status();
     if (!rc) rc = M.hierarchy(st);
     return rc ? rc : cycle(st);

@@ -32,6 +32,17 @@
 //     of inactive pad where a coarsened level is odd); every block then
 //     runs P3's cycle from G down on the whole coarse grid (`Solve`, the
 //     same launches) and prolongs its own part of the correction.
+//   * G = 0 where a block has an odd side (1080 x 1920 on 8 row blocks of
+//     135 rows; 999² on 3 x 3): level 1 cannot be made in the blocks, so
+//     every block holds the whole grid's hierarchy, stored as P3 stores
+//     it (level 0 padded by a row or column of inactive cells where the
+//     grid is odd).  Once a build the blocks' packed level 0 is
+//     all-gathered into its top left, and on every visit of the cycle
+//     the blocks' r, with a zero pad; every block runs P3's cycle on it
+//     (`Solve` from level 0, the same launches) and copies its own cells
+//     of the correction into the loop's z.  The whole cycle is computed
+//     on every block; a split of level 1 into ragged blocks would keep
+//     the fine levels distributed (ROADMAP queue 2 item 9).
 //   * the hierarchy's weights are integer sums, exact in any order, and
 //     lmax is a max: a distributed level's is the max over the blocks of
 //     the block's partials (the host all-reduces the G maxima), so the
@@ -304,18 +315,27 @@ struct Blocks {
     }
     if (step == kBuildGathered) {
       // the gathered level G's partials, the levels below it (P3's
-      // coarsen), and the block's maxima of the distributed levels
-      edge_lmax<<<blocks(S.lv[G]), kThreads, 0, st>>>(
-          S.lv[G], gact[G], nullptr, nullptr, hpart + R.off[G], fl);
+      // coarsen; at G = 0 P3's hierarchy from the packed level 0), and the
+      // block's maxima of the distributed levels
+      if (G == 0)
+        fine_lmax<<<blocks(S.lv[0]), kThreads, 0, st>>>(S.lv[0], hpart, fl);
+      else
+        edge_lmax<<<blocks(S.lv[G]), kThreads, 0, st>>>(
+            S.lv[G], gact[G], nullptr, nullptr, hpart + R.off[G], fl);
       int rc = eu_launch_status();
       for (int k = G; !rc && k + 1 < S.L; ++k) {
         const Lvl& Lc = S.lv[k + 1];
-        coarsen<false><<<blocks(Lc), kThreads, 0, st>>>(
-            S.lv[k], Lc.Y, Lc.X, gact[k], gc[k + 1], ge[k + 1], gn[k + 1],
-            gact[k + 1], hpart + R.off[k + 1], fl);
+        if (k == 0)
+          coarsen<true><<<blocks(Lc), kThreads, 0, st>>>(
+              S.lv[0], Lc.Y, Lc.X, nullptr, gc[1], ge[1], gn[1], gact[1],
+              hpart + R.off[1], fl);
+        else
+          coarsen<false><<<blocks(Lc), kThreads, 0, st>>>(
+              S.lv[k], Lc.Y, Lc.X, gact[k], gc[k + 1], ge[k + 1], gn[k + 1],
+              gact[k + 1], hpart + R.off[k + 1], fl);
         rc = eu_launch_status();
       }
-      if (rc) return rc;
+      if (rc || G == 0) return rc;
       fold_max<<<1, 1024, 0, st>>>(folds, bpart, hpart, fl);
       return eu_launch_status();
     }
@@ -335,7 +355,14 @@ struct Blocks {
     if (op == kCoarse) {
       Solve C = S;
       C.s = st;
-      return C.cycle(G, false);
+      int rc = C.cycle(G, false);
+      if (rc || G > 0) return rc;
+      // G = 0: the block's cells of the whole grid's correction into z
+      const int X0 = S.lv[0].X;
+      copy_window<<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
+          w.Y, w.X, S.zout(0) + static_cast<long long>(r0) * X0 + c0, X0,
+          static_cast<float*>(w.z), w.X, fl);
+      return eu_launch_status();
     }
     const BlockLvl& B = bl[l];
     const BlockLvl& C = bl[l + 1];
@@ -417,9 +444,8 @@ struct Blocks {
         break;
       case 3: {
         if (warm) fin(pcg::shard_finish<float, pcg::kFinResidual>);
-        const int n = w.Y * w.X;
-        pack_code<<<eu_blocks(n, kThreads), kThreads, 0, st>>>(
-            n, w.code, packed0, w.flags);
+        pack_code<<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
+            w.Y, w.X, w.code, packed0, w.X, w.flags);
         break;
       }
       case 4:
@@ -467,13 +493,17 @@ struct Blocks {
 // per grid level (level 0's and those below G null).  edges: e_west
 // [Yl], n_south [Xl] per block level 0 .. G (levels 0 and G null).  r0,
 // c0: the block's first row and column at level G.  packed0: [Y, X];
-// rows: [L, ncoef]; bpart: the block levels' ceil(Yl * Xl / 256) floats
-// each, levels 0 .. G - 1; hpart: G floats, then the grid levels'
-// ceil(Yl * Xl / 256) each from G.  *out is the handle.
+// whole0: at G = 0 the grid's packed level 0 at its stored shape, zero in
+// its pad (null at G > 0; the grid level 0's x, b, z, rr, d, dn are
+// planes of that shape, b zero in its pad); rows: [L, ncoef]; bpart: the
+// block levels' ceil(Yl * Xl / 256) floats each, levels 0 .. G - 1;
+// hpart: G floats, then the grid levels' ceil(Yl * Xl / 256) each from
+// G.  *out is the handle.
 EU_API int eu_pcg_mg_blocks_create(int Y, int X, int G, int L,
                                    const int* shapes, void* const* planes,
                                    void* const* act, void* const* edges,
-                                   int r0, int c0, void* packed0, void* rows,
+                                   int r0, int c0, void* packed0,
+                                   void* whole0, void* rows,
                                    int ncoef, int deg, int coarse_deg, int w,
                                    int w_depth, float ratio,
                                    float coarse_ratio, void* bpart,
@@ -482,7 +512,8 @@ EU_API int eu_pcg_mg_blocks_create(int Y, int X, int G, int L,
                                    void* q, void* part, void* scal,
                                    void* flags, void* red, void** out) {
   *out = nullptr;
-  if (G < 1 || G >= L || L > 16 || shapes[0] != Y || shapes[1] != X)
+  if (G < 0 || G >= L || L > 16 || shapes[0] != Y || shapes[1] != X ||
+      (G == 0) != (whole0 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Blocks* B = new Blocks{};
   B->w = pcg::Ws{Y, X, Y, X, static_cast<uint8_t*>(code), p, r, d, z, ad,
@@ -519,8 +550,9 @@ EU_API int eu_pcg_mg_blocks_create(int Y, int X, int G, int L,
   // the gathered levels: a Solve over the grid's levels, P3's from G down
   const int* gshapes = shapes + 2 * (G + 1);
   void* const* gplanes = planes + (G + 1) * P_COUNT;
-  int rc = make_solve(&B->S, L, gshapes, gplanes, nullptr, nullptr, rows,
-                      ncoef, deg, coarse_deg, w, w_depth, part, flags,
+  int rc = make_solve(&B->S, L, gshapes, gplanes, whole0,
+                      static_cast<float*>(G == 0 ? gplanes[P_B] : nullptr),
+                      rows, ncoef, deg, coarse_deg, w, w_depth, part, flags,
                       nullptr);
   if (!rc && B->S.fused < G) rc = static_cast<int>(cudaErrorInvalidValue);
   B->R = Rows{L, ncoef, deg, coarse_deg, ratio, coarse_ratio, -1, {0}};
@@ -577,14 +609,16 @@ EU_API int eu_pcg_mg_blocks_stage(void* solver, int k, int cap, double tol,
 // block's level 1, from the fluid ring below, above [X], left, right [Y]
 // (u8); 1: level l's partials, its edges exchanged, and the block's level
 // l + 1; 2: after the gather of level G, the gathered levels and the
-// block's maxima of the distributed levels into hpart[0 .. G); 3: after
+// block's maxima of the distributed levels into hpart[0 .. G) (at G = 0,
+// after the gather of the packed level 0, P3's hierarchy); 3: after
 // their all-reduce, the Chebyshev rows).
 EU_API int eu_pcg_mg_blocks_build(void* solver, int step, int l,
                                   const void* below, const void* above,
                                   const void* left, const void* right,
                                   void* stream) {
   const Blocks* B = static_cast<const Blocks*>(solver);
-  if (l < 0 || l >= B->G) return static_cast<int>(cudaErrorInvalidValue);
+  if ((step == kBuild0 || step == kBuildLevel) && (l < 0 || l >= B->G))
+    return static_cast<int>(cudaErrorInvalidValue);
   return B->build(step, l, static_cast<const uint8_t*>(below),
                   static_cast<const uint8_t*>(above),
                   static_cast<const uint8_t*>(left),
@@ -596,7 +630,8 @@ EU_API int eu_pcg_mg_blocks_build(void* solver, int step, int l,
 // Chebyshev init's from_zero, or the step's index), with the exchanged
 // edges of the plane it applies the operator to (below / above [X_l],
 // left / right [Y_l]; null where it applies none); kCoarse: P3's cycle
-// from the gathered level G on its whole planes.
+// from the gathered level G on its whole planes (at G = 0, then the
+// block's cells of its output into the loop's z).
 EU_API int eu_pcg_mg_blocks_level(void* solver, int op, int l, int k,
                                   const void* below, const void* above,
                                   const void* left, const void* right,

@@ -20,7 +20,13 @@
 //   * the MG preconditioner ("mg", f32) is P3's cycle (mg_levels.cuh) on
 //     the block's own hierarchy, built on the card from the block's
 //     operator (block-Jacobi additive Schwarz, halo.py:113-134): no
-//     communication.
+//     communication.  Where the block has an odd side (135 rows of 1080
+//     x 1920 on 8 blocks), its level 0 is stored padded, as the JAX
+//     hierarchy pads it, on planes of its own: the packed operator and
+//     r go into their top left (the pad stays 0, inactive), the cycle
+//     runs there and its output is cropped into the loop's z, as JAX
+//     `cycle_galerkin` zero-pads b and crops x (multigrid.py:430-489);
+//     the loop and the halo operator stay on the block's own planes.
 // Stages, and the all-reduce the host runs after each (ops/cuda/
 // pcg_shard_kernel.py `HEAD` .. `ITERATION`):
 //   0 head_init (max|b|: max)             1 finish; x0
@@ -39,18 +45,31 @@ struct Shard {
   pcg::Ws w;
   int f64, precon;
   MgSolver M;  // "mg": the block's hierarchy and cycle
+  bool pad;    // its level 0 stored padded, on planes of its own
+
+  unsigned cells() const { return eu_blocks(w.Y * w.X, kThreads); }
 
   int cycle(cudaStream_t st) const {
     Solve S = M.S;
     S.s = st;
-    return S.cycle(0, false);
+    const int X0 = S.lv[0].X;
+    if (pad) {
+      copy_window<<<cells(), kThreads, 0, st>>>(
+          w.Y, w.X, static_cast<const float*>(w.r), w.X, S.b[0], X0,
+          w.flags);
+      const int rc = eu_launch_status();
+      if (rc) return rc;
+    }
+    int rc = S.cycle(0, false);
+    if (rc || !pad) return rc;
+    copy_window<<<cells(), kThreads, 0, st>>>(
+        w.Y, w.X, S.zout(0), X0, static_cast<float*>(w.z), w.X, w.flags);
+    return eu_launch_status();
   }
 
   int mg_head(cudaStream_t st) const {
-    const int n = w.Y * w.X;
-    pack_code<<<eu_blocks(n, kThreads), kThreads, 0, st>>>(n, w.code,
-                                                           M.packed0,
-                                                           w.flags);
+    pack_code<<<cells(), kThreads, 0, st>>>(w.Y, w.X, w.code, M.packed0,
+                                            M.S.lv[0].X, w.flags);
     int rc = eu_launch_status();
     if (!rc) rc = M.hierarchy(st);
     return rc ? rc : cycle(st);
@@ -125,9 +144,11 @@ struct Shard {
 // A solver over a workspace's buffers ([Y, X] planes of the solve's
 // precision: code u8, p, r, d, z, ad, pre, q; part: 1024; scal: S_N;
 // flags: F_N i32; red: 1), f64 0/1, precon 0 none / 1 Jacobi / 3 MG (f32).
-// MG (L > 0): the cycle's levels as eu_pcg_mg_create takes them (level 0
-// the planes' shape, its planes the loop's); L = 0 otherwise, and the MG
-// arguments unused.  *out is the handle.
+// MG (L > 0): the cycle's levels as eu_pcg_mg_create takes them; level 0
+// the planes' shape, its planes the loop's, or, stored padded (larger
+// than the planes: an odd side), its own x, b, z, rr, d, dn planes, b and
+// packed0 zero in the pad; L = 0 otherwise, and the MG arguments unused.
+// *out is the handle.
 EU_API int eu_pcg_shard_create(int Y, int X, int f64, int precon, int L,
                                const int* shapes, void* const* planes,
                                void* const* act, void* packed0, void* rows,
@@ -139,7 +160,7 @@ EU_API int eu_pcg_shard_create(int Y, int X, int f64, int precon, int L,
                                void* flags, void* red, void** out) {
   *out = nullptr;
   const bool mg = precon == pcg::kMg;
-  if ((mg && (f64 || L < 1 || L > 16 || shapes[0] != Y || shapes[1] != X)) ||
+  if ((mg && (f64 || L < 1 || L > 16 || shapes[0] < Y || shapes[1] < X)) ||
       (!mg && precon != pcg::kNone && precon != pcg::kJacobi))
     return static_cast<int>(cudaErrorInvalidValue);
   Shard* S = new Shard{};
@@ -149,18 +170,21 @@ EU_API int eu_pcg_shard_create(int Y, int X, int f64, int precon, int L,
   S->precon = precon;
   int rc = 0;
   if (mg) {
-    // level 0 of the cycle is the loop's: b = r, its output in z (as P3)
     void* pl[16 * P_COUNT];
     for (int k = 0; k < L * P_COUNT; ++k) pl[k] = planes[k];
-    const bool post1 = deg == 1 && L > 1;
-    pl[P_X] = post1 ? pre : z;
-    pl[P_Z] = post1 ? z : nullptr;
-    pl[P_RR] = post1 ? q : pre;
-    pl[P_D] = post1 ? ad : q;
-    pl[P_DN] = post1 ? nullptr : ad;
-    rc = make_solve(&S->M.S, L, shapes, pl, packed0, static_cast<float*>(r),
-                    rows, ncoef, deg, coarse_deg, w, w_depth, part, flags,
-                    nullptr);
+    S->pad = shapes[0] != Y || shapes[1] != X;
+    if (!S->pad) {
+      // level 0 of the cycle is the loop's: b = r, its output in z (as P3)
+      const bool post1 = deg == 1 && L > 1;
+      pl[P_X] = post1 ? pre : z;
+      pl[P_Z] = post1 ? z : nullptr;
+      pl[P_RR] = post1 ? q : pre;
+      pl[P_D] = post1 ? ad : q;
+      pl[P_DN] = post1 ? nullptr : ad;
+    }
+    rc = make_solve(&S->M.S, L, shapes, pl, packed0,
+                    static_cast<float*>(S->pad ? pl[P_B] : r), rows, ncoef,
+                    deg, coarse_deg, w, w_depth, part, flags, nullptr);
     if (!rc)
       rc = set_hierarchy(&S->M, L, shapes, pl, act, packed0, rows, ncoef,
                          deg, coarse_deg, ratio, coarse_ratio, -1, hpart);

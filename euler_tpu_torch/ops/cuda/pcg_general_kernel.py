@@ -195,21 +195,24 @@ class MgGeneralWorkspace(GeneralWorkspace):
         _build.check(self.lib, rc, "eu_pcg_mg_create")
         self.handle = handle.value
 
-    def _mg_levels(self, cfg: SimConfig, device):
+    def _mg_levels(self, cfg: SimConfig, device, own0: bool = False):
         """The cycle's buffers at `self.shapes` (the loop's planes are
-        level 0): the packed level 0, the Chebyshev rows, the hierarchy's
-        partials and per coarse level c, e, n, active and the cycle's x,
-        b, z, rr, d, dn.  Returns the create call's (L, shapes, planes,
-        act, packed0, rows, ncoef) arguments."""
+        level 0, or with `own0` level 0 has x, b, z, rr, d, dn of its own,
+        b and the packed level 0 zero: P4's padded level 0): the packed
+        level 0, the Chebyshev rows, the hierarchy's partials and per
+        coarse level c, e, n, active and the cycle's x, b, z, rr, d, dn.
+        Returns the create call's (L, shapes, planes, act, packed0, rows,
+        ncoef) arguments."""
         s, f = cfg.solver, torch.float32
         L = len(self.shapes)
 
-        def new(shape, dtype=f):
-            t = torch.empty(shape, dtype=dtype, device=device)
+        def new(shape, dtype=f, zero=False):
+            t = (torch.zeros if zero else torch.empty)(shape, dtype=dtype,
+                                                       device=device)
             self.keep.append(t)
             return t
 
-        self.packed0 = new(self.shapes[0])
+        self.packed0 = new(self.shapes[0], zero=own0)
         deg = [s.mg_cheby_degree] * (L - 1) + [s.mg_coarse_iters]
         self.rows = new((L, 1 + 2 * max(deg)))
         self.hpart = new((sum(-(-Yl * Xl // 256) for Yl, Xl in self.shapes),))
@@ -218,6 +221,9 @@ class MgGeneralWorkspace(GeneralWorkspace):
                        for shape in self.shapes[1:]]
         # level 0's pointers are the loop's planes, set by the library
         planes, act = [0] * _PLANES_PER_LEVEL, [0]
+        if own0:
+            planes[3:] = [new(self.shapes[0], zero=k == 1).data_ptr()
+                          for k in range(6)]
         for (c, e, n, active), shape in zip(self.levels, self.shapes[1:]):
             planes += [c.data_ptr(), e.data_ptr(), n.data_ptr()]
             planes += [new(shape).data_ptr() for _ in range(6)]

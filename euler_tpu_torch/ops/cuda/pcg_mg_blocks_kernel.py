@@ -12,7 +12,11 @@ hierarchy as its preconditioner.  `plan` (`parallel/spatial_mg.
 BlockPlan`) says where the block lies and at which level G the cycle
 gathers: levels 0 .. G - 1 stay on the blocks, each operation one launch
 with the neighbours' edges of the plane it reads exchanged before it;
-from G down every block runs P3's cycle on the whole coarse grid.  The
+from G down every block runs P3's cycle on the whole coarse grid.  At
+G = 0 (a block with an odd side) every block holds the whole grid's
+hierarchy, level 0 padded where the grid is odd: the blocks' packed
+level 0 is gathered once a solve and their r on every visit, and each
+block copies its own cells of the whole cycle's output into z.  The
 host drives it all, as P4 (`pcg_shard_kernel`): the loop's stages, the
 all-reduce after each reduction, the hierarchy's build steps, and the
 cycle's level operations (`_cycle` mirrors `Solve::cycle` of csrc/
@@ -68,7 +72,7 @@ def blocks_lib():
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
     D = ctypes.c_double
     _build.bind(lib, "eu_pcg_mg_blocks_create",
-                [I] * 4 + [P] * 4 + [I] * 2 + [P] * 2 + [I] * 5 + [F, F]
+                [I] * 4 + [P] * 4 + [I] * 2 + [P] * 3 + [I] * 5 + [F, F]
                 + [P] * 14 + [ctypes.POINTER(ctypes.c_void_p)])
     _build.bind(lib, "eu_pcg_mg_blocks_destroy", [P])
     _build.bind(lib, "eu_pcg_mg_blocks_stage", [P, I, I, D, D] + [P] * 9)
@@ -88,8 +92,10 @@ class BlocksWorkspace(GeneralWorkspace):
     as P3 maps them; levels 1 .. G - 1 their c, e, n, the cycle's planes,
     active and the west e / south n edges; level G c, e, n, b and
     active); the gathered levels G .. L - 1 as whole planes at their
-    stored shapes (`self.whole[l]`); the packed level 0, the Chebyshev
-    rows and the partials; and the CUDA solver over them."""
+    stored shapes (`self.whole[l]`; at G = 0 level 0's are the packed
+    operator and the cycle's planes, zero in the pad); the block's packed
+    level 0, the Chebyshev rows and the partials; and the CUDA solver
+    over them."""
 
     def __init__(self, cfg: SimConfig, plan, device):
         s = cfg.solver
@@ -126,9 +132,14 @@ class BlocksWorkspace(GeneralWorkspace):
             if l < G:
                 lv["ew"], lv["ns"] = new(Yl), new(Xl)
             self.block.append(lv)
-        self.whole = [None] * G + [
-            {**{k: new(shape) for k in PLANE_NAMES},
-             "act": new(shape, torch.uint8)} for shape in plan.shapes[G:]]
+        self.whole = [None] * G
+        for l, shape in enumerate(plan.shapes[G:], start=G):
+            if l == 0:  # the grid's packed level 0 for c, e, n, active
+                lv = {k: new(shape) for k in ("packed", *PLANE_NAMES[3:])}
+            else:
+                lv = {k: new(shape) for k in PLANE_NAMES}
+                lv["act"] = new(shape, torch.uint8)
+            self.whole.append(lv)
         self.bpart = new(sum(-(-Yl * Xl // 256) for Yl, Xl in
                              map(plan.block_shape, range(G))))
         self.hpart = new(G + sum(-(-Yl * Xl // 256)
@@ -142,8 +153,8 @@ class BlocksWorkspace(GeneralWorkspace):
             edges += [_ptr(lv.get("ew")), _ptr(lv.get("ns"))]
         for shape, lv in zip(plan.shapes, self.whole):
             shapes += shape
-            planes += [_ptr(lv and lv[k]) for k in PLANE_NAMES]
-            act.append(_ptr(lv and lv["act"]))
+            planes += [_ptr(lv and lv.get(k)) for k in PLANE_NAMES]
+            act.append(_ptr(lv and lv.get("act")))
         r0, c0 = plan.offset(G)
         ptrs = self._loop_ptrs()
         self.lib = blocks_lib()
@@ -156,7 +167,9 @@ class BlocksWorkspace(GeneralWorkspace):
                 (ctypes.c_void_p * len(planes))(*planes),
                 (ctypes.c_void_p * len(act))(*act),
                 (ctypes.c_void_p * len(edges))(*edges), r0, c0,
-                self.packed0.data_ptr(), self.rows.data_ptr(),
+                self.packed0.data_ptr(), _ptr(self.whole[0] and
+                                              self.whole[0]["packed"]),
+                self.rows.data_ptr(),
                 self.rows.shape[1], *cycle_args(cfg), s.mg_cheby_ratio,
                 s.mg_coarse_ratio, self.bpart.data_ptr(),
                 self.hpart.data_ptr(), *ptrs, self.red.data_ptr(),
@@ -208,6 +221,13 @@ class BlocksWorkspace(GeneralWorkspace):
         level 0 (`ring`: the fluid one cell beyond each edge of the
         block), as P3 builds them for the whole grid."""
         G = self.G
+        if G == 0:
+            whole = gather_plane(self.packed0, comm, axes)
+            self.whole[0]["packed"][:whole.shape[0],
+                                    :whole.shape[1]].copy_(whole)
+            self._build_step(BUILD_GATHERED)
+            self._build_step(BUILD_ROWS)
+            return
         self._build_step(BUILD0, 0, [t.data_ptr() for t in ring])
         for l in range(1, G):
             lv = self.block[l]

@@ -22,7 +22,9 @@ Preconditioners: "none" (z = r on the fluid), "jacobi" (the jnp form,
 halo.py:136-139) and "mg" in f32: block-Jacobi additive Schwarz, P3's
 cycle (csrc/mg_levels.cuh) on the block's own hierarchy, built on the
 card from the block's operator (the global a_diag, cut), at
-`mg_kernel.padded_level_shapes` of the block.  `halo.
+`mg_kernel.padded_level_shapes` of the block: a block with an odd side
+(135 rows) keeps its level 0 padded on planes of its own, r copied in
+with a zero pad before the cycle and z cropped out after it.  `halo.
 make_sharded_pressure_solver` gives P4 "jacobi" for every preconditioner
 but "mg", as halo.py does; the frame on blocks gives it its own "none"
 and "jacobi" (its "mg" and "ic0" are P5's and P6's).
@@ -83,8 +85,9 @@ def shard_lib():
 
 class ShardWorkspace(MgGeneralWorkspace):
     """One block's buffers: P1's planes at the block's shape, the one-value
-    reduction buffer `red`, and for MG P3's levels of the block; and the
-    CUDA solver over them."""
+    reduction buffer `red`, and for MG P3's levels of the block (level 0
+    on planes of its own where it is padded); and the CUDA solver over
+    them."""
 
     def __init__(self, cfg: SimConfig, shape, device):
         s = cfg.solver
@@ -96,12 +99,8 @@ class ShardWorkspace(MgGeneralWorkspace):
         self.keep.append(self.red)
         if mg:
             self.shapes = padded_level_shapes(Y, X, s.mg_min_size)
-            if tuple(self.shapes[0]) != (Y, X):
-                raise NotImplementedError(
-                    f"block MG on a {Y} x {X} block: its level 0 would be "
-                    f"padded to {self.shapes[0]}, which P4's halo operator "
-                    "does not read (blocks of even sides only)")
-            levels = self._mg_levels(cfg, device)
+            levels = self._mg_levels(cfg, device,
+                                     tuple(self.shapes[0]) != (Y, X))
             ratios = (s.mg_cheby_ratio, s.mg_coarse_ratio)
             hpart = self.hpart.data_ptr()
         else:

@@ -16,18 +16,23 @@ Here each block holds its cells of it:
     distributed (every one of them even on the block, so its restriction
     and prolongation stay in the block); from G the whole coarse grid is
     gathered onto every block.  At 1024² that keeps 1024², 512² and 256²
-    on the blocks and gathers 128² and below;
+    on the blocks and gathers 128² and below.  A block with an odd side
+    (1080 x 1920 on 8 row blocks of 135 rows, 999² on 3 x 3) gathers at
+    level 0: every block holds the whole grid's hierarchy, level 0 padded
+    where the grid is odd, and runs the whole cycle;
   * `build_block_hierarchy`: the block's levels 0 .. G - 1 (level 0's
     couplings across the block's edges from the fluid ring, each level's
     west e and south n edges from the neighbours, each Gershgorin bound
     maxed over the blocks), and the whole levels from G down (level G's
-    c, e, n, active all-gathered, then `ops/multigrid.extend_hierarchy`);
-    the hierarchy is exact, so it is the whole grid's bit for bit;
+    c, e, n, active all-gathered, then `ops/multigrid.extend_hierarchy`,
+    which pads an odd level before coarsening it); the hierarchy is
+    exact, so it is the whole grid's bit for bit;
   * `block_cycle`: z = M r on the block: `cycle_galerkin` with the
     operator's neighbours exchanged, and at level G the restricted
-    residual all-gathered, the cycle run on the whole coarse grid, and
-    the block's part of the correction kept: bit for bit the
-    single-device cycle;
+    residual (at G = 0 r itself) all-gathered, the cycle run on the whole
+    coarse grid (zero-padded where it is odd, and cropped), and the
+    block's part of the correction kept: bit for bit the single-device
+    cycle;
   * `solve_pressure_blocks(cfg, comm, axes, b, a_diag, fluid, fluid1,
     x0)`: (p, iterations, residual), the last two the same on every
     block.  CUDA tensors run P5 (`ops/cuda/pcg_mg_blocks_kernel.py`), CPU
@@ -119,19 +124,18 @@ def block_plan(cfg: SimConfig, comm, axes, gather: int | None = None):
         raise ValueError(f"MG on blocks of a {cfg.ny} x {cfg.nx} grid: its "
                          f"hierarchy has one level (mg_min_size "
                          f"{cfg.solver.mg_min_size}); nothing to gather")
-    if rows % 2 or cols % 2:
-        raise ValueError(f"MG on blocks of {rows} x {cols} cells: level 1 "
-                         "of the grid is made from the blocks' 2 x 2 "
-                         "cells, which needs blocks of even sides")
-    top = min(fused_level(cfg, shapes), len(shapes) - 1)
+    # level 1 is made from the blocks' 2 x 2 cells only where both sides
+    # are even; else the blocks gather level 0
+    top = (0 if rows % 2 or cols % 2
+           else min(fused_level(cfg, shapes), len(shapes) - 1))
     for l in range(1, top):
         y, x = rows >> l, cols >> l
         if y % 2 or x % 2 or min(y, x) < MIN_EXTENT:
             top = l
             break
     if gather is not None:
-        if not 1 <= gather <= top:
-            raise ValueError(f"gather level {gather}: 1 .. {top} here")
+        if not 0 <= gather <= top:
+            raise ValueError(f"gather level {gather}: 0 .. {top} here")
         top = gather
     return BlockPlan(shapes, top, r0, rows, c0, cols)
 
@@ -161,8 +165,9 @@ def gather_plane(t, comm, axes):
 @dataclasses.dataclass
 class BlockHierarchy:
     """The block's levels 0 .. G - 1 (`EdgeLevel`s, each `lmax` the grid's)
-    and their (west e, south n) edges; `gather`, G; `coarse`: the grid's
-    level list with the whole levels G .. L - 1 (None below G)."""
+    and their (west e, south n) edges (none at G = 0); `gather`, G;
+    `coarse`: the grid's level list with the whole levels G .. L - 1
+    (None below G)."""
 
     plan: BlockPlan
     levels: list
@@ -206,14 +211,17 @@ def build_block_hierarchy(cfg: SimConfig, comm, axes, a_diag, fluid, ring,
                     0.0).to(dtype)
     n = torch.where(fl & torch.cat([fl[1:], above[None]], 0), -1.0,
                     0.0).to(dtype)
-    edges = [(torch.where(left & fl[:, 0], -1.0, 0.0).to(dtype),
-              torch.where(below & fl[0], -1.0, 0.0).to(dtype))]
-    levels = [_block_level(comm, axes, c, e, n, fl, *edges[0])]
-    for _ in range(1, plan.gather):
+    act, levels, edges = fl, [], []
+    if plan.gather:
+        edges.append((torch.where(left & fl[:, 0], -1.0, 0.0).to(dtype),
+                      torch.where(below & fl[0], -1.0, 0.0).to(dtype)))
+        levels.append(_block_level(comm, axes, c, e, n, fl, *edges[0]))
+        for _ in range(1, plan.gather):
+            c, e, n, act = coarsen_planes(levels[-1])
+            edges.append(_neighbour_edges(e, n, comm, axes))
+            levels.append(_block_level(comm, axes, c, e, n, act,
+                                       *edges[-1]))
         c, e, n, act = coarsen_planes(levels[-1])
-        edges.append(_neighbour_edges(e, n, comm, axes))
-        levels.append(_block_level(comm, axes, c, e, n, act, *edges[-1]))
-    c, e, n, act = coarsen_planes(levels[-1])
     whole = gather_plane(torch.stack([c, e, n, act.to(dtype)]), comm, axes)
     top = _edge_level(whole[0], whole[1], whole[2], whole[3] != 0)
     coarse = extend_hierarchy([None] * plan.gather + [top],

@@ -9,11 +9,13 @@ In-process blocks (`comm.LocalGroup`) on the CPU; JAX compiles nothing
 larger than 108 x 64, mg_min_size 8:
   * the hierarchy, gathered, bit for bit JAX `build_galerkin_hierarchy`
     (c, e, n, active, inv_c, lmax) on 2 x 2 and 4 x 1 blocks of a 64²
-    dam-break system and on 2 x 1 blocks of 108 x 64 (blocks of 54 rows:
+    dam-break system, on 2 x 1 blocks of 108 x 64 (blocks of 54 rows:
     the gather is at the 27-row level 1, and the grid's 27-row level 2
-    is padded in the gathered part);
-  * the gather level forced to every level it may take: the hierarchy
-    and one cycle bit for bit the same;
+    is padded in the gathered part), and on blocks of an odd side, which
+    gather at level 0: 4 x 1 blocks of 108 x 64 (27 rows) and 3 x 2 of
+    81 x 66 (27 x 33, the grid's level 0 padded);
+  * the gather level forced to every level it may take, 0 included: the
+    hierarchy and one cycle bit for bit the same;
   * one cycle z = M r, gathered: bit for bit the port's single-device
     `cycle_galerkin`, within 1e-5 of scale of JAX's;
   * the solve against JAX `solve_pressure` (use_pallas=False, MG), cold,
@@ -135,7 +137,11 @@ def _hierarchy(cfg, a_diag, fluid, y, x, gather=None, r=None):
 
 
 LAYOUTS = {"64x64_2x2": ((64, 64), 2, 2), "64x64_4x1": ((64, 64), 4, 1),
-           "108x64_2x1": ((108, 64), 2, 1)}
+           "108x64_2x1": ((108, 64), 2, 1), "108x64_4x1": ((108, 64), 4, 1),
+           "81x66_3x2": ((81, 66), 3, 2)}
+# the plan's gather level: blocks of an odd side gather level 0
+GATHER = {"64x64_2x2": 2, "64x64_4x1": 2, "108x64_2x1": 1, "108x64_4x1": 0,
+          "81x66_3x2": 0}
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
@@ -148,7 +154,7 @@ def test_hierarchy_matches_jax_bitwise(layout):
         min_size=MIN_SIZE))(jnp.asarray(a_diag.numpy()),
                             jnp.asarray(fluid.numpy()))
     assert len(levels) == len(want) >= 4
-    assert gather == (1 if Y == 108 else 2)
+    assert gather == GATHER[layout]
     for got, lw in zip(levels, want):
         for g, f in zip(got, ("c", "e", "n", "active", "inv_c", "lmax")):
             np.testing.assert_array_equal(g.numpy(),
@@ -173,12 +179,11 @@ def _jax_cycle(Y, X):
                                (a_diag, fluid, solid, b))))
 
 
-@pytest.mark.parametrize("layout", ["64x64_2x2", "64x64_4x1", "108x64_2x1"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_cycle_matches_single_device(layout):
     """One cycle on the blocks, gathered: bit for bit the port's
-    single-device cycle, and (64²: one JAX compile) within 1e-5 of scale
-    of JAX's (the single-device cycle at 108 x 64's kind of padded levels
-    is held to JAX in tests/test_torch_mg_padded.py)."""
+    single-device cycle, and within 1e-5 of scale of JAX's (one JAX
+    compile a grid)."""
     (Y, X), y, x = LAYOUTS[layout]
     cfg, b, a_diag, fluid, _, _ = _system(Y, X)
     _, _, z = _hierarchy(cfg, a_diag, fluid, y, x, r=b)
@@ -186,8 +191,6 @@ def test_cycle_matches_single_device(layout):
                                          min_size=MIN_SIZE)
     want = tmg.cycle_galerkin(whole, b, **tmg.cycle_kwargs(cfg))
     assert torch.equal(z, want)
-    if Y != 64:
-        return
     jz = _jax_cycle(Y, X)
     scale = float(np.abs(jz).max())
     assert scale > 0
@@ -196,13 +199,14 @@ def test_cycle_matches_single_device(layout):
 
 @pytest.mark.parametrize("layout", ["64x64_2x2", "64x64_4x1"])
 def test_every_gather_level_gives_the_same_bits(layout):
-    """The gather forced at each level from 1 to the plan's: the gathered
+    """The gather forced at each level from 0 (the whole level 0 on every
+    block, as blocks of an odd side take it) to the plan's: the gathered
     hierarchy and one cycle bit for bit the same."""
     (Y, X), y, x = LAYOUTS[layout]
     cfg, b, a_diag, fluid, _, _ = _system(Y, X)
     levels, top, z = _hierarchy(cfg, a_diag, fluid, y, x, r=b)
     assert top == 2
-    for gather in range(1, top):
+    for gather in range(top):
         got_levels, g, got_z = _hierarchy(cfg, a_diag, fluid, y, x, gather,
                                           r=b)
         assert g == gather and torch.equal(got_z, z)
@@ -222,7 +226,8 @@ def jax_solve():
 
 
 @pytest.mark.parametrize("case", ["cold", "warm", "zero"])
-@pytest.mark.parametrize("layout", ["64x64_2x2", "64x64_4x1"])
+@pytest.mark.parametrize("layout", ["64x64_2x2", "64x64_4x1", "108x64_4x1",
+                                    "81x66_3x2"])
 def test_solve_matches_jax(layout, case, jax_solve):
     """`solve_pressure_blocks` on the blocks against the JAX solve: p
     within 5e-4 of scale, iterations within 1 (0 on a zero RHS), the same
@@ -313,11 +318,14 @@ class _Comm:
     ((1024, 1024), (1, 1), 3, (0, 0)),
     ((1080, 1920), (2, 1), 2, (1, 0)),   # blocks of 540 rows: 135 at level 2
     ((1080, 1920), (2, 2), 2, (0, 1)),
+    ((1080, 1920), (8, 1), 0, (3, 0)),   # blocks of 135 rows
+    ((999, 999), (3, 3), 0, (1, 2)),     # 333², the grid's level 0 padded
 ])
 def test_block_plan(size, blocks, gather, at):
     """The gather level: P3's coarse cluster launch level (128² at 1024²,
-    68 x 120 at 1080 x 1920; mg_min_size 32), or the first level where a
-    block's extent is odd; the block's offset there."""
+    126² at 999², 68 x 120 at 1080 x 1920; mg_min_size 32), or the first
+    level where a block's extent is odd, level 0 where a side of the
+    block is; the block's offset there."""
     Y, X = size
     cfg = dataclasses.replace(_config(Y, X), solver=dataclasses.replace(
         _config(Y, X).solver, mg_min_size=32))
@@ -326,7 +334,7 @@ def test_block_plan(size, blocks, gather, at):
     axes = ("y", "x") if x > 1 else ("y",)
     plan = smg.block_plan(cfg, comm, axes)
     assert plan.gather == gather
-    assert smg.fused_level(cfg, plan.shapes) == (3 if Y == 1024 else 4)
+    assert smg.fused_level(cfg, plan.shapes) == (4 if Y == 1080 else 3)
     rows, cols = Y // y, (X // x if x > 1 else X)
     assert plan.block_shape(gather) == (rows >> gather, cols >> gather)
     assert plan.offset(gather) == (at[0] * rows >> gather,
@@ -334,10 +342,13 @@ def test_block_plan(size, blocks, gather, at):
 
 
 def test_block_plan_refusals():
-    """Blocks of an odd side and a grid of one MG level raise ValueError."""
+    """A grid of one MG level raises ValueError; blocks of an odd side,
+    refused before they gathered at level 0, gather there (any gather
+    level above 0 is refused)."""
     cfg = _config(54, 64)
-    with pytest.raises(ValueError, match="even sides"):
-        smg.block_plan(cfg, _Comm(2, 1), ("y",))
+    assert smg.block_plan(cfg, _Comm(2, 1), ("y",)).gather == 0
+    with pytest.raises(ValueError, match="gather level 1: 0 .. 0"):
+        smg.block_plan(cfg, _Comm(2, 1), ("y",), gather=1)
     small = _config(32, 16, mg_min_size=32)
     with pytest.raises(ValueError, match="one level"):
         smg.block_plan(small, _Comm(2, 1), ("y",))
