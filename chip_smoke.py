@@ -72,7 +72,20 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      and exhausted part-way), and timed; K1 and K7 bitwise and K8 to its
      check at 40 x 100 and 40 x 99; draw_frame and
      draw_frame_downsampled of card states byte-equal to the CPU's
-     render; a checkpoint round trip and resume on the card;
+     render; a checkpoint round trip and resume on the card; then f64
+     MG on one card (`run_f64_mg`): the CLI's converged 1024² dam break
+     (K1, K7, P3) and 1080 x 1920 waterfall (K1, S1, K7, P3) with
+     solver.dtype "float64", 1 warm-up frame on a copy and 2 timed frames
+     beside the f32 config's (div_inf <= 1, off the sources on the
+     waterfall; P3 once a substep; no K2, K3, K11 or plain version), P3
+     in f64 against its plain version on the f64 states (cold, warm,
+     capped at 3, which it must take exactly: the same iterations, p
+     within 1e-8 of scale), its hierarchy, rows and packed level 0
+     bitwise `mg_host_operands` in f64, its coarse cycle bitwise one
+     launch per level operation, its plan (the coarse cycle from 64² at
+     1024², where f32's starts at 128²), and timed beside its plain
+     version and P3 in f32 on the f32 state's system (its device time is
+     taken by the profiler at the end of the run);
  11. runs the global marker layout and the general solve: `python -m
      euler_tpu_torch scenarios/filter.txt --no-pallas --frames 50` (the
      reference's configuration: G1, G2, K7, K8, each once a substep) as a
@@ -207,7 +220,9 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      tests/goldens/ref_binary byte for byte to the JAX test's horizons,
      then P3's card tests that the P3 phase above does not repeat
      (tests/test_torch_cuda_mg_padded.py: 999², the 2160 x 3840
-     hierarchy, a zero RHS and the cap, the workspace per grid), then the
+     hierarchy, a zero RHS and the cap, the workspace per grid, and every
+     f64 case: the solves, hierarchies and cycles in f64 and the f64
+     plan), then the
      batch's (tests/test_torch_cuda_batch.py: each instance of an
      interleaved batch bitwise equal to it alone, on every solver
      workspace: K2/K3, K10, P3, K8, G1/G2 with K8, P1), then K1's
@@ -373,7 +388,7 @@ IC0_FLOPS = 16        # E_inv build 6, forward solve 5, back solve 5 a cell
 GLOBAL_PER_CELL = 4   # markers_per_cell: the global store has 4 slots a cell
 # the f64 kernels' operations count against the f64 rate
 FLOP_RATES = {"P1": F64_FLOP_PER_S, "P2": F64_FLOP_PER_S,
-              "P6": F64_FLOP_PER_S}
+              "P6": F64_FLOP_PER_S, "P3_f64": F64_FLOP_PER_S}
 BOUNDS = {
     # u, v f32; fluid, solid, dead u8; count i32 in; live positions in;
     # the whole store, count, drop i32 out (K4: the same on the padded
@@ -432,6 +447,9 @@ BOUNDS = {
     # b, x0 f32; a_diag i32; fluid u8 in; p f32 out (P1's loop and the MG
     # cycle: K3's operations an iteration)
     "P3": lambda n, iters, live: (17 * n, MG_FLOPS * iters * n),
+    # P3 in f64: b, x0 f64; a_diag i32; fluid u8 in; p f64 out (f32's
+    # floating planes doubled), its operations at the f64 rate
+    "P3_f64": lambda n, iters, live: (29 * n, MG_FLOPS * iters * n),
     # b f32; a_diag i32; fluid u8 in; p f32 out (P1's loop on blocks)
     "P4": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
     # P3's work on the same grid, whatever layout computes it
@@ -554,6 +572,15 @@ KERNELS = {
            "euler_tpu/ops/project.py:115 (pcg_loop, a jnp while_loop, with "
            "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner on "
            "padded levels; no pallas_call)"),
+    # the same solve in f64 (solver.dtype "float64"): a call is one warm
+    # solve of the 1080 x 1920 waterfall's system; launches from its 2
+    # timed f64 frames
+    "P3_f64": ("padded_mg_pcg_f64", "euler_tpu_torch/csrc/pcg_mg.cu",
+               "euler_tpu/ops/project.py:115 (pcg_loop in f64 with "
+               "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, its "
+               "f64 hierarchy padded at :332-352 and its f64 Chebyshev rows "
+               "at :395-427; every Pallas MG gate is f32 only, "
+               "mg_kernel.py:753; no pallas_call)"),
     # the frame on row blocks: a call is the 4 blocks' launches at 1024²;
     # launches from the 4-block waterfall frames
     "K7s": ("grid_stage_row_blocks", "euler_tpu_torch/csrc/grid_stage.cu",
@@ -948,7 +975,8 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     also its device time (`device_ms`, best of two rounds)."""
     out = kern()
     iters = 0 if name in ONE_LAUNCH + ("G2", "P2") else int(
-        out[1] if name in ("K3", "K8", "K11", "K12", "P1", "P3", "G1")
+        out[1] if name in ("K3", "K8", "K11", "K12", "P1", "P3", "P3_f64",
+                           "G1")
         else out[2])
     t_p1 = cuda_ms(plain_fn, reps)
     t_k1 = cuda_ms(kern, reps)
@@ -1943,6 +1971,176 @@ def run_padded_mg(results, summaries, launches, states) -> None:
         # the kernels line keeps the 1080 x 1920 call
         results["P3"].update(timed["P3"])
     launches["P3"] = summaries["cli_waterfall_1080p"]["launches"]["P3"]
+
+
+# f64 MG on one card (P3 in double precision): the CLI's converged runs
+# with solver.dtype "float64", label: (the f32 CLI run beside it, the
+# kernels its frames must launch, those they must not, the level where
+# the f64 coarse cycle takes over: 64² at 1024², where 128²'s lower
+# levels would need 368,640 bytes of shared memory in f64; 68 x 120 at
+# 1080 x 1920, as in f32)
+F64_RUNS = {
+    "f64_dam_break_1024": ("cli_dam_break_1024", ["K1", "K7", "P3"],
+                           ["K2", "K3", "K11", "S1"], 4),
+    "f64_waterfall_1080p": ("cli_waterfall_1080p", ["K1", "S1", "K7", "P3"],
+                            ["K2", "K3", "K4", "K10", "K11"], 4),
+}
+F64_FRAMES = 2  # timed frames of each, f64 and f32, after 1 warm-up
+
+
+def check_p3_plan(cfg, ws, fused: int, label: str) -> dict:
+    """P3's coarse-cycle plan on the card (`MgGeneralWorkspace.plan`):
+    the level where its one cluster launch takes over must be `fused`,
+    and its shared memory the 9 planes of every level below it in the
+    solver dtype, within what a CTA may have."""
+    import torch
+
+    plan = ws.plan()
+    item = torch.finfo(getattr(torch, cfg.solver.dtype)).bits // 8
+    want = sum(9 * item * Y * X for Y, X in ws.shapes[fused + 1:])
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", None)
+    log(f"   P3 plan {label}: coarse cycle from level {plan['fused']} "
+        f"{ws.shapes[plan['fused']]} of {plan['levels']}, {plan['smem']} "
+        f"bytes of shared memory (a CTA's opt-in: {optin})")
+    check(plan["fused"] == fused, f"P3 {label}: coarse cycle from level "
+          f"{plan['fused']}, not {fused}")
+    check(plan["smem"] == want, f"P3 {label}: {plan['smem']} bytes of "
+          f"shared memory, not {want}")
+    check(optin is None or plan["smem"] <= optin,
+          f"P3 {label}: shared memory over the opt-in")
+    return plan
+
+
+def run_f64_mg(results, summaries, launches) -> dict:
+    """f64 MG on one card: the CLI's converged 1024² dam break (K1, K7,
+    P3) and 1080 x 1920 waterfall (K1, S1, K7, P3) with solver.dtype
+    "float64", each beside its f32 config (1 warm-up frame on a copy, then
+    F64_FRAMES timed frames of each from the same state); on the f64
+    state, P3-f64 against its plain version (cold, warm, capped at 3:
+    the same iterations, p within 1e-8 of scale), its hierarchy, rows and
+    packed level 0 bitwise `mg_host_operands` in f64, its coarse cycle
+    bitwise one launch per level operation, its plan, and its time beside
+    the plain version's and P3-f32's on the f32 state's system.  Returns
+    the f64 systems, whose device time is taken at the end."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    systems, err = {}, 0.0
+    results["P3_f64"] = {}
+    for label, (f32_label, kernels, bypassed, fused) in F64_RUNS.items():
+        f32_kernels, f32_bypassed = CLI_RUNS[f32_label][2:]
+        with Phase(f"{label}: f64 MG and f32 beside it, 1 warm-up frame "
+                   f"on a copy + {F64_FRAMES} timed frames each; P3-f64 "
+                   "vs plain (cold, warm, capped at 3), its hierarchy, "
+                   "rows and coarse cycle bitwise, its plan, timed"):
+            cfg32, scn, st0 = cli_state(CLI_RUNS[f32_label][0])
+            cfg = dataclasses.replace(cfg32, solver=dataclasses.replace(
+                cfg32.solver, dtype="float64"))
+            sim.check_slice(cfg, scn)
+            check(sim.route(cfg, scn) == ("plain", "P3"),
+                  f"{label}: route {sim.route(cfg, scn)}")
+            states = {}
+            for c, name, ks, byp in ((cfg32, f"{label}_f32", f32_kernels,
+                                      f32_bypassed),
+                                     (cfg, label, kernels, bypassed)):
+                held = reset_peak()
+                sim.step_frame(c, scn, st0)  # the warm-up, discarded
+                st, summaries[name] = run_path(c, scn, st0, F64_FRAMES, ks,
+                                               name, byp)
+                record_peak(summaries[name], held)
+                d = (div_inf(c, st, scn.source) if scn.num_sources
+                     else summaries[name]["div_inf"])
+                summaries[name]["div_inf_off_sources"] = d
+                log(f"   {name}: div_inf {d:.6g}"
+                    + (" off the source cells" if scn.num_sources else ""))
+                check(d <= 1.0, f"{name}: div_inf > 1")
+                states[c.solver.dtype] = st
+            got = summaries[label]["launches"]["P3"]
+            check(got == cfg.max_substeps * F64_FRAMES,
+                  f"{label}: P3 launched {got} times in {F64_FRAMES} frames")
+            st = states["float64"]
+            _, _, _, b, a_diag = substep_system(cfg, scn, st)
+            fl = st.fluid
+            check(b.dtype == torch.float64, f"{label}: the RHS is {b.dtype}")
+            p0 = torch.where(fl, st.p, 0.0).to(b.dtype)
+            tag = f"{cfg.ny}x{cfg.nx}"
+            for x0 in (None, p0):
+                err = max(err, check_solve(
+                    f"P3-f64 {'warm' if x0 is not None else 'cold'} {tag}",
+                    p12.solve_pressure_general(cfg, b, a_diag, fl, x0=x0),
+                    p12.solve_pressure_general_plain(cfg, b, a_diag, fl, x0),
+                    1e-8, same_iters=True))
+            capped = dataclasses.replace(cfg, solver=dataclasses.replace(
+                cfg.solver, max_iterations=3))
+            got = p12.solve_pressure_general(capped, b, a_diag, fl, x0=p0)
+            want = p12.solve_pressure_general_plain(capped, b, a_diag, fl,
+                                                    p0)
+            check(int(got[1]) == int(want[1]) == 3, f"P3-f64 {tag} capped "
+                  "at 3 iterations did not take exactly 3")
+            err = max(err, check_solve(f"P3-f64 (max_iterations 3) {tag}",
+                                       got, want, 1e-8, same_iters=True))
+            check_p3_hierarchy(cfg, b, a_diag, fl, f"{tag} f64")
+            ws = p12.workspace(cfg, b.device)
+            summaries[f"p3_f64_plan_{label}"] = check_p3_plan(
+                cfg, ws, fused, f"{tag} f64")
+            # the f32 system beside it: P3-f32 on the same grid (at 1024²
+            # the f32 frames run K2 / K3, but P3 takes the system too)
+            st32 = states["float32"]
+            _, _, _, b32, a32 = substep_system(cfg32, scn, st32)
+            fl32 = st32.fluid
+            p032 = torch.where(fl32, st32.p, 0.0)
+            ws32 = p12.workspace(cfg32, b32.device)
+            p12.solve_pressure_general(cfg32, b32, a32, fl32, x0=p032)
+            plan32 = ws32.plan()
+            log(f"   P3 plan {tag} f32: coarse cycle from level "
+                f"{plan32['fused']} {ws32.shapes[plan32['fused']]}, "
+                f"{plan32['smem']} bytes of shared memory")
+            timed = {}
+            time_pair(timed, "P3_f64",
+                      lambda: p12.solve_pressure_general(cfg, b, a_diag, fl,
+                                                         x0=p0),
+                      lambda: p12.solve_pressure_general_plain(
+                          cfg, b, a_diag, fl, p0),
+                      cfg.ny * cfg.nx, 0, 2)
+            it64 = int(p12.solve_pressure_general(cfg, b, a_diag, fl,
+                                                  x0=p0)[1])
+            call32 = lambda: p12.solve_pressure_general(  # noqa: E731
+                cfg32, b32, a32, fl32, x0=p032)
+            t32 = min(cuda_ms(call32, REPS) for _ in range(2))
+            it32 = int(call32()[1])
+            timed["P3_f64"]["f32_ms"] = t32
+            log(f"   P3 warm {tag}: f64 {timed['P3_f64']['ms']:.3f} ms "
+                f"({it64} iterations), f32 {t32:.3f} ms ({it32} "
+                f"iterations, the f32 state's system), CUDA events")
+            summaries[f"p3_f64_{label}"] = dict(
+                timed["P3_f64"], iterations=it64, f32_iterations=it32)
+            # the kernels line keeps the 1080 x 1920 call
+            results["P3_f64"].update(timed["P3_f64"])
+            systems[label] = (cfg, b, a_diag, fl, p0)
+            del states, st, st32, st0, ws, ws32
+    results["P3_f64"]["max_abs_err"] = err
+    launches["P3_f64"] = summaries["f64_waterfall_1080p"]["launches"]["P3"]
+    return systems
+
+
+def f64_profiles(results, systems) -> None:
+    """P3-f64's device time: the kernel spans of one warm solve of each
+    f64 system (torch.profiler), taken after every timed phase."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    with Phase("P3-f64: kernel spans of one warm solve (torch.profiler)"):
+        for label, (cfg, b, a_diag, fl, p0) in systems.items():
+            spans = kernel_spans_ms(lambda: p12.solve_pressure_general(
+                cfg, b, a_diag, fl, x0=p0))
+            log(f"   P3-f64 {cfg.ny}x{cfg.nx}: " + (
+                f"kernel spans {spans[0]:.4f} ms summed (torch's copies "
+                f"{spans[1]:.4f} ms)" if spans else "not measured (the "
+                "profiler recorded no kernel)"))
+            if label == "f64_waterfall_1080p":
+                results["P3_f64"]["device_ms"] = spans[0] if spans else None
 
 
 def run_card_tests(selection: str,
@@ -5291,6 +5489,8 @@ def run(args) -> dict:
 
     run_text_scenarios(results, summaries, launches, args.profile)
 
+    f64_systems = run_f64_mg(results, summaries, launches)
+
     run_global(results, summaries, launches, args.profile)
 
     run_batch(summaries, launches, dev)
@@ -5313,6 +5513,9 @@ def run(args) -> dict:
 
     run_block_profiles(results, summaries, shared, dev)
     del shared
+
+    f64_profiles(results, f64_systems)
+    del f64_systems
 
     if args.profile:
         with Phase("profile"):
@@ -5337,7 +5540,7 @@ def run(args) -> dict:
     with Phase("P3's card tests beside the 1200² and 1080x1920 checks above "
                "(pytest, tests/test_torch_cuda_mg_padded.py)"):
         torch.cuda.empty_cache()
-        run_card_tests("999 or 2160 or zero or workspace",
+        run_card_tests("999 or 2160 or zero or workspace or f64",
                        files=("tests/test_torch_cuda_mg_padded.py",))
 
     with Phase("the batch's card tests: each instance of an interleaved "

@@ -32,7 +32,8 @@ __device__ __forceinline__ T ld(const T* __restrict__ a, int i, int j, int Y,
 }
 
 // max that propagates NaN from either side, like jnp.max / jnp.maximum
-__device__ __forceinline__ float nanmax(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nanmax(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
@@ -92,25 +93,26 @@ __device__ __forceinline__ Cell decode(float packed) {
 
 enum { EU_SUM = 0, EU_MAX = 1 };
 
-template <int OP>
-__device__ __forceinline__ float eu_combine(float a, float b) {
+template <int OP, typename T>
+__device__ __forceinline__ T eu_combine(T a, T b) {
   return OP == EU_SUM ? a + b : nanmax(a, b);
 }
 
 // Block-wide reduction in a fixed order (warp shuffles, then warp 0 over
-// the per-warp results).  blockDim.x must be a multiple of 32; the result
-// is valid in thread 0.  The identity is 0 for both ops (every max here
-// is over non-negative values).
-template <int OP>
-__device__ float block_reduce(float v) {
-  __shared__ float warp_part[32];
+// the per-warp results), in float or double (P3's f64 levels).
+// blockDim.x must be a multiple of 32; the result is valid in thread 0.
+// The identity is 0 for both ops (every max here is over non-negative
+// values).
+template <int OP, typename T>
+__device__ T block_reduce(T v) {
+  __shared__ T warp_part[32];
   for (int o = 16; o > 0; o >>= 1)
     v = eu_combine<OP>(v, __shfl_down_sync(0xffffffffu, v, o));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_part[warp] = v;
   __syncthreads();
   const int nwarps = blockDim.x >> 5;
-  v = (threadIdx.x < nwarps) ? warp_part[threadIdx.x] : 0.0f;
+  v = (threadIdx.x < nwarps) ? warp_part[threadIdx.x] : T(0);
   if (warp == 0)
     for (int o = 16; o > 0; o >>= 1)
       v = eu_combine<OP>(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -120,9 +122,9 @@ __device__ float block_reduce(float v) {
 
 // Second stage of a two-stage reduction: one block folds `n` per-block
 // partials in a fixed strided order.  Valid in thread 0.
-template <int OP>
-__device__ float reduce_partials(const float* __restrict__ part, int n) {
-  float v = 0.0f;
+template <int OP, typename T>
+__device__ T reduce_partials(const T* __restrict__ part, int n) {
+  T v = T(0);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     v = eu_combine<OP>(v, part[i]);
   return block_reduce<OP>(v);

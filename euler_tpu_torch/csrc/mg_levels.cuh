@@ -41,6 +41,15 @@
 // e x_e + (c x) (`CX`), and the west product is fused or rounded first
 // (`WEST`), per call site (the odd-column children of a restriction, the
 // coarse solve's steps, the Chebyshev init).
+//
+// Precision.  The levels, the level operations, `SolveT` and coarse_cycle
+// are templated on the plane type T: float for K2, K3, K11, P3, P4 and P5
+// (`Lvl`, `Solve`), double for P3's f64 solve (pcg_mg.cu).  The roundings
+// are the overloads below (`mul_rn`, `add_rn`, `sub_rn`, `fmac`: the
+// __f*_rn intrinsics for float, __d*_rn and __fma_rn for double), so the
+// float instantiation is the float code it always was, and the double one
+// rounds each operation where the float one does.  The PCG step kernels
+// at the end (`PcgLoop`: K3, K11) are float only.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -65,13 +74,44 @@ constexpr int kFusedCells = 128 * 128;  // coarse_cycle from a level this small
 enum { S_TOL = 0, S_SIGMA, S_SIGMA_NEW, S_BETA, S_ALPHA, S_RESID, S_N };
 enum { F_DONE = 0, F_ITERS, F_NONZERO, F_N };
 
-struct Lvl {
+template <typename T>
+struct LvlT {
   int Y, X;
-  const float* c;   // edge form (levels >= 1)
-  const float* e;
-  const float* n;
-  const float* pk;  // packed a_diag + 8 * fluid (level 0), else nullptr
+  const T* c;   // edge form (levels >= 1)
+  const T* e;
+  const T* n;
+  const T* pk;  // packed a_diag + 8 * fluid (level 0), else nullptr
 };
+using Lvl = LvlT<float>;
+
+// the correctly rounded operations of each precision, which nvcc never
+// contracts
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
 
 // a * b + c: one rounding (an FMA) with EU_FMAD, else the product rounded
 // first
@@ -82,6 +122,13 @@ __device__ __forceinline__ float fmac(float a, float b, float c) {
   return __fadd_rn(__fmul_rn(a, b), c);
 #endif
 }
+__device__ __forceinline__ double fmac(double a, double b, double c) {
+#if EU_FMAD
+  return __fma_rn(a, b, c);
+#else
+  return __dadd_rn(__dmul_rn(a, b), c);
+#endif
+}
 
 // What the level operations read one cell beyond a plane's edges: the
 // neighbour x[i, j +- 1], x[i +- 1, j] of the iterate, and the couplings
@@ -89,16 +136,19 @@ __device__ __forceinline__ float fmac(float a, float b, float c) {
 // `Zeros`: a whole grid (K3, K11, P3), 0 beyond its edges.  P5
 // (pcg_mg_blocks.cu) reads a block's from its neighbours' edges.
 struct Zeros {
-  __device__ __forceinline__ float x(const float* p, int i, int j, int Y,
-                                     int X) const {
+  template <typename T>
+  __device__ __forceinline__ T x(const T* p, int i, int j, int Y,
+                                 int X) const {
     return ld(p, i, j, Y, X);
   }
-  __device__ __forceinline__ float e_west(const float* e, int i, int j,
-                                          int Y, int X) const {
+  template <typename T>
+  __device__ __forceinline__ T e_west(const T* e, int i, int j, int Y,
+                                      int X) const {
     return ld(e, i, j - 1, Y, X);
   }
-  __device__ __forceinline__ float n_south(const float* n, int i, int j,
-                                           int Y, int X) const {
+  template <typename T>
+  __device__ __forceinline__ T n_south(const T* n, int i, int j, int Y,
+                                       int X) const {
     return ld(n, i - 1, j, Y, X);
   }
 };
@@ -108,32 +158,32 @@ struct Zeros {
 // masked) above it, its first two products fused as CX ? c x + (e x_e) :
 // e x_e + (c x) and its west product fused when WEST; what lies beyond
 // the plane from H
-template <bool CX, bool WEST, class H = Zeros>
-__device__ __forceinline__ float apply_at(const Lvl& L, const float* x, int i,
-                                          int j, const H& h = H()) {
+template <bool CX, bool WEST, class H = Zeros, typename T>
+__device__ __forceinline__ T apply_at(const LvlT<T>& L, const T* x, int i,
+                                      int j, const H& h = H()) {
   const int k = i * L.X + j;
   if (L.pk) {
-    const float p = L.pk[k];
-    const float fl = p >= 8.0f ? 1.0f : 0.0f;
-    const float a = __fsub_rn(p, __fmul_rn(8.0f, fl));
-    float nb =
-        __fadd_rn(h.x(x, i, j - 1, L.Y, L.X), h.x(x, i, j + 1, L.Y, L.X));
-    nb = __fadd_rn(nb, h.x(x, i + 1, j, L.Y, L.X));
-    nb = __fadd_rn(nb, h.x(x, i - 1, j, L.Y, L.X));
-    return __fmul_rn(fl, fmac(a, x[k], -nb));
+    const T p = L.pk[k];
+    const T fl = p >= T(8) ? T(1) : T(0);
+    const T a = sub_rn(p, mul_rn(T(8), fl));
+    T nb = add_rn(h.x(x, i, j - 1, L.Y, L.X), h.x(x, i, j + 1, L.Y, L.X));
+    nb = add_rn(nb, h.x(x, i + 1, j, L.Y, L.X));
+    nb = add_rn(nb, h.x(x, i - 1, j, L.Y, L.X));
+    return mul_rn(fl, fmac(a, x[k], -nb));
   }
-  const float c = L.c[k], xc = x[k];
-  const float e = L.e[k], xe = h.x(x, i, j + 1, L.Y, L.X);
-  float r = CX ? fmac(c, xc, __fmul_rn(e, xe)) : fmac(e, xe, __fmul_rn(c, xc));
-  const float ew = h.e_west(L.e, i, j, L.Y, L.X);
-  const float xw = h.x(x, i, j - 1, L.Y, L.X);
-  r = WEST ? fmac(ew, xw, r) : __fadd_rn(r, __fmul_rn(ew, xw));
+  const T c = L.c[k], xc = x[k];
+  const T e = L.e[k], xe = h.x(x, i, j + 1, L.Y, L.X);
+  T r = CX ? fmac(c, xc, mul_rn(e, xe)) : fmac(e, xe, mul_rn(c, xc));
+  const T ew = h.e_west(L.e, i, j, L.Y, L.X);
+  const T xw = h.x(x, i, j - 1, L.Y, L.X);
+  r = WEST ? fmac(ew, xw, r) : add_rn(r, mul_rn(ew, xw));
   r = fmac(L.n[k], h.x(x, i + 1, j, L.Y, L.X), r);
   return fmac(h.n_south(L.n, i, j, L.Y, L.X), h.x(x, i - 1, j, L.Y, L.X), r);
 }
 
-__device__ __forceinline__ float fluid0(const Lvl& L, int k) {
-  return L.pk[k] >= 8.0f ? 1.0f : 0.0f;
+template <typename T>
+__device__ __forceinline__ T fluid0(const LvlT<T>& L, int k) {
+  return L.pk[k] >= T(8) ? T(1) : T(0);
 }
 
 // ---- the level operations, one cell each ----
@@ -151,146 +201,145 @@ __device__ __forceinline__ float fluid0(const Lvl& L, int k) {
 // degree-1 pre-smooth from zero fused with the restriction: for coarse
 // cell t of a child Xc cells wide, x = b/theta and rr = b - A b/theta on
 // its 4 children, and b_c = the 2x2 sum of rr (0 in the child's pad)
-template <class H = Zeros>
-__device__ __forceinline__ void pre1_restrict_at(const Lvl& L, const float* b,
-                                                 float* x, float* bc,
-                                                 float it, int Xc, int t,
+template <class H = Zeros, typename T>
+__device__ __forceinline__ void pre1_restrict_at(const LvlT<T>& L,
+                                                 const T* b, T* x, T* bc,
+                                                 T it, int Xc, int t,
                                                  const H& h = H()) {
   const int I = t / Xc, J = t - I * Xc;
   if (2 * I >= L.Y || 2 * J >= L.X) {
-    bc[t] = 0.0f;
+    bc[t] = T(0);
     return;
   }
-  float rr[2][2];
+  T rr[2][2];
   for (int a = 0; a < 2; ++a)
     for (int c = 0; c < 2; ++c) {
       const int i = 2 * I + a, j = 2 * J + c, k = i * L.X + j;
-      const float bv = b[k];
-      x[k] = __fmul_rn(it, bv);
-      const float ab = c ? apply_at<true, false>(L, b, i, j, h)
-                         : apply_at<true, true>(L, b, i, j, h);
+      const T bv = b[k];
+      x[k] = mul_rn(it, bv);
+      const T ab = c ? apply_at<true, false>(L, b, i, j, h)
+                     : apply_at<true, true>(L, b, i, j, h);
       rr[a][c] = fmac(-it, ab, bv);
     }
-  bc[t] = __fadd_rn(__fadd_rn(rr[0][0], rr[1][0]),
-                    __fadd_rn(rr[0][1], rr[1][1]));
+  bc[t] = add_rn(add_rn(rr[0][0], rr[1][0]), add_rn(rr[0][1], rr[1][1]));
 }
 
 // b_c = R(b - A x) at coarse cell t of a child Xc cells wide (0 in its
 // pad)
-template <class H = Zeros>
-__device__ __forceinline__ void restrict_full_at(const Lvl& L, const float* b,
-                                                 const float* x, float* bc,
-                                                 int Xc, int t,
+template <class H = Zeros, typename T>
+__device__ __forceinline__ void restrict_full_at(const LvlT<T>& L,
+                                                 const T* b, const T* x,
+                                                 T* bc, int Xc, int t,
                                                  const H& h = H()) {
   const int I = t / Xc, J = t - I * Xc;
   if (2 * I >= L.Y || 2 * J >= L.X) {
-    bc[t] = 0.0f;
+    bc[t] = T(0);
     return;
   }
-  float rr[2][2];
+  T rr[2][2];
   for (int a = 0; a < 2; ++a)
     for (int c = 0; c < 2; ++c) {
       const int i = 2 * I + a, j = 2 * J + c;
-      const float ax = c ? apply_at<false, false>(L, x, i, j, h)
-                         : apply_at<true, true>(L, x, i, j, h);
-      rr[a][c] = __fsub_rn(b[i * L.X + j], ax);
+      const T ax = c ? apply_at<false, false>(L, x, i, j, h)
+                     : apply_at<true, true>(L, x, i, j, h);
+      rr[a][c] = sub_rn(b[i * L.X + j], ax);
     }
-  bc[t] = __fadd_rn(__fadd_rn(rr[0][0], rr[1][0]),
-                    __fadd_rn(rr[0][1], rr[1][1]));
+  bc[t] = add_rn(add_rn(rr[0][0], rr[1][0]), add_rn(rr[0][1], rr[1][1]));
 }
 
 // x += P z_c (constant injection from a child Xc cells wide, masked by
 // fluid at level 0); every cell of L has its parent inside the child's
 // own cells, never in its pad
-__device__ __forceinline__ void prolong_add_at(const Lvl& L, const float* zc,
-                                               float* x, int Xc, int t) {
+template <typename T>
+__device__ __forceinline__ void prolong_add_at(const LvlT<T>& L,
+                                               const T* zc, T* x, int Xc,
+                                               int t) {
   const int i = t / L.X, j = t - i * L.X;
-  float add = zc[(i / 2) * Xc + j / 2];
-  if (L.pk) add = __fmul_rn(fluid0(L, t), add);
-  x[t] = __fadd_rn(x[t], add);
+  T add = zc[(i / 2) * Xc + j / 2];
+  if (L.pk) add = mul_rn(fluid0(L, t), add);
+  x[t] = add_rn(x[t], add);
 }
 
 // degree-1 post-smooth z = x + (b - A x)/theta; returns z * b
-template <class H = Zeros>
-__device__ __forceinline__ float post1_at(const Lvl& L, const float* b,
-                                          const float* x, float* z, float it,
-                                          int t, const H& h = H()) {
+template <class H = Zeros, typename T>
+__device__ __forceinline__ T post1_at(const LvlT<T>& L, const T* b,
+                                      const T* x, T* z, T it, int t,
+                                      const H& h = H()) {
   const int i = t / L.X, j = t - i * L.X;
-  const float bb = b[t];
-  const float zz =
-      fmac(__fsub_rn(bb, apply_at<true, true>(L, x, i, j, h)), it, x[t]);
+  const T bb = b[t];
+  const T zz = fmac(sub_rn(bb, apply_at<true, true>(L, x, i, j, h)), it, x[t]);
   z[t] = zz;
-  return __fmul_rn(zz, bb);
+  return mul_rn(zz, bb);
 }
 
 // general-degree Chebyshev smoothing (cheby_smooth of ops/multigrid.py):
 // init, degree-1 steps, then x += d
-template <class H = Zeros>
-__device__ __forceinline__ void cheby_init_at(const Lvl& L, const float* b,
-                                              float* x, float* rr, float* d,
-                                              float it, int from_zero,
-                                              int t, const H& h = H()) {
+template <class H = Zeros, typename T>
+__device__ __forceinline__ void cheby_init_at(const LvlT<T>& L, const T* b,
+                                              T* x, T* rr, T* d, T it,
+                                              int from_zero, int t,
+                                              const H& h = H()) {
   const int i = t / L.X, j = t - i * L.X;
-  float r;
+  T r;
   if (from_zero) {
     r = b[t];
   } else {
-    r = __fsub_rn(b[t], apply_at<false, true>(L, x, i, j, h));
+    r = sub_rn(b[t], apply_at<false, true>(L, x, i, j, h));
   }
   rr[t] = r;
-  d[t] = __fmul_rn(r, it);
-  if (from_zero) x[t] = 0.0f;
+  d[t] = mul_rn(r, it);
+  if (from_zero) x[t] = T(0);
 }
 
-template <class H = Zeros>
-__device__ __forceinline__ void cheby_step_at(const Lvl& L, float* x,
-                                              float* rr, const float* d,
-                                              float* dn, float cp, float cr,
+template <class H = Zeros, typename T>
+__device__ __forceinline__ void cheby_step_at(const LvlT<T>& L, T* x, T* rr,
+                                              const T* d, T* dn, T cp, T cr,
                                               int t, const H& h = H()) {
   const int i = t / L.X, j = t - i * L.X;
-  const float dd = d[t];
-  x[t] = __fadd_rn(x[t], dd);
-  const float r = __fsub_rn(rr[t], apply_at<true, true>(L, d, i, j, h));
+  const T dd = d[t];
+  x[t] = add_rn(x[t], dd);
+  const T r = sub_rn(rr[t], apply_at<true, true>(L, d, i, j, h));
   rr[t] = r;
-  dn[t] = fmac(cp, dd, __fmul_rn(cr, r));
+  dn[t] = fmac(cp, dd, mul_rn(cr, r));
 }
 
 // coarsest level: `degree` Chebyshev steps from zero in one block
 // (x = b/theta; rr = b - A b/theta; d = c_prev_0 x + c_r_0 rr; then
 // x += d, rr -= A d, d = c_prev_k d + c_r_k rr; the last step x += d)
-__device__ __forceinline__ void coarse_solve_block(const Lvl& L,
-                                                   const float* b, float* x,
-                                   float* rr, float* d, float* dn,
-                                   const float* row, int degree) {
+template <typename T>
+__device__ __forceinline__ void coarse_solve_block(const LvlT<T>& L,
+                                                   const T* b, T* x, T* rr,
+                                                   T* d, T* dn, const T* row,
+                                                   int degree) {
   const int n = L.Y * L.X;
-  const float it = row[0];
+  const T it = row[0];
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     const int i = t / L.X, j = t - i * L.X;
-    const float bv = b[t];
-    const float xv = __fmul_rn(it, bv);
+    const T bv = b[t];
+    const T xv = mul_rn(it, bv);
     x[t] = xv;
     if (degree > 1) {
-      const float r = fmac(-it, apply_at<true, true>(L, b, i, j), bv);
+      const T r = fmac(-it, apply_at<true, true>(L, b, i, j), bv);
       rr[t] = r;
-      d[t] = fmac(row[1], xv, __fmul_rn(row[2], r));
+      d[t] = fmac(row[1], xv, mul_rn(row[2], r));
     }
   }
   __syncthreads();
   for (int k = 1; k < degree; ++k) {
     const bool last = k == degree - 1;
-    const float cp = row[1 + 2 * k], cr = row[2 + 2 * k];
+    const T cp = row[1 + 2 * k], cr = row[2 + 2 * k];
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const float dd = d[t];
-      x[t] = __fadd_rn(x[t], dd);
+      const T dd = d[t];
+      x[t] = add_rn(x[t], dd);
       if (!last) {
         const int i = t / L.X, j = t - i * L.X;
-        const float r = __fsub_rn(rr[t], apply_at<false, true>(L, d, i, j));
+        const T r = sub_rn(rr[t], apply_at<false, true>(L, d, i, j));
         rr[t] = r;
-        dn[t] = fmac(cp, dd, __fmul_rn(cr, r));
+        dn[t] = fmac(cp, dd, mul_rn(cr, r));
       }
     }
     __syncthreads();
-    float* tmp = d;
+    T* tmp = d;
     d = dn;
     dn = tmp;
   }
@@ -303,10 +352,10 @@ __device__ __forceinline__ void coarse_solve_block(const Lvl& L,
 // the early return is uniform.
 
 // the restrictions run over the child's stored Yc x Xc cells
-__global__ void pre1_restrict(Lvl L, int Yc, int Xc,
-                              const float* __restrict__ b,
-                              float* __restrict__ x, float* __restrict__ bc,
-                              const float* __restrict__ row,
+template <typename T>
+__global__ void pre1_restrict(LvlT<T> L, int Yc, int Xc,
+                              const T* __restrict__ b, T* __restrict__ x,
+                              T* __restrict__ bc, const T* __restrict__ row,
                               const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -314,10 +363,10 @@ __global__ void pre1_restrict(Lvl L, int Yc, int Xc,
   pre1_restrict_at(L, b, x, bc, row[0], Xc, t);
 }
 
-__global__ void restrict_full(Lvl L, int Yc, int Xc,
-                              const float* __restrict__ b,
-                              const float* __restrict__ x,
-                              float* __restrict__ bc,
+template <typename T>
+__global__ void restrict_full(LvlT<T> L, int Yc, int Xc,
+                              const T* __restrict__ b,
+                              const T* __restrict__ x, T* __restrict__ bc,
                               const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -325,8 +374,9 @@ __global__ void restrict_full(Lvl L, int Yc, int Xc,
   restrict_full_at(L, b, x, bc, Xc, t);
 }
 
-__global__ void prolong_add(Lvl L, int Xc, const float* __restrict__ zc,
-                            float* __restrict__ x,
+template <typename T>
+__global__ void prolong_add(LvlT<T> L, int Xc, const T* __restrict__ zc,
+                            T* __restrict__ x,
                             const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -336,15 +386,14 @@ __global__ void prolong_add(Lvl L, int Xc, const float* __restrict__ zc,
 
 // with DOT, also the per-block partial sums of z * b (the PCG <z, r> at
 // level 0)
-template <bool DOT>
-__global__ void post1(Lvl L, const float* __restrict__ b,
-                      const float* __restrict__ x, float* __restrict__ z,
-                      const float* __restrict__ row,
-                      float* __restrict__ part,
+template <bool DOT, typename T>
+__global__ void post1(LvlT<T> L, const T* __restrict__ b,
+                      const T* __restrict__ x, T* __restrict__ z,
+                      const T* __restrict__ row, T* __restrict__ part,
                       const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.0f;
+  T acc = T(0);
   if (t < L.Y * L.X) acc = post1_at(L, b, x, z, row[0], t);
   if (DOT) {
     acc = block_reduce<EU_SUM>(acc);
@@ -352,22 +401,21 @@ __global__ void post1(Lvl L, const float* __restrict__ b,
   }
 }
 
-__global__ void cheby_init(Lvl L, const float* __restrict__ b,
-                           float* __restrict__ x, float* __restrict__ rr,
-                           float* __restrict__ d,
-                           const float* __restrict__ row, int from_zero,
-                           const int* __restrict__ flags) {
+template <typename T>
+__global__ void cheby_init(LvlT<T> L, const T* __restrict__ b,
+                           T* __restrict__ x, T* __restrict__ rr,
+                           T* __restrict__ d, const T* __restrict__ row,
+                           int from_zero, const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= L.Y * L.X) return;
   cheby_init_at(L, b, x, rr, d, row[0], from_zero, t);
 }
 
-__global__ void cheby_step(Lvl L, float* __restrict__ x,
-                           float* __restrict__ rr,
-                           const float* __restrict__ d,
-                           float* __restrict__ dn,
-                           const float* __restrict__ row, int k,
+template <typename T>
+__global__ void cheby_step(LvlT<T> L, T* __restrict__ x, T* __restrict__ rr,
+                           const T* __restrict__ d, T* __restrict__ dn,
+                           const T* __restrict__ row, int k,
                            const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -375,29 +423,29 @@ __global__ void cheby_step(Lvl L, float* __restrict__ x,
   cheby_step_at(L, x, rr, d, dn, row[1 + 2 * k], row[2 + 2 * k], t);
 }
 
-__global__ void axpy1(int n, float* __restrict__ x,
-                      const float* __restrict__ d,
+template <typename T>
+__global__ void axpy1(int n, T* __restrict__ x, const T* __restrict__ d,
                       const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) x[t] = __fadd_rn(x[t], d[t]);
+  if (t < n) x[t] = add_rn(x[t], d[t]);
 }
 
-__global__ void dot_partial(int n, const float* __restrict__ a,
-                            const float* __restrict__ b,
-                            float* __restrict__ part,
+template <typename T>
+__global__ void dot_partial(int n, const T* __restrict__ a,
+                            const T* __restrict__ b, T* __restrict__ part,
                             const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = t < n ? __fmul_rn(a[t], b[t]) : 0.0f;
+  T acc = t < n ? mul_rn(a[t], b[t]) : T(0);
   acc = block_reduce<EU_SUM>(acc);
   if (threadIdx.x == 0) part[blockIdx.x] = acc;
 }
 
-__global__ void coarse_solve(Lvl L, const float* __restrict__ b, float* x,
-                             float* rr, float* d, float* dn,
-                             const float* __restrict__ row, int degree,
-                             const int* __restrict__ flags) {
+template <typename T>
+__global__ void coarse_solve(LvlT<T> L, const T* __restrict__ b, T* x, T* rr,
+                             T* d, T* dn, const T* __restrict__ row,
+                             int degree, const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   coarse_solve_block(L, b, x, rr, d, dn, row, degree);
 }
@@ -552,32 +600,31 @@ __global__ void conv_reduce(const float* __restrict__ part, int nparts,
 
 enum { P_C = 0, P_E, P_N, P_X, P_B, P_Z, P_RR, P_D, P_DN, P_COUNT };
 
-struct Solve {
+template <typename T>
+struct SolveT {
   int L;
-  Lvl lv[16];
-  float* x[16];
-  float* b[16];
-  float* z[16];
-  float* rr[16];
-  float* d[16];
-  float* dn[16];
-  const float* rows;
+  LvlT<T> lv[16];
+  T* x[16];
+  T* b[16];
+  T* z[16];
+  T* rr[16];
+  T* d[16];
+  T* dn[16];
+  const T* rows;
   int ncoef;
   int deg, coarse_deg, w, w_depth;
   int fused;        // the level where coarse_cycle takes over (L: none)
   int fused_smem;   // its dynamic shared memory, bytes
-  float* part;
+  T* part;
   const int* flags;
   cudaStream_t s;
 
-  __host__ __device__ const float* row(int l) const {
-    return rows + l * ncoef;
-  }
+  __host__ __device__ const T* row(int l) const { return rows + l * ncoef; }
   __host__ __device__ int visits(int l) const {
     return (l < w_depth && l + 1 < L - 1) ? w : 1;
   }
   // where level l leaves its cycle output
-  __host__ __device__ float* zout(int l) const {
+  __host__ __device__ T* zout(int l) const {
     return (l == L - 1 || deg != 1) ? x[l] : z[l];
   }
   unsigned blocks(int l) const {
@@ -588,23 +635,33 @@ struct Solve {
     return eu_blocks(static_cast<long long>(lv[l + 1].Y) * lv[l + 1].X,
                      kThreads);
   }
+  // the shared memory of coarse_cycle from level f: the levels below it
+  long long smem_below(int f) const {
+    long long bytes = 0;
+    for (int l = f + 1; l < L; ++l)
+      bytes += static_cast<long long>(sizeof(T)) * kFusedPlanes * lv[l].Y *
+               lv[l].X;
+    return bytes;
+  }
 
   // general-degree smoothing of level l; result in x[l]
   int cheby(int l, bool from_zero) {
-    cheby_init<<<blocks(l), kThreads, 0, s>>>(lv[l], b[l], x[l], rr[l],
-                                              d[l], row(l), from_zero, flags);
+    cheby_init<T><<<blocks(l), kThreads, 0, s>>>(lv[l], b[l], x[l], rr[l],
+                                                 d[l], row(l), from_zero,
+                                                 flags);
     int rc = eu_launch_status();
     if (rc) return rc;
-    float *dc = d[l], *dnc = dn[l];
+    T *dc = d[l], *dnc = dn[l];
     for (int k = 0; k + 1 < deg; ++k) {
-      cheby_step<<<blocks(l), kThreads, 0, s>>>(lv[l], x[l], rr[l], dc, dnc,
-                                                row(l), k, flags);
+      cheby_step<T><<<blocks(l), kThreads, 0, s>>>(lv[l], x[l], rr[l], dc,
+                                                   dnc, row(l), k, flags);
       if ((rc = eu_launch_status())) return rc;
-      float* tmp = dc;
+      T* tmp = dc;
       dc = dnc;
       dnc = tmp;
     }
-    axpy1<<<blocks(l), kThreads, 0, s>>>(lv[l].Y * lv[l].X, x[l], dc, flags);
+    axpy1<T><<<blocks(l), kThreads, 0, s>>>(lv[l].Y * lv[l].X, x[l], dc,
+                                            flags);
     return eu_launch_status();
   }
 
@@ -616,56 +673,58 @@ struct Solve {
     const int n = lv[l].Y * lv[l].X;
     if (l == fused) return launch_fused(l);
     if (l == L - 1) {
-      coarse_solve<<<1, kCoarseThreads, 0, s>>>(lv[l], b[l], x[l], rr[l],
-                                                d[l], dn[l], row(l),
-                                                coarse_deg, flags);
+      coarse_solve<T><<<1, kCoarseThreads, 0, s>>>(lv[l], b[l], x[l], rr[l],
+                                                   d[l], dn[l], row(l),
+                                                   coarse_deg, flags);
       if ((rc = eu_launch_status())) return rc;
       if (dot) {
-        dot_partial<<<blocks(l), kThreads, 0, s>>>(n, x[l], b[l], part,
-                                                   flags);
+        dot_partial<T><<<blocks(l), kThreads, 0, s>>>(n, x[l], b[l], part,
+                                                      flags);
         return eu_launch_status();
       }
       return 0;
     }
     const int Yc = lv[l + 1].Y, Xc = lv[l + 1].X;
     if (deg == 1) {
-      pre1_restrict<<<coarse_blocks(l), kThreads, 0, s>>>(
+      pre1_restrict<T><<<coarse_blocks(l), kThreads, 0, s>>>(
           lv[l], Yc, Xc, b[l], x[l], b[l + 1], row(l), flags);
       if ((rc = eu_launch_status())) return rc;
     } else {
       if ((rc = cheby(l, true))) return rc;
-      restrict_full<<<coarse_blocks(l), kThreads, 0, s>>>(
+      restrict_full<T><<<coarse_blocks(l), kThreads, 0, s>>>(
           lv[l], Yc, Xc, b[l], x[l], b[l + 1], flags);
       if ((rc = eu_launch_status())) return rc;
     }
     for (int v = 0; v < visits(l); ++v) {
       if (v > 0) {
-        restrict_full<<<coarse_blocks(l), kThreads, 0, s>>>(
+        restrict_full<T><<<coarse_blocks(l), kThreads, 0, s>>>(
             lv[l], Yc, Xc, b[l], x[l], b[l + 1], flags);
         if ((rc = eu_launch_status())) return rc;
       }
       if ((rc = cycle(l + 1, false))) return rc;
-      prolong_add<<<blocks(l), kThreads, 0, s>>>(lv[l], Xc, zout(l + 1), x[l],
-                                                 flags);
+      prolong_add<T><<<blocks(l), kThreads, 0, s>>>(lv[l], Xc, zout(l + 1),
+                                                    x[l], flags);
       if ((rc = eu_launch_status())) return rc;
     }
     if (deg == 1) {
       if (dot)
-        post1<true><<<blocks(l), kThreads, 0, s>>>(lv[l], b[l], x[l], z[l],
-                                                   row(l), part, flags);
+        post1<true, T><<<blocks(l), kThreads, 0, s>>>(lv[l], b[l], x[l], z[l],
+                                                      row(l), part, flags);
       else
-        post1<false><<<blocks(l), kThreads, 0, s>>>(lv[l], b[l], x[l], z[l],
-                                                    row(l), part, flags);
+        post1<false, T><<<blocks(l), kThreads, 0, s>>>(
+            lv[l], b[l], x[l], z[l], row(l), part, flags);
       return eu_launch_status();
     }
     if ((rc = cheby(l, false))) return rc;
     if (dot) {
-      dot_partial<<<blocks(l), kThreads, 0, s>>>(n, x[l], b[l], part, flags);
+      dot_partial<T><<<blocks(l), kThreads, 0, s>>>(n, x[l], b[l], part,
+                                                    flags);
       return eu_launch_status();
     }
     return 0;
   }
 };
+using Solve = SolveT<float>;
 
 // ---- the coarse end of the cycle in one launch ----
 
@@ -678,31 +737,31 @@ __device__ __forceinline__ void level_sync() {
     __syncthreads();
 }
 
-template <bool CL>
-__device__ void cheby_dev(const Solve& S, int l, bool from_zero, int first,
-                          int stride) {
-  const Lvl L = S.lv[l];
+template <bool CL, typename T>
+__device__ void cheby_dev(const SolveT<T>& S, int l, bool from_zero,
+                          int first, int stride) {
+  const LvlT<T> L = S.lv[l];
   const int n = L.Y * L.X;
-  const float* const row = S.row(l);
-  const float* const b = S.b[l];
-  float* const x = S.x[l];
-  float* const rr = S.rr[l];
+  const T* const row = S.row(l);
+  const T* const b = S.b[l];
+  T* const x = S.x[l];
+  T* const rr = S.rr[l];
   const int deg = S.deg;
-  const float it = row[0];
+  const T it = row[0];
   for (int t = first; t < n; t += stride)
     cheby_init_at(L, b, x, rr, S.d[l], it, from_zero, t);
   level_sync<CL>();
-  float *dc = S.d[l], *dnc = S.dn[l];
+  T *dc = S.d[l], *dnc = S.dn[l];
   for (int k = 0; k + 1 < deg; ++k) {
-    const float cp = row[1 + 2 * k], cr = row[2 + 2 * k];
+    const T cp = row[1 + 2 * k], cr = row[2 + 2 * k];
     for (int t = first; t < n; t += stride)
       cheby_step_at(L, x, rr, dc, dnc, cp, cr, t);
     level_sync<CL>();
-    float* tmp = dc;
+    T* tmp = dc;
     dc = dnc;
     dnc = tmp;
   }
-  for (int t = first; t < n; t += stride) x[t] = __fadd_rn(x[t], dc[t]);
+  for (int t = first; t < n; t += stride) x[t] = add_rn(x[t], dc[t]);
   level_sync<CL>();
 }
 
@@ -711,17 +770,17 @@ __device__ void cheby_dev(const Solve& S, int l, bool from_zero, int first,
 // first, first + stride, ...); else the calling CTA runs them.  Every
 // operation ends with a barrier.  The level's view is held in registers
 // (the schedule itself lives in shared memory).
-template <bool CL>
-__device__ __forceinline__ void descend(const Solve& S, int l, int first,
+template <bool CL, typename T>
+__device__ __forceinline__ void descend(const SolveT<T>& S, int l, int first,
                                         int stride) {
-  const Lvl L = S.lv[l];
+  const LvlT<T> L = S.lv[l];
   const int Xc = S.lv[l + 1].X;
   const int nc = S.lv[l + 1].Y * Xc;
-  const float* const b = S.b[l];
-  float* const x = S.x[l];
-  float* const bc = S.b[l + 1];
+  const T* const b = S.b[l];
+  T* const x = S.x[l];
+  T* const bc = S.b[l + 1];
   if (S.deg == 1) {
-    const float it = S.row(l)[0];
+    const T it = S.row(l)[0];
     for (int t = first; t < nc; t += stride)
       pre1_restrict_at(L, b, x, bc, it, Xc, t);
   } else {
@@ -732,20 +791,20 @@ __device__ __forceinline__ void descend(const Solve& S, int l, int first,
   level_sync<CL>();
 }
 
-template <bool CL>
-__device__ __forceinline__ void ascend(const Solve& S, int l, int first,
+template <bool CL, typename T>
+__device__ __forceinline__ void ascend(const SolveT<T>& S, int l, int first,
                                        int stride) {
-  const Lvl L = S.lv[l];
+  const LvlT<T> L = S.lv[l];
   const int n = L.Y * L.X;
   const int Xc = S.lv[l + 1].X;
-  float* const x = S.x[l];
-  const float* const zc = S.zout(l + 1);
+  T* const x = S.x[l];
+  const T* const zc = S.zout(l + 1);
   for (int t = first; t < n; t += stride) prolong_add_at(L, zc, x, Xc, t);
   level_sync<CL>();
   if (S.deg == 1) {
-    const float it = S.row(l)[0];
-    const float* const b = S.b[l];
-    float* const z = S.z[l];
+    const T it = S.row(l)[0];
+    const T* const b = S.b[l];
+    T* const z = S.z[l];
     for (int t = first; t < n; t += stride) post1_at(L, b, x, z, it, t);
     level_sync<CL>();
   } else {
@@ -759,34 +818,37 @@ __device__ __forceinline__ void ascend(const Solve& S, int l, int first,
 // it, whose planes move into its shared memory (their c, e, n copied in,
 // the rest scratch).  Each CTA keeps its view of the schedule, with those
 // planes remapped, in its shared memory.
+template <typename T>
 __global__ void __launch_bounds__(kCoarseThreads, 1)
-    coarse_cycle(const __grid_constant__ Solve S0, int from,
+    coarse_cycle(const __grid_constant__ SolveT<T> S0, int from,
                  const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
-  extern __shared__ float smem[];
-  __shared__ Solve S;
+  extern __shared__ __align__(16) unsigned char coarse_smem[];
+  T* const smem = reinterpret_cast<T*>(coarse_smem);
+  __shared__ SolveT<T> S;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
-  float* base = rank == 0 ? smem : cluster.map_shared_rank(smem, 0);
+  T* base = rank == 0 ? smem : cluster.map_shared_rank(smem, 0);
   const int* src = reinterpret_cast<const int*>(&S0);
   int* dst = reinterpret_cast<int*>(&S);
-  for (int i = threadIdx.x; i < static_cast<int>(sizeof(Solve) / sizeof(int));
+  for (int i = threadIdx.x;
+       i < static_cast<int>(sizeof(SolveT<T>) / sizeof(int));
        i += blockDim.x)
     dst[i] = src[i];
   __syncthreads();
   int off = 0;
   for (int l = from + 1; l < S0.L; ++l) {
     const int n = S0.lv[l].Y * S0.lv[l].X;
-    float* pl[kFusedPlanes];
+    T* pl[kFusedPlanes];
     for (int q = 0; q < kFusedPlanes; ++q) pl[q] = base + off + q * n;
     if (rank == 0) {
-      const float* __restrict__ c = S0.lv[l].c;
-      const float* __restrict__ e = S0.lv[l].e;
-      const float* __restrict__ nn = S0.lv[l].n;
-      float* own = smem + off;
+      const T* __restrict__ c = S0.lv[l].c;
+      const T* __restrict__ e = S0.lv[l].e;
+      const T* __restrict__ nn = S0.lv[l].n;
+      T* own = smem + off;
 #pragma unroll 4
       for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        const float cv = c[t], ev = e[t], nv = nn[t];
+        const T cv = c[t], ev = e[t], nv = nn[t];
         own[P_C * n + t] = cv;
         own[P_E * n + t] = ev;
         own[P_N * n + t] = nv;
@@ -814,7 +876,7 @@ __global__ void __launch_bounds__(kCoarseThreads, 1)
   if (rank == 0) {
     for (int l = from + 1; l < last; ++l)
       descend<false>(S, l, threadIdx.x, blockDim.x);
-    const Lvl Lc = S.lv[last];
+    const LvlT<T> Lc = S.lv[last];
     coarse_solve_block(Lc, S.b[last], S.x[last], S.rr[last], S.d[last],
                        S.dn[last], S.row(last), S.coarse_deg);
     __syncthreads();
@@ -826,7 +888,8 @@ __global__ void __launch_bounds__(kCoarseThreads, 1)
   ascend<true>(S, from, first, stride);
 }
 
-inline int Solve::launch_fused(int l) const {
+template <typename T>
+inline int SolveT<T>::launch_fused(int l) const {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kFusedCtas);
   cfg.blockDim = dim3(kCoarseThreads);
@@ -840,32 +903,36 @@ inline int Solve::launch_fused(int l) const {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int rc = static_cast<int>(
-      cudaLaunchKernelEx(&cfg, coarse_cycle, *this, l, flags));
+      cudaLaunchKernelEx(&cfg, coarse_cycle<T>, *this, l, flags));
   return rc ? rc : eu_launch_status();
 }
 
 // A Solve over L levels.  planes: P_COUNT pointers per level (c, e, n, x,
-// b, z, rr, d, dn); shapes: (Y, X) per level; rows: [L, ncoef] Chebyshev
-// rows.  With packed0, level 0 is the packed PCG matrix (its c/e/n are
-// unused) and its b is b0; without, level 0 is in edge form like the rest.
-// coarse_cycle takes over at the first level below 0 of at most
-// kFusedCells cells from which every level is visited once (at 1024² with
-// the truncated W of depth 2: 128²); every kernel reads the stop flag in
-// flags.
-inline int make_solve(Solve* S, int L, const int* shapes,
-                      void* const* planes, const void* packed0, float* b0,
+// b, z, rr, d, dn) of T planes; shapes: (Y, X) per level; rows: [L,
+// ncoef] Chebyshev rows.  With packed0, level 0 is the packed PCG matrix
+// (its c/e/n are unused) and its b is b0; without, level 0 is in edge form
+// like the rest.  coarse_cycle takes over at the first level below 0 of
+// at most kFusedCells cells from which every level is visited once (at
+// 1024² with the truncated W of depth 2: 128²), or, where the levels below
+// that one do not fit the card's shared memory in T (f64 at 1024²: 64² +
+// 32² cells of 9 planes is 368,640 bytes), at the first level below it
+// whose lower levels fit (f64 at 1024²: 64²); every f32 plan fits at the
+// first.  Every kernel reads the stop flag in flags.
+template <typename T>
+inline int make_solve(SolveT<T>* S, int L, const int* shapes,
+                      void* const* planes, const void* packed0, void* b0,
                       const void* rows, int ncoef, int deg, int coarse_deg,
                       int w, int w_depth, void* part, const void* flags,
                       void* stream) {
   if (L < 1 || L > 16) return static_cast<int>(cudaErrorInvalidValue);
   S->L = L;
-  S->rows = static_cast<const float*>(rows);
+  S->rows = static_cast<const T*>(rows);
   S->ncoef = ncoef;
   S->deg = deg;
   S->coarse_deg = coarse_deg;
   S->w = w;
   S->w_depth = w_depth;
-  S->part = static_cast<float*>(part);
+  S->part = static_cast<T*>(part);
   S->flags = static_cast<const int*>(flags);
   S->s = static_cast<cudaStream_t>(stream);
   S->fused = L;
@@ -873,31 +940,28 @@ inline int make_solve(Solve* S, int L, const int* shapes,
     void* const* pl = planes + l * P_COUNT;
     const bool packed = l == 0 && packed0;
     const int Y = shapes[2 * l], X = shapes[2 * l + 1];
-    S->lv[l] = Lvl{Y, X, static_cast<const float*>(pl[P_C]),
-                   static_cast<const float*>(pl[P_E]),
-                   static_cast<const float*>(pl[P_N]),
-                   packed ? static_cast<const float*>(packed0) : nullptr};
-    S->x[l] = static_cast<float*>(pl[P_X]);
-    S->b[l] = packed ? b0 : static_cast<float*>(pl[P_B]);
-    S->z[l] = static_cast<float*>(pl[P_Z]);
-    S->rr[l] = static_cast<float*>(pl[P_RR]);
-    S->d[l] = static_cast<float*>(pl[P_D]);
-    S->dn[l] = static_cast<float*>(pl[P_DN]);
+    S->lv[l] = LvlT<T>{Y, X, static_cast<const T*>(pl[P_C]),
+                       static_cast<const T*>(pl[P_E]),
+                       static_cast<const T*>(pl[P_N]),
+                       packed ? static_cast<const T*>(packed0) : nullptr};
+    S->x[l] = static_cast<T*>(pl[P_X]);
+    S->b[l] = packed ? static_cast<T*>(b0) : static_cast<T*>(pl[P_B]);
+    S->z[l] = static_cast<T*>(pl[P_Z]);
+    S->rr[l] = static_cast<T*>(pl[P_RR]);
+    S->d[l] = static_cast<T*>(pl[P_D]);
+    S->dn[l] = static_cast<T*>(pl[P_DN]);
     if (l >= 1 && S->fused == L && static_cast<long long>(Y) * X <= kFusedCells)
       S->fused = l;
   }
   // coarse_cycle runs a V: no level from the fused one down is revisited
   while (S->fused < L && S->visits(S->fused) != 1) ++S->fused;
-  S->fused_smem = 0;
-  for (int l = S->fused + 1; l < L; ++l)
-    S->fused_smem += static_cast<int>(sizeof(float)) * kFusedPlanes *
-                     S->lv[l].Y * S->lv[l].X;
+  S->fused_smem = static_cast<int>(S->smem_below(S->fused));
   if (S->fused_smem <= 48 * 1024) return 0;
   // the limit is the kernel's, not this solver's: raise it to all the
   // card allows, so that a solver made later with a smaller coarse end
   // cannot lower it under this one's launches
   cudaFuncAttributes fa;
-  int rc = static_cast<int>(cudaFuncGetAttributes(&fa, coarse_cycle));
+  int rc = static_cast<int>(cudaFuncGetAttributes(&fa, coarse_cycle<T>));
   int dev = 0, optin = 0;
   if (!rc) rc = static_cast<int>(cudaGetDevice(&dev));
   if (!rc)
@@ -905,10 +969,14 @@ inline int make_solve(Solve* S, int L, const int* shapes,
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
   if (rc) return rc;
   const int most = optin - static_cast<int>(fa.sharedSizeBytes);
+  // start lower where the levels below do not fit (a V from any level
+  // below the first is a V too)
+  while (S->fused < L && S->smem_below(S->fused) > most) ++S->fused;
+  S->fused_smem = static_cast<int>(S->smem_below(S->fused));
   if (S->fused_smem > most) return static_cast<int>(cudaErrorInvalidValue);
   if (fa.maxDynamicSharedSizeBytes >= most) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
-      coarse_cycle, cudaFuncAttributeMaxDynamicSharedMemorySize, most));
+      coarse_cycle<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, most));
 }
 
 // The PCG recurrence of one solve on the packed fine level L0 (the loop

@@ -40,22 +40,37 @@
 // batches of 13 would replay the rest of its cap as no-ops).  Built with
 // -fmad=false: the level functions round every product on its own
 // (EU_FMAD 0), as K11's.
+//
+// Precision.  A solver is float or double (`f64` at create): the loop is
+// pcg_loop.cuh's at T, and the hierarchy, the rows and the cycle are the
+// T instantiations of mg_solver.cuh and mg_levels.cuh, so an f64 solve
+// (the JAX package's `solver.dtype="float64"` with MG) runs every level in
+// double and takes its Chebyshev rows from double bounds.  Its coarse
+// cycle starts where the levels below fit the card's shared memory in
+// double (`make_solve`: at 1024², from 64², one level lower than f32's
+// 128²); `eu_pcg_mg_plan` reports that level.
 #define EU_FMAD 0
 #include "mg_solver.cuh"
 #include "pcg_loop.cuh"
 
 namespace {
 
-struct PcgMg {
+// what every solver starts with: its precision
+struct PcgMgHead {
+  int f64;
+};
+
+template <typename T>
+struct PcgMg : PcgMgHead {
   pcg::Ws w;
-  MgSolver M;  // the hierarchy and the cycle (its loop and graph unused)
+  MgSolverT<T> M;  // the hierarchy and the cycle (its loop and graph unused)
   cudaGraphExec_t exec;
   cudaEvent_t replayed;
 
   // z = M r, through coarse_cycle or, with per_op, one launch per level
   // operation
   int cycle(cudaStream_t st, bool per_op = false) const {
-    Solve S = M.S;
+    SolveT<T> S = M.S;
     S.s = st;
     if (per_op) S.fused = S.L;
     return S.cycle(0, false);
@@ -63,7 +78,7 @@ struct PcgMg {
 
   // the head's step: the packed level 0, the hierarchy and rows, z
   int head_step(cudaStream_t st) const {
-    pack_code<<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
+    pack_code<T><<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
         w.Y, w.X, w.code, M.packed0, w.X, w.flags);
     int rc = eu_launch_status();
     if (!rc) rc = M.hierarchy(st);
@@ -71,32 +86,13 @@ struct PcgMg {
   }
 };
 
-}  // namespace
-
-// A solver over a workspace's buffers: the loop's [Y, X] f32 planes p, r,
-// d, z, ad, pre, q and u8 code at the padded level-0 shape (Y, X), for
-// inputs of Yi x Xi; part: 1024 floats; scal, flags: P1's.  The cycle's L
-// levels: shapes (Y, X) per level as stored, level 0 the planes' shape;
-// planes: P_COUNT pointers per level (c, e, n, x, b, z, rr, d, dn) of
-// which level 0's are taken from the loop's planes here (z is the cycle's
-// output; pre, q, ad its scratch) and the coarse c, e, n are the
-// hierarchy's outputs; act: one u8 plane per level (level 0's unused);
-// packed0: [Y, X] f32; rows: [L, ncoef]; hpart: the sum over levels of
-// ceil(Yl * Xl / 256) floats.  Captures the graph of one chunk; *out is
-// the handle.
-EU_API int eu_pcg_mg_create(int Y, int X, int Yi, int Xi, int L,
-                            const int* shapes, void* const* planes,
-                            void* const* act, void* packed0, void* rows,
-                            int ncoef, int deg, int coarse_deg, int w,
-                            int w_depth, float ratio, float coarse_ratio,
-                            void* code, void* p, void* r, void* d, void* z,
-                            void* ad, void* pre, void* q, void* part,
-                            void* hpart, void* scal, void* flags,
-                            void** out) {
-  *out = nullptr;
-  if (L < 1 || L > 16 || shapes[0] != Y || shapes[1] != X || Yi > Y ||
-      Xi > X)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int create(int Y, int X, int Yi, int Xi, int L, const int* shapes,
+           void* const* planes, void* const* act, void* packed0, void* rows,
+           int ncoef, int deg, int coarse_deg, int w, int w_depth,
+           double ratio, double coarse_ratio, void* code, void* p, void* r,
+           void* d, void* z, void* ad, void* pre, void* q, void* part,
+           void* hpart, void* scal, void* flags, void** out) {
   void* pl[16 * P_COUNT];
   for (int k = 0; k < L * P_COUNT; ++k) pl[k] = planes[k];
   // level 0: the cycle reads b = r and leaves its output in the loop's z
@@ -108,12 +104,12 @@ EU_API int eu_pcg_mg_create(int Y, int X, int Yi, int Xi, int L,
   pl[P_RR] = post1 ? q : pre;
   pl[P_D] = post1 ? ad : q;
   pl[P_DN] = post1 ? nullptr : ad;
-  PcgMg* S = new PcgMg{};
+  PcgMg<T>* S = new PcgMg<T>{};
+  S->f64 = sizeof(T) == sizeof(double);
   S->w = pcg::Ws{Y, X, Yi, Xi, static_cast<uint8_t*>(code), p, r, d, z, ad,
                  pre, q, part, scal, static_cast<int*>(flags)};
-  int rc = make_solve(&S->M.S, L, shapes, pl, packed0, static_cast<float*>(r),
-                      rows, ncoef, deg, coarse_deg, w, w_depth, part, flags,
-                      nullptr);
+  int rc = make_solve(&S->M.S, L, shapes, pl, packed0, r, rows, ncoef, deg,
+                      coarse_deg, w, w_depth, part, flags, nullptr);
   if (!rc)
     rc = set_hierarchy(&S->M, L, shapes, pl, act, packed0, rows, ncoef, deg,
                        coarse_deg, ratio, coarse_ratio, -1, hpart);
@@ -131,7 +127,7 @@ EU_API int eu_pcg_mg_create(int Y, int X, int Yi, int Xi, int L,
     const auto step = [S](cudaStream_t s) { return S->cycle(s); };
     int rc_it = 0;
     for (int j = 0; !rc_it && j < pcg::kChunk; ++j)
-      rc_it = pcg::enqueue_iteration<float, pcg::kMg>(S->w, step, cs);
+      rc_it = pcg::enqueue_iteration<T, pcg::kMg>(S->w, step, cs);
     return rc_it;
   });
   if (rc) {
@@ -139,13 +135,12 @@ EU_API int eu_pcg_mg_create(int Y, int X, int Yi, int Xi, int L,
     delete S;
     return rc;
   }
-  *out = S;
+  *out = static_cast<PcgMgHead*>(S);
   return 0;
 }
 
-// Frees a solver once its last solve's replays have run.
-EU_API int eu_pcg_mg_destroy(void* solver) {
-  PcgMg* S = static_cast<PcgMg*>(solver);
+template <typename T>
+int destroy(PcgMg<T>* S) {
   int rc = static_cast<int>(cudaEventSynchronize(S->replayed));
   const int rc_graph = static_cast<int>(cudaGraphExecDestroy(S->exec));
   const int rc_event = static_cast<int>(cudaEventDestroy(S->replayed));
@@ -154,34 +149,23 @@ EU_API int eu_pcg_mg_destroy(void* solver) {
   return rc ? rc : rc_event;
 }
 
-// P3: A p = b with a_diag ([Yi, Xi] i32), fluid ([Yi, Xi] u8), b and x0
-// ([Yi, Xi] f32; x0 null: a cold start); the solution stays in the
-// workspace's p ([Y, X], the input at its top left), the iterations in
-// flags[1], max|r| in scal[4].
-EU_API int eu_pcg_mg_solve(void* solver, int cap, double tol, double tol_rel,
-                           const void* a_diag, const void* fluid,
-                           const void* b, const void* x0, void* stream) {
-  const PcgMg* S = static_cast<const PcgMg*>(solver);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int solve(const PcgMg<T>* S, int cap, double tol, double tol_rel,
+          const void* a_diag, const void* fluid, const void* b,
+          const void* x0, cudaStream_t st) {
   const auto step = [S](cudaStream_t s) { return S->head_step(s); };
-  const int rc = pcg::enqueue_head<float, pcg::kMg>(
+  const int rc = pcg::enqueue_head<T, pcg::kMg>(
       S->w, static_cast<const int32_t*>(a_diag),
-      static_cast<const uint8_t*>(fluid), static_cast<const float*>(b),
-      static_cast<const float*>(x0), cap, tol, tol_rel, step, st);
+      static_cast<const uint8_t*>(fluid), static_cast<const T*>(b),
+      static_cast<const T*>(x0), cap, tol, tol_rel, step, st);
   if (rc) return rc;
   return pcg::replay(S->exec, S->replayed, S->w.flags, cap, 1, st);
 }
 
-// One application of the preconditioner to r_in ([Y, X] f32, the planes'
-// shape) on the hierarchy of the last solve, through coarse_cycle or, with
-// per_op, one launch per level operation down to the coarsest (the check
-// that both round alike); z is copied to z_out ([Y, X] f32).  Clears the
-// stop flag first; the workspace's r and z are overwritten.
-EU_API int eu_pcg_mg_cycle(void* solver, int per_op, const void* r_in,
-                           void* z_out, void* stream) {
-  const PcgMg* S = static_cast<const PcgMg*>(solver);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = sizeof(float) * S->w.Y * S->w.X;
+template <typename T>
+int cycle(const PcgMg<T>* S, int per_op, const void* r_in, void* z_out,
+          cudaStream_t st) {
+  const size_t bytes = sizeof(T) * S->w.Y * S->w.X;
   int rc = static_cast<int>(
       cudaMemsetAsync(S->w.flags + pcg::F_DONE, 0, sizeof(int), st));
   if (!rc)
@@ -191,4 +175,97 @@ EU_API int eu_pcg_mg_cycle(void* solver, int per_op, const void* r_in,
   if (rc) return rc;
   return static_cast<int>(
       cudaMemcpyAsync(z_out, S->w.z, bytes, cudaMemcpyDeviceToDevice, st));
+}
+
+const PcgMgHead* head(const void* solver) {
+  return static_cast<const PcgMgHead*>(solver);
+}
+
+template <typename T>
+const PcgMg<T>* as(const void* solver) {
+  return static_cast<const PcgMg<T>*>(head(solver));
+}
+
+}  // namespace
+
+// A solver over a workspace's buffers: the loop's [Y, X] planes p, r, d,
+// z, ad, pre, q (f32, or f64 with f64 = 1) and u8 code at the padded
+// level-0 shape (Y, X), for inputs of Yi x Xi; part: 1024 of the planes'
+// type; scal, flags: P1's.  The cycle's L levels: shapes (Y, X) per level
+// as stored, level 0 the planes' shape; planes: P_COUNT pointers per
+// level (c, e, n, x, b, z, rr, d, dn) of which level 0's are taken from
+// the loop's planes here (z is the cycle's output; pre, q, ad its
+// scratch) and the coarse c, e, n are the hierarchy's outputs; act: one
+// u8 plane per level (level 0's unused); packed0: [Y, X]; rows: [L,
+// ncoef]; hpart: the sum over levels of ceil(Yl * Xl / 256); every
+// plane, row and partial in the planes' type, the ratios rounded to it.
+// Captures the graph of one chunk; *out is the handle.
+EU_API int eu_pcg_mg_create(int Y, int X, int Yi, int Xi, int f64, int L,
+                            const int* shapes, void* const* planes,
+                            void* const* act, void* packed0, void* rows,
+                            int ncoef, int deg, int coarse_deg, int w,
+                            int w_depth, double ratio, double coarse_ratio,
+                            void* code, void* p, void* r, void* d, void* z,
+                            void* ad, void* pre, void* q, void* part,
+                            void* hpart, void* scal, void* flags,
+                            void** out) {
+  *out = nullptr;
+  if (L < 1 || L > 16 || shapes[0] != Y || shapes[1] != X || Yi > Y ||
+      Xi > X)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (f64 ? create<double> : create<float>)(
+      Y, X, Yi, Xi, L, shapes, planes, act, packed0, rows, ncoef, deg,
+      coarse_deg, w, w_depth, ratio, coarse_ratio, code, p, r, d, z, ad, pre,
+      q, part, hpart, scal, flags, out);
+}
+
+// Frees a solver once its last solve's replays have run.
+EU_API int eu_pcg_mg_destroy(void* solver) {
+  PcgMgHead* H = static_cast<PcgMgHead*>(solver);
+  if (H->f64) return destroy(static_cast<PcgMg<double>*>(H));
+  return destroy(static_cast<PcgMg<float>*>(H));
+}
+
+// P3: A p = b with a_diag ([Yi, Xi] i32), fluid ([Yi, Xi] u8), b and x0
+// ([Yi, Xi] in the solver's type; x0 null: a cold start); the solution
+// stays in the workspace's p ([Y, X], the input at its top left), the
+// iterations in flags[1], max|r| in scal[4].
+EU_API int eu_pcg_mg_solve(void* solver, int cap, double tol, double tol_rel,
+                           const void* a_diag, const void* fluid,
+                           const void* b, const void* x0, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head(solver)->f64)
+    return solve(as<double>(solver), cap, tol, tol_rel, a_diag, fluid, b, x0,
+                 st);
+  return solve(as<float>(solver), cap, tol, tol_rel, a_diag, fluid, b, x0,
+               st);
+}
+
+// One application of the preconditioner to r_in ([Y, X] in the solver's
+// type, the planes' shape) on the hierarchy of the last solve, through
+// coarse_cycle or, with per_op, one launch per level operation down to the
+// coarsest (the check that both round alike); z is copied to z_out ([Y,
+// X]).  Clears the stop flag first; the workspace's r and z are
+// overwritten.
+EU_API int eu_pcg_mg_cycle(void* solver, int per_op, const void* r_in,
+                           void* z_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head(solver)->f64)
+    return cycle(as<double>(solver), per_op, r_in, z_out, st);
+  return cycle(as<float>(solver), per_op, r_in, z_out, st);
+}
+
+// The cycle's plan: out[0] the level where coarse_cycle takes over (L:
+// none), out[1] its dynamic shared memory in bytes, out[2] L.
+EU_API int eu_pcg_mg_plan(const void* solver, int* out) {
+  const PcgMgHead* H = head(solver);
+  const int fused = H->f64 ? as<double>(solver)->M.S.fused
+                           : as<float>(solver)->M.S.fused;
+  const int smem = H->f64 ? as<double>(solver)->M.S.fused_smem
+                          : as<float>(solver)->M.S.fused_smem;
+  const int L = H->f64 ? as<double>(solver)->M.S.L : as<float>(solver)->M.S.L;
+  out[0] = fused;
+  out[1] = smem;
+  out[2] = L;
+  return 0;
 }

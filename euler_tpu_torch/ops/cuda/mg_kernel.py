@@ -89,12 +89,19 @@ def padded_level_shapes(Y: int, X: int, min_size: int,
     return shapes
 
 
-def galerkin_cheby_f32(cfg: SimConfig) -> bool:
-    """f32 Galerkin MG with Chebyshev smoothing: the MG the CUDA levels
-    run (K2, K3, K11 and P3)."""
+def galerkin_cheby(cfg: SimConfig) -> bool:
+    """Galerkin MG with Chebyshev smoothing, f32 or f64: the MG P3 runs
+    (its levels are templated on the precision)."""
     s = cfg.solver
-    return (s.preconditioner == "mg" and s.dtype == "float32"
+    return (s.preconditioner == "mg" and s.dtype in ("float32", "float64")
             and s.mg_scheme == "galerkin" and s.mg_smoother == "cheby")
+
+
+def galerkin_cheby_f32(cfg: SimConfig) -> bool:
+    """`galerkin_cheby` in f32: the MG of K2, K3 and K11, whose JAX Pallas
+    kernels are f32 only (no f64 solve reaches them), and of P4's block
+    MG and P5."""
+    return galerkin_cheby(cfg) and cfg.solver.dtype == "float32"
 
 
 def mg_fits(cfg: SimConfig) -> bool:
@@ -113,13 +120,13 @@ def mg_pallas_fits(cfg: SimConfig) -> bool:
 
 def mg_host_operands(cfg: SimConfig, a_diag, fluid):
     """(shapes, packed0, coef_planes, coef_rows) for the CUDA solver at
-    the stored level shapes (`padded_level_shapes`): the packed level-0
-    plane a_diag + 8*fluid (padded with 0 where the grid is odd), the
-    coarse levels' (c, e, n) planes, and one Chebyshev row per level
-    [inv_theta, c_prev_0, c_r_0, ...] (the coarsest carries the
-    coarse-solve schedule), zero-padded to 1 + 2*max(degree)."""
+    the stored level shapes (`padded_level_shapes`), in the solver dtype:
+    the packed level-0 plane a_diag + 8*fluid (padded with 0 where the
+    grid is odd), the coarse levels' (c, e, n) planes, and one Chebyshev
+    row per level [inv_theta, c_prev_0, c_r_0, ...] (the coarsest carries
+    the coarse-solve schedule), zero-padded to 1 + 2*max(degree)."""
     s = cfg.solver
-    f = torch.float32
+    f = getattr(torch, s.dtype)
     shapes = padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)
     L = len(shapes)
     levels = multigrid.build_galerkin_hierarchy(a_diag, fluid, f,

@@ -15,13 +15,16 @@ preconditioner step P1 runs once an iteration with IC(0); its plain
 version is `ops/ic0.make_ic0_preconditioner`.  Neither replaces a
 `pallas_call`.
 
-With `preconditioner="mg"` (f32, Galerkin, Chebyshev), the same wrapper
-runs P3: where the JAX package's MG falls through to its jnp `pcg_loop`
-(level sizes that do not halve evenly to mg_min_size: 1080 x 1920, 1200²,
-1448², 999²; K3's and K11's gates are the JAX package's), P1's loop with
-one MG cycle (csrc/mg_levels.cuh) as its preconditioner step, on a
-hierarchy built on the card each solve at the padded level shapes of
-`mg_kernel.padded_level_shapes`.  An odd grid is solved on its padded
+With `preconditioner="mg"` (Galerkin, Chebyshev, f32 or f64), the same
+wrapper runs P3: where the JAX package's MG falls through to its jnp
+`pcg_loop` (in f32, level sizes that do not halve evenly to mg_min_size:
+1080 x 1920, 1200², 1448², 999²; K3's and K11's gates are the JAX
+package's; in f64, every size, since every JAX Pallas MG gate is f32
+only), P1's loop with one MG cycle (csrc/mg_levels.cuh) as its
+preconditioner step, on a hierarchy built on the card each solve at the
+padded level shapes of `mg_kernel.padded_level_shapes`, all in the solver
+dtype (the f64 Chebyshev rows from f64 bounds, as the JAX package takes
+them).  An odd grid is solved on its padded
 level-0 shape (the inputs at the top left, the pad not fluid) and p
 cropped.  P3 reads the stop flag after every chunk of 8 iterations (an
 MG solve stops within a few), not between batches of 13.  Its plain
@@ -52,7 +55,7 @@ from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.mg_kernel import (
     _PLANES_PER_LEVEL,
     cycle_args,
-    galerkin_cheby_f32,
+    galerkin_cheby,
     padded_level_shapes,
 )
 from euler_tpu_torch.ops.ic0 import make_ic0_preconditioner
@@ -86,14 +89,15 @@ def general_lib():
 def mg_lib():
     """csrc/pcg_mg.cu: P3 (`eu_pcg_mg_*`)."""
     lib = _build.load("pcg_mg", flags=["-fmad=false"])
-    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    P, I = _build.PTR, _build.INT
     D = ctypes.c_double
     _build.bind(lib, "eu_pcg_mg_create",
-                [I] * 5 + [P] * 5 + [I] * 5 + [F, F] + [P] * 12
+                [I] * 6 + [P] * 5 + [I] * 5 + [D, D] + [P] * 12
                 + [ctypes.POINTER(ctypes.c_void_p)])
     _build.bind(lib, "eu_pcg_mg_destroy", [P])
     _build.bind(lib, "eu_pcg_mg_solve", [P, I, D, D] + [P] * 5)
     _build.bind(lib, "eu_pcg_mg_cycle", [P, I, P, P, P])
+    _build.bind(lib, "eu_pcg_mg_plan", [P, P])
     return lib
 
 
@@ -164,16 +168,16 @@ class GeneralWorkspace:
 
 
 class MgGeneralWorkspace(GeneralWorkspace):
-    """P3's buffers: the loop's planes at the padded level-0 shape, and per
-    coarse level the hierarchy's c, e, n planes and active flags and the
-    cycle's x, b, z, rr, d, dn; the packed level 0, the Chebyshev rows and
-    the hierarchy's partials; and the CUDA solver over them (its level-0
-    scratch is the loop's planes).  `shapes` are the stored level shapes
-    (`padded_level_shapes`)."""
+    """P3's buffers in the solver dtype (f32 or f64): the loop's planes at
+    the padded level-0 shape, and per coarse level the hierarchy's c, e, n
+    planes and active flags and the cycle's x, b, z, rr, d, dn; the packed
+    level 0, the Chebyshev rows and the hierarchy's partials; and the CUDA
+    solver over them (its level-0 scratch is the loop's planes).
+    `shapes` are the stored level shapes (`padded_level_shapes`)."""
 
     def __init__(self, cfg: SimConfig, device):
         s = cfg.solver
-        f = torch.float32
+        f = getattr(torch, s.dtype)
         self.shapes = padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)
         L = len(self.shapes)
         if L > 16:
@@ -189,11 +193,21 @@ class MgGeneralWorkspace(GeneralWorkspace):
         handle = ctypes.c_void_p()
         with torch.cuda.device(device):
             rc = self.lib.eu_pcg_mg_create(
-                Y, X, cfg.ny, cfg.nx, *levels, *cycle_args(cfg),
-                s.mg_cheby_ratio, s.mg_coarse_ratio, *ptrs[:8], ptrs[8],
-                self.hpart.data_ptr(), *ptrs[9:], ctypes.byref(handle))
+                Y, X, cfg.ny, cfg.nx, int(f == torch.float64), *levels,
+                *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio,
+                *ptrs[:8], ptrs[8], self.hpart.data_ptr(), *ptrs[9:],
+                ctypes.byref(handle))
         _build.check(self.lib, rc, "eu_pcg_mg_create")
         self.handle = handle.value
+
+    def plan(self) -> dict:
+        """The cycle's plan on the card: the level where its coarse end
+        runs as one cluster launch ("fused"; the level count "levels":
+        none) and that launch's shared memory in bytes ("smem")."""
+        out = (ctypes.c_int * 3)()
+        _build.check(self.lib, self.lib.eu_pcg_mg_plan(self.handle, out),
+                     "eu_pcg_mg_plan")
+        return {"fused": out[0], "smem": out[1], "levels": out[2]}
 
     def _mg_levels(self, cfg: SimConfig, device, own0: bool = False):
         """The cycle's buffers at `self.shapes` (the loop's planes are
@@ -202,8 +216,8 @@ class MgGeneralWorkspace(GeneralWorkspace):
         level 0, the Chebyshev rows, the hierarchy's partials and per
         coarse level c, e, n, active and the cycle's x, b, z, rr, d, dn.
         Returns the create call's (L, shapes, planes, act, packed0, rows,
-        ncoef) arguments."""
-        s, f = cfg.solver, torch.float32
+        ncoef) arguments.  Every plane is in the dtype of the loop's."""
+        s, f = cfg.solver, self.planes.dtype
         L = len(self.shapes)
 
         def new(shape, dtype=f, zero=False):
@@ -235,11 +249,12 @@ class MgGeneralWorkspace(GeneralWorkspace):
                 self.rows.data_ptr(), self.rows.shape[1])
 
     def cycle(self, r, per_op: bool):
-        """z = M r for `r` ([Y, X] f32 at the planes' shape) on the
-        hierarchy of the last solve, through the coarse cycle or one launch
-        per level operation (the card tests hold the two bitwise equal).
-        Overwrites the workspace's r and z.  Returns z, fresh."""
-        _build.require(r, "r", torch.float32, self.shapes[0], self.p.device)
+        """z = M r for `r` ([Y, X] at the planes' shape, in the solver
+        dtype) on the hierarchy of the last solve, through the coarse cycle
+        or one launch per level operation (the card tests hold the two
+        bitwise equal).  Overwrites the workspace's r and z.  Returns z,
+        fresh."""
+        _build.require(r, "r", self.p.dtype, self.shapes[0], self.p.device)
         z = torch.empty_like(r)
         rc = self.lib.eu_pcg_mg_cycle(self.handle, int(per_op), r.data_ptr(),
                                       z.data_ptr(), _build.stream())
@@ -294,7 +309,7 @@ def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None):
     if b.device.type == "cpu":
         _build.PLAIN_CALLS[name] += 1
         return solve_pressure_general_plain(cfg, b, a_diag, fluid, x0)
-    if s.preconditioner not in _PRECON and not galerkin_cheby_f32(cfg):
+    if s.preconditioner not in _PRECON and not galerkin_cheby(cfg):
         raise NotImplementedError(
             f"the general solve has no {s.preconditioner!r} form in "
             f"{s.dtype} ({s.mg_scheme} / {s.mg_smoother})")

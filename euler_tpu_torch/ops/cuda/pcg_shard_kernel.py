@@ -188,10 +188,10 @@ def check_solver(cfg: SimConfig) -> None:
         raise ValueError(f"solver dtype {s.dtype!r}")
     if s.preconditioner == "mg" and s.dtype != "float32":
         raise NotImplementedError(
-            "f64 MG: the MG levels (K2, K3, K11, P3, P4, P5) are f32 (the "
-            "f64 solve with no preconditioner, Jacobi or IC(0) is ported, "
-            "P1); "
-            "ROADMAP queue 1 item M15")
+            "f64 MG on blocks: P4's block MG and P5 are f32 (f64 MG runs on "
+            "one card, P3; the f64 solve with no preconditioner, Jacobi or "
+            "IC(0) runs on blocks, P4 and P6); ROADMAP queue 1 item M15 "
+            "part b")
     if s.preconditioner == "mg" and not galerkin_cheby_f32(cfg):
         raise NotImplementedError(
             f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "

@@ -180,8 +180,10 @@ def solver_route(cfg: SimConfig, solid_given: bool = True):
     """The kernel `solve_pressure` runs, by the JAX package's chain
     (ops/project.py:191-223): "K8", "K3" (only with the solid mask),
     "K11", "K12", or where it falls through to its jnp `pcg_loop`, "P1"
-    (no preconditioner, Jacobi, IC(0)), "P3" (f32 Galerkin MG with
-    Chebyshev smoothing) or None (other MG, not ported)."""
+    (no preconditioner, Jacobi, IC(0)), "P3" (Galerkin MG with
+    Chebyshev smoothing, f32 or f64: no f64 solve passes the gates of K3
+    or K11, which are f32 as the JAX package's Pallas MG is) or None
+    (other MG, not ported)."""
     from euler_tpu_torch.ops.cuda import (
         mg_kernel,
         mg_stream_kernel,
@@ -199,7 +201,7 @@ def solver_route(cfg: SimConfig, solid_given: bool = True):
         return "K12"
     if cfg.solver.preconditioner in ("none", "jacobi", "ic0"):
         return "P1"
-    if mg_kernel.galerkin_cheby_f32(cfg):
+    if mg_kernel.galerkin_cheby(cfg):
         return "P3"
     return None
 
@@ -237,9 +239,9 @@ def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
         return solve_pressure_general(cfg, b, a_diag, fluid, x0=x0)
     s = cfg.solver
     raise NotImplementedError(
-        f"MG {s.mg_scheme} / {s.mg_smoother} in {s.dtype}: the port runs f32 "
-        "Galerkin MG with Chebyshev smoothing only (f64 MG is ROADMAP queue "
-        "1 item M15, RB-GS and rediscretized MG item M14)")
+        f"MG {s.mg_scheme} / {s.mg_smoother} in {s.dtype}: the port runs "
+        "Galerkin MG with Chebyshev smoothing in f32 and f64 only (RB-GS "
+        "and rediscretized MG are ROADMAP queue 1 item M14)")
 
 
 def clamp_pressure(p, fluid):

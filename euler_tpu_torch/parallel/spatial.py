@@ -64,7 +64,7 @@ exchanges columns):
     halo.py does);
   * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
     dt, `active` and the frame's counts are the same on every block.
-Refused, each naming its ROADMAP item: f64 MG (M15); RB-GS and
+Refused, each naming its ROADMAP item: f64 MG (M15 part b); RB-GS and
 rediscretized MG (M14).
 """
 
@@ -215,7 +215,7 @@ def gather_spatial(cfg: SimConfig, mesh, state: FluidState):
 
 def check_block_frame(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the solvers the frame on blocks does
-    not run, naming their ROADMAP items: f64 MG (M15), RB-GS and
+    not run, naming their ROADMAP items: f64 MG (M15 part b), RB-GS and
     rediscretized MG (M14)."""
     check_solver(cfg)
 

@@ -40,7 +40,8 @@ Here each block holds its cells of it:
     with apply_a's operator order and `block_cycle` (the dots summed and
     the maxima maxed over the blocks).  A gloo group with CUDA tensors
     raises.
-f32 Galerkin MG with Chebyshev smoothing only: f64 MG is ROADMAP M15,
+f32 Galerkin MG with Chebyshev smoothing only: f64 MG on blocks is
+ROADMAP M15 part b (one card runs it, P3),
 RB-GS and rediscretized MG M14 (`pcg_shard_kernel.check_solver`).
 """
 

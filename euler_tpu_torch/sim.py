@@ -120,11 +120,6 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
             "rediscretized hierarchy are ROADMAP queue 1 item M14")
     if s.dtype not in ("float32", "float64"):
         raise ValueError(f"solver dtype {s.dtype!r}")
-    if s.preconditioner == "mg" and s.dtype != "float32":
-        raise NotImplementedError(
-            "f64 MG: the MG levels (K2, K3, K11, P3) are f32 (the f64 solve "
-            "with no preconditioner, Jacobi or IC(0) is ported, P1); "
-            "ROADMAP queue 1 item M15")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             "f64 grid fields: the grid-stage and marker kernels are f32 "

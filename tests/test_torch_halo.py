@@ -301,7 +301,7 @@ def test_every_preconditioner_but_mg_runs_jacobi(precon):
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(preconditioner="mg", dtype="float64"), "M15"),
+    (dict(preconditioner="mg", dtype="float64"), "M15 part b"),
     (dict(preconditioner="mg", dtype="float32", mg_smoother="rbgs"),
      "M14"),
 ])

@@ -26,8 +26,9 @@ In process: the hook against JAX's `step_frame(..., marker_pass=)`
 (counts, alive, drops bitwise, u and v within 5e-3: tests/
 test_torch_sim.py's frame tolerances), a block under the halo's 8 rows
 refused, and the row-block step with IC(0) built (its MG runs:
-tests/test_torch_global_mg.py).  And one `dryrun_multichip(4,
-"gloo")`.
+tests/test_torch_global_mg.py); a split that does not divide the grid
+refused by both packages (JAX's `shard_spatial`, the port's
+`block_span`).  And one `dryrun_multichip(4, "gloo")`.
 """
 
 import dataclasses
@@ -43,6 +44,7 @@ from euler_tpu.ops import markers_slots as jms
 from euler_tpu.ops.pallas.substep_kernel import project_substep_mg
 from euler_tpu.parallel.batch import build_batch as jbuild_batch
 from euler_tpu.parallel.batch import step_frame_batched_jit
+from euler_tpu.parallel import spatial as jspatial
 from euler_tpu.sim import step_frame as jstep_frame
 from euler_tpu_torch import convert, sim
 from euler_tpu_torch.core.presets import dam_break
@@ -51,11 +53,11 @@ from euler_tpu_torch.parallel.batch import build_batch, step_frame_batched
 from euler_tpu_torch.parallel.comm import LocalGroup
 from euler_tpu_torch.parallel.cuda_shard import make_spatial_step_pallas
 from euler_tpu_torch.parallel.dryrun import dryrun_multichip, launch
-from euler_tpu_torch.parallel.mesh import make_mesh
+from euler_tpu_torch.parallel.mesh import block_span, make_mesh
 from euler_tpu_torch.parallel.spatial import Blocks
 
 import torch_shard_ranks as ranks
-from torch_parity import jax_config, pallas_interpret
+from torch_parity import jax_config, jax_state, pallas_interpret
 
 N = 2
 
@@ -146,6 +148,27 @@ def test_refusals(run):
     with LocalGroup(2, device="cpu") as g:
         steps = g.run(lambda comm: make_spatial_step_pallas(ic0, comm))
     assert all(callable(step) for step in steps)
+
+
+def test_uneven_split_refused_as_jax():
+    """A 10-row grid over 4 row blocks: the JAX package's `shard_spatial`
+    (a `device_put` onto `spatial_mesh(4, x=1)` of the virtual CPU
+    devices of tests/conftest.py, no compile) refuses it, and so does the
+    port's `mesh.block_span`: neither package pads a split that does not
+    divide the grid."""
+    cfg = dataclasses.replace(ranks.main_config(16, 16), ny=10)
+    scn, st = dam_break(cfg, device="cpu")
+    jscn, jst = jax_state((convert.scenario_to_numpy(scn),
+                           convert.state_to_numpy(st)))
+    jcfg = _jax(cfg)
+    with pytest.raises(ValueError, match="divisible by 4.*equal to 10"):
+        jspatial.shard_spatial(jcfg, jspatial.spatial_mesh(4, x=1), jscn,
+                               jst)
+    for r in range(4):
+        with pytest.raises(ValueError, match="10 rows do not split over "
+                                             "y=4"):
+            block_span(cfg.ny, 4, r, "y")
+    assert block_span(12, 4, 3, "y") == (9, 3)
 
 
 def test_mesh_needs_an_initialised_group():

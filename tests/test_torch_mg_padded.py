@@ -14,7 +14,8 @@ Against the JAX package, at sizes whose levels need padding (mg_min_size
     RHS at 63 x 99, capped at 3 iterations at 45 x 65, both with fewer
     levels to keep the JAX compile short: p within 5e-4 of scale,
     iterations within 1;
-  * the route at the CLI's sizes, and what `check_slice` still refuses;
+  * the route at the CLI's sizes, and what `check_slice` still refuses
+    (f64 MG, which it refused until the f64 levels, runs P3);
   * 3 frames of the CLI's converged mode at 42 x 100 (mg_min_size 16:
     21 x 50 is padded) on a dam break with a source (K1, S1, K7, P3):
     counts exact, u and v within 2e-3.
@@ -292,8 +293,9 @@ def test_frames_route(frames):
 
 
 REFUSED = {
-    # what check_slice still refuses: (config change, ROADMAP item named)
-    "f64_mg": (dict(solver=dict(dtype="float64")), "item M15"),
+    # what check_slice still refuses: (config change, ROADMAP item named;
+    # None: refused until its item was ported, runs P3 now)
+    "f64_mg": (dict(solver=dict(dtype="float64")), None),
     "rbgs": (dict(solver=dict(mg_smoother="rbgs")), "item M14"),
     "rediscretize": (dict(solver=dict(mg_scheme="rediscretize")),
                      "item M14"),
@@ -307,7 +309,9 @@ REFUSED = {
 @pytest.mark.parametrize("kind", list(REFUSED))
 def test_check_slice_refusals_name_their_item(kind):
     """Each configuration the port still refuses raises NotImplementedError
-    naming the ROADMAP item that holds it, at a P3 size and at a K3 size."""
+    naming the ROADMAP item that holds it, at a P3 size and at a K3 size;
+    f64 MG (M15 part a, ported) passes at both and routes to P3, the
+    f32-only gates of K3 and K11 shut to it."""
     change, item = REFUSED[kind]
     for size in ("1200x1200", "1024x1024"):
         cfg = cli.build_config(cli.parse_args(["preset:dam_break", "--size",
@@ -315,5 +319,11 @@ def test_check_slice_refusals_name_their_item(kind):
         solver = dataclasses.replace(cfg.solver, **change.get("solver", {}))
         bad = dataclasses.replace(cfg, solver=solver, **{
             k: v for k, v in change.items() if k != "solver"})
+        scn = type("Scn", (), {"num_sources": 0})()
+        if item is None:
+            sim.check_slice(bad, scn)
+            assert solver_route(bad) == "P3"
+            assert sim.route(bad, scn) == ("plain", "P3")
+            continue
         with pytest.raises(NotImplementedError, match=item):
-            sim.check_slice(bad, type("Scn", (), {"num_sources": 0})())
+            sim.check_slice(bad, scn)

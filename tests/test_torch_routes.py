@@ -57,7 +57,7 @@ def jax_route(jcfg):
                          (jps.stream_solver_fits, "K12")):
         if fits(jcfg):
             return grid, kernel
-    # the jnp pcg_loop: P1 in the port, P3 for (f32 Galerkin) MG
+    # the jnp pcg_loop: P1 in the port, P3 for (Galerkin) MG, f32 or f64
     return grid, "P3" if mg else "P1"
 
 
@@ -112,7 +112,8 @@ def test_pcg_loop_fallthrough_raises(precon, size):
     rows not a multiple of 8: the JAX package's jnp pcg_loop.  Neither
     raises any more: MG runs P3 (it raised until P3 existed), Jacobi P1
     (it raised until P1 existed).  f64 MG, which the JAX package also runs
-    there, still raises, naming its ROADMAP item."""
+    there, runs P3 as well (it raised until the f64 levels existed), as
+    the JAX chain gives its jnp loop."""
     cfg = _config(size, precon, True, False, False)
     want = jax_route(jax_config(cfg))[1]
     assert sim.route(cfg, NO_SOURCES)[1] == want
@@ -121,8 +122,9 @@ def test_pcg_loop_fallthrough_raises(precon, size):
     if precon == "mg":
         f64 = dataclasses.replace(cfg, solver=dataclasses.replace(
             cfg.solver, dtype="float64"))
-        with pytest.raises(NotImplementedError, match="M15"):
-            sim.check_slice(f64, NO_SOURCES)
+        sim.check_slice(f64, NO_SOURCES)
+        assert jax_route(jax_config(f64))[1] == "P3"
+        assert sim.route(f64, NO_SOURCES) == ("plain", "P3")
 
 
 @functools.lru_cache(maxsize=None)

@@ -92,20 +92,20 @@ def _outside(kind):
                                   "none", "f64", "frame_hierarchy",
                                   "odd_levels"])
 def test_outside_the_slice_raises(kind):
-    """What the port does not run raises, naming its ROADMAP item (f64
-    MG: M15); the global layout, IC(0), the unpreconditioned solve and MG
-    whose levels do not halve evenly (90², P3) run now (they raised until
-    the port had them): a frame each, finite, the solve on P1 or P3 (their
-    plain versions here)."""
+    """What the port does not run raises, naming its ROADMAP item; the
+    global layout, IC(0), the unpreconditioned solve, MG whose levels do
+    not halve evenly (90², P3) and f64 MG (P3, M15 part a) run now (they
+    raised until the port had them): a frame each, finite, the solve on
+    P1 or P3 (their plain versions here)."""
     cfg = _outside(kind)
     if kind in ("global", "odd_levels"):
         scn, st = dam_break(cfg, device="cpu")
     else:
         scn, st = dam_break(port_config(64), device="cpu")
-    if kind in ("global", "ic0", "none", "odd_levels"):
+    if kind in ("global", "ic0", "none", "odd_levels", "f64"):
         if kind != "global":
             assert sim.route(cfg, scn) == (
-                "plain", "P3" if kind == "odd_levels" else "P1")
+                "plain", "P3" if kind in ("odd_levels", "f64") else "P1")
         new, stats = sim.step_frame_stats(cfg, scn, st)
         assert int(new.frame_count) == 1
         assert bool(torch.isfinite(new.u).all())

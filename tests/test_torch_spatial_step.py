@@ -130,7 +130,7 @@ def test_sources_in_every_block():
 
 # what each refusal raises and names: the ROADMAP item, or the JAX
 # package's assert that spatial sharding keeps the slot layout
-REFUSED = {"f64 MG": (NotImplementedError, "f64 MG.*M15"),
+REFUSED = {"f64 MG": (NotImplementedError, "f64 MG on blocks.*M15 part b"),
            "MG galerkin / rbgs": (NotImplementedError,
                                   "MG galerkin / rbgs.*M14"),
            "global marker layout": (
