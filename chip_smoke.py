@@ -201,13 +201,25 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      and waterfall.txt in the reference's configuration (global, rainbow,
      `--no-pallas`) at 40 x 100 on 2 x 2 blocks, 3 frames, card against
      CPU (counts, alive, store order, drops, RNG bitwise; velocities,
-     colours, positions within their tolerances); last, P4's, P5's,
-     P6's and
-     P3's (and P1 + P2's) device time from one profiled solve each: a
-     profiler session over the blocks' threads slowed later host
-     launches, so nothing is timed after it;
- 15. runs the Jacobi, marker, grid-stage and source card tests of
-     tests/test_torch_cuda.py (pytest -k, a process of its own: K8's
+     colours, positions within their tolerances); MG on blocks of an odd
+     side (`run_odd_blocks`: P5 gathering at level 0 on 8 row blocks of
+     1080 x 1920 and 3 x 3 of 999², P4's padded block MG, K1 / K7 / S1
+     at odd row offsets, the 1080 x 1920 MG waterfall on 8 blocks); f64
+     MG on blocks (`run_f64_blocks`: P5-f64 against P3-f64 on the f64
+     1024² and 1080 x 1920 systems on 1 x 1, 2 x 2 and 8 x 1 blocks,
+     cold and warm, bitwise on 1 x 1 and at gather level 0, else the
+     same iterations and p within 1e-10 of scale, against its plain
+     version, its plans and workspace bytes, timed beside P3-f64 and the
+     f32 layout; P4's f64 block MG on 8 x 1 and 2 x 2 against its plain
+     loop; the f64 1080 x 1920 MG waterfall on 8 x 1 blocks and 1024²
+     dam break on 2 x 2 against 1 block); last, P4's, P5's, P6's, the
+     f64 blocks' and P3's (and P1 + P2's) device time from one profiled
+     solve each: a profiler session over the blocks' threads slowed
+     later host launches, so nothing is timed after it;
+ 15. runs the card tests, five pytest processes (`CARD_TESTS`, -k
+     selections) started at once on the card after every timed phase:
+     the Jacobi, marker, grid-stage and source card tests of
+     tests/test_torch_cuda.py (K8's
      caps, non-finite and zero RHS on K8-K10, workspace reuse, two grids
      in turn; K1 and K4 on ragged grids at K = 4, 8 and 16, K5 and K6 at
      K = 8 and 16 (K6 also on alive planes with holes), bitwise; one
@@ -235,7 +247,9 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      the 40 x 100 waterfall on 2 x 2 blocks card vs CPU), P5's (its
      hierarchy and a cycle on 2 x 2 and 4 x 1 blocks of the 256² system
      bitwise P3's, 1 x 1 blocks bitwise P3, the 64² MG dam break on 2 x 2
-     blocks card vs CPU), P6's (its sweeps on 2 x 2 and 4 x 1 blocks of
+     blocks card vs CPU; in f64 too: the hierarchy and a cycle, 1 x 1
+     bitwise P3-f64, the f64 plans of P4 and P5 at 1024²), P6's (its
+     sweeps on 2 x 2 and 4 x 1 blocks of
      the 256² system bitwise P2's, 1 x 1 blocks bitwise P1 + P2, 40 x 100
      against its plain version, the 64² IC(0) dam break on 2 x 2 blocks
      card vs CPU) and `dryrun_multichip(1, "nccl")` (a spawned NCCL
@@ -262,6 +276,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -388,7 +403,8 @@ IC0_FLOPS = 16        # E_inv build 6, forward solve 5, back solve 5 a cell
 GLOBAL_PER_CELL = 4   # markers_per_cell: the global store has 4 slots a cell
 # the f64 kernels' operations count against the f64 rate
 FLOP_RATES = {"P1": F64_FLOP_PER_S, "P2": F64_FLOP_PER_S,
-              "P6": F64_FLOP_PER_S, "P3_f64": F64_FLOP_PER_S}
+              "P6": F64_FLOP_PER_S, "P3_f64": F64_FLOP_PER_S,
+              "P4_f64": F64_FLOP_PER_S, "P5_f64": F64_FLOP_PER_S}
 BOUNDS = {
     # u, v f32; fluid, solid, dead u8; count i32 in; live positions in;
     # the whole store, count, drop i32 out (K4: the same on the padded
@@ -457,6 +473,10 @@ BOUNDS = {
     # block MG on a block: b f32, a_diag i32, fluid u8 in, p f32 out; a
     # cycle an iteration (K3's operations a cell)
     "P4o": lambda n, iters, live: (13 * n, MG_FLOPS * iters * n),
+    # the same in f64 (b, p f64), its operations at the f64 rate
+    "P4_f64": lambda n, iters, live: (21 * n, MG_FLOPS * iters * n),
+    # P3-f64's work on the same grid, whatever layout computes it
+    "P5_f64": lambda n, iters, live: (29 * n, MG_FLOPS * iters * n),
     # P1 + P2's on the same grid (f64: b, a_diag i32, fluid u8 in; p out),
     # a loop iteration and an IC(0) application an iteration; its
     # dependent diagonal steps are logged beside it
@@ -659,6 +679,26 @@ KERNELS = {
             "of :113-134, each block's hierarchy padded as "
             "euler_tpu/ops/multigrid.py:332-352 pads it: pcg_loop under "
             "shard_map, no pallas_call)"),
+    # f64 MG on blocks (solver.dtype "float64"): a call of P5 is one warm
+    # solve of the f64 1080 x 1920 waterfall's system on 8 row blocks
+    # (gathering at level 0), launches from the 2 timed frames of the f64
+    # 1080 x 1920 MG waterfall on the 8 blocks; a call of P4 one cold
+    # solve of that system with halo.py's f64 block MG on the 8 blocks,
+    # launches from that solve and its warm-up
+    "P5_f64": ("global_mg_pcg_f64_8_odd_row_blocks_gather_0",
+               "euler_tpu_torch/csrc/pcg_mg_blocks.cu",
+               "euler_tpu/ops/project.py:115 (pcg_loop in f64 with "
+               "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, its "
+               "f64 hierarchy padded at :332-352 and its f64 Chebyshev rows "
+               "at :395-427, in the frame on blocks, "
+               "euler_tpu/parallel/spatial.py:113 make_spatial_step, which "
+               "GSPMD partitions; no pallas_call)"),
+    "P4_f64": ("sharded_block_mg_pcg_f64_8_odd_row_blocks",
+               "euler_tpu_torch/csrc/pcg_shard.cu",
+               "euler_tpu/parallel/halo.py:88 (_pcg_sharded in f64 with the "
+               "block MG of :113-134, each block's f64 hierarchy padded as "
+               "euler_tpu/ops/multigrid.py:332-352 pads it: pcg_loop under "
+               "shard_map, no pallas_call)"),
     # the frame's global IC(0) solve on blocks: a call is one cold solve of
     # the 40 x 100 system on 2 x 2 blocks; launches from the 2 frames of
     # the 256² IC(0) dam break on 2 x 2 blocks
@@ -783,22 +823,26 @@ def device_ms(fn, reps: int) -> float:
     """The card's time a call of fn() with the host out of the way: `reps`
     calls enqueued behind a sleep kernel that outlasts their enqueueing,
     timed by CUDA events (so, unlike `cuda_ms`, no wait for the host
-    between launches).  Raises if the sleep ended first."""
+    between launches).  Where the sleep ended first (a slow host), again
+    behind a sleep 4 times longer, up to 3 times; then raises."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    check(not start.query(), "device_ms: the host enqueued slower than "
-          "the sleep kernel lasted")
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for k in range(4):
+        torch.cuda._sleep(SLEEP_CYCLES * 4 ** k)
+        start.record()
+        for _ in range(reps):
+            fn()
+        if not start.query():
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / reps
+        torch.cuda.synchronize()
+    check(False, "device_ms: the host enqueued slower than the sleep "
+          "kernel lasted")
 
 
 # the kernels that are one launch a call, whose device time `time_pair`
@@ -2143,21 +2187,68 @@ def f64_profiles(results, systems) -> None:
                 results["P3_f64"]["device_ms"] = spans[0] if spans else None
 
 
-def run_card_tests(selection: str,
-                   files=("tests/test_torch_cuda.py",)) -> None:
-    """The card tests of `files` that `selection` picks (pytest -k), in a
-    process of their own on the libraries built here; fails unless all of
-    them pass."""
+# the card tests the script runs last: (what they check, pytest -k
+# selection, files)
+CARD_TESTS = (
+    ("the Jacobi, marker, grid-stage and source tests",
+     "jacobi or tiles or launch_once or march_bitwise or rebin_bitwise or "
+     "kernels_store or grid or source", ("tests/test_torch_cuda.py",)),
+    ("the global layout's tests and the parity corpora on the card: "
+     "tests/goldens to frame 50, tests/goldens/ref_binary to the JAX "
+     "test's horizons", "global or general or ic0 or slot or card",
+     ("tests/test_torch_cuda_global.py", "tests/test_torch_goldens.py",
+      "tests/test_torch_ref_binary.py")),
+    ("P3's tests beside the 1200² and 1080x1920 checks above",
+     "999 or 2160 or zero or workspace or f64",
+     ("tests/test_torch_cuda_mg_padded.py",)),
+    ("the batch's tests: each instance of an interleaved batch bitwise "
+     "equal to it alone", "alone", ("tests/test_torch_cuda_batch.py",)),
+    ("the row-shard, row-block, column-block, P5 and P6 tests (f32 and "
+     "f64) and the dry run on one NCCL rank",
+     "shards or identity or dryrun or row_blocks or p4 or row_frame or "
+     "col_blocks or col_frame or p5 or p6",
+     ("tests/test_torch_cuda_shard.py",)),
+)
+CARD_TESTS_S = 900  # seconds the card tests may take, all at once
+
+
+def run_card_tests(tests=CARD_TESTS) -> None:
+    """Every (what, selection, files) of `tests`: the card tests of
+    `files` that `selection` picks (pytest -k), each in a process of its
+    own on the libraries built here, all started at once (they share the
+    card; none is timed); fails unless every one of them passes.  Stops
+    every process it started."""
+    import tempfile
+
     root = Path(__file__).resolve().parent
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", *files, "-k", selection], cwd=root,
-        capture_output=True, text=True, timeout=600)
-    for line in proc.stdout.strip().splitlines()[-3:]:
-        log(f"   {line}")
-    check(proc.returncode == 0, f"card tests -k {selection} failed "
-          f"(rc {proc.returncode}):\n{proc.stdout[-4000:]}\n"
-          f"{proc.stderr[-2000:]}")
+    deadline = time.perf_counter() + CARD_TESTS_S
+    running = []
+    try:
+        for what, selection, files in tests:
+            out = tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pytest", "--noconftest", "-q",
+                 "-p", "no:cacheprovider", *files, "-k", selection],
+                cwd=root, stdout=out, stderr=subprocess.STDOUT, text=True)
+            running.append((what, selection, proc, out))
+        for what, selection, proc, out in running:
+            try:
+                rc = proc.wait(max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            out.seek(0)
+            text = out.read()
+            log(f"   {what} (pytest -k \"{selection}\"):")
+            for line in text.strip().splitlines()[-2:]:
+                log(f"     {line}")
+            check(rc == 0, f"card tests -k {selection} failed (rc {rc}):"
+                  f"\n{text[-6000:]}")
+    finally:
+        for _, _, proc, out in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
 
 
 GLOBAL_SIZE = 1024  # the global-layout dam break timed here
@@ -5018,6 +5109,358 @@ def run_odd_blocks(results, summaries, launches, dev, shared) -> None:
     summaries["odd_blocks"] = summary
 
 
+# f64 MG on blocks (M15 part b): P5 and P4's block MG in double precision
+# on the f64 systems of `run_f64_mg` (its 1024² dam break and 1080 x 1920
+# waterfall), each layout's gather level as `spatial_mg.block_plan` gives
+# it: the 1024² system on 1 x 1 (G 4) and 2 x 2 (G 4: 128² on the blocks
+# too, a level lower than f32's 3), the 1080 x 1920 system on 1 x 1 (G 3)
+# and 8 x 1 (G 0, blocks of 135 rows)
+F64_BLOCK_LAYOUTS = {"f64_dam_break_1024": ((1, 1), (COL_N, COL_N)),
+                     "f64_waterfall_1080p": ((1, 1), (ODD_N, 1))}
+# P4's block MG: the layout of each system it is held to its plain loop on
+F64_P4_LAYOUTS = {"f64_waterfall_1080p": (ODD_N, 1),
+                  "f64_dam_break_1024": (COL_N, COL_N)}
+# the frames on blocks: each f64 CLI run's layout against 1 block
+F64_BLOCK_FRAMES = {"f64_waterfall_1080p": (WATERFALL_MG_1080, ODD_N, 1),
+                    "f64_dam_break_1024": (CLI_RUNS["cli_dam_break_1024"][0],
+                                           COL_N, COL_N)}
+F64_BLOCK_REPS = 2   # timed solves a layout (host-bound, 0.1-1 s each)
+F64_BLOCK_RTOL = 1e-10  # p of P5-f64 / P4-f64 against P3-f64 / plain
+
+
+def in_f32(cfg, *planes):
+    """`cfg` with its solve in f32 and the floating planes rounded to f32
+    (the f32 layout's solve of the same system)."""
+    import torch
+
+    c = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, dtype="float32"))
+    return (c, *(t.float() if t is not None and t.is_floating_point()
+                 else t for t in planes))
+
+
+def p5_plan(cfg, dev, comm):
+    """This block's gather level and its P5 workspace's coarse-cycle plan
+    (`BlocksWorkspace.cycle_plan`), for `comm.LocalGroup.run`."""
+    from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
+    from euler_tpu_torch.parallel import spatial_mg
+
+    axes = ("y", "x") if comm.size("x") > 1 else ("y",)
+    plan = spatial_mg.block_plan(cfg, comm, axes)
+    return plan.gather, p5.workspace(cfg, comm, plan, dev).cycle_plan()
+
+
+def p4_bytes(cfg, y, x, dev) -> int:
+    """The bytes of the P4 workspaces that y x x blocks of `cfg`'s grid
+    hold for its solver (`ShardWorkspace.nbytes`)."""
+    from euler_tpu_torch.ops.cuda import pcg_shard_kernel as p4
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    shape = (cfg.ny // y, cfg.nx // x)
+    with LocalGroup(y, x, device=dev) as g:
+        return sum(g.run(lambda comm: p4.workspace(cfg, comm, shape,
+                                                   dev).nbytes))
+
+
+def run_f64_blocks(results, summaries, launches, dev, systems) -> dict:
+    """f64 MG on blocks (M15 part b), every block one thread of an
+    in-process `comm.LocalGroup`: P5-f64 against P3-f64 on `systems`
+    (`run_f64_mg`'s f64 systems) on the layouts of F64_BLOCK_LAYOUTS, cold
+    and warm (1 x 1 and gather level 0: P3-f64's hierarchy, rows,
+    iterations and p bit for bit; elsewhere its hierarchy, rows and cycle
+    bitwise, its iterations, p within F64_BLOCK_RTOL of scale), against
+    its plain version on the same card tensors, each layout's gather
+    level and coarse-cycle plan against P3-f64's, timed beside P3-f64 and
+    P5 on the f32 layout (the same system rounded to f32), with the
+    blocks' workspace bytes and the peak; P4's block MG in f64 against
+    its plain loop; then the f64 CLI runs' frames on blocks against 1
+    block.  Returns what `f64_block_profiles` profiles."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import _build
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+
+    summary, profiled = {}, {}
+    with Phase("P5-f64 against P3-f64 on the f64 1024² dam break system "
+               f"(1 x 1, {COL_N} x {COL_N}) and 1080 x 1920 waterfall system "
+               f"(1 x 1, {ODD_N} x 1, gathering at level 0), cold and warm: "
+               "1 x 1 and G = 0 bitwise P3-f64, elsewhere its hierarchy, "
+               f"rows and cycle bitwise, its iterations, p within "
+               f"{F64_BLOCK_RTOL:g} of scale; the plain P5-f64 once a "
+               "system; plans, bytes, timed beside P3-f64 and f32"):
+        err_max = 0.0
+        for label, layouts in F64_BLOCK_LAYOUTS.items():
+            c, b, a_diag, fl, p0 = systems[label]
+            check(c.solver.dtype == "float64" and b.dtype == torch.float64,
+                  f"{label}: not an f64 system")
+            tag = f"{c.ny}x{c.nx}"
+            c32, b32, p032 = in_f32(c, b, p0)
+            ws3 = p13.workspace(c, dev)
+            p3_plan = ws3.plan()
+            for x0, start in ((None, "cold"), (p0, "warm")):
+                ref = p13.solve_pressure_general(c, b, a_diag, fl, x0=x0)
+                t3 = cuda_ms(lambda: p13.solve_pressure_general(
+                    c, b, a_diag, fl, x0=x0), REPS)
+                scale = float(ref[0].abs().max())
+                if start == "warm":
+                    # P3-f64's workspace holds this system's hierarchy
+                    Y0, X0 = ws3.shapes[0]
+                    z3 = ws3.cycle(torch.nn.functional.pad(
+                        b, (0, X0 - c.nx, 0, Y0 - c.ny)),
+                        per_op=False)[:c.ny, :c.nx]
+                for y, x in layouts:
+                    where = f"P5-f64 {tag} on {y} x {x} {start}"
+                    g, inputs = p5_group(c, b, a_diag, fl, x0, y, x, dev)
+                    with g:
+                        held = reset_peak()
+                        reset_counts()
+                        out = p5_solve(c, g, inputs)
+                        check(_build.LAUNCHES["P5"] == y * x
+                              and not _build.PLAIN_CALLS,
+                              f"{where}: launches {dict(_build.LAUNCHES)}, "
+                              f"plain {dict(_build.PLAIN_CALLS)}")
+                        check(len({(int(o[1]), float(o[2]))
+                                   for o in out}) == 1,
+                              f"{where}: the blocks' iterations or "
+                              "residuals differ")
+                        p = together([o[0] for o in out], x)
+                        it, res = int(out[0][1]), float(out[0][2])
+                        err = float((p - ref[0]).abs().max()) / scale
+                        gather, plan = g.run(functools.partial(
+                            p5_plan, c, dev))[0]
+                        bitwise = (y, x) == (1, 1) or gather == 0
+                        check(p.dtype == torch.float64, f"{where}: p is "
+                              f"{p.dtype}")
+                        if bitwise:
+                            check(torch.equal(p, ref[0])
+                                  and it == int(ref[1])
+                                  and res == float(ref[2]),
+                                  f"{where}: not P3-f64's bits ({it} vs "
+                                  f"{int(ref[1])} iterations, p {err:.3g} "
+                                  "of scale)")
+                        else:
+                            check(it == int(ref[1])
+                                  and err <= F64_BLOCK_RTOL,
+                                  f"{where}: {it} iterations (P3-f64 "
+                                  f"{int(ref[1])}), p {err:.3g} of scale")
+                            err_max = max(err_max, err)
+                        check(plan["fused"] == p3_plan["fused"]
+                              and plan["smem"] == p3_plan["smem"]
+                              and plan["gather"] == gather
+                              and gather <= plan["fused"],
+                              f"{where}: gather level {gather}, coarse "
+                              f"cycle {plan}, P3-f64's {p3_plan}")
+                        ms = cuda_ms(lambda: p5_solve(c, g, inputs),
+                                     F64_BLOCK_REPS)
+                        row = {"ms": ms, "iters": it, "resid": res,
+                               "err_vs_p3": err, "p3_ms": t3,
+                               "p3_iters": int(ref[1]), "gather": gather,
+                               "fused": plan["fused"],
+                               "fused_smem": plan["smem"]}
+                        if start == "warm":
+                            check_p5_hierarchy(c, g, inputs, ws3, z3,
+                                               f"f64 {tag} on {y} x {x}")
+                            row.update(workspace_bytes=p5_bytes(c, g,
+                                                                inputs),
+                                       p3_workspace_bytes=ws3.nbytes)
+                            record_peak(row, held)
+                        if start == "warm" and (y, x) != (1, 1):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            q = p5_solve(c, g, inputs, plain=True)
+                            torch.cuda.synchronize()
+                            ms_q = 1e3 * (time.perf_counter() - t0)
+                            kerr = float((p - together([o[0] for o in q], x))
+                                         .abs().max())
+                            check(it == int(q[0][1])
+                                  and kerr <= F64_BLOCK_RTOL * scale,
+                                  f"{where} vs plain: {it} vs "
+                                  f"{int(q[0][1])} iterations, p "
+                                  f"{kerr:.3g} apart")
+                            row["plain"] = {"ms": ms_q,
+                                            "iters": int(q[0][1]),
+                                            "max_abs_err": kerr}
+                            log(f"   {where} plain version: {ms_q:.1f} ms, "
+                                f"{int(q[0][1])} iterations, p {kerr:.3g} "
+                                "from P5-f64")
+                            if (y, x) == (ODD_N, 1):
+                                results["P5_f64"] = {
+                                    "ms": ms, "plain_ms": ms_q,
+                                    "max_abs_err": kerr, "library_ms": None,
+                                    **bound_fields(*BOUNDS["P5_f64"](
+                                        c.ny * c.nx, it, 0),
+                                        FLOP_RATES["P5_f64"])}
+                                profiled["p5"] = (label, y, x)
+                    if start == "warm":
+                        # the f32 layout: P5 on the same system in f32
+                        g32, in32 = p5_group(c32, b32, a_diag, fl, p032, y,
+                                             x, dev)
+                        with g32:
+                            o32 = p5_solve(c32, g32, in32)
+                            row.update(
+                                f32_ms=cuda_ms(lambda: p5_solve(
+                                    c32, g32, in32), F64_BLOCK_REPS),
+                                f32_iters=int(o32[0][1]),
+                                f32_workspace_bytes=p5_bytes(c32, g32,
+                                                             in32))
+                        log(f"   {where}: the blocks' workspaces "
+                            f"{row['workspace_bytes']} bytes (P3-f64's "
+                            f"{row['p3_workspace_bytes']}, the f32 "
+                            f"layout's {row['f32_workspace_bytes']}); f32 "
+                            f"layout {row['f32_ms']:.2f} ms, "
+                            f"{row['f32_iters']} iterations")
+                    summary[f"p5_{tag}_{y}x{x}_{start}"] = row
+                    agree = ("bitwise" if bitwise
+                             else f"within {err:.3g} of scale")
+                    log(f"   {where}: {ms:.2f} ms a solve (P3-f64 "
+                        f"{t3:.3f}), {it} iterations (P3-f64 "
+                        f"{int(ref[1])}), p {agree}; gather level "
+                        f"{gather}, coarse cycle from level "
+                        f"{plan['fused']} ({plan['smem']} bytes; P3-f64 "
+                        f"{p3_plan['fused']})")
+        summary["max_err_vs_p3"] = err_max
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase("P4's block MG in f64 on "
+               + " and ".join(f"{y} x {x} blocks of the {systems[k][0].ny}"
+                              f" x {systems[k][0].nx} f64 system"
+                              for k, (y, x) in F64_P4_LAYOUTS.items())
+               + " against its plain loop on the same card tensors (the "
+               f"same iterations, p within {F64_BLOCK_RTOL:g} of scale), "
+               "timed beside the f32 layout"):
+        for label, (y, x) in F64_P4_LAYOUTS.items():
+            c, b, a_diag, fl, _ = systems[label]
+            tag = f"{c.ny}x{c.nx}"
+            reset_counts()
+            p, it, res, ms = block_solve(c, b, a_diag, fl, y, dev, x=x)
+            got_l = dict(_build.LAUNCHES)
+            check(got_l.get("P4") == 2 * y * x and not _build.PLAIN_CALLS,
+                  f"P4-f64 on {y} x {x}: launches {got_l}, plain "
+                  f"{dict(_build.PLAIN_CALLS)}")
+            q, it_q, _, ms_q = block_solve(c, b, a_diag, fl, y, dev,
+                                           plain=True, x=x)
+            scale = float(q.abs().max())
+            kerr = float((p - q).abs().max())
+            tol = max(c.solver.tol, c.solver.tol_rel * float(b.abs().max()))
+            check(p.dtype == torch.float64 and it == it_q
+                  and kerr <= F64_BLOCK_RTOL * scale and res <= tol,
+                  f"P4-f64 block MG {tag} on {y} x {x} vs plain: {it} vs "
+                  f"{it_q} iterations, p {kerr:.3g} apart (scale "
+                  f"{scale:.3g}), resid {res:.3g} (tol {tol:.3g})")
+            c32, b32 = in_f32(c, b)
+            _, it32, _, ms32 = block_solve(c32, b32, a_diag, fl, y, dev,
+                                           x=x)
+            row = {"ms": ms, "iters": it, "resid": res, "f32_ms": ms32,
+                   "f32_iters": it32,
+                   "workspace_bytes": p4_bytes(c, y, x, dev),
+                   "f32_workspace_bytes": p4_bytes(c32, y, x, dev),
+                   "p3_workspace_bytes": p13.workspace(c, dev).nbytes,
+                   "plain": {"ms": ms_q, "iters": it_q,
+                             "max_abs_err": kerr}}
+            summary[f"p4_block_mg_{tag}_{y}x{x}"] = row
+            if (y, x) == (ODD_N, 1):
+                launches["P4_f64"] = got_l["P4"]
+                results["P4_f64"] = {
+                    "ms": ms, "plain_ms": ms_q, "max_abs_err": kerr,
+                    "library_ms": None,
+                    **bound_fields(*BOUNDS["P4_f64"](c.ny * c.nx, it, 0),
+                                   FLOP_RATES["P4_f64"])}
+                profiled["p4"] = (label, y, x)
+            log(f"   P4-f64 block MG {tag}, {y} x {x} blocks: {ms:.2f} ms "
+                f"a cold solve, {it} iterations; plain {ms_q:.1f} ms, "
+                f"{it_q}; p {kerr:.3g} apart ({kerr / scale:.3g} of "
+                f"scale); f32 layout {ms32:.2f} ms, {it32} iterations; "
+                f"the blocks' workspaces {row['workspace_bytes']} bytes "
+                f"(f32 layout {row['f32_workspace_bytes']}, P3-f64 "
+                f"{row['p3_workspace_bytes']})")
+        log(f"   nvidia-smi: {smi_line()}")
+
+    with Phase("the f64 MG frames on blocks: "
+               + " and ".join(f"{k} on {y} x {x}" for k, (_, y, x)
+                              in F64_BLOCK_FRAMES.items())
+               + f", {ODD_WARMUP} warm-up frame on a copy, {ODD_TIMED} "
+               "timed, against 1 block; K1, (S1,) K7, P5 once a block a "
+               "substep, no plain version"):
+        for label, (argv, y, x) in F64_BLOCK_FRAMES.items():
+            c32, scn, st = cli_state(argv)
+            cfg = dataclasses.replace(c32, solver=dataclasses.replace(
+                c32.solver, dtype="float64"))
+            st = developed(cfg, scn, st)
+            held = reset_peak()
+            got, ms, got_l, plain = block_frames(cfg, scn, st, y, dev,
+                                                 ODD_WARMUP, ODD_TIMED, x=x,
+                                                 rewind=True)
+            per = y * x * cfg.max_substeps * ODD_TIMED
+            names = (("K1", "S1", "K7", "P5") if scn.num_sources
+                     else ("K1", "K7", "P5"))
+            check(plain == 0 and all(got_l.get(k) == per for k in names)
+                  and not got_l.get("P4") and not got_l.get("P3"),
+                  f"f64 {label} on {y} x {x}: not one launch a block a "
+                  f"substep: {got_l}, plain {plain}")
+            row = {"ms_per_frame": ms, "launches": got_l}
+            record_peak(row, held)
+            one, ms1, _, _ = block_frames(cfg, scn, st, 1, dev, ODD_WARMUP,
+                                          ODD_TIMED, rewind=True)
+            for name in ("u", "v", "p", "markers"):
+                check(bool(torch.isfinite(getattr(got, name)).all()),
+                      f"f64 {label} on {y} x {x}: {name} not finite")
+            d = frame_diff(got, one)
+            row.update(ms_per_frame_1_block=ms1, vs_1_block=d,
+                       div_inf=div_inf(cfg, got, exclude=scn.source
+                                       if scn.num_sources else None))
+            summary[f"frames_{label}_{y}x{x}"] = row
+            check(frames_agree(d), f"f64 {label}, {y} x {x} vs 1: {d}")
+            if (y, x) == (ODD_N, 1):
+                launches["P5_f64"] = got_l["P5"]
+            log(f"   f64 {label} on {y} x {x}: {ms:.1f} ms a frame, 1 "
+                f"block {ms1:.1f}; {d['count_cells']} of {d['cells']} "
+                f"cells' counts apart, max |dv| {d['max_dv']:.3g}; alive "
+                f"{d['alive']}; div_inf {row['div_inf']:.4g}"
+                + (" off the sources" if scn.num_sources else ""))
+            del got, one, st, scn
+        log(f"   nvidia-smi: {smi_line()}")
+    summaries["f64_blocks"] = summary
+    return profiled
+
+
+def f64_block_profiles(results, summaries, systems, profiled, dev) -> None:
+    """The device time of P5-f64 (a warm solve) and P4's f64 block MG (a
+    cold solve) on the layouts `run_f64_blocks` timed for the kernels
+    line, and of the same calls in f32 (the system rounded): the summed
+    kernel spans of one profiled solve each, after every timed phase."""
+    import torch
+
+    summary = summaries["f64_blocks"]
+    with Phase("P5-f64 and P4-f64 block MG: kernel spans of one solve "
+               "each, beside the f32 layout's (torch.profiler)"):
+        for kind, (label, y, x) in profiled.items():
+            c, b, a_diag, fl, p0 = systems[label]
+            tag = f"{c.ny}x{c.nx}"
+            for cfg, bb, x0 in ((c, b, p0), in_f32(c, b, p0)):
+                if kind == "p5":
+                    g, inputs = p5_group(cfg, bb, a_diag, fl, x0, y, x, dev)
+                    with g:
+                        p5_solve(cfg, g, inputs)
+                        torch.cuda.synchronize()
+                        spans = kernel_spans_ms(
+                            lambda: p5_solve(cfg, g, inputs))
+                    row = summary[f"p5_{tag}_{y}x{x}_warm"]
+                else:
+                    spans = block_spans(cfg, bb, a_diag, fl, y, dev, x)
+                    row = summary[f"p4_block_mg_{tag}_{y}x{x}"]
+                own, lib = spans if spans else (None, None)
+                f64 = cfg.solver.dtype == "float64"
+                pre = "" if f64 else "f32_"
+                row.update({f"{pre}device_ms": own,
+                            f"{pre}torch_device_ms": lib})
+                if f64:
+                    results[f"{kind.upper()}_f64"]["device_ms"] = own
+                log(f"   {kind.upper()} {cfg.solver.dtype} {tag} on {y} x "
+                    f"{x}: " + (f"its kernel spans {own:.4f} ms summed, "
+                                f"torch's kernels and copies {lib:.4f} ms"
+                                if spans else "not measured"))
+
+
 def run_block_profiles(results, summaries, shared, dev) -> None:
     """P4's device time a solve of the 1024² substep system on 1, 2 and 4
     row blocks (Jacobi and block MG) and on 2 x 2 blocks (Jacobi), P5's
@@ -5511,8 +5954,13 @@ def run(args) -> dict:
 
     run_odd_blocks(results, summaries, launches, dev, shared)
 
+    f64_profiled = run_f64_blocks(results, summaries, launches, dev,
+                                  f64_systems)
+
     run_block_profiles(results, summaries, shared, dev)
     del shared
+
+    f64_block_profiles(results, summaries, f64_systems, f64_profiled, dev)
 
     f64_profiles(results, f64_systems)
     del f64_systems
@@ -5523,37 +5971,10 @@ def run(args) -> dict:
             profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
                     "speed")
 
-    with Phase("the Jacobi, marker and grid-stage card tests (pytest, "
-               "tests/test_torch_cuda.py)"):
+    with Phase("the card tests (pytest, five processes at once): "
+               + "; ".join(t[0] for t in CARD_TESTS)):
         torch.cuda.empty_cache()
-        run_card_tests("jacobi or tiles or launch_once or march_bitwise or "
-                       "rebin_bitwise or kernels_store or grid or source")
-
-    with Phase("the global layout's card tests and the parity corpora on "
-               "the card: tests/goldens to frame 50, tests/goldens/"
-               "ref_binary to the JAX test's horizons (pytest)"):
-        run_card_tests("global or general or ic0 or slot or card",
-                       files=("tests/test_torch_cuda_global.py",
-                              "tests/test_torch_goldens.py",
-                              "tests/test_torch_ref_binary.py"))
-
-    with Phase("P3's card tests beside the 1200² and 1080x1920 checks above "
-               "(pytest, tests/test_torch_cuda_mg_padded.py)"):
-        torch.cuda.empty_cache()
-        run_card_tests("999 or 2160 or zero or workspace or f64",
-                       files=("tests/test_torch_cuda_mg_padded.py",))
-
-    with Phase("the batch's card tests: each instance of an interleaved "
-               "batch bitwise equal to it alone (pytest, "
-               "tests/test_torch_cuda_batch.py)"):
-        run_card_tests("alone", files=("tests/test_torch_cuda_batch.py",))
-
-    with Phase("the row-shard, row-block, column-block, P5 and P6 card tests "
-               "and the dry run on one NCCL rank (pytest, "
-               "tests/test_torch_cuda_shard.py)"):
-        run_card_tests("shards or identity or dryrun or row_blocks or p4 "
-                       "or row_frame or col_blocks or col_frame or p5 or p6",
-                       files=("tests/test_torch_cuda_shard.py",))
+        run_card_tests()
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():

@@ -30,7 +30,7 @@ here, because the port has one implementation of each:
     `mg_pre_smooth`, `mg_post_smooth`.
 
 Configurations outside the ported slices (MG other than Galerkin with
-Chebyshev smoothing, f64 MG, f64 grid fields, the frame-stale hierarchy,
+Chebyshev smoothing, f64 grid fields, the frame-stale hierarchy,
 `cfl` above 1) make `sim.step_frame` raise NotImplementedError naming
 their ROADMAP item (`sim.check_slice`).
 """

@@ -43,8 +43,9 @@
 // coarse solve's steps, the Chebyshev init).
 //
 // Precision.  The levels, the level operations, `SolveT` and coarse_cycle
-// are templated on the plane type T: float for K2, K3, K11, P3, P4 and P5
-// (`Lvl`, `Solve`), double for P3's f64 solve (pcg_mg.cu).  The roundings
+// are templated on the plane type T: float for K2, K3, K11 and the f32
+// solves of P3, P4 and P5 (`Lvl`, `Solve`), double for their f64 solves
+// (pcg_mg.cu, pcg_shard.cu, pcg_mg_blocks.cu).  The roundings
 // are the overloads below (`mul_rn`, `add_rn`, `sub_rn`, `fmac`: the
 // __f*_rn intrinsics for float, __d*_rn and __fma_rn for double), so the
 // float instantiation is the float code it always was, and the double one

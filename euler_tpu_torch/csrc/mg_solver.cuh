@@ -14,9 +14,9 @@
 // `div_rn`, `rcp_rn`, ...), which nvcc never contracts, so K3's library
 // (EU_FMAD 1) and K11's (-fmad=false) build the same bits, equal to
 // `mg_host_operands`'.  The build is templated on the plane type as the
-// levels are: float for K3, K11, P3, P4 and P5, double for P3's f64
-// solve, whose packed level 0, partial maxima, bounds and rows are
-// double (the JAX package takes an f64 hierarchy's Chebyshev rows from
+// levels are: float for K3, K11 and the f32 solves of P3, P4 and P5,
+// double for their f64 solves, whose packed level 0, partial maxima,
+// bounds and rows are double (the JAX package takes an f64 hierarchy's Chebyshev rows from
 // its f64 lmax).  Every kernel of it returns at once when the stop flag
 // is set (an all-zero RHS).
 //
@@ -249,9 +249,9 @@ __global__ void pack_kernel(int n, const int32_t* __restrict__ a_diag,
 
 // one workspace's solver: the cycle, the PCG loop, the hierarchy's
 // planes and partials, and the graph of one chunk of iterations.  In T:
-// float for K3, K11, P4 and P3; double for P3's f64 solve, which uses
-// the hierarchy and the cycle only (the loop P and its graph are K3's and
-// K11's, float)
+// float for K3, K11 and the f32 solves of P3 and P4; double for their
+// f64 solves.  P3 and P4 use the hierarchy and the cycle only (the loop P
+// and its graph are K3's and K11's, float)
 template <typename T>
 struct MgSolverT {
   SolveT<T> S;      // the cycle's levels (K3: all; K11: from its root)

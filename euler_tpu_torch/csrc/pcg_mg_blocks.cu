@@ -53,6 +53,13 @@
 // fine levels; what bounds it at the sizes here is the host: some forty
 // exchanges and all-reduces an iteration, each a meeting of the blocks.
 // Built with -fmad=false (EU_FMAD 0), as P3.
+//
+// Precision.  A solver is float or double (`f64` at create), as P3's: the
+// loop, the block's levels, its partials and maxima, the gathered levels,
+// the Chebyshev rows and every edge the host exchanges in a cycle are T,
+// so an f64 solve (the JAX package's `solver.dtype="float64"` with MG in
+// its frame on blocks) takes its rows from double bounds; the gathered
+// `Solve` starts its coarse cycle where P3's of the same precision does.
 #define EU_FMAD 0
 #include "mg_solver.cuh"
 #include "pcg_loop.cuh"
@@ -64,27 +71,28 @@ namespace {
 // and the column before column 0 and after column X - 1 ([Y]); of the
 // level's couplings, e of the column before column 0 ([Y]) and n of the
 // row before row 0 ([X]).  Zeros beyond the grid's edges, as `Zeros`.
+template <typename T>
 struct BlockEdges {
-  const float* below;
-  const float* above;
-  const float* left;
-  const float* right;
-  const float* ew;
-  const float* ns;
-  __device__ __forceinline__ float x(const float* p, int i, int j, int Y,
-                                     int X) const {
+  const T* below;
+  const T* above;
+  const T* left;
+  const T* right;
+  const T* ew;
+  const T* ns;
+  __device__ __forceinline__ T x(const T* p, int i, int j, int Y,
+                                 int X) const {
     if (i < 0) return below[j];
     if (i >= Y) return above[j];
     if (j < 0) return left[i];
     if (j >= X) return right[i];
     return p[i * X + j];
   }
-  __device__ __forceinline__ float e_west(const float* e, int i, int j,
-                                          int, int X) const {
+  __device__ __forceinline__ T e_west(const T* e, int i, int j, int,
+                                      int X) const {
     return j > 0 ? e[i * X + j - 1] : ew[i];
   }
-  __device__ __forceinline__ float n_south(const float* n, int i, int j,
-                                           int, int X) const {
+  __device__ __forceinline__ T n_south(const T* n, int i, int j, int,
+                                       int X) const {
     return i > 0 ? n[(i - 1) * X + j] : ns[j];
   }
 };
@@ -93,8 +101,9 @@ struct BlockEdges {
 // neighbours' fluid one cell beyond each edge from the fluid ring (u8: [X]
 // below and above, [Y] left and right; zeros beyond the grid's edges), so
 // that the couplings across the block's edges are the grid's
+template <typename T>
 struct Ring0 {
-  Lvl L;
+  LvlT<T> L;
   const uint8_t* below;
   const uint8_t* above;
   const uint8_t* left;
@@ -104,31 +113,32 @@ struct Ring0 {
     if (i >= L.Y) return above[j] != 0;
     if (j < 0) return left[i] != 0;
     if (j >= L.X) return right[i] != 0;
-    return fluid0(L, i * L.X + j) != 0.0f;
+    return fluid0(L, i * L.X + j) != T(0);
   }
   // the couplings of (i, j) to (i, j + 1) and to (i + 1, j): a cell of the
   // block, or of the ring before its first row or column
-  __device__ __forceinline__ float e(int i, int j) const {
-    return fl(i, j) && fl(i, j + 1) ? -1.0f : 0.0f;
+  __device__ __forceinline__ T e(int i, int j) const {
+    return fl(i, j) && fl(i, j + 1) ? T(-1) : T(0);
   }
-  __device__ __forceinline__ float n(int i, int j) const {
-    return fl(i, j) && fl(i + 1, j) ? -1.0f : 0.0f;
+  __device__ __forceinline__ T n(int i, int j) const {
+    return fl(i, j) && fl(i + 1, j) ? T(-1) : T(0);
   }
-  __device__ __forceinline__ Edge at(int i, int j) const {
+  __device__ __forceinline__ EdgeT<T> at(int i, int j) const {
     const int k = i * L.X + j;
-    const float f = fluid0(L, k);
-    return Edge{L.pk[k] - 8.0f * f, e(i, j), n(i, j), f != 0.0f};
+    const T f = fluid0(L, k);
+    return EdgeT<T>{L.pk[k] - T(8) * f, e(i, j), n(i, j), f != T(0)};
   }
 };
 
 // ---- the hierarchy on a block ----
 
 // level 0's block partials of the Gershgorin row value (P3's fine_lmax)
-__global__ void ring_lmax0(Ring0 R, float* __restrict__ part,
+template <typename T>
+__global__ void ring_lmax0(Ring0<T> R, T* __restrict__ part,
                            const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float g = 0.0f;
+  T g = T(0);
   if (t < R.L.Y * R.L.X) {
     const int i = t / R.L.X, j = t - i * R.L.X;
     g = gershgorin(R.at(i, j), R.e(i, j - 1), R.n(i - 1, j));
@@ -139,16 +149,16 @@ __global__ void ring_lmax0(Ring0 R, float* __restrict__ part,
 // the block's cells of the level below F (Ring0 at level 0, a level's
 // planes above it): c, e, n, active; the level's Gershgorin partials wait
 // for the neighbours' edges (edge_lmax)
-template <class Fine>
-__global__ void block_coarsen(Fine F, int Yc, int Xc, float* __restrict__ c,
-                              float* __restrict__ e, float* __restrict__ n,
+template <class Fine, typename T>
+__global__ void block_coarsen(Fine F, int Yc, int Xc, T* __restrict__ c,
+                              T* __restrict__ e, T* __restrict__ n,
                               uint8_t* __restrict__ act,
                               const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Yc * Xc) return;
   const int I = t / Xc, J = t - I * Xc;
-  const Edge q = coarse_of(F, I, J);
+  const EdgeT<T> q = coarse_of(F, I, J);
   c[t] = q.c;
   e[t] = q.e;
   n[t] = q.n;
@@ -158,19 +168,19 @@ __global__ void block_coarsen(Fine F, int Yc, int Xc, float* __restrict__ c,
 // a level's partials of the Gershgorin row value in edge form, the west
 // and south couplings across its edges from ew, ns (null: 0, a whole
 // level; a pad cell is inactive: 0)
-__global__ void edge_lmax(Lvl L, const uint8_t* __restrict__ act,
-                          const float* __restrict__ ew,
-                          const float* __restrict__ ns,
-                          float* __restrict__ part,
+template <typename T>
+__global__ void edge_lmax(LvlT<T> L, const uint8_t* __restrict__ act,
+                          const T* __restrict__ ew, const T* __restrict__ ns,
+                          T* __restrict__ part,
                           const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  float g = 0.0f;
+  T g = T(0);
   if (t < L.Y * L.X) {
     const int i = t / L.X, j = t - i * L.X;
-    const Edge q{L.c[t], L.e[t], L.n[t], act[t] != 0};
-    const float w = j > 0 ? L.e[t - 1] : (ew ? ew[i] : 0.0f);
-    const float s = i > 0 ? L.n[t - L.X] : (ns ? ns[j] : 0.0f);
+    const EdgeT<T> q{L.c[t], L.e[t], L.n[t], act[t] != 0};
+    const T w = j > 0 ? L.e[t - 1] : (ew ? ew[i] : T(0));
+    const T s = i > 0 ? L.n[t - L.X] : (ns ? ns[j] : T(0));
     g = gershgorin(q, w, s);
   }
   write_max(g, part);
@@ -182,12 +192,12 @@ struct Folds {
 };
 
 // the block's max of each distributed level's partials, into hp[l]
-__global__ void fold_max(Folds F, const float* __restrict__ bpart,
-                         float* __restrict__ hp,
-                         const int* __restrict__ flags) {
+template <typename T>
+__global__ void fold_max(Folds F, const T* __restrict__ bpart,
+                         T* __restrict__ hp, const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   for (int l = 0; l < F.G; ++l) {
-    const float m =
+    const T m =
         reduce_partials<EU_MAX>(bpart + F.off[l], F.off[l + 1] - F.off[l]);
     if (threadIdx.x == 0) hp[l] = m;
   }
@@ -195,11 +205,11 @@ __global__ void fold_max(Folds F, const float* __restrict__ bpart,
 
 // ---- the level operations on a block (P3's, with its edges) ----
 
-__global__ void b_pre1_restrict(Lvl L, int Yc, int Xc,
-                                const float* __restrict__ b,
-                                float* __restrict__ x,
-                                float* __restrict__ bc,
-                                const float* __restrict__ row, BlockEdges h,
+template <typename T>
+__global__ void b_pre1_restrict(LvlT<T> L, int Yc, int Xc,
+                                const T* __restrict__ b, T* __restrict__ x,
+                                T* __restrict__ bc,
+                                const T* __restrict__ row, BlockEdges<T> h,
                                 const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -207,10 +217,11 @@ __global__ void b_pre1_restrict(Lvl L, int Yc, int Xc,
   pre1_restrict_at(L, b, x, bc, row[0], Xc, t, h);
 }
 
-__global__ void b_restrict_full(Lvl L, int Yc, int Xc,
-                                const float* __restrict__ b,
-                                const float* __restrict__ x,
-                                float* __restrict__ bc, BlockEdges h,
+template <typename T>
+__global__ void b_restrict_full(LvlT<T> L, int Yc, int Xc,
+                                const T* __restrict__ b,
+                                const T* __restrict__ x, T* __restrict__ bc,
+                                BlockEdges<T> h,
                                 const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -218,31 +229,33 @@ __global__ void b_restrict_full(Lvl L, int Yc, int Xc,
   restrict_full_at(L, b, x, bc, Xc, t, h);
 }
 
-__global__ void b_post1(Lvl L, const float* __restrict__ b,
-                        const float* __restrict__ x, float* __restrict__ z,
-                        const float* __restrict__ row, BlockEdges h,
+template <typename T>
+__global__ void b_post1(LvlT<T> L, const T* __restrict__ b,
+                        const T* __restrict__ x, T* __restrict__ z,
+                        const T* __restrict__ row, BlockEdges<T> h,
                         const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < L.Y * L.X) post1_at(L, b, x, z, row[0], t, h);
 }
 
-__global__ void b_cheby_init(Lvl L, const float* __restrict__ b,
-                             float* __restrict__ x, float* __restrict__ rr,
-                             float* __restrict__ d,
-                             const float* __restrict__ row, int from_zero,
-                             BlockEdges h, const int* __restrict__ flags) {
+template <typename T>
+__global__ void b_cheby_init(LvlT<T> L, const T* __restrict__ b,
+                             T* __restrict__ x, T* __restrict__ rr,
+                             T* __restrict__ d, const T* __restrict__ row,
+                             int from_zero, BlockEdges<T> h,
+                             const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < L.Y * L.X) cheby_init_at(L, b, x, rr, d, row[0], from_zero, t, h);
 }
 
-__global__ void b_cheby_step(Lvl L, float* __restrict__ x,
-                             float* __restrict__ rr,
-                             const float* __restrict__ d,
-                             float* __restrict__ dn,
-                             const float* __restrict__ row, int k,
-                             BlockEdges h, const int* __restrict__ flags) {
+template <typename T>
+__global__ void b_cheby_step(LvlT<T> L, T* __restrict__ x,
+                             T* __restrict__ rr, const T* __restrict__ d,
+                             T* __restrict__ dn, const T* __restrict__ row,
+                             int k, BlockEdges<T> h,
+                             const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < L.Y * L.X)
@@ -258,10 +271,11 @@ enum Build { kBuild0, kBuildLevel, kBuildGathered, kBuildRows };
 // a distributed level of the block: its operator (level 0: the packed
 // plane; above: c, e, n), the cycle's planes, its active flags and its
 // west e / south n edges (level 0: none)
+template <typename T>
 struct BlockLvl {
-  Lvl L;
-  float *c, *e, *n, *x, *b, *z, *rr, *d, *dn;
-  const float *ew, *ns;
+  LvlT<T> L;
+  T *c, *e, *n, *x, *b, *z, *rr, *d, *dn;
+  const T *ew, *ns;
   uint8_t* act;
 
   unsigned cells_blocks() const {
@@ -269,23 +283,29 @@ struct BlockLvl {
   }
 };
 
-struct Blocks {
+// what every solver starts with: its precision
+struct BlocksHead {
+  int f64;
+};
+
+template <typename T>
+struct Blocks : BlocksHead {
   pcg::Ws w;
   int G, deg;
-  BlockLvl bl[17];  // levels 0 .. G of the block (G: c, e, n, act, b)
-  float* packed0;
-  float* bpart;     // the distributed levels' block partials
+  BlockLvl<T> bl[17];  // levels 0 .. G of the block (G: c, e, n, act, b)
+  T* packed0;
+  T* bpart;            // the distributed levels' block partials
   Folds folds;
-  Solve S;          // the gathered levels G .. L - 1 (whole planes)
-  float* gc[16];    // their c, e, n planes and active flags
-  float* ge[16];
-  float* gn[16];
+  SolveT<T> S;         // the gathered levels G .. L - 1 (whole planes)
+  T* gc[16];           // their c, e, n planes and active flags
+  T* ge[16];
+  T* gn[16];
   uint8_t* gact[16];
-  float* hpart;     // [the G maxima | the gathered levels' partials]
-  Rows R;
-  int r0, c0;       // the block's first row and column at level G
+  T* hpart;            // [the G maxima | the gathered levels' partials]
+  RowsT<T> R;
+  int r0, c0;          // the block's first row and column at level G
 
-  static unsigned blocks(const Lvl& L) {
+  static unsigned blocks(const LvlT<T>& L) {
     return eu_blocks(static_cast<long long>(L.Y) * L.X, kThreads);
   }
 
@@ -295,19 +315,19 @@ struct Blocks {
     const int* fl = w.flags;
     if (step == kBuild0 || step == kBuildLevel) {
       // level l's partials, and the block's cells of level l + 1
-      const BlockLvl& B = bl[l];
-      const BlockLvl& C = bl[l + 1];
-      float* part = bpart + folds.off[l];
+      const BlockLvl<T>& B = bl[l];
+      const BlockLvl<T>& C = bl[l + 1];
+      T* part = bpart + folds.off[l];
       const unsigned nc = C.cells_blocks();
       if (step == kBuild0) {
-        const Ring0 R0{B.L, below, above, left, right};
-        ring_lmax0<<<B.cells_blocks(), kThreads, 0, st>>>(R0, part, fl);
+        const Ring0<T> R0{B.L, below, above, left, right};
+        ring_lmax0<T><<<B.cells_blocks(), kThreads, 0, st>>>(R0, part, fl);
         block_coarsen<<<nc, kThreads, 0, st>>>(R0, C.L.Y, C.L.X, C.c, C.e,
                                                C.n, C.act, fl);
       } else {
-        edge_lmax<<<B.cells_blocks(), kThreads, 0, st>>>(B.L, B.act, B.ew,
-                                                         B.ns, part, fl);
-        block_coarsen<<<nc, kThreads, 0, st>>>(FineAt<false>{B.L, B.act},
+        edge_lmax<T><<<B.cells_blocks(), kThreads, 0, st>>>(B.L, B.act, B.ew,
+                                                            B.ns, part, fl);
+        block_coarsen<<<nc, kThreads, 0, st>>>(FineAt<false, T>{B.L, B.act},
                                                C.L.Y, C.L.X, C.c, C.e, C.n,
                                                C.act, fl);
       }
@@ -318,96 +338,97 @@ struct Blocks {
       // coarsen; at G = 0 P3's hierarchy from the packed level 0), and the
       // block's maxima of the distributed levels
       if (G == 0)
-        fine_lmax<<<blocks(S.lv[0]), kThreads, 0, st>>>(S.lv[0], hpart, fl);
+        fine_lmax<T><<<blocks(S.lv[0]), kThreads, 0, st>>>(S.lv[0], hpart,
+                                                           fl);
       else
-        edge_lmax<<<blocks(S.lv[G]), kThreads, 0, st>>>(
+        edge_lmax<T><<<blocks(S.lv[G]), kThreads, 0, st>>>(
             S.lv[G], gact[G], nullptr, nullptr, hpart + R.off[G], fl);
       int rc = eu_launch_status();
       for (int k = G; !rc && k + 1 < S.L; ++k) {
-        const Lvl& Lc = S.lv[k + 1];
+        const LvlT<T>& Lc = S.lv[k + 1];
         if (k == 0)
-          coarsen<true><<<blocks(Lc), kThreads, 0, st>>>(
+          coarsen<true, T><<<blocks(Lc), kThreads, 0, st>>>(
               S.lv[0], Lc.Y, Lc.X, nullptr, gc[1], ge[1], gn[1], gact[1],
               hpart + R.off[1], fl);
         else
-          coarsen<false><<<blocks(Lc), kThreads, 0, st>>>(
+          coarsen<false, T><<<blocks(Lc), kThreads, 0, st>>>(
               S.lv[k], Lc.Y, Lc.X, gact[k], gc[k + 1], ge[k + 1], gn[k + 1],
               gact[k + 1], hpart + R.off[k + 1], fl);
         rc = eu_launch_status();
       }
       if (rc || G == 0) return rc;
-      fold_max<<<1, 1024, 0, st>>>(folds, bpart, hpart, fl);
+      fold_max<T><<<1, 1024, 0, st>>>(folds, bpart, hpart, fl);
       return eu_launch_status();
     }
     if (step == kBuildRows) {
-      cheby_rows<<<1, 1024, 0, st>>>(R, hpart, const_cast<float*>(S.rows),
-                                     fl);
+      cheby_rows<T><<<1, 1024, 0, st>>>(R, hpart, const_cast<T*>(S.rows),
+                                        fl);
       return eu_launch_status();
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
 
   // where a distributed level leaves its cycle output
-  float* zout(int l) const { return deg != 1 ? bl[l].x : bl[l].z; }
+  T* zout(int l) const { return deg != 1 ? bl[l].x : bl[l].z; }
 
-  int level(int op, int l, int k, BlockEdges h, cudaStream_t st) const {
+  int level(int op, int l, int k, BlockEdges<T> h, cudaStream_t st) const {
     const int* fl = w.flags;
     if (op == kCoarse) {
-      Solve C = S;
+      SolveT<T> C = S;
       C.s = st;
       int rc = C.cycle(G, false);
       if (rc || G > 0) return rc;
       // G = 0: the block's cells of the whole grid's correction into z
       const int X0 = S.lv[0].X;
-      copy_window<<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
+      copy_window<T><<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
           w.Y, w.X, S.zout(0) + static_cast<long long>(r0) * X0 + c0, X0,
-          static_cast<float*>(w.z), w.X, fl);
+          static_cast<T*>(w.z), w.X, fl);
       return eu_launch_status();
     }
-    const BlockLvl& B = bl[l];
-    const BlockLvl& C = bl[l + 1];
-    const Lvl& L = B.L;
-    const float* row = S.rows + l * S.ncoef;
+    const BlockLvl<T>& B = bl[l];
+    const BlockLvl<T>& C = bl[l + 1];
+    const LvlT<T>& L = B.L;
+    const T* row = S.rows + l * S.ncoef;
     const unsigned nb = B.cells_blocks();
     h.ew = B.ew;
     h.ns = B.ns;
     switch (op) {
       case kPre1:
-        b_pre1_restrict<<<C.cells_blocks(), kThreads, 0, st>>>(
+        b_pre1_restrict<T><<<C.cells_blocks(), kThreads, 0, st>>>(
             L, C.L.Y, C.L.X, B.b, B.x, C.b, row, h, fl);
         break;
       case kRestrict:
-        b_restrict_full<<<C.cells_blocks(), kThreads, 0, st>>>(
+        b_restrict_full<T><<<C.cells_blocks(), kThreads, 0, st>>>(
             L, C.L.Y, C.L.X, B.b, B.x, C.b, h, fl);
         break;
       case kProlong:
         if (l + 1 < G) {
-          prolong_add<<<nb, kThreads, 0, st>>>(L, C.L.X, zout(l + 1), B.x,
-                                               fl);
+          prolong_add<T><<<nb, kThreads, 0, st>>>(L, C.L.X, zout(l + 1),
+                                                  B.x, fl);
         } else {
           // the block's part of the gathered level's correction
           const int Xg = S.lv[G].X;
-          prolong_add<<<nb, kThreads, 0, st>>>(
+          prolong_add<T><<<nb, kThreads, 0, st>>>(
               L, Xg, S.zout(G) + static_cast<long long>(r0) * Xg + c0, B.x,
               fl);
         }
         break;
       case kPost1:
-        b_post1<<<nb, kThreads, 0, st>>>(L, B.b, B.x, B.z, row, h, fl);
+        b_post1<T><<<nb, kThreads, 0, st>>>(L, B.b, B.x, B.z, row, h, fl);
         break;
       case kChebyInit:
-        b_cheby_init<<<nb, kThreads, 0, st>>>(L, B.b, B.x, B.rr, B.d, row, k,
-                                              h, fl);
+        b_cheby_init<T><<<nb, kThreads, 0, st>>>(L, B.b, B.x, B.rr, B.d, row,
+                                                 k, h, fl);
         break;
       case kChebyStep:
         // step k reads d (k even) or dn and writes the other
-        b_cheby_step<<<nb, kThreads, 0, st>>>(
+        b_cheby_step<T><<<nb, kThreads, 0, st>>>(
             L, B.x, B.rr, k & 1 ? B.dn : B.d, k & 1 ? B.d : B.dn, row, k, h,
             fl);
         break;
       case kAxpy:
-        axpy1<<<nb, kThreads, 0, st>>>(L.Y * L.X, B.x,
-                                       (deg - 1) & 1 ? B.dn : B.d, fl);
+        axpy1<T><<<nb, kThreads, 0, st>>>(L.Y * L.X, B.x,
+                                          (deg - 1) & 1 ? B.dn : B.d, fl);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
@@ -419,7 +440,7 @@ struct Blocks {
   // between them are the host's
   int stage(int k, int cap, double tol, double tol_rel, const void* a_diag,
             const void* fluid, const void* b, const void* x0,
-            pcg::Halo<float> h, cudaStream_t st) const {
+            pcg::Halo<T> h, cudaStream_t st) const {
     constexpr int O = pcg::kGridOrder;
     const unsigned nb = pcg::grid_blocks(w.Y * w.X);
     const bool warm = x0 != nullptr;
@@ -428,50 +449,50 @@ struct Blocks {
     };
     switch (k) {
       case 0:
-        pcg::head_init<float, O><<<nb, pcg::kThreads, 0, st>>>(
+        pcg::head_init<T, O><<<nb, pcg::kThreads, 0, st>>>(
             w, static_cast<const int32_t*>(a_diag),
-            static_cast<const uint8_t*>(fluid), static_cast<const float*>(b),
+            static_cast<const uint8_t*>(fluid), static_cast<const T*>(b),
             cap, tol, tol_rel, warm);
         break;
       case 1:
-        fin(pcg::shard_finish<float, pcg::kFinInit>);
+        fin(pcg::shard_finish<T, pcg::kFinInit>);
         if (warm)
-          pcg::head_x0<float><<<nb, pcg::kThreads, 0, st>>>(
-              w, static_cast<const float*>(x0));
+          pcg::head_x0<T><<<nb, pcg::kThreads, 0, st>>>(
+              w, static_cast<const T*>(x0));
         break;
       case 2:
-        pcg::head_residual<float, O><<<nb, pcg::kThreads, 0, st>>>(w, h);
+        pcg::head_residual<T, O><<<nb, pcg::kThreads, 0, st>>>(w, h);
         break;
       case 3: {
-        if (warm) fin(pcg::shard_finish<float, pcg::kFinResidual>);
-        pack_code<<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
+        if (warm) fin(pcg::shard_finish<T, pcg::kFinResidual>);
+        pack_code<T><<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
             w.Y, w.X, w.code, packed0, w.X, w.flags);
         break;
       }
       case 4:
-        pcg::precon_dot<float, pcg::kMg, true, O>
+        pcg::precon_dot<T, pcg::kMg, true, O>
             <<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       case 5:
-        fin(pcg::shard_finish<float, pcg::kFinSigma0>);
+        fin(pcg::shard_finish<T, pcg::kFinSigma0>);
         break;
       case 6:
-        pcg::iter_ad<float, O><<<nb, pcg::kThreads, 0, st>>>(w, h);
+        pcg::iter_ad<T, O><<<nb, pcg::kThreads, 0, st>>>(w, h);
         break;
       case 7:
-        fin(pcg::shard_finish<float, pcg::kFinAlpha>);
-        pcg::iter_update<float, O><<<nb, pcg::kThreads, 0, st>>>(w);
+        fin(pcg::shard_finish<T, pcg::kFinAlpha>);
+        pcg::iter_update<T, O><<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       case 8:
-        fin(pcg::shard_finish<float, pcg::kFinConv>);
+        fin(pcg::shard_finish<T, pcg::kFinConv>);
         break;
       case 9:
-        pcg::precon_dot<float, pcg::kMg, false, O>
+        pcg::precon_dot<T, pcg::kMg, false, O>
             <<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       case 10:
-        fin(pcg::shard_finish<float, pcg::kFinBeta>);
-        pcg::iter_dir<float><<<nb, pcg::kThreads, 0, st>>>(w);
+        fin(pcg::shard_finish<T, pcg::kFinBeta>);
+        pcg::iter_dir<T><<<nb, pcg::kThreads, 0, st>>>(w);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
@@ -480,56 +501,30 @@ struct Blocks {
   }
 };
 
-}  // namespace
-
-// A solver over a workspace's buffers.  The block's loop planes ([Y, X]
-// f32 p, r, d, z, ad, pre, q and u8 code; part: 1024 floats; scal, flags:
-// P1's; red: 1 float); G the gather level, L the grid's levels.  shapes:
-// (Y, X) of the block's levels 0 .. G, then of the grid's L levels as
-// stored (mg_kernel.padded_level_shapes).  planes: P_COUNT pointers (c, e,
-// n, x, b, z, rr, d, dn) per block level 0 .. G (level 0: its x, b, z,
-// rr, d, dn are loop planes; level G: c, e, n, b only), then per grid
-// level (those below G null).  act: one u8 plane per block level, then
-// per grid level (level 0's and those below G null).  edges: e_west
-// [Yl], n_south [Xl] per block level 0 .. G (levels 0 and G null).  r0,
-// c0: the block's first row and column at level G.  packed0: [Y, X];
-// whole0: at G = 0 the grid's packed level 0 at its stored shape, zero in
-// its pad (null at G > 0; the grid level 0's x, b, z, rr, d, dn are
-// planes of that shape, b zero in its pad); rows: [L, ncoef]; bpart: the
-// block levels' ceil(Yl * Xl / 256) floats each, levels 0 .. G - 1;
-// hpart: G floats, then the grid levels' ceil(Yl * Xl / 256) each from
-// G.  *out is the handle.
-EU_API int eu_pcg_mg_blocks_create(int Y, int X, int G, int L,
-                                   const int* shapes, void* const* planes,
-                                   void* const* act, void* const* edges,
-                                   int r0, int c0, void* packed0,
-                                   void* whole0, void* rows,
-                                   int ncoef, int deg, int coarse_deg, int w,
-                                   int w_depth, float ratio,
-                                   float coarse_ratio, void* bpart,
-                                   void* hpart, void* code, void* p, void* r,
-                                   void* d, void* z, void* ad, void* pre,
-                                   void* q, void* part, void* scal,
-                                   void* flags, void* red, void** out) {
-  *out = nullptr;
-  if (G < 0 || G >= L || L > 16 || shapes[0] != Y || shapes[1] != X ||
-      (G == 0) != (whole0 != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Blocks* B = new Blocks{};
+template <typename T>
+int create(int Y, int X, int G, int L, const int* shapes,
+           void* const* planes, void* const* act, void* const* edges, int r0,
+           int c0, void* packed0, void* whole0, void* rows, int ncoef,
+           int deg, int coarse_deg, int w, int w_depth, double ratio,
+           double coarse_ratio, void* bpart, void* hpart, void* code, void* p,
+           void* r, void* d, void* z, void* ad, void* pre, void* q,
+           void* part, void* scal, void* flags, void* red, void** out) {
+  Blocks<T>* B = new Blocks<T>{};
+  B->f64 = sizeof(T) == sizeof(double);
   B->w = pcg::Ws{Y, X, Y, X, static_cast<uint8_t*>(code), p, r, d, z, ad,
                  pre, q, part, scal, static_cast<int*>(flags), red};
   B->G = G;
   B->deg = deg;
   B->r0 = r0;
   B->c0 = c0;
-  B->packed0 = static_cast<float*>(packed0);
-  B->bpart = static_cast<float*>(bpart);
-  B->hpart = static_cast<float*>(hpart);
+  B->packed0 = static_cast<T*>(packed0);
+  B->bpart = static_cast<T*>(bpart);
+  B->hpart = static_cast<T*>(hpart);
   B->folds.G = G;
   for (int l = 0; l <= G; ++l) {
     void* const* pl = planes + l * P_COUNT;
-    BlockLvl& V = B->bl[l];
-    auto f = [&](int k) { return static_cast<float*>(pl[k]); };
+    BlockLvl<T>& V = B->bl[l];
+    auto f = [&](int k) { return static_cast<T*>(pl[k]); };
     V.c = f(P_C);
     V.e = f(P_E);
     V.n = f(P_N);
@@ -539,32 +534,33 @@ EU_API int eu_pcg_mg_blocks_create(int Y, int X, int G, int L,
     V.rr = f(P_RR);
     V.d = f(P_D);
     V.dn = f(P_DN);
-    V.L = Lvl{shapes[2 * l], shapes[2 * l + 1], V.c, V.e, V.n,
-              l == 0 ? B->packed0 : nullptr};
-    V.ew = static_cast<const float*>(edges[2 * l]);
-    V.ns = static_cast<const float*>(edges[2 * l + 1]);
+    V.L = LvlT<T>{shapes[2 * l], shapes[2 * l + 1], V.c, V.e, V.n,
+                  l == 0 ? B->packed0 : nullptr};
+    V.ew = static_cast<const T*>(edges[2 * l]);
+    V.ns = static_cast<const T*>(edges[2 * l + 1]);
     V.act = static_cast<uint8_t*>(act[l]);
     if (l < G)
-      B->folds.off[l + 1] = B->folds.off[l] + static_cast<int>(V.cells_blocks());
+      B->folds.off[l + 1] =
+          B->folds.off[l] + static_cast<int>(V.cells_blocks());
   }
   // the gathered levels: a Solve over the grid's levels, P3's from G down
   const int* gshapes = shapes + 2 * (G + 1);
   void* const* gplanes = planes + (G + 1) * P_COUNT;
   int rc = make_solve(&B->S, L, gshapes, gplanes, whole0,
-                      static_cast<float*>(G == 0 ? gplanes[P_B] : nullptr),
-                      rows, ncoef, deg, coarse_deg, w, w_depth, part, flags,
-                      nullptr);
+                      G == 0 ? gplanes[P_B] : nullptr, rows, ncoef, deg,
+                      coarse_deg, w, w_depth, part, flags, nullptr);
   if (!rc && B->S.fused < G) rc = static_cast<int>(cudaErrorInvalidValue);
-  B->R = Rows{L, ncoef, deg, coarse_deg, ratio, coarse_ratio, -1, {0}};
+  B->R = RowsT<T>{L, ncoef, deg, coarse_deg, static_cast<T>(ratio),
+                  static_cast<T>(coarse_ratio), -1, {0}};
   for (int l = 0; l < L; ++l) {
     void* const* pl = gplanes + l * P_COUNT;
-    B->gc[l] = static_cast<float*>(pl[P_C]);
-    B->ge[l] = static_cast<float*>(pl[P_E]);
-    B->gn[l] = static_cast<float*>(pl[P_N]);
+    B->gc[l] = static_cast<T*>(pl[P_C]);
+    B->ge[l] = static_cast<T*>(pl[P_E]);
+    B->gn[l] = static_cast<T*>(pl[P_N]);
     B->gact[l] = static_cast<uint8_t*>(act[G + 1 + l]);
     B->R.off[l + 1] = l < G ? l + 1
                             : B->R.off[l] + static_cast<int>(
-                                                Blocks::blocks(B->S.lv[l]));
+                                                Blocks<T>::blocks(B->S.lv[l]));
   }
   if (!rc)
     rc = static_cast<int>(cudaMemset(flags, 0, sizeof(int) * pcg::F_N));
@@ -573,12 +569,104 @@ EU_API int eu_pcg_mg_blocks_create(int Y, int X, int G, int L,
     delete B;
     return rc;
   }
-  *out = B;
+  *out = static_cast<BlocksHead*>(B);
   return 0;
 }
 
+const BlocksHead* head(const void* solver) {
+  return static_cast<const BlocksHead*>(solver);
+}
+
+template <typename T>
+const Blocks<T>* as(const void* solver) {
+  return static_cast<const Blocks<T>*>(head(solver));
+}
+
+template <typename T>
+int stage(const Blocks<T>* B, int k, int cap, double tol, double tol_rel,
+          const void* a_diag, const void* fluid, const void* b,
+          const void* x0, const void* below, const void* above,
+          const void* left, const void* right, cudaStream_t st) {
+  const pcg::Halo<T> h{static_cast<const T*>(below),
+                       static_cast<const T*>(above),
+                       static_cast<const T*>(left),
+                       static_cast<const T*>(right)};
+  return B->stage(k, cap, tol, tol_rel, a_diag, fluid, b, x0, h, st);
+}
+
+template <typename T>
+int build(const Blocks<T>* B, int step, int l, const void* below,
+          const void* above, const void* left, const void* right,
+          cudaStream_t st) {
+  if ((step == kBuild0 || step == kBuildLevel) && (l < 0 || l >= B->G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return B->build(step, l, static_cast<const uint8_t*>(below),
+                  static_cast<const uint8_t*>(above),
+                  static_cast<const uint8_t*>(left),
+                  static_cast<const uint8_t*>(right), st);
+}
+
+template <typename T>
+int level(const Blocks<T>* B, int op, int l, int k, const void* below,
+          const void* above, const void* left, const void* right,
+          cudaStream_t st) {
+  if (l < 0 || l > B->G || (op != kCoarse && l == B->G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BlockEdges<T> h{static_cast<const T*>(below),
+                        static_cast<const T*>(above),
+                        static_cast<const T*>(left),
+                        static_cast<const T*>(right), nullptr, nullptr};
+  return B->level(op, l, k, h, st);
+}
+
+}  // namespace
+
+// A solver over a workspace's buffers, every plane, row, partial and edge
+// of them f32, or f64 with f64 = 1.  The block's loop planes ([Y, X] p,
+// r, d, z, ad, pre, q and u8 code; part: 1024; scal, flags: P1's; red: 1);
+// G the gather level, L the grid's levels.  shapes: (Y, X) of the block's
+// levels 0 .. G, then of the grid's L levels as stored
+// (mg_kernel.padded_level_shapes).  planes: P_COUNT pointers (c, e, n, x,
+// b, z, rr, d, dn) per block level 0 .. G (level 0: its x, b, z, rr, d,
+// dn are loop planes; level G: c, e, n, b only), then per grid level
+// (those below G null).  act: one u8 plane per block level, then per grid
+// level (level 0's and those below G null).  edges: e_west [Yl], n_south
+// [Xl] per block level 0 .. G (levels 0 and G null).  r0, c0: the block's
+// first row and column at level G.  packed0: [Y, X]; whole0: at G = 0 the
+// grid's packed level 0 at its stored shape, zero in its pad (null at G >
+// 0; the grid level 0's x, b, z, rr, d, dn are planes of that shape, b
+// zero in its pad); rows: [L, ncoef]; bpart: the block levels'
+// ceil(Yl * Xl / 256) each, levels 0 .. G - 1; hpart: G, then the grid
+// levels' ceil(Yl * Xl / 256) each from G; the ratios rounded to the
+// planes' type.  *out is the handle.
+EU_API int eu_pcg_mg_blocks_create(int Y, int X, int f64, int G, int L,
+                                   const int* shapes, void* const* planes,
+                                   void* const* act, void* const* edges,
+                                   int r0, int c0, void* packed0,
+                                   void* whole0, void* rows, int ncoef,
+                                   int deg, int coarse_deg, int w,
+                                   int w_depth, double ratio,
+                                   double coarse_ratio, void* bpart,
+                                   void* hpart, void* code, void* p, void* r,
+                                   void* d, void* z, void* ad, void* pre,
+                                   void* q, void* part, void* scal,
+                                   void* flags, void* red, void** out) {
+  *out = nullptr;
+  if (G < 0 || G >= L || L > 16 || shapes[0] != Y || shapes[1] != X ||
+      (G == 0) != (whole0 != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (f64 ? create<double> : create<float>)(
+      Y, X, G, L, shapes, planes, act, edges, r0, c0, packed0, whole0, rows,
+      ncoef, deg, coarse_deg, w, w_depth, ratio, coarse_ratio, bpart, hpart,
+      code, p, r, d, z, ad, pre, q, part, scal, flags, red, out);
+}
+
 EU_API int eu_pcg_mg_blocks_destroy(void* solver) {
-  delete static_cast<Blocks*>(solver);
+  BlocksHead* H = static_cast<BlocksHead*>(solver);
+  if (H->f64)
+    delete static_cast<Blocks<double>*>(H);
+  else
+    delete static_cast<Blocks<float>*>(H);
   return 0;
 }
 
@@ -586,23 +674,22 @@ EU_API int eu_pcg_mg_blocks_destroy(void* solver) {
 // [finish] + the packed level 0, 4 <z, r> head, 5 finish, 6 Ad, 7 finish
 // + p, r, 8 finish, 9 <z, r>, 10 finish + d; the host all-reduces red[0]
 // after 0, 2, 4, 6, 7, 9) with a_diag ([Y, X] i32), fluid ([Y, X] u8), b
-// and x0 (null: a cold start) f32, and the exchanged edges of the plane
-// the stage applies the operator to (2: p, 6: d; below / above [X], left
-// / right [Y]).  The solution stays in the workspace's p, the iterations
-// in flags[1], max|r| in scal[4].
+// and x0 (null: a cold start) of the solver's type, and the exchanged
+// edges of the plane the stage applies the operator to (2: p, 6: d; below
+// / above [X], left / right [Y]).  The solution stays in the workspace's
+// p, the iterations in flags[1], max|r| in scal[4].
 EU_API int eu_pcg_mg_blocks_stage(void* solver, int k, int cap, double tol,
                                   double tol_rel, const void* a_diag,
                                   const void* fluid, const void* b,
                                   const void* x0, const void* below,
                                   const void* above, const void* left,
                                   const void* right, void* stream) {
-  const Blocks* B = static_cast<const Blocks*>(solver);
-  const pcg::Halo<float> h{static_cast<const float*>(below),
-                           static_cast<const float*>(above),
-                           static_cast<const float*>(left),
-                           static_cast<const float*>(right)};
-  return B->stage(k, cap, tol, tol_rel, a_diag, fluid, b, x0, h,
-                  static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head(solver)->f64)
+    return stage(as<double>(solver), k, cap, tol, tol_rel, a_diag, fluid, b,
+                 x0, below, above, left, right, st);
+  return stage(as<float>(solver), k, cap, tol, tol_rel, a_diag, fluid, b,
+               x0, below, above, left, right, st);
 }
 
 // Build step `step` of the hierarchy (0: level 0's partials and the
@@ -616,32 +703,44 @@ EU_API int eu_pcg_mg_blocks_build(void* solver, int step, int l,
                                   const void* below, const void* above,
                                   const void* left, const void* right,
                                   void* stream) {
-  const Blocks* B = static_cast<const Blocks*>(solver);
-  if ((step == kBuild0 || step == kBuildLevel) && (l < 0 || l >= B->G))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return B->build(step, l, static_cast<const uint8_t*>(below),
-                  static_cast<const uint8_t*>(above),
-                  static_cast<const uint8_t*>(left),
-                  static_cast<const uint8_t*>(right),
-                  static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head(solver)->f64)
+    return build(as<double>(solver), step, l, below, above, left, right,
+                 st);
+  return build(as<float>(solver), step, l, below, above, left, right, st);
 }
 
 // Level operation `op` of the cycle on distributed level l (k: the
 // Chebyshev init's from_zero, or the step's index), with the exchanged
 // edges of the plane it applies the operator to (below / above [X_l],
-// left / right [Y_l]; null where it applies none); kCoarse: P3's cycle
-// from the gathered level G on its whole planes (at G = 0, then the
-// block's cells of its output into the loop's z).
+// left / right [Y_l], of the solver's type; null where it applies none);
+// kCoarse: P3's cycle from the gathered level G on its whole planes (at
+// G = 0, then the block's cells of its output into the loop's z).
 EU_API int eu_pcg_mg_blocks_level(void* solver, int op, int l, int k,
                                   const void* below, const void* above,
                                   const void* left, const void* right,
                                   void* stream) {
-  const Blocks* B = static_cast<const Blocks*>(solver);
-  if (l < 0 || l > B->G || (op != kCoarse && l == B->G))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BlockEdges h{static_cast<const float*>(below),
-                     static_cast<const float*>(above),
-                     static_cast<const float*>(left),
-                     static_cast<const float*>(right), nullptr, nullptr};
-  return B->level(op, l, k, h, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head(solver)->f64)
+    return level(as<double>(solver), op, l, k, below, above, left, right,
+                 st);
+  return level(as<float>(solver), op, l, k, below, above, left, right, st);
+}
+
+// The gathered cycle's plan: out[0] the level where coarse_cycle takes
+// over (L: none), out[1] its dynamic shared memory in bytes, out[2] L,
+// out[3] G.
+EU_API int eu_pcg_mg_blocks_plan(const void* solver, int* out) {
+  const BlocksHead* H = head(solver);
+  const auto plan = [out](const auto* B) {
+    out[0] = B->S.fused;
+    out[1] = B->S.fused_smem;
+    out[2] = B->S.L;
+    out[3] = B->G;
+  };
+  if (H->f64)
+    plan(as<double>(solver));
+  else
+    plan(as<float>(solver));
+  return 0;
 }

@@ -90,8 +90,8 @@ def padded_level_shapes(Y: int, X: int, min_size: int,
 
 
 def galerkin_cheby(cfg: SimConfig) -> bool:
-    """Galerkin MG with Chebyshev smoothing, f32 or f64: the MG P3 runs
-    (its levels are templated on the precision)."""
+    """Galerkin MG with Chebyshev smoothing, f32 or f64: the MG P3, P4's
+    block MG and P5 run (their levels are templated on the precision)."""
     s = cfg.solver
     return (s.preconditioner == "mg" and s.dtype in ("float32", "float64")
             and s.mg_scheme == "galerkin" and s.mg_smoother == "cheby")
@@ -99,8 +99,7 @@ def galerkin_cheby(cfg: SimConfig) -> bool:
 
 def galerkin_cheby_f32(cfg: SimConfig) -> bool:
     """`galerkin_cheby` in f32: the MG of K2, K3 and K11, whose JAX Pallas
-    kernels are f32 only (no f64 solve reaches them), and of P4's block
-    MG and P5."""
+    kernels are f32 only (no f64 solve reaches them)."""
     return galerkin_cheby(cfg) and cfg.solver.dtype == "float32"
 
 

@@ -24,6 +24,11 @@ mg_levels.cuh).  The stop flag is read after every iteration.  Its
 plain version is `parallel/spatial_mg.pcg_blocks_plain`; the launch count
 "P5" counts a block's solves.  A gloo group with CUDA tensors raises.
 
+Precision: every buffer, edge and all-reduced value is in the solver
+dtype (`solver.dtype`, f32 or f64), so an f64 solve builds its hierarchy
+and Chebyshev rows in double, as P3's f64 solve does, and folds doubles
+over the blocks.
+
 On an H100 the device work of an iteration is P3's, cut into blocks; the
 host's work bounds it: some forty exchanges and all-reduces an iteration
 at 1024², each a meeting of the blocks (an in-process `LocalGroup`) or a
@@ -69,15 +74,16 @@ assert len(PLANE_NAMES) == _PLANES_PER_LEVEL
 def blocks_lib():
     """csrc/pcg_mg_blocks.cu: P5 (`eu_pcg_mg_blocks_*`)."""
     lib = _build.load("pcg_mg_blocks", flags=["-fmad=false"])
-    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    P, I = _build.PTR, _build.INT
     D = ctypes.c_double
     _build.bind(lib, "eu_pcg_mg_blocks_create",
-                [I] * 4 + [P] * 4 + [I] * 2 + [P] * 3 + [I] * 5 + [F, F]
+                [I] * 5 + [P] * 4 + [I] * 2 + [P] * 3 + [I] * 5 + [D, D]
                 + [P] * 14 + [ctypes.POINTER(ctypes.c_void_p)])
     _build.bind(lib, "eu_pcg_mg_blocks_destroy", [P])
     _build.bind(lib, "eu_pcg_mg_blocks_stage", [P, I, I, D, D] + [P] * 9)
     _build.bind(lib, "eu_pcg_mg_blocks_build", [P, I, I] + [P] * 5)
     _build.bind(lib, "eu_pcg_mg_blocks_level", [P, I, I, I] + [P] * 5)
+    _build.bind(lib, "eu_pcg_mg_blocks_plan", [P, P])
     return lib
 
 
@@ -94,12 +100,12 @@ class BlocksWorkspace(GeneralWorkspace):
     active); the gathered levels G .. L - 1 as whole planes at their
     stored shapes (`self.whole[l]`; at G = 0 level 0's are the packed
     operator and the cycle's planes, zero in the pad); the block's packed
-    level 0, the Chebyshev rows and the partials; and the CUDA solver
-    over them."""
+    level 0, the Chebyshev rows and the partials, all in the solver dtype;
+    and the CUDA solver over them."""
 
     def __init__(self, cfg: SimConfig, plan, device):
         s = cfg.solver
-        f = torch.float32
+        f = getattr(torch, s.dtype)
         self.plan = plan
         self.G, self.L = G, L = plan.gather, len(plan.shapes)
         self.deg, _, self.w_cycle, self.w_depth = cycle_args(cfg)
@@ -163,7 +169,8 @@ class BlocksWorkspace(GeneralWorkspace):
         handle = ctypes.c_void_p()
         with torch.cuda.device(device):
             rc = self.lib.eu_pcg_mg_blocks_create(
-                Y, X, G, L, (ctypes.c_int * len(shapes))(*shapes),
+                Y, X, int(f == torch.float64), G, L,
+                (ctypes.c_int * len(shapes))(*shapes),
                 (ctypes.c_void_p * len(planes))(*planes),
                 (ctypes.c_void_p * len(act))(*act),
                 (ctypes.c_void_p * len(edges))(*edges), r0, c0,
@@ -181,8 +188,22 @@ class BlocksWorkspace(GeneralWorkspace):
         """An [n] plane of zeros: the edges beyond an axis that no block
         splits."""
         if n not in self._zeros:
-            self._zeros[n] = torch.zeros(n, device=self.p.device)
+            self._zeros[n] = torch.zeros(n, dtype=self.p.dtype,
+                                         device=self.p.device)
         return self._zeros[n]
+
+    def cycle_plan(self) -> dict:
+        """The gathered cycle's plan on the card (`self.plan` is the
+        block's `BlockPlan`): the level where its coarse end runs as one
+        cluster launch ("fused"; the level count "levels": none), that
+        launch's shared memory in bytes ("smem"), and the gather level
+        ("gather")."""
+        out = (ctypes.c_int * 4)()
+        _build.check(self.lib, self.lib.eu_pcg_mg_blocks_plan(self.handle,
+                                                              out),
+                     "eu_pcg_mg_blocks_plan")
+        return {"fused": out[0], "smem": out[1], "levels": out[2],
+                "gather": out[3]}
 
     def visits(self, l: int) -> int:
         """How often a cycle of level l visits level l + 1 (`Solve::
@@ -237,7 +258,7 @@ class BlocksWorkspace(GeneralWorkspace):
             self._build_step(BUILD_LEVEL, l)
         top = self.block[G]
         whole = gather_plane(torch.stack(
-            [top["c"], top["e"], top["n"], top["act"].to(torch.float32)]),
+            [top["c"], top["e"], top["n"], top["act"].to(top["c"].dtype)]),
             comm, axes)
         Yg, Xg = whole.shape[-2:]
         for k, name in enumerate("cen"):
@@ -318,7 +339,7 @@ class BlocksWorkspace(GeneralWorkspace):
         """z = M r for this block's `r` on the hierarchy of the last
         solve (every block calls it).  Overwrites the loop's r and z and
         clears the stop flag.  Returns z, fresh."""
-        _build.require(r, "r", torch.float32, self.p.shape, self.p.device)
+        _build.require(r, "r", self.p.dtype, self.p.shape, self.p.device)
         self.flags[_F_DONE] = 0
         self.planes[1].copy_(r)
         self._cycle(comm, axes, 0)
@@ -335,8 +356,8 @@ def workspace(cfg: SimConfig, comm, plan, device) -> BlocksWorkspace:
     """This block's P5 workspace for `cfg`'s MG and `plan`, kept by its
     comm (blocks of one process never share one)."""
     s = cfg.solver
-    key = ("P5", str(device), plan, *cycle_args(cfg), s.mg_cheby_ratio,
-           s.mg_coarse_ratio)
+    key = ("P5", str(device), plan, s.dtype, *cycle_args(cfg),
+           s.mg_cheby_ratio, s.mg_coarse_ratio)
     ws = comm.workspaces.get(key)
     if ws is None:
         ws = comm.workspaces[key] = BlocksWorkspace(cfg, plan, device)
@@ -354,11 +375,12 @@ def solve_mg_blocks(cfg: SimConfig, comm, axes, plan, b, a_diag, fluid,
                            "in-process LocalGroup, not gloo")
     dev = b.device
     shape = plan.block_shape(0)
-    p_b = _build.require(b, "b", torch.float32, shape)
+    dtype = getattr(torch, cfg.solver.dtype)
+    p_b = _build.require(b, "b", dtype, shape)
     p_a = _build.require(a_diag, "a_diag", torch.int32, shape, dev)
     p_fl = _build.require(fluid, "fluid", torch.bool, shape, dev)
     p_x0 = (None if x0 is None
-            else _build.require(x0, "x0", torch.float32, shape, dev))
+            else _build.require(x0, "x0", dtype, shape, dev))
     for t, n in zip(ring, (shape[1], shape[1], shape[0], shape[0])):
         _build.require(t, "ring", torch.bool, (n,), dev)
     ws = workspace(cfg, comm, plan, dev)

@@ -19,12 +19,13 @@ the same collectives).  A gloo group with CUDA tensors raises: P4 does
 not copy to the host.
 
 Preconditioners: "none" (z = r on the fluid), "jacobi" (the jnp form,
-halo.py:136-139) and "mg" in f32: block-Jacobi additive Schwarz, P3's
-cycle (csrc/mg_levels.cuh) on the block's own hierarchy, built on the
-card from the block's operator (the global a_diag, cut), at
-`mg_kernel.padded_level_shapes` of the block: a block with an odd side
-(135 rows) keeps its level 0 padded on planes of its own, r copied in
-with a zero pad before the cycle and z cropped out after it.  `halo.
+halo.py:136-139) and "mg", in f32 or f64: block-Jacobi additive
+Schwarz, P3's cycle (csrc/mg_levels.cuh) on the block's own hierarchy,
+built on the card from the block's operator (the global a_diag, cut), at
+`mg_kernel.padded_level_shapes` of the block, every level, row and
+partial in the solver dtype: a block with an odd side (135 rows) keeps
+its level 0 padded on planes of its own, r copied in with a zero pad
+before the cycle and z cropped out after it.  `halo.
 make_sharded_pressure_solver` gives P4 "jacobi" for every preconditioner
 but "mg", as halo.py does; the frame on blocks gives it its own "none"
 and "jacobi" (its "mg" and "ic0" are P5's and P6's).
@@ -50,7 +51,7 @@ from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.ops.cuda import _build
 from euler_tpu_torch.ops.cuda.mg_kernel import (
     cycle_args,
-    galerkin_cheby_f32,
+    galerkin_cheby,
     padded_level_shapes,
 )
 from euler_tpu_torch.ops.cuda.pcg_general_kernel import (
@@ -73,13 +74,14 @@ ITERATION = ((5, "sum"), (6, "max"), (7, "sum"), (8, None))
 def shard_lib():
     """csrc/pcg_shard.cu: P4 (`eu_pcg_shard_*`)."""
     lib = _build.load("pcg_shard", flags=["-fmad=false"])
-    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    P, I = _build.PTR, _build.INT
     D = ctypes.c_double
     _build.bind(lib, "eu_pcg_shard_create",
-                [I] * 5 + [P] * 5 + [I] * 5 + [F, F] + [P] * 13
+                [I] * 5 + [P] * 5 + [I] * 5 + [D, D] + [P] * 13
                 + [ctypes.POINTER(ctypes.c_void_p)])
     _build.bind(lib, "eu_pcg_shard_destroy", [P])
     _build.bind(lib, "eu_pcg_shard_stage", [P, I, I, D, D] + [P] * 9)
+    _build.bind(lib, "eu_pcg_shard_plan", [P, P])
     return lib
 
 
@@ -123,6 +125,16 @@ class ShardWorkspace(MgGeneralWorkspace):
     @property
     def d(self):
         return self.planes[2]
+
+    def plan(self) -> dict:
+        """The block MG cycle's plan on the card: the level where its
+        coarse end runs as one cluster launch ("fused"; the level count
+        "levels": none) and that launch's shared memory in bytes
+        ("smem"); zeros without MG."""
+        out = (ctypes.c_int * 3)()
+        _build.check(self.lib, self.lib.eu_pcg_shard_plan(self.handle, out),
+                     "eu_pcg_shard_plan")
+        return {"fused": out[0], "smem": out[1], "levels": out[2]}
 
     def solve(self, comm, axes, s, a_diag, fluid, b, x0):
         """One solve of A p = b on this block (device pointers), the
@@ -182,17 +194,13 @@ def workspace(cfg: SimConfig, comm, shape, device) -> ShardWorkspace:
 
 def check_solver(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the solvers that no solve on blocks
-    (P4, P5, P6) runs, naming their ROADMAP items."""
+    (P4, P5, P6) runs, naming their ROADMAP items: MG other than Galerkin
+    with Chebyshev smoothing (M14).  Every solver they run, runs in f32 and
+    in f64."""
     s = cfg.solver
     if s.dtype not in ("float32", "float64"):
         raise ValueError(f"solver dtype {s.dtype!r}")
-    if s.preconditioner == "mg" and s.dtype != "float32":
-        raise NotImplementedError(
-            "f64 MG on blocks: P4's block MG and P5 are f32 (f64 MG runs on "
-            "one card, P3; the f64 solve with no preconditioner, Jacobi or "
-            "IC(0) runs on blocks, P4 and P6); ROADMAP queue 1 item M15 "
-            "part b")
-    if s.preconditioner == "mg" and not galerkin_cheby_f32(cfg):
+    if s.preconditioner == "mg" and not galerkin_cheby(cfg):
         raise NotImplementedError(
             f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "
             "Chebyshev smoothing is ported; ROADMAP queue 1 item M14")

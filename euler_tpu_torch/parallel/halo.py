@@ -32,7 +32,9 @@ neighbours through a `comm` (`parallel/comm.py`):
 
 The frame on blocks keeps its own rule (`parallel/spatial.Blocks`: the
 JAX frame's "none" is no preconditioner and its "ic0" the whole grid's
-IC(0)), so it calls P4, P5 and P6 directly.  f64 MG (M15 part b) is refused.
+IC(0)), so it calls P4, P5 and P6 directly.  Every solve here runs in
+f32 and in f64, block MG included (its hierarchy and cycle in the solver
+dtype).
 """
 
 from __future__ import annotations

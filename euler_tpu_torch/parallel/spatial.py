@@ -64,8 +64,8 @@ exchanges columns):
     halo.py does);
   * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
     dt, `active` and the frame's counts are the same on every block.
-Refused, each naming its ROADMAP item: f64 MG (M15 part b); RB-GS and
-rediscretized MG (M14).
+Every solver runs in f32 and in f64 (f64 MG: P5 in double precision).
+Refused, naming its ROADMAP item: RB-GS and rediscretized MG (M14).
 """
 
 from __future__ import annotations
@@ -215,8 +215,8 @@ def gather_spatial(cfg: SimConfig, mesh, state: FluidState):
 
 def check_block_frame(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the solvers the frame on blocks does
-    not run, naming their ROADMAP items: f64 MG (M15 part b), RB-GS and
-    rediscretized MG (M14)."""
+    not run, naming their ROADMAP item: RB-GS and rediscretized MG
+    (M14)."""
     check_solver(cfg)
 
 

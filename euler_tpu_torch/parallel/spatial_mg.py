@@ -10,13 +10,15 @@ is P3's function (`ops/cuda/pcg_general_kernel`), not P4's block-Jacobi
 Schwarz MG (`parallel/halo.py`), whose iterations grow with the blocks.
 Here each block holds its cells of it:
   * `block_plan`: where the block lies, and the gather level G: the first
-    level where P3's coarse cluster launch takes over (`GATHER_CELLS`,
-    csrc/mg_levels.cuh kFusedCells), or an earlier one where a block's
-    extent turns odd or under `MIN_EXTENT` cells.  Levels 0 .. G - 1 are
-    distributed (every one of them even on the block, so its restriction
-    and prolongation stay in the block); from G the whole coarse grid is
-    gathered onto every block.  At 1024² that keeps 1024², 512² and 256²
-    on the blocks and gathers 128² and below.  A block with an odd side
+    level where P3's coarse cluster launch takes over (`fused_level`:
+    `GATHER_CELLS`, csrc/mg_levels.cuh kFusedCells, or in f64 a level
+    lower, where the levels below fit a CTA's shared memory), or an
+    earlier one where a block's extent turns odd or under `MIN_EXTENT`
+    cells.  Levels 0 .. G - 1 are distributed (every one of them even on
+    the block, so its restriction and prolongation stay in the block);
+    from G the whole coarse grid is gathered onto every block.  At 1024²
+    that keeps 1024², 512² and 256² on the blocks and gathers 128² and
+    below (f64: 128² on the blocks too).  A block with an odd side
     (1080 x 1920 on 8 row blocks of 135 rows, 999² on 3 x 3) gathers at
     level 0: every block holds the whole grid's hierarchy, level 0 padded
     where the grid is odd, and runs the whole cycle;
@@ -40,9 +42,9 @@ Here each block holds its cells of it:
     with apply_a's operator order and `block_cycle` (the dots summed and
     the maxima maxed over the blocks).  A gloo group with CUDA tensors
     raises.
-f32 Galerkin MG with Chebyshev smoothing only: f64 MG on blocks is
-ROADMAP M15 part b (one card runs it, P3),
-RB-GS and rediscretized MG M14 (`pcg_shard_kernel.check_solver`).
+Galerkin MG with Chebyshev smoothing, in f32 or f64 (`solver.dtype`:
+every level, bound and Chebyshev row in that precision, as P3's); RB-GS
+and rediscretized MG are ROADMAP M14 (`pcg_shard_kernel.check_solver`).
 """
 
 from __future__ import annotations
@@ -73,6 +75,13 @@ from euler_tpu_torch.parallel.mesh import block_span
 # many cells that the truncated W visits once (csrc/mg_levels.cuh
 # kFusedCells): the levels from there down are gathered
 GATHER_CELLS = 128 * 128
+# ... or lower, where the 9 planes of every level below it do not fit a
+# CTA's shared memory in the solver dtype (`make_solve`; f64 at 1024²).
+# The card's limit is the H100's opt-in, 227 KiB, less the launch's static
+# shared memory: taking the whole opt-in here can only gather at a level
+# at or above the card's fused one, which the gathered `Solve` accepts
+FUSED_SMEM = 227 * 1024
+FUSED_PLANES = 9
 # a level where a block is thinner than this is gathered
 MIN_EXTENT = 8
 
@@ -103,12 +112,17 @@ class BlockPlan:
 def fused_level(cfg: SimConfig, shapes) -> int:
     """Where P3's `Solve` runs its coarse cluster launch (`make_solve`):
     the first level below 0 of at most GATHER_CELLS cells that the
-    truncated W visits once; len(shapes) where there is none."""
+    truncated W visits once, or the first below it whose lower levels fit
+    FUSED_SMEM in the solver dtype; len(shapes) where there is none."""
     L = len(shapes)
     _, _, w, w_depth = cycle_args(cfg)
+    item = torch.finfo(getattr(torch, cfg.solver.dtype)).bits // 8
     level = next((l for l in range(1, L)
                   if shapes[l][0] * shapes[l][1] <= GATHER_CELLS), L)
     while level < L and w != 1 and level < w_depth and level + 1 < L - 1:
+        level += 1
+    while level < L and FUSED_PLANES * item * sum(
+            Y * X for Y, X in shapes[level + 1:]) > FUSED_SMEM:
         level += 1
     return level
 

@@ -22,7 +22,8 @@ The frame on row blocks (`parallel/spatial.py`):
     scenario with sources in every block);
   * P4 on in-process blocks (`comm.LocalGroup`) of a 64² system against
     its plain version on the CPU: the same iterations (within 1 in f32),
-    p within 1e-9 (f64) or 1e-4 of its scale (f32), cold and warm;
+    p within 1e-9 (f64) or 1e-4 of its scale (f32), cold and warm; its
+    block MG in f32 and f64;
   * the 40 x 100 waterfall on 4 blocks, card against CPU: counts, alive,
     RNG bitwise, u and v within 1e-4, every kernel launched and no plain
     version run.
@@ -37,9 +38,13 @@ col_offset, P4 over ("y", "x")):
   * the 40 x 100 waterfall on 2 x 2 blocks, card against CPU, as above.
 The frame's global MG solve on blocks (P5, `parallel/spatial_mg.py`):
   * its hierarchy and one cycle on 2 x 2 and 4 x 1 blocks of the 256²
-    system bit for bit P3's;
+    system bit for bit P3's, f32 and f64;
   * on 1 x 1 blocks P3 bit for bit (p, iterations, residual), cold and
-    warm; on 2 x 2 blocks iterations within 1, p within 5e-4 of scale;
+    warm, f32 and f64; on 2 x 2 blocks iterations within 1, p within
+    5e-4 of scale (f64: the same iterations, p within 1e-10 of scale);
+  * the plans each f32 and f64 create makes at 1024²: P5's gather level
+    and its gathered coarse cycle's level and shared memory are P3's,
+    a level lower in f64; P4's block MG the same a block;
   * the 64² dam break on 2 x 2 blocks, card against CPU, 3 frames (P5
     launched once a block a substep, no plain version; at most 4 cells'
     counts apart, u and v within 2e-3).
@@ -327,12 +332,12 @@ def _blocks_solve(cfg, b, a, fl, n, device, x0=None):
 @pytest.mark.parametrize("precon,dtype,n", [
     ("jacobi", torch.float64, 1), ("jacobi", torch.float64, 4),
     ("none", torch.float64, 2), ("jacobi", torch.float32, 4),
-    ("mg", torch.float32, 4)])
+    ("mg", torch.float32, 4), ("mg", torch.float64, 4)])
 def test_p4_matches_plain(precon, dtype, n):
     """P4 on n in-process blocks of a 64² system against its plain
-    version on the same blocks: the same iterations, p within 1e-9 (f64)
-    or 1e-4 of p's scale (f32: the reductions' order differs); a warm
-    start too."""
+    version on the same blocks: the same iterations, p within 1e-9 (f64;
+    its block MG's hierarchy and cycle in double) or 1e-4 of p's scale
+    (f32: the reductions' order differs); a warm start too."""
     _card()
     b, a, fl = _system(64, dtype)
     tol = 1e-10 if dtype == torch.float64 else 1e-5
@@ -634,19 +639,30 @@ def _p5_solve(cfg, b, a_diag, fl, y, x, x0=None):
     return out[0]
 
 
+def _in_f64(system):
+    """`_mg_system`'s system with the solve in f64 (b and p0 as doubles)."""
+    cfg, b, a_diag, fl, p0 = system
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, dtype="float64"))
+    return cfg, b.double(), a_diag, fl, p0.double()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("layout", [(2, 2), (4, 1)])
-def test_p5_hierarchy_and_cycle_bitwise(layout):
+def test_p5_hierarchy_and_cycle_bitwise(layout, dtype):
     """P5's hierarchy (the packed level 0 and the distributed levels put
     together, the gathered levels, the Chebyshev rows) and one cycle on
     the blocks, gathered, bit for bit P3's (`MgGeneralWorkspace.cycle`)
     on the 256² system (levels 256², 128² on the blocks, 64² and 32²
-    gathered)."""
+    gathered), in f32 and in f64."""
     from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
     from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
     from euler_tpu_torch.parallel import spatial_mg
     from euler_tpu_torch.parallel.cuda_shard import padded
 
     cfg, b, a_diag, fl, _ = _mg_system(256)
+    if dtype == "float64":
+        cfg, b, a_diag, fl, _ = _in_f64((cfg, b, a_diag, fl, _))
     p13.solve_pressure_general(cfg, b, a_diag, fl)
     ws3 = p13.workspace(cfg, b.device)
     want_z = ws3.cycle(b, per_op=False)
@@ -668,6 +684,7 @@ def test_p5_hierarchy_and_cycle_bitwise(layout):
 
     gather, packed0, levels, rows, z = _p5_blocks(cfg, *layout, fn)[0]
     assert gather == 2 and len(levels) == len(ws3.levels) == 3
+    assert rows.dtype == ws3.rows.dtype == getattr(torch, dtype)
     assert torch.equal(packed0, ws3.packed0)
     for got, want in zip(levels, ws3.levels):
         for a, c in zip(got, want[:3]):
@@ -676,13 +693,19 @@ def test_p5_hierarchy_and_cycle_bitwise(layout):
     assert bool(want_z.abs().max() > 0) and torch.equal(z, want_z)
 
 
-def test_p5_one_block_bitwise_p3():
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_p5_one_block_bitwise_p3(dtype):
     """P5 on 1 x 1 blocks is P3 bit for bit (p, iterations, residual),
-    cold and warm; on 2 x 2 blocks the iterations within 1 and p within
-    5e-4 of scale; one P5 launch a block a solve, no plain call."""
+    cold and warm, in f32 and in f64; on 2 x 2 blocks the iterations
+    within 1 and p within 5e-4 of scale (f64: the same iterations, p
+    within 1e-10 of scale); one P5 launch a block a solve, no plain
+    call."""
     from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
 
     cfg, b, a_diag, fl, p0 = _mg_system(256)
+    f64 = dtype == "float64"
+    if f64:
+        cfg, b, a_diag, fl, p0 = _in_f64((cfg, b, a_diag, fl, p0))
     for x0 in (None, p0):
         want = p13.solve_pressure_general(cfg, b, a_diag, fl, x0=x0)
         _build.LAUNCHES.clear()
@@ -694,8 +717,52 @@ def test_p5_one_block_bitwise_p3():
         p, it, res = _p5_solve(cfg, b, a_diag, fl, 2, 2, x0)
         assert _build.LAUNCHES["P5"] == 5
         scale = float(want[0].abs().max())
-        assert abs(it - int(want[1])) <= 1
-        assert float((p - want[0]).abs().max()) <= 5e-4 * scale
+        assert p.dtype == want[0].dtype == getattr(torch, dtype)
+        assert abs(it - int(want[1])) <= (0 if f64 else 1)
+        assert float((p - want[0]).abs().max()) <= (1e-10 if f64
+                                                    else 5e-4) * scale
+
+
+def test_p4_p5_f64_plans():
+    """What each library's create makes of the 1024² grid (the CLI's
+    converged MG: levels 1024² .. 32², the W on levels 0 and 1), in f32
+    and f64: P5 on 1 x 1 gathers where its coarse cycle takes over, P3's
+    level (f32 128², 184,320 bytes of shared memory; f64 64², 73,728: the
+    levels below 128² do not fit a CTA in f64); P4's block MG on a 512²
+    block of 2 x 2 takes over at the block's 128² (f32) or 64² (f64)."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p13
+    from euler_tpu_torch.ops.cuda import pcg_mg_blocks_kernel as p5
+    from euler_tpu_torch.ops.cuda import pcg_shard_kernel as p4
+    from euler_tpu_torch.parallel import spatial_mg
+    from euler_tpu_torch.parallel.comm import LocalGroup
+
+    _card()
+    dev = torch.device("cuda", 0)
+    want = {"float32": (3, 184_320, 2), "float64": (4, 73_728, 3)}
+    for dtype, (fused, smem, block_fused) in want.items():
+        cfg = SimConfig(nx=1024, ny=1024, solver=SolverConfig(
+            preconditioner="mg", dtype=dtype, tol_rel=1e-4,
+            max_iterations=100))
+        p3_plan = p13.workspace(cfg, dev).plan()
+        assert (p3_plan["fused"], p3_plan["smem"]) == (fused, smem)
+
+        def rank(comm):
+            plan = spatial_mg.block_plan(cfg, comm, ("y",))
+            return p5.workspace(cfg, comm, plan, dev).cycle_plan()
+
+        with LocalGroup(1, device=dev) as g:
+            got = g.run(rank)[0]
+        assert got == {"fused": fused, "smem": smem, "levels": 6,
+                       "gather": fused}, (dtype, got)
+        ws = p4.ShardWorkspace(cfg, (512, 512), dev)
+        try:
+            got = ws.plan()
+        finally:
+            ws.close()
+        below = sum(Y * X for Y, X in ws.shapes[block_fused + 1:])
+        item = torch.finfo(getattr(torch, dtype)).bits // 8
+        assert got == {"fused": block_fused, "smem": 9 * item * below,
+                       "levels": 5}, (dtype, got)
 
 
 def test_p5_col_frame_card_vs_cpu():

@@ -21,12 +21,18 @@ larger than 108 x 64, mg_min_size 8:
   * the solve against JAX `solve_pressure` (use_pallas=False, MG), cold,
     warm and with a zero RHS: p within 5e-4 of scale, iterations within 1
     (the pinned tolerances of tests/test_torch_mg_padded.py for P3);
+  * in f64 (`solver.dtype="float64"`, the JAX package's f64 hierarchy and
+    cycle): the hierarchy on 2 x 2 blocks of the 64² system bit for bit,
+    and the solve, cold, warm and with a zero RHS, on 2 x 2 blocks of 64²
+    and 4 x 1 of 108 x 64 (gather level 0): p within 1e-10 of scale,
+    iterations within 1 (three jitted JAX compiles: the hierarchy and
+    one solve a grid);
   * `make_spatial_step` with MG (tol_rel 1e-4, warm start) on 2 x 2
     blocks of tests/test_spatial.py's 32 x 16 text and on 4 row blocks of
     the 64² dam break, 3 frames each, against JAX `step_frame_jit`:
     counts, alive, RNG and drops exact, u and v within 2e-3 (the
     frames' tolerance of tests/test_torch_mg_padded.py);
-  * the block plan at the card's sizes (no JAX).
+  * the block plan at the card's sizes, f32 and f64 (no JAX).
 The gloo ranks' case (`make_sharded_step` with MG on 2 x 2 ranks) is in
 tests/test_torch_col_blocks.py, the refusals in
 tests/test_torch_spatial_step.py.
@@ -75,11 +81,17 @@ def _config(Y, X, **solver):
 
 
 @functools.lru_cache(maxsize=None)
-def _system(Y, X):
+def _system(Y, X, dtype="float32"):
     """(cfg, b, a_diag, fluid, solid, p0): a substep's own system on the
     dam break at Y x X, 3 frames on at 64² and 1 at 108 x 64 (the RHS of
     the advected velocities), and the state's pressure, masked, as the
-    warm start."""
+    warm start; with dtype "float64" the same system with the solve, b
+    and p0 in f64."""
+    if dtype == "float64":
+        cfg, b, a_diag, fluid, solid, p0 = _system(Y, X)
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, dtype=dtype))
+        return cfg, b.double(), a_diag, fluid, solid, p0.double()
     cfg = _config(Y, X)
     scn, st = dam_break(cfg, device="cpu")
     for _ in range(3 if Y == 64 else 1):
@@ -144,17 +156,26 @@ GATHER = {"64x64_2x2": 2, "64x64_4x1": 2, "108x64_2x1": 1, "108x64_4x1": 0,
           "81x66_3x2": 0}
 
 
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+# the f64 cases: the solves' layouts (blocks of 64² and of 108 x 64, which
+# gather at level 0) and the hierarchy's
+F64_SOLVES = ("64x64_2x2", "108x64_4x1")
+F64_HIERARCHY = "64x64_2x2"
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS) + [f"{F64_HIERARCHY}_f64"])
 def test_hierarchy_matches_jax_bitwise(layout):
-    (Y, X), y, x = LAYOUTS[layout]
-    cfg, _, a_diag, fluid, _, _ = _system(Y, X)
+    f64 = layout.endswith("_f64")
+    (Y, X), y, x = LAYOUTS[layout.removesuffix("_f64")]
+    dtype = "float64" if f64 else "float32"
+    cfg, _, a_diag, fluid, _, _ = _system(Y, X, dtype)
     levels, gather, _ = _hierarchy(cfg, a_diag, fluid, y, x)
+    assert levels[0][0].dtype == getattr(torch, dtype)
     want = jax.jit(functools.partial(
-        jmg.build_galerkin_hierarchy, dtype=jnp.float32,
+        jmg.build_galerkin_hierarchy, dtype=getattr(jnp, dtype),
         min_size=MIN_SIZE))(jnp.asarray(a_diag.numpy()),
                             jnp.asarray(fluid.numpy()))
     assert len(levels) == len(want) >= 4
-    assert gather == GATHER[layout]
+    assert gather == GATHER[layout.removesuffix("_f64")]
     for got, lw in zip(levels, want):
         for g, f in zip(got, ("c", "e", "n", "active", "inv_c", "lmax")):
             np.testing.assert_array_equal(g.numpy(),
@@ -227,13 +248,18 @@ def jax_solve():
 
 @pytest.mark.parametrize("case", ["cold", "warm", "zero"])
 @pytest.mark.parametrize("layout", ["64x64_2x2", "64x64_4x1", "108x64_4x1",
-                                    "81x66_3x2"])
+                                    "81x66_3x2"]
+                         + [f"{k}_f64" for k in F64_SOLVES])
 def test_solve_matches_jax(layout, case, jax_solve):
     """`solve_pressure_blocks` on the blocks against the JAX solve: p
-    within 5e-4 of scale, iterations within 1 (0 on a zero RHS), the same
-    iterations and residual on every block; one plain call a block."""
+    within 5e-4 of scale (f64: 1e-10), iterations within 1 (0 on a zero
+    RHS), the same iterations and residual on every block; one plain call
+    a block."""
+    f64 = layout.endswith("_f64")
+    layout = layout.removesuffix("_f64")
     (Y, X), y, x = LAYOUTS[layout]
-    cfg, b, a_diag, fluid, solid, p0 = _system(Y, X)
+    cfg, b, a_diag, fluid, solid, p0 = _system(
+        Y, X, "float64" if f64 else "float32")
     if case == "zero":
         b = torch.zeros_like(b)
     x0 = p0 if case == "warm" else None
@@ -252,13 +278,14 @@ def test_solve_matches_jax(layout, case, jax_solve):
     assert _build.PLAIN_CALLS["P5"] == before + y * x
     assert len({o[1:] for o in out}) == 1
     p, it, res = out[0]
+    assert p.dtype == b.dtype
     jp, jit, jres = jax_solve(
         jax_config(cfg, interpret=False),
         *(jnp.asarray(v.numpy()) for v in (b, a_diag, fluid, solid)),
         jnp.asarray((torch.zeros_like(b) if x0 is None else x0).numpy()))
     scale = max(float(np.abs(np.asarray(jp)).max()), 1e-30)
-    np.testing.assert_allclose(p.numpy(), np.asarray(jp), atol=5e-4 * scale,
-                               rtol=0)
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp),
+                               atol=(1e-10 if f64 else 5e-4) * scale, rtol=0)
     if case == "zero":
         assert it == int(jit) == 0 and not p.any()
         return
@@ -326,15 +353,35 @@ def test_block_plan(size, blocks, gather, at):
     126² at 999², 68 x 120 at 1080 x 1920; mg_min_size 32), or the first
     level where a block's extent is odd, level 0 where a side of the
     block is; the block's offset there."""
+    _check_plan(size, blocks, gather, at, "float32",
+                4 if size[0] == 1080 else 3)
+
+
+@pytest.mark.parametrize("size,blocks,gather,at", [
+    ((1024, 1024), (2, 2), 4, (1, 1)),   # 128² on the blocks too
+    ((1024, 1024), (1, 1), 4, (0, 0)),
+    ((1080, 1920), (2, 1), 2, (1, 0)),
+    ((1080, 1920), (8, 1), 0, (3, 0)),
+])
+def test_block_plan_f64(size, blocks, gather, at):
+    """The gather level in f64: P3-f64's coarse cluster launch level, one
+    lower than f32's at 1024² (64²: the 9 planes of 64² and 32² in f64,
+    368,640 bytes, do not fit a CTA's 227 KiB), the same at 1080 x 1920
+    (68 x 120: 183,600 bytes below it); the blocks of an odd extent
+    gather where f32's do."""
+    _check_plan(size, blocks, gather, at, "float64", 4)
+
+
+def _check_plan(size, blocks, gather, at, dtype, fused):
     Y, X = size
     cfg = dataclasses.replace(_config(Y, X), solver=dataclasses.replace(
-        _config(Y, X).solver, mg_min_size=32))
+        _config(Y, X).solver, mg_min_size=32, dtype=dtype))
     y, x = blocks
     comm = _Comm(y, x, *at)
     axes = ("y", "x") if x > 1 else ("y",)
     plan = smg.block_plan(cfg, comm, axes)
     assert plan.gather == gather
-    assert smg.fused_level(cfg, plan.shapes) == (4 if Y == 1080 else 3)
+    assert smg.fused_level(cfg, plan.shapes) == fused
     rows, cols = Y // y, (X // x if x > 1 else X)
     assert plan.block_shape(gather) == (rows >> gather, cols >> gather)
     assert plan.offset(gather) == (at[0] * rows >> gather,

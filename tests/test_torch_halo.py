@@ -8,19 +8,21 @@ its single-device pieces (the tolerances are stated at each check):
   * the Jacobi solve on 8 row blocks of tests/test_halo.py:18-49's 64²
     system and on 4 x 2 blocks of tests/test_halo2d.py:25-58's (f64, tol
     1e-10): against JAX `solve_pressure`, atol 1e-8;
-  * the block-MG preconditioner (block-Jacobi additive Schwarz, f32, 4
-    row blocks of 16 rows): one application on each block against JAX
-    `cycle_galerkin` on that block's JAX hierarchy; the solve against the
-    JAX `pcg_loop` with JAX's `apply_a` and those cycles block by block
-    (the composite reference) and against JAX `solve_pressure`, in under
-    half of Jacobi's iterations (tests/test_halo.py:91-95);
+  * the block-MG preconditioner (block-Jacobi additive Schwarz, 4 row
+    blocks of 16 rows), f32 and f64: one application on each block against
+    JAX `cycle_galerkin` on that block's JAX hierarchy; the solve against
+    the JAX `pcg_loop` with JAX's `apply_a` and those cycles block by block
+    (the composite reference; one jitted compile a dtype for both) and
+    against JAX `solve_pressure`, in under half of Jacobi's iterations
+    (tests/test_halo.py:91-95);
   * halo.py's rule: every preconditioner but "mg" runs the jnp-form
     Jacobi (halo.py:136-139), so "none" and "ic0" are the port's
     "jacobi" bit for bit, and each is held against JAX
     `halo.make_sharded_pressure_solver` on a one-device mesh (the same
     iterations, p within 1e-12 of scale; f64, tol 1e-6);
   * the exchanges against the global neighbours, zeros at the edges;
-  * the refusals, each naming its ROADMAP item;
+  * the refusal of RB-GS MG, naming its ROADMAP item, and the f64 block
+    MG solve, which runs;
   * `ops/project.pcg_loop`'s `dot` and `inf_norm` hooks leave P1's plain
     version bit for bit the loop before them.
 Most cases run on an in-process `comm.LocalGroup` (one thread a block).
@@ -145,18 +147,23 @@ def test_exchanges_are_the_global_neighbours(shape, gloo):
 
 
 MG_BLOCKS = 4
+# the block-MG solve's tolerance, and how close the port's application and
+# solve come to the JAX references (of the result's scale): f32's level
+# sums and dots round apart, f64's by an ulp of each
+MG_TOL = {"float32": 1e-4, "float64": 1e-10}
+MG_CLOSE = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_block_cycle():
-    """JAX `cycle_galerkin` on each block's own JAX hierarchy, as a
-    function of (a, fluid, r) of one block, jit-compiled once (the
-    blocks share a shape)."""
-    cfg = ranks.halo_config("mg", "float32")
+def _jax_block_cycle(dtype="float32"):
+    """JAX `cycle_galerkin` on each block's own JAX hierarchy in `dtype`,
+    as a function of (a, fluid, r) of one block (the blocks share a
+    shape)."""
+    cfg = ranks.halo_config("mg", dtype)
     s = cfg.solver
 
     def cycle(a, fl, r):
-        levels = jmg.build_galerkin_hierarchy(a, fl, jnp.float32,
+        levels = jmg.build_galerkin_hierarchy(a, fl, getattr(jnp, dtype),
                                               min_size=s.mg_min_size)
         z = jmg.cycle_galerkin(
             levels, r, pre=s.mg_pre_smooth, post=s.mg_post_smooth,
@@ -173,69 +180,84 @@ def _split(a):
     return jnp.stack(jnp.split(a, MG_BLOCKS, axis=0))
 
 
-def test_block_mg_application_matches_jax():
+@functools.lru_cache(maxsize=None)
+def _jax_block_mg(dtype):
+    """The JAX references of the block MG in `dtype`, in one jitted call:
+    the per-block cycles of the RHS, and the composite solve, JAX
+    `pcg_loop` with JAX `apply_a` and the per-block cycles as its
+    preconditioner (tol MG_TOL).  Returns (cycles [4, 16, 64], p,
+    iterations)."""
+    cfg = jax_config(ranks.halo_config("mg", dtype, MG_TOL[dtype]),
+                     interpret=False)
+    b, a, fl = _jax_system("rows", getattr(jnp, dtype))
+    cycle = jax.vmap(_jax_block_cycle(dtype))
+
+    def refs(b, a, fl):
+        def precon(r):
+            return cycle(_split(a), _split(fl), _split(r)).reshape(N, N)
+
+        p, iters, _ = jproject.pcg_loop(cfg, b, lambda s: jproject.apply_a(
+            a, fl, s), precon)
+        return cycle(_split(a), _split(fl), _split(b)), p, iters
+
+    z, p, iters = jax.jit(refs)(b, a, fl)
+    return np.asarray(z), np.asarray(p), int(iters)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_block_mg_application_matches_jax(dtype):
     """One application of the block-MG preconditioner on each of 4 row
-    blocks of the 64² system (f32): the port's `block_preconditioner`
-    against JAX `cycle_galerkin` on the block's JAX hierarchy, within
-    1e-5 of the result's scale (f32; the levels' sums round apart)."""
-    cfg = ranks.halo_config("mg", "float32")
-    b, a, fl = _jax_system("rows", jnp.float32)
-    want = np.asarray(jax.jit(jax.vmap(_jax_block_cycle()))(
-        _split(a), _split(fl), _split(b)))
+    blocks of the 64² system: the port's `block_preconditioner` against
+    JAX `cycle_galerkin` on the block's JAX hierarchy, within 1e-5 (f32:
+    the levels' sums round apart) or 1e-12 (f64) of the result's
+    scale."""
+    cfg = ranks.halo_config("mg", dtype)
+    b, a, fl = _jax_system("rows", getattr(jnp, dtype))
+    want = _jax_block_mg(dtype)[0]
     Yl = N // MG_BLOCKS
     for k in range(MG_BLOCKS):
         rows = slice(k * Yl, (k + 1) * Yl)
         tb = torch.as_tensor(np.array(b[rows]))
         precon = halo.block_preconditioner(
             cfg, torch.as_tensor(np.array(a[rows])),
-            torch.as_tensor(np.array(fl[rows])), torch.float32)
+            torch.as_tensor(np.array(fl[rows])), getattr(torch, dtype))
         got = precon(tb).numpy()
+        assert got.dtype == np.dtype(dtype)
         scale = np.abs(want[k]).max()
         assert scale > 0
-        np.testing.assert_allclose(got, want[k], atol=1e-5 * scale, rtol=0)
+        np.testing.assert_allclose(got, want[k],
+                                   atol=MG_CLOSE[dtype][0] * scale, rtol=0)
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_block_mg_solve():
-    """The composite JAX reference: JAX `pcg_loop` with JAX `apply_a` and
-    the per-block cycles as its preconditioner (f32)."""
-    cfg = jax_config(ranks.halo_config("mg", "float32", 1e-4),
-                     interpret=False)
-    b, a, fl = _jax_system("rows", jnp.float32)
-    cycle = jax.vmap(_jax_block_cycle())
-
-    def solve(b, a, fl):
-        def precon(r):
-            return cycle(_split(a), _split(fl), _split(r)).reshape(N, N)
-
-        return jproject.pcg_loop(cfg, b, lambda s: jproject.apply_a(
-            a, fl, s), precon)
-
-    p, iters, resid = jax.jit(solve)(b, a, fl)
-    return np.asarray(p), int(iters), float(resid)
-
-
-def test_block_mg_solve_matches_jax(gloo):
-    """The block-MG solve on 4 row blocks (f32, tol 1e-4): against the
-    composite JAX reference (p within 1e-4 of its scale, iterations
-    within 1: the blocks' dots and the operator's sums round apart) and
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_block_mg_solve_matches_jax(gloo, dtype):
+    """The block-MG solve on 4 row blocks (f32, tol 1e-4; f64, tol 1e-10):
+    against the composite JAX reference (f32: p within 1e-4 of its scale,
+    iterations within 1, the blocks' dots and the operator's sums round
+    apart; f64: p within 1e-12 of its scale, the same iterations) and
     JAX `solve_pressure` (f64; within 1e-3 of the scale, the f32
-    tolerance), on the in-process group and on the gloo ranks; its
-    iterations under half of the sharded Jacobi's (test_halo.py:91-95)."""
-    cfg = ranks.halo_config("mg", "float32", 1e-4)
+    tolerance), on the in-process group and, in f32, on the gloo ranks;
+    its iterations under half of the sharded Jacobi's
+    (test_halo.py:91-95)."""
+    cfg = ranks.halo_config("mg", dtype, MG_TOL[dtype])
     p, iters, resid = _solve_blocks(cfg, "rows", (MG_BLOCKS, 1))
-    gp = _whole([torch.as_tensor(g["mg_p"]) for g in gloo], (4, 1))
-    want, w_iters, _ = _jax_block_mg_solve()
+    assert p.dtype == getattr(torch, dtype)
+    _, want, w_iters = _jax_block_mg(dtype)
     exact = _jax_solve("rows")
     scale = np.abs(exact).max()
-    for got, it in ((p, iters), (gp, int(gloo[0]["mg_iters"]))):
-        assert abs(it - w_iters) <= 1
-        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * scale,
+    runs = [(p, iters)]
+    if dtype == "float32":
+        runs.append((_whole([torch.as_tensor(g["mg_p"]) for g in gloo],
+                            (4, 1)), int(gloo[0]["mg_iters"])))
+    close = MG_CLOSE[dtype][1]
+    for got, it in runs:
+        assert abs(it - w_iters) <= (1 if dtype == "float32" else 0)
+        np.testing.assert_allclose(got.numpy(), want, atol=close * scale,
                                    rtol=0)
         np.testing.assert_allclose(got.numpy(), exact, atol=1e-3 * scale,
                                    rtol=0)
     assert resid <= cfg.solver.tol
-    jac = ranks.halo_config("jacobi", "float32", 1e-4)
+    jac = ranks.halo_config("jacobi", dtype, MG_TOL[dtype])
     _, jac_iters, _ = _solve_blocks(jac, "rows", (MG_BLOCKS, 1))
     assert iters < jac_iters // 2, (iters, jac_iters)
 
@@ -306,7 +328,17 @@ def test_every_preconditioner_but_mg_runs_jacobi(precon):
      "M14"),
 ])
 def test_refusals(over, item):
+    """RB-GS MG is refused, naming M14.  f64 MG, refused until M15 part b
+    was ported, runs: its block MG solve on 2 row blocks converges, every
+    block on its plain version."""
     cfg = ranks.halo_config(**{"precon": over.pop("preconditioner"), **over})
+    if item == "M15 part b":
+        _build.PLAIN_CALLS.clear()
+        p, iters, resid = _solve_blocks(cfg, "rows", (2, 1))
+        assert _build.PLAIN_CALLS["P4"] == 2
+        assert p.dtype == torch.float64 and iters > 0
+        assert resid <= cfg.solver.tol
+        return
     with pytest.raises(NotImplementedError, match=item):
         halo.make_sharded_pressure_solver(cfg, None)
 

@@ -18,7 +18,11 @@ cycle, the three solves, the frame):
     JAX Pallas gate opens, never K2, K3 or K11;
   * 3 frames of the CLI's converged mode in f64 at 42 x 100 (mg_min_size
     16) on a dam break with a source (K1, S1, K7, P3): counts exact, u
-    and v within 2e-3.
+    and v within 2e-3; the same 3 frames on 2 row blocks and on 2 x 2
+    blocks (in-process `LocalGroup`s; blocks of 21 rows, so P5's plain
+    version gathers at level 0) against the same JAX frames, with no JAX
+    compile of their own: counts, alive, drops and the RNG exact, u and
+    v within 2e-3.
 And without JAX: `python -m euler_tpu_torch --load` of a 40 x 100
 checkpoint whose config is f64 MG runs a headless frame on the CPU,
 bitwise the frame stepped here.
@@ -57,8 +61,17 @@ from euler_tpu_torch.ops.project import (
     solve_pressure,
     solver_route,
 )
+from euler_tpu_torch.parallel import spatial_mg
 
-from torch_parity import jax_config, jax_state, n, port_config, t
+from torch_parity import (
+    assert_frame,
+    block_frames,
+    jax_config,
+    jax_state,
+    n,
+    port_config,
+    t,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 F64 = "float64"
@@ -289,19 +302,19 @@ def frames():
                                use_pallas_markers=False)
     step = jax.jit(jstep_frame, static_argnums=0)
     _build.PLAIN_CALLS.clear()
-    out = []
+    out, st0 = [], st
     for _ in range(FRAMES):
         st, stats = sim.step_frame_stats(cfg, scn, st)
         jst = step(jcfg, jscn, jst)
         out.append((convert.state_to_numpy(st), jst, int(stats["pcg_iters"])))
-    return cfg, scn, out, dict(_build.PLAIN_CALLS)
+    return cfg, scn, out, dict(_build.PLAIN_CALLS), st0
 
 
 @pytest.mark.parametrize("frame", range(FRAMES))
 def test_frames_f64_match_jax(frames, frame):
     """Counts, drops and the live-marker count exact; u, v within 2e-3
     (the largest difference seen is printed)."""
-    cfg, scn, out, _ = frames
+    cfg, scn, out, *_ = frames
     got, jst, iters = out[frame]
     for k in ("marker_count", "dropped_markers", "alive_count"):
         np.testing.assert_array_equal(
@@ -317,11 +330,46 @@ def test_frames_f64_match_jax(frames, frame):
 def test_frames_f64_route(frames):
     """The frames ran K1, S1, K7 and P3 (their plain versions here) once a
     substep, no fused kernel and no K3; the source emitted."""
-    cfg, scn, out, calls = frames
+    cfg, scn, out, calls, _ = frames
     assert sim.route(cfg, scn) == ("plain", "P3")
     assert set(calls) == {"K1", "S1", "K7", "P3"}
     assert calls["P3"] == calls["K7"] == cfg.max_substeps * FRAMES
     assert out[-1][0]["marker_count"][31:34, 59:62].sum() > 0
+
+
+class _Place:
+    """Block (0, 0) of y x x, as `block_plan` reads a group."""
+
+    def __init__(self, y, x):
+        self.sizes = {"y": y, "x": x}
+
+    def size(self, axis):
+        return self.sizes[axis]
+
+    def rank(self, axis):
+        return 0
+
+
+@pytest.mark.parametrize("y,x", [(2, 1), (2, 2)])
+def test_frames_f64_on_blocks_match_jax(frames, y, x):
+    """The f64 frames on y x x blocks of 21 rows (the frame on blocks,
+    `spatial.make_block_step`: K1, S1, K7 and P5 a block a substep, their
+    plain versions here; P5 at gather level 0) from the fixture's state,
+    against its third JAX frame: counts, alive, alive_count, drops and
+    the RNG exact, u and v within 2e-3, live positions within 1e-4."""
+    cfg, scn, out, _, st0 = frames
+    plan = spatial_mg.block_plan(cfg, _Place(y, x),
+                                 ("y", "x") if x > 1 else ("y",))
+    assert (plan.rows, plan.cols) == (21, 100 // x) and plan.gather == 0
+    _build.PLAIN_CALLS.clear()
+    got = block_frames(cfg, scn, st0, y, x, FRAMES)
+    per = y * x * FRAMES * cfg.max_substeps
+    assert [_build.PLAIN_CALLS[k] for k in ("K1", "S1", "K7", "P5", "P4",
+                                            "P3")] == [per] * 4 + [0, 0]
+    jst = out[-1][1]
+    want = {f.name: np.asarray(getattr(jst, f.name))
+            for f in dataclasses.fields(jst)}
+    assert_frame(cfg, got, want, 2e-3)
 
 
 def test_cli_load_f64_checkpoint(tmp_path):

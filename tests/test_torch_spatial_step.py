@@ -22,11 +22,12 @@ tests/test_torch_shard.py holds K1 to).
     tests/test_spatial.py:29-37's 32 x 16 text (a source, solids), 3
     frames; the 64² dam break on 4 blocks, bitwise the gloo ranks'
     counts; sources in every block of a 40 x 100 scenario, 2 frames;
-  * the refusals, each naming its ROADMAP item (f64 MG M15, RB-GS M14),
-    the global layout refused by both steps with a ValueError naming the
-    JAX package's assert (spatial.py:43; `spatial.Blocks` runs it:
-    tests/test_torch_blocks_color_global.py), rainbow built and run by
-    both, and what stays refused of column blocks
+  * the refusals, each naming its ROADMAP item (RB-GS M14), the global
+    layout refused by both steps with a ValueError naming the JAX
+    package's assert (spatial.py:43; `spatial.Blocks` runs it:
+    tests/test_torch_blocks_color_global.py), rainbow and f64 MG (refused
+    until M15 part b) built and run by both, and what stays refused of
+    column blocks
     (tests/test_torch_col_blocks.py runs them): a block narrower than the
     halo, the pallas step on x > 1.
 """
@@ -130,8 +131,7 @@ def test_sources_in_every_block():
 
 # what each refusal raises and names: the ROADMAP item, or the JAX
 # package's assert that spatial sharding keeps the slot layout
-REFUSED = {"f64 MG": (NotImplementedError, "f64 MG on blocks.*M15 part b"),
-           "MG galerkin / rbgs": (NotImplementedError,
+REFUSED = {"MG galerkin / rbgs": (NotImplementedError,
                                   "MG galerkin / rbgs.*M14"),
            "global marker layout": (
                ValueError, "slot markers.*euler_tpu/parallel/spatial.py:43")}
@@ -150,9 +150,10 @@ def test_frame_refusals(over, what):
     """What the frame on blocks refuses, each naming its ROADMAP item or
     the JAX assert (the global MG cycle and the global IC(0) run:
     tests/test_torch_global_mg.py, tests/test_torch_ic0_blocks.py); and
-    rainbow, which both steps build and run on 2 row blocks."""
+    rainbow and f64 MG, which both steps build and run on 2 row blocks
+    (f64 MG: P5's plain version in f64, a solve a block a substep)."""
     cfg = dataclasses.replace(ranks.TEXT_CFG, **over)
-    if what == "rainbow":
+    if what in ("rainbow", "f64 MG"):
         scn, st = build_scenario(ranks.TEXT, cfg, device="cpu")
 
         def rank(comm):
@@ -163,8 +164,11 @@ def test_frame_refusals(over, what):
                 out.append(int(make(cfg, comm)(bscn, b).frame_count))
             return out
 
+        _build.PLAIN_CALLS.clear()
         with LocalGroup(2, device="cpu") as g:
             assert g.run(rank) == [[1, 1]] * 2
+        if what == "f64 MG":
+            assert _build.PLAIN_CALLS["P5"] == 2 * 2 * cfg.max_substeps
         return
     exc, match = REFUSED[what]
     with pytest.raises(exc, match=match):
