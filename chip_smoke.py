@@ -112,7 +112,7 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      (sources padded) through `step_frame_batched` on the card against
      the CPU, 2 frames (K1, S1, K7, K8 once a substep an instance; counts,
      alive, drops, RNG bitwise, u and v within 5e-3); `python -m
-     euler_tpu_torch scenarios/waterfall.txt --frames 100` as a process,
+     euler_tpu_torch scenarios/waterfall.txt --frames 50` as a process,
      twice with `--sherlock` and twice without, in turn (exit 0, the
      frames/s of each); in process, a NaN in u raises FloatingPointError,
      the trap makes one torch sync a frame and none when off (torch's
@@ -212,11 +212,26 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      version, its plans and workspace bytes, timed beside P3-f64 and the
      f32 layout; P4's f64 block MG on 8 x 1 and 2 x 2 against its plain
      loop; the f64 1080 x 1920 MG waterfall on 8 x 1 blocks and 1024²
-     dam break on 2 x 2 against 1 block); last, P4's, P5's, P6's, the
-     f64 blocks' and P3's (and P1 + P2's) device time from one profiled
+     dam break on 2 x 2 against 1 block); RB-GS and rediscretized MG on
+     one card (`run_mg_smoothers`, after every other timed phase, on the
+     CLI's 1024² dam break and 1080 x 1920 waterfall stepped as its
+     in-process runs step them): 2 frames of the dam break with
+     mg_smoother "rbgs" (K1, K7, P3) and with mg_scheme "rediscretize"
+     (K1, K7, P7), each once a substep, no K2, K3, K11 or plain version,
+     div_inf <= 1 (the solves that stopped at their cap counted); on
+     those frames' end state and the waterfall's, P3-rbgs and P7
+     against their plain versions (cold and warm: p within 5e-4 of
+     scale, iterations within 1; f64 warm, both stopped at a residual of
+     1e-10: 1e-10 of scale, iterations within 1), P7's hierarchy (masks,
+     a_diag, inv_diag) bitwise `build_hierarchy` and one V-cycle at `v_cycle`'s
+     (1e-6 / 1e-12 of scale), P3-rbgs's coarse cycle bitwise one launch
+     per half-sweep and level operation, both in f32 and f64; capped at 3
+     (exactly 3); each timed beside its plain version at 1080 x 1920;
+     last, P4's, P5's, P6's, the f64 blocks', P3's (and P1 + P2's),
+     P3-rbgs's and P7's device time from one profiled
      solve each: a profiler session over the blocks' threads slowed
      later host launches, so nothing is timed after it;
- 15. runs the card tests, five pytest processes (`CARD_TESTS`, -k
+ 15. runs the card tests, six pytest processes (`CARD_TESTS`, -k
      selections) started at once on the card after every timed phase:
      the Jacobi, marker, grid-stage and source card tests of
      tests/test_torch_cuda.py (K8's
@@ -234,7 +249,11 @@ one process per source, all at once, into build/euler_tpu_torch/), then:
      (tests/test_torch_cuda_mg_padded.py: 999², the 2160 x 3840
      hierarchy, a zero RHS and the cap, the workspace per grid, and every
      f64 case: the solves, hierarchies and cycles in f64 and the f64
-     plan), then the
+     plan), P3-rbgs's and P7's (tests/test_torch_cuda_mg_rbgs.py: 999²
+     and 1080 x 1920 in f32 and f64, P7's hierarchy and one V-cycle, a
+     zero RHS and the cap, P3-rbgs's plan and its workspace apart from
+     the Chebyshev one; tests/test_torch_cuda.py: P3-rbgs's coarse cycle
+     bitwise one launch per operation at 256²), then the
      batch's (tests/test_torch_cuda_batch.py: each instance of an
      interleaved batch bitwise equal to it alone, on every solver
      workspace: K2/K3, K10, P3, K8, G1/G2 with K8, P1), then K1's
@@ -275,6 +294,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -400,6 +420,10 @@ REBIN_FLOPS = 6
 SOURCE_OPS = 10       # a source's test and colour write
 SOURCE_EMIT_OPS = 40  # two xorshift64* draws, two positions, the writes
 IC0_FLOPS = 16        # E_inv build 6, forward solve 5, back solve 5 a cell
+# operations a level-0 cell of an iteration of P3-rbgs and of P7: the
+# loop's JACOBI_FLOPS and the cycle's (`rbgs_cycle_ops`), set by
+# `run_mg_smoothers` from the timed system's levels
+RBGS_FLOPS: dict = {}
 GLOBAL_PER_CELL = 4   # markers_per_cell: the global store has 4 slots a cell
 # the f64 kernels' operations count against the f64 rate
 FLOP_RATES = {"P1": F64_FLOP_PER_S, "P2": F64_FLOP_PER_S,
@@ -466,6 +490,11 @@ BOUNDS = {
     # P3 in f64: b, x0 f64; a_diag i32; fluid u8 in; p f64 out (f32's
     # floating planes doubled), its operations at the f64 rate
     "P3_f64": lambda n, iters, live: (29 * n, MG_FLOPS * iters * n),
+    # P3 with RB-GS: b, x0 f32; a_diag i32; fluid u8 in; p f32 out
+    "P3_rbgs": lambda n, iters, live: (
+        17 * n, RBGS_FLOPS["P3_rbgs"] * iters * n),
+    # P7: b, x0 f32; a_diag i32; fluid, solid u8 in; p f32 out
+    "P7": lambda n, iters, live: (18 * n, RBGS_FLOPS["P7"] * iters * n),
     # b f32; a_diag i32; fluid u8 in; p f32 out (P1's loop on blocks)
     "P4": lambda n, iters, live: (13 * n, JACOBI_FLOPS * iters * n),
     # P3's work on the same grid, whatever layout computes it
@@ -601,6 +630,22 @@ KERNELS = {
                "f64 hierarchy padded at :332-352 and its f64 Chebyshev rows "
                "at :395-427; every Pallas MG gate is f32 only, "
                "mg_kernel.py:753; no pallas_call)"),
+    # RB-GS and rediscretized MG on one card: a call is one warm solve of
+    # the 1080 x 1920 waterfall's system; launches from the 2 frames of the
+    # 1024² dam break with the setting
+    "P3_rbgs": ("padded_mg_pcg_rbgs", "euler_tpu_torch/csrc/pcg_mg.cu",
+                "euler_tpu/ops/project.py:115 (pcg_loop with "
+                "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, "
+                "mg_smoother \"rbgs\": cycle_galerkin :430-489 with "
+                "smooth_edge :354-370 on the hierarchy padded at :332-352; "
+                "every Pallas MG gate refuses it, mg_kernel.py:748-756; no "
+                "pallas_call)"),
+    "P7": ("rediscretized_mg_pcg", "euler_tpu_torch/csrc/pcg_mg_redisc.cu",
+           "euler_tpu/ops/project.py:115 (pcg_loop with "
+           "euler_tpu/ops/multigrid.py:492 make_mg_preconditioner, "
+           "mg_scheme \"rediscretize\": build_hierarchy :64-80 and v_cycle "
+           ":166-184 with _smooth :96-123, _prolong / _restrict :126-163; "
+           "every Pallas MG gate refuses it; no pallas_call)"),
     # the frame on row blocks: a call is the 4 blocks' launches at 1024²;
     # launches from the 4-block waterfall frames
     "K7s": ("grid_stage_row_blocks", "euler_tpu_torch/csrc/grid_stage.cu",
@@ -977,7 +1022,8 @@ def build_all():
 
     loaders = [k1.marker_lib, k7.grid_lib, k3._lib, k3._stream_lib,
                k89.jacobi_lib, k12.stream_lib, s1.source_lib, encoder_lib,
-               g12.global_lib, p12.general_lib, p12.mg_lib, p4.shard_lib,
+               g12.global_lib, p12.general_lib, p12.mg_lib, p12.redisc_lib,
+               p4.shard_lib,
                p5.blocks_lib, p6.ic0_blocks_lib]
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
@@ -1020,7 +1066,7 @@ def time_pair(results, name, kern, plain_fn, n_cells, n_live, reps):
     out = kern()
     iters = 0 if name in ONE_LAUNCH + ("G2", "P2") else int(
         out[1] if name in ("K3", "K8", "K11", "K12", "P1", "P3", "P3_f64",
-                           "G1")
+                           "P3_rbgs", "P7", "G1")
         else out[2])
     t_p1 = cuda_ms(plain_fn, reps)
     t_k1 = cuda_ms(kern, reps)
@@ -2017,6 +2063,321 @@ def run_padded_mg(results, summaries, launches, states) -> None:
     launches["P3"] = summaries["cli_waterfall_1080p"]["launches"]["P3"]
 
 
+# RB-GS and rediscretized MG on one card: setting: (solver change, the
+# solve's launch count, its KERNELS key)
+SMOOTHERS = {
+    "rbgs": (dict(mg_smoother="rbgs"), "P3", "P3_rbgs"),
+    "rediscretize": (dict(mg_scheme="rediscretize"), "P7", "P7"),
+}
+SMOOTHER_FRAMES = 2   # frames of the 1024² dam break with each setting
+SMOOTHER_SYSTEMS = ("cli_dam_break_1024", "cli_waterfall_1080p")
+# p of an f64 solve against its plain version, over its scale
+# (F64_BLOCK_RTOL's), both stopped at a residual of 1e-10 (P7's PCG
+# amplifies rounding: at the CLI's tol of 1e-6 its f64 solve stopped
+# 6.6e-6 of scale from the plain one at 1024²)
+SMOOTHER_F64_RTOL = 1e-10
+SMOOTHER_F64_RULE = dict(tol=1e-10, tol_rel=1e-10, max_iterations=400)
+
+
+def rbgs_cycle_ops(cfg) -> float:
+    """The operations a level-0 cell of one MG cycle with RB-GS smoothing
+    (P3-rbgs: the Galerkin truncated W on the padded levels; P7: the
+    rediscretized V) must do on cfg's levels, every cell of a level
+    counted, each operation once.  A half-sweep updates one colour, half
+    the cells, each with A x, the residual, its scaling by the inverse
+    diagonal and the add: 8 at a 5-point level (a x, three adds and a
+    subtract: P3's packed level 0, every P7 level), 12 at a Galerkin edge
+    level (five products, four adds); the first pre half-sweep, from
+    zero, is one product.  A restriction takes the residual once a fine
+    cell (6 / 10) and its sum: P3 the 2x2 block sum (3 adds a coarse
+    cell), P7 16 weighted terms (32 a coarse cell); a prolongation, P3 one
+    add a fine cell, P7 four products and four adds.  The coarsest level
+    takes 4 mg_coarse_iters half-sweeps, the first from zero."""
+    from euler_tpu_torch.ops.cuda import mg_kernel as k3
+
+    s = cfg.solver
+    redisc = s.mg_scheme == "rediscretize"
+    shapes = (k3.rediscretized_shapes if redisc else
+              k3.padded_level_shapes)(cfg.ny, cfg.nx, s.mg_min_size)
+    last = len(shapes) - 1
+    w = 2 if not redisc and s.mg_cycle == "w" else 1
+    ops, reach = 0.0, 1  # reach: the visits of level l a cycle
+    for l, (Y, X) in enumerate(shapes):
+        n = Y * X
+        half = (8 if redisc or l == 0 else 12) * n / 2
+
+        def sweeps(k, from_zero):
+            return (n / 2 + (2 * k - 1) * half) if from_zero and k else (
+                2 * k * half)
+
+        if l == last:
+            ops += reach * sweeps(2 * s.mg_coarse_iters, True)
+            break
+        nc = shapes[l + 1][0] * shapes[l + 1][1]
+        v = w if l < s.mg_w_depth and l + 1 < last else 1
+        resid = (8 if redisc or l == 0 else 12) - 2
+        transfer = (resid * n + 32 * nc + 8 * n if redisc
+                    else resid * n + 3 * nc + n)
+        ops += reach * (sweeps(s.mg_pre_smooth, True) + v * transfer
+                        + sweeps(s.mg_post_smooth, False))
+        reach *= v
+    return ops / (shapes[0][0] * shapes[0][1])
+
+
+def with_solver(cfg, **change):
+    return dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                               **change))
+
+
+@contextlib.contextmanager
+def solve_iterations(plain: bool = False):
+    """Within: every general solve (`solve_pressure_general`, which
+    `project()` calls for P1, P3 and P7) keeps its iteration count, a
+    device tensor read once the block ends, into the list yielded; with
+    `plain`, the solves run the plain version instead (on the card's
+    tensors)."""
+    import torch
+
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    real, iters = p12.solve_pressure_general, []
+
+    def solve(cfg, b, a_diag, fluid, x0=None, solid=None):
+        out = (p12.solve_pressure_general_plain(cfg, b, a_diag, fluid, x0,
+                                                solid)
+               if plain else real(cfg, b, a_diag, fluid, x0=x0, solid=solid))
+        iters.append(out[1])
+        return out
+
+    p12.solve_pressure_general = solve
+    counts = []
+    try:
+        yield counts
+    finally:
+        p12.solve_pressure_general = real
+        counts += [int(i) for i in torch.stack(iters).tolist()] if iters \
+            else []
+
+
+def check_smoother_build(cfg, b, a_diag, fl, solid, label: str) -> None:
+    """After a solve of (b, a_diag, fl, solid): P7's hierarchy (every
+    level's fluid and solid masks, a_diag and inv_diag) bitwise the plain
+    `build_hierarchy` and its masks' coarsening, and one V-cycle on b
+    within 1e-6 (f32) / 1e-12 (f64) of scale of `v_cycle`'s (the same
+    operations in the same order); P3-rbgs's cycle through
+    coarse_cycle_rbgs bitwise its cycle through one launch per half-sweep
+    and level operation."""
+    import torch
+
+    from euler_tpu_torch.ops import multigrid
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    ws = p12.workspace(cfg, b.device)
+    s = cfg.solver
+    if s.mg_scheme == "rediscretize":
+        want = multigrid.build_hierarchy(solid, fl, b.dtype,
+                                         min_size=s.mg_min_size)
+        check(len(want) == len(ws.levels), f"P7 {label}: {len(ws.levels)} "
+              f"levels, the plain build {len(want)}")
+        so = solid
+        for l, (lw, got) in enumerate(zip(want, ws.levels)):
+            if l:
+                so = multigrid.coarsen_masks(so, want[l - 1].fluid)[0]
+            for name, w, g in zip(("fluid", "solid", "a_diag", "inv_diag"),
+                                  (lw.fluid, so, lw.a_diag, lw.inv_diag),
+                                  got):
+                check(torch.equal(w, g), f"P7 {label}: level {l} {name} "
+                      "differs from build_hierarchy")
+        got = ws.cycle(b)
+        want = multigrid.make_mg_preconditioner(cfg, solid, fl, b.dtype)(b)
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item()
+        rel = 1e-6 if b.dtype == torch.float32 else 1e-12
+        check(scale > 0 and e <= rel * scale, f"P7 {label}: its V-cycle "
+              f"differs from v_cycle by {e:.3g} (scale {scale:.3g})")
+        log(f"   P7 {label}: levels {ws.shapes}; masks, a_diag and inv_diag "
+            f"bitwise build_hierarchy; one V-cycle {e:.3g} from v_cycle "
+            f"(scale {scale:.3g}, atol {rel:g}*scale; bitwise: "
+            f"{torch.equal(got, want)})")
+        return
+    Y0, X0 = ws.shapes[0]
+    r = torch.nn.functional.pad(b, (0, X0 - cfg.nx, 0, Y0 - cfg.ny))
+    fused, per_op = ws.cycle(r, per_op=False), ws.cycle(r, per_op=True)
+    check(bool(fused.abs().max() > 0), f"P3-rbgs {label}: the cycle "
+          "returned zero")
+    check(torch.equal(fused, per_op), f"P3-rbgs {label}: coarse_cycle_rbgs "
+          "differs from one launch per level operation")
+    plan = ws.plan()
+    log(f"   P3-rbgs {label}: coarse cycle from level {plan['fused']} "
+        f"{ws.shapes[plan['fused']]}, bitwise one launch per half-sweep and "
+        "level operation")
+
+
+def run_mg_smoothers(results, summaries, launches) -> dict:
+    """RB-GS and rediscretized MG on one card (P3-rbgs, P7), after every
+    other timed phase (its states and workspaces then change no earlier
+    phase's allocations): the CLI's 1024² dam break and 1080 x 1920
+    waterfall stepped as its in-process runs step them (a warm-up frame
+    and their counted frames); 2 frames of the dam break with each
+    setting from that state (K1,
+    K7 and the solve once a substep; no K2, K3, K11 or plain version;
+    div_inf <= 1, or where a solve stopped at its cap, at most twice the
+    plain version's on the same frames); on that frame's end state and
+    on the 1080 x 1920 waterfall's, the solve against its plain version,
+    cold and warm (p within 5e-4 of scale, iterations within 1), warm in
+    f64 stopped at a residual of 1e-10 (SMOOTHER_F64_RULE: 1e-10 of
+    scale, iterations within 1; beside it, how far the f32 solve's p
+    lies from that f64 one),
+    P7's hierarchy bitwise and its V-cycle at the plain `v_cycle`'s,
+    P3-rbgs's coarse cycle bitwise one launch per operation (f32 and
+    f64), capped at 3 (exactly 3); then each timed beside its plain
+    version on the 1080 x 1920 system.  Returns those systems, whose
+    device time is taken at the end."""
+    import torch
+
+    from euler_tpu_torch import sim
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    with Phase("the CLI's 1024² dam break and 1080x1920 waterfall states "
+               "for RB-GS and rediscretized MG"):
+        states = {}
+        for label in SMOOTHER_SYSTEMS:
+            argv, frames = CLI_RUNS[label][:2]
+            cfg, scn, st = cli_state(argv)
+            for _ in range(1 + frames):
+                st = sim.step_frame(cfg, scn, st)
+            states[label] = (cfg, scn, st)
+    systems = {}
+    for kind, (change, name, key) in SMOOTHERS.items():
+        other = "P7" if name == "P3" else "P3"
+        label = f"{kind}_dam_break_1024"
+        with Phase(f"{kind} MG ({name}): {SMOOTHER_FRAMES} frames of the "
+                   f"1024² dam break; {name} vs plain on it and at 1080x1920 "
+                   "(cold, warm, f64, capped at 3), its build bitwise"):
+            cfg0, scn, st0 = states[SMOOTHER_SYSTEMS[0]]
+            cfg = with_solver(cfg0, **change)
+            sim.check_slice(cfg, scn)
+            check(sim.route(cfg, scn) == ("plain", name),
+                  f"{label}: route {sim.route(cfg, scn)}")
+            held = reset_peak()
+            with solve_iterations() as iters:
+                st, summaries[label] = run_path(
+                    cfg, scn, st0, SMOOTHER_FRAMES, ["K1", "K7", name],
+                    label, ["K2", "K3", "K11", "K8", "K12", "P1", other,
+                            "S1"])
+            record_peak(summaries[label], held)
+            got = summaries[label]["launches"][name]
+            check(got == cfg.max_substeps * SMOOTHER_FRAMES,
+                  f"{label}: {name} launched {got} times in "
+                  f"{SMOOTHER_FRAMES} frames")
+            capped = sum(i >= cfg.solver.max_iterations for i in iters)
+            summaries[label].update(max_iterations_a_solve=max(iters),
+                                    solves_at_cap=capped)
+            limit = 1.0
+            if capped:
+                # a solve stopped at its cap: the frames are held to the
+                # plain version's div_inf on the same card state
+                with solve_iterations(plain=True):
+                    st_p = st0
+                    for _ in range(SMOOTHER_FRAMES):
+                        st_p = sim.step_frame(cfg, scn, st_p)
+                limit = max(limit, 2 * div_inf(cfg, st_p))
+            log(f"   {label}: {capped} of {len(iters)} solves stopped at the "
+                f"cap of {cfg.solver.max_iterations}, the most "
+                f"{max(iters)} iterations; div_inf "
+                f"{summaries[label]['div_inf']:.6g} (limit {limit:.6g})")
+            check(summaries[label]["div_inf"] <= limit,
+                  f"{label}: div_inf > {limit:.6g}")
+            err = 0.0
+            for sys_label in SMOOTHER_SYSTEMS:
+                c0, s_scn, s_st = states[sys_label]
+                if sys_label == SMOOTHER_SYSTEMS[0]:
+                    s_st = st
+                c = with_solver(c0, **change)
+                _, _, _, b, a_diag = substep_system(c, s_scn, s_st)
+                fl, so = s_st.fluid, s_scn.solid
+                p0 = torch.where(fl, s_st.p, 0.0)
+                tag = f"{c.ny}x{c.nx}"
+                c64 = with_solver(c, dtype="float64", **SMOOTHER_F64_RULE)
+                for cc, x0, what, rtol in (
+                        (c, None, "cold", 5e-4), (c, p0, "warm", 5e-4),
+                        (c64, p0, "f64 warm", SMOOTHER_F64_RTOL)):
+                    bb = b.to(getattr(torch, cc.solver.dtype))
+                    x0 = None if x0 is None else x0.to(bb.dtype)
+                    got = p12.solve_pressure_general(cc, bb, a_diag, fl,
+                                                     x0=x0, solid=so)
+                    want = p12.solve_pressure_general_plain(cc, bb, a_diag,
+                                                            fl, x0, so)
+                    e = check_solve(f"{name} ({kind}) {what} {tag}", got,
+                                    want, rtol, same_iters=False)
+                    if cc is c:
+                        err = max(err, e)
+                        p32 = got[0]
+                    else:
+                        check(int(want[1]) < cc.solver.max_iterations,
+                              f"{name} ({kind}) f64 {tag}: the plain solve "
+                              "stopped at its cap")
+                        gap = (p32.double() - want[0]).abs().max().item()
+                        log(f"   {name} ({kind}) {tag}: the f32 warm solve's "
+                            f"p {gap / want[0].abs().max().item():.3g} of "
+                            "scale from the f64 plain one")
+                    if x0 is not None:
+                        check_smoother_build(cc, bb, a_diag, fl, so,
+                                             f"{tag} {cc.solver.dtype}")
+                systems[(kind, sys_label)] = (c, b, a_diag, fl, so, p0)
+            c, b, a_diag, fl, so, p0 = systems[(kind, SMOOTHER_SYSTEMS[1])]
+            capped = with_solver(c, max_iterations=3)
+            got = p12.solve_pressure_general(capped, b, a_diag, fl, x0=p0,
+                                             solid=so)
+            want = p12.solve_pressure_general_plain(capped, b, a_diag, fl,
+                                                    p0, so)
+            check(int(got[1]) == int(want[1]) == 3, f"{name} ({kind}) capped "
+                  "at 3 iterations did not take exactly 3")
+            err = max(err, check_solve(f"{name} ({kind}, max_iterations 3) "
+                                       f"{c.ny}x{c.nx}", got, want, 5e-4,
+                                       same_iters=True))
+            results[key] = {"max_abs_err": err}
+
+        with Phase(f"{name} ({kind}) vs plain times at 1080x1920 (CUDA "
+                   "events)"):
+            RBGS_FLOPS[key] = JACOBI_FLOPS + rbgs_cycle_ops(c)
+            log(f"   {key}: {RBGS_FLOPS[key]:.4f} operations a cell an "
+                "iteration (the loop's and rbgs_cycle_ops)")
+            timed = {}
+            time_pair(timed, key,
+                      lambda: p12.solve_pressure_general(c, b, a_diag, fl,
+                                                         x0=p0, solid=so),
+                      lambda: p12.solve_pressure_general_plain(
+                          c, b, a_diag, fl, p0, so),
+                      c.ny * c.nx, 0, 2)
+            iters = int(p12.solve_pressure_general(c, b, a_diag, fl, x0=p0,
+                                                   solid=so)[1])
+            summaries[f"{key}_waterfall_1080p"] = dict(timed[key],
+                                                       iterations=iters)
+            results[key].update(timed[key])
+        launches[key] = summaries[label]["launches"][name]
+    return {kind: systems[(kind, SMOOTHER_SYSTEMS[1])] for kind in SMOOTHERS}
+
+
+def smoother_profiles(results, systems) -> None:
+    """P3-rbgs's and P7's device time: the kernel spans of one warm solve
+    of the 1080 x 1920 system each (torch.profiler), taken after every
+    timed phase."""
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p12
+
+    with Phase("P3-rbgs and P7: kernel spans of one warm solve "
+               "(torch.profiler)"):
+        for kind, (cfg, b, a_diag, fl, so, p0) in systems.items():
+            key = SMOOTHERS[kind][2]
+            spans = kernel_spans_ms(lambda: p12.solve_pressure_general(
+                cfg, b, a_diag, fl, x0=p0, solid=so))
+            log(f"   {key} {cfg.ny}x{cfg.nx}: " + (
+                f"kernel spans {spans[0]:.4f} ms summed (torch's copies "
+                f"{spans[1]:.4f} ms)" if spans else "not measured (the "
+                "profiler recorded no kernel)"))
+            results[key]["device_ms"] = spans[0] if spans else None
+
+
 # f64 MG on one card (P3 in double precision): the CLI's converged runs
 # with solver.dtype "float64", label: (the f32 CLI run beside it, the
 # kernels its frames must launch, those they must not, the level where
@@ -2201,6 +2562,11 @@ CARD_TESTS = (
     ("P3's tests beside the 1200² and 1080x1920 checks above",
      "999 or 2160 or zero or workspace or f64",
      ("tests/test_torch_cuda_mg_padded.py",)),
+    ("P3-rbgs's and P7's tests: 999² and 1080 x 1920, f32 and f64, P7's "
+     "hierarchy and cycle, a zero RHS and the cap, P3-rbgs's plan and "
+     "workspace, its coarse cycle bitwise one launch per operation",
+     "rbgs or rediscretize or p7",
+     ("tests/test_torch_cuda_mg_rbgs.py", "tests/test_torch_cuda.py")),
     ("the batch's tests: each instance of an interleaved batch bitwise "
      "equal to it alone", "alone", ("tests/test_torch_cuda_batch.py",)),
     ("the row-shard, row-block, column-block, P5 and P6 tests (f32 and "
@@ -2581,7 +2947,7 @@ BATCH_ALONE = (0, 7)  # instances also stepped alone: bitwise the batch's
 TEXT_BATCH = ("basic", "block", "filter", "waterfall", "weird-edges")
 TEXT_BATCH_FRAMES = 2
 SHERLOCK_FRAMES = 20
-SHERLOCK_CLI_FRAMES = 100  # each CLI process, with and without --sherlock
+SHERLOCK_CLI_FRAMES = 50  # each CLI process, with and without --sherlock
 
 
 def torch_syncs(fn) -> int:
@@ -5957,6 +6323,8 @@ def run(args) -> dict:
     f64_profiled = run_f64_blocks(results, summaries, launches, dev,
                                   f64_systems)
 
+    smoother_systems = run_mg_smoothers(results, summaries, launches)
+
     run_block_profiles(results, summaries, shared, dev)
     del shared
 
@@ -5965,13 +6333,16 @@ def run(args) -> dict:
     f64_profiles(results, f64_systems)
     del f64_systems
 
+    smoother_profiles(results, smoother_systems)
+    del smoother_systems
+
     if args.profile:
         with Phase("profile"):
             profile(cfg, scn, state, f"{args.profile}.mg.txt", "mg")
             profile(scfg, sscn, sstate, f"{args.profile}.speed.txt",
                     "speed")
 
-    with Phase("the card tests (pytest, five processes at once): "
+    with Phase("the card tests (pytest, six processes at once): "
                + "; ".join(t[0] for t in CARD_TESTS)):
         torch.cuda.empty_cache()
         run_card_tests()

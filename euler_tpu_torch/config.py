@@ -26,13 +26,11 @@ here, because the port has one implementation of each:
     so ignoring them changes no result.
   * Dispatch switches between equivalent JAX paths: `use_pallas_markers`,
     `advect_impl`, `SolverConfig.use_pallas`, `SolverConfig.check_every`.
-  * RB-GS / V-cycle knobs that the Chebyshev smoother does not read:
-    `mg_pre_smooth`, `mg_post_smooth`.
 
-Configurations outside the ported slices (MG other than Galerkin with
-Chebyshev smoothing, f64 grid fields, the frame-stale hierarchy,
-`cfl` above 1) make `sim.step_frame` raise NotImplementedError naming
-their ROADMAP item (`sim.check_slice`).
+Configurations outside the ported slices (f64 grid fields, the
+frame-stale hierarchy, `cfl` above 1; on blocks, RB-GS and rediscretized
+MG) make `sim.step_frame` raise NotImplementedError naming their ROADMAP
+item (`sim.check_slice`, `pcg_shard_kernel.check_solver`).
 """
 
 from __future__ import annotations

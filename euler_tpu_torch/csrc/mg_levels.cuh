@@ -346,6 +346,43 @@ __device__ __forceinline__ void coarse_solve_block(const LvlT<T>& L,
   }
 }
 
+// ---- red-black Gauss-Seidel on the edge levels (P3, mg_smoother="rbgs") ----
+//
+// multigrid.smooth_edge: a half-sweep of one colour (red: i + j even) sets
+// x += (b - A x) * inv_c on that colour's cells.  A cell's stencil reads
+// only itself and cells of the other colour, so a half-sweep updates x in
+// place.  inv_c is the JAX level's: one correctly rounded reciprocal of c
+// where c > 1e-12 (at a packed level 0, of a_diag on fluid cells), else 0,
+// which then multiplies; r * inv_c is rounded before it is added to x (the
+// JAX package's order), whatever EU_FMAD says.
+
+template <typename T>
+__device__ __forceinline__ T inv_c_at(const LvlT<T>& L, int k) {
+  if (L.pk) {
+    const T p = L.pk[k];
+    const T a = sub_rn(p, T(8));
+    return p >= T(8) && a > T(0) ? rcp_rn(a) : T(0);
+  }
+  const T c = L.c[k];
+  return c > T(1e-12) ? rcp_rn(c) : T(0);
+}
+
+// the half-sweep of `color` at cell t (other cells keep x); `from_zero`:
+// the first half-sweep from x = 0, which writes every cell (b * inv_c on
+// the colour, 0 elsewhere)
+template <typename T>
+__device__ __forceinline__ void rbgs_at(const LvlT<T>& L, const T* b, T* x,
+                                        int color, bool from_zero, int t) {
+  const int i = t / L.X, j = t - i * L.X;
+  const bool on = ((i + j) & 1) == color;
+  if (from_zero) {
+    x[t] = on ? mul_rn(b[t], inv_c_at(L, t)) : T(0);
+  } else if (on) {
+    const T r = sub_rn(b[t], apply_at<true, false>(L, x, i, j));
+    x[t] = add_rn(x[t], mul_rn(r, inv_c_at(L, t)));
+  }
+}
+
 // ---- one launch per level operation ----
 //
 // Every kernel reads the stop flag first; all threads of the grid read
@@ -449,6 +486,18 @@ __global__ void coarse_solve(LvlT<T> L, const T* __restrict__ b, T* x, T* rr,
                              int degree, const int* __restrict__ flags) {
   if (flags[F_DONE]) return;
   coarse_solve_block(L, b, x, rr, d, dn, row, degree);
+}
+
+// one RB-GS half-sweep of `color` over level L (`rbgs_at` of its level
+// type: an edge level here, a rediscretized one in pcg_mg_redisc.cu)
+template <class Lv, typename T>
+__global__ void rbgs_half(Lv L, const T* __restrict__ b, T* x,
+                          int color, int from_zero,
+                          const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L.Y * L.X) return;
+  rbgs_at(L, b, x, color, from_zero != 0, t);
 }
 
 // ---- PCG (stopping rule of main.c:738-767, tol_rel form) ----
@@ -889,12 +938,189 @@ __global__ void __launch_bounds__(kCoarseThreads, 1)
   ascend<true>(S, from, first, stride);
 }
 
+// The start of coarse_cycle_rbgs, as coarse_cycle starts: the schedule S0
+// copied into S (the calling CTA's shared memory), with the planes of
+// every level below `from` remapped into CTA 0's shared memory `smem`
+// (their c, e, n copied in, the rest scratch), where the other CTAs of the
+// cluster reach them through distributed shared memory; ends with a
+// cluster barrier.  (coarse_cycle keeps its own copy of these lines: a
+// call there changed its register allocation, which stays as it was.)
 template <typename T>
-inline int SolveT<T>::launch_fused(int l) const {
+__device__ __forceinline__ void stage_below(const SolveT<T>& S0, int from,
+                                            SolveT<T>& S, T* smem,
+                                            cg::cluster_group& cluster) {
+  const unsigned rank = cluster.block_rank();
+  T* base = rank == 0 ? smem : cluster.map_shared_rank(smem, 0);
+  const int* src = reinterpret_cast<const int*>(&S0);
+  int* dst = reinterpret_cast<int*>(&S);
+  for (int i = threadIdx.x;
+       i < static_cast<int>(sizeof(SolveT<T>) / sizeof(int));
+       i += blockDim.x)
+    dst[i] = src[i];
+  __syncthreads();
+  int off = 0;
+  for (int l = from + 1; l < S0.L; ++l) {
+    const int n = S0.lv[l].Y * S0.lv[l].X;
+    T* pl[kFusedPlanes];
+    for (int q = 0; q < kFusedPlanes; ++q) pl[q] = base + off + q * n;
+    if (rank == 0) {
+      const T* __restrict__ c = S0.lv[l].c;
+      const T* __restrict__ e = S0.lv[l].e;
+      const T* __restrict__ nn = S0.lv[l].n;
+      T* own = smem + off;
+#pragma unroll 4
+      for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        const T cv = c[t], ev = e[t], nv = nn[t];
+        own[P_C * n + t] = cv;
+        own[P_E * n + t] = ev;
+        own[P_N * n + t] = nv;
+      }
+    }
+    off += kFusedPlanes * n;
+    if (threadIdx.x == 0) {
+      S.lv[l].c = pl[P_C];
+      S.lv[l].e = pl[P_E];
+      S.lv[l].n = pl[P_N];
+      S.x[l] = pl[P_X];
+      S.b[l] = pl[P_B];
+      S.z[l] = pl[P_Z];
+      S.rr[l] = pl[P_RR];
+      S.d[l] = pl[P_D];
+      S.dn[l] = pl[P_DN];
+    }
+  }
+  cluster.sync();
+}
+
+// ---- the RB-GS cycle's coarse end (P3, mg_smoother="rbgs") ----
+
+// `sweeps` symmetric RB-GS sweeps over level L by the threads first,
+// first + stride, ... of one CTA (CL false) or of the cluster (CL true),
+// a barrier after each half-sweep: red then black, or with `reverse`
+// black then red; from x = 0 with `from_zero` (x = 0 when sweeps is 0)
+template <bool CL, class Lv, typename T>
+__device__ void rbgs_dev(const Lv& L, const T* b, T* x, int sweeps,
+                         bool from_zero, bool reverse, int first,
+                         int stride) {
+  const int n = L.Y * L.X;
+  if (from_zero && sweeps == 0) {
+    for (int t = first; t < n; t += stride) x[t] = T(0);
+    level_sync<CL>();
+    return;
+  }
+  for (int k = 0; k < sweeps; ++k)
+    for (int h = 0; h < 2; ++h) {
+      const int color = reverse ? 1 - h : h;
+      const bool zero = from_zero && k == 0 && h == 0;
+      for (int t = first; t < n; t += stride)
+        rbgs_at(L, b, x, color, zero, t);
+      level_sync<CL>();
+    }
+}
+
+// the coarsest level: `sweeps` forward sweeps from zero, then as many
+// reversed, in one CTA
+template <class Lv, typename T>
+__device__ __forceinline__ void rbgs_coarse_block(const Lv& L, const T* b,
+                                                  T* x, int sweeps) {
+  rbgs_dev<false>(L, b, x, sweeps, true, false, threadIdx.x, blockDim.x);
+  rbgs_dev<false>(L, b, x, sweeps, false, true, threadIdx.x, blockDim.x);
+}
+
+template <class Lv, typename T>
+__global__ void rbgs_coarse(Lv L, const T* __restrict__ b, T* x, int sweeps,
+                            const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  rbgs_coarse_block(L, b, x, sweeps);
+}
+
+// `n` symmetric sweeps of one level of `cells` cells as one launch a
+// half-sweep, `half(color, from_zero)`: red first (black first with
+// `reverse`); from x = 0 with `from_zero` (a zero fill of x for n = 0)
+template <typename T, class Half>
+inline int rbgs_sweeps(T* x, long long cells, int n, bool from_zero,
+                       bool reverse, cudaStream_t st, const Half& half) {
+  if (from_zero && n == 0)
+    return static_cast<int>(cudaMemsetAsync(x, 0, sizeof(T) * cells, st));
+  for (int k = 0; k < n; ++k)
+    for (int h = 0; h < 2; ++h) {
+      half(reverse ? 1 - h : h, from_zero && k == 0 && h == 0);
+      const int rc = eu_launch_status();
+      if (rc) return rc;
+    }
+  return 0;
+}
+
+// the RB-GS halves of a level visited once (`descend` / `ascend` with
+// pre and post sweeps): the pre-smooth from zero and the restriction of b
+// - A x; the prolongation of the child's x and the reversed post-smooth
+template <bool CL, typename T>
+__device__ __forceinline__ void descend_rbgs(const SolveT<T>& S, int l,
+                                             int pre, int first,
+                                             int stride) {
+  const LvlT<T> L = S.lv[l];
+  const int Xc = S.lv[l + 1].X;
+  const int nc = S.lv[l + 1].Y * Xc;
+  rbgs_dev<CL>(L, S.b[l], S.x[l], pre, true, false, first, stride);
+  for (int t = first; t < nc; t += stride)
+    restrict_full_at(L, S.b[l], S.x[l], S.b[l + 1], Xc, t);
+  level_sync<CL>();
+}
+
+template <bool CL, typename T>
+__device__ __forceinline__ void ascend_rbgs(const SolveT<T>& S, int l,
+                                            int post, int first,
+                                            int stride) {
+  const LvlT<T> L = S.lv[l];
+  const int n = L.Y * L.X;
+  const int Xc = S.lv[l + 1].X;
+  for (int t = first; t < n; t += stride)
+    prolong_add_at(L, S.x[l + 1], S.x[l], Xc, t);
+  level_sync<CL>();
+  rbgs_dev<CL>(L, S.b[l], S.x[l], post, false, true, first, stride);
+}
+
+// `coarse_cycle` with RB-GS smoothing (pre, post sweeps; `coarse` forward
+// and reversed sweeps at the coarsest level), every level leaving its
+// output in x: the same cluster, the same staging, the same per-cell
+// functions as one launch per level operation (`RbgsT`)
+template <typename T>
+__global__ void __launch_bounds__(kCoarseThreads, 1)
+    coarse_cycle_rbgs(const __grid_constant__ SolveT<T> S0, int from,
+                      int pre, int post, int coarse,
+                      const int* __restrict__ flags) {
+  if (flags[F_DONE]) return;
+  extern __shared__ __align__(16) unsigned char coarse_smem[];
+  __shared__ SolveT<T> S;
+  cg::cluster_group cluster = cg::this_cluster();
+  stage_below(S0, from, S, reinterpret_cast<T*>(coarse_smem), cluster);
+  const unsigned rank = cluster.block_rank();
+  const int first = rank * blockDim.x + threadIdx.x;
+  const int stride = cluster.num_blocks() * blockDim.x;
+  const int last = S0.L - 1;
+  if (from < last) descend_rbgs<true>(S, from, pre, first, stride);
+  if (rank == 0) {
+    for (int l = from + 1; l < last; ++l)
+      descend_rbgs<false>(S, l, pre, threadIdx.x, blockDim.x);
+    rbgs_coarse_block(S.lv[last], S.b[last], S.x[last], coarse);
+    for (int l = last - 1; l > from; --l)
+      ascend_rbgs<false>(S, l, post, threadIdx.x, blockDim.x);
+  }
+  if (from == last) return;
+  cluster.sync();
+  ascend_rbgs<true>(S, from, post, first, stride);
+}
+
+// one launch of `kernel` (coarse_cycle or coarse_cycle_rbgs) on a cluster
+// of kFusedCtas CTAs of kCoarseThreads threads, `smem` bytes of dynamic
+// shared memory each
+template <typename Kernel, typename... Args>
+inline int launch_cluster(Kernel kernel, int smem, cudaStream_t s,
+                          Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kFusedCtas);
   cfg.blockDim = dim3(kCoarseThreads);
-  cfg.dynamicSmemBytes = fused_smem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -903,9 +1129,43 @@ inline int SolveT<T>::launch_fused(int l) const {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int rc = static_cast<int>(
-      cudaLaunchKernelEx(&cfg, coarse_cycle<T>, *this, l, flags));
+  const int rc = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
   return rc ? rc : eu_launch_status();
+}
+
+template <typename T>
+inline int SolveT<T>::launch_fused(int l) const {
+  return launch_cluster(coarse_cycle<T>, fused_smem, s, *this, l, flags);
+}
+
+// Where the coarse end of S's cycle starts so that the levels below it fit
+// the shared memory `kernel` (coarse_cycle or coarse_cycle_rbgs) may have,
+// from S->fused down, and that memory raised to it.
+template <typename T, class Kernel>
+inline int fit_fused(SolveT<T>* S, Kernel kernel) {
+  const int L = S->L;
+  S->fused_smem = static_cast<int>(S->smem_below(S->fused));
+  if (S->fused_smem <= 48 * 1024) return 0;
+  // the limit is the kernel's, not this solver's: raise it to all the
+  // card allows, so that a solver made later with a smaller coarse end
+  // cannot lower it under this one's launches
+  cudaFuncAttributes fa;
+  int rc = static_cast<int>(cudaFuncGetAttributes(&fa, kernel));
+  int dev = 0, optin = 0;
+  if (!rc) rc = static_cast<int>(cudaGetDevice(&dev));
+  if (!rc)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  if (rc) return rc;
+  const int most = optin - static_cast<int>(fa.sharedSizeBytes);
+  // start lower where the levels below do not fit (a V from any level
+  // below the first is a V too)
+  while (S->fused < L && S->smem_below(S->fused) > most) ++S->fused;
+  S->fused_smem = static_cast<int>(S->smem_below(S->fused));
+  if (S->fused_smem > most) return static_cast<int>(cudaErrorInvalidValue);
+  if (fa.maxDynamicSharedSizeBytes >= most) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most));
 }
 
 // A Solve over L levels.  planes: P_COUNT pointers per level (c, e, n, x,
@@ -956,28 +1216,80 @@ inline int make_solve(SolveT<T>* S, int L, const int* shapes,
   }
   // coarse_cycle runs a V: no level from the fused one down is revisited
   while (S->fused < L && S->visits(S->fused) != 1) ++S->fused;
-  S->fused_smem = static_cast<int>(S->smem_below(S->fused));
-  if (S->fused_smem <= 48 * 1024) return 0;
-  // the limit is the kernel's, not this solver's: raise it to all the
-  // card allows, so that a solver made later with a smaller coarse end
-  // cannot lower it under this one's launches
-  cudaFuncAttributes fa;
-  int rc = static_cast<int>(cudaFuncGetAttributes(&fa, coarse_cycle<T>));
-  int dev = 0, optin = 0;
-  if (!rc) rc = static_cast<int>(cudaGetDevice(&dev));
-  if (!rc)
-    rc = static_cast<int>(cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (rc) return rc;
-  const int most = optin - static_cast<int>(fa.sharedSizeBytes);
-  // start lower where the levels below do not fit (a V from any level
-  // below the first is a V too)
-  while (S->fused < L && S->smem_below(S->fused) > most) ++S->fused;
-  S->fused_smem = static_cast<int>(S->smem_below(S->fused));
-  if (S->fused_smem > most) return static_cast<int>(cudaErrorInvalidValue);
-  if (fa.maxDynamicSharedSizeBytes >= most) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      coarse_cycle<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, most));
+  return fit_fused(S, coarse_cycle<T>);
+}
+
+// The cycle of P3 with RB-GS smoothing (multigrid.cycle_galerkin with
+// smoother="rbgs") over a Solve made with deg 0, so that every level
+// leaves its output in x (`zout`): at level l, `pre` sweeps from zero
+// (2 pre launches: the first half-sweep writes every cell), the
+// restriction of b - A x, per visit the cycle below, its prolongation
+// (and before each visit after the first the restriction again), then
+// `post` reversed sweeps (2 post launches); the coarsest level is one
+// CTA's `coarse` forward and as many reversed sweeps.  From S.fused down
+// the whole V is one cluster launch of coarse_cycle_rbgs.  An iteration
+// of the loop at 1024² (six levels, the W on levels 0 and 1, the cluster
+// from 128²) enqueues 8 + 2 (8 + 2 (6 + 1)) = 52 launches of the cycle:
+// 8 a visit of levels 0 and 1, 6 a visit of level 2, 1 cluster launch.
+template <typename T>
+struct RbgsT {
+  SolveT<T> S;
+  int pre, post, coarse;
+
+  // n symmetric sweeps of level l, red first (black first with reverse);
+  // from x = 0 with from_zero (a zero fill for n = 0)
+  int sweeps(int l, int n, bool from_zero, bool reverse) const {
+    const LvlT<T>& L = S.lv[l];
+    return rbgs_sweeps(S.x[l], static_cast<long long>(L.Y) * L.X, n,
+                       from_zero, reverse, S.s, [&](int color, bool zero) {
+                         rbgs_half<<<S.blocks(l), kThreads, 0, S.s>>>(
+                             L, S.b[l], S.x[l], color, zero, S.flags);
+                       });
+  }
+
+  int restrict_to(int l) const {
+    restrict_full<T><<<S.coarse_blocks(l), kThreads, 0, S.s>>>(
+        S.lv[l], S.lv[l + 1].Y, S.lv[l + 1].X, S.b[l], S.x[l], S.b[l + 1],
+        S.flags);
+    return eu_launch_status();
+  }
+
+  int launch_fused(int l) const {
+    return launch_cluster(coarse_cycle_rbgs<T>, S.fused_smem, S.s, S, l, pre,
+                          post, coarse, S.flags);
+  }
+
+  // x_l ~= A_l^{-1} b_l
+  int cycle(int l) const {
+    if (l == S.fused) return launch_fused(l);
+    int rc;
+    if (l == S.L - 1) {
+      rbgs_coarse<<<1, kCoarseThreads, 0, S.s>>>(S.lv[l], S.b[l], S.x[l],
+                                                 coarse, S.flags);
+      return eu_launch_status();
+    }
+    if ((rc = sweeps(l, pre, true, false)) || (rc = restrict_to(l))) return rc;
+    for (int v = 0; v < S.visits(l); ++v) {
+      if (v > 0 && (rc = restrict_to(l))) return rc;
+      if ((rc = cycle(l + 1))) return rc;
+      prolong_add<T><<<S.blocks(l), kThreads, 0, S.s>>>(
+          S.lv[l], S.lv[l + 1].X, S.x[l + 1], S.x[l], S.flags);
+      if ((rc = eu_launch_status())) return rc;
+    }
+    return sweeps(l, post, false, true);
+  }
+};
+
+// The RB-GS cycle over a Solve `S` made by make_solve with deg 0: its
+// coarse end re-fitted to coarse_cycle_rbgs's shared memory.
+template <typename T>
+inline int make_rbgs(RbgsT<T>* R, const SolveT<T>& S, int pre, int post,
+                     int coarse) {
+  R->S = S;
+  R->pre = pre;
+  R->post = post;
+  R->coarse = coarse;
+  return fit_fused(&R->S, coarse_cycle_rbgs<T>);
 }
 
 // The PCG recurrence of one solve on the packed fine level L0 (the loop

@@ -274,11 +274,15 @@ struct MgSolverT {
     return eu_blocks(static_cast<long long>(hl[l].Y) * hl[l].X, kThreads);
   }
 
-  // the Galerkin hierarchy and the Chebyshev rows of packed0
-  int hierarchy(cudaStream_t st) const {
+  // the Galerkin hierarchy and, with_rows, the Chebyshev rows of packed0
+  // (their bounds: fine_lmax, coarsen's partial maxima, cheby_rows)
+  int hierarchy(cudaStream_t st, bool with_rows = true) const {
     const int* fl = S.flags;
-    fine_lmax<T><<<blocks(0), kThreads, 0, st>>>(hl[0], hpart, fl);
-    int rc = eu_launch_status();
+    int rc = 0;
+    if (with_rows) {
+      fine_lmax<T><<<blocks(0), kThreads, 0, st>>>(hl[0], hpart, fl);
+      rc = eu_launch_status();
+    }
     for (int l = 0; !rc && l + 1 < HL; ++l) {
       T* part = hpart + R.off[l + 1];
       const int Yc = hl[l + 1].Y, Xc = hl[l + 1].X;
@@ -291,7 +295,7 @@ struct MgSolverT {
             part, fl);
       rc = eu_launch_status();
     }
-    if (rc) return rc;
+    if (rc || !with_rows) return rc;
     cheby_rows<T><<<1, 1024, 0, st>>>(R, hpart, rows, fl);
     return eu_launch_status();
   }

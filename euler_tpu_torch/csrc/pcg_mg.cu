@@ -41,6 +41,17 @@
 // -fmad=false: the level functions round every product on its own
 // (EU_FMAD 0), as K11's.
 //
+// RB-GS (`rbgs` at create, the JAX package's mg_smoother="rbgs"): the same
+// hierarchy and loop with multigrid.py:430-489's RB-GS cycle (RbgsT,
+// mg_levels.cuh): mg_pre_smooth red-black sweeps, the post-smooth in
+// reversed colour order, mg_coarse_iters forward and reversed sweeps on
+// the coarsest level, each half-sweep one launch in place, the coarse end
+// one cluster launch of coarse_cycle_rbgs.  Its head builds the Galerkin
+// levels without the Chebyshev bounds and rows (two launches fewer: no
+// fine_lmax, no cheby_rows).  An iteration at 1024² enqueues P1's 4 loop
+// launches and 52 of the cycle (RbgsT's note); at 1080 x 1920 (seven
+// levels, the cluster from 68 x 120) 4 + 8 + 2 (8 + 2 (6 + 6 + 1)) = 80.
+//
 // Precision.  A solver is float or double (`f64` at create): the loop is
 // pcg_loop.cuh's at T, and the hierarchy, the rows and the cycle are the
 // T instantiations of mg_solver.cuh and mg_levels.cuh, so an f64 solve
@@ -64,24 +75,33 @@ template <typename T>
 struct PcgMg : PcgMgHead {
   pcg::Ws w;
   MgSolverT<T> M;  // the hierarchy and the cycle (its loop and graph unused)
+  RbgsT<T> R;      // the cycle with RB-GS smoothing (rbgs)
+  bool rbgs;
   cudaGraphExec_t exec;
   cudaEvent_t replayed;
 
-  // z = M r, through coarse_cycle or, with per_op, one launch per level
-  // operation
+  // z = M r, through coarse_cycle (coarse_cycle_rbgs) or, with per_op,
+  // one launch per level operation
   int cycle(cudaStream_t st, bool per_op = false) const {
+    if (rbgs) {
+      RbgsT<T> Q = R;
+      Q.S.s = st;
+      if (per_op) Q.S.fused = Q.S.L;
+      return Q.cycle(0);
+    }
     SolveT<T> S = M.S;
     S.s = st;
     if (per_op) S.fused = S.L;
     return S.cycle(0, false);
   }
 
-  // the head's step: the packed level 0, the hierarchy and rows, z
+  // the head's step: the packed level 0, the hierarchy and (Chebyshev)
+  // its rows, z
   int head_step(cudaStream_t st) const {
     pack_code<T><<<eu_blocks(w.Y * w.X, kThreads), kThreads, 0, st>>>(
         w.Y, w.X, w.code, M.packed0, w.X, w.flags);
     int rc = eu_launch_status();
-    if (!rc) rc = M.hierarchy(st);
+    if (!rc) rc = M.hierarchy(st, !rbgs);
     return rc ? rc : cycle(st);
   }
 };
@@ -89,16 +109,18 @@ struct PcgMg : PcgMgHead {
 template <typename T>
 int create(int Y, int X, int Yi, int Xi, int L, const int* shapes,
            void* const* planes, void* const* act, void* packed0, void* rows,
-           int ncoef, int deg, int coarse_deg, int w, int w_depth,
-           double ratio, double coarse_ratio, void* code, void* p, void* r,
-           void* d, void* z, void* ad, void* pre, void* q, void* part,
-           void* hpart, void* scal, void* flags, void** out) {
+           int ncoef, int deg, int coarse_deg, int w, int w_depth, int rbgs,
+           int pre_sweeps, int post_sweeps, double ratio, double coarse_ratio,
+           void* code, void* p, void* r, void* d, void* z, void* ad,
+           void* pre, void* q, void* part, void* hpart, void* scal,
+           void* flags, void** out) {
   void* pl[16 * P_COUNT];
   for (int k = 0; k < L * P_COUNT; ++k) pl[k] = planes[k];
   // level 0: the cycle reads b = r and leaves its output in the loop's z
-  // (Solve::zout: its z after the degree-1 post-smooth, else its x); pre,
-  // q and ad are free between the p / r update and the next Ad
-  const bool post1 = deg == 1 && L > 1;
+  // (Solve::zout: its z after the degree-1 post-smooth, else its x, as
+  // with RB-GS, whose Solve has deg 0); pre, q and ad are free between the
+  // p / r update and the next Ad
+  const bool post1 = !rbgs && deg == 1 && L > 1;
   pl[P_X] = post1 ? pre : z;
   pl[P_Z] = post1 ? z : nullptr;
   pl[P_RR] = post1 ? q : pre;
@@ -106,10 +128,14 @@ int create(int Y, int X, int Yi, int Xi, int L, const int* shapes,
   pl[P_DN] = post1 ? nullptr : ad;
   PcgMg<T>* S = new PcgMg<T>{};
   S->f64 = sizeof(T) == sizeof(double);
+  S->rbgs = rbgs != 0;
   S->w = pcg::Ws{Y, X, Yi, Xi, static_cast<uint8_t*>(code), p, r, d, z, ad,
                  pre, q, part, scal, static_cast<int*>(flags)};
-  int rc = make_solve(&S->M.S, L, shapes, pl, packed0, r, rows, ncoef, deg,
-                      coarse_deg, w, w_depth, part, flags, nullptr);
+  int rc = make_solve(&S->M.S, L, shapes, pl, packed0, r, rows, ncoef,
+                      rbgs ? 0 : deg, coarse_deg, w, w_depth, part, flags,
+                      nullptr);
+  if (!rc && rbgs)
+    rc = make_rbgs(&S->R, S->M.S, pre_sweeps, post_sweeps, coarse_deg);
   if (!rc)
     rc = set_hierarchy(&S->M, L, shapes, pl, act, packed0, rows, ncoef, deg,
                        coarse_deg, ratio, coarse_ratio, -1, hpart);
@@ -186,6 +212,14 @@ const PcgMg<T>* as(const void* solver) {
   return static_cast<const PcgMg<T>*>(head(solver));
 }
 
+template <typename T>
+void plan(const PcgMg<T>* S, int* out) {
+  const SolveT<T>& Q = S->rbgs ? S->R.S : S->M.S;
+  out[0] = Q.fused;
+  out[1] = Q.fused_smem;
+  out[2] = Q.L;
+}
+
 }  // namespace
 
 // A solver over a workspace's buffers: the loop's [Y, X] planes p, r, d,
@@ -204,19 +238,21 @@ EU_API int eu_pcg_mg_create(int Y, int X, int Yi, int Xi, int f64, int L,
                             const int* shapes, void* const* planes,
                             void* const* act, void* packed0, void* rows,
                             int ncoef, int deg, int coarse_deg, int w,
-                            int w_depth, double ratio, double coarse_ratio,
-                            void* code, void* p, void* r, void* d, void* z,
-                            void* ad, void* pre, void* q, void* part,
-                            void* hpart, void* scal, void* flags,
-                            void** out) {
+                            int w_depth, int rbgs, int pre_sweeps,
+                            int post_sweeps, double ratio,
+                            double coarse_ratio, void* code, void* p,
+                            void* r, void* d, void* z, void* ad, void* pre,
+                            void* q, void* part, void* hpart, void* scal,
+                            void* flags, void** out) {
   *out = nullptr;
   if (L < 1 || L > 16 || shapes[0] != Y || shapes[1] != X || Yi > Y ||
       Xi > X)
     return static_cast<int>(cudaErrorInvalidValue);
   return (f64 ? create<double> : create<float>)(
       Y, X, Yi, Xi, L, shapes, planes, act, packed0, rows, ncoef, deg,
-      coarse_deg, w, w_depth, ratio, coarse_ratio, code, p, r, d, z, ad, pre,
-      q, part, hpart, scal, flags, out);
+      coarse_deg, w, w_depth, rbgs, pre_sweeps, post_sweeps, ratio,
+      coarse_ratio, code, p, r, d, z, ad, pre, q, part, hpart, scal, flags,
+      out);
 }
 
 // Frees a solver once its last solve's replays have run.
@@ -255,17 +291,13 @@ EU_API int eu_pcg_mg_cycle(void* solver, int per_op, const void* r_in,
   return cycle(as<float>(solver), per_op, r_in, z_out, st);
 }
 
-// The cycle's plan: out[0] the level where coarse_cycle takes over (L:
-// none), out[1] its dynamic shared memory in bytes, out[2] L.
+// The cycle's plan: out[0] the level where coarse_cycle (coarse_cycle_rbgs)
+// takes over (L: none), out[1] its dynamic shared memory in bytes, out[2]
+// L.
 EU_API int eu_pcg_mg_plan(const void* solver, int* out) {
-  const PcgMgHead* H = head(solver);
-  const int fused = H->f64 ? as<double>(solver)->M.S.fused
-                           : as<float>(solver)->M.S.fused;
-  const int smem = H->f64 ? as<double>(solver)->M.S.fused_smem
-                          : as<float>(solver)->M.S.fused_smem;
-  const int L = H->f64 ? as<double>(solver)->M.S.L : as<float>(solver)->M.S.L;
-  out[0] = fused;
-  out[1] = smem;
-  out[2] = L;
+  if (head(solver)->f64)
+    plan(as<double>(solver), out);
+  else
+    plan(as<float>(solver), out);
   return 0;
 }

@@ -89,12 +89,41 @@ def padded_level_shapes(Y: int, X: int, min_size: int,
     return shapes
 
 
+def rediscretized_shapes(Y: int, X: int, min_size: int,
+                         max_levels: int = 16):
+    """The level shapes of the JAX `build_hierarchy` (mg_scheme=
+    "rediscretize"), fine to coarse: each ceil(Y/2) x ceil(X/2) of the one
+    above, unpadded, down to a side of at most min_size (1080 x 1920 gives
+    ... 135 x 240, 68 x 120, 34 x 60, 17 x 30)."""
+    shapes = [(Y, X)]
+    while len(shapes) < max_levels and min(shapes[-1]) > min_size:
+        Yl, Xl = shapes[-1]
+        shapes.append(((Yl + 1) // 2, (Xl + 1) // 2))
+    return shapes
+
+
 def galerkin_cheby(cfg: SimConfig) -> bool:
     """Galerkin MG with Chebyshev smoothing, f32 or f64: the MG P3, P4's
     block MG and P5 run (their levels are templated on the precision)."""
     s = cfg.solver
     return (s.preconditioner == "mg" and s.dtype in ("float32", "float64")
             and s.mg_scheme == "galerkin" and s.mg_smoother == "cheby")
+
+
+def galerkin_rbgs(cfg: SimConfig) -> bool:
+    """Galerkin MG with RB-GS smoothing, f32 or f64: P3's RB-GS form
+    (one card).  No JAX Pallas MG takes it (mg_kernel.py:748-756)."""
+    s = cfg.solver
+    return (s.preconditioner == "mg" and s.dtype in ("float32", "float64")
+            and s.mg_scheme == "galerkin" and s.mg_smoother == "rbgs")
+
+
+def rediscretized(cfg: SimConfig) -> bool:
+    """The rediscretized hierarchy with its RB-GS V-cycle, f32 or f64: P7
+    (one card).  No JAX Pallas MG takes it."""
+    s = cfg.solver
+    return (s.preconditioner == "mg" and s.dtype in ("float32", "float64")
+            and s.mg_scheme == "rediscretize")
 
 
 def galerkin_cheby_f32(cfg: SimConfig) -> bool:
@@ -200,7 +229,8 @@ def solve_pressure_mg_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
     over the whole hierarchy."""
     return mg_pcg_plain(
         cfg, b, lambda x: apply_a(a_diag, fluid, x),
-        multigrid.make_mg_preconditioner(cfg, a_diag, fluid, b.dtype),
+        multigrid.make_mg_preconditioner(cfg, None, fluid, b.dtype,
+                                         a_diag=a_diag),
         fluid, x0)
 
 

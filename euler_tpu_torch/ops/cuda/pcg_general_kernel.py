@@ -1,6 +1,7 @@
-"""P1, P2 and P3: the general PCG solve and the IC(0) preconditioner
-(`csrc/pcg_general.cu`), and the same loop with the Galerkin MG cycle as
-its preconditioner (`csrc/pcg_mg.cu`).
+"""P1, P2, P3 and P7: the general PCG solve and the IC(0) preconditioner
+(`csrc/pcg_general.cu`), the same loop with the Galerkin MG cycle as its
+preconditioner (`csrc/pcg_mg.cu`), and with the rediscretized V-cycle
+(`csrc/pcg_mg_redisc.cu`).
 
 `solve_pressure_general` (P1) runs where the JAX package's
 `solve_pressure` falls through to its jnp `pcg_loop`
@@ -15,31 +16,40 @@ preconditioner step P1 runs once an iteration with IC(0); its plain
 version is `ops/ic0.make_ic0_preconditioner`.  Neither replaces a
 `pallas_call`.
 
-With `preconditioner="mg"` (Galerkin, Chebyshev, f32 or f64), the same
-wrapper runs P3: where the JAX package's MG falls through to its jnp
-`pcg_loop` (in f32, level sizes that do not halve evenly to mg_min_size:
-1080 x 1920, 1200², 1448², 999²; K3's and K11's gates are the JAX
-package's; in f64, every size, since every JAX Pallas MG gate is f32
-only), P1's loop with one MG cycle (csrc/mg_levels.cuh) as its
-preconditioner step, on a hierarchy built on the card each solve at the
-padded level shapes of `mg_kernel.padded_level_shapes`, all in the solver
-dtype (the f64 Chebyshev rows from f64 bounds, as the JAX package takes
-them).  An odd grid is solved on its padded
-level-0 shape (the inputs at the top left, the pad not fluid) and p
-cropped.  P3 reads the stop flag after every chunk of 8 iterations (an
-MG solve stops within a few), not between batches of 13.  Its plain
-version is the same `pcg_loop` with `make_preconditioner` ("mg":
-`multigrid.make_mg_preconditioner`), and `mg_kernel.mg_host_operands`
-the plain version of its hierarchy build.
+With `preconditioner="mg"` and the Galerkin scheme (Chebyshev or RB-GS
+smoothing, f32 or f64), the same wrapper runs P3: where the JAX package's
+MG falls through to its jnp `pcg_loop` (in f32 Chebyshev, level sizes that
+do not halve evenly to mg_min_size: 1080 x 1920, 1200², 1448², 999²; K3's
+and K11's gates are the JAX package's; in f64 or with RB-GS, every size,
+since every JAX Pallas MG gate is f32 Chebyshev only), P1's loop with one
+MG cycle (csrc/mg_levels.cuh) as its preconditioner step, on a hierarchy
+built on the card each solve at the padded level shapes of
+`mg_kernel.padded_level_shapes`, all in the solver dtype (the f64
+Chebyshev rows from f64 bounds, as the JAX package takes them).  An odd
+grid is solved on its padded level-0 shape (the inputs at the top left,
+the pad not fluid) and p cropped.  P3 reads the stop flag after every
+chunk of 8 iterations (an MG solve stops within a few), not between
+batches of 13.  Its plain version is the same `pcg_loop` with
+`make_preconditioner` ("mg": `multigrid.make_mg_preconditioner`), and
+`mg_kernel.mg_host_operands` the plain version of its hierarchy build.
+With `mg_scheme="rediscretize"` (every size, f32 or f64) it runs P7: the
+same loop with one V-cycle of the rediscretized hierarchy (masks
+coarsened, the operator rebuilt; bilinear transfers; RB-GS), the
+hierarchy built on the card each solve, one launch a level, at the
+unpadded shapes of `mg_kernel.rediscretized_shapes`; it needs the solid
+mask.  Its plain version is `pcg_loop` with `multigrid.v_cycle`, and
+`multigrid.build_hierarchy` that of its hierarchy build.
 
 On an H100 an iteration of P1 is bound by its five plane sweeps' bytes
 and three grid-wide reductions; P2 by its 2 (Y + X - 1) dependent
 diagonal steps (one CTA), not its bytes.  Every buffer lives in a
-workspace cached per device, grid, precision and preconditioner, with a
-CUDA graph of 8 iterations that a solve replays up to its cap, reading
-the stop flag between batches of 13 replays (as K8).  The launch count
-"P1" counts solves; "P2" counts the solves that apply IC(0) inside P1
-and the calls of `ic0_apply`; "P3" counts the MG solves.
+workspace cached per device, grid, precision and preconditioner (and MG
+scheme, smoother and schedule), with a CUDA graph of 8 iterations that a
+solve replays up to its cap, reading the stop flag between batches of 13
+replays (as K8; P3 and P7 after every replay).  The launch count "P1"
+counts solves; "P2" counts the solves that apply IC(0) inside P1 and the
+calls of `ic0_apply`; "P3" counts the Galerkin MG solves, "P7" the
+rediscretized ones.
 """
 
 from __future__ import annotations
@@ -56,7 +66,10 @@ from euler_tpu_torch.ops.cuda.mg_kernel import (
     _PLANES_PER_LEVEL,
     cycle_args,
     galerkin_cheby,
+    galerkin_rbgs,
     padded_level_shapes,
+    rediscretized,
+    rediscretized_shapes,
 )
 from euler_tpu_torch.ops.ic0 import make_ic0_preconditioner
 from euler_tpu_torch.ops.project import apply_a, make_preconditioner, pcg_loop
@@ -92,7 +105,7 @@ def mg_lib():
     P, I = _build.PTR, _build.INT
     D = ctypes.c_double
     _build.bind(lib, "eu_pcg_mg_create",
-                [I] * 6 + [P] * 5 + [I] * 5 + [D, D] + [P] * 12
+                [I] * 6 + [P] * 5 + [I] * 8 + [D, D] + [P] * 12
                 + [ctypes.POINTER(ctypes.c_void_p)])
     _build.bind(lib, "eu_pcg_mg_destroy", [P])
     _build.bind(lib, "eu_pcg_mg_solve", [P, I, D, D] + [P] * 5)
@@ -101,10 +114,26 @@ def mg_lib():
     return lib
 
 
-def solve_pressure_general_plain(cfg: SimConfig, b, a_diag, fluid, x0=None):
+@functools.cache
+def redisc_lib():
+    """csrc/pcg_mg_redisc.cu: P7 (`eu_pcg_redisc_*`)."""
+    lib = _build.load("pcg_mg_redisc", flags=["-fmad=false"])
+    P, I = _build.PTR, _build.INT
+    D = ctypes.c_double
+    _build.bind(lib, "eu_pcg_redisc_create",
+                [I] * 4 + [P] * 7 + [I] * 3 + [P] * 11
+                + [ctypes.POINTER(ctypes.c_void_p)])
+    _build.bind(lib, "eu_pcg_redisc_destroy", [P])
+    _build.bind(lib, "eu_pcg_redisc_solve", [P, I, D, D] + [P] * 6)
+    _build.bind(lib, "eu_pcg_redisc_cycle", [P] * 4)
+    return lib
+
+
+def solve_pressure_general_plain(cfg: SimConfig, b, a_diag, fluid, x0=None,
+                                 solid=None):
     """`pcg_loop` with the configured preconditioner."""
     return pcg_loop(cfg, b, lambda s: apply_a(a_diag, fluid, s),
-                    make_preconditioner(cfg, a_diag, fluid), x0=x0)
+                    make_preconditioner(cfg, a_diag, fluid, solid), x0=x0)
 
 
 class GeneralWorkspace:
@@ -172,7 +201,9 @@ class MgGeneralWorkspace(GeneralWorkspace):
     the padded level-0 shape, and per coarse level the hierarchy's c, e, n
     planes and active flags and the cycle's x, b, z, rr, d, dn; the packed
     level 0, the Chebyshev rows and the hierarchy's partials; and the CUDA
-    solver over them (its level-0 scratch is the loop's planes).
+    solver over them (its level-0 scratch is the loop's planes), with
+    Chebyshev or, with mg_smoother "rbgs", RB-GS smoothing (which uses only
+    c, e, n, x and b of a level; its head builds no rows).
     `shapes` are the stored level shapes (`padded_level_shapes`)."""
 
     def __init__(self, cfg: SimConfig, device):
@@ -194,7 +225,8 @@ class MgGeneralWorkspace(GeneralWorkspace):
         with torch.cuda.device(device):
             rc = self.lib.eu_pcg_mg_create(
                 Y, X, cfg.ny, cfg.nx, int(f == torch.float64), *levels,
-                *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio,
+                *cycle_args(cfg), int(galerkin_rbgs(cfg)), s.mg_pre_smooth,
+                s.mg_post_smooth, s.mg_cheby_ratio, s.mg_coarse_ratio,
                 *ptrs[:8], ptrs[8], self.hpart.data_ptr(), *ptrs[9:],
                 ctypes.byref(handle))
         _build.check(self.lib, rc, "eu_pcg_mg_create")
@@ -262,28 +294,97 @@ class MgGeneralWorkspace(GeneralWorkspace):
         return z
 
 
+class RediscWorkspace(GeneralWorkspace):
+    """P7's buffers in the solver dtype (f32 or f64): the loop's planes at
+    the grid's shape, per level of `shapes` (`rediscretized_shapes`) the
+    hierarchy's fluid and solid masks, a_diag (i32) and inv_diag
+    (`levels`, the build's outputs) and below level 0 the cycle's x and b;
+    and the CUDA solver over them (level 0's x and b are the loop's z and
+    r)."""
+
+    def __init__(self, cfg: SimConfig, device):
+        s = cfg.solver
+        f = getattr(torch, s.dtype)
+        self.shapes = rediscretized_shapes(cfg.ny, cfg.nx, s.mg_min_size)
+        L = len(self.shapes)
+        Y, X = self.shapes[0]
+        self._planes(Y, X, f, device)
+
+        def new(shape, dtype=f):
+            t = torch.empty(shape, dtype=dtype, device=device)
+            self.keep.append(t)
+            return t
+
+        self.levels = [(new(sh, torch.bool), new(sh, torch.bool),
+                        new(sh, torch.int32), new(sh)) for sh in self.shapes]
+        xb = [(0, 0)] + [(new(sh).data_ptr(), new(sh).data_ptr())
+                            for sh in self.shapes[1:]]
+        arr = lambda v: (ctypes.c_void_p * L)(*v)  # noqa: E731
+        flat = [v for sh in self.shapes for v in sh]
+        ptrs = self._loop_ptrs()
+        self.lib = redisc_lib()
+        self._solve, self._destroy = (self.lib.eu_pcg_redisc_solve,
+                                      self.lib.eu_pcg_redisc_destroy)
+        self.handle = None
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            rc = self.lib.eu_pcg_redisc_create(
+                Y, X, int(f == torch.float64), L,
+                (ctypes.c_int * len(flat))(*flat),
+                *(arr([lv[k].data_ptr() for lv in self.levels])
+                  for k in range(4)),
+                arr([c[0] for c in xb]), arr([c[1] for c in xb]),
+                s.mg_pre_smooth, s.mg_post_smooth, s.mg_coarse_iters,
+                *ptrs, ctypes.byref(handle))
+        _build.check(self.lib, rc, "eu_pcg_redisc_create")
+        self.handle = handle.value
+
+    def solve(self, s, a_diag, fluid, b, x0, solid=None):
+        """One solve of A p = b (device pointers; `solid` the solid mask's)
+        with the caps of solver config `s`: p stays in `self.p`."""
+        rc = self._solve(self.handle, s.max_iterations, float(s.tol),
+                         float(s.tol_rel), a_diag, fluid, solid, b, x0,
+                         _build.stream())
+        _build.check(self.lib, rc, self._solve.__name__)
+
+    def cycle(self, r):
+        """z = M r, one V-cycle on `r` ([Y, X] in the solver dtype) over
+        the hierarchy of the last solve.  Overwrites the workspace's r and
+        z.  Returns z, fresh."""
+        _build.require(r, "r", self.p.dtype, self.shapes[0], self.p.device)
+        z = torch.empty_like(r)
+        rc = self.lib.eu_pcg_redisc_cycle(self.handle, r.data_ptr(),
+                                          z.data_ptr(), _build.stream())
+        _build.check(self.lib, rc, "eu_pcg_redisc_cycle")
+        return z
+
+
 _WORKSPACES: collections.OrderedDict = collections.OrderedDict()
 
 
 def workspace_key(cfg: SimConfig, device) -> tuple:
     """What a workspace's buffers and captured launches depend on: the
     device, the grid, the solver dtype and the preconditioner, and for MG
-    the stored level shapes, the cycle schedule and the Chebyshev
-    ratios."""
+    the scheme, the smoother and its sweeps, the stored level shapes, the
+    cycle schedule and the Chebyshev ratios."""
     s = cfg.solver
     key = (str(device), cfg.ny, cfg.nx, s.dtype, s.preconditioner)
     if s.preconditioner == "mg":
-        key += (tuple(padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)),
+        key += (s.mg_scheme, s.mg_smoother, s.mg_pre_smooth,
+                s.mg_post_smooth,
+                tuple(padded_level_shapes(cfg.ny, cfg.nx, s.mg_min_size)),
                 *cycle_args(cfg), s.mg_cheby_ratio, s.mg_coarse_ratio)
     return key
 
 
 def workspace(cfg: SimConfig, device) -> GeneralWorkspace:
     """The cached workspace of `cfg`'s grid, solver dtype and
-    preconditioner (and MG schedule) on `device`."""
+    preconditioner (and MG scheme and schedule) on `device`."""
     kind, dt = cfg.solver.preconditioner, cfg.solver.dtype
 
     def make():
+        if rediscretized(cfg):
+            return RediscWorkspace(cfg, device)
         if kind == "mg":
             return MgGeneralWorkspace(cfg, device)
         return GeneralWorkspace(cfg.ny, cfg.nx, getattr(torch, dt), kind,
@@ -298,18 +399,29 @@ def clear_workspaces() -> None:
     _build.close_all(_WORKSPACES)
 
 
-def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None):
+def solver_name(cfg: SimConfig) -> str:
+    """The launch count a general solve of `cfg` adds to: "P7" for the
+    rediscretized MG, "P3" for the Galerkin MG, else "P1"."""
+    if cfg.solver.preconditioner != "mg":
+        return "P1"
+    return "P7" if rediscretized(cfg) else "P3"
+
+
+def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None,
+                           solid=None):
     """PCG for A p = b with the configured preconditioner ("none",
-    "jacobi" in the jnp form, "ic0"; "mg": P3) in b's dtype (the
+    "jacobi" in the jnp form, "ic0"; "mg": P3, or P7 with the
+    rediscretized scheme, which needs `solid`) in b's dtype (the
     solver's), from `x0` when given.  Returns (p, iterations, residual).
-    CUDA tensors run P1 (and P2 for IC(0)) or P3 on the cached workspace;
-    CPU tensors the plain version."""
+    CUDA tensors run P1 (and P2 for IC(0)), P3 or P7 on the cached
+    workspace; CPU tensors the plain version."""
     s = cfg.solver
-    name = "P3" if s.preconditioner == "mg" else "P1"
+    name = solver_name(cfg)
     if b.device.type == "cpu":
         _build.PLAIN_CALLS[name] += 1
-        return solve_pressure_general_plain(cfg, b, a_diag, fluid, x0)
-    if s.preconditioner not in _PRECON and not galerkin_cheby(cfg):
+        return solve_pressure_general_plain(cfg, b, a_diag, fluid, x0, solid)
+    if s.preconditioner not in _PRECON and not (
+            galerkin_cheby(cfg) or galerkin_rbgs(cfg) or rediscretized(cfg)):
         raise NotImplementedError(
             f"the general solve has no {s.preconditioner!r} form in "
             f"{s.dtype} ({s.mg_scheme} / {s.mg_smoother})")
@@ -321,11 +433,16 @@ def solve_pressure_general(cfg: SimConfig, b, a_diag, fluid, x0=None):
     p_fl = _build.require(fluid, "fluid", torch.bool, plane, dev)
     p_x0 = (None if x0 is None
             else _build.require(x0, "x0", dtype, plane, dev))
+    extra = ()
+    if name == "P7":
+        if solid is None:
+            raise ValueError("mg preconditioner needs the solid mask")
+        extra = (_build.require(solid, "solid", torch.bool, plane, dev),)
     ws = workspace(cfg, dev)
     _build.LAUNCHES[name] += 1
     if s.preconditioner == "ic0":
         _build.LAUNCHES["P2"] += 1
-    ws.solve(s, p_a, p_fl, p_b, p_x0)
+    ws.solve(s, p_a, p_fl, p_b, p_x0, *extra)
     return (ws.p[:cfg.ny, :cfg.nx].clone(), ws.flags[_F_ITERS].clone(),
             ws.scal[_S_RESID].clone())
 

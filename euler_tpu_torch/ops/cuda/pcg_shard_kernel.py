@@ -195,15 +195,17 @@ def workspace(cfg: SimConfig, comm, shape, device) -> ShardWorkspace:
 def check_solver(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the solvers that no solve on blocks
     (P4, P5, P6) runs, naming their ROADMAP items: MG other than Galerkin
-    with Chebyshev smoothing (M14).  Every solver they run, runs in f32 and
-    in f64."""
+    with Chebyshev smoothing (RB-GS and the rediscretized hierarchy, which
+    P3 and P7 run on one card: M14 part b).  Every solver they run, runs
+    in f32 and in f64."""
     s = cfg.solver
     if s.dtype not in ("float32", "float64"):
         raise ValueError(f"solver dtype {s.dtype!r}")
     if s.preconditioner == "mg" and not galerkin_cheby(cfg):
         raise NotImplementedError(
             f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "
-            "Chebyshev smoothing is ported; ROADMAP queue 1 item M14")
+            "Chebyshev smoothing runs on blocks; RB-GS and rediscretized "
+            "MG on blocks are ROADMAP queue 1 item M14 part b")
     if s.preconditioner not in (*_PRECON, "ic0"):
         raise ValueError(f"preconditioner {s.preconditioner!r}")
 

@@ -8,13 +8,14 @@ K3 (`ops/cuda/mg_kernel.py`), K11 (`ops/cuda/mg_stream_kernel.py`) or K12
 (`ops/cuda/pcg_stream_kernel.py`), in that order; where none fits, the
 JAX package runs its jnp `pcg_loop`, and the port runs P1
 (`ops/cuda/pcg_general_kernel.py`, the same loop as one CUDA solver, in
-f32 or f64, with no preconditioner, the jnp-form Jacobi or IC(0)) or,
-for f32 Galerkin MG with Chebyshev smoothing (the CLI's converged mode at
-sizes whose levels do not halve evenly: 1080 x 1920, 1200², 1448²), P3,
-the same loop with the MG cycle on padded levels as its preconditioner;
-f64, RB-GS and rediscretized MG are not ported.  Every iterate stays
-exactly zero outside the fluid, so dense reductions equal the
-reference's fluid-masked ones.
+f32 or f64, with no preconditioner, the jnp-form Jacobi or IC(0)), for
+Galerkin MG with Chebyshev or RB-GS smoothing P3 (the CLI's converged
+mode at sizes whose levels do not halve evenly: 1080 x 1920, 1200²,
+1448²; f64 and RB-GS at every size), the same loop with the MG cycle on
+padded levels as its preconditioner, and for the rediscretized hierarchy
+P7, the same loop with its V-cycle.  Every iterate stays exactly zero
+outside the fluid, so dense reductions equal the reference's
+fluid-masked ones.
 
 The RHS is taken in the grid's dtype and widened to the solver's, and
 the face update takes the pressure difference in the solver's dtype and
@@ -96,10 +97,12 @@ def jacobi_preconditioner_jnp(a_diag, fluid):
     return precon
 
 
-def make_preconditioner(cfg: SimConfig, a_diag, fluid):
+def make_preconditioner(cfg: SimConfig, a_diag, fluid, solid=None):
     """z = M^-1 r of the JAX `_make_preconditioner` for `pcg_loop` (the
-    plain version of P1 and P3): "jacobi" in its jnp form, "none", "ic0",
-    "mg" (the Galerkin cycle, `multigrid.make_mg_preconditioner`)."""
+    plain version of P1, P3 and P7): "jacobi" in its jnp form, "none",
+    "ic0", "mg" (`multigrid.make_mg_preconditioner`: the Galerkin cycle
+    with Chebyshev or RB-GS smoothing, or the rediscretized V-cycle, which
+    needs the solid mask)."""
     kind = cfg.solver.preconditioner
     dtype = getattr(torch, cfg.solver.dtype)
     if kind == "jacobi":
@@ -110,11 +113,13 @@ def make_preconditioner(cfg: SimConfig, a_diag, fluid):
         from euler_tpu_torch.ops.ic0 import make_ic0_preconditioner
 
         return make_ic0_preconditioner(a_diag, fluid, dtype)
-    if (kind == "mg" and cfg.solver.mg_scheme == "galerkin"
-            and cfg.solver.mg_smoother == "cheby"):
+    if kind == "mg":
         from euler_tpu_torch.ops.multigrid import make_mg_preconditioner
 
-        return make_mg_preconditioner(cfg, a_diag, fluid, dtype)
+        if solid is None and cfg.solver.mg_scheme != "galerkin":
+            raise ValueError("mg preconditioner needs the solid mask")
+        return make_mg_preconditioner(cfg, solid, fluid, dtype,
+                                      a_diag=a_diag)
     raise NotImplementedError(f"preconditioner {kind!r} has no pcg_loop "
                               "form in the port")
 
@@ -180,10 +185,11 @@ def solver_route(cfg: SimConfig, solid_given: bool = True):
     """The kernel `solve_pressure` runs, by the JAX package's chain
     (ops/project.py:191-223): "K8", "K3" (only with the solid mask),
     "K11", "K12", or where it falls through to its jnp `pcg_loop`, "P1"
-    (no preconditioner, Jacobi, IC(0)), "P3" (Galerkin MG with
-    Chebyshev smoothing, f32 or f64: no f64 solve passes the gates of K3
-    or K11, which are f32 as the JAX package's Pallas MG is) or None
-    (other MG, not ported)."""
+    (no preconditioner, Jacobi, IC(0)), "P3" (Galerkin MG with Chebyshev
+    or RB-GS smoothing, f32 or f64: no f64 or RB-GS solve passes the gates
+    of K3 or K11, which are f32 Chebyshev as the JAX package's Pallas MG
+    is), "P7" (the rediscretized V-cycle, f32 or f64) or None (MG the
+    JAX package does not name)."""
     from euler_tpu_torch.ops.cuda import (
         mg_kernel,
         mg_stream_kernel,
@@ -201,15 +207,18 @@ def solver_route(cfg: SimConfig, solid_given: bool = True):
         return "K12"
     if cfg.solver.preconditioner in ("none", "jacobi", "ic0"):
         return "P1"
-    if mg_kernel.galerkin_cheby(cfg):
+    if mg_kernel.galerkin_cheby(cfg) or mg_kernel.galerkin_rbgs(cfg):
         return "P3"
+    if mg_kernel.rediscretized(cfg):
+        return "P7"
     return None
 
 
 def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
     """PCG for A p = b (main.c:738-767).  Returns (p, iterations, resid).
-    Runs the kernel `solver_route` names; K3, P1 and P3 read `x0`, as the
-    JAX package's Pallas MG kernel and jnp loop do."""
+    Runs the kernel `solver_route` names; K3, P1, P3 and P7 read `x0`, as
+    the JAX package's Pallas MG kernel and jnp loop do; P7 needs `solid`,
+    as the JAX package's rediscretized hierarchy does."""
     route = solver_route(cfg, solid is not None)
     if route == "K8":
         from euler_tpu_torch.ops.cuda.pcg_kernel import solve_pressure_jacobi
@@ -231,17 +240,18 @@ def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
         )
 
         return solve_pressure_stream(cfg, b, a_diag, fluid)
-    if route in ("P1", "P3"):
+    if route in ("P1", "P3", "P7"):
         from euler_tpu_torch.ops.cuda.pcg_general_kernel import (
             solve_pressure_general,
         )
 
-        return solve_pressure_general(cfg, b, a_diag, fluid, x0=x0)
+        return solve_pressure_general(cfg, b, a_diag, fluid, x0=x0,
+                                      solid=solid)
     s = cfg.solver
-    raise NotImplementedError(
-        f"MG {s.mg_scheme} / {s.mg_smoother} in {s.dtype}: the port runs "
-        "Galerkin MG with Chebyshev smoothing in f32 and f64 only (RB-GS "
-        "and rediscretized MG are ROADMAP queue 1 item M14)")
+    raise ValueError(
+        f"MG {s.mg_scheme} / {s.mg_smoother} in {s.dtype}: the JAX package "
+        "names the schemes galerkin and rediscretize, the smoothers cheby "
+        "and rbgs")
 
 
 def clamp_pressure(p, fluid):

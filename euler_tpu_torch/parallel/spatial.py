@@ -65,7 +65,8 @@ exchanges columns):
   * max_speed_sq: its u and v maxima all-reduced (max) before the sum, so
     dt, `active` and the frame's counts are the same on every block.
 Every solver runs in f32 and in f64 (f64 MG: P5 in double precision).
-Refused, naming its ROADMAP item: RB-GS and rediscretized MG (M14).
+Refused, naming its ROADMAP item: RB-GS and rediscretized MG (M14 part
+b; both run on one card, P3 and P7).
 """
 
 from __future__ import annotations
@@ -216,7 +217,7 @@ def gather_spatial(cfg: SimConfig, mesh, state: FluidState):
 def check_block_frame(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the solvers the frame on blocks does
     not run, naming their ROADMAP item: RB-GS and rediscretized MG
-    (M14)."""
+    (M14 part b)."""
     check_solver(cfg)
 
 

@@ -44,7 +44,8 @@ Here each block holds its cells of it:
     raises.
 Galerkin MG with Chebyshev smoothing, in f32 or f64 (`solver.dtype`:
 every level, bound and Chebyshev row in that precision, as P3's); RB-GS
-and rediscretized MG are ROADMAP M14 (`pcg_shard_kernel.check_solver`).
+and rediscretized MG are ROADMAP M14 part b
+(`pcg_shard_kernel.check_solver`).
 """
 
 from __future__ import annotations

@@ -58,8 +58,10 @@ TPU's VMEM; see `ops/cuda/pcg_kernel.py`):
     under its gate) or `project()`, whose solve is K8, K3, K11 or K12 by
     the gates of `solve_pressure`, or P1 where the JAX package falls
     through to its jnp `pcg_loop` (f64, no preconditioner, IC(0), Jacobi
-    beyond K8's and K12's gates), P3 for its MG there (level sizes that
-    do not halve evenly: 1080 x 1920, 1200², 1448²).  The JAX package
+    beyond K8's and K12's gates), P3 for its Galerkin MG there (level
+    sizes that do not halve evenly: 1080 x 1920, 1200², 1448²; f64 and
+    RB-GS smoothing at every size), P7 for its rediscretized MG (every
+    size).  The JAX package
     runs that grid stage as its K7 with `use_pallas_grid` in mono, else
     as XLA ops; the port
     takes the `use_pallas=True` routes, so on the card it is K7 on every
@@ -80,7 +82,12 @@ import torch
 from euler_tpu_torch.config import SimConfig
 from euler_tpu_torch.core.state import FluidState, Scenario
 from euler_tpu_torch.ops.advect import advect_p
-from euler_tpu_torch.ops.cuda import grid_kernel, pcg_kernel, substep_kernel
+from euler_tpu_torch.ops.cuda import (
+    grid_kernel,
+    mg_kernel,
+    pcg_kernel,
+    substep_kernel,
+)
 from euler_tpu_torch.ops.extrapolate import extrapolate
 from euler_tpu_torch.ops.cuda.marker_fused_kernel import (
     pad_slot_store,
@@ -112,14 +119,15 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
             "Pallas K1 codes the move as one of 9 and aliases it); the "
             "port, which clamps, refuses it on every slot marker route "
             "(ROADMAP queue 3, closed item 1)")
-    if s.preconditioner == "mg" and not (s.mg_scheme == "galerkin"
-                                         and s.mg_smoother == "cheby"):
-        raise NotImplementedError(
-            f"MG {s.mg_scheme} / {s.mg_smoother}: only galerkin MG with "
-            "Chebyshev smoothing is ported; the RB-GS smoother and the "
-            "rediscretized hierarchy are ROADMAP queue 1 item M14")
     if s.dtype not in ("float32", "float64"):
         raise ValueError(f"solver dtype {s.dtype!r}")
+    if s.preconditioner == "mg" and not (mg_kernel.galerkin_cheby(cfg)
+                                         or mg_kernel.galerkin_rbgs(cfg)
+                                         or mg_kernel.rediscretized(cfg)):
+        raise ValueError(
+            f"MG {s.mg_scheme} / {s.mg_smoother}: the JAX package names the "
+            "schemes galerkin and rediscretize, the smoothers cheby and "
+            "rbgs")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             "f64 grid fields: the grid-stage and marker kernels are f32 "
@@ -127,7 +135,7 @@ def check_slice(cfg: SimConfig, scn: Scenario) -> None:
             "item M16")
     if s.mg_frame_hierarchy:
         raise NotImplementedError(
-            "mg_frame_hierarchy is ROADMAP queue 1 item M14")
+            "mg_frame_hierarchy is ROADMAP queue 1 item M14 part c")
 
 
 def _use_fused_substep(cfg: SimConfig, scn: Scenario) -> bool:
@@ -155,8 +163,8 @@ def route(cfg: SimConfig, scn: Scenario):
     them: ("fused", "K2" or "K10"), or the grid stage "K7" or "plain"
     with the projection "K9" or the solve of `project()` ("K8", "K3",
     "K11", "K12", or where the JAX package runs its jnp `pcg_loop`, "P1",
-    "P3" for f32 Galerkin MG, or None for the MG `check_slice`
-    refuses).
+    "P3" for Galerkin MG, "P7" for rediscretized MG, or None for the MG
+    `check_slice` refuses).
     On the card "plain" runs K7 too: `substep` takes K7 for every grid
     stage that is not fused, so `use_pallas_grid` changes nothing
     there."""

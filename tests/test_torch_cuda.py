@@ -450,6 +450,40 @@ def test_solve_other_schedules(developed, size, degree):
     assert abs(int(it) - int(itp)) <= 1
 
 
+@pytest.mark.parametrize("pre,post", [(1, 1), (0, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rbgs_cycle_fused_equals_per_op(developed256, dtype, pre, post):
+    """P3 with RB-GS smoothing (csrc/pcg_mg.cu): one preconditioner
+    application on the hierarchy of the last solve at 256² (levels 256²
+    to 32², the W on levels 0 and 1), through coarse_cycle_rbgs (one
+    cluster launch from 64² down) and through one launch per half-sweep
+    and level operation, bitwise equal and nonzero, with 0 pre-sweeps
+    too (a zero fill); near the plain `cycle_galerkin` (f32: 1e-4 of
+    scale, f64: 1e-10; the plain level 0 sums its edge form's products,
+    the kernel its packed neighbours)."""
+    import dataclasses
+
+    from euler_tpu_torch.ops.cuda import pcg_general_kernel as p3
+    from euler_tpu_torch.ops.project import make_preconditioner
+
+    cfg, scn, st, dt, b, a = developed256
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, dtype=dtype, mg_smoother="rbgs", mg_pre_smooth=pre,
+        mg_post_smooth=post))
+    b = b.to(getattr(torch, dtype))
+    p3.solve_pressure_general(cfg, b, a, st.fluid)
+    ws = p3.workspace(cfg, b.device)
+    assert ws.plan()["fused"] == 2
+    fused = ws.cycle(b, per_op=False)
+    per_op = ws.cycle(b, per_op=True)
+    assert bool(fused.abs().max() > 0)
+    assert torch.equal(fused, per_op)
+    want = make_preconditioner(cfg, a, st.fluid)(b)
+    rel = 1e-4 if dtype == "float32" else 1e-10
+    assert float((fused - want).abs().max()) <= rel * float(
+        want.abs().max())
+
+
 def test_frames_match_cpu_plain(developed):
     cfg = _cfg(64)
     scn_g, st_g = dam_break(cfg, device="cuda")

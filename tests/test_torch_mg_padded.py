@@ -294,11 +294,10 @@ def test_frames_route(frames):
 
 REFUSED = {
     # what check_slice still refuses: (config change, ROADMAP item named;
-    # None: refused until its item was ported, runs P3 now)
+    # None: refused until its item was ported, runs P3 or P7 now)
     "f64_mg": (dict(solver=dict(dtype="float64")), None),
-    "rbgs": (dict(solver=dict(mg_smoother="rbgs")), "item M14"),
-    "rediscretize": (dict(solver=dict(mg_scheme="rediscretize")),
-                     "item M14"),
+    "rbgs": (dict(solver=dict(mg_smoother="rbgs")), None),
+    "rediscretize": (dict(solver=dict(mg_scheme="rediscretize")), None),
     "frame_hierarchy": (dict(solver=dict(mg_frame_hierarchy=True)),
                         "item M14"),
     "f64_grid": (dict(dtype="float64"), "item M16"),
@@ -310,8 +309,9 @@ REFUSED = {
 def test_check_slice_refusals_name_their_item(kind):
     """Each configuration the port still refuses raises NotImplementedError
     naming the ROADMAP item that holds it, at a P3 size and at a K3 size;
-    f64 MG (M15 part a, ported) passes at both and routes to P3, the
-    f32-only gates of K3 and K11 shut to it."""
+    f64 MG (M15 part a), RB-GS MG and rediscretized MG (M14 part a),
+    ported, pass at both and route to P3 (P7: rediscretized), the f32
+    Chebyshev gates of K3 and K11 shut to them."""
     change, item = REFUSED[kind]
     for size in ("1200x1200", "1024x1024"):
         cfg = cli.build_config(cli.parse_args(["preset:dam_break", "--size",
@@ -321,9 +321,10 @@ def test_check_slice_refusals_name_their_item(kind):
             k: v for k, v in change.items() if k != "solver"})
         scn = type("Scn", (), {"num_sources": 0})()
         if item is None:
+            solve = "P7" if kind == "rediscretize" else "P3"
             sim.check_slice(bad, scn)
-            assert solver_route(bad) == "P3"
-            assert sim.route(bad, scn) == ("plain", "P3")
+            assert solver_route(bad) == solve
+            assert sim.route(bad, scn) == ("plain", solve)
             continue
         with pytest.raises(NotImplementedError, match=item):
             sim.check_slice(bad, scn)

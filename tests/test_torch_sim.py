@@ -94,18 +94,20 @@ def _outside(kind):
 def test_outside_the_slice_raises(kind):
     """What the port does not run raises, naming its ROADMAP item; the
     global layout, IC(0), the unpreconditioned solve, MG whose levels do
-    not halve evenly (90², P3) and f64 MG (P3, M15 part a) run now (they
-    raised until the port had them): a frame each, finite, the solve on
-    P1 or P3 (their plain versions here)."""
+    not halve evenly (90², P3), f64 MG (P3, M15 part a), RB-GS MG (P3) and
+    rediscretized MG (P7, M14 part a) run now (they raised until the port
+    had them): a frame each, finite, the solve on P1, P3 or P7 (their
+    plain versions here)."""
     cfg = _outside(kind)
     if kind in ("global", "odd_levels"):
         scn, st = dam_break(cfg, device="cpu")
     else:
         scn, st = dam_break(port_config(64), device="cpu")
-    if kind in ("global", "ic0", "none", "odd_levels", "f64"):
+    solves = {"ic0": "P1", "none": "P1", "odd_levels": "P3", "f64": "P3",
+              "rbgs": "P3", "rediscretize": "P7"}
+    if kind == "global" or kind in solves:
         if kind != "global":
-            assert sim.route(cfg, scn) == (
-                "plain", "P3" if kind in ("odd_levels", "f64") else "P1")
+            assert sim.route(cfg, scn) == ("plain", solves[kind])
         new, stats = sim.step_frame_stats(cfg, scn, st)
         assert int(new.frame_count) == 1
         assert bool(torch.isfinite(new.u).all())

@@ -110,7 +110,8 @@ def test_sources_and_ic0_still_raise(kind):
     IC(0)): the speed mode with a source runs unfused and draws from the
     RNG, and raises only above cfl 1, as every slot route does; IC(0)
     runs P1 and P2 (their plain versions here) and takes iterations, and
-    MG with the RB-GS smoother, still not ported, raises."""
+    MG with the frame-stale hierarchy (`mg_frame_hierarchy`, M14 part c),
+    still not ported, raises."""
     scn, st = port_state(developed_numpy(64))
     cfg = speed_config(64)
     if kind == "sources":
@@ -132,6 +133,6 @@ def test_sources_and_ic0_still_raise(kind):
         assert int(stats["pcg_iters"]) > 0
         assert bool(torch.isfinite(new.u).all())
         cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
-            cfg.solver, preconditioner="mg", mg_smoother="rbgs"))
+            cfg.solver, preconditioner="mg", mg_frame_hierarchy=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.step_frame(cfg, scn, st)
